@@ -1,0 +1,114 @@
+"""Carry the JAX package's state into the port.
+
+Every function takes the JAX package's objects and reads their arrays with
+``np.asarray`` (this module imports no JAX), so the port can render from the
+very tables the JAX package built: ``Renderer.from_compiled(scene(js),
+*compiled(jax_scene_data, jax_statics, jax_bvh, device))``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .assets.obj import MaterialDef, MeshData, SubmeshData
+from .assets.texture import TextureAtlas
+from .bvh.twolevel import TwoLevelBVH
+from .core import types as T
+from .engine.scene import Model, ModelMaterialOverride, Scene, SceneData, SceneStatics
+
+
+def _t(a, device):
+    return torch.as_tensor(np.array(a)).to(device)
+
+
+def _nt(cls, src, device):
+    return cls(*(_t(getattr(src, f), device) for f in cls._fields))
+
+
+def scene_data(sd, device="cpu") -> SceneData:
+    at = sd.atlas
+    return SceneData(
+        positions_obj=_t(sd.positions_obj, device),
+        prev_positions_obj=_t(sd.prev_positions_obj, device),
+        normals_obj=_t(sd.normals_obj, device),
+        uvs=_t(sd.uvs, device),
+        vertex_instance=_t(sd.vertex_instance, device),
+        indices=_t(sd.indices, device),
+        tri_resource=_t(sd.tri_resource, device),
+        tri_instance=_t(sd.tri_instance, device),
+        instance_transform=_t(sd.instance_transform, device),
+        prev_instance_transform=_t(sd.prev_instance_transform, device),
+        materials=T.Materials(*(_t(np.asarray(getattr(sd.materials, f)).astype(
+            np.int32 if f == "texture_flags" else np.float32), device)
+            for f in T.Materials._fields)),
+        lights=_nt(T.Lights, sd.lights, device),
+        atlas=TextureAtlas(texels=_t(at.texels, device), rects=_t(at.rects, device),
+                           has_map=_t(at.has_map, device), packed=_t(at.packed, device),
+                           packed_rects=_t(at.packed_rects, device)),
+        env_map=_t(sd.env_map, device),
+        env_intensity=_t(sd.env_intensity, device),
+    )
+
+
+def statics(st) -> SceneStatics:
+    if st.skin_slices:
+        raise NotImplementedError("skinned scenes are not ported yet (ROADMAP Slice B)")
+    return SceneStatics(n_vertices=st.n_vertices, n_triangles=st.n_triangles,
+                        n_instances=st.n_instances, n_resources=st.n_resources,
+                        n_lights=st.n_lights, any_map=tuple(st.any_map),
+                        has_refraction=st.has_refraction, has_environment=st.has_environment,
+                        has_masks=st.has_masks)
+
+
+def bvh(b, device="cpu") -> TwoLevelBVH:
+    if b.skin_indices or getattr(b, "leaf_clip", None) is not None:
+        raise NotImplementedError("skinned or SBVH-clipped BVHs are not ported yet")
+    return TwoLevelBVH(
+        table=_t(b.table, device), node_child=_t(b.node_child, device),
+        leaf_tri=_t(b.leaf_tri, device), root_bmin=_t(b.root_bmin, device),
+        root_bmax=_t(b.root_bmax, device), flat_tri_base=_t(b.flat_tri_base, device),
+        n_internal=b.n_internal, n_leaf=b.n_leaf, n_instances=b.n_instances,
+        tlas_n=b.tlas_n, tlas_depth=b.tlas_depth, mesh_meta=tuple(b.mesh_meta),
+        inst_mesh=tuple(b.inst_mesh), stack_bound=b.stack_bound,
+        inst_masks=tuple(b.inst_masks))
+
+
+def compiled(sd, st, b, device="cpu"):
+    """(SceneData, SceneStatics, TwoLevelBVH) for ``Renderer.from_compiled``."""
+    return scene_data(sd, device), statics(st), bvh(b, device)
+
+
+def _mesh(m) -> MeshData:
+    return MeshData(
+        positions=np.asarray(m.positions, np.float32), normals=np.asarray(m.normals, np.float32),
+        uvs=np.asarray(m.uvs, np.float32),
+        submeshes=[SubmeshData(indices=np.asarray(s.indices, np.int32),
+                               material=MaterialDef(**vars(s.material))) for s in m.submeshes])
+
+
+def scene(js) -> Scene:
+    """A port ``Scene`` with the same models (meshes shared where the JAX
+    scene shares them), lights, environment and camera parameters."""
+    out = Scene(width=js.width, height=js.height)
+    meshes: dict = {}
+    models = []
+    for m in js.models:
+        if getattr(m, "skin", None) is not None:
+            raise NotImplementedError("skinned models are not ported yet (ROADMAP Slice B)")
+        if id(m.mesh) not in meshes:
+            meshes[id(m.mesh)] = _mesh(m.mesh)
+        o = m.material_override
+        models.append(Model(
+            m.name, position=np.asarray(m.position), rotation=np.asarray(m.rotation),
+            scale=m.scale, mesh=meshes[id(m.mesh)], geometry_mask=m.geometry_mask,
+            material_override=None if o is None else ModelMaterialOverride(
+                o.base_color, o.refraction_index, o.opacity)))
+    out.models = models
+    out.lights = _nt(T.Lights, js.lights, "cpu")
+    out.env_map = np.asarray(js.env_map, np.float32)
+    out.env_intensity = float(js.env_intensity)
+    for k in ("camera_target", "camera_distance", "camera_azimuth", "camera_elevation",
+              "camera_fov_degrees"):
+        setattr(out, k, getattr(js, k))
+    return out

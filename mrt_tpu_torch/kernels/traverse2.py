@@ -1,0 +1,249 @@
+"""Kernel K2 — two-level wide-BVH traversal (``csrc/traverse2.cu``), its
+wrapper and its plain PyTorch version.
+
+Replaces ``mrt_tpu/bvh/twolevel.py:_step2`` (looped by ``_traverse2``). The
+wrapper launches the CUDA kernel for CUDA tensors and takes the plain
+version only for CPU tensors. The plain version is a lane-vector
+transcription of ``_step2``: pop, one row gather, then per row type the
+instance switch, the 12-wide Moller-Trumbore or the 8 slab tests with the
+packed-key sorted push, in a Python loop until no lane is left. It keeps
+only the lanes that still have stack entries each step, and writes each
+three-term dot product as explicit adds in the JAX order, so its t/u/v are
+bit-equal to the kernel's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from ..bvh.wide import ARITY, IDS_OFF, LEAF_K, META_OFF, _KEY_MAX, _META_BITS, _META_MASK, \
+    decode_ids
+
+MAX_STACK = 128  # the kernel's compile-time stack cap (csrc/traverse2.cu)
+launches = 0  # kernel launches by ``traverse`` in this process
+
+_I_WBMIN, _I_WBMAX, _I_ROOT, _I_ID = 12, 15, 18, 19
+
+
+class TraverseOut(NamedTuple):
+    t: torch.Tensor  # (R,) f32 best t (max_distance when nothing was hit)
+    tri: torch.Tensor  # (R,) int32 LOCAL triangle id, -1 = none
+    inst: torch.Tensor  # (R,) int32 instance id, -1 = none
+    u: torch.Tensor  # (R,) f32
+    v: torch.Tensor  # (R,) f32
+    found: torch.Tensor  # (R,) bool any hit within max_distance
+
+
+def _guarded_inv(d):
+    tiny = torch.where(d < 0, -1e-12, 1e-12).to(d.dtype)
+    g = torch.where(d.abs() < 1e-12, tiny, d)
+    return torch.ones_like(g) / g
+
+
+def _affine(m, p, translate: bool):
+    """(m,12) packed 3x4 rows applied to (m,3) points/directions."""
+    out = []
+    for r in range(3):
+        x = m[:, 4 * r] * p[:, 0] + m[:, 4 * r + 1] * p[:, 1] + m[:, 4 * r + 2] * p[:, 2]
+        if translate:
+            x = x + m[:, 4 * r + 3]
+        out.append(x)
+    return torch.stack(out, dim=1)
+
+
+def _slab3(lo, hi, o, inv):
+    """min/max of the per-axis slab intervals; lo/hi/o/inv are lists of 3."""
+    t0 = [(lo[a] - o[a]) * inv[a] for a in range(3)]
+    t1 = [(hi[a] - o[a]) * inv[a] for a in range(3)]
+    mn = [torch.minimum(t0[a], t1[a]) for a in range(3)]
+    mx = [torch.maximum(t0[a], t1[a]) for a in range(3)]
+    tn = torch.maximum(torch.maximum(mn[0], mn[1]), mn[2])
+    tf = torch.minimum(torch.minimum(mx[0], mx[1]), mx[2])
+    return tn, tf
+
+
+def traverse_plain(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size: int,
+                   origin, direction, tmax, shadow, active, t_min: float = 0.0) -> TraverseOut:
+    """Plain PyTorch two-level traversal (any device)."""
+    if table.shape[0] > _META_MASK:
+        raise NotImplementedError("tables above 2^20 rows need the float child sort (ROADMAP Q2-2)")
+    R = origin.shape[0]
+    dev = origin.device
+    S = stack_size
+    best_t = tmax.clone()
+    best_tri = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    best_inst = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(R, dtype=torch.float32, device=dev)
+    best_v = torch.zeros(R, dtype=torch.float32, device=dev)
+    found = torch.zeros(R, dtype=torch.bool, device=dev)
+    o = origin.clone()
+    d = direction.clone()
+    cur_inst = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    stack = torch.zeros((R, S), dtype=torch.int32, device=dev)
+    sp = active.to(torch.int32)
+    inst_base = n_internal + n_leaf
+    inf = float("inf")
+    kpos = torch.arange(ARITY, device=dev)
+
+    lanes = torch.nonzero(sp > 0).squeeze(1)
+    while lanes.numel():
+        spl = sp[lanes] - 1
+        entry = stack[lanes, spl.long()]
+        sp[lanes] = spl
+        row = table[entry.long()]
+        t_cap = best_t[lanes]
+        is_inst = entry >= inst_base
+        is_leaf = (entry >= n_internal) & ~is_inst
+
+        # --- instance rows ------------------------------------------------------
+        if bool(is_inst.any()):
+            L, r = lanes[is_inst], row[is_inst]
+            wo, wd = origin[L], direction[L]
+            inv = _guarded_inv(wd)
+            tn, tf = _slab3([r[:, _I_WBMIN + a] for a in range(3)],
+                            [r[:, _I_WBMAX + a] for a in range(3)],
+                            [wo[:, a] for a in range(3)], [inv[:, a] for a in range(3)])
+            hit = (tn <= tf) & (tf >= 0.0) & (tn <= t_cap[is_inst])
+            H, rh = L[hit], r[hit]
+            o[H] = _affine(rh[:, 0:12], origin[H], True)
+            d[H] = _affine(rh[:, 0:12], direction[H], False)
+            cur_inst[H] = decode_ids(rh[:, _I_ID])
+            sph = sp[H]
+            room = sph < S
+            stack[H[room], sph[room].long()] = decode_ids(rh[room, _I_ROOT])
+            sp[H] = torch.clamp(sph + 1, max=S)
+
+        # --- leaf rows: LEAF_K-wide Moller-Trumbore --------------------------------
+        if bool(is_leaf.any()):
+            L, r = lanes[is_leaf], row[is_leaf]
+            K = LEAF_K
+            ox, oy, oz = (o[L, a:a + 1] for a in range(3))
+            dx, dy, dz = (d[L, a:a + 1] for a in range(3))
+            v0x, v0y, v0z = r[:, 0:K], r[:, K:2 * K], r[:, 2 * K:3 * K]
+            v1x, v1y, v1z = r[:, 3 * K:4 * K], r[:, 4 * K:5 * K], r[:, 5 * K:6 * K]
+            v2x, v2y, v2z = r[:, 6 * K:7 * K], r[:, 7 * K:8 * K], r[:, 8 * K:9 * K]
+            e1x, e1y, e1z = v1x - v0x, v1y - v0y, v1z - v0z
+            e2x, e2y, e2z = v2x - v0x, v2y - v0y, v2z - v0z
+            px = dy * e2z - dz * e2y
+            py = dz * e2x - dx * e2z
+            pz = dx * e2y - dy * e2x
+            det = e1x * px + e1y * py + e1z * pz
+            valid = det.abs() > 1e-9
+            inv = torch.where(valid, torch.ones_like(det) / torch.where(valid, det, 1.0), 0.0)
+            tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+            u = (tx * px + ty * py + tz * pz) * inv
+            qx = ty * e1z - tz * e1y
+            qy = tz * e1x - tx * e1z
+            qz = tx * e1y - ty * e1x
+            v = (dx * qx + dy * qy + dz * qz) * inv
+            t = (e2x * qx + e2y * qy + e2z * qz) * inv
+            tc = t_cap[is_leaf][:, None]
+            hit = valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= t_min) & (t <= tc)
+            t_m = torch.where(hit, t, inf)
+            jb = torch.argmin(t_m, dim=1, keepdim=True)
+            cand_t = t_m.gather(1, jb)[:, 0]
+            cand_any = hit.any(dim=1)
+            take = cand_any & (cand_t < best_t[L])
+            T, jt = L[take], jb[take]
+            best_t[T] = cand_t[take]
+            best_tri[T] = decode_ids(r[take, IDS_OFF:IDS_OFF + K]).gather(1, jt)[:, 0]
+            best_inst[T] = cur_inst[T]
+            best_u[T] = u[take].gather(1, jt)[:, 0]
+            best_v[T] = v[take].gather(1, jt)[:, 0]
+            found[L] = found[L] | cand_any
+            sp[L] = torch.where(found[L] & shadow[L], 0, sp[L])
+
+        # --- internal rows: ARITY child slabs + nearest-first push -----------------
+        is_int = ~is_leaf & ~is_inst
+        if bool(is_int.any()):
+            L, r = lanes[is_int], row[is_int]
+            tl = (entry[is_int] < tlas_n)[:, None]
+            po = torch.where(tl, origin[L], o[L])
+            inv = _guarded_inv(torch.where(tl, direction[L], d[L]))
+            A = ARITY
+            tnear, tfar = _slab3([r[:, a * A:(a + 1) * A] for a in range(3)],
+                                 [r[:, (3 + a) * A:(4 + a) * A] for a in range(3)],
+                                 [po[:, a:a + 1] for a in range(3)],
+                                 [inv[:, a:a + 1] for a in range(3)])
+            hit = (tnear <= tfar) & (tfar >= 0.0) & (tnear <= t_cap[is_int][:, None])
+            a_t = torch.where(tnear > 0.0, tnear, 0.0)
+            meta = decode_ids(r[:, META_OFF:META_OFF + A])
+            t_a = torch.where(hit & (meta >= 0), a_t, inf)
+            ok = (t_a < inf) & (meta >= 0)
+            key = ((t_a.contiguous().view(torch.int32) >> _META_BITS) << _META_BITS) | (meta & _META_MASK)
+            keys = torch.sort(torch.where(ok, key, _KEY_MAX), dim=1).values
+            n_push = ok.sum(dim=1).to(torch.int32)
+            spi = sp[L]
+            pos = spi[:, None] + (n_push[:, None] - 1 - kpos[None, :])
+            write = (kpos[None, :] < n_push[:, None]) & (pos < S)
+            rows_w = L[:, None].expand(-1, A)[write]
+            stack[rows_w, pos[write].long()] = (keys & _META_MASK)[write]
+            sp[L] = torch.clamp(spi + n_push, max=S)
+
+        lanes = lanes[sp[lanes] > 0]
+    return TraverseOut(best_t, best_tri, best_inst, best_u, best_v, found)
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"traverse: {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"traverse: {name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"traverse: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"traverse: {name} is not contiguous")
+
+
+def traverse(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size: int,
+             origin, direction, tmax, shadow, active, t_min: float = 0.0) -> TraverseOut:
+    """Trace (R,) rays through the two-level table. ``shadow`` lanes stop at
+    their first hit; lanes with ``active`` False return the miss record.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    global launches
+    if origin.device.type == "cpu":
+        return traverse_plain(table, n_internal, n_leaf, tlas_n, stack_size, origin, direction,
+                              tmax, shadow, active, t_min)
+    if origin.device.type != "cuda":
+        raise ValueError(f"traverse: unsupported device {origin.device}")
+    R = origin.shape[0]
+    dev = origin.device
+    _check("table", table, torch.float32, (table.shape[0], 128), dev)
+    _check("origin", origin, torch.float32, (R, 3), dev)
+    _check("direction", direction, torch.float32, (R, 3), dev)
+    _check("tmax", tmax, torch.float32, (R,), dev)
+    _check("shadow", shadow, torch.bool, (R,), dev)
+    _check("active", active, torch.bool, (R,), dev)
+    if stack_size > MAX_STACK:
+        raise ValueError(f"traverse: the BVH needs a stack of {stack_size} entries; the kernel holds {MAX_STACK}")
+    if table.shape[0] > _META_MASK:
+        raise NotImplementedError("tables above 2^20 rows need the float child sort (ROADMAP Q2-2)")
+    out = TraverseOut(
+        t=torch.empty(R, dtype=torch.float32, device=dev),
+        tri=torch.empty(R, dtype=torch.int32, device=dev),
+        inst=torch.empty(R, dtype=torch.int32, device=dev),
+        u=torch.empty(R, dtype=torch.float32, device=dev),
+        v=torch.empty(R, dtype=torch.float32, device=dev),
+        found=torch.empty(R, dtype=torch.bool, device=dev),
+    )
+    if R == 0:
+        return out
+    from . import build
+
+    lib = build.load()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    rc = lib.mrt_traverse2(_ptr(table), n_internal, n_leaf, tlas_n, stack_size,
+                           _ptr(origin), _ptr(direction), _ptr(tmax), _ptr(shadow), _ptr(active),
+                           R, float(t_min), _ptr(out.t), _ptr(out.tri), _ptr(out.inst),
+                           _ptr(out.u), _ptr(out.v), _ptr(out.found), stream)
+    if rc != 0:
+        raise RuntimeError(f"traverse2 kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out

@@ -1,0 +1,146 @@
+"""Where a frame's time goes: the main path's runs and a profile of one frame.
+
+    python -m mrt_tpu_torch.utils.frame_profile [--out build/frame_profile.txt]
+
+Run A is the flagship frame of ``bench.py`` without the train/treefir OBJs
+(1920x1080); run B is the same scene with the 1.31M-triangle dragon at
+1024x576. Both render 2 spp, 4 bounces, upscaler and motion-adaptive
+sampling off. ``chip_smoke.py`` drives the same runs.
+
+For each run, after two warm-up frames, ``profile_frame`` times FRAMES
+unprofiled frames between ``torch.cuda.synchronize()`` calls, one
+``prepare_frame``, and one frame under ``torch.profiler``. The device's busy time is the sum of the
+device events of the profiled frame (kernels, copies, fills; one stream, so
+they do not overlap); the idle share is 1 - busy / the median unprofiled
+frame wall, because the profiler slows the host that issues the ops but not
+the kernels. ``idle_share_profiled`` is the same share against the profiled
+frame's own wall. One JSON line per run goes to stdout; the profiler's
+tables go to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+FRAMES = 4  # unprofiled frames timed per run
+
+RUNS = {
+    "A": dict(scene="flagship without train/treefir", width=1920, height=1080,
+              dragon_subdivisions=None),
+    "B": dict(scene="dragon_1m (blob subdivisions=8) without train/treefir", width=1024,
+              height=576, dragon_subdivisions=8),
+}
+
+
+def configure(r):
+    """The main path's settings: 2 spp, 4 bounces, upscaler and
+    motion-adaptive sampling off."""
+    from ..engine.renderer import UPSCALER_OFF
+
+    r.upscaler_mode = UPSCALER_OFF
+    r.samples_per_pixel = 2
+    r.max_bounces = 4
+    r.use_motion_adaptive_sampling = False
+
+
+def make_renderer(tag: str, device, seed: int = 0):
+    """Scene, BVH and renderer of run ``tag`` with the main path's settings."""
+    from ..engine.appscene import make_app_scene
+    from ..engine.renderer import Renderer
+
+    run = RUNS[tag]
+    scene = make_app_scene(run["width"], run["height"], include_robot=False, asset_models=False,
+                           dragon_subdivisions=run["dragon_subdivisions"])
+    r = Renderer(scene, run["width"], run["height"], seed=seed, device=device)
+    configure(r)
+    return r
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def profile_frame(r, table_out=None) -> dict:
+    """Profile one frame of renderer ``r`` (see the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..engine.renderer import prepare_frame
+    from ..kernels import traverse2
+
+    dev = r.device
+    for _ in range(2):
+        r.draw()
+    _sync(dev)
+    walls = []
+    for _ in range(FRAMES):
+        t0 = time.perf_counter()
+        r.draw()
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    prepare_frame(r.scene_data, r.bvh)
+    _sync(dev)
+    prepare_s = time.perf_counter() - t0
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(dev).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    launches0 = traverse2.launches
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        r.draw()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e6
+    trav = sum(e.time_range.elapsed_us() for e in dev_events if "traverse2" in e.name) / 1e6
+    gather = sum(e.time_range.elapsed_us() for e in dev_events
+                 if "gather" in e.name or "index" in e.name) / 1e6
+    median = statistics.median(walls)
+    line = dict(frame_wall_s=walls, frame_wall_median_s=median, frame_wall_profiled_s=wall,
+                prepare_s=prepare_s, device_busy_s=busy, device_events=len(dev_events),
+                traverse2_s=trav, traverse2_launches=traverse2.launches - launches0,
+                gather_s=gather, idle_share=1.0 - busy / median,
+                idle_share_profiled=1.0 - busy / wall, rays=int(r.last_rays_traced))
+    if table_out is not None:
+        ka = prof.key_averages()
+        key = "self_device_time_total" if dev_events else "self_cpu_time_total"
+        table_out.write(ka.table(sort_by=key, row_limit=40) + "\n")
+        table_out.write(ka.table(sort_by="count", row_limit=25) + "\n")
+    return line
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=os.path.join("build", "frame_profile.txt"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("frame_profile: needs a CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as out:
+        for tag in RUNS:
+            r = make_renderer(tag, torch.device("cuda:0"))
+            out.write(f"=== run {tag}: {RUNS[tag]['scene']} {r.render_width}x{r.render_height}\n")
+            line = dict(run=tag, **profile_frame(r, out), card=card)
+            out.write(json.dumps(line) + "\n")
+            print(json.dumps(line), flush=True)
+            del r
+            torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,149 @@
+"""Two-level traversal (kernel K2's plain version on the CPU) against the JAX
+package's closest_hit / any_hit / trace_mixed, on the very same tables
+carried over by convert.py, for 4096 random rays per scene.
+
+Tolerances: hit triangle and instance equal, except where the brute-force
+oracle shows the two triangles at equal t along the ray (an equal-t tie,
+which either package may resolve; at most 1% of rays); t within 1e-6
+relative; u and v within 1e-4 absolute. XLA:CPU contracts multiply-adds
+into FMAs (about 60% of its leaf-test u values differ from the unfused
+expression by a few ULPs), and the leaf test's cancelling products carry
+those ULPs into the barycentrics (measured up to 2.7e-5 on the 10-unit floor
+triangles); the port keeps every product separately rounded so that the
+CUDA kernel and this plain version stay bit-equal to each other."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mrt_tpu.bvh import twolevel as jtl
+from mrt_tpu.core.types import Rays as JRays
+from mrt_tpu_torch import convert
+from mrt_tpu_torch.bvh import intersect, twolevel
+from mrt_tpu_torch.core.types import Rays
+from mrt_tpu_torch.engine.scene import world_geometry
+from mrt_tpu_torch.kernels import traverse2
+from test_torch_scene_bvh import SCENES, one_torch_thread  # noqa: F401
+
+N = 4096
+
+
+@pytest.fixture(scope="module", params=sorted(SCENES))
+def scene(request):
+    js = SCENES[request.param]()
+    jd, jst = js.compile()
+    jb = jtl.build(js.models, jd, jst.skin_slices, host_mirror=js.host_mirror)
+    pd, _, pb = convert.compiled(jd, jst, jb)
+    pos_w, _, _ = world_geometry(pd)
+    idx = pd.indices.long()
+    tris = tuple(pos_w[idx[:, k]] for k in range(3))
+    rng = np.random.default_rng(len(request.param))
+    o = ((rng.random((N, 3)) * 2 - 1) * 5).astype(np.float32)
+    o[:, 1] = np.abs(o[:, 1])
+    d = rng.standard_normal((N, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dist = (0.5 + 5.5 * rng.random(N)).astype(np.float32)
+    shadow = rng.random(N) < 0.5
+    mask = rng.random(N) < 0.9
+    return dict(jb=jb, pb=pb, tris=tris, o=o, d=d, dist=dist, shadow=shadow, mask=mask)
+
+
+def _jrays(s, dist):
+    return JRays(jnp.asarray(s["o"]), jnp.asarray(s["d"]), jnp.asarray(dist))
+
+
+def _prays(s, dist):
+    return Rays(torch.as_tensor(s["o"]), torch.as_tensor(s["d"]), torch.as_tensor(dist))
+
+
+def _check_hits(s, jh, ph, live):
+    jt, pt = np.asarray(jh.triangle), ph.triangle.numpy()
+    assert np.array_equal(jt >= 0, pt >= 0)
+    diff = np.nonzero((jt != pt) & live)[0]
+    if diff.size:
+        # every disagreement must be an equal-t tie by the brute-force oracle
+        o = torch.as_tensor(s["o"][diff])[:, None]
+        d = torch.as_tensor(s["d"][diff])[:, None]
+        v0, v1, v2 = (torch.stack([t[jt[diff]], t[pt[diff]]], 1) for t in s["tris"])
+        hit, t, _, _ = intersect.ray_triangle(o, d, v0, v1, v2)
+        assert bool(hit.all())
+        assert bool(((t[:, 0] - t[:, 1]).abs() <= 1e-5 * t.abs().amax(1).clamp_min(1)).all())
+    assert diff.size <= N // 100, f"{diff.size} tie flips"
+    both = (jt >= 0) & (jt == pt)
+    np.testing.assert_allclose(ph.t.numpy()[both], np.asarray(jh.t)[both], rtol=1e-6)
+    for a, b in ((ph.u, jh.u), (ph.v, jh.v)):
+        np.testing.assert_allclose(a.numpy()[both], np.asarray(b)[both], rtol=0, atol=1e-4)
+    return diff.size
+
+
+def test_closest_hit_matches(scene):
+    inf = np.full(N, np.inf, np.float32)
+    mask = scene["mask"]
+    jh = jtl.closest_hit(scene["jb"], _jrays(scene, inf), mask=jnp.asarray(mask))
+    ph = twolevel.closest_hit(scene["pb"], _prays(scene, inf), mask=torch.as_tensor(mask))
+    _check_hits(scene, jh, ph, mask)
+    assert not bool((ph.triangle.numpy() >= 0)[~mask].any())
+
+
+def test_any_hit_matches(scene):
+    jo = np.asarray(jtl.any_hit(scene["jb"], _jrays(scene, scene["dist"])))
+    po = twolevel.any_hit(scene["pb"], _prays(scene, scene["dist"])).numpy()
+    assert np.array_equal(jo, po)
+    assert 0 < po.sum() < N
+
+
+def test_trace_mixed_matches(scene):
+    dist = np.where(scene["shadow"], scene["dist"], np.inf).astype(np.float32)
+    sh, mask = scene["shadow"], scene["mask"]
+    jh, jocc = jtl.trace_mixed(scene["jb"], _jrays(scene, dist), jnp.asarray(sh),
+                               mask=jnp.asarray(mask))
+    ph, pocc = twolevel.trace_mixed(scene["pb"], _prays(scene, dist), torch.as_tensor(sh),
+                                    mask=torch.as_tensor(mask))
+    assert np.array_equal(np.asarray(jocc), pocc.numpy())
+    closest = mask & ~sh
+    _check_hits(scene, jh._replace(triangle=jnp.where(jnp.asarray(closest), jh.triangle, -1)),
+                ph._replace(triangle=torch.where(torch.as_tensor(closest), ph.triangle, -1)), closest)
+
+
+def test_brute_force_agrees_with_traversal(scene):
+    """The torch oracle and the traversal agree on the same port tables."""
+    n = 256
+    inf = np.full(N, np.inf, np.float32)
+    rays = _prays(scene, inf)
+    rays = Rays(rays.origin[:n], rays.direction[:n], rays.max_distance[:n])
+    want = intersect.brute_force_closest_hit(rays, *scene["tris"])
+    got = twolevel.closest_hit(scene["pb"], rays)
+    assert torch.equal(got.triangle >= 0, want.triangle >= 0)
+    hit = want.triangle >= 0
+    np.testing.assert_allclose(got.t[hit].numpy(), want.t[hit].numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_brute_force_any_hit_agrees(scene):
+    """Occlusion within finite distances: the any-hit oracle and the shadow
+    traversal agree, except for rays whose nearest hit lies within 1e-5
+    relative of the distance limit (either side may round it in)."""
+    n = 256
+    rays = _prays(scene, scene["dist"])
+    rays = Rays(rays.origin[:n], rays.direction[:n], rays.max_distance[:n])
+    want = intersect.brute_force_any_hit(rays, *scene["tris"])
+    got = twolevel.any_hit(scene["pb"], rays)
+    diff = torch.nonzero(want != got).squeeze(1)
+    if diff.numel():
+        near = intersect.brute_force_closest_hit(
+            Rays(rays.origin[diff], rays.direction[diff], torch.full((diff.numel(),), float("inf"))),
+            *scene["tris"])
+        lim = rays.max_distance[diff]
+        assert bool(((near.t - lim).abs() <= 1e-5 * lim).all())
+    assert 0 < int(got.sum()) < n
+
+
+def test_kernel_wrapper_rejects_other_devices(scene):
+    pb = scene["pb"]
+    meta = torch.zeros((4, 3), device="meta")
+    with pytest.raises(ValueError):
+        traverse2.traverse(pb.table, pb.n_internal, pb.n_leaf, pb.tlas_n, pb.stack_size, meta,
+                           meta, torch.zeros(4, device="meta"),
+                           torch.zeros(4, dtype=torch.bool, device="meta"),
+                           torch.zeros(4, dtype=torch.bool, device="meta"))
+    assert traverse2.launches == 0  # CPU tensors never reach the kernel

@@ -3,7 +3,9 @@
 Every function takes the JAX package's objects and reads their arrays with
 ``np.asarray`` (this module imports no JAX), so the port can render from the
 very tables the JAX package built: ``Renderer.from_compiled(scene(js),
-*compiled(jax_scene_data, jax_statics, jax_bvh, device))``.
+*compiled(jax_scene_data, jax_statics, jax_bvh, device))``. ``device``
+defaults to the card and raises where there is none; CPU use passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from .assets.obj import MaterialDef, MeshData, SubmeshData
 from .assets.texture import TextureAtlas
 from .bvh.twolevel import TwoLevelBVH
 from .core import types as T
+from .core.device import resolve as resolve_device
 from .engine.scene import Model, ModelMaterialOverride, Scene, SceneData, SceneStatics
 
 
@@ -26,7 +29,8 @@ def _nt(cls, src, device):
     return cls(*(_t(getattr(src, f), device) for f in cls._fields))
 
 
-def scene_data(sd, device="cpu") -> SceneData:
+def scene_data(sd, device=None) -> SceneData:
+    device = resolve_device(device)
     at = sd.atlas
     return SceneData(
         positions_obj=_t(sd.positions_obj, device),
@@ -61,7 +65,8 @@ def statics(st) -> SceneStatics:
                         has_masks=st.has_masks)
 
 
-def bvh(b, device="cpu") -> TwoLevelBVH:
+def bvh(b, device=None) -> TwoLevelBVH:
+    device = resolve_device(device)
     if b.skin_indices or getattr(b, "leaf_clip", None) is not None:
         raise NotImplementedError("skinned or SBVH-clipped BVHs are not ported yet")
     return TwoLevelBVH(
@@ -74,7 +79,7 @@ def bvh(b, device="cpu") -> TwoLevelBVH:
         inst_masks=tuple(b.inst_masks))
 
 
-def compiled(sd, st, b, device="cpu"):
+def compiled(sd, st, b, device=None):
     """(SceneData, SceneStatics, TwoLevelBVH) for ``Renderer.from_compiled``."""
     return scene_data(sd, device), statics(st), bvh(b, device)
 

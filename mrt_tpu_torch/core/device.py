@@ -1,0 +1,16 @@
+"""Where the port's state lives: the card unless the caller asks otherwise."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None means the card (``"cuda"``).
+    Raises when a CUDA device is asked for and none is available: the port
+    never carries on on the CPU unless ``device="cpu"`` is passed."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("mrt_tpu_torch runs on a CUDA device by default and none is available; "
+                           "pass device='cpu' to run on the CPU")
+    return device

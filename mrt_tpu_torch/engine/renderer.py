@@ -19,6 +19,7 @@ import torch
 from ..bvh import twolevel
 from ..core import halton as H
 from ..core import types as T
+from ..core.device import resolve as resolve_device
 from ..render import accumulate as acc
 from ..render import wavefront as wf
 from . import scene as scene_mod
@@ -97,8 +98,9 @@ class FrameStats:
 class Renderer:
     """Interactive progressive renderer over a compiled scene.
 
-    ``device``: where the scene, BVH and frame state live (default: CUDA when
-    available, else the CPU). ``offsets``: optional (H,W) Halton index
+    ``device``: where the scene, BVH and frame state live (default: the card,
+    ``"cuda"``; raises when there is none, so CPU use needs ``device="cpu"``).
+    ``offsets``: optional (H,W) Halton index
     offsets at render size; by default they are drawn from a
     ``torch.Generator`` seeded with ``seed``.
     """
@@ -106,9 +108,7 @@ class Renderer:
     def __init__(self, scene: scene_mod.Scene, output_width: int = 512, output_height: int = 512,
                  seed: int = 0, device=None, offsets=None, _compiled=None):
         object.__setattr__(self, "_initialized", False)
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.scene = scene
         self.output_width = output_width
         self.output_height = output_height

@@ -22,6 +22,7 @@ import torch
 from ..assets import texture as tex
 from ..assets.obj import MaterialDef, MeshData, load_obj
 from ..core import types as T
+from ..core.device import resolve as resolve_device
 from ..utils import math3d
 
 # The repository's own asset folder, then the folders listed in MRT_ASSET_PATH
@@ -240,7 +241,10 @@ class Scene:
     def instance_transforms(self) -> np.ndarray:
         return np.stack([m.world_transform for m in self.models]).astype(np.float32)
 
-    def compile(self, device="cpu") -> tuple[SceneData, SceneStatics]:
+    def compile(self, device=None) -> tuple[SceneData, SceneStatics]:
+        """Flatten the models into SceneData on ``device`` (default: the
+        card; raises when there is none, so CPU use needs ``"cpu"``)."""
+        device = resolve_device(device)
         positions, normals, uvs, vert_inst = [], [], [], []
         indices, tri_res, tri_inst = [], [], []
         atlas_builder = tex.AtlasBuilder()

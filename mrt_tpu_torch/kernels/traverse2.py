@@ -2,14 +2,18 @@
 wrapper and its plain PyTorch version.
 
 Replaces ``mrt_tpu/bvh/twolevel.py:_step2`` (looped by ``_traverse2``). The
-wrapper launches the CUDA kernel for CUDA tensors and takes the plain
-version only for CPU tensors. The plain version is a lane-vector
-transcription of ``_step2``: pop, one row gather, then per row type the
-instance switch, the 12-wide Moller-Trumbore or the 8 slab tests with the
-packed-key sorted push, in a Python loop until no lane is left. It keeps
-only the lanes that still have stack entries each step, and writes each
-three-term dot product as explicit adds in the JAX order, so its t/u/v are
-bit-equal to the kernel's.
+wrapper launches the CUDA kernels for CUDA tensors (a compaction of the live
+lanes, then a persistent traversal over them) and takes the plain version
+only for CPU tensors. The plain version is a lane-vector transcription of
+``_step2``: pop, one row gather, then per row type the instance switch, the
+12-wide Moller-Trumbore or the 8 slab tests with the packed-key sorted push,
+in a Python loop until no lane is left. It keeps only the lanes that still
+have stack entries each step, and writes each three-term dot product as
+explicit adds in the JAX order, so its t/u/v are bit-equal to the kernel's.
+Both count the rows each lane popped (the JAX package's ``count_pops``); the
+plain version also counts the pops of each table row and the rays that
+entered each instance row, from which ``utils/bounds.py`` gives the least
+time the card could take.
 """
 
 from __future__ import annotations
@@ -35,6 +39,10 @@ class TraverseOut(NamedTuple):
     u: torch.Tensor  # (R,) f32
     v: torch.Tensor  # (R,) f32
     found: torch.Tensor  # (R,) bool any hit within max_distance
+    pops: torch.Tensor  # (R,) int32 rows popped (0 for inactive lanes)
+    # (table rows, 2) int64 from the plain version (None from the kernel):
+    # the pops of each row, and the rays that entered each instance row
+    visits: torch.Tensor | None = None
 
 
 def _guarded_inv(d):
@@ -67,7 +75,8 @@ def _slab3(lo, hi, o, inv):
 
 def traverse_plain(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size: int,
                    origin, direction, tmax, shadow, active, t_min: float = 0.0) -> TraverseOut:
-    """Plain PyTorch two-level traversal (any device)."""
+    """Plain PyTorch two-level traversal (any device), with per-lane pops and
+    per-row visits (``TraverseOut.visits``)."""
     if table.shape[0] > _META_MASK:
         raise NotImplementedError("tables above 2^20 rows need the float child sort (ROADMAP Q2-2)")
     R = origin.shape[0]
@@ -84,6 +93,8 @@ def traverse_plain(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size:
     cur_inst = torch.full((R,), -1, dtype=torch.int32, device=dev)
     stack = torch.zeros((R, S), dtype=torch.int32, device=dev)
     sp = active.to(torch.int32)
+    pops = torch.zeros(R, dtype=torch.int32, device=dev)
+    visits = torch.zeros((table.shape[0], 2), dtype=torch.int64, device=dev)
     inst_base = n_internal + n_leaf
     inf = float("inf")
     kpos = torch.arange(ARITY, device=dev)
@@ -93,10 +104,14 @@ def traverse_plain(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size:
         spl = sp[lanes] - 1
         entry = stack[lanes, spl.long()]
         sp[lanes] = spl
-        row = table[entry.long()]
+        pops[lanes] += 1
+        e = entry.long()
+        visits[:, 0].index_add_(0, e, torch.ones_like(e))
+        row = table[e]
         t_cap = best_t[lanes]
         is_inst = entry >= inst_base
         is_leaf = (entry >= n_internal) & ~is_inst
+        is_int = ~is_leaf & ~is_inst
 
         # --- instance rows ------------------------------------------------------
         if bool(is_inst.any()):
@@ -107,6 +122,8 @@ def traverse_plain(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size:
                             [r[:, _I_WBMAX + a] for a in range(3)],
                             [wo[:, a] for a in range(3)], [inv[:, a] for a in range(3)])
             hit = (tn <= tf) & (tf >= 0.0) & (tn <= t_cap[is_inst])
+            eh = e[is_inst][hit]
+            visits[:, 1].index_add_(0, eh, torch.ones_like(eh))
             H, rh = L[hit], r[hit]
             o[H] = _affine(rh[:, 0:12], origin[H], True)
             d[H] = _affine(rh[:, 0:12], direction[H], False)
@@ -157,7 +174,6 @@ def traverse_plain(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size:
             sp[L] = torch.where(found[L] & shadow[L], 0, sp[L])
 
         # --- internal rows: ARITY child slabs + nearest-first push -----------------
-        is_int = ~is_leaf & ~is_inst
         if bool(is_int.any()):
             L, r = lanes[is_int], row[is_int]
             tl = (entry[is_int] < tlas_n)[:, None]
@@ -184,7 +200,7 @@ def traverse_plain(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size:
             sp[L] = torch.clamp(spi + n_push, max=S)
 
         lanes = lanes[sp[lanes] > 0]
-    return TraverseOut(best_t, best_tri, best_inst, best_u, best_v, found)
+    return TraverseOut(best_t, best_tri, best_inst, best_u, best_v, found, pops, visits)
 
 
 def _ptr(t: torch.Tensor):
@@ -206,7 +222,7 @@ def traverse(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size: int,
              origin, direction, tmax, shadow, active, t_min: float = 0.0) -> TraverseOut:
     """Trace (R,) rays through the two-level table. ``shadow`` lanes stop at
     their first hit; lanes with ``active`` False return the miss record.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernels."""
     global launches
     if origin.device.type == "cpu":
         return traverse_plain(table, n_internal, n_leaf, tlas_n, stack_size, origin, direction,
@@ -225,6 +241,8 @@ def traverse(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size: int,
         raise ValueError(f"traverse: the BVH needs a stack of {stack_size} entries; the kernel holds {MAX_STACK}")
     if table.shape[0] > _META_MASK:
         raise NotImplementedError("tables above 2^20 rows need the float child sort (ROADMAP Q2-2)")
+    if table.data_ptr() % 16:
+        raise ValueError("traverse: the table must be 16-byte aligned (its rows are read as float4)")
     out = TraverseOut(
         t=torch.empty(R, dtype=torch.float32, device=dev),
         tri=torch.empty(R, dtype=torch.int32, device=dev),
@@ -232,18 +250,22 @@ def traverse(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size: int,
         u=torch.empty(R, dtype=torch.float32, device=dev),
         v=torch.empty(R, dtype=torch.float32, device=dev),
         found=torch.empty(R, dtype=torch.bool, device=dev),
+        pops=torch.empty(R, dtype=torch.int32, device=dev),
     )
     if R == 0:
         return out
     from . import build
 
     lib = build.load()
+    scratch = torch.empty(R + 2, dtype=torch.int32, device=dev)  # live-lane list, 2 counters
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     rc = lib.mrt_traverse2(_ptr(table), n_internal, n_leaf, tlas_n, stack_size,
                            _ptr(origin), _ptr(direction), _ptr(tmax), _ptr(shadow), _ptr(active),
                            R, float(t_min), _ptr(out.t), _ptr(out.tri), _ptr(out.inst),
-                           _ptr(out.u), _ptr(out.v), _ptr(out.found), stream)
+                           _ptr(out.u), _ptr(out.v), _ptr(out.found), _ptr(out.pops),
+                           _ptr(scratch), stream)
     if rc != 0:
         raise RuntimeError(f"traverse2 kernel launch failed: CUDA error {rc}")
     launches += 1
     return out
+

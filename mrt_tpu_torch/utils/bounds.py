@@ -1,0 +1,92 @@
+"""The least time an NVIDIA H100 could take for the work of the port's kernels.
+
+A kernel's bound is the larger of two times: the bytes its function must move
+(each input read once, each output written once) over the memory rate, and
+the f32 operations it does on these inputs over the rate the card issues
+them. Where the work depends on the data (K2's traversal), it is counted
+from what one call's data needs, from the plain version's per-row visits.
+
+Peak rates, H100 SXM (NVIDIA's data sheet, 700 W): 3.35 TB/s of HBM3 and
+67 TFLOP/s of f32 outside the tensor cores, a rate that counts a fused
+multiply-add as two operations (132 SMs x 128 lanes x 2 x 1.98 GHz). The
+kernels are built with ``-fmad=false``, so each add, sub, mul, min, max,
+compare and division they count is one instruction, issued at half that:
+PEAK_F32_OPS.
+"""
+
+from __future__ import annotations
+
+from ..bvh.wide import ARITY, IDS_OFF, LEAF_K, META_OFF, decode_ids
+
+PEAK_BYTES = 3.35e12
+PEAK_F32_OPS = 67e12 / 2
+
+# K1 (csrc/present.cu), per value: 4 B in, 1 B out; Reinhard's add and div,
+# the clip's max and min, then the mul and add of the rounding
+K1_BYTES, K1_OPS = 5, 6
+
+# K2 (csrc/traverse2.cu, its header note): f32 operations per popped
+# internal row (3 guarded reciprocals) and per child that is not empty, per
+# popped leaf row and per triangle that is not a pad, per instance cull and
+# per entry into an instance's BLAS (the 3x4 transform)
+K2_OPS_INTERNAL, K2_OPS_CHILD = 9, 27
+K2_OPS_LEAF, K2_OPS_TRIANGLE = 1, 59
+K2_OPS_CULL, K2_OPS_ENTER = 34, 33
+# bytes of a table row the function needs, in the float4s the rows are
+# stored in: an internal row's 6 bound planes and ids; a leaf row's 9 vertex
+# planes and ids for each group of 4 triangles up to the first pad; an
+# instance row's world box (with root and id), and its 3x4 inverse if a ray
+# enters it
+K2_BYTES_INTERNAL = 14 * 16
+K2_BYTES_LEAF_GROUP = 10 * 16
+K2_BYTES_CULL, K2_BYTES_ENTER = 2 * 16, 3 * 16
+# per lane: origin, direction, tmax, shadow, active in and t, tri, inst, u,
+# v, found, pops out; a dead lane reads only active and tmax
+K2_BYTES_LIVE_LANE = 30 + 25
+K2_BYTES_DEAD_LANE = 5 + 25
+
+
+def least_ms(ops: float, nbytes: float) -> tuple[float, str]:
+    """(ms, "operations" or "bytes"): the larger of the two times and which
+    one it is."""
+    ops_ms, bytes_ms = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def k1(shape) -> tuple[float, str]:
+    """K1's bound for one (H, W, 3) image."""
+    n = shape[0] * shape[1] * shape[2]
+    return least_ms(n * K1_OPS, n * K1_BYTES)
+
+
+def k2_work(table, n_internal: int, n_leaf: int, visits) -> dict[str, int]:
+    """K2's work in one call, from the plain version's ``visits`` (per table
+    row: its pops, and the rays that entered it if it is an instance row)
+    and the table's own rows: the pops by row type, the children and
+    triangles those pops test, the entries, the ops and the bytes of the
+    distinct rows read."""
+    pops, entered = visits[:, 0], visits[:, 1]
+    inst_base = n_internal + n_leaf
+    children = (decode_ids(table[:n_internal, META_OFF:META_OFF + ARITY]) >= 0).sum(1)
+    tris = (decode_ids(table[n_internal:inst_base, IDS_OFF:IDS_OFF + LEAF_K]) >= 0).sum(1)
+    p_int, p_leaf, p_inst = pops[:n_internal], pops[n_internal:inst_base], pops[inst_base:]
+    w = dict(
+        pops_internal=p_int.sum(), pops_leaf=p_leaf.sum(), pops_instance=p_inst.sum(),
+        entered=entered.sum(), children=(p_int * children).sum(), triangles=(p_leaf * tris).sum(),
+        rows_internal=(p_int > 0).sum(), rows_instance=(p_inst > 0).sum(),
+        rows_entered=(entered > 0).sum(), leaf_groups=((tris + 3) // 4)[p_leaf > 0].sum())
+    w = {k: int(v) for k, v in w.items()}
+    w["ops"] = (w["pops_internal"] * K2_OPS_INTERNAL + w["children"] * K2_OPS_CHILD
+                + w["pops_leaf"] * K2_OPS_LEAF + w["triangles"] * K2_OPS_TRIANGLE
+                + w["pops_instance"] * K2_OPS_CULL + w["entered"] * K2_OPS_ENTER)
+    w["row_bytes"] = (w["rows_internal"] * K2_BYTES_INTERNAL + w["leaf_groups"] * K2_BYTES_LEAF_GROUP
+                      + w["rows_instance"] * K2_BYTES_CULL + w["rows_entered"] * K2_BYTES_ENTER)
+    return w
+
+
+def k2(work: dict[str, int], n_lanes: int, n_live: int) -> tuple[float, str]:
+    """K2's bound for one call over ``n_lanes`` lanes, ``n_live`` of them
+    active, with ``work`` from ``k2_work``."""
+    nbytes = (work["row_bytes"] + n_live * K2_BYTES_LIVE_LANE
+              + (n_lanes - n_live) * K2_BYTES_DEAD_LANE)
+    return least_ms(work["ops"], nbytes)

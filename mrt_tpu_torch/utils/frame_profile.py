@@ -7,9 +7,10 @@ Run A is the flagship frame of ``bench.py`` without the train/treefir OBJs
 1024x576. Both render 2 spp, 4 bounces, upscaler and motion-adaptive
 sampling off. ``chip_smoke.py`` drives the same runs.
 
-For each run, after two warm-up frames, ``profile_frame`` times FRAMES
-unprofiled frames between ``torch.cuda.synchronize()`` calls, one
-``prepare_frame``, and one frame under ``torch.profiler``. The device's busy time is the sum of the
+For each run, after two warm-up frames, ``frame_walls`` times FRAMES
+unprofiled frames between ``torch.cuda.synchronize()`` calls (every run's
+before any profiler session); then ``profile_frame`` times one
+``prepare_frame`` and one frame under ``torch.profiler``. The device's busy time is the sum of the
 device events of the profiled frame (kernels, copies, fills; one stream, so
 they do not overlap); the idle share is 1 - busy / the median unprofiled
 frame wall, because the profiler slows the host that issues the ops but not
@@ -69,23 +70,31 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def profile_frame(r, table_out=None) -> dict:
-    """Profile one frame of renderer ``r`` (see the module docstring)."""
+def frame_walls(r, frames: int = FRAMES) -> list[float]:
+    """Wall seconds of ``frames`` frames of ``r`` after two warm-ups."""
+    for _ in range(2):
+        r.draw()
+    _sync(r.device)
+    walls = []
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        r.draw()
+        _sync(r.device)
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def profile_frame(r, table_out=None, walls=None) -> dict:
+    """Profile one frame of renderer ``r`` (see the module docstring);
+    ``walls`` are its unprofiled frame walls, timed here when None."""
     from torch.profiler import ProfilerActivity, profile
 
     from ..engine.renderer import prepare_frame
     from ..kernels import traverse2
 
     dev = r.device
-    for _ in range(2):
-        r.draw()
-    _sync(dev)
-    walls = []
-    for _ in range(FRAMES):
-        t0 = time.perf_counter()
-        r.draw()
-        _sync(dev)
-        walls.append(time.perf_counter() - t0)
+    if walls is None:
+        walls = frame_walls(r)
     t0 = time.perf_counter()
     prepare_frame(r.scene_data, r.bvh)
     _sync(dev)
@@ -130,15 +139,16 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(card, flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    # every run's unprofiled frames first: frames after a profiler session
+    # ran slower on the host (PERF.md, Findings)
+    renderers = {tag: make_renderer(tag, torch.device("cuda:0")) for tag in RUNS}
+    walls = {tag: frame_walls(r) for tag, r in renderers.items()}
     with open(args.out, "w") as out:
-        for tag in RUNS:
-            r = make_renderer(tag, torch.device("cuda:0"))
+        for tag, r in renderers.items():
             out.write(f"=== run {tag}: {RUNS[tag]['scene']} {r.render_width}x{r.render_height}\n")
-            line = dict(run=tag, **profile_frame(r, out), card=card)
+            line = dict(run=tag, **profile_frame(r, out, walls[tag]), card=card)
             out.write(json.dumps(line) + "\n")
             print(json.dumps(line), flush=True)
-            del r
-            torch.cuda.empty_cache()
     return 0
 
 

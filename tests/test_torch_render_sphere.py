@@ -103,7 +103,7 @@ def test_from_compiled_tables_match_own_build():
     own = port_like(rj)
     carried = port_like(rj, scene=convert.scene(rj.scene))
     carried = Renderer.from_compiled(
-        carried.scene, *convert.compiled(rj.scene_data, rj.statics, rj.bvh),
+        carried.scene, *convert.compiled(rj.scene_data, rj.statics, rj.bvh, device="cpu"),
         output_width=SIZE, output_height=SIZE, offsets=np.asarray(rj.offsets))
     for r in (own, carried):
         r.upscaler_mode = own.upscaler_mode
@@ -113,3 +113,17 @@ def test_from_compiled_tables_match_own_build():
         a, b = own.draw(), carried.draw()
         assert int(own.last_rays_traced) == int(carried.last_rays_traced)
     assert np.array_equal(a.numpy(), b.numpy())
+
+
+def test_frame_profile_takes_given_walls():
+    """profile_frame takes frame walls timed elsewhere (before any profiler
+    session) for its idle share, and times none itself then."""
+    s = Scene(16, 16)
+    s.models = [Model("sphere", position=[0, 0.5, 0], scale=0.5), Model("plane", scale=10)]
+    r = Renderer(s, 16, 16, seed=3, device="cpu")
+    frame_profile.configure(r)
+    r.max_bounces = 1
+    walls = frame_profile.frame_walls(r, frames=2)
+    assert len(walls) == 2 and min(walls) > 0
+    line = frame_profile.profile_frame(r, walls=[0.25, 0.5, 0.75])
+    assert line["frame_wall_s"] == [0.25, 0.5, 0.75] and line["frame_wall_median_s"] == 0.5

@@ -24,6 +24,7 @@ from mrt_tpu_torch.bvh import intersect, twolevel
 from mrt_tpu_torch.core.types import Rays
 from mrt_tpu_torch.engine.scene import world_geometry
 from mrt_tpu_torch.kernels import traverse2
+from mrt_tpu_torch.utils import bounds
 from test_torch_scene_bvh import SCENES, one_torch_thread  # noqa: F401
 
 N = 4096
@@ -34,7 +35,7 @@ def scene(request):
     js = SCENES[request.param]()
     jd, jst = js.compile()
     jb = jtl.build(js.models, jd, jst.skin_slices, host_mirror=js.host_mirror)
-    pd, _, pb = convert.compiled(jd, jst, jb)
+    pd, _, pb = convert.compiled(jd, jst, jb, device="cpu")
     pos_w, _, _ = world_geometry(pd)
     idx = pd.indices.long()
     tris = tuple(pos_w[idx[:, k]] for k in range(3))
@@ -74,7 +75,7 @@ def _check_hits(s, jh, ph, live):
     np.testing.assert_allclose(ph.t.numpy()[both], np.asarray(jh.t)[both], rtol=1e-6)
     for a, b in ((ph.u, jh.u), (ph.v, jh.v)):
         np.testing.assert_allclose(a.numpy()[both], np.asarray(b)[both], rtol=0, atol=1e-4)
-    return diff.size
+    return diff
 
 
 def test_closest_hit_matches(scene):
@@ -136,6 +137,99 @@ def test_brute_force_any_hit_agrees(scene):
         lim = rays.max_distance[diff]
         assert bool(((near.t - lim).abs() <= 1e-5 * lim).all())
     assert 0 < int(got.sum()) < n
+
+
+def _plain(scene, dist, shadow, mask=None):
+    n = scene["o"].shape[0]
+    return twolevel._traverse(scene["pb"], _prays(scene, dist),
+                              torch.as_tensor(np.broadcast_to(shadow, (n,)).copy()),
+                              None if mask is None else torch.as_tensor(mask), 0.0)
+
+
+@pytest.mark.parametrize("kind,sort_rays", [("closest", True), ("any", False)])
+def test_pops_match_jax(scene, kind, sort_rays):
+    """Per-lane pops of the plain version (what the kernel must equal bit for
+    bit on the card) equal the JAX package's count_pops on the same tables
+    and rays. Tolerance: exact, except on the closest-hit lanes that
+    _check_hits finds to be equal-t ties (the two packages may then keep
+    different triangles, and a different best_t culls different rows
+    afterwards). Sorting the rays in JAX changes no lane's count."""
+    mask = scene["mask"]
+    if kind == "closest":
+        inf = np.full(N, np.inf, np.float32)
+        jh, jpops = jtl.closest_hit(scene["jb"], _jrays(scene, inf), mask=jnp.asarray(mask),
+                                    count_pops=True, sort_rays=sort_rays)
+        out = _plain(scene, inf, False, mask)
+        skip = _check_hits(scene, jh, twolevel._hits(scene["pb"], out), mask)
+    else:
+        jo, jpops = jtl.any_hit(scene["jb"], _jrays(scene, scene["dist"]), mask=jnp.asarray(mask),
+                                count_pops=True, sort_rays=sort_rays)
+        out = _plain(scene, scene["dist"], True, mask)
+        assert np.array_equal(np.asarray(jo), out.found.numpy())
+        skip = np.zeros(0, np.int64)
+    keep = np.ones(N, bool)
+    keep[skip] = False
+    jpops, pops = np.asarray(jpops), out.pops.numpy()
+    assert np.array_equal(pops[keep], jpops[keep])
+    assert not pops[~mask].any() and pops[mask].min() >= 1
+
+
+def test_work_totals_sum_to_pops(scene):
+    """The work that utils/bounds.py reads from the plain version's per-row
+    visits: the pops by row type add up to the per-lane pops; entries are a
+    subset of instance pops; each internal pop tests 1 to 8 children and
+    each leaf pop 1 to 12 triangles; the bound prices them at the counts of
+    the kernel's header note, bytes at the float4s each distinct row needs,
+    at half the data sheet's f32 rate (no fused multiply-adds)."""
+    pb = scene["pb"]
+    dist = np.where(scene["shadow"], scene["dist"], np.inf).astype(np.float32)
+    out = _plain(scene, dist, scene["shadow"], scene["mask"])
+    w = bounds.k2_work(pb.table, pb.n_internal, pb.n_leaf, out.visits)
+    n_int, n_leaf, n_inst = w["pops_internal"], w["pops_leaf"], w["pops_instance"]
+    assert n_int + n_leaf + n_inst == int(out.pops.sum()) == int(out.visits[:, 0].sum())
+    assert 0 < w["entered"] <= n_inst and 0 < w["rows_entered"] <= w["rows_instance"]
+    assert not out.visits[:pb.n_internal + pb.n_leaf, 1].any()
+    assert n_int <= w["children"] <= 8 * n_int and 0 < n_leaf <= w["triangles"] <= 12 * n_leaf
+    assert 0 < w["rows_internal"] <= pb.n_internal
+    assert 0 < w["leaf_groups"] <= 3 * int((out.visits[pb.n_internal:pb.n_internal + pb.n_leaf, 0] > 0).sum())
+    n_live = int(scene["mask"].sum())
+    ms, by = bounds.k2(w, N, n_live)
+    ops = (n_int * 9 + w["children"] * 27 + n_leaf + w["triangles"] * 59 + n_inst * 34
+           + w["entered"] * 33)
+    nbytes = (w["rows_internal"] * 224 + w["leaf_groups"] * 160 + w["rows_instance"] * 32
+              + w["rows_entered"] * 48 + n_live * 55 + (N - n_live) * 30)
+    assert w["ops"] == ops
+    assert ms == pytest.approx(max(ops / 33.5e12, nbytes / 3.35e12) * 1e3, rel=1e-12)
+    assert by == ("operations" if ops / 33.5e12 >= nbytes / 3.35e12 else "bytes")
+
+
+def test_k1_bound():
+    """K1 moves 5 B and does 6 f32 operations per value: bytes bind."""
+    ms, by = bounds.k1((1080, 1920, 3))
+    assert by == "bytes" and ms == pytest.approx(1080 * 1920 * 3 * 5 / 3.35e12 * 1e3, rel=1e-12)
+
+
+def test_compaction_edges_on_plain_version(scene):
+    """The wavefront edges the kernel's live-lane compaction must get right,
+    on the plain version: every lane dead gives the miss record and no pops;
+    one live lane at the end of the wavefront equals that ray traced alone."""
+    pb = scene["pb"]
+    dist = scene["dist"]
+    dead = _plain(scene, dist, False, np.zeros(N, bool))
+    assert torch.equal(dead.t, torch.as_tensor(dist))
+    assert bool((dead.tri == -1).all() and (dead.inst == -1).all() and not dead.found.any())
+    assert not bool(dead.u.any() or dead.v.any() or dead.pops.any())
+    assert int(dead.visits.sum()) == 0
+    last = np.zeros(N, bool)
+    last[-1] = True
+    one = _plain(scene, dist, False, last)
+    alone = traverse2.traverse_plain(
+        pb.table, pb.n_internal, pb.n_leaf, pb.tlas_n, pb.stack_size,
+        torch.as_tensor(scene["o"][-1:]), torch.as_tensor(scene["d"][-1:]),
+        torch.as_tensor(dist[-1:]), torch.zeros(1, dtype=torch.bool), torch.ones(1, dtype=torch.bool))
+    for f in ("t", "tri", "inst", "u", "v", "found", "pops"):
+        assert torch.equal(getattr(one, f)[-1:], getattr(alone, f)), f
+    assert int(one.pops[:-1].abs().sum()) == 0 and int(one.pops[-1]) >= 1
 
 
 def test_kernel_wrapper_rejects_other_devices(scene):

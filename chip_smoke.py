@@ -15,17 +15,31 @@ never prints its last line):
      compaction): hit-equal, t/u/v bit-equal, pops equal per lane;
   4. the port's main path at full width: the flagship scene without the
      train/treefir OBJs at 1920x1080, 2 spp, 4 bounces, upscaler off,
-     motion-adaptive sampling off (run A), and the 1.31M-triangle dragon at
-     1024x576 (run B), both defined in mrt_tpu_torch/utils/frame_profile.py.
-     Before each run is driven, K1 present (uint8-equal) and every K2
-     launch of one of its frames (hit-equal, t/u/v bit-equal, pops equal)
-     are held against their plain versions at that run's shapes and timed,
-     with K2's bound per launch from the plain version's visits. Then the run
-     is driven with each kernel's launch counter set to 0 and checked to
-     rise. After both runs were driven, under torch.profiler: K1's device
-     time, warm and after a 64 MB write (cold), and K2's device time over
-     one more steady frame (warm L2);
-  5. a small frame traced on the card against the same frame traced on the
+     motion-adaptive sampling off (run A), the 1.31M-triangle dragon at
+     1024x576 (run B), and the animated app frame: run A's scene plus the
+     swing-rigged robot stand-in, motion-adaptive sampling on (run C), all
+     defined in mrt_tpu_torch/utils/frame_profile.py; every frame is
+     drawn with draw(1/60), one 60 Hz animation step. Before each run is
+     driven, K1 present (uint8-equal) and every K2 launch of one of its
+     frames (hit-equal, t/u/v bit-equal, pops equal) are held against their
+     plain versions at that run's shapes and timed, with K2's bound per
+     launch from the plain version's visits. Then the run is driven with
+     each kernel's launch counter set to 0 and checked to rise. Run C also
+     prints the seconds of its prepare stage (skinning, world transform,
+     refit) per animated frame, the share of pixels that earned 1 and 2
+     extra samples, and its largest motion vector (> 0.5 px: the robot
+     moves); the whole-table copy of each run's refit is timed;
+  5. phase D, skinning and refit at character scale: one skinned cylinder
+     of 66,049 vertices, 131,072 triangles and 64 joints with the swing rig
+     over a floor at 1024x576 with run C's settings, 2 frames driven.
+     Checks: the card's LBS against a float64 NumPy LBS within 1e-5 of the
+     rig's extent; the card's refit bit-equal to the CPU's on the same
+     posed vertices in the skinned BLAS rows, the other rows within 1e-6;
+  6. after every run was driven, under torch.profiler: K1's device time,
+     warm and after a 64 MB write (cold), K2's device time over one more
+     steady frame of runs A-C (warm L2), and phase D's LBS and refit device
+     time per animated frame beside their bounds;
+  7. a small frame traced on the card against the same frame traced on the
      CPU through the plain versions.
 The line before the last is {"kernels": [...]}, with each kernel's bound
 (mrt_tpu_torch/utils/bounds.py); the last line is
@@ -88,6 +102,38 @@ def device_ms(torch, fn, name: str, reps: int, flush=None) -> float:
     if len(ev) < reps // 2:  # the profiler may drop the first few of a session
         raise AssertionError(f"the profiler saw {len(ev)} '{name}' kernels in {reps} calls")
     return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev)
+
+
+def device_total_ms(torch, fn, reps: int) -> tuple[float, float]:
+    """Mean device time in ms of everything ``fn`` runs on the card
+    (kernels, copies, fills) and its device events per call, from
+    torch.profiler over ``reps`` calls after one warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ev:
+        raise AssertionError("the profiler saw no device events")
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps, len(ev) / reps
+
+
+def lbs_float64(positions, normals, ji, jw, mats):
+    """LBS in float64 from the sparse (V,4) weights, as the reference's
+    per-vertex loop (tests/test_skinning.py:naive_lbs) computes it:
+    weights as authored, a zero-weight vertex on its first joint, normals
+    with w = 0."""
+    import numpy as np
+
+    w = np.asarray(jw, np.float64).copy()
+    w[w.sum(axis=1) < 1e-4] = (1.0, 0.0, 0.0, 0.0)
+    blend = np.einsum("vk,vkab->vab", w, np.asarray(mats, np.float64)[ji])
+    pos = np.einsum("vab,vb->va", blend[:, :3, :3], positions) + blend[:, :3, 3]
+    return pos, np.einsum("vab,vb->va", blend[:, :3, :3], normals)
 
 
 def check_halton(torch, H):
@@ -187,7 +233,7 @@ def check_path_kernels(torch, tag, r, present, traverse2, bounds):
 
     traverse2.traverse = checked
     try:
-        r.draw()
+        r.draw(1 / 60)
     finally:
         traverse2.traverse = orig
     img = r.present_device()
@@ -234,6 +280,113 @@ def profile_run(torch, FP, tag, r, present, bounds, check, walls):
     if not line["traverse2_launches"] or line["traverse2_s"] <= 0.0:
         raise AssertionError(f"{tag}: the profiled frame shows no K2 device time")
     return line
+
+
+def make_character(dev):
+    """Phase D's scene: one skinned cylinder of 66,049 vertices, 131,072
+    triangles and 64 joints with the swing rig (a game character's size;
+    the app's robot stand-in has 425 vertices and 4 joints) over a floor,
+    at 1024x576 with run C's settings. Returns the renderer and its rig."""
+    from mrt_tpu_torch import Model, Renderer, Scene
+    from mrt_tpu_torch.assets import procedural
+    from mrt_tpu_torch.engine.appscene import _attach_swing_rig
+    from mrt_tpu_torch.engine.scene import SkinData
+    from mrt_tpu_torch.utils import frame_profile as FP
+
+    t0 = time.perf_counter()
+    mesh, ji, jw, rest = procedural.skinned_cylinder(segments_h=256, segments_r=256, n_joints=64)
+    character = Model("character", mesh=mesh, position=[-0.5, 0.0, 1.0])
+    character.skin = SkinData(joint_indices=ji, joint_weights=jw, rest_joints=rest)
+    _attach_swing_rig(character)
+    scene = Scene(1024, 576)
+    scene.models = [character, Model("plane", scale=10)]
+    r = Renderer(scene, 1024, 576, seed=0, device=dev)
+    FP.configure(r, motion_adaptive=True)
+    log(f"phase D scene compile + BVH build: {time.perf_counter() - t0:.1f} s, "
+        f"{mesh.positions.shape[0]} vertices, {r.statics.n_triangles} triangles, "
+        f"{rest.shape[0]} joints, table {tuple(r.bvh.table.shape)}")
+    return r, dict(scene="skinned cylinder 256x256 segments, 64 joints, swing rig, over a floor",
+                   joint_indices=ji, joint_weights=jw)
+
+
+def check_character(torch, r, rig):
+    """LBS on the card against float64 NumPy (positions within 1e-5 of the
+    rig's extent, unit normals within 1e-5), and the card's refit against
+    the CPU's on the same posed vertices: the skinned BLAS rows and root
+    boxes bit-equal, the other rows (instance rows hold a torch.linalg.inv)
+    within 1e-6."""
+    import numpy as np
+
+    from mrt_tpu_torch.bvh import twolevel
+    from mrt_tpu_torch.skinning import lbs
+
+    sb, jm = r._skin_bundle[0], r._joint_matrices[0]
+    pos, nrm = lbs.skin(sb.weights_dense, jm, sb.rest_positions, sb.rest_normals)
+    rest = sb.rest_positions.cpu().numpy()
+    want_p, want_n = lbs_float64(rest, sb.rest_normals.cpu().numpy(), rig["joint_indices"],
+                                 rig["joint_weights"], jm.cpu().numpy())
+    extent = float((rest.max(axis=0) - rest.min(axis=0)).max())
+    err_p = float(np.abs(pos.cpu().numpy() - want_p).max())
+    err_n = float(np.abs(nrm.cpu().numpy() - want_n).max())
+    moved = float(np.abs(want_p - rest).max())
+    log(f"phase D LBS on the card vs float64 NumPy: max abs error {err_p:.3e} in positions "
+        f"(limit {1e-5 * extent:.3e} = 1e-5 x the rig's extent {extent:.3f}), {err_n:.3e} in "
+        f"normals (limit 1e-5); the pose moves vertices up to {moved:.4f}")
+    if not (err_p <= 1e-5 * extent and err_n <= 1e-5 and moved > 0.0):
+        raise AssertionError("phase D: LBS on the card disagrees with the float64 reference")
+
+    posed, M = r.scene_data.positions_obj, r.scene_data.instance_transform
+    gpu = twolevel.refit(r.bvh, posed, M)
+    cpu = twolevel.refit(r.bvh.to("cpu"), posed.cpu(), M.cpu())
+    gt, ct = gpu.table.cpu(), cpu.table
+    skinned = torch.zeros(gt.shape[0], dtype=torch.bool)
+    for int_lo, ni, leaf_lo, nl, *_, slot in r.bvh.mesh_meta:
+        if slot >= 0:
+            skinned[int_lo:int_lo + ni] = True
+            skinned[r.bvh.n_internal + leaf_lo:r.bvh.n_internal + leaf_lo + nl] = True
+    bits = (gt.view(torch.int32) != ct.view(torch.int32)).any(dim=1)
+    bad_skin = int(bits[skinned].sum())
+    bad_roots = int((gpu.root_bmin.cpu().view(torch.int32) != cpu.root_bmin.view(torch.int32)).sum()
+                    + (gpu.root_bmax.cpu().view(torch.int32) != cpu.root_bmax.view(torch.int32)).sum())
+    close = torch.allclose(gt[~skinned], ct[~skinned], rtol=1e-6, atol=1e-6, equal_nan=True)
+    log(f"phase D refit on the card vs the CPU on the same posed vertices: {int(skinned.sum())} "
+        f"skinned BLAS rows, {bad_skin} differ in their bits, root boxes {bad_roots}; the other "
+        f"{int((~skinned).sum())} rows: {int(bits[~skinned].sum())} differ in their bits, "
+        f"within 1e-6: {close}")
+    if bad_skin or bad_roots or not close:
+        raise AssertionError("phase D: the skinned refit on the card disagrees with the CPU")
+
+
+def profile_prepare(torch, r, bounds):
+    """Device time per animated frame of LBS (each skinned model) and of
+    the refit (profiler, warm, 20 calls each) and of the whole prepare
+    stage; beside them the CUDA-event time of the same calls (which holds
+    the host's launch gaps), the bounds and the refit's whole-table copy."""
+    from mrt_tpu_torch.bvh import twolevel
+    from mrt_tpu_torch.skinning import lbs
+
+    out = dict(lbs_ms=0.0, lbs_events_ms=0.0, lbs_bound_ms=0.0)
+    for k, (_, _, count) in enumerate(r.statics.skin_slices):
+        sb, jm = r._skin_bundle[k], r._joint_matrices[k]
+
+        def skin():
+            return lbs.skin(sb.weights_dense, jm, sb.rest_positions, sb.rest_normals)
+
+        ms, _ = device_total_ms(torch, skin, 20)
+        out["lbs_ms"] += ms
+        out["lbs_events_ms"] += cuda_ms(skin, 20)
+        b_ms, out["lbs_bound_by"] = bounds.lbs(count, jm.shape[0])
+        out["lbs_bound_ms"] += b_ms
+    posed, M = r.scene_data.positions_obj, r.scene_data.instance_transform
+
+    def refit():
+        return twolevel.refit(r.bvh, posed, M)
+
+    out["refit_ms"], out["refit_device_events"] = device_total_ms(torch, refit, 20)
+    out["refit_events_ms"] = cuda_ms(refit, 20)
+    out["refit_bound_ms"], out["refit_bound_by"] = bounds.refit(r.bvh)
+    out["prepare_ms"], out["prepare_device_events"] = device_total_ms(torch, r.prepare, 5)
+    return out
 
 
 def main() -> int:
@@ -326,18 +479,24 @@ def main() -> int:
             raise AssertionError(f"K2 disagrees with its plain version ({lanes} lanes, {what})")
 
     # --- 4. main path: each run's kernels checked at its shapes, then driven ---------------
-    def drive(tag, r, timed):
+    def drive(tag, r, timed, scene_name):
+        """Warm-up + ``timed`` frames with the launch counters set to 0
+        first; per timed frame (after its wall) the largest motion vector and
+        the pixels by extra samples earned."""
         present.launches = 0
         traverse2.launches = 0
-        r.draw()  # warm-up
+        r.draw(1 / 60)  # warm-up
         torch.cuda.synchronize()
-        rays, walls = 0, []
+        rays, walls, motion, extras = 0, [], [], []
         for _ in range(timed):
             t0 = time.perf_counter()
-            r.draw()
+            r.draw(1 / 60)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             rays += int(r.last_rays_traced)
+            motion.append(float(torch.linalg.vector_norm(r.motion, dim=-1).max()))
+            extras.append(torch.bincount((r.last_samples - r.samples_per_pixel).flatten(),
+                                         minlength=3).tolist())
         seconds = sum(walls)
         img = r.output_image()
         torch.cuda.synchronize()
@@ -352,34 +511,71 @@ def main() -> int:
             raise AssertionError(f"{tag}: no rays traced")
         if min(counts.values()) < 1:
             raise AssertionError(f"{tag}: a kernel of the path never launched: {counts}")
-        line = dict(run=tag, scene=FP.RUNS[tag]["scene"], resolution=[w, h], spp=2, bounces=4,
+        line = dict(run=tag, scene=scene_name, resolution=[w, h], spp=2, bounces=4,
+                    motion_adaptive=r.use_motion_adaptive_sampling,
                     triangles=r.statics.n_triangles, table_bytes=r.bvh.table.numel() * 4,
                     frames=timed, total_rays=rays, seconds=seconds, frame_walls=walls,
                     mrays_per_s=rays / seconds / 1e6, launches=counts,
+                    max_motion_px=motion, pixels_by_extra_samples=extras,
                     accum_mean=float(acc.mean()), image_mean=float(img.mean()),
                     card=card_name, power_limit=power_limit)
         log(json.dumps(line))
-        return counts, walls
+        return counts, walls, line
 
     def profile(tag, r):
         line = profile_run(torch, FP, tag, r, present, bounds, checks[tag], walls[tag])
         log(json.dumps(dict(run=tag, profile=line, card=card_name, power_limit=power_limit)))
         return line
 
-    checks, counts, walls = {}, {}, {}
-    checks["A"] = check_path_kernels(torch, "A", ra, present, traverse2, bounds)
-    counts["A"], walls["A"] = drive("A", ra, 3)
+    checks, counts, walls, lines, clone_ms = {}, {}, {}, {}, {}
+
+    def run(tag, r, timed):
+        checks[tag] = check_path_kernels(torch, tag, r, present, traverse2, bounds)
+        counts[tag], walls[tag], lines[tag] = drive(tag, r, timed, FP.RUNS[tag]["scene"])
+        # refit keeps its input table: it copies the whole table every call
+        clone_ms[tag] = cuda_ms(lambda: r.bvh.table.clone(), 20)
+
+    run("A", ra, 3)
     del bvh, table, args, k2, p2, eargs, last, last_m, edges
     torch.cuda.empty_cache()
     rb = make("B")
-    checks["B"] = check_path_kernels(torch, "B", rb, present, traverse2, bounds)
-    counts["B"], walls["B"] = drive("B", rb, 2)
+    run("B", rb, 2)
+    rc = make("C")
+    run("C", rc, 3)
+    prep = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        rc.prepare()
+        torch.cuda.synchronize()
+        prep.append(time.perf_counter() - t0)
+    prep = prep[1:]  # the first is a warm-up
+    c = lines["C"]
+    n_pix = rc.render_width * rc.render_height
+    shares = [[n / n_pix for n in e[1:]] for e in c["pixels_by_extra_samples"]]
+    log(json.dumps(dict(run="C", mrays_per_s=c["mrays_per_s"], prepare_s=prep,
+                        prepare_s_median=sorted(prep)[len(prep) // 2],
+                        share_1_extra=[x[0] for x in shares], share_2_extra=[x[1] for x in shares],
+                        max_motion_px=max(c["max_motion_px"]), table_clone_ms=clone_ms,
+                        card=card_name, power_limit=power_limit)))
+    if max(c["max_motion_px"]) <= 0.5:
+        raise AssertionError(f"run C: the robot moved at most {max(c['max_motion_px'])} px a frame")
+
+    # --- 5. phase D: skinning and refit at character scale ----------------------------------
+    rd, dparts = make_character(dev)
+    counts["D"], _, lines["D"] = drive("D", rd, 1, dparts["scene"])
+    clone_ms["D"] = cuda_ms(lambda: rd.bvh.table.clone(), 20)
+    check_character(torch, rd, dparts)
+
     # the profiler last: a process's frames after a profiler session ran
     # slower on the host in this script's runs (PERF.md, Findings)
-    profiles = {"A": profile("A", ra), "B": profile("B", rb)}
-    del ra, rb
+    profiles = {"A": profile("A", ra), "B": profile("B", rb), "C": profile("C", rc)}
+    for tag, r in (("C", rc), ("D", rd)):
+        log(json.dumps(dict(prepare=tag, **profile_prepare(torch, r, bounds),
+                            table_clone_ms=clone_ms[tag], card=card_name,
+                            power_limit=power_limit)))
+    del ra, rb, rc, rd
 
-    # --- 5. a small frame on the card against the CPU plain path -------------------------------
+    # --- 7. a small frame on the card against the CPU plain path -------------------------------
     def small(device):
         s = Scene(48, 48)
         s.models = [Model("sphere", position=[0, 0.5, 0], scale=0.5), Model("plane", scale=10)]
@@ -398,7 +594,7 @@ def main() -> int:
     if not rel < 1e-2 or rays_g <= 0 or abs(rays_g - rays_c) > 0.01 * rays_c:
         raise AssertionError("the card's frame disagrees with the CPU reference")
 
-    # launches: both runs' main-path counts. K1: ms is its profiler device
+    # launches: every run's main-path counts. K1: ms is its profiler device
     # time after a 64 MB write (as a frame leaves the L2) at run A's shape.
     # K2: ms, plain_ms and bound_ms are for run A's camera rays; per run, the
     # warm profiler time of one frame, the cold CUDA-event time of the
@@ -407,7 +603,7 @@ def main() -> int:
     kernels = [
         dict(name="K1 present tonemap_quantize", route="cuda",
              source="mrt_tpu_torch/csrc/present.cu", replaces="mrt_tpu/kernels/present.py:52",
-             launches=counts["A"]["present"] + counts["B"]["present"],
+             launches=sum(c["present"] for c in counts.values()),
              launches_by_run={t: counts[t]["present"] for t in counts},
              max_abs_err=max(c["k1_err"] for c in checks.values()), ms=a["k1_cold"],
              plain_ms=a["k1_plain_ms"], bound_ms=a["k1_bound_ms"], bound_by=a["k1_bound_by"],
@@ -417,7 +613,7 @@ def main() -> int:
                      for t, c in checks.items()}),
         dict(name="K2 two-level traversal", route="cuda",
              source="mrt_tpu_torch/csrc/traverse2.cu", replaces="mrt_tpu/bvh/twolevel.py:593",
-             launches=counts["A"]["traverse2"] + counts["B"]["traverse2"],
+             launches=sum(c["traverse2"] for c in counts.values()),
              launches_by_run={t: counts[t]["traverse2"] for t in counts},
              max_abs_err=max([k2_rand_err] + [c["k2"]["max_abs_err"] for c in checks.values()]),
              ms=a["k2"]["ms"], plain_ms=a["k2"]["plain_ms"], bound_ms=a["k2"]["bound_ms"],

@@ -1,8 +1,9 @@
 """mrt_tpu_torch — the PyTorch/CUDA port of the mrt_tpu progressive path tracer.
 
 The same ``Scene``/``Model``/``Renderer`` API as ``mrt_tpu`` (the JAX
-package, which stays the reference), running on an NVIDIA Hopper card with
-hand-written CUDA kernels for BVH traversal and present::
+package, which stays the reference), skinned models and motion-adaptive
+sampling included, running on an NVIDIA Hopper card with hand-written CUDA
+kernels for BVH traversal and present::
 
     from mrt_tpu_torch import Model, Renderer, Scene, UPSCALER_OFF
     scene = Scene(width=512, height=512)
@@ -10,7 +11,6 @@ hand-written CUDA kernels for BVH traversal and present::
                     Model("plane", scale=10)]
     r = Renderer(scene, output_width=512, output_height=512, device="cuda")
     r.upscaler_mode = UPSCALER_OFF
-    r.use_motion_adaptive_sampling = False
     r.draw()
     image = r.output_image()  # uint8 RGB
 """
@@ -21,11 +21,11 @@ from .core.types import (Camera, FrameUniforms, Lights, Materials, RenderSetting
 from .engine.appscene import make_app_scene
 from .engine.renderer import (UPSCALER_DENOISED, UPSCALER_OFF, UPSCALER_SPATIAL,
                               UPSCALER_TEMPORAL, Renderer)
-from .engine.scene import Model, ModelMaterialOverride, Scene
+from .engine.scene import Model, ModelMaterialOverride, Scene, SkinData
 
 __all__ = [
     "Camera", "FrameUniforms", "Lights", "Materials", "Model", "ModelMaterialOverride",
-    "RenderSettings", "Renderer", "Scene", "UPSCALER_DENOISED", "UPSCALER_OFF",
+    "RenderSettings", "Renderer", "Scene", "SkinData", "UPSCALER_DENOISED", "UPSCALER_OFF",
     "UPSCALER_SPATIAL", "UPSCALER_TEMPORAL", "area_light", "make_app_scene", "orbit_camera",
     "point_light", "spot_light", "sun_light", "types",
 ]

@@ -3,8 +3,8 @@
 The demo scene names large binary assets that the repository does not ship
 (dragon.obj, bunny.obj, robot.usdz, the HDR probe). These generators produce
 watertight meshes with matching roles: a high-poly "dragon-class" blob for
-config 3, a UV sphere and ground planes. The rigged "robot-class" cylinder
-of the JAX package comes with skinning (ROADMAP Slice B).
+config 3, a rigged "robot-class" cylinder for config 4, a UV sphere and
+ground planes.
 """
 
 from __future__ import annotations
@@ -172,3 +172,49 @@ def blob(subdivisions: int = 5, radius: float = 0.5, seed: int = 7, material=Non
     v = 0.5 + np.arcsin(np.clip(verts[:, 1] / np.maximum(np.linalg.norm(verts, axis=1), 1e-9), -1, 1)) / np.pi
     return _mesh(verts, faces.astype(np.int32), np.stack([u, v], 1), material)
 
+
+def skinned_cylinder(
+    segments_h: int = 24,
+    segments_r: int = 16,
+    height: float = 2.0,
+    radius: float = 0.25,
+    n_joints: int = 4,
+    material=None,
+):
+    """Rigged tube — the "robot-class" stand-in for robot.usdz (config 4).
+
+    Returns (MeshData, joint_indices (V,4) int32, joint_weights (V,4) f32,
+    rest_joint_positions (J,3)). Joints form a chain along +Y; weights blend
+    linearly between the two nearest joints (the classic bending-tube rig).
+    """
+    verts, uvs = [], []
+    for i in range(segments_h + 1):
+        y = height * i / segments_h
+        for j in range(segments_r + 1):
+            phi = 2 * np.pi * j / segments_r
+            verts.append((radius * np.cos(phi), y, radius * np.sin(phi)))
+            uvs.append((j / segments_r, i / segments_h))
+    idx = []
+    row = segments_r + 1
+    for i in range(segments_h):
+        for j in range(segments_r):
+            a = i * row + j
+            b = a + row
+            idx.append((a, b, a + 1))
+            idx.append((a + 1, b, b + 1))
+    mesh = _mesh(verts, idx, uvs, material)
+
+    v = np.asarray(verts, np.float32)
+    joint_y = np.linspace(0.0, height, n_joints).astype(np.float32)
+    seg = height / (n_joints - 1)
+    f = np.clip(v[:, 1] / seg, 0.0, n_joints - 1 - 1e-6)
+    j0 = np.floor(f).astype(np.int32)
+    w1 = (f - j0).astype(np.float32)
+    joint_indices = np.zeros((len(v), 4), np.int32)
+    joint_weights = np.zeros((len(v), 4), np.float32)
+    joint_indices[:, 0] = j0
+    joint_indices[:, 1] = np.minimum(j0 + 1, n_joints - 1)
+    joint_weights[:, 0] = 1.0 - w1
+    joint_weights[:, 1] = w1
+    rest_joints = np.stack([np.zeros(n_joints), joint_y, np.zeros(n_joints)], 1).astype(np.float32)
+    return mesh, joint_indices, joint_weights, rest_joints

@@ -5,9 +5,10 @@ One unified table of 128-float rows: TLAS internal rows first, then every
 BLAS's internal rows, then all leaf rows, then one row per instance
 ({world->object 3x4 inverse, world AABB, BLAS root, instance id, mask}).
 The host build and the row layout are the JAX package's, so for the same
-scene the tables are equal. ``refit`` rewrites the instance and TLAS rows
-(and, at build time, every BLAS) with torch ops. Traversal runs kernel K2
-(``kernels/traverse2.py``).
+scene the tables are equal. A skinned instance gets a BLAS of its own;
+``refit`` rewrites every skinned BLAS from the posed vertex pool, then the
+instance and TLAS rows (and, at build time, every BLAS), with torch ops.
+Traversal runs kernel K2 (``kernels/traverse2.py``).
 """
 
 from __future__ import annotations
@@ -53,9 +54,18 @@ class TwoLevelBVH:
     inst_mesh: tuple  # (I,) group ids
     stack_bound: int
     inst_masks: tuple
+    # one (Tm,3) local index tensor per SKINNED group, by skin_slot
+    skin_indices: tuple = ()
 
     def _replace(self, **kw) -> "TwoLevelBVH":
         return dataclasses.replace(self, **kw)
+
+    def to(self, device) -> "TwoLevelBVH":
+        """The same BVH with every tensor on ``device``."""
+        return self._replace(**{f.name: getattr(self, f.name).to(device)
+                                for f in dataclasses.fields(self)
+                                if isinstance(getattr(self, f.name), torch.Tensor)},
+                             skin_indices=tuple(t.to(device) for t in self.skin_indices))
 
     @property
     def stack_size(self) -> int:
@@ -116,7 +126,8 @@ def _mesh_topology(obj_tris: np.ndarray, method: str):
 def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLevelBVH:
     """Host-side build over a compiled scene (``host_mirror`` is
     ``Scene.host_mirror`` from ``Scene.compile``), then a full refit on the
-    scene's device."""
+    scene's device. Models with a ``skin`` get exclusive mesh groups: their
+    pose is refit every frame."""
     if any(getattr(m, "geometry_mask", GEOMETRY_MASK_GEOMETRY) != GEOMETRY_MASK_GEOMETRY
            for m in models):
         raise NotImplementedError("geometry-mask filtering is not ported yet (ROADMAP Slice A follow-up)")
@@ -130,14 +141,15 @@ def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLeve
     by_mesh: dict = {}
     inst_group = np.zeros(n_inst, np.int32)
     for i, m in enumerate(models):
-        key = id(m.mesh)
+        skinned = getattr(m, "skin", None) is not None
+        key = ("skin", i) if skinned else id(m.mesh)
         if key in by_mesh:
             groups[by_mesh[key]]["insts"].append(i)
             inst_group[i] = by_mesh[key]
             continue
         idx_local = np.concatenate([s.indices.reshape(-1, 3) for s in m.mesh.submeshes]).astype(np.int32)
         groups.append(dict(insts=[i], v_start=int(v_starts[i]), indices_local=idx_local,
-                           positions=m.mesh.positions))
+                           positions=m.mesh.positions, skinned=skinned))
         by_mesh[key] = len(groups) - 1
         inst_group[i] = len(groups) - 1
 
@@ -156,7 +168,9 @@ def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLeve
 
     node_child = np.full((n_int_total, ARITY), -1, np.int32)
     leaf_tri = np.full((n_leaf_total, LEAF_K), -1, np.int32)
+    device = scene_data.positions_obj.device
     mesh_meta = []
+    skin_indices = []
     int_cursor = tlas_n
     leaf_cursor = 0
     for g, (child, leaf, depth) in zip(groups, topos):
@@ -169,8 +183,12 @@ def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLeve
         node_child[int_cursor : int_cursor + ni] = c
         leaf_tri[leaf_cursor : leaf_cursor + nl] = leaf
         root_entry = int_cursor if ni > 0 else n_int_total + leaf_cursor
+        skin_slot = -1
+        if g["skinned"]:
+            skin_slot = len(skin_indices)
+            skin_indices.append(torch.as_tensor(g["indices_local"]).to(device))
         mesh_meta.append((int_cursor, ni, leaf_cursor, nl, depth, root_entry,
-                          g["v_start"], int(np.asarray(g["positions"]).shape[0]), -1))
+                          g["v_start"], int(np.asarray(g["positions"]).shape[0]), skin_slot))
         int_cursor += ni
         leaf_cursor += nl
 
@@ -187,7 +205,6 @@ def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLeve
 
     stack_bound = exact_stack_bound(_kids) if n_int_total else 1
 
-    device = scene_data.positions_obj.device
     bvh = TwoLevelBVH(
         table=torch.zeros((inst_base + n_inst, ROW), dtype=torch.float32, device=device),
         node_child=torch.as_tensor(node_child).to(device),
@@ -204,6 +221,7 @@ def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLeve
         inst_mesh=tuple(int(x) for x in inst_group),
         stack_bound=stack_bound,
         inst_masks=tuple(int(getattr(m, "geometry_mask", GEOMETRY_MASK_GEOMETRY)) for m in models),
+        skin_indices=tuple(skin_indices),
     )
     all_indices = tuple(torch.as_tensor(g["indices_local"]).to(device) for g in groups)
     return refit(bvh, scene_data.positions_obj, scene_data.instance_transform,
@@ -296,18 +314,23 @@ def _affine_inverse(M: torch.Tensor) -> torch.Tensor:
 
 def refit(bvh: TwoLevelBVH, positions_obj, instance_transform, *,
           group_indices: tuple | None = None) -> TwoLevelBVH:
-    """Rewrite the instance rows and the TLAS rows from ``instance_transform``
-    (I,4,4); with ``group_indices`` (one (Tm,3) local index tensor per mesh
-    group, as at build time) every BLAS is refit first. Static geometry is
-    never refit per frame. Returns a new BVH; the input's table is not
-    modified."""
+    """Rewrite every skinned BLAS (``skin_slot >= 0``) from the object-space
+    vertex pool ``positions_obj`` (V,3), then the instance rows and the TLAS
+    rows from ``instance_transform`` (I,4,4); with ``group_indices`` (one
+    (Tm,3) local index tensor per mesh group, as at build time) every BLAS
+    is refit. Static BLASes are never refit per frame. Returns a new BVH;
+    the input's table is not modified (the whole table is copied first)."""
     table = bvh.table.clone()
     rbmin, rbmax = bvh.root_bmin.clone(), bvh.root_bmax.clone()
-    if group_indices is not None:
-        for gi, meta in enumerate(bvh.mesh_meta):
-            v_start, v_count = meta[6], meta[7]
-            verts = positions_obj[v_start : v_start + v_count]
-            _refit_group(table, rbmin, rbmax, bvh, gi, verts, group_indices[gi])
+    for gi, meta in enumerate(bvh.mesh_meta):
+        v_start, v_count, slot = meta[6], meta[7], meta[8]
+        if slot >= 0:
+            idx = bvh.skin_indices[slot]
+        elif group_indices is not None:
+            idx = group_indices[gi]
+        else:
+            continue
+        _refit_group(table, rbmin, rbmax, bvh, gi, positions_obj[v_start : v_start + v_count], idx)
 
     # --- instance rows --------------------------------------------------------
     I = bvh.n_instances

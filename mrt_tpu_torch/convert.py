@@ -5,7 +5,9 @@ Every function takes the JAX package's objects and reads their arrays with
 very tables the JAX package built: ``Renderer.from_compiled(scene(js),
 *compiled(jax_scene_data, jax_statics, jax_bvh, device))``. ``device``
 defaults to the card and raises where there is none; CPU use passes
-``device="cpu"``.
+``device="cpu"``. Skinned state comes across too: the skin slices, the
+BVH's skinned index tensors, each model's ``SkinData`` (its skeleton and
+clip rebuilt as the port's own classes) and the scene's skin bundle.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ from .assets.texture import TextureAtlas
 from .bvh.twolevel import TwoLevelBVH
 from .core import types as T
 from .core.device import resolve as resolve_device
-from .engine.scene import Model, ModelMaterialOverride, Scene, SceneData, SceneStatics
+from .engine.scene import (Model, ModelMaterialOverride, Scene, SceneData, SceneStatics, SkinData,
+                           SkinModelData)
+from .skinning import animation as anim
 
 
 def _t(a, device):
@@ -56,19 +60,18 @@ def scene_data(sd, device=None) -> SceneData:
 
 
 def statics(st) -> SceneStatics:
-    if st.skin_slices:
-        raise NotImplementedError("skinned scenes are not ported yet (ROADMAP Slice B)")
     return SceneStatics(n_vertices=st.n_vertices, n_triangles=st.n_triangles,
                         n_instances=st.n_instances, n_resources=st.n_resources,
                         n_lights=st.n_lights, any_map=tuple(st.any_map),
                         has_refraction=st.has_refraction, has_environment=st.has_environment,
-                        has_masks=st.has_masks)
+                        has_masks=st.has_masks,
+                        skin_slices=tuple(tuple(int(x) for x in sl) for sl in st.skin_slices))
 
 
 def bvh(b, device=None) -> TwoLevelBVH:
     device = resolve_device(device)
-    if b.skin_indices or getattr(b, "leaf_clip", None) is not None:
-        raise NotImplementedError("skinned or SBVH-clipped BVHs are not ported yet")
+    if getattr(b, "leaf_clip", None) is not None:
+        raise NotImplementedError("SBVH-clipped BVHs are not ported yet (ROADMAP Slice F)")
     return TwoLevelBVH(
         table=_t(b.table, device), node_child=_t(b.node_child, device),
         leaf_tri=_t(b.leaf_tri, device), root_bmin=_t(b.root_bmin, device),
@@ -76,7 +79,7 @@ def bvh(b, device=None) -> TwoLevelBVH:
         n_internal=b.n_internal, n_leaf=b.n_leaf, n_instances=b.n_instances,
         tlas_n=b.tlas_n, tlas_depth=b.tlas_depth, mesh_meta=tuple(b.mesh_meta),
         inst_mesh=tuple(b.inst_mesh), stack_bound=b.stack_bound,
-        inst_masks=tuple(b.inst_masks))
+        inst_masks=tuple(b.inst_masks), skin_indices=tuple(_t(x, device) for x in b.skin_indices))
 
 
 def compiled(sd, st, b, device=None):
@@ -92,24 +95,45 @@ def _mesh(m) -> MeshData:
                                material=MaterialDef(**vars(s.material))) for s in m.submeshes])
 
 
+def _skin(sk) -> SkinData | None:
+    if sk is None:
+        return None
+    skel, clip = sk.skeleton, sk.animation
+    if skel is not None:
+        skel = anim.Skeleton(joint_paths=list(skel.joint_paths),
+                             rest_transforms=np.array(skel.rest_transforms, np.float32),
+                             inverse_bind_transforms=np.array(skel.inverse_bind_transforms, np.float32),
+                             parent_indices=np.array(skel.parent_indices, np.int32))
+    if clip is not None:
+        clip = anim.AnimationClip(joint_paths=list(clip.joint_paths), times=np.array(clip.times),
+                                  translations=np.array(clip.translations),
+                                  rotations=np.array(clip.rotations), scales=np.array(clip.scales))
+    return SkinData(joint_indices=np.array(sk.joint_indices), joint_weights=np.array(sk.joint_weights),
+                    rest_joints=np.array(sk.rest_joints), skeleton=skel, animation=clip,
+                    geometry_bind=None if sk.geometry_bind is None else np.array(sk.geometry_bind),
+                    current_time=float(sk.current_time))
+
+
 def scene(js) -> Scene:
     """A port ``Scene`` with the same models (meshes shared where the JAX
-    scene shares them), lights, environment and camera parameters."""
+    scene shares them, skins copied), lights, environment and camera
+    parameters, and, once the JAX scene was compiled, its skin bundle (on
+    the CPU; a ``Renderer`` moves it to its device)."""
     out = Scene(width=js.width, height=js.height)
     meshes: dict = {}
     models = []
     for m in js.models:
-        if getattr(m, "skin", None) is not None:
-            raise NotImplementedError("skinned models are not ported yet (ROADMAP Slice B)")
         if id(m.mesh) not in meshes:
             meshes[id(m.mesh)] = _mesh(m.mesh)
         o = m.material_override
         models.append(Model(
             m.name, position=np.asarray(m.position), rotation=np.asarray(m.rotation),
             scale=m.scale, mesh=meshes[id(m.mesh)], geometry_mask=m.geometry_mask,
+            skin=_skin(getattr(m, "skin", None)),
             material_override=None if o is None else ModelMaterialOverride(
                 o.base_color, o.refraction_index, o.opacity)))
     out.models = models
+    out.skin_bundle = tuple(_nt(SkinModelData, sb, "cpu") for sb in getattr(js, "skin_bundle", ()))
     out.lights = _nt(T.Lights, js.lights, "cpu")
     out.env_map = np.asarray(js.env_map, np.float32)
     out.env_intensity = float(js.env_intensity)

@@ -215,10 +215,6 @@ def check_supported(settings: RenderSettings) -> None:
         raise NotImplementedError("G-buffer outputs are not ported yet (ROADMAP Slice C)")
     if settings.debug_mode != DEBUG_MODE_NONE:
         raise NotImplementedError("debug texture modes are not ported yet (ROADMAP Slice A follow-up)")
-    if settings.max_extra_samples > 0:
-        raise NotImplementedError(
-            "motion-adaptive extra samples are not ported yet (ROADMAP Slice A follow-up); "
-            "set use_motion_adaptive_sampling = False")
     if settings.use_mipmaps:
         raise NotImplementedError("mipmapped texture sampling is not ported yet (ROADMAP Slice A follow-up)")
     if not settings.two_level or settings.traversal_backend != "wide":

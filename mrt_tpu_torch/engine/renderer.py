@@ -3,10 +3,11 @@
 Owns the compiled scene, the two-level BVH, the accumulation state and the
 tunables of the JAX ``Renderer`` (same names and defaults). Every
 quality-affecting property assignment restarts accumulation
-(``frame_index = 0``). One ``draw`` prepares the frame's geometry when the
-scene changed (world transform, packed shade/motion rows, BVH refit),
-traces every pixel of the frame, and accumulates; ``output_image`` presents
-it through kernel K1.
+(``frame_index = 0``). One ``draw`` steps the animation clock (60 Hz with
+catch-up; joint matrices on the host), prepares the frame's geometry when
+its inputs changed (skinning, world transform, packed shade/motion rows,
+BVH refit; every frame of a skinned scene), traces every pixel of the
+frame, and accumulates; ``output_image`` presents it through kernel K1.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from ..core import types as T
 from ..core.device import resolve as resolve_device
 from ..render import accumulate as acc
 from ..render import wavefront as wf
+from ..skinning import animation as anim
+from ..skinning import lbs
 from . import scene as scene_mod
 
 # Properties whose change invalidates accumulated history.
@@ -56,13 +59,26 @@ VIEW_MODE_WORLD = "world"
 VIEW_MODE_TPS = "tps"
 
 
-def prepare_frame(scene_data, bvh):
-    """World transform -> packed per-triangle rows -> BVH refit (instance and
-    TLAS rows; static BLASes are never refit)."""
+def prepare_frame(statics, scene_data, bvh, skin_bundle=(), joint_matrices=()):
+    """Skinning -> world transform -> packed per-triangle rows -> BVH refit
+    (skinned BLASes, instance and TLAS rows; static BLASes are never refit).
+    Each skinned model's slice of the vertex pool is re-skinned from its
+    rest pose with ``joint_matrices`` (one (J,4,4) tensor per model, in
+    ``statics.skin_slices`` order). Returns (scene_data with the skinned
+    pose, geometry, BVH)."""
+    if statics.skin_slices:
+        pos_obj = scene_data.positions_obj.clone()
+        nrm_obj = scene_data.normals_obj.clone()
+        for k, (_, start, count) in enumerate(statics.skin_slices):
+            sb = skin_bundle[k]
+            sp, sn = lbs.skin(sb.weights_dense, joint_matrices[k], sb.rest_positions, sb.rest_normals)
+            pos_obj[start : start + count] = sp
+            nrm_obj[start : start + count] = sn
+        scene_data = scene_data._replace(positions_obj=pos_obj, normals_obj=nrm_obj)
     pos_w, prev_w, nrm_w = scene_mod.world_geometry(scene_data)
     geom = wf.build_geometry(scene_data, pos_w, prev_w, nrm_w)
     bvh = twolevel.refit(bvh, scene_data.positions_obj, scene_data.instance_transform)
-    return geom, bvh
+    return scene_data, geom, bvh
 
 
 class FrameStats:
@@ -161,13 +177,22 @@ class Renderer:
         self._given_offsets = None if offsets is None else torch.as_tensor(np.array(offsets, np.int32))
         self.stats = FrameStats()
         self.last_rays_traced = None
+        self.last_samples = None  # (H,W) int32 samples per pixel of the last frame
         self._prepare_key = None
+
+        # animation clock: 60 Hz throttle with catch-up (SkinningPass.swift:288-312)
+        self.skinning_delta_time = 1.0 / 60.0
+        self._scene_time = 0.0
+        self._last_skinning_update = None
+        self._joint_matrices: tuple = ()
 
         if _compiled is None:
             self.scene_data, self.statics = scene.compile(self.device)
             self.bvh = twolevel.build(scene.models, self.scene_data, scene.host_mirror)
         else:
             self.scene_data, self.statics, self.bvh = _compiled
+        self._skin_bundle = tuple(scene_mod.SkinModelData(*(t.to(self.device) for t in sb))
+                                  for sb in scene.skin_bundle)
         self._allocate_state()
         object.__setattr__(self, "_initialized", True)
 
@@ -317,14 +342,55 @@ class Renderer:
         else:
             self.scene_data = self.scene_data._replace(prev_instance_transform=prev)
 
+    def _update_animation(self, delta_time: float | None):
+        """60 Hz-throttled animation stepping with catch-up
+        (SkinningPass.swift:288-312): host-side joint matrices per skinned
+        model (Model.update analog, Model.swift:207-261). A throttled frame
+        keeps the last matrices."""
+        if not self.statics.skin_slices:
+            return
+        dt = self.skinning_delta_time if delta_time is None else delta_time
+        self._scene_time += dt
+        if self._last_skinning_update is None:
+            self._last_skinning_update = self._scene_time - self.skinning_delta_time
+        elapsed = self._scene_time - self._last_skinning_update
+        if elapsed < self.skinning_delta_time and self._joint_matrices:
+            return  # skip this frame (throttle)
+        steps = int(elapsed / self.skinning_delta_time)
+        step_dt = self.skinning_delta_time * steps
+        if steps > 0:
+            self._last_skinning_update += step_dt
+
+        mats = []
+        for inst, _start, _count in self.statics.skin_slices:
+            sk = self.scene.models[inst].skin
+            if sk.animation is not None:
+                sk.current_time = anim.advance_time(sk.current_time, step_dt, sk.animation.duration)
+            if sk.skeleton is not None:
+                m = anim.compute_joint_matrices(sk.skeleton, sk.animation, sk.current_time)
+            else:
+                m = np.tile(np.eye(4, dtype=np.float32), (sk.rest_joints.shape[0], 1, 1))
+            m = lbs.compose_final_matrices(m, sk.geometry_bind)
+            mats.append(torch.as_tensor(np.ascontiguousarray(m, np.float32)).to(self.device))
+        self._joint_matrices = tuple(mats)
+
+    def prepare(self):
+        """This frame's prepare stage on the current state (no state change):
+        (scene_data with the skinned pose, geometry, BVH)."""
+        return prepare_frame(self.statics, self.scene_data, self.bvh, self._skin_bundle,
+                             self._joint_matrices)
+
     # -- frame loop -------------------------------------------------------------------------
     def draw(self, delta_time: float | None = None) -> torch.Tensor:
-        """Render one frame; returns the accumulation buffer (render size)."""
+        """Render one frame; returns the accumulation buffer (render size).
+        ``delta_time``: seconds since the last draw, for the animation
+        clock (default 1/60)."""
         settings = self.settings()
         T.check_supported(settings)
         if self._state_size != (self.render_height, self.render_width):
             self._allocate_state()
         self._sync_scene()
+        self._update_animation(delta_time)
         camera = self.current_camera()
         uniforms = T.make_frame_uniforms(
             camera=camera,
@@ -339,19 +405,28 @@ class Renderer:
         )
 
         # prepare only when its inputs changed (keyed by tensor identity; the
-        # key holds references, so an identity cannot be recycled)
+        # key holds references, so an identity cannot be recycled). A skinned
+        # scene's pose is handed forward every frame, so it misses every
+        # frame, throttled ones included (re-skinned with the same matrices)
         sd = self.scene_data
         key = (sd.instance_transform, sd.prev_instance_transform, sd.positions_obj, self.bvh)
         if self._prepare_key is None or any(a is not b for a, b in zip(self._prepare_key, key)):
-            self._geom, self._bvh_frame = prepare_frame(sd, self.bvh)
+            self._prepared = self.prepare()
             self._prepare_key = key
+        sd_frame, geom, bvh_frame = self._prepared
 
-        out = wf.trace_frame(settings, self.statics, sd, self._bvh_frame, self._geom, uniforms,
-                             self.offsets)
+        out = wf.trace_frame(settings, self.statics, sd_frame, bvh_frame, geom, uniforms,
+                             self.offsets, self.motion)
         self.accum = acc.accumulate(settings, uniforms, out.color, out.motion, self.motion, self.accum)
         self.depth, self.motion = out.depth, out.motion
+        self.last_samples = out.samples
         self.last_rays_traced = out.rays_traced.sum(dtype=torch.int64)
         self.stats.record(self.last_rays_traced)
+        if self.statics.skin_slices:
+            # this frame's skinned pose becomes the next frame's pose and
+            # previous pose (normals are re-skinned from rest every frame)
+            self.scene_data = sd._replace(positions_obj=sd_frame.positions_obj,
+                                          prev_positions_obj=sd_frame.positions_obj)
         object.__setattr__(self, "frame_index", self.frame_index + 1)
         self._previous_camera = camera
         return self.accum

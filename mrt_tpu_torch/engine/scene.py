@@ -6,7 +6,9 @@ material overrides, dirty flag). ``Scene.compile(device)`` flattens every
 model into one vertex/triangle pool in object space, per-instance 4x4
 transforms, a material table and a packed texture atlas, as torch tensors
 on ``device``; the flattening is the JAX package's NumPy code, so the
-arrays are equal.
+arrays are equal. A skinned model (``Model(skin=SkinData(...))``) also gets
+its dense weights and rest pose on the device (``Scene.skin_bundle``) and
+its vertex slice in ``SceneStatics.skin_slices``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from ..assets import texture as tex
 from ..assets.obj import MaterialDef, MeshData, load_obj
 from ..core import types as T
 from ..core.device import resolve as resolve_device
+from ..skinning import lbs
 from ..utils import math3d
 
 # The repository's own asset folder, then the folders listed in MRT_ASSET_PATH
@@ -42,15 +45,27 @@ class ModelMaterialOverride:
         return ModelMaterialOverride(tint, refraction_index, opacity)
 
 
+@dataclasses.dataclass
+class SkinData:
+    """Per-model skinning bind info (MeshSkinningInfo analog, Mesh.swift:10-15)."""
+
+    joint_indices: np.ndarray  # (V,4) int32, model-local joint ids
+    joint_weights: np.ndarray  # (V,4) f32 (NOT normalized — Skinning.metal:26-31)
+    rest_joints: np.ndarray  # (J,3) rest joint positions (procedural rigs)
+    skeleton: object | None = None  # skinning.animation.Skeleton
+    animation: object | None = None  # skinning.animation.AnimationClip
+    geometry_bind: np.ndarray | None = None  # (4,4) geometryBindTransform
+    current_time: float = 0.0
+
+
 class Model:
-    """One instance of a mesh with a TRS transform."""
+    """One instance of a mesh with a TRS transform, skinned when ``skin``
+    is given."""
 
     def __init__(self, name: str, position=(0.0, 0.0, 0.0), rotation=(0.0, 0.0, 0.0),
                  scale: float = 1.0, material_override: ModelMaterialOverride | None = None,
-                 mesh: MeshData | None = None, skin=None,
+                 mesh: MeshData | None = None, skin: SkinData | None = None,
                  geometry_mask: int = T.GEOMETRY_MASK_GEOMETRY):
-        if skin is not None:
-            raise NotImplementedError("skinned models are not ported yet (ROADMAP Slice B)")
         self.name = name
         self.geometry_mask = int(geometry_mask)
         self.position = np.asarray(position, np.float32)
@@ -58,7 +73,7 @@ class Model:
         self.scale = float(scale)
         self.material_override = material_override
         self.mesh = mesh if mesh is not None else _resolve_mesh(name)
-        self.skin = None
+        self.skin = skin
 
     def effective_materials(self) -> list[MaterialDef]:
         """Per-submesh materials with this model's override applied (a
@@ -133,6 +148,10 @@ def _resolve_mesh_uncached(name: str) -> MeshData:
     if name == "bunny":
         return procedural.blob(subdivisions=5, radius=0.3, seed=13,
                                material=MaterialDef(name="Bunny", base_color=(0.9, 0.85, 0.8)))
+    if name == "robot":
+        mesh, ji, jw, rest = procedural.skinned_cylinder()
+        mesh._skin_stub = (ji, jw, rest)  # picked up by make_app_scene
+        return mesh
     if name == "sphere":
         return procedural.uv_sphere()
     if name.startswith("plane"):
@@ -140,11 +159,19 @@ def _resolve_mesh_uncached(name: str) -> MeshData:
     raise FileNotFoundError(f"No asset or procedural stand-in for model '{name}'")
 
 
+class SkinModelData(NamedTuple):
+    """Per-skinned-model device data: dense weights + rest pose."""
+
+    weights_dense: torch.Tensor  # (Vm, J) f32
+    rest_positions: torch.Tensor  # (Vm, 3)
+    rest_normals: torch.Tensor  # (Vm, 3)
+
+
 class SceneData(NamedTuple):
     """Flattened scene as device tensors."""
 
-    positions_obj: torch.Tensor  # (V,3) f32 object space
-    prev_positions_obj: torch.Tensor  # (V,3) f32
+    positions_obj: torch.Tensor  # (V,3) f32 object space (rest or skinned)
+    prev_positions_obj: torch.Tensor  # (V,3) f32 the previous frame's
     normals_obj: torch.Tensor  # (V,3) f32
     uvs: torch.Tensor  # (V,2) f32
     vertex_instance: torch.Tensor  # (V,) int32
@@ -173,6 +200,7 @@ class SceneStatics:
     has_refraction: bool
     has_environment: bool = False
     has_masks: bool = False
+    # per skinned model: (model_index, vertex_start, vertex_count)
     skin_slices: tuple = ()
 
 
@@ -198,6 +226,7 @@ class Scene:
         self.lights = T.concat_lights(light1, light3)
         self.env_map = np.zeros((1, 1, 3), np.float32)
         self.env_intensity = 1.0
+        self.skin_bundle: tuple = ()  # per skinned model, SkinModelData (set by compile)
 
     # --- runtime API -------------------------------------------------------------
     def move_model(self, index: int, forward: float = 0.0, right: float = 0.0):
@@ -249,9 +278,18 @@ class Scene:
         indices, tri_res, tri_inst = [], [], []
         atlas_builder = tex.AtlasBuilder()
         mats: list[MaterialDef] = []
+        skin_slices, skin_bundle = [], []
         v_base = 0
         for inst, model in enumerate(self.models):
             mesh = model.mesh
+            if model.skin is not None:
+                n_joints = model.skin.rest_joints.shape[0]
+                skin_slices.append((inst, v_base, mesh.positions.shape[0]))
+                skin_bundle.append(SkinModelData(
+                    weights_dense=torch.as_tensor(lbs.dense_weights(
+                        model.skin.joint_indices, model.skin.joint_weights, n_joints)).to(device),
+                    rest_positions=torch.as_tensor(mesh.positions).to(device),
+                    rest_normals=torch.as_tensor(mesh.normals).to(device)))
             positions.append(mesh.positions)
             normals.append(mesh.normals)
             uvs.append(mesh.uvs)
@@ -344,20 +382,10 @@ class Scene:
                                 or has_np.any(axis=0)[tex.MAP_OPACITY]),
             has_environment=bool(self.env_map.size > 3 or self.env_map.max() > 0),
             has_masks=any(m.geometry_mask != T.GEOMETRY_MASK_GEOMETRY for m in self.models),
+            skin_slices=tuple(skin_slices),
         )
+        self.skin_bundle = tuple(skin_bundle)
         return data, statics
-
-
-def _xform(M: torch.Tensor, p: torch.Tensor, translate: bool) -> torch.Tensor:
-    """Per-row 3x4 affine applied to (V,3) points, with each dot product's
-    adds written out in a fixed order (no matmul, no FMA)."""
-    out = []
-    for r in range(3):
-        x = M[:, r, 0] * p[:, 0] + M[:, r, 1] * p[:, 1] + M[:, r, 2] * p[:, 2]
-        if translate:
-            x = x + M[:, r, 3]
-        out.append(x)
-    return torch.stack(out, dim=1)
 
 
 def world_geometry(scene: SceneData):
@@ -367,7 +395,7 @@ def world_geometry(scene: SceneData):
     vi = scene.vertex_instance.long()
     M = scene.instance_transform[vi]
     Mp = scene.prev_instance_transform[vi]
-    pos_w = _xform(M, scene.positions_obj, True)
-    prev_w = _xform(Mp, scene.prev_positions_obj, True)
-    nrm_w = _xform(M, scene.normals_obj, False)
+    pos_w = math3d.apply_affine(M, scene.positions_obj, True)
+    prev_w = math3d.apply_affine(Mp, scene.prev_positions_obj, True)
+    nrm_w = math3d.apply_affine(M, scene.normals_obj, False)
     return pos_w, prev_w, nrm_w

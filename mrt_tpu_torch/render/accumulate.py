@@ -6,11 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..core import types as T
-
-
-def _norm2(m):
-    return torch.sqrt(m[..., 0] * m[..., 0] + m[..., 1] * m[..., 1])
-
+from .shade import length2
 
 def accumulate(settings: T.RenderSettings, uniforms: T.FrameUniforms, color: torch.Tensor,
                motion: torch.Tensor, prev_motion: torch.Tensor,
@@ -21,7 +17,7 @@ def accumulate(settings: T.RenderSettings, uniforms: T.FrameUniforms, color: tor
         return color
     history_weight = torch.clamp(uniforms.accumulation_weight, 0.0, 0.95)
     if settings.enable_motion_adaptive_accumulation:
-        motion_mag = torch.maximum(_norm2(motion), _norm2(prev_motion))
+        motion_mag = torch.maximum(length2(motion), length2(prev_motion))
         low = torch.clamp(uniforms.motion_accum_low_px, min=0.0)
         high = torch.maximum(uniforms.motion_accum_high_px, low + 1e-3)
         t = torch.clamp((motion_mag - low) / (high - low), 0.0, 1.0)

@@ -19,6 +19,11 @@ def length(v):
     return torch.sqrt(dot3(v, v))
 
 
+def length2(v):
+    """Length of (..., 2) vectors (motion in pixels)."""
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+
+
 def normalize(v):
     return v / torch.clamp(length(v), min=1e-20)[..., None]
 

@@ -6,7 +6,10 @@ branch is a lane mask (closest hit, environment on miss, primary hit record,
 normal and texture fetch, normal mapping, the glass transparency branch,
 emission, 1-of-N light sampling over the four light types, PBR or legacy
 shading with an any-hit shadow ray, cosine-hemisphere bounce). Depth and
-motion are projected from the recorded bounce-0 hit after the loop.
+motion are projected from the recorded bounce-0 hit after sample 0. With
+motion-adaptive sampling, sample 0's motion and the previous frame's decide
+each pixel's extra samples (Raytracing.metal:779-789); a pixel's radiance is
+averaged over its own sample count.
 
 Shadow rays are traced as their own batch right after they are made (the
 JAX package may defer them into the next bounce's closest-hit batch; that
@@ -78,6 +81,7 @@ class TileOutputs(NamedTuple):
     depth: torch.Tensor  # (P,)
     motion: torch.Tensor  # (P,2) pixel units, +Y down
     rays_traced: torch.Tensor  # (P,) int32 closest + any-hit traversals launched
+    samples: torch.Tensor  # (P,) int32 samples traced (base + motion-adaptive extras)
 
 
 def sample_environment(env_map: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
@@ -123,9 +127,10 @@ def _where3(m, a, b):
 def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: SceneData,
                  bvh: twolevel.TwoLevelBVH, geom: Geometry, uniforms: T.FrameUniforms,
                  pixel_x: torch.Tensor, pixel_y: torch.Tensor, offsets: torch.Tensor,
-                 sample_base: int | None = None) -> TileOutputs:
+                 prev_motion: torch.Tensor, sample_base: int | None = None) -> TileOutputs:
     """Trace every sample of P pixels (lanes). pixel_x/pixel_y/offsets: (P,)
-    int32 on the scene's device."""
+    int32 on the scene's device; prev_motion (P,2): the previous frame's
+    motion at these pixels, for the motion-adaptive extra samples."""
     T.check_supported(settings)
     P = pixel_x.shape[0]
     dev = pixel_x.device
@@ -136,6 +141,7 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
     height_f = torch.tensor(float(settings.height), dtype=f32, device=dev)
     base = uniforms.frame_index * settings.sample_stride if sample_base is None else sample_base
     base_samples = settings.base_samples
+    max_extra = settings.max_extra_samples
     # each iteration consumes a bounce or a transparency pass (passes cap at
     # max_bounces), so this bound never cuts a live lane
     max_iters = settings.max_bounces * (settings.max_bounces + 2) + 2
@@ -153,8 +159,11 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
 
     total_color = torch.zeros((P, 3), dtype=f32, device=dev)
     rays_total = torch.zeros(P, dtype=torch.int32, device=dev)
+    total = torch.full((P,), base_samples, dtype=torch.int32, device=dev)
+    n_samples = base_samples
     depth0 = motion0 = None
-    for sidx in range(base_samples):
+    sidx = 0
+    while sidx < n_samples:
         hidx = offsets + base + sidx
         is_sample0 = sidx == 0
         ray_o, ray_d = camera_rays(sidx)
@@ -163,7 +172,8 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
         bounce = torch.zeros(P, dtype=torch.int32, device=dev)
         step = torch.zeros(P, dtype=torch.int32, device=dev)
         tpasses = torch.zeros(P, dtype=torch.int32, device=dev)
-        active = torch.ones(P, dtype=torch.bool, device=dev)
+        # a lane past its own sample count neither adds radiance nor counts rays
+        active = total > sidx
         depth = torch.full((P,), 1.0e8, dtype=f32, device=dev)
         motion = torch.zeros((P, 2), dtype=f32, device=dev)
         prim_tri = torch.full((P,), -1, dtype=torch.int32, device=dev)
@@ -415,24 +425,38 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
             prim_ok = prim_tri >= 0
             depth0 = torch.where(prim_ok, torch.clamp(pdepth, min=1.0e-3), depth)
             motion0 = _where3(prim_ok, torch.stack([motion_px_x, motion_px_y], -1), motion)
+            if max_extra > 0:
+                # decided once, after sample 0 (Raytracing.metal:779-789)
+                motion_mag = torch.maximum(S.length2(motion0), S.length2(prev_motion))
+                low = torch.clamp(uniforms.motion_sampling_low_px, min=0.0)
+                high = torch.maximum(uniforms.motion_sampling_high_px, low + 1e-3)
+                t = torch.clamp((motion_mag - low) / (high - low), 0.0, 1.0)
+                extra = torch.round(t * max_extra).to(torch.int32).clamp(0, max_extra)
+                total = base_samples + extra
+                # the loop runs to the batch's largest count: one host sync
+                n_samples = min(settings.sample_stride, base_samples + int(extra.max()))
         total_color = total_color + accumulated
         rays_total = rays_total + rays
+        sidx += 1
 
-    return TileOutputs(color=total_color / float(base_samples), depth=depth0, motion=motion0,
-                       rays_traced=rays_total)
+    return TileOutputs(color=total_color / total.to(f32)[:, None], depth=depth0, motion=motion0,
+                       rays_traced=rays_total, samples=total)
 
 
-def trace_frame(settings, statics, scene, bvh, geom, uniforms, offsets: torch.Tensor) -> TileOutputs:
-    """Trace the whole (H,W) frame, ``LANE_BATCH`` pixels at a time.
-    Returns TileOutputs with (H,W) leading dims."""
+def trace_frame(settings, statics, scene, bvh, geom, uniforms, offsets: torch.Tensor,
+                prev_motion: torch.Tensor) -> TileOutputs:
+    """Trace the whole (H,W) frame, ``LANE_BATCH`` pixels at a time;
+    ``prev_motion`` (H,W,2) is the previous frame's motion. Returns
+    TileOutputs with (H,W) leading dims."""
     h, w = offsets.shape
     dev = offsets.device
     n = h * w
     idx = torch.arange(n, dtype=torch.int32, device=dev)
     px_all, py_all, offs_all = idx % w, idx // w, offsets.reshape(-1)
+    pmot_all = prev_motion.reshape(n, 2)
     parts = []
     for s in range(0, n, LANE_BATCH):
         sl = slice(s, min(s + LANE_BATCH, n))
         parts.append(trace_pixels(settings, statics, scene, bvh, geom, uniforms,
-                                  px_all[sl], py_all[sl], offs_all[sl]))
+                                  px_all[sl], py_all[sl], offs_all[sl], pmot_all[sl]))
     return TileOutputs(*(torch.cat(f).reshape((h, w) + f[0].shape[1:]) for f in zip(*parts)))

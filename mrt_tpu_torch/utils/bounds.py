@@ -11,12 +11,16 @@ Peak rates, H100 SXM (NVIDIA's data sheet, 700 W): 3.35 TB/s of HBM3 and
 multiply-add as two operations (132 SMs x 128 lanes x 2 x 1.98 GHz). The
 kernels are built with ``-fmad=false``, so each add, sub, mul, min, max,
 compare and division they count is one instruction, issued at half that:
-PEAK_F32_OPS.
+PEAK_F32_OPS. A product's fused multiply-add is one instruction too.
+
+Besides the kernels: the two torch-op stages of an animated frame's
+prepare, the LBS product (``lbs``) and the skinned refit (``refit``), whose
+bounds say what a hand kernel could gain there.
 """
 
 from __future__ import annotations
 
-from ..bvh.wide import ARITY, IDS_OFF, LEAF_K, META_OFF, decode_ids
+from ..bvh.wide import ARITY, IDS_OFF, LEAF_K, META_OFF, ROW, decode_ids
 
 PEAK_BYTES = 3.35e12
 PEAK_F32_OPS = 67e12 / 2
@@ -90,3 +94,35 @@ def k2(work: dict[str, int], n_lanes: int, n_live: int) -> tuple[float, str]:
     nbytes = (work["row_bytes"] + n_live * K2_BYTES_LIVE_LANE
               + (n_lanes - n_live) * K2_BYTES_DEAD_LANE)
     return least_ms(work["ops"], nbytes)
+
+
+def lbs(n_vertices: int, n_joints: int) -> tuple[float, str]:
+    """Bound of ``skinning.lbs.skin`` for one model: the (V,J) weights, the
+    rest positions and normals and the (J,4,4) matrices read, the skinned
+    positions and normals written; V*J*12 multiply-adds of the product and
+    33 operations per vertex of the affine apply."""
+    v, j = n_vertices, n_joints
+    nbytes = v * j * 4 + v * 6 * 4 + j * 16 * 4 + v * 6 * 4
+    return least_ms(v * j * 12 + v * 33, nbytes)
+
+
+def refit(bvh) -> tuple[float, str]:
+    """Bound of one per-frame ``bvh.twolevel.refit``: the skinned groups'
+    posed vertices, indices, leaf and child ids and the instance transforms
+    read; the skinned groups' leaf and internal rows, the instance rows,
+    the TLAS rows and the root boxes written (512 B a row). Operations: the
+    leaf boxes (a min and a max per vertex coordinate), one min and max per
+    child box coordinate in each of the depth + 1 internal passes, the 8
+    corners and the inverse of each instance, and the TLAS passes."""
+    nbytes = ops = 0
+    for _il, ni, _ll, nl, depth, _root, _vs, v_count, slot in bvh.mesh_meta:
+        if slot < 0:
+            continue
+        n_tris = bvh.skin_indices[slot].shape[0]
+        nbytes += v_count * 12 + n_tris * 12 + nl * LEAF_K * 4 + ni * ARITY * 4
+        nbytes += (nl + ni) * ROW * 4 + 24
+        ops += nl * LEAF_K * 9 * 2 + ni * ARITY * 3 * 2 * (depth + 1)
+    n_inst, tn = bvh.n_instances, bvh.tlas_n
+    nbytes += n_inst * 64 + tn * ARITY * 4 + (n_inst + tn) * ROW * 4
+    ops += n_inst * (8 * 3 * 8 + 60) + tn * ARITY * 3 * 2 * (bvh.tlas_depth + 1)
+    return least_ms(ops, nbytes)

@@ -5,12 +5,15 @@
 Run A is the flagship frame of ``bench.py`` without the train/treefir OBJs
 (1920x1080); run B is the same scene with the 1.31M-triangle dragon at
 1024x576. Both render 2 spp, 4 bounces, upscaler and motion-adaptive
-sampling off. ``chip_smoke.py`` drives the same runs.
+sampling off. Run C is the animated app frame: run A's scene plus the
+swing-rigged robot stand-in, with motion-adaptive sampling on (up to 2
+extra samples), each frame one 60 Hz animation step. ``chip_smoke.py``
+drives the same runs.
 
 For each run, after two warm-up frames, ``frame_walls`` times FRAMES
 unprofiled frames between ``torch.cuda.synchronize()`` calls (every run's
 before any profiler session); then ``profile_frame`` times one
-``prepare_frame`` and one frame under ``torch.profiler``. The device's busy time is the sum of the
+``Renderer.prepare`` and one frame under ``torch.profiler``. The device's busy time is the sum of the
 device events of the profiled frame (kernels, copies, fills; one stream, so
 they do not overlap); the idle share is 1 - busy / the median unprofiled
 frame wall, because the profiler slows the host that issues the ops but not
@@ -38,18 +41,21 @@ RUNS = {
               dragon_subdivisions=None),
     "B": dict(scene="dragon_1m (blob subdivisions=8) without train/treefir", width=1024,
               height=576, dragon_subdivisions=8),
+    "C": dict(scene="flagship without train/treefir, with the swing-rigged robot stand-in",
+              width=1920, height=1080, dragon_subdivisions=None, robot=True, motion_adaptive=True),
 }
 
 
-def configure(r):
-    """The main path's settings: 2 spp, 4 bounces, upscaler and
-    motion-adaptive sampling off."""
+def configure(r, motion_adaptive: bool = False):
+    """The main path's settings: 2 spp, 4 bounces, upscaler off,
+    motion-adaptive sampling off unless asked for (then the Renderer's
+    default of at most 2 extra samples)."""
     from ..engine.renderer import UPSCALER_OFF
 
     r.upscaler_mode = UPSCALER_OFF
     r.samples_per_pixel = 2
     r.max_bounces = 4
-    r.use_motion_adaptive_sampling = False
+    r.use_motion_adaptive_sampling = motion_adaptive
 
 
 def make_renderer(tag: str, device, seed: int = 0):
@@ -58,10 +64,10 @@ def make_renderer(tag: str, device, seed: int = 0):
     from ..engine.renderer import Renderer
 
     run = RUNS[tag]
-    scene = make_app_scene(run["width"], run["height"], include_robot=False, asset_models=False,
-                           dragon_subdivisions=run["dragon_subdivisions"])
+    scene = make_app_scene(run["width"], run["height"], include_robot=run.get("robot", False),
+                           asset_models=False, dragon_subdivisions=run["dragon_subdivisions"])
     r = Renderer(scene, run["width"], run["height"], seed=seed, device=device)
-    configure(r)
+    configure(r, run.get("motion_adaptive", False))
     return r
 
 
@@ -89,14 +95,13 @@ def profile_frame(r, table_out=None, walls=None) -> dict:
     ``walls`` are its unprofiled frame walls, timed here when None."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ..engine.renderer import prepare_frame
     from ..kernels import traverse2
 
     dev = r.device
     if walls is None:
         walls = frame_walls(r)
     t0 = time.perf_counter()
-    prepare_frame(r.scene_data, r.bvh)
+    r.prepare()
     _sync(dev)
     prepare_s = time.perf_counter() - t0
 

@@ -3,11 +3,13 @@
 
 NumPy row-major here; the reference stores column-major simd matrices. We keep
 the same *math*: matrices act on column vectors, composition order matches.
+``apply_affine`` applies per-row 3x4 affines to tensors on the device.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def translate(t) -> np.ndarray:
@@ -51,3 +53,36 @@ def rotate_euler(r) -> np.ndarray:
 def trs(translation, rotation_euler, s) -> np.ndarray:
     """translate @ rotate @ scale (Model.swift:55-58)."""
     return translate(translation) @ rotate_euler(rotation_euler) @ scale(s)
+
+
+def quat_to_matrix(q: np.ndarray) -> np.ndarray:
+    """Unit quaternion (x, y, z, w) -> 4x4 rotation."""
+    x, y, z, w = q
+    m = np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w), 0],
+            [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w), 0],
+            [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y), 0],
+            [0, 0, 0, 1],
+        ],
+        np.float32,
+    )
+    return m
+
+
+def trs_quat(translation, quat_xyzw, s) -> np.ndarray:
+    """matrix4x4_trs (Model.swift:501-506): translate @ rot(q) @ scale."""
+    return translate(translation) @ quat_to_matrix(np.asarray(quat_xyzw, np.float32)) @ scale(s)
+
+
+def apply_affine(M: torch.Tensor, p: torch.Tensor, translate: bool) -> torch.Tensor:
+    """Per-row 3x4 affine ``M`` (..., 3, >=3) applied to (V,3) points, with
+    each dot product's adds written out in a fixed order (no matmul, no
+    FMA); ``translate=False`` drops the fourth column (directions)."""
+    out = []
+    for r in range(3):
+        x = M[:, r, 0] * p[:, 0] + M[:, r, 1] * p[:, 1] + M[:, r, 2] * p[:, 2]
+        if translate:
+            x = x + M[:, r, 3]
+        out.append(x)
+    return torch.stack(out, dim=1)

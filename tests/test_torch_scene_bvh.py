@@ -221,12 +221,13 @@ def test_native_build_failure_raises(tmp_path, monkeypatch):
 
 
 def test_unported_scene_features_raise():
-    from mrt_tpu_torch import Model, Scene, make_app_scene
+    """Geometry masks and SBVH leaf clip boxes are not ported: both raise."""
+    from types import SimpleNamespace
+
+    from mrt_tpu_torch import Model, Scene
 
     with pytest.raises(NotImplementedError):
-        make_app_scene(include_robot=True)
-    with pytest.raises(NotImplementedError):
-        Model("sphere", skin=object())
+        convert.bvh(SimpleNamespace(leaf_clip=np.zeros((1, 6), np.float32)), device="cpu")
     s = Scene(8, 8)
     s.models = [Model("sphere", geometry_mask=T.GEOMETRY_MASK_LIGHT), Model("plane")]
     d, _ = s.compile("cpu")

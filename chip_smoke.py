@@ -35,12 +35,30 @@ never prints its last line):
      Checks: the card's LBS against a float64 NumPy LBS within 1e-5 of the
      rig's extent; the card's refit bit-equal to the CPU's on the same
      posed vertices in the skinned BLAS rows, the other rows within 1e-6;
-  6. after every run was driven, under torch.profiler: K1's device time,
+  6. run E, the presenter chain: run C's scene rendered at 1920x1080
+     (render scale 0.5), 1 spp, 2 bounces, motion-adaptive sampling on, and
+     presented at 3840x2160 through the spatial (Lanczos-3), temporal and
+     SVGF-lite denoised upscalers in turn on one renderer. Per mode, with
+     the launch counters set to 0: a warm-up frame, 3 orbit frames
+     (orbit(0.02, 0), draw(1/30), present_device) and 3 still frames
+     (draw(1/60), present_device), each frame's wall between syncs.
+     Checks: after an orbit frame the temporal and denoised state is
+     bit-equal to a history-free present's, after a still frame the output
+     differs from it; the denoiser's G-buffer is finite and its history
+     grows; the present of the last frame's buffers and state on the card
+     against the same on the CPU (linear output, new history and
+     DenoiseState within 1e-5 relative RMSE, uint8 within 1 LSB); K1
+     uint8-equal to its plain version on each mode's (2160,3840,3) output;
+  7. after every run was driven, under torch.profiler: K1's device time,
      warm and after a 64 MB write (cold), K2's device time over one more
-     steady frame of runs A-C (warm L2), and phase D's LBS and refit device
-     time per animated frame beside their bounds;
-  7. a small frame traced on the card against the same frame traced on the
-     CPU through the plain versions.
+     steady frame of runs A-C (warm L2), phase D's LBS and refit device
+     time per animated frame beside their bounds, and run E's present
+     device time and events per mode, its resize products' and denoiser's
+     device time and K1's at (2160,3840,3), beside their bounds;
+  8. a 48x48 frame traced and presented in every presenter mode on the card
+     against the same frames on the CPU through the plain versions (the
+     accumulation and the presented output within 1e-2 relative RMSE, the
+     G-buffer within 1e-5 on at least 99.9 % of pixels).
 The line before the last is {"kernels": [...]}, with each kernel's bound
 (mrt_tpu_torch/utils/bounds.py); the last line is
 {"ok": true, "device": {...}}.
@@ -83,43 +101,68 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled(torch, fn, reps: int, host: bool = False):
+    """torch.profiler's (events, key averages) of ``reps`` calls of ``fn``
+    (device activity, and the host's if ``host``), recorded in a second
+    cycle after a traced warm-up cycle of as many calls: a session's first
+    device events can go missing (one saw 5 of 20 kernels)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    out = []
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=acts, schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: out.append((p.events(), p.key_averages()))) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    if not out:
+        raise AssertionError("the profiler recorded no cycle")
+    return out[0]
+
+
+def device_events(torch, events):
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def device_ms(torch, fn, name: str, reps: int, flush=None) -> float:
     """Mean device time in ms of the kernels whose name holds ``name`` (one
     per call of ``fn``), from torch.profiler over ``reps`` calls; ``flush``
-    (if given) runs before each call, outside the sum."""
-    from torch.profiler import ProfilerActivity, profile
+    (if given) runs before each call, outside the sum. A session that saw
+    fewer than half of them is run again, up to three times."""
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
-    if len(ev) < reps // 2:  # the profiler may drop the first few of a session
-        raise AssertionError(f"the profiler saw {len(ev)} '{name}' kernels in {reps} calls")
-    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev)
+    def call():
+        if flush is not None:
+            flush()
+        fn()
+
+    for _ in range(3):
+        ev = [e for e in device_events(torch, profiled(torch, call, reps)[0]) if name in e.name]
+        if len(ev) >= reps // 2:
+            return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev)
+    raise AssertionError(f"the profiler saw {len(ev)} '{name}' kernels in {reps} calls")
 
 
 def device_total_ms(torch, fn, reps: int) -> tuple[float, float]:
     """Mean device time in ms of everything ``fn`` runs on the card
     (kernels, copies, fills) and its device events per call, from
-    torch.profiler over ``reps`` calls after one warm call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    torch.profiler over ``reps`` calls."""
+    ev = device_events(torch, profiled(torch, fn, reps)[0])
     if not ev:
         raise AssertionError("the profiler saw no device events")
     return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps, len(ev) / reps
+
+
+def device_ops(torch, fn, reps: int, top: int = 8) -> dict:
+    """The ``top`` operators of ``fn`` by their own device time, in ms per
+    call, from torch.profiler (host and device) over ``reps`` calls."""
+    averages = profiled(torch, fn, reps, host=True)[1]
+    ops = sorted(((a.key, a.self_device_time_total / 1e3 / reps) for a in averages),
+                 key=lambda kv: -kv[1])
+    return {k: v for k, v in ops[:top] if v > 0}
 
 
 def lbs_float64(positions, normals, ji, jw, mats):
@@ -389,6 +432,230 @@ def profile_prepare(torch, r, bounds):
     return out
 
 
+E_MODES = ("spatial", "temporal", "denoised")
+
+
+def bits_equal(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def rel_rmse(a, b) -> float:
+    from mrt_tpu_torch.utils.image import relative_rmse
+
+    return relative_rmse(a.cpu().numpy(), b.cpu().numpy())
+
+
+def history_free(r, presenter):
+    """The renderer's present with no history (as right after a reset), on
+    its current buffers; the renderer's own state is left as it was."""
+    saved = (r._upscale_history, r._denoise_state)
+    r._clear_presenter_history()
+    try:
+        return presenter.present_linear(r)
+    finally:
+        object.__setattr__(r, "_upscale_history", saved[0])
+        object.__setattr__(r, "_denoise_state", saved[1])
+
+
+def drive_e(torch, r, mode, present, traverse2, presenter, timed=3):
+    """Run E in one presenter mode, with the launch counters set to 0 first:
+    a warm-up frame, ``timed`` orbit frames (orbit(0.02, 0), draw(1/30),
+    present_device, as the reference's interactive drive) and ``timed``
+    still frames (draw(1/60), present_device), each frame's wall between
+    syncs. After each frame (untimed, launching neither kernel) the
+    history lifecycle: in the stateful modes an orbit frame's new state is
+    bit-equal to a history-free present's, a still frame's output differs
+    from it. Returns (launch counts, the mode's line)."""
+    r.upscaler_mode = mode
+    present.launches = 0
+    traverse2.launches = 0
+    r.orbit(0.02, 0.0)
+    r.draw(1 / 30)
+    r.present_device()  # warm-up
+    torch.cuda.synchronize()
+    walls, rays, history_used = [], 0, []
+    for i in range(2 * timed):
+        orbit = i < timed
+        t0 = time.perf_counter()
+        if orbit:
+            r.orbit(0.02, 0.0)
+            r.draw(1 / 30)
+        else:
+            r.draw(1 / 60)
+        img = r.present_device()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        rays += int(r.last_rays_traced)
+        if mode == "spatial":
+            continue
+        lin_f, hist_f, d_f = history_free(r, presenter)
+        same = bits_equal(torch, r._upscale_history, hist_f)
+        if mode == "denoised":
+            same = same and all(bits_equal(torch, a, b) for a, b in zip(r._denoise_state, d_f))
+        history_used.append(not same)
+        if same != orbit:
+            kind, how = ("orbit", "differs from") if orbit else ("still", "equals")
+            raise AssertionError(f"run E {mode}, frame {i} ({kind}): the present {how} a "
+                                 "history-free one")
+    counts = {"present": present.launches, "traverse2": traverse2.launches}
+    if min(counts.values()) < 1:
+        raise AssertionError(f"run E {mode}: a kernel of the path never launched: {counts}")
+    acc = r.accum
+    if not bool(torch.isfinite(acc).all()) or float(acc.max()) <= 0.0:
+        raise AssertionError(f"run E {mode}: accumulation is not finite or is all black")
+    if img.shape != (r.output_height, r.output_width, 3) or img.dtype != torch.uint8:
+        raise AssertionError(f"run E {mode}: image {tuple(img.shape)} {img.dtype}")
+    line = dict(run="E", mode=mode, output=[r.output_width, r.output_height],
+                resolution=[r.render_width, r.render_height], spp=r.samples_per_pixel,
+                bounces=r.max_bounces, upscaler=r.upscaler_mode,
+                motion_adaptive=r.use_motion_adaptive_sampling, frames=2 * timed,
+                frame_walls_orbit=walls[:timed], frame_walls_still=walls[timed:],
+                total_rays=rays, seconds=sum(walls), mrays_per_s=rays / sum(walls) / 1e6,
+                launches=counts, history_used=history_used, accum_mean=float(acc.mean()),
+                image_mean=float(img.float().mean()))
+    if mode == "denoised":
+        gb = r.gbuffer
+        if gb is None or not all(bool(torch.isfinite(v).all()) for v in gb.values()):
+            raise AssertionError("run E denoised: no finite G-buffer")
+        line["history_length_max"] = float(r._denoise_state.history_length.max())
+        if line["history_length_max"] <= 1.0:
+            raise AssertionError("run E denoised: the denoiser built no history")
+    return counts, line
+
+
+def check_e_mode(torch, r, present, presenter, T):
+    """The renderer's present (its current buffers and state) on the card
+    against the same on the CPU: linear output, new history and
+    DenoiseState within 1e-5 relative RMSE, uint8 within 1 LSB; and K1
+    uint8-equal to its plain version on the card's linear output. Returns
+    (numbers, the card's linear output)."""
+    from types import SimpleNamespace
+
+    lin_g, hist_g, d_g = presenter.present_linear(r)
+    cpu = SimpleNamespace(
+        upscaler_mode=r.upscaler_mode, output_height=r.output_height, output_width=r.output_width,
+        accumulation_weight=r.accumulation_weight, accum=r.accum.cpu(), depth=r.depth.cpu(),
+        motion=r.motion.cpu(),
+        gbuffer=None if r.gbuffer is None else {k: v.cpu() for k, v in r.gbuffer.items()},
+        _upscale_history=None if r._upscale_history is None else r._upscale_history.cpu(),
+        _denoise_state=None if r._denoise_state is None else T.to_device(r._denoise_state, "cpu"))
+    t0 = time.perf_counter()
+    lin_c, hist_c, d_c = presenter.present_linear(cpu)
+    cpu_s = time.perf_counter() - t0
+    x = lin_g.contiguous()
+    k1 = present.tonemap_quantize(x)
+    k1_bad = int((k1 != present.tonemap_quantize_plain(x)).sum())
+    lsb = int((k1.cpu().int() - present.tonemap_quantize_plain(lin_c).int()).abs().max())
+    errs = dict(linear=rel_rmse(lin_g, lin_c))
+    if hist_g is not None:
+        errs["history"] = rel_rmse(hist_g, hist_c)
+    if d_g is not None:
+        errs.update({f"denoise_{f}": rel_rmse(a, b) for f, a, b in zip(d_g._fields, d_g, d_c)})
+    out = dict(card_vs_cpu_rel_rmse=errs, card_vs_cpu_lsb=lsb, cpu_present_s=cpu_s,
+               k1_shape=list(x.shape), k1_mismatches=k1_bad)
+    if k1_bad:
+        raise AssertionError(f"run E {r.upscaler_mode}: K1 disagrees with its plain version")
+    if lsb > 1 or max(errs.values()) > 1e-5:
+        raise AssertionError(f"run E {r.upscaler_mode}: the card's present disagrees with the "
+                             f"CPU's: {out}")
+    return out, x
+
+
+def profile_e(torch, FP, r, present, bounds, x4k, walls):
+    """Run E under the profiler, after every run's timed frames: per mode,
+    one more frame, one frame (draw and present) profiled as runs A-C are
+    (its idle share against the median of the mode's still frame walls,
+    ``walls``), then the present's device time and events (5 calls) and
+    its costliest operators; on the denoised buffers each resize product's
+    and the denoiser's device time beside its bound; K1 at the output
+    shape, warm and after a 64 MB write (cold), beside its CUDA-event and
+    plain times."""
+    from mrt_tpu_torch.upscale import denoise, spatial
+
+    h, w, oh, ow = r.render_height, r.render_width, r.output_height, r.output_width
+    out = {}
+    for mode in E_MODES:
+        r.upscaler_mode = mode
+        r.draw(1 / 60)
+        r.present_device()
+        out[f"frame_{mode}"] = FP.profile_frame(r, walls=walls[mode])
+        ms, ev = device_total_ms(torch, r.present_device, 5)
+        out[f"present_{mode}"] = dict(ms=ms, device_events=ev,
+                                      top_ops_ms=device_ops(torch, r.present_device, 3))
+    six = torch.cat([r.accum, r.depth[..., None], r.motion], dim=-1)
+    dstate, gb = r._denoise_state, r.gbuffer
+    for name, fn, reps, bound in (
+            ("resize_lanczos3_3ch", lambda: spatial.resize(r.accum, oh, ow, "lanczos3"), 5,
+             bounds.resize(h, w, oh, ow, 3)),
+            ("resize_bilinear_6ch", lambda: spatial.resize(six, oh, ow, "bilinear"), 5,
+             bounds.resize(h, w, oh, ow, 6)),
+            ("denoiser", lambda: denoise.svgf_filter(r.accum, gb, r.depth, r.motion, dstate), 3,
+             bounds.denoiser(h, w))):
+        ms, ev = device_total_ms(torch, fn, reps)
+        out[name] = dict(ms=ms, device_events=ev, bound_ms=bound[0], bound_by=bound[1])
+    out["present_bounds_ms"] = dict(spatial=bounds.resize(h, w, oh, ow, 3)[0],
+                                    temporal=bounds.temporal_chain(h, w, oh, ow)[0],
+                                    denoised=bounds.denoised_chain(h, w, oh, ow)[0])
+    scratch = torch.empty(16 << 20, dtype=torch.float32, device=r.device)  # 64 MB > the 50 MB L2
+    k1 = dict(ms_warm=device_ms(torch, lambda: present.tonemap_quantize(x4k), "present_kernel", 20),
+              ms_cold=device_ms(torch, lambda: present.tonemap_quantize(x4k), "present_kernel", 20,
+                                flush=lambda: scratch.fill_(1.0)),
+              ms_events=cuda_ms(lambda: present.tonemap_quantize(x4k), 50),
+              plain_ms=cuda_ms(lambda: present.tonemap_quantize_plain(x4k), 20))
+    k1["bound_ms"], k1["bound_by"] = bounds.k1(tuple(x4k.shape))
+    del scratch
+    return out, k1
+
+
+def small_frames(device) -> dict:
+    """Phase 7's 48x48 sphere and plane, two frames in each presenter mode
+    (off at 48x48, the others from a 0.67-scale 32x32 render): per mode the
+    accumulation, rays, presented linear output and G-buffer, on the CPU."""
+    from mrt_tpu_torch import UPSCALER_OFF, Model, Renderer, Scene
+    from mrt_tpu_torch.upscale import presenter
+    from mrt_tpu_torch.utils import frame_profile as FP
+
+    s = Scene(48, 48)
+    s.models = [Model("sphere", position=[0, 0.5, 0], scale=0.5), Model("plane", scale=10)]
+    r = Renderer(s, 48, 48, seed=3, device=device)
+    FP.configure(r)
+    r.max_bounces = 3
+    out = {}
+    for mode in (UPSCALER_OFF,) + E_MODES:
+        r.upscaler_mode = mode
+        r.render_scale = 1.0 if mode == UPSCALER_OFF else 0.67
+        for _ in range(2):
+            r.draw()
+            lin = presenter.present_linear(r)[0]
+            r.present_device()
+        gb = None if r.gbuffer is None else {k: v.cpu() for k, v in r.gbuffer.items()}
+        out[mode] = (r.accum.cpu(), int(r.last_rays_traced), lin.cpu(), gb)
+    return out
+
+
+def check_small_frames(dev):
+    """Phase 7: the small frames on the card against the CPU plain path: the
+    accumulation and the presented linear output within 1e-2 relative RMSE,
+    rays within 1 %, the G-buffer within 1e-5 on at least 99.9 % of pixels."""
+    small_g, small_c = small_frames(dev), small_frames("cpu")
+    for mode, (acc_g, rays_g, lin_g, gb_g) in small_g.items():
+        acc_c, rays_c, lin_c, gb_c = small_c[mode]
+        rel, rel_lin = rel_rmse(acc_g, acc_c), rel_rmse(lin_g, lin_c)
+        msg = (f"small frame 48x48, {mode}: card vs CPU relative RMSE {rel:.3e} in the "
+               f"accumulation, {rel_lin:.3e} in the presented linear output (limit 1e-2), "
+               f"rays {rays_g} vs {rays_c}")
+        bad = (not (rel < 1e-2 and rel_lin < 1e-2) or rays_g <= 0
+               or abs(rays_g - rays_c) > 0.01 * rays_c)
+        if gb_g is not None:
+            close = {k: float(((gb_g[k] - gb_c[k]).abs() <= 1e-5).reshape(*gb_g[k].shape[:2], -1)
+                              .all(dim=-1).float().mean()) for k in gb_g}
+            msg += f"; G-buffer pixels within 1e-5 (limit 0.999): {close}"
+            bad = bad or min(close.values()) < 0.999
+        log(msg)
+        if bad:
+            raise AssertionError(f"the card's frame disagrees with the CPU reference ({mode})")
+
+
 def main() -> int:
     import torch
 
@@ -400,9 +667,10 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from mrt_tpu_torch import Model, Renderer, Scene
     from mrt_tpu_torch.core import halton as H
+    from mrt_tpu_torch.core import types as T
     from mrt_tpu_torch.kernels import build, present, traverse2
+    from mrt_tpu_torch.upscale import presenter
     from mrt_tpu_torch.utils import bounds
     from mrt_tpu_torch.utils import frame_profile as FP
 
@@ -511,7 +779,8 @@ def main() -> int:
             raise AssertionError(f"{tag}: no rays traced")
         if min(counts.values()) < 1:
             raise AssertionError(f"{tag}: a kernel of the path never launched: {counts}")
-        line = dict(run=tag, scene=scene_name, resolution=[w, h], spp=2, bounces=4,
+        line = dict(run=tag, scene=scene_name, resolution=[w, h], spp=r.samples_per_pixel,
+                    bounces=r.max_bounces, upscaler=r.upscaler_mode,
                     motion_adaptive=r.use_motion_adaptive_sampling,
                     triangles=r.statics.n_triangles, table_bytes=r.bvh.table.numel() * 4,
                     frames=timed, total_rays=rays, seconds=seconds, frame_walls=walls,
@@ -566,33 +835,32 @@ def main() -> int:
     clone_ms["D"] = cuda_ms(lambda: rd.bvh.table.clone(), 20)
     check_character(torch, rd, dparts)
 
-    # the profiler last: a process's frames after a profiler session ran
+    # --- 6. run E: the presenter chain, a 1080p render presented at 4K -----------------------
+    re_ = make("E")
+    e_lines, e_checks = {}, {}
+    counts["E"] = {"present": 0, "traverse2": 0}
+    for mode in E_MODES:
+        c, e_lines[mode] = drive_e(torch, re_, mode, present, traverse2, presenter)
+        counts["E"] = {k: n + c[k] for k, n in counts["E"].items()}
+        e_checks[mode], x4k = check_e_mode(torch, re_, present, presenter, T)
+        e_lines[mode].update(e_checks[mode], card=card_name, power_limit=power_limit)
+        log(json.dumps(e_lines[mode]))
+
+    # --- 7. the profiler last: a process's frames after a profiler session ran
     # slower on the host in this script's runs (PERF.md, Findings)
     profiles = {"A": profile("A", ra), "B": profile("B", rb), "C": profile("C", rc)}
     for tag, r in (("C", rc), ("D", rd)):
         log(json.dumps(dict(prepare=tag, **profile_prepare(torch, r, bounds),
                             table_clone_ms=clone_ms[tag], card=card_name,
                             power_limit=power_limit)))
-    del ra, rb, rc, rd
+    e_profile, e_k1 = profile_e(torch, FP, re_, present, bounds, x4k,
+                                {m: e_lines[m]["frame_walls_still"] for m in E_MODES})
+    log(json.dumps(dict(run="E", profile=e_profile, k1=e_k1, card=card_name,
+                        power_limit=power_limit)))
+    del ra, rb, rc, rd, re_, x4k
 
-    # --- 7. a small frame on the card against the CPU plain path -------------------------------
-    def small(device):
-        s = Scene(48, 48)
-        s.models = [Model("sphere", position=[0, 0.5, 0], scale=0.5), Model("plane", scale=10)]
-        r = Renderer(s, 48, 48, seed=3, device=device)
-        FP.configure(r)
-        r.max_bounces = 3
-        for _ in range(2):
-            r.draw()
-        return r.accum.cpu(), int(r.last_rays_traced)
-
-    acc_g, rays_g = small(dev)
-    acc_c, rays_c = small("cpu")
-    rel = float(((acc_g - acc_c) ** 2).mean().sqrt() / (acc_c ** 2).mean().sqrt())
-    log(f"small frame 48x48: card vs CPU relative RMSE {rel:.3e} (limit 1e-2), "
-        f"rays {rays_g} vs {rays_c}")
-    if not rel < 1e-2 or rays_g <= 0 or abs(rays_g - rays_c) > 0.01 * rays_c:
-        raise AssertionError("the card's frame disagrees with the CPU reference")
+    # --- 8. a small frame on the card against the CPU plain path -------------------------------
+    check_small_frames(dev)
 
     # launches: every run's main-path counts. K1: ms is its profiler device
     # time after a 64 MB write (as a frame leaves the L2) at run A's shape.
@@ -608,9 +876,10 @@ def main() -> int:
              max_abs_err=max(c["k1_err"] for c in checks.values()), ms=a["k1_cold"],
              plain_ms=a["k1_plain_ms"], bound_ms=a["k1_bound_ms"], bound_by=a["k1_bound_by"],
              library_ms=None,
-             by_run={t: dict(ms_cold=c["k1_cold"], ms_warm=c["k1_warm"], ms_events=c["k1_ms"],
-                             plain_ms=c["k1_plain_ms"], bound_ms=c["k1_bound_ms"])
-                     for t, c in checks.items()}),
+             by_run=dict({t: dict(ms_cold=c["k1_cold"], ms_warm=c["k1_warm"], ms_events=c["k1_ms"],
+                                  plain_ms=c["k1_plain_ms"], bound_ms=c["k1_bound_ms"])
+                          for t, c in checks.items()},
+                         E=dict(shape=e_checks["denoised"]["k1_shape"], **e_k1))),
         dict(name="K2 two-level traversal", route="cuda",
              source="mrt_tpu_torch/csrc/traverse2.cu", replaces="mrt_tpu/bvh/twolevel.py:593",
              launches=sum(c["traverse2"] for c in counts.values()),

@@ -130,7 +130,7 @@ def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLeve
     pose is refit every frame."""
     if any(getattr(m, "geometry_mask", GEOMETRY_MASK_GEOMETRY) != GEOMETRY_MASK_GEOMETRY
            for m in models):
-        raise NotImplementedError("geometry-mask filtering is not ported yet (ROADMAP Slice A follow-up)")
+        raise NotImplementedError("geometry-mask filtering is not ported yet (ROADMAP Slice H)")
     vertex_instance = host_mirror["vertex_instance"]
     tri_instance = host_mirror["tri_instance"]
     n_inst = len(models)

@@ -7,7 +7,9 @@ very tables the JAX package built: ``Renderer.from_compiled(scene(js),
 defaults to the card and raises where there is none; CPU use passes
 ``device="cpu"``. Skinned state comes across too: the skin slices, the
 BVH's skinned index tensors, each model's ``SkinData`` (its skeleton and
-clip rebuilt as the port's own classes) and the scene's skin bundle.
+clip rebuilt as the port's own classes) and the scene's skin bundle. So does
+the presenter's state: a frame's G-buffer, the denoiser's ``DenoiseState``
+and the temporal upscale history.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from .core.device import resolve as resolve_device
 from .engine.scene import (Model, ModelMaterialOverride, Scene, SceneData, SceneStatics, SkinData,
                            SkinModelData)
 from .skinning import animation as anim
+from .upscale.denoise import DenoiseState
 
 
 def _t(a, device):
@@ -85,6 +88,23 @@ def bvh(b, device=None) -> TwoLevelBVH:
 def compiled(sd, st, b, device=None):
     """(SceneData, SceneStatics, TwoLevelBVH) for ``Renderer.from_compiled``."""
     return scene_data(sd, device), statics(st), bvh(b, device)
+
+
+def gbuffer(gb: dict, device=None) -> dict:
+    """A frame's G-buffer dict (diffuse_albedo, specular_albedo, normal,
+    roughness)."""
+    device = resolve_device(device)
+    return {k: _t(v, device) for k, v in gb.items()}
+
+
+def denoise_state(st, device=None) -> DenoiseState:
+    """The denoiser's temporal state."""
+    return _nt(DenoiseState, st, resolve_device(device))
+
+
+def history(h, device=None) -> torch.Tensor:
+    """The temporal upscaler's (H,W,4) output-size history."""
+    return _t(h, resolve_device(device))
 
 
 def _mesh(m) -> MeshData:

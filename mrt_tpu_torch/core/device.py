@@ -14,3 +14,12 @@ def resolve(device=None) -> torch.device:
         raise RuntimeError("mrt_tpu_torch runs on a CUDA device by default and none is available; "
                            "pass device='cpu' to run on the CPU")
     return device
+
+
+def require_full_f32(x: torch.Tensor, what: str):
+    """Raise on a CUDA tensor while f32 products may run in TF32: the port's
+    dense products (LBS, the resize) are held to f32 results."""
+    if x.is_cuda and (torch.backends.cuda.matmul.allow_tf32
+                      or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(f"{what} needs the f32 product in full precision; turn TF32 off "
+                           "(torch.backends.cuda.matmul.allow_tf32 = False)")

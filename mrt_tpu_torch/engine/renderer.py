@@ -3,11 +3,14 @@
 Owns the compiled scene, the two-level BVH, the accumulation state and the
 tunables of the JAX ``Renderer`` (same names and defaults). Every
 quality-affecting property assignment restarts accumulation
-(``frame_index = 0``). One ``draw`` steps the animation clock (60 Hz with
-catch-up; joint matrices on the host), prepares the frame's geometry when
-its inputs changed (skinning, world transform, packed shade/motion rows,
-BVH refit; every frame of a skinned scene), traces every pixel of the
-frame, and accumulates; ``output_image`` presents it through kernel K1.
+(``frame_index = 0``) and, like any direct ``frame_index = 0`` (orbit,
+zoom, presets), drops the presenter's history. One ``draw`` steps the
+animation clock (60 Hz with catch-up; joint matrices on the host),
+prepares the frame's geometry when its inputs changed (skinning, world
+transform, packed shade/motion rows, BVH refit; every frame of a skinned
+scene), traces every pixel of the frame, and accumulates; ``output_image``
+presents it (spatial, temporal or SVGF-lite denoised upscaling,
+``upscale/presenter.py``) through kernel K1.
 """
 
 from __future__ import annotations
@@ -193,6 +196,7 @@ class Renderer:
             self.scene_data, self.statics, self.bvh = _compiled
         self._skin_bundle = tuple(scene_mod.SkinModelData(*(t.to(self.device) for t in sb))
                                   for sb in scene.skin_bundle)
+        self._clear_presenter_history()
         self._allocate_state()
         object.__setattr__(self, "_initialized", True)
 
@@ -211,11 +215,22 @@ class Renderer:
         if getattr(self, "_initialized", False):
             if name in _RESET_PROPS:
                 object.__setattr__(self, "frame_index", 0)
+                self._clear_presenter_history()
+            if name == "frame_index" and value == 0:
+                # direct resets (orbit, zoom, presets) drop the presenter's
+                # history too, so that stale output history cannot ghost
+                self._clear_presenter_history()
             if name in ("traversal_backend", "two_level") and old is not value:
                 if not (self.two_level and self.traversal_backend == "wide"):
                     object.__setattr__(self, name, old)
                     raise NotImplementedError(
                         "only the two-level wide BVH is ported (flat path: ROADMAP Slice F)")
+
+    def _clear_presenter_history(self):
+        """Drop the output-size upscale history and the denoiser's state;
+        the next present starts them afresh."""
+        object.__setattr__(self, "_upscale_history", None)
+        object.__setattr__(self, "_denoise_state", None)
 
     # -- sizes ---------------------------------------------------------------------
     @property
@@ -271,6 +286,7 @@ class Renderer:
         self.accum = torch.zeros((h, w, 3), dtype=torch.float32, device=self.device)
         self.motion = torch.zeros((h, w, 2), dtype=torch.float32, device=self.device)
         self.depth = torch.full((h, w), 1.0e8, dtype=torch.float32, device=self.device)
+        self.gbuffer = None
         self._state_size = (h, w)
         self.frame_index = 0
 
@@ -419,6 +435,9 @@ class Renderer:
                              self.offsets, self.motion)
         self.accum = acc.accumulate(settings, uniforms, out.color, out.motion, self.motion, self.accum)
         self.depth, self.motion = out.depth, out.motion
+        self.gbuffer = None if out.normal is None else dict(
+            diffuse_albedo=out.diffuse_albedo, specular_albedo=out.specular_albedo,
+            normal=out.normal, roughness=out.roughness)
         self.last_samples = out.samples
         self.last_rays_traced = out.rays_traced.sum(dtype=torch.int64)
         self.stats.record(self.last_rays_traced)

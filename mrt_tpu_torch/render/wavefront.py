@@ -82,6 +82,11 @@ class TileOutputs(NamedTuple):
     motion: torch.Tensor  # (P,2) pixel units, +Y down
     rays_traced: torch.Tensor  # (P,) int32 closest + any-hit traversals launched
     samples: torch.Tensor  # (P,) int32 samples traced (base + motion-adaptive extras)
+    # G-buffer of sample 0's first hit; None unless settings.enable_gbuffer
+    diffuse_albedo: torch.Tensor | None = None  # (P,3) albedo * (1 - metallic)
+    specular_albedo: torch.Tensor | None = None  # (P,3) 0.04 + (albedo - 0.04) * metallic
+    normal: torch.Tensor | None = None  # (P,3) shading normal * 0.5 + 0.5
+    roughness: torch.Tensor | None = None  # (P,) in [0, 1]
 
 
 def sample_environment(env_map: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
@@ -162,6 +167,13 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
     total = torch.full((P,), base_samples, dtype=torch.int32, device=dev)
     n_samples = base_samples
     depth0 = motion0 = None
+    gb = None
+    if settings.enable_gbuffer:
+        gb = dict(diffuse_albedo=torch.zeros((P, 3), dtype=f32, device=dev),
+                  specular_albedo=torch.zeros((P, 3), dtype=f32, device=dev),
+                  normal=torch.zeros((P, 3), dtype=f32, device=dev),
+                  roughness=torch.zeros(P, dtype=f32, device=dev))
+        wrote_gb = torch.zeros(P, dtype=torch.bool, device=dev)
     sidx = 0
     while sidx < n_samples:
         hidx = offsets + base + sidx
@@ -266,6 +278,18 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
                 mapped = S.normalize(nmap[:, 0:1] * world_t + nmap[:, 1:2] * world_b
                                      + nmap[:, 2:3] * nrm)
                 shading_nrm = _where3(has(T.MATERIAL_TEXTURE_NORMAL) & valid_tb, mapped, nrm)
+
+            # --- G-buffer: sample 0's first hit, before the glass branch -------------------
+            if gb is not None and is_sample0:
+                write_gb = hit & ~wrote_gb
+                m = metallic[:, None]
+                gb["diffuse_albedo"] = _where3(write_gb, albedo * (1.0 - m), gb["diffuse_albedo"])
+                gb["specular_albedo"] = _where3(write_gb, 0.04 + (albedo - 0.04) * m,
+                                                gb["specular_albedo"])
+                gb["normal"] = _where3(write_gb, shading_nrm * 0.5 + 0.5, gb["normal"])
+                gb["roughness"] = torch.where(write_gb, torch.clamp(roughness, 0.0, 1.0),
+                                              gb["roughness"])
+                wrote_gb = wrote_gb | write_gb
 
             # --- glass / transparency branch ---------------------------------------------
             step0 = step
@@ -440,7 +464,7 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
         sidx += 1
 
     return TileOutputs(color=total_color / total.to(f32)[:, None], depth=depth0, motion=motion0,
-                       rays_traced=rays_total, samples=total)
+                       rays_traced=rays_total, samples=total, **(gb or {}))
 
 
 def trace_frame(settings, statics, scene, bvh, geom, uniforms, offsets: torch.Tensor,
@@ -459,4 +483,5 @@ def trace_frame(settings, statics, scene, bvh, geom, uniforms, offsets: torch.Te
         sl = slice(s, min(s + LANE_BATCH, n))
         parts.append(trace_pixels(settings, statics, scene, bvh, geom, uniforms,
                                   px_all[sl], py_all[sl], offs_all[sl], pmot_all[sl]))
-    return TileOutputs(*(torch.cat(f).reshape((h, w) + f[0].shape[1:]) for f in zip(*parts)))
+    return TileOutputs(*(None if f[0] is None else torch.cat(f).reshape((h, w) + f[0].shape[1:])
+                         for f in zip(*parts)))

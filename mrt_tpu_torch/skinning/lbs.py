@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import require_full_f32
 from ..utils.math3d import apply_affine
 
 
@@ -45,10 +46,7 @@ def skin(weights_dense: torch.Tensor, joint_matrices: torch.Tensor,
     """(V,J) weights, (J,4,4) final joint matrices, (V,3) rest positions and
     normals, all on one device -> (skinned positions (V,3), skinned normals
     (V,3)). On the card the product must run in full f32: TF32 raises."""
-    if weights_dense.is_cuda and (torch.backends.cuda.matmul.allow_tf32
-                                  or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError("lbs.skin needs the f32 product in full precision; turn TF32 off "
-                           "(torch.backends.cuda.matmul.allow_tf32 = False)")
+    require_full_f32(weights_dense, "lbs.skin")
     j = joint_matrices.shape[0]
     m_flat = joint_matrices[:, :3, :].reshape(j, 12)
     b = torch.matmul(weights_dense, m_flat).reshape(-1, 3, 4)

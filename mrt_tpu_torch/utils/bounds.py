@@ -14,8 +14,12 @@ compare and division they count is one instruction, issued at half that:
 PEAK_F32_OPS. A product's fused multiply-add is one instruction too.
 
 Besides the kernels: the two torch-op stages of an animated frame's
-prepare, the LBS product (``lbs``) and the skinned refit (``refit``), whose
-bounds say what a hand kernel could gain there.
+prepare, the LBS product (``lbs``) and the skinned refit (``refit``), and
+the presenter's torch-op chains (``resize``, ``temporal_chain``,
+``denoiser``, ``denoised_chain``), whose bounds say what a hand kernel could
+gain there. The presenter's bounds count bytes only: a banded resize needs
+6 taps per axis (Lanczos-3 at 2x), so its operations take a fraction of
+its byte time.
 """
 
 from __future__ import annotations
@@ -126,3 +130,37 @@ def refit(bvh) -> tuple[float, str]:
     nbytes += n_inst * 64 + tn * ARITY * 4 + (n_inst + tn) * ROW * 4
     ops += n_inst * (8 * 3 * 8 + 60) + tn * ARITY * 3 * 2 * (bvh.tlas_depth + 1)
     return least_ms(ops, nbytes)
+
+
+# f32 values per pixel of the denoiser (upscale/denoise.py:svgf_filter): in,
+# colour 3, G-buffer albedos and normal 9, depth 1, motion 2, state 10; out,
+# colour 3, state 10
+DENOISER_IN, DENOISER_OUT = 25, 13
+
+
+def _bytes_ms(n_f32: float) -> tuple[float, str]:
+    return n_f32 * 4 / PEAK_BYTES * 1e3, "bytes"
+
+
+def resize(h: int, w: int, out_h: int, out_w: int, channels: int) -> tuple[float, str]:
+    """Bound of one ``upscale.spatial.resize`` of (h,w,channels) f32 to
+    (out_h,out_w,channels); with 3 channels also the spatial chain's."""
+    return _bytes_ms((h * w + out_h * out_w) * channels)
+
+
+def temporal_chain(h: int, w: int, out_h: int, out_w: int) -> tuple[float, str]:
+    """Bound of ``temporal.temporal_upscale``: colour, depth and motion
+    read at render size; the (out_h,out_w,4) history read and written and
+    the (out_h,out_w,3) output written."""
+    return _bytes_ms(h * w * 6 + out_h * out_w * (4 + 4 + 3))
+
+
+def denoiser(h: int, w: int) -> tuple[float, str]:
+    """Bound of ``denoise.svgf_filter`` at render size (h,w)."""
+    return _bytes_ms(h * w * (DENOISER_IN + DENOISER_OUT))
+
+
+def denoised_chain(h: int, w: int, out_h: int, out_w: int) -> tuple[float, str]:
+    """Bound of the denoised chain (denoiser, then the temporal upscaler):
+    the denoised colour between them need not leave the chip."""
+    return _bytes_ms(h * w * (DENOISER_IN + DENOISER_OUT - 3) + out_h * out_w * (4 + 4 + 3))

@@ -7,8 +7,12 @@ Run A is the flagship frame of ``bench.py`` without the train/treefir OBJs
 1024x576. Both render 2 spp, 4 bounces, upscaler and motion-adaptive
 sampling off. Run C is the animated app frame: run A's scene plus the
 swing-rigged robot stand-in, with motion-adaptive sampling on (up to 2
-extra samples), each frame one 60 Hz animation step. ``chip_smoke.py``
-drives the same runs.
+extra samples), each frame one 60 Hz animation step. Run E is the
+reference's interactive configuration (config 5): run C's scene rendered at
+1920x1080 (render scale 0.5), 1 spp, 2 bounces, and presented at
+3840x2160 through the temporal upscaler; each of its frames is a draw and a
+present. ``chip_smoke.py`` drives the same runs (run E in all three
+presenter modes).
 
 For each run, after two warm-up frames, ``frame_walls`` times FRAMES
 unprofiled frames between ``torch.cuda.synchronize()`` calls (every run's
@@ -43,32 +47,49 @@ RUNS = {
               height=576, dragon_subdivisions=8),
     "C": dict(scene="flagship without train/treefir, with the swing-rigged robot stand-in",
               width=1920, height=1080, dragon_subdivisions=None, robot=True, motion_adaptive=True),
+    "E": dict(scene="run C's scene, 1920x1080 render presented at 3840x2160 (config 5)",
+              width=3840, height=2160, dragon_subdivisions=None, robot=True, motion_adaptive=True,
+              upscaler="temporal", render_scale=0.5, spp=1, bounces=2),
 }
 
 
-def configure(r, motion_adaptive: bool = False):
+def configure(r, motion_adaptive: bool = False, upscaler: str = "off", render_scale: float = 1.0,
+              spp: int = 2, bounces: int = 4):
     """The main path's settings: 2 spp, 4 bounces, upscaler off,
     motion-adaptive sampling off unless asked for (then the Renderer's
-    default of at most 2 extra samples)."""
-    from ..engine.renderer import UPSCALER_OFF
-
-    r.upscaler_mode = UPSCALER_OFF
-    r.samples_per_pixel = 2
-    r.max_bounces = 4
+    default of at most 2 extra samples); run E passes its upscaler, render
+    scale, 1 spp and 2 bounces."""
+    r.upscaler_mode = upscaler
+    r.render_scale = render_scale
+    r.samples_per_pixel = spp
+    r.max_bounces = bounces
     r.use_motion_adaptive_sampling = motion_adaptive
 
 
 def make_renderer(tag: str, device, seed: int = 0):
-    """Scene, BVH and renderer of run ``tag`` with the main path's settings."""
+    """Scene, BVH and renderer of run ``tag`` with the main path's settings
+    (the scene sized as the render)."""
     from ..engine.appscene import make_app_scene
     from ..engine.renderer import Renderer
 
     run = RUNS[tag]
-    scene = make_app_scene(run["width"], run["height"], include_robot=run.get("robot", False),
-                           asset_models=False, dragon_subdivisions=run["dragon_subdivisions"])
+    scale = run.get("render_scale", 1.0)
+    scene = make_app_scene(round(run["width"] * scale), round(run["height"] * scale),
+                           include_robot=run.get("robot", False), asset_models=False,
+                           dragon_subdivisions=run["dragon_subdivisions"])
     r = Renderer(scene, run["width"], run["height"], seed=seed, device=device)
-    configure(r, run.get("motion_adaptive", False))
+    configure(r, run.get("motion_adaptive", False),
+              **{k: run[k] for k in ("upscaler", "render_scale", "spp", "bounces") if k in run})
     return r
+
+
+def frame(r, delta_time=None):
+    """One frame: a draw, and a present where the renderer upscales."""
+    from ..engine.renderer import UPSCALER_OFF
+
+    r.draw(delta_time)
+    if r.upscaler_mode != UPSCALER_OFF:
+        r.present_device()
 
 
 def _sync(device):
@@ -79,12 +100,12 @@ def _sync(device):
 def frame_walls(r, frames: int = FRAMES) -> list[float]:
     """Wall seconds of ``frames`` frames of ``r`` after two warm-ups."""
     for _ in range(2):
-        r.draw()
+        frame(r)
     _sync(r.device)
     walls = []
     for _ in range(frames):
         t0 = time.perf_counter()
-        r.draw()
+        frame(r)
         _sync(r.device)
         walls.append(time.perf_counter() - t0)
     return walls
@@ -111,7 +132,7 @@ def profile_frame(r, table_out=None, walls=None) -> dict:
     launches0 = traverse2.launches
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        r.draw()
+        frame(r)
         _sync(dev)
         wall = time.perf_counter() - t0
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]

@@ -1,6 +1,7 @@
 """Kernel K1 (present) and the presenter: the plain PyTorch version against
 the JAX package's tonemap_quantize (its CPU branch, _jnp_fallback) on the
-edge set chip_smoke.py uses, and the presenter's modes."""
+edge set chip_smoke.py uses, and the presenter's modes (the chains in
+detail: test_torch_upscale.py, test_torch_presenter.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,6 +9,7 @@ import pytest
 import torch
 
 from mrt_tpu.kernels.present import tonemap_quantize as jax_tonemap_quantize
+from mrt_tpu.upscale import spatial as jax_spatial
 from mrt_tpu_torch import UPSCALER_OFF, UPSCALER_TEMPORAL, Model, Renderer, Scene
 from mrt_tpu_torch.kernels import present
 from mrt_tpu_torch.upscale import spatial
@@ -40,10 +42,13 @@ def test_non_cuda_device_raises():
 
 
 def test_spatial_identity_and_unported_resample():
-    c = torch.rand(8, 10, 3)
+    """Identity at equal size; resampling (once unported) matches JAX's."""
+    c = torch.rand(8, 10, 3, generator=torch.Generator().manual_seed(0))
     assert spatial.upscale(c, 8, 10) is c
-    with pytest.raises(NotImplementedError):
-        spatial.upscale(c, 16, 20)
+    up = spatial.upscale(c, 16, 20)
+    want = np.asarray(jax_spatial.upscale(jnp.asarray(c.numpy()), 16, 20))
+    assert up.shape == (16, 20, 3)
+    np.testing.assert_allclose(up.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
 def _renderer():
@@ -68,8 +73,13 @@ def test_output_image_flips_rows_and_quantizes():
 
 
 def test_unported_presenter_modes_raise():
+    """The temporal mode (once unported) presents: a 0.67-scale render
+    upscaled to the output size, with its history kept."""
     r = _renderer()
     r.draw()
     r.upscaler_mode = UPSCALER_TEMPORAL
-    with pytest.raises(NotImplementedError):
-        r.output_image()
+    r.draw()
+    img = r.output_image()
+    assert (r.render_height, r.render_width) == (11, 11)
+    assert img.shape == (16, 16, 3) and img.dtype == np.uint8 and img.max() > 0
+    assert r._upscale_history.shape == (16, 16, 4)

@@ -12,7 +12,13 @@ never prints its last line):
      (bit-equal to the CPU) and K2 two-level traversal on 2^20 random
      mixed rays, on the same rays with every lane dead and with one live
      lane at the end of the wavefront (the edges of K2's live-lane
-     compaction): hit-equal, t/u/v bit-equal, pops equal per lane;
+     compaction): hit-equal, t/u/v bit-equal, pops equal per lane. Each of
+     K2's three instantiations on the path so: the packed one over run A's
+     table here, and the float-sort one on the same rays over that table
+     padded past 2^20 - 1 rows (the sort's own cost); the masked one over
+     run F's table with a random ray mask per ray and the float-sort one
+     over run G's table (more than 2^20 - 1 rows) each as soon as its run
+     is built (6b);
   4. the port's main path at full width: the flagship scene without the
      train/treefir OBJs at 1920x1080, 2 spp, 4 bounces, upscaler off,
      motion-adaptive sampling off (run A), the 1.31M-triangle dragon at
@@ -49,16 +55,30 @@ never prints its last line):
      against the same on the CPU (linear output, new history and
      DenoiseState within 1e-5 relative RMSE, uint8 within 1 LSB); K1
      uint8-equal to its plain version on each mode's (2160,3840,3) output;
+  6b. runs F and G, each checked and driven as runs A-C are, with each K2
+     instantiation's launch count read on its own: run F, the wavefront's
+     extras at run A's width (the floor with a 2048x2048 base-colour
+     checker and a 1024x1024 normal map made from a seed, mipmapped
+     sampling, the two spheres masked as light geometry), launches only the
+     masked K2; then one frame of each debug view 1-6 on run F's scene and
+     of the motion view (7) on run C's; run G, run B's scene with two
+     distinct blob(subdivisions=9) dragons (a table above 2^20 rows; its
+     host build seconds printed), launches only the float-sort K2. Runs A-E
+     launch only the packed one;
   7. after every run was driven, under torch.profiler: K1's device time,
      warm and after a 64 MB write (cold), K2's device time over one more
-     steady frame of runs A-C (warm L2), phase D's LBS and refit device
-     time per animated frame beside their bounds, and run E's present
-     device time and events per mode, its resize products' and denoiser's
-     device time and K1's at (2160,3840,3), beside their bounds;
+     steady frame of runs A-C, F and G (warm L2), the costliest operators
+     of a frame of runs A and F, phase D's LBS and refit device time per
+     animated frame beside their bounds, and run E's present device time
+     and events per mode, its resize products' and denoiser's device time
+     and K1's at (2160,3840,3), beside their bounds;
   8. a 48x48 frame traced and presented in every presenter mode on the card
      against the same frames on the CPU through the plain versions (the
      accumulation and the presented output within 1e-2 relative RMSE, the
-     G-buffer within 1e-5 on at least 99.9 % of pixels).
+     G-buffer within 1e-5 on at least 99.9 % of pixels); then a 48x48
+     textured scene with a light-masked sphere, on the card against the
+     CPU within 1e-2 relative RMSE and rays within 1 %: mipmaps on, each
+     debug view 1-7, and the light-masked frame.
 The line before the last is {"kernels": [...]}, with each kernel's bound
 (mrt_tpu_torch/utils/bounds.py); the last line is
 {"ok": true, "device": {...}}.
@@ -66,6 +86,7 @@ The line before the last is {"kernels": [...]}, with each kernel's bound
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -221,6 +242,62 @@ def k2_mismatches(torch, kout, pout):
     return bad, err
 
 
+def check_random_rays(torch, tag, bvh, traverse2, bounds, masked: bool = False):
+    """K2 on 2^20 random mixed rays (half of them shadow rays with a finite
+    tmax, 95 % live) over run ``tag``'s table, each with a random ray mask
+    (1, 2 or 3) if ``masked``; then on the same rays with every lane dead,
+    with one live lane, the wavefront's last, and at 2^20 - 1 lanes (the
+    compaction's last block partial) the last lane alone and the random
+    mask. Hit-equal, t/u/v bit-equal and pop-equal to the plain version,
+    or it raises. Returns the random batch's numbers."""
+    dev = bvh.table.device
+    g = torch.Generator(device=dev).manual_seed(1)
+    n = 1 << 20
+    table = bvh.table
+    lo = table[0, 0:24].reshape(3, 8).amin(dim=1)
+    hi = table[0, 24:48].reshape(3, 8).amax(dim=1)
+    org = lo + (hi - lo) * torch.rand((n, 3), generator=g, device=dev)
+    dirs = torch.randn((n, 3), generator=g, device=dev)
+    dirs = dirs / dirs.norm(dim=1, keepdim=True)
+    shadow = torch.rand(n, generator=g, device=dev) < 0.5
+    tmax = torch.where(shadow, 0.1 + 8.0 * torch.rand(n, generator=g, device=dev),
+                       torch.full((n,), float("inf"), device=dev))
+    active = torch.rand(n, generator=g, device=dev) < 0.95
+    rmask = (torch.randint(1, 4, (n,), generator=g, device=dev, dtype=torch.int32)
+             if masked else None)
+    args = (table, bvh.n_internal, bvh.n_leaf, bvh.tlas_n, bvh.stack_size, org, dirs, tmax,
+            shadow, active)
+    name = traverse2.variant(table.shape[0], masked)
+    k2, p2 = traverse2.traverse(*args, ray_mask=rmask), traverse2.traverse_plain(*args, ray_mask=rmask)
+    bad, err = k2_mismatches(torch, k2, p2)
+    ms = cuda_ms(lambda: traverse2.traverse(*args, ray_mask=rmask), 10)
+    work = bounds.k2_work(table, bvh.n_internal, bvh.n_leaf, p2.visits, masked=masked)
+    bound = bounds.k2(work, n, int(active.sum()), masked=masked)
+    log(f"K2 traverse ({name}), {n} random mixed rays over the run {tag} table "
+        f"({table.shape[0]} rows){' with random ray masks' if masked else ''}: "
+        f"{int((p2.tri >= 0).sum())} hits, {int((p2.found & shadow).sum())} occluded, "
+        f"{int(p2.pops.sum())} pops; mismatches {bad}; kernel {ms:.3f} ms, "
+        f"bound {bound[0]:.4f} ms ({bound[1]})")
+    if any(bad.values()):
+        raise AssertionError(f"K2 ({name}) disagrees with its plain version (random mixed rays)")
+    last = torch.zeros(n, dtype=torch.bool, device=dev)
+    last[-1] = True
+    m = n - 1
+    last_m = torch.zeros(m, dtype=torch.bool, device=dev)
+    last_m[-1] = True
+    edges = (("all lanes dead", n, torch.zeros_like(active)), ("one live lane, the last", n, last),
+             ("one live lane, the last", m, last_m), ("the random mask", m, active[:m]))
+    for what, lanes, act in edges:
+        eargs = args[:5] + tuple(x[:lanes] for x in args[5:9]) + (act,)
+        erm = None if rmask is None else rmask[:lanes]
+        bad, _ = k2_mismatches(torch, traverse2.traverse(*eargs, ray_mask=erm),
+                               traverse2.traverse_plain(*eargs, ray_mask=erm))
+        log(f"K2 traverse ({name}), {lanes} lanes, {what}: mismatches {bad}")
+        if any(bad.values()):
+            raise AssertionError(f"K2 ({name}) disagrees with its plain version ({lanes} lanes, {what})")
+    return dict(variant=name, max_abs_err=err, ms=ms, bound_ms=bound[0], bound_by=bound[1])
+
+
 def check_path_kernels(torch, tag, r, present, traverse2, bounds):
     """Hold K1 and K2 against their plain versions at the shapes run ``tag``
     gives them, before the run is driven. K1: the edge-case values at the
@@ -243,24 +320,27 @@ def check_path_kernels(torch, tag, r, present, traverse2, bounds):
 
     orig = traverse2.traverse
     k2 = dict(launches=0, rays=0, max_abs_err=0.0, frame_ms=0.0, frame_plain_ms=0.0,
-              frame_bound_ms=0.0, bound_by={"operations": 0, "bytes": 0}, work={})
+              frame_bound_ms=0.0, bound_by={"operations": 0, "bytes": 0}, work={}, variants={})
     first = []
 
-    def checked(*args):
+    def checked(*args, **kw):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
-        kout = orig(*args)
+        kout = orig(*args, **kw)
         ev[1].record()
-        pout = traverse2.traverse_plain(*args)
+        pout = traverse2.traverse_plain(*args, **kw)
         ev[2].record()
         torch.cuda.synchronize()
+        masked = kw.get("ray_mask") is not None
+        name = traverse2.variant(args[0].shape[0], masked)
         bad, err = k2_mismatches(torch, kout, pout)
         if any(bad.values()):
-            raise AssertionError(f"K2 disagrees with its plain version (run {tag}, launch "
+            raise AssertionError(f"K2 ({name}) disagrees with its plain version (run {tag}, launch "
                                  f"{k2['launches']}, {kout.t.numel()} rays): {bad}")
         n_live = int(args[9].sum())
-        work = bounds.k2_work(args[0], args[1], args[2], pout.visits)
-        b_ms, b_by = bounds.k2(work, kout.t.numel(), n_live)
+        work = bounds.k2_work(args[0], args[1], args[2], pout.visits, masked=masked)
+        b_ms, b_by = bounds.k2(work, kout.t.numel(), n_live, masked=masked)
+        k2["variants"][name] = k2["variants"].get(name, 0) + 1
         k2["launches"] += 1
         k2["rays"] += n_live
         k2["max_abs_err"] = max(k2["max_abs_err"], err)
@@ -271,7 +351,7 @@ def check_path_kernels(torch, tag, r, present, traverse2, bounds):
         for key, val in work.items():
             k2["work"][key] = k2["work"].get(key, 0) + val
         if not first:
-            first.append(args)
+            first.append((args, kw))
         return kout
 
     traverse2.traverse = checked
@@ -288,13 +368,16 @@ def check_path_kernels(torch, tag, r, present, traverse2, bounds):
         raise AssertionError(f"K1 disagrees with its plain version (run {tag})")
     if not k2["launches"]:
         raise AssertionError(f"run {tag}: the checked frame launched no traversal")
-    cam = first[0]
-    k2["ms"] = cuda_ms(lambda: orig(*cam), 10)
-    k2["plain_ms"] = cuda_ms(lambda: traverse2.traverse_plain(*cam), 1)
+    cam, cam_kw = first[0]
+    masked = cam_kw.get("ray_mask") is not None
+    k2["ms"] = cuda_ms(lambda: orig(*cam, **cam_kw), 10)
+    k2["plain_ms"] = cuda_ms(lambda: traverse2.traverse_plain(*cam, **cam_kw), 1)
     k2["bound_ms"], k2["bound_by_cam"] = bounds.k2(
-        bounds.k2_work(cam[0], cam[1], cam[2], traverse2.traverse_plain(*cam).visits),
-        cam[5].shape[0], int(cam[9].sum()))
-    log(f"K2 traverse run {tag}: one frame's {k2['launches']} launches, {k2['rays']} live rays, "
+        bounds.k2_work(cam[0], cam[1], cam[2], traverse2.traverse_plain(*cam, **cam_kw).visits,
+                       masked=masked),
+        cam[5].shape[0], int(cam[9].sum()), masked=masked)
+    log(f"K2 traverse run {tag} ({k2['variants']}): one frame's {k2['launches']} launches, "
+        f"{k2['rays']} live rays, "
         f"0 mismatches in tri, inst, occluded, pops and the bits of t, u, v; kernel "
         f"{k2['frame_ms']:.3f} ms (CUDA events, cold L2), plain {k2['frame_plain_ms']:.3f} ms, "
         f"bound {k2['frame_bound_ms']:.3f} ms per frame (launches bound by {k2['bound_by']}); "
@@ -457,6 +540,15 @@ def history_free(r, presenter):
         object.__setattr__(r, "_denoise_state", saved[1])
 
 
+def check_variants(tag, traverse2, want: str):
+    """Only K2's ``want`` instantiation launched since the counts were last
+    set to 0 (runs A-E: the packed one; F: masked; G: float sort)."""
+    rose = {k: n for k, n in traverse2.variant_launches.items() if n}
+    if set(rose) != {want}:
+        raise AssertionError(f"run {tag}: K2 launched {rose}, expected only its {want} variant")
+    return rose
+
+
 def drive_e(torch, r, mode, present, traverse2, presenter, timed=3):
     """Run E in one presenter mode, with the launch counters set to 0 first:
     a warm-up frame, ``timed`` orbit frames (orbit(0.02, 0), draw(1/30),
@@ -468,7 +560,7 @@ def drive_e(torch, r, mode, present, traverse2, presenter, timed=3):
     from it. Returns (launch counts, the mode's line)."""
     r.upscaler_mode = mode
     present.launches = 0
-    traverse2.launches = 0
+    traverse2.reset_launches()
     r.orbit(0.02, 0.0)
     r.draw(1 / 30)
     r.present_device()  # warm-up
@@ -500,6 +592,7 @@ def drive_e(torch, r, mode, present, traverse2, presenter, timed=3):
     counts = {"present": present.launches, "traverse2": traverse2.launches}
     if min(counts.values()) < 1:
         raise AssertionError(f"run E {mode}: a kernel of the path never launched: {counts}")
+    variants = check_variants(f"E {mode}", traverse2, "packed")
     acc = r.accum
     if not bool(torch.isfinite(acc).all()) or float(acc.max()) <= 0.0:
         raise AssertionError(f"run E {mode}: accumulation is not finite or is all black")
@@ -511,7 +604,8 @@ def drive_e(torch, r, mode, present, traverse2, presenter, timed=3):
                 motion_adaptive=r.use_motion_adaptive_sampling, frames=2 * timed,
                 frame_walls_orbit=walls[:timed], frame_walls_still=walls[timed:],
                 total_rays=rays, seconds=sum(walls), mrays_per_s=rays / sum(walls) / 1e6,
-                launches=counts, history_used=history_used, accum_mean=float(acc.mean()),
+                launches=counts, k2_variants=variants, history_used=history_used,
+                accum_mean=float(acc.mean()),
                 image_mean=float(img.float().mean()))
     if mode == "denoised":
         gb = r.gbuffer
@@ -656,6 +750,97 @@ def check_small_frames(dev):
             raise AssertionError(f"the card's frame disagrees with the CPU reference ({mode})")
 
 
+def small_extras(device) -> dict:
+    """Phase 8's textured 48x48 scene: a sphere masked as light geometry
+    over a floor with a 64x64 checker and a 32x32 normal map made from a
+    seed. Two frames with the extras off (the light mask only), two with
+    mipmaps on, then one frame of each debug view 1-7 (for the motion view
+    the sphere moves after a first frame). Per case the accumulation and
+    rays, on the CPU."""
+    from mrt_tpu_torch import Model, Renderer, Scene
+    from mrt_tpu_torch.assets import procedural
+    from mrt_tpu_torch.assets.obj import MaterialDef
+    from mrt_tpu_torch.core import types as T
+    from mrt_tpu_torch.utils import frame_profile as FP
+
+    checker, nmap = FP.floor_maps(seed=5, base=64, normal=32)
+    floor = procedural.plane(material=MaterialDef(name="floor", map_base_color=checker,
+                                                  map_normal=nmap))
+    s = Scene(48, 48)
+    s.models = [Model("sphere", position=[0, 0.6, 0], scale=0.4, geometry_mask=T.GEOMETRY_MASK_LIGHT),
+                Model("floor", mesh=floor, scale=6)]
+    r = Renderer(s, 48, 48, seed=3, device=device)
+    FP.configure(r)
+    r.max_bounces = 3
+    out = {}
+
+    def frames(name, n):
+        for _ in range(n):
+            r.draw()
+        out[name] = (r.accum.cpu(), int(r.last_rays_traced))
+
+    frames("light_masked", 2)
+    r.use_mipmaps = True
+    frames("mipmaps", 2)
+    r.use_mipmaps = False
+    for mode in range(T.DEBUG_MODE_BASECOLOR, T.DEBUG_MODE_MOTION + 1):
+        r.debug_texture_mode = mode
+        if mode == T.DEBUG_MODE_MOTION:
+            r.draw()
+            r.scene.move_model(0, right=0.1)
+        frames(f"debug_{mode}", 1)
+    return out
+
+
+def check_small_extras(dev):
+    """Phase 8's extras: the textured frames on the card against the CPU
+    plain path, the accumulation within 1e-2 relative RMSE and rays within
+    1 %."""
+    small_g, small_c = small_extras(dev), small_extras("cpu")
+    for case, (acc_g, rays_g) in small_g.items():
+        acc_c, rays_c = small_c[case]
+        rel = rel_rmse(acc_g, acc_c)
+        log(f"small frame 48x48, {case}: card vs CPU relative RMSE {rel:.3e} in the accumulation "
+            f"(limit 1e-2), rays {rays_g} vs {rays_c}")
+        if not (rel < 1e-2 and rays_g > 0 and abs(rays_g - rays_c) <= 0.01 * rays_c):
+            raise AssertionError(f"the card's frame disagrees with the CPU reference ({case})")
+
+
+def drive_debug(torch, tag, r, mode, present, traverse2, variant, frames=1):
+    """``frames`` frames of debug view ``mode`` on run ``tag``'s renderer
+    with the launch counters set to 0 first (the last frame's wall between
+    syncs): the accumulation finite and, but for the metallic and emission
+    views, not all black, K1 and only K2's
+    ``variant`` launched; then the beauty view again. Returns its line."""
+    from mrt_tpu_torch.core import types as T
+
+    r.debug_texture_mode = mode
+    present.launches = 0
+    traverse2.reset_launches()
+    for _ in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.draw(1 / 60)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    img = r.output_image()
+    acc = r.accum
+    counts = {"present": present.launches, "traverse2": traverse2.launches}
+    line = dict(run=tag, debug_mode=mode, frames=frames, frame_wall=wall,
+                rays=int(r.last_rays_traced), launches=counts,
+                k2_variants=check_variants(f"{tag} debug {mode}", traverse2, variant),
+                accum_mean=[float(x) for x in acc.mean(dim=(0, 1))],
+                accum_max=[float(x) for x in acc.amax(dim=(0, 1))], image_mean=float(img.mean()))
+    # the metallic and emission views are black where no material is
+    # metallic or emissive (runs A-C's scene)
+    black_ok = mode in (T.DEBUG_MODE_METALLIC, T.DEBUG_MODE_EMISSION)
+    if (not bool(torch.isfinite(acc).all()) or (float(acc.max()) <= 0.0 and not black_ok)
+            or min(counts.values()) < 1):
+        raise AssertionError(f"run {tag}, debug view {mode}: {line}")
+    r.debug_texture_mode = 0
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -704,55 +889,24 @@ def main() -> int:
         return r
 
     ra = make("A")
-    bvh = ra.bvh
-    g = torch.Generator(device=dev).manual_seed(1)
-    n = 1 << 20
-    table = bvh.table
-    lo = table[0, 0:24].reshape(3, 8).amin(dim=1)
-    hi = table[0, 24:48].reshape(3, 8).amax(dim=1)
-    org = lo + (hi - lo) * torch.rand((n, 3), generator=g, device=dev)
-    dirs = torch.randn((n, 3), generator=g, device=dev)
-    dirs = dirs / dirs.norm(dim=1, keepdim=True)
-    shadow = torch.rand(n, generator=g, device=dev) < 0.5
-    tmax = torch.where(shadow, 0.1 + 8.0 * torch.rand(n, generator=g, device=dev),
-                       torch.full((n,), float("inf"), device=dev))
-    active = torch.rand(n, generator=g, device=dev) < 0.95
-    args = (table, bvh.n_internal, bvh.n_leaf, bvh.tlas_n, bvh.stack_size, org, dirs, tmax,
-            shadow, active)
-    k2, p2 = traverse2.traverse(*args), traverse2.traverse_plain(*args)
-    bad, k2_rand_err = k2_mismatches(torch, k2, p2)
-    k2_rand_ms = cuda_ms(lambda: traverse2.traverse(*args), 10)
-    rand_bound = bounds.k2(bounds.k2_work(table, bvh.n_internal, bvh.n_leaf, p2.visits), n,
-                           int(active.sum()))
-    log(f"K2 traverse, {n} random mixed rays over the run A table: {int((p2.tri >= 0).sum())} hits, "
-        f"{int((p2.found & shadow).sum())} occluded, {int(p2.pops.sum())} pops; mismatches {bad}; "
-        f"kernel {k2_rand_ms:.3f} ms, bound {rand_bound[0]:.4f} ms ({rand_bound[1]})")
-    if any(bad.values()):
-        raise AssertionError("K2 disagrees with its plain version (random mixed rays)")
-    # the compaction's edges: every lane dead; one live lane, the wavefront's
-    # last; and at 2^20 - 1 lanes, where the compaction's last block is
-    # partial, the last lane alone and the random mask
-    last = torch.zeros(n, dtype=torch.bool, device=dev)
-    last[-1] = True
-    m = n - 1
-    last_m = torch.zeros(m, dtype=torch.bool, device=dev)
-    last_m[-1] = True
-    edges = (("all lanes dead", n, torch.zeros_like(active)), ("one live lane, the last", n, last),
-             ("one live lane, the last", m, last_m), ("the random mask", m, active[:m]))
-    for what, lanes, act in edges:
-        eargs = args[:5] + tuple(x[:lanes] for x in args[5:9]) + (act,)
-        bad, _ = k2_mismatches(torch, traverse2.traverse(*eargs), traverse2.traverse_plain(*eargs))
-        log(f"K2 traverse, {lanes} lanes, {what}: mismatches {bad}")
-        if any(bad.values()):
-            raise AssertionError(f"K2 disagrees with its plain version ({lanes} lanes, {what})")
+    rand = {"A": check_random_rays(torch, "A", ra.bvh, traverse2, bounds)}
+    # the float-sort instantiation on the same rays over run A's table padded
+    # past 2^20 - 1 rows (rows past its end are never visited): the time the
+    # float child sort adds to the same work
+    padded = torch.zeros((2 ** 20 + 1, ra.bvh.table.shape[1]), dtype=torch.float32, device=dev)
+    padded[: ra.bvh.table.shape[0]] = ra.bvh.table
+    rand["A padded"] = check_random_rays(torch, "A (padded past 2^20 rows)",
+                                         dataclasses.replace(ra.bvh, table=padded), traverse2, bounds)
+    del padded
 
     # --- 4. main path: each run's kernels checked at its shapes, then driven ---------------
-    def drive(tag, r, timed, scene_name):
+    def drive(tag, r, timed, scene_name, variant="packed"):
         """Warm-up + ``timed`` frames with the launch counters set to 0
         first; per timed frame (after its wall) the largest motion vector and
-        the pixels by extra samples earned."""
+        the pixels by extra samples earned. Only K2's ``variant`` may
+        launch."""
         present.launches = 0
-        traverse2.launches = 0
+        traverse2.reset_launches()
         r.draw(1 / 60)  # warm-up
         torch.cuda.synchronize()
         rays, walls, motion, extras = 0, [], [], []
@@ -779,12 +933,14 @@ def main() -> int:
             raise AssertionError(f"{tag}: no rays traced")
         if min(counts.values()) < 1:
             raise AssertionError(f"{tag}: a kernel of the path never launched: {counts}")
+        variants = check_variants(tag, traverse2, variant)
         line = dict(run=tag, scene=scene_name, resolution=[w, h], spp=r.samples_per_pixel,
                     bounces=r.max_bounces, upscaler=r.upscaler_mode,
                     motion_adaptive=r.use_motion_adaptive_sampling,
                     triangles=r.statics.n_triangles, table_bytes=r.bvh.table.numel() * 4,
                     frames=timed, total_rays=rays, seconds=seconds, frame_walls=walls,
-                    mrays_per_s=rays / seconds / 1e6, launches=counts,
+                    mrays_per_s=rays / seconds / 1e6, launches=counts, k2_variants=variants,
+                    mipmaps=r.use_mipmaps, has_masks=r.bvh.has_masks,
                     max_motion_px=motion, pixels_by_extra_samples=extras,
                     accum_mean=float(acc.mean()), image_mean=float(img.mean()),
                     card=card_name, power_limit=power_limit)
@@ -798,14 +954,13 @@ def main() -> int:
 
     checks, counts, walls, lines, clone_ms = {}, {}, {}, {}, {}
 
-    def run(tag, r, timed):
+    def run(tag, r, timed, variant="packed"):
         checks[tag] = check_path_kernels(torch, tag, r, present, traverse2, bounds)
-        counts[tag], walls[tag], lines[tag] = drive(tag, r, timed, FP.RUNS[tag]["scene"])
+        counts[tag], walls[tag], lines[tag] = drive(tag, r, timed, FP.RUNS[tag]["scene"], variant)
         # refit keeps its input table: it copies the whole table every call
         clone_ms[tag] = cuda_ms(lambda: r.bvh.table.clone(), 20)
 
     run("A", ra, 3)
-    del bvh, table, args, k2, p2, eargs, last, last_m, edges
     torch.cuda.empty_cache()
     rb = make("B")
     run("B", rb, 2)
@@ -846,9 +1001,53 @@ def main() -> int:
         e_lines[mode].update(e_checks[mode], card=card_name, power_limit=power_limit)
         log(json.dumps(e_lines[mode]))
 
+    # --- 6b. runs F and G: the masked and the float-sort K2 on the main path ----------------
+    from mrt_tpu_torch.assets import texture as tex
+
+    rf = make("F")
+    atlas, floor_res = rf.scene_data.atlas, None
+    for res in range(atlas.has_map.shape[0]):
+        w, h = (int(x) for x in atlas.rects[res, tex.MAP_BASECOLOR, 2:4])
+        wn, hn = (int(x) for x in atlas.rects[res, tex.MAP_NORMAL, 2:4])
+        if bool(atlas.has_map[res, tex.MAP_BASECOLOR]) and bool(atlas.has_map[res, tex.MAP_NORMAL]):
+            floor_res = dict(resource=res, base_color=[w, h], normal=[wn, hn],
+                             levels=atlas.n_levels[res].tolist())
+    log(f"run F atlas: {tuple(atlas.texels.shape)} texels, floor maps {floor_res}; "
+        f"BVH has_masks {rf.bvh.has_masks}, mipmaps {rf.use_mipmaps}")
+    if (floor_res is None or floor_res["base_color"] != [2048, 2048]
+            or floor_res["normal"] != [1024, 1024] or not rf.bvh.has_masks or not rf.use_mipmaps):
+        raise AssertionError("run F: the floor's maps, the light masks or mipmaps are missing")
+    rand["F"] = check_random_rays(torch, "F", rf.bvh, traverse2, bounds, masked=True)
+    run("F", rf, 3, variant="masked")
+    debug_lines = [drive_debug(torch, "F", rf, mode, present, traverse2, "masked")
+                   for mode in range(T.DEBUG_MODE_BASECOLOR, T.DEBUG_MODE_EMISSION + 1)]
+    debug_lines.append(drive_debug(torch, "C", rc, T.DEBUG_MODE_MOTION, present, traverse2,
+                                   "packed", frames=2))
+    for line in debug_lines:
+        log(json.dumps(dict(line, card=card_name, power_limit=power_limit)))
+    if debug_lines[-1]["accum_max"][2] <= 0.0:
+        raise AssertionError("run C, motion view: no motion shown (blue, the magnitude, is 0)")
+    torch.cuda.empty_cache()
+
+    rg = make("G")
+    if rg.bvh.table.shape[0] <= 2 ** 20 - 1:
+        raise AssertionError(f"run G: the table has {rg.bvh.table.shape[0]} rows, not more than "
+                             "2^20 - 1")
+    log(f"run G table: {rg.bvh.table.shape[0]} rows (> 2^20 - 1 = {2 ** 20 - 1}), "
+        f"{rg.bvh.table.numel() * 4 / 1e9:.3f} GB")
+    rand["G"] = check_random_rays(torch, "G", rg.bvh, traverse2, bounds)
+    if rand["G"]["variant"] != "float_sort":
+        raise AssertionError(f"run G: K2 took its {rand['G']['variant']} variant")
+    run("G", rg, 2, variant="float_sort")
+
     # --- 7. the profiler last: a process's frames after a profiler session ran
     # slower on the host in this script's runs (PERF.md, Findings)
-    profiles = {"A": profile("A", ra), "B": profile("B", rb), "C": profile("C", rc)}
+    profiles = {tag: profile(tag, r) for tag, r in (("A", ra), ("B", rb), ("C", rc), ("F", rf),
+                                                    ("G", rg))}
+    # where run F's extra device time goes: its costliest operators beside run A's
+    log(json.dumps(dict(top_ops_ms={tag: device_ops(torch, lambda r=r: r.draw(1 / 60), 1, top=12)
+                                    for tag, r in (("A", ra), ("F", rf))},
+                        card=card_name, power_limit=power_limit)))
     for tag, r in (("C", rc), ("D", rd)):
         log(json.dumps(dict(prepare=tag, **profile_prepare(torch, r, bounds),
                             table_clone_ms=clone_ms[tag], card=card_name,
@@ -857,16 +1056,21 @@ def main() -> int:
                                 {m: e_lines[m]["frame_walls_still"] for m in E_MODES})
     log(json.dumps(dict(run="E", profile=e_profile, k1=e_k1, card=card_name,
                         power_limit=power_limit)))
-    del ra, rb, rc, rd, re_, x4k
+    del ra, rb, rc, rd, re_, rf, rg, x4k
 
     # --- 8. a small frame on the card against the CPU plain path -------------------------------
     check_small_frames(dev)
+    check_small_extras(dev)
 
     # launches: every run's main-path counts. K1: ms is its profiler device
     # time after a 64 MB write (as a frame leaves the L2) at run A's shape.
     # K2: ms, plain_ms and bound_ms are for run A's camera rays; per run, the
     # warm profiler time of one frame, the cold CUDA-event time of the
-    # checked frame, its bound and its work by row type.
+    # checked frame, its bound, its work by row type and the instantiation
+    # that ran; per instantiation, its main-path launches and its phase-3
+    # check on random rays.
+    variant_counts = {t: lines[t]["k2_variants"] for t in lines}
+    variant_counts["E"] = {"packed": sum(e_lines[m]["k2_variants"]["packed"] for m in E_MODES)}
     a = checks["A"]
     kernels = [
         dict(name="K1 present tonemap_quantize", route="cuda",
@@ -884,7 +1088,8 @@ def main() -> int:
              source="mrt_tpu_torch/csrc/traverse2.cu", replaces="mrt_tpu/bvh/twolevel.py:593",
              launches=sum(c["traverse2"] for c in counts.values()),
              launches_by_run={t: counts[t]["traverse2"] for t in counts},
-             max_abs_err=max([k2_rand_err] + [c["k2"]["max_abs_err"] for c in checks.values()]),
+             max_abs_err=max([x["max_abs_err"] for x in rand.values()]
+                             + [c["k2"]["max_abs_err"] for c in checks.values()]),
              ms=a["k2"]["ms"], plain_ms=a["k2"]["plain_ms"], bound_ms=a["k2"]["bound_ms"],
              bound_by=a["k2"]["bound_by_cam"], library_ms=None,
              by_run={t: dict(frame_ms_profiler_warm=profiles[t]["traverse2_s"] * 1e3,
@@ -896,8 +1101,14 @@ def main() -> int:
                              pops_by_type={k: c["k2"]["work"][f"pops_{k}"]
                                            for k in ("internal", "leaf", "instance")},
                              work=c["k2"]["work"], live_rays=c["k2"]["rays"],
-                             device_busy_s=profiles[t]["device_busy_s"])
-                     for t, c in checks.items()}),
+                             device_busy_s=profiles[t]["device_busy_s"],
+                             variants=lines[t]["k2_variants"])
+                     for t, c in checks.items()},
+             variants={name: dict(
+                 launches=sum(v.get(name, 0) for v in variant_counts.values()),
+                 launches_by_run={t: v[name] for t, v in variant_counts.items() if name in v},
+                 random_rays=[dict(x, run=t) for t, x in rand.items() if x["variant"] == name])
+                 for name in ("packed", "masked", "float_sort")}),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,10 @@
 The host side (shelf packing of every map of every resource, the mip chain
 placement, the channel-packed twin) is the JAX package's NumPy code, so the
 atlas layout is identical. The device side is the bilinear sampling of the
-channel-packed atlas (``sample_packed``) and of a per-map rect
-(``sample_bilinear``), as torch gathers.
+channel-packed atlas (``sample_packed``), of a per-map rect
+(``sample_bilinear``) and, with ``RenderSettings.use_mipmaps``, the
+trilinear sampling of each map's mip chain at a ray-cone LOD
+(``sample_trilinear``), as torch gathers.
 """
 
 from __future__ import annotations
@@ -52,12 +54,15 @@ _PACKED_SLICE = {  # map type -> (start, width) in the packed texel
 
 
 class TextureAtlas(NamedTuple):
-    """Atlas tensors (the mip chain stays in ``texels``; mipmapped sampling
-    is not ported yet)."""
+    """Atlas tensors: every map's mip chain in ``texels``, its level rects in
+    ``mip_rects``, and the channel-packed level-0 twin."""
 
     texels: torch.Tensor  # (H, W, 3) f32 linear
     rects: torch.Tensor  # (R, N_MAP_TYPES, 4) int32: x0, y0, w, h (level 0)
     has_map: torch.Tensor  # (R, N_MAP_TYPES) bool
+    # level-l rect per (resource, map); levels past a chain's end repeat its last
+    mip_rects: torch.Tensor  # (R, N_MAP_TYPES, MAX_MIPS, 4) int32
+    n_levels: torch.Tensor  # (R, N_MAP_TYPES) int32 >= 1
     packed: torch.Tensor  # (Hp, Wp, PACKED_C) f32
     packed_rects: torch.Tensor  # (R, 4) int32 x0, y0, w, h
 
@@ -206,7 +211,8 @@ class AtlasBuilder:
         self.has_np = has
         return TextureAtlas(
             texels=torch.as_tensor(texels), rects=torch.as_tensor(rects),
-            has_map=torch.as_tensor(has), packed=torch.as_tensor(packed),
+            has_map=torch.as_tensor(has), mip_rects=torch.as_tensor(mip_rects),
+            n_levels=torch.as_tensor(n_levels), packed=torch.as_tensor(packed),
             packed_rects=torch.as_tensor(packed_rects),
         )
 
@@ -327,7 +333,34 @@ def sample_bilinear(atlas: TextureAtlas, resource: torch.Tensor, map_type: int,
                     uv: torch.Tensor) -> torch.Tensor:
     """Bilinear LOD-0 sample of one map with repeat addressing inside each
     resource's rect. resource: (R,) int; uv: (R, 2). Returns (R, 3)."""
-    rect = atlas.rects[resource.long(), map_type]
+    return _bilinear_rect(atlas, atlas.rects[resource.long(), map_type], uv)
+
+
+def sample_trilinear(atlas: TextureAtlas, resource: torch.Tensor, map_type: int,
+                     uv: torch.Tensor, lod_base: torch.Tensor) -> torch.Tensor:
+    """Trilinear sample of one map's mip chain. ``lod_base`` (R,) is log2 of
+    the ray-cone footprint in UV units; the map's LOD adds log2 of its
+    level-0 texel size, so one footprint drives every map of a hit."""
+    f32 = torch.float32
+    res = resource.long()
+    r0 = atlas.rects[res, map_type]
+    nl = atlas.n_levels[res, map_type].to(f32)
+    size0 = torch.clamp(r0[:, 2].to(f32) * r0[:, 3].to(f32), min=1.0)
+    lod = torch.minimum(torch.clamp(lod_base + 0.5 * torch.log2(size0), min=0.0), nl - 1.0)
+    l0 = torch.floor(lod)
+    l1 = torch.minimum(l0 + 1.0, nl - 1.0)
+    frac = (lod - l0)[:, None]
+    flat_mr = atlas.mip_rects.reshape(-1, 4)
+    base = (res * N_MAP_TYPES + map_type) * MAX_MIPS
+    rect0 = flat_mr[base + l0.long()]
+    rect1 = flat_mr[base + l1.long()]
+    c0 = _bilinear_rect(atlas, rect0, uv)
+    c1 = _bilinear_rect(atlas, rect1, uv)
+    return c0 * (1.0 - frac) + c1 * frac
+
+
+def _bilinear_rect(atlas: TextureAtlas, rect: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample with repeat addressing inside a per-lane rect (R,4)."""
     x0 = rect[:, 0].to(torch.float32)
     y0 = rect[:, 1].to(torch.float32)
     w = rect[:, 2].to(torch.float32)

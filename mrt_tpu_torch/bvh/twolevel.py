@@ -5,7 +5,9 @@ One unified table of 128-float rows: TLAS internal rows first, then every
 BLAS's internal rows, then all leaf rows, then one row per instance
 ({world->object 3x4 inverse, world AABB, BLAS root, instance id, mask}).
 The host build and the row layout are the JAX package's, so for the same
-scene the tables are equal. A skinned instance gets a BLAS of its own;
+scene the tables are equal. An instance's geometry mask is tested against
+the ray's mask on its instance row, only when some instance has a
+non-default mask (``has_masks``). A skinned instance gets a BLAS of its own;
 ``refit`` rewrites every skinned BLAS from the posed vertex pool, then the
 instance and TLAS rows (and, at build time, every BLAS), with torch ops.
 Traversal runs kernel K2 (``kernels/traverse2.py``).
@@ -68,6 +70,12 @@ class TwoLevelBVH:
                              skin_indices=tuple(t.to(device) for t in self.skin_indices))
 
     @property
+    def has_masks(self) -> bool:
+        """True when some instance has a non-default geometry mask: only then
+        do traversals take ray masks (and K2 its masked variant)."""
+        return any(m != GEOMETRY_MASK_GEOMETRY for m in self.inst_masks)
+
+    @property
     def stack_size(self) -> int:
         """Traversal stack entries a lane needs (exact worst case)."""
         return _stack_alloc(self.stack_bound,
@@ -128,9 +136,6 @@ def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLeve
     ``Scene.host_mirror`` from ``Scene.compile``), then a full refit on the
     scene's device. Models with a ``skin`` get exclusive mesh groups: their
     pose is refit every frame."""
-    if any(getattr(m, "geometry_mask", GEOMETRY_MASK_GEOMETRY) != GEOMETRY_MASK_GEOMETRY
-           for m in models):
-        raise NotImplementedError("geometry-mask filtering is not ported yet (ROADMAP Slice H)")
     vertex_instance = host_mirror["vertex_instance"]
     tri_instance = host_mirror["tri_instance"]
     n_inst = len(models)
@@ -375,7 +380,7 @@ def refit(bvh: TwoLevelBVH, positions_obj, instance_transform, *,
 # Traversal (kernel K2)
 # ---------------------------------------------------------------------------
 
-def _traverse(bvh: TwoLevelBVH, rays: Rays, shadow, mask, t_min: float):
+def _traverse(bvh: TwoLevelBVH, rays: Rays, shadow, mask, t_min: float, ray_mask=None):
     n = rays.origin.shape[0]
     dev = rays.origin.device
     if mask is None:
@@ -383,7 +388,8 @@ def _traverse(bvh: TwoLevelBVH, rays: Rays, shadow, mask, t_min: float):
     return traverse2.traverse(
         bvh.table, bvh.n_internal, bvh.n_leaf, bvh.tlas_n, bvh.stack_size,
         rays.origin.contiguous(), rays.direction.contiguous(),
-        rays.max_distance.contiguous(), shadow.contiguous(), mask.contiguous(), t_min)
+        rays.max_distance.contiguous(), shadow.contiguous(), mask.contiguous(), t_min,
+        ray_mask=None if ray_mask is None else ray_mask.contiguous())
 
 
 def _to_flat(bvh: TwoLevelBVH, local, inst):
@@ -399,20 +405,27 @@ def _hits(bvh, out) -> Hits:
                 u=out.u, v=out.v)
 
 
-def closest_hit(bvh: TwoLevelBVH, rays: Rays, t_min: float = 0.0, mask=None) -> Hits:
+# ``ray_mask``: optional (R,) int32 per-ray mask bits; an instance whose
+# geometry mask shares no bit with a ray's mask is skipped by that ray
+# (Raytracing.metal:733-735). None: no filtering.
+
+def closest_hit(bvh: TwoLevelBVH, rays: Rays, t_min: float = 0.0, mask=None,
+                ray_mask=None) -> Hits:
     """Closest hit per ray; triangle ids are FLAT (instance tri base + local)."""
     shadow = torch.zeros(rays.origin.shape[0], dtype=torch.bool, device=rays.origin.device)
-    return _hits(bvh, _traverse(bvh, rays, shadow, mask, t_min))
+    return _hits(bvh, _traverse(bvh, rays, shadow, mask, t_min, ray_mask))
 
 
-def trace_mixed(bvh: TwoLevelBVH, rays: Rays, shadow, t_min: float = 0.0, mask=None):
+def trace_mixed(bvh: TwoLevelBVH, rays: Rays, shadow, t_min: float = 0.0, mask=None,
+                ray_mask=None):
     """One traversal over a mixed batch: ``shadow`` lanes retire at their first
     hit, the others find the closest. Returns (Hits, occluded)."""
-    out = _traverse(bvh, rays, shadow, mask, t_min)
+    out = _traverse(bvh, rays, shadow, mask, t_min, ray_mask)
     return _hits(bvh, out), out.found & shadow
 
 
-def any_hit(bvh: TwoLevelBVH, rays: Rays, t_min: float = 0.0, mask=None) -> torch.Tensor:
+def any_hit(bvh: TwoLevelBVH, rays: Rays, t_min: float = 0.0, mask=None,
+            ray_mask=None) -> torch.Tensor:
     """Occlusion per ray within ``rays.max_distance``."""
     shadow = torch.ones(rays.origin.shape[0], dtype=torch.bool, device=rays.origin.device)
-    return _traverse(bvh, rays, shadow, mask, t_min).found
+    return _traverse(bvh, rays, shadow, mask, t_min, ray_mask).found

@@ -54,9 +54,7 @@ def scene_data(sd, device=None) -> SceneData:
             np.int32 if f == "texture_flags" else np.float32), device)
             for f in T.Materials._fields)),
         lights=_nt(T.Lights, sd.lights, device),
-        atlas=TextureAtlas(texels=_t(at.texels, device), rects=_t(at.rects, device),
-                           has_map=_t(at.has_map, device), packed=_t(at.packed, device),
-                           packed_rects=_t(at.packed_rects, device)),
+        atlas=_nt(TextureAtlas, at, device),
         env_map=_t(sd.env_map, device),
         env_intensity=_t(sd.env_intensity, device),
     )

@@ -211,10 +211,6 @@ class RenderSettings:
 def check_supported(settings: RenderSettings) -> None:
     """Raise ``NotImplementedError`` for settings outside the ported slice
     (each names its ROADMAP item); never ignore them silently."""
-    if settings.debug_mode != DEBUG_MODE_NONE:
-        raise NotImplementedError("debug texture modes are not ported yet (ROADMAP Slice H)")
-    if settings.use_mipmaps:
-        raise NotImplementedError("mipmapped texture sampling is not ported yet (ROADMAP Slice H)")
     if not settings.two_level or settings.traversal_backend != "wide":
         raise NotImplementedError("only the two-level wide BVH is ported (flat path: ROADMAP Slice F)")
     if settings.geometry_axis:

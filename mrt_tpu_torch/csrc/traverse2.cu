@@ -21,6 +21,19 @@
 // Ids decode as bitcast_i32(f) - 2^30. Each lane also counts the rows it
 // popped (the JAX package's count_pops).
 //
+// Two template parameters give four instantiations; an unmasked scene with a
+// table of at most 2^20 - 1 rows runs <false, false>, the code that existed
+// before the other three:
+//  * MASKED (twolevel.py:_step2's mask test, :618-623): each lane carries a
+//    ray mask, and an instance row is skipped when its geometry mask (column
+//    20, one more float4) shares no bit with it;
+//  * FLOAT_SORT (wide.py:_sort_children, dispatched by _sorted_candidates
+//    when the table has more than 2^20 - 1 rows, whose ids no longer fit the
+//    packed key's 20 bits): the 8 (t, id) pairs sort in the JAX package's
+//    24-comparator bitonic network, swapping on t[a] > t[b], in registers;
+//    a child is pushed when its sorted t is finite. The network and its pair
+//    order are the plain version's, so the pop order is too.
+//
 // The work the function needs (utils/bounds.py turns it into K2's least
 // time). Counting each f32 add, sub, mul, div, min, max and compare once, a
 // popped row costs:
@@ -29,11 +42,13 @@
 //   leaf      1 (the compare against best_t) + 59 per triangle that is not
 //               a pad;
 //   instance 34 for the world-slab cull, 33 more when the ray enters
-//               (the 3x4 transform of origin and direction).
+//               (the 3x4 transform of origin and direction);
+//   FLOAT_SORT 24 compares more per internal row (the network).
 // Its bytes, each distinct row read once in float4s: an internal row's 14
 // (224 B), a leaf row's 10 per group of 4 triangles up to the first pad, an
-// instance row's 2 (world box, root, id) and 3 more if a ray enters it; and
-// 55 B per live lane (30 in, 25 out), 30 B per dead lane. What holds a
+// instance row's 2 (world box, root, id; 3 with the mask when MASKED) and 3
+// more if a ray enters it; and 55 B per live lane (30 in, 25 out; 4 more in
+// when MASKED), 30 B per dead lane. What holds a
 // simple one-thread-per-lane kernel far from that bound is lanes that do
 // nothing and lanes that wait, and the design answers those:
 //  * traverse2_compact_kernel, one thread per lane: live lanes are appended
@@ -119,13 +134,16 @@ struct Lane {
     float ox, oy, oz, dx, dy, dz;
     float best_t, best_u, best_v;
     int best_tri, best_inst, cur_inst;
+    int ray_mask;  // read only when MASKED
     bool found, shadow;
 };
 
 // Instance row: [0..11] the 3x4 inverse; [12..15] wbmin xyz, wbmax x;
-// [16..19] wbmax y z, BLAS root, instance id.
+// [16..19] wbmax y z, BLAS root, instance id; [20] the geometry mask.
+template <bool MASKED>
 __device__ __forceinline__ void instance_row(const float4* __restrict__ row, Lane& L, int* stack,
                                              int& sp, int stack_size) {
+    if (MASKED && (dec(__ldg(row + 5).x) & L.ray_mask) == 0) return;
     const float4 a = __ldg(row + 3), b = __ldg(row + 4);
     float ix = guarded_inv(L.wdx), iy = guarded_inv(L.wdy), iz = guarded_inv(L.wdz);
     float t0x = (a.x - L.wox) * ix, t1x = (a.w - L.wox) * ix;
@@ -205,9 +223,21 @@ __device__ __forceinline__ void leaf_row(const float4* __restrict__ row, Lane& L
     if (L.found && L.shadow) sp = 0;
 }
 
+// One comparator of the float child sort (wide.py:_sort_children).
+__device__ __forceinline__ void fswap(float* ts, int* ids, int a, int b) {
+    const bool swap = ts[a] > ts[b];
+    const float ta = swap ? ts[b] : ts[a], tb = swap ? ts[a] : ts[b];
+    const int ia = swap ? ids[b] : ids[a], ib = swap ? ids[a] : ids[b];
+    ts[a] = ta;
+    ts[b] = tb;
+    ids[a] = ia;
+    ids[b] = ib;
+}
+
 // Internal row: 6 planes of ARITY child bounds (bmin xyz, bmax xyz), then the
 // ARITY child ids; read by halves, 4 children at a time. TLAS rows (entry <
 // tlas_n) test the world registers.
+template <bool FLOAT_SORT>
 __device__ __forceinline__ void internal_row(const float4* __restrict__ row, bool tl, const Lane& L,
                                              int* stack, int& sp, int stack_size) {
     const float t_cap = L.best_t;
@@ -215,6 +245,8 @@ __device__ __forceinline__ void internal_row(const float4* __restrict__ row, boo
     const float ix = guarded_inv(tl ? L.wdx : L.dx), iy = guarded_inv(tl ? L.wdy : L.dy),
                 iz = guarded_inv(tl ? L.wdz : L.dz);
     int keys[ARITY];
+    float ts[ARITY];  // FLOAT_SORT: t and id per child
+    int ids[ARITY];
     int n_push = 0;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -232,24 +264,42 @@ __device__ __forceinline__ void internal_row(const float4* __restrict__ row, boo
             float a_t = tnear > 0.0f ? tnear : 0.0f;
             int meta = dec(at(mt, k));
             float tA = (hit && meta >= 0) ? a_t : INFINITY;
-            bool ok = tA < INFINITY && meta >= 0;
-            keys[4 * h + k] = ok ? (((__float_as_int(tA) >> 20) << 20) | (meta & META_MASK)) : KEY_MAX;
-            n_push += ok ? 1 : 0;
+            if (FLOAT_SORT) {
+                ts[4 * h + k] = tA;
+                ids[4 * h + k] = meta;
+            } else {
+                bool ok = tA < INFINITY && meta >= 0;
+                keys[4 * h + k] = ok ? (((__float_as_int(tA) >> 20) << 20) | (meta & META_MASK)) : KEY_MAX;
+                n_push += ok ? 1 : 0;
+            }
         }
     }
-    // ascending: an optimal 8-input sorting network (keys unique per row,
-    // KEY_MAX pads last)
-    cswap(keys[0], keys[2]); cswap(keys[1], keys[3]); cswap(keys[4], keys[6]); cswap(keys[5], keys[7]);
-    cswap(keys[0], keys[4]); cswap(keys[1], keys[5]); cswap(keys[2], keys[6]); cswap(keys[3], keys[7]);
-    cswap(keys[0], keys[1]); cswap(keys[2], keys[3]); cswap(keys[4], keys[5]); cswap(keys[6], keys[7]);
-    cswap(keys[2], keys[4]); cswap(keys[3], keys[5]);
-    cswap(keys[1], keys[4]); cswap(keys[3], keys[6]);
-    cswap(keys[1], keys[2]); cswap(keys[3], keys[4]); cswap(keys[5], keys[6]);
-    // farthest deepest, so the nearest child ends on top
+    if (FLOAT_SORT) {
+        // wide._bitonic_pairs(8), in its order
+        fswap(ts, ids, 0, 1); fswap(ts, ids, 3, 2); fswap(ts, ids, 4, 5); fswap(ts, ids, 7, 6);
+        fswap(ts, ids, 0, 2); fswap(ts, ids, 1, 3); fswap(ts, ids, 6, 4); fswap(ts, ids, 7, 5);
+        fswap(ts, ids, 0, 1); fswap(ts, ids, 2, 3); fswap(ts, ids, 5, 4); fswap(ts, ids, 7, 6);
+        fswap(ts, ids, 0, 4); fswap(ts, ids, 1, 5); fswap(ts, ids, 2, 6); fswap(ts, ids, 3, 7);
+        fswap(ts, ids, 0, 2); fswap(ts, ids, 1, 3); fswap(ts, ids, 4, 6); fswap(ts, ids, 5, 7);
+        fswap(ts, ids, 0, 1); fswap(ts, ids, 2, 3); fswap(ts, ids, 4, 5); fswap(ts, ids, 6, 7);
+#pragma unroll
+        for (int k = 0; k < ARITY; ++k) n_push += isfinite(ts[k]) ? 1 : 0;
+    } else {
+        // ascending: an optimal 8-input sorting network (keys unique per row,
+        // KEY_MAX pads last)
+        cswap(keys[0], keys[2]); cswap(keys[1], keys[3]); cswap(keys[4], keys[6]); cswap(keys[5], keys[7]);
+        cswap(keys[0], keys[4]); cswap(keys[1], keys[5]); cswap(keys[2], keys[6]); cswap(keys[3], keys[7]);
+        cswap(keys[0], keys[1]); cswap(keys[2], keys[3]); cswap(keys[4], keys[5]); cswap(keys[6], keys[7]);
+        cswap(keys[2], keys[4]); cswap(keys[3], keys[5]);
+        cswap(keys[1], keys[4]); cswap(keys[3], keys[6]);
+        cswap(keys[1], keys[2]); cswap(keys[3], keys[4]); cswap(keys[5], keys[6]);
+    }
+    // farthest deepest, so the nearest child ends on top (the finite sorted
+    // t come first, so the first n_push slots are the ones pushed)
 #pragma unroll
     for (int k = 0; k < ARITY; ++k) {
         const int pos = sp + (n_push - 1 - k);
-        if (k < n_push && pos < stack_size) stack[pos] = keys[k] & META_MASK;
+        if (k < n_push && pos < stack_size) stack[pos] = FLOAT_SORT ? ids[k] : (keys[k] & META_MASK);
     }
     sp = min(sp + n_push, stack_size);
 }
@@ -299,11 +349,12 @@ __global__ void __launch_bounds__(COMPACT_BLOCK) traverse2_compact_kernel(
 }
 
 // Trace live lane i to its end and write its results.
+template <bool MASKED, bool FLOAT_SORT>
 __device__ __forceinline__ void trace_lane(
     const float4* __restrict__ table, int n_internal, int n_leaf, int tlas_n, int stack_size,
     const float* __restrict__ origin, const float* __restrict__ direction,
-    const float* __restrict__ tmax, const unsigned char* __restrict__ shadow, float t_min, int i,
-    const Outputs& out) {
+    const float* __restrict__ tmax, const unsigned char* __restrict__ shadow,
+    const int* __restrict__ ray_mask, float t_min, int i, const Outputs& out) {
     Lane L;
     L.wox = L.ox = origin[3 * i];
     L.woy = L.oy = origin[3 * i + 1];
@@ -316,6 +367,7 @@ __device__ __forceinline__ void trace_lane(
     L.best_tri = L.best_inst = L.cur_inst = -1;
     L.found = false;
     L.shadow = shadow[i] != 0;
+    L.ray_mask = MASKED ? ray_mask[i] : 0;
     const int inst_base = n_internal + n_leaf;
 
     int stack[MAX_STACK];
@@ -325,9 +377,9 @@ __device__ __forceinline__ void trace_lane(
         const int entry = stack[--sp];
         ++pops;
         const float4* row = table + (long long)entry * ROW4;
-        if (entry >= inst_base) instance_row(row, L, stack, sp, stack_size);
+        if (entry >= inst_base) instance_row<MASKED>(row, L, stack, sp, stack_size);
         else if (entry >= n_internal) leaf_row(row, L, sp, t_min);
-        else internal_row(row, entry < tlas_n, L, stack, sp, stack_size);
+        else internal_row<FLOAT_SORT>(row, entry < tlas_n, L, stack, sp, stack_size);
     }
     out.t[i] = L.best_t;
     out.tri[i] = L.best_tri;
@@ -339,11 +391,13 @@ __device__ __forceinline__ void trace_lane(
 }
 
 // Persistent over the live list: each warp takes 32 entries at a time.
+template <bool MASKED, bool FLOAT_SORT>
 __global__ void __launch_bounds__(BLOCK) traverse2_kernel(
     const float4* __restrict__ table, int n_internal, int n_leaf, int tlas_n, int stack_size,
     const float* __restrict__ origin, const float* __restrict__ direction,
-    const float* __restrict__ tmax, const unsigned char* __restrict__ shadow, float t_min,
-    const int* __restrict__ live, int* counters, Outputs out) {
+    const float* __restrict__ tmax, const unsigned char* __restrict__ shadow,
+    const int* __restrict__ ray_mask, float t_min, const int* __restrict__ live, int* counters,
+    Outputs out) {
     const int lane = threadIdx.x & 31;
     const int n_live = counters[0];
     for (;;) {
@@ -352,13 +406,16 @@ __global__ void __launch_bounds__(BLOCK) traverse2_kernel(
         base = __shfl_sync(FULL, base, 0);
         if (base >= n_live) break;
         if (base + lane < n_live)
-            trace_lane(table, n_internal, n_leaf, tlas_n, stack_size, origin, direction, tmax,
-                       shadow, t_min, live[base + lane], out);
+            trace_lane<MASKED, FLOAT_SORT>(table, n_internal, n_leaf, tlas_n, stack_size, origin,
+                                           direction, tmax, shadow, ray_mask, t_min,
+                                           live[base + lane], out);
     }
 }
 
 // The persistent kernel's grid on the current device: SMs x the blocks per
-// SM its registers allow. Returns a CUDA error code.
+// SM its registers allow (asked once per device and instantiation). Returns
+// a CUDA error code.
+template <bool MASKED, bool FLOAT_SORT>
 static int persistent_grid(int* blocks) {
     static int cached[64];
     int dev = 0;
@@ -371,7 +428,8 @@ static int persistent_grid(int* blocks) {
     int sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, traverse2_kernel, BLOCK, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, traverse2_kernel<MASKED, FLOAT_SORT>,
+                                                      BLOCK, 0);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     *blocks = sms * per_sm;
@@ -379,17 +437,31 @@ static int persistent_grid(int* blocks) {
     return 0;
 }
 
-// scratch: n + 2 ints (the live list, then the two counters).
+template <bool MASKED, bool FLOAT_SORT>
+static int launch_traverse(const float4* table, int n_internal, int n_leaf, int tlas_n,
+                           int stack_size, const float* origin, const float* direction,
+                           const float* tmax, const unsigned char* shadow, const int* ray_mask,
+                           float t_min, const int* live, int* counters, const Outputs& out,
+                           cudaStream_t s) {
+    int blocks = 0;
+    int rc = persistent_grid<MASKED, FLOAT_SORT>(&blocks);
+    if (rc != 0) return rc;
+    traverse2_kernel<MASKED, FLOAT_SORT><<<blocks, BLOCK, 0, s>>>(
+        table, n_internal, n_leaf, tlas_n, stack_size, origin, direction, tmax, shadow, ray_mask,
+        t_min, live, counters, out);
+    return (int)cudaGetLastError();
+}
+
+// scratch: n + 2 ints (the live list, then the two counters). ray_mask: n
+// ints, or null for the unmasked instantiations; float_sort != 0 selects the
+// float child sort.
 extern "C" int mrt_traverse2(const void* table, int n_internal, int n_leaf, int tlas_n,
                              int stack_size, const void* origin, const void* direction,
-                             const void* tmax, const void* shadow, const void* active, int n,
-                             float t_min, void* out_t, void* out_tri, void* out_inst,
-                             void* out_u, void* out_v, void* out_found, void* out_pops,
-                             void* scratch, void* stream) {
+                             const void* tmax, const void* shadow, const void* active,
+                             const void* ray_mask, int float_sort, int n, float t_min,
+                             void* out_t, void* out_tri, void* out_inst, void* out_u, void* out_v,
+                             void* out_found, void* out_pops, void* scratch, void* stream) {
     if (n <= 0) return 0;
-    int blocks = 0;
-    int rc = persistent_grid(&blocks);
-    if (rc != 0) return rc;
     cudaStream_t s = (cudaStream_t)stream;
     int* live = (int*)scratch;
     int* counters = live + n;
@@ -400,9 +472,19 @@ extern "C" int mrt_traverse2(const void* table, int n_internal, int n_leaf, int 
         (const unsigned char*)active, (const float*)tmax, n, live, counters, out);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    traverse2_kernel<<<blocks, BLOCK, 0, s>>>(
-        (const float4*)table, n_internal, n_leaf, tlas_n, stack_size, (const float*)origin,
-        (const float*)direction, (const float*)tmax, (const unsigned char*)shadow, t_min, live,
-        counters, out);
-    return (int)cudaGetLastError();
+    const float4* tb = (const float4*)table;
+    const float *o = (const float*)origin, *d = (const float*)direction, *tm = (const float*)tmax;
+    const unsigned char* sh = (const unsigned char*)shadow;
+    const int* rm = (const int*)ray_mask;
+    if (rm != nullptr && float_sort)
+        return launch_traverse<true, true>(tb, n_internal, n_leaf, tlas_n, stack_size, o, d, tm, sh,
+                                           rm, t_min, live, counters, out, s);
+    if (rm != nullptr)
+        return launch_traverse<true, false>(tb, n_internal, n_leaf, tlas_n, stack_size, o, d, tm, sh,
+                                            rm, t_min, live, counters, out, s);
+    if (float_sort)
+        return launch_traverse<false, true>(tb, n_internal, n_leaf, tlas_n, stack_size, o, d, tm,
+                                            sh, rm, t_min, live, counters, out, s);
+    return launch_traverse<false, false>(tb, n_internal, n_leaf, tlas_n, stack_size, o, d, tm, sh,
+                                         rm, t_min, live, counters, out, s);
 }

@@ -223,6 +223,12 @@ class Renderer:
             if name in ("traversal_backend", "two_level") and old is not value:
                 if not (self.two_level and self.traversal_backend == "wide"):
                     object.__setattr__(self, name, old)
+                    if any(m.geometry_mask != T.GEOMETRY_MASK_GEOMETRY for m in self.scene.models):
+                        # as the JAX package's _build_bvh refuses it
+                        raise ValueError(
+                            "geometry masks require the two-level traversal backend "
+                            "(two_level=True, traversal_backend='wide'); the flat backend has "
+                            "no per-instance mask filtering")
                     raise NotImplementedError(
                         "only the two-level wide BVH is ported (flat path: ROADMAP Slice F)")
 

@@ -92,7 +92,7 @@ def load():
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.mrt_present.argtypes = [p, p, ll, p]
     lib.mrt_present.restype = i
-    lib.mrt_traverse2.argtypes = [p, i, i, i, i, p, p, p, p, p, i, f, p, p, p, p, p, p, p, p, p]
+    lib.mrt_traverse2.argtypes = [p, i, i, i, i, p, p, p, p, p, p, i, i, f, p, p, p, p, p, p, p, p, p]
     lib.mrt_traverse2.restype = i
     _lib = lib
     return lib

@@ -5,9 +5,14 @@ Replaces ``mrt_tpu/bvh/twolevel.py:_step2`` (looped by ``_traverse2``). The
 wrapper launches the CUDA kernels for CUDA tensors (a compaction of the live
 lanes, then a persistent traversal over them) and takes the plain version
 only for CPU tensors. The plain version is a lane-vector transcription of
-``_step2``: pop, one row gather, then per row type the instance switch, the
-12-wide Moller-Trumbore or the 8 slab tests with the packed-key sorted push,
-in a Python loop until no lane is left. It keeps only the lanes that still
+``_step2``: pop, one row gather, then per row type the instance switch (with
+the geometry-mask test when ray masks are given), the 12-wide
+Moller-Trumbore or the 8 slab tests with the sorted push, in a Python loop
+until no lane is left. Children sort by the packed [t-bits | id] key on
+tables of at most 2^20 - 1 rows and by float t carrying the id above that
+(``sorted_candidates``, the JAX package's dispatch). The kernel has one
+instantiation per (masked, float sort) pair, so an unmasked scene's small
+table runs the same code as before either existed. It keeps only the lanes that still
 have stack entries each step, and writes each three-term dot product as
 explicit adds in the JAX order, so its t/u/v are bit-equal to the kernel's.
 Both count the rows each lane popped (the JAX package's ``count_pops``); the
@@ -27,9 +32,68 @@ from ..bvh.wide import ARITY, IDS_OFF, LEAF_K, META_OFF, _KEY_MAX, _META_BITS, _
     decode_ids
 
 MAX_STACK = 128  # the kernel's compile-time stack cap (csrc/traverse2.cu)
+# the kernel's instantiations: (masked, float sort) -> name
+VARIANTS = {(False, False): "packed", (True, False): "masked", (False, True): "float_sort",
+            (True, True): "masked_float_sort"}
 launches = 0  # kernel launches by ``traverse`` in this process
+variant_launches = dict.fromkeys(VARIANTS.values(), 0)  # the same, by instantiation
 
-_I_WBMIN, _I_WBMAX, _I_ROOT, _I_ID = 12, 15, 18, 19
+_I_WBMIN, _I_WBMAX, _I_ROOT, _I_ID, _I_MASK = 12, 15, 18, 19, 20
+
+
+def variant(n_rows: int, masked: bool) -> str:
+    """The kernel instantiation a table of ``n_rows`` rows and rays with or
+    without masks take."""
+    return VARIANTS[(masked, n_rows > _META_MASK)]
+
+
+def reset_launches():
+    """Set every launch count to 0."""
+    global launches
+    launches = 0
+    for k in variant_launches:
+        variant_launches[k] = 0
+
+
+def _bitonic_pairs(n: int):
+    """Compare-exchange pairs of a bitonic sorting network for pow2 ``n``,
+    in the JAX package's order (``wide._bitonic_pairs``)."""
+    pairs = []
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j >= 1:
+            for i in range(n):
+                partner = i ^ j
+                if partner > i:
+                    pairs.append((i, partner) if (i & k) == 0 else (partner, i))
+            j //= 2
+        k *= 2
+    return pairs
+
+
+SORT_PAIRS = _bitonic_pairs(ARITY)  # ARITY is a power of two
+
+
+def sorted_candidates(tA, meta, n_rows: int):
+    """Children nearest-first: (ids (R, ARITY) int32, valid (R, ARITY) bool)
+    from the child entry distances ``tA`` (inf where not entered) and ids
+    ``meta`` (-1 where empty), as ``wide._sorted_candidates`` orders them.
+    Tables of at most 2^20 - 1 rows sort one packed int32 key [t-bits >> 20
+    | id]; larger ones sort t (a float) with the bitonic network, swapping
+    on ``t[a] > t[b]`` and carrying the id."""
+    if n_rows <= _META_MASK:
+        ok = torch.isfinite(tA) & (meta >= 0)
+        key = ((tA.contiguous().view(torch.int32) >> _META_BITS) << _META_BITS) | (meta & _META_MASK)
+        keys = torch.sort(torch.where(ok, key, _KEY_MAX), dim=1).values
+        return keys & _META_MASK, keys != _KEY_MAX
+    t = list(tA.unbind(1))
+    m = list(meta.unbind(1))
+    for a, b in SORT_PAIRS:
+        swap = t[a] > t[b]
+        t[a], t[b] = torch.where(swap, t[b], t[a]), torch.where(swap, t[a], t[b])
+        m[a], m[b] = torch.where(swap, m[b], m[a]), torch.where(swap, m[a], m[b])
+    return torch.stack(m, dim=1), torch.isfinite(torch.stack(t, dim=1))
 
 
 class TraverseOut(NamedTuple):
@@ -74,11 +138,10 @@ def _slab3(lo, hi, o, inv):
 
 
 def traverse_plain(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size: int,
-                   origin, direction, tmax, shadow, active, t_min: float = 0.0) -> TraverseOut:
+                   origin, direction, tmax, shadow, active, t_min: float = 0.0,
+                   ray_mask=None) -> TraverseOut:
     """Plain PyTorch two-level traversal (any device), with per-lane pops and
     per-row visits (``TraverseOut.visits``)."""
-    if table.shape[0] > _META_MASK:
-        raise NotImplementedError("tables above 2^20 rows need the float child sort (ROADMAP Q2-2)")
     R = origin.shape[0]
     dev = origin.device
     S = stack_size
@@ -122,6 +185,8 @@ def traverse_plain(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size:
                             [r[:, _I_WBMAX + a] for a in range(3)],
                             [wo[:, a] for a in range(3)], [inv[:, a] for a in range(3)])
             hit = (tn <= tf) & (tf >= 0.0) & (tn <= t_cap[is_inst])
+            if ray_mask is not None:
+                hit = hit & ((decode_ids(r[:, _I_MASK]) & ray_mask[L]) != 0)
             eh = e[is_inst][hit]
             visits[:, 1].index_add_(0, eh, torch.ones_like(eh))
             H, rh = L[hit], r[hit]
@@ -188,15 +253,13 @@ def traverse_plain(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size:
             a_t = torch.where(tnear > 0.0, tnear, 0.0)
             meta = decode_ids(r[:, META_OFF:META_OFF + A])
             t_a = torch.where(hit & (meta >= 0), a_t, inf)
-            ok = (t_a < inf) & (meta >= 0)
-            key = ((t_a.contiguous().view(torch.int32) >> _META_BITS) << _META_BITS) | (meta & _META_MASK)
-            keys = torch.sort(torch.where(ok, key, _KEY_MAX), dim=1).values
-            n_push = ok.sum(dim=1).to(torch.int32)
+            cands, valid = sorted_candidates(t_a, meta, table.shape[0])
+            n_push = valid.sum(dim=1).to(torch.int32)
             spi = sp[L]
             pos = spi[:, None] + (n_push[:, None] - 1 - kpos[None, :])
             write = (kpos[None, :] < n_push[:, None]) & (pos < S)
             rows_w = L[:, None].expand(-1, A)[write]
-            stack[rows_w, pos[write].long()] = (keys & _META_MASK)[write]
+            stack[rows_w, pos[write].long()] = cands[write]
             sp[L] = torch.clamp(spi + n_push, max=S)
 
         lanes = lanes[sp[lanes] > 0]
@@ -219,14 +282,17 @@ def _check(name, t, dtype, shape, device):
 
 
 def traverse(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size: int,
-             origin, direction, tmax, shadow, active, t_min: float = 0.0) -> TraverseOut:
+             origin, direction, tmax, shadow, active, t_min: float = 0.0,
+             ray_mask=None) -> TraverseOut:
     """Trace (R,) rays through the two-level table. ``shadow`` lanes stop at
-    their first hit; lanes with ``active`` False return the miss record.
-    CPU tensors take the plain version; CUDA tensors launch the kernels."""
+    their first hit; lanes with ``active`` False return the miss record;
+    ``ray_mask`` (optional, (R,) int32) skips the instances whose geometry
+    mask shares no bit with the ray's. CPU tensors take the plain version;
+    CUDA tensors launch the kernels."""
     global launches
     if origin.device.type == "cpu":
         return traverse_plain(table, n_internal, n_leaf, tlas_n, stack_size, origin, direction,
-                              tmax, shadow, active, t_min)
+                              tmax, shadow, active, t_min, ray_mask)
     if origin.device.type != "cuda":
         raise ValueError(f"traverse: unsupported device {origin.device}")
     R = origin.shape[0]
@@ -237,10 +303,12 @@ def traverse(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size: int,
     _check("tmax", tmax, torch.float32, (R,), dev)
     _check("shadow", shadow, torch.bool, (R,), dev)
     _check("active", active, torch.bool, (R,), dev)
+    if ray_mask is not None:
+        _check("ray_mask", ray_mask, torch.int32, (R,), dev)
     if stack_size > MAX_STACK:
         raise ValueError(f"traverse: the BVH needs a stack of {stack_size} entries; the kernel holds {MAX_STACK}")
-    if table.shape[0] > _META_MASK:
-        raise NotImplementedError("tables above 2^20 rows need the float child sort (ROADMAP Q2-2)")
+    if table.shape[0] >= 1 << 30:
+        raise ValueError("traverse: row ids must stay below 2^30 (the table's id encoding)")
     if table.data_ptr() % 16:
         raise ValueError("traverse: the table must be 16-byte aligned (its rows are read as float4)")
     out = TraverseOut(
@@ -259,13 +327,16 @@ def traverse(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size: int,
     lib = build.load()
     scratch = torch.empty(R + 2, dtype=torch.int32, device=dev)  # live-lane list, 2 counters
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    name = variant(table.shape[0], ray_mask is not None)
     rc = lib.mrt_traverse2(_ptr(table), n_internal, n_leaf, tlas_n, stack_size,
                            _ptr(origin), _ptr(direction), _ptr(tmax), _ptr(shadow), _ptr(active),
-                           R, float(t_min), _ptr(out.t), _ptr(out.tri), _ptr(out.inst),
-                           _ptr(out.u), _ptr(out.v), _ptr(out.found), _ptr(out.pops),
-                           _ptr(scratch), stream)
+                           None if ray_mask is None else _ptr(ray_mask),
+                           int(table.shape[0] > _META_MASK), R, float(t_min), _ptr(out.t),
+                           _ptr(out.tri), _ptr(out.inst), _ptr(out.u), _ptr(out.v),
+                           _ptr(out.found), _ptr(out.pops), _ptr(scratch), stream)
     if rc != 0:
-        raise RuntimeError(f"traverse2 kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"traverse2 ({name}) kernel launch failed: CUDA error {rc}")
     launches += 1
+    variant_launches[name] += 1
     return out
 

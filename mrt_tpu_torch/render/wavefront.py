@@ -11,6 +11,13 @@ motion-adaptive sampling, sample 0's motion and the previous frame's decide
 each pixel's extra samples (Raytracing.metal:779-789); a pixel's radiance is
 averaged over its own sample count.
 
+Off by default, as in the JAX package: the debug views (``debug_mode`` 1-7,
+Raytracing.metal:459-490), which write a colour at the first hit and retire
+the lane; mipmapped texture sampling at a ray-cone LOD (``use_mipmaps``);
+and geometry-mask filtering, whose ray masks (primary or secondary for
+closest-hit rays, shadow for any-hit rays) are passed to the traversal only
+when some instance has a non-default mask (``TwoLevelBVH.has_masks``).
+
 Shadow rays are traced as their own batch right after they are made (the
 JAX package may defer them into the next bounce's closest-hit batch; that
 changes only the order of the radiance sums). ``rays_traced`` counts the
@@ -125,6 +132,22 @@ def _project(camera: T.Camera, world_pos: torch.Tensor):
     return sx / denom, sy / denom, depth
 
 
+def _screen_motion(uniforms: T.FrameUniforms, mrow, u, v, width_f, height_f):
+    """Motion in pixels (+Y down) and depth of the surface point at
+    barycentrics (u, v) (each (P,1)) of the (P,18) motion rows."""
+    w = 1.0 - u - v
+    cam = uniforms.camera
+    obj_pos_w = u * mrow[:, 3:6] + v * mrow[:, 6:9] + w * mrow[:, 0:3]
+    prev_pos_w = u * mrow[:, 12:15] + v * mrow[:, 15:18] + w * mrow[:, 9:12]
+    sx, sy, pdepth = _project(cam, obj_pos_w)
+    psx, psy, _ = _project(uniforms.previous_camera, prev_pos_w)
+    right_scale = torch.clamp(S.length(cam.right), min=1e-5)
+    up_scale = torch.clamp(S.length(cam.up), min=1e-5)
+    motion_px_x = (sx - psx) * (width_f / (2.0 * right_scale))
+    motion_px_y = -((sy - psy) * (height_f / (2.0 * up_scale)))
+    return torch.stack([motion_px_x, motion_px_y], -1), pdepth
+
+
 def _where3(m, a, b):
     return torch.where(m[:, None], a, b)
 
@@ -152,6 +175,17 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
     max_iters = settings.max_bounces * (settings.max_bounces + 2) + 2
     cam = uniforms.camera
     inf_d = torch.full((P,), float("inf"), dtype=f32, device=dev)
+    debug_mode = settings.debug_mode
+    motion_view = debug_mode == T.DEBUG_MODE_MOTION
+    if settings.use_mipmaps:
+        # the pixel's angular size, for the ray cone's footprint
+        up_len = torch.sqrt((cam.up ** 2).sum())
+        fwd_len = torch.sqrt((cam.forward ** 2).sum())
+        pixel_angle = 2.0 * up_len / (height_f * torch.clamp(fwd_len, min=1e-5))
+    # Raytracing.metal:317,733-735: closest-hit rays see the LIGHT bit only
+    # from the camera; shadow rays never do
+    rm_shadow = (torch.full((P,), T.RAY_MASK_SHADOW, dtype=torch.int32, device=dev)
+                 if bvh.has_masks else None)
 
     def camera_rays(sidx: int):
         hidx0 = offsets + base + sidx
@@ -166,7 +200,7 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
     rays_total = torch.zeros(P, dtype=torch.int32, device=dev)
     total = torch.full((P,), base_samples, dtype=torch.int32, device=dev)
     n_samples = base_samples
-    depth0 = motion0 = None
+    depth0 = motion0 = had0 = None
     gb = None
     if settings.enable_gbuffer:
         gb = dict(diffuse_albedo=torch.zeros((P, 3), dtype=f32, device=dev),
@@ -192,12 +226,18 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
         prim_u = torch.zeros(P, dtype=f32, device=dev)
         prim_v = torch.zeros(P, dtype=f32, device=dev)
         rays = torch.zeros(P, dtype=torch.int32, device=dev)
+        cone_t = torch.zeros(P, dtype=f32, device=dev)  # path length, for the mip LOD
 
         it = 0
         while it < max_iters and bool(active.any()):
             it += 1
             rays = rays + active.to(torch.int32)
-            hits = twolevel.closest_hit(bvh, T.Rays(ray_o, ray_d, inf_d), mask=active)
+            rm_closest = None
+            if bvh.has_masks:
+                rm_closest = torch.where(bounce == 0, T.RAY_MASK_PRIMARY,
+                                         T.RAY_MASK_SECONDARY).to(torch.int32)
+            hits = twolevel.closest_hit(bvh, T.Rays(ray_o, ray_d, inf_d), mask=active,
+                                        ray_mask=rm_closest)
             hit = hits.hit & active
             if statics.has_environment:
                 missed = active & ~hit
@@ -220,10 +260,30 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
                 prim_u = torch.where(primary, hits.u, prim_u)
                 prim_v = torch.where(primary, hits.v, prim_v)
 
+            if settings.use_mipmaps or motion_view:
+                mrow = geom.motion_rows[tri]
+
             # --- surface normal ------------------------------------------------------
             nrm_raw = u_b1 * srow[:, 3:6] + v_b1 * srow[:, 6:9] + w_b1 * srow[:, 0:3]
             degenerate = S.length(nrm_raw) < 1e-10
             nrm = _where3(degenerate, -ray_d, S.normalize(nrm_raw))
+
+            # --- ray-cone mip LOD: the cone's radius grows with the path
+            # length; its footprint goes to UV units by the hit triangle's
+            # uv-area / world-area ratio
+            if settings.use_mipmaps:
+                dist = cone_t + torch.where(hit, hits.t, 0.0)
+                e1w = mrow[:, 3:6] - mrow[:, 0:3]
+                e2w = mrow[:, 6:9] - mrow[:, 0:3]
+                world_area = 0.5 * S.length(S.cross(e1w, e2w))
+                du1 = srow[:, 11:13] - srow[:, 9:11]
+                du2 = srow[:, 13:15] - srow[:, 9:11]
+                uv_area = 0.5 * (du1[:, 0] * du2[:, 1] - du1[:, 1] * du2[:, 0]).abs()
+                cos_inc = torch.clamp(S.dot3(ray_d, nrm).abs(), min=0.25)
+                footprint_w = dist * pixel_angle / cos_inc
+                footprint_uv = footprint_w * torch.sqrt(uv_area / torch.clamp(world_area, min=1e-12))
+                lod_base = torch.log2(torch.clamp(footprint_uv, min=1e-8))
+                cone_t = cone_t + torch.where(hit, hits.t, 0.0)
 
             # --- material + textures ---------------------------------------------------
             matrow = geom.mat_rows[res.long()]
@@ -234,6 +294,8 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
             packed = []
 
             def tex_sample(map_type):
+                if settings.use_mipmaps:
+                    return tex.sample_trilinear(scene.atlas, res, map_type, tex_coord, lod_base)
                 if not packed:
                     packed.append(tex.sample_packed(scene.atlas, res, tex_coord))
                 return tex.packed_map(packed[0], map_type)
@@ -241,9 +303,10 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
             def has(bit):
                 return (flags & bit) != 0
 
+            base_sample = None
             if statics.any_map[tex.MAP_BASECOLOR]:
-                s = tex_sample(tex.MAP_BASECOLOR)
-                albedo = _where3(has(T.MATERIAL_TEXTURE_BASECOLOR), albedo * s, albedo)
+                base_sample = tex_sample(tex.MAP_BASECOLOR)
+                albedo = _where3(has(T.MATERIAL_TEXTURE_BASECOLOR), albedo * base_sample, albedo)
             roughness = torch.ones(P, dtype=f32, device=dev)
             if statics.any_map[tex.MAP_ROUGHNESS]:
                 s = tex_sample(tex.MAP_ROUGHNESS)[:, 0]
@@ -265,10 +328,42 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
                 s = tex_sample(tex.MAP_EMISSION)
                 emission = _where3(has(T.MATERIAL_TEXTURE_EMISSION), s, emission)
 
+            # --- debug views: the colour at the hit, then the lane retires -----------------
+            if debug_mode != T.DEBUG_MODE_NONE:
+                magenta = torch.tensor([1.0, 0.0, 1.0], dtype=f32, device=dev).expand(P, 3)
+                if debug_mode == T.DEBUG_MODE_BASECOLOR:
+                    debug = (magenta if base_sample is None
+                             else _where3(has(T.MATERIAL_TEXTURE_BASECOLOR), base_sample, magenta))
+                elif debug_mode == T.DEBUG_MODE_NORMAL:
+                    debug = nrm * 0.5 + 0.5
+                    if statics.any_map[tex.MAP_NORMAL]:
+                        debug = _where3(has(T.MATERIAL_TEXTURE_NORMAL), tex_sample(tex.MAP_NORMAL), debug)
+                elif debug_mode == T.DEBUG_MODE_ROUGHNESS:
+                    debug = roughness[:, None].expand(P, 3)
+                elif debug_mode == T.DEBUG_MODE_METALLIC:
+                    debug = metallic[:, None].expand(P, 3)
+                elif debug_mode == T.DEBUG_MODE_AO:
+                    debug = ao[:, None].expand(P, 3) if T.ENABLE_AO else magenta
+                elif debug_mode == T.DEBUG_MODE_EMISSION:
+                    debug = emission
+                else:  # the motion view: sample 0's motion (Raytracing.metal:342,482-487)
+                    if is_sample0:
+                        now, _ = _screen_motion(uniforms, mrow, u_b1, v_b1, width_f, height_f)
+                        mp = _where3(hit, now, prev_motion)
+                    else:
+                        mp = _where3(had0, motion0, prev_motion)
+                    scaled = torch.clamp(mp * 0.05, -1.0, 1.0)
+                    mag = torch.clamp(S.length2(mp) * 0.1, 0.0, 1.0)
+                    debug = torch.stack([scaled[:, 0] * 0.5 + 0.5, scaled[:, 1] * 0.5 + 0.5, mag], -1)
+                accumulated = _where3(hit, debug, accumulated)
+                active = torch.zeros_like(active)
+                continue
+
             # --- normal mapping ------------------------------------------------------------
             shading_nrm = nrm
             if statics.any_map[tex.MAP_NORMAL]:
-                mrow = geom.motion_rows[tri]
+                if not (settings.use_mipmaps or motion_view):
+                    mrow = geom.motion_rows[tri]
                 valid_tb, tangent, _ = S.tangent_basis_rows(
                     mrow[:, 0:3], mrow[:, 3:6], mrow[:, 6:9],
                     srow[:, 9:11], srow[:, 11:13], srow[:, 13:15])
@@ -409,7 +504,8 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
                 contrib = color * direct
 
             rays = rays + need_shadow.to(torch.int32)
-            occluded = twolevel.any_hit(bvh, T.Rays(shadow_o, l_dir, shadow_dist), mask=need_shadow)
+            occluded = twolevel.any_hit(bvh, T.Rays(shadow_o, l_dir, shadow_dist), mask=need_shadow,
+                                        ray_mask=rm_shadow)
             accumulated = accumulated + _where3(need_shadow & ~occluded, contrib, 0.0)
 
             if settings.shading_mode == T.SHADING_MODE_LEGACY:
@@ -433,22 +529,12 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
 
         if is_sample0:
             # depth/motion from the recorded bounce-0 hit
-            tri_p = prim_tri.clamp_min(0).long()
-            u_p = prim_u[:, None]
-            v_p = prim_v[:, None]
-            w_p = 1.0 - u_p - v_p
-            mrow_p = geom.motion_rows[tri_p]
-            obj_pos_w = u_p * mrow_p[:, 3:6] + v_p * mrow_p[:, 6:9] + w_p * mrow_p[:, 0:3]
-            prev_pos_w = u_p * mrow_p[:, 12:15] + v_p * mrow_p[:, 15:18] + w_p * mrow_p[:, 9:12]
-            sx, sy, pdepth = _project(cam, obj_pos_w)
-            psx, psy, _ = _project(uniforms.previous_camera, prev_pos_w)
-            right_scale = torch.clamp(S.length(cam.right), min=1e-5)
-            up_scale = torch.clamp(S.length(cam.up), min=1e-5)
-            motion_px_x = (sx - psx) * (width_f / (2.0 * right_scale))
-            motion_px_y = -((sy - psy) * (height_f / (2.0 * up_scale)))
-            prim_ok = prim_tri >= 0
-            depth0 = torch.where(prim_ok, torch.clamp(pdepth, min=1.0e-3), depth)
-            motion0 = _where3(prim_ok, torch.stack([motion_px_x, motion_px_y], -1), motion)
+            mrow_p = geom.motion_rows[prim_tri.clamp_min(0).long()]
+            mot, pdepth = _screen_motion(uniforms, mrow_p, prim_u[:, None], prim_v[:, None],
+                                         width_f, height_f)
+            had0 = prim_tri >= 0
+            depth0 = torch.where(had0, torch.clamp(pdepth, min=1.0e-3), depth)
+            motion0 = _where3(had0, mot, motion)
             if max_extra > 0:
                 # decided once, after sample 0 (Raytracing.metal:779-789)
                 motion_mag = torch.maximum(S.length2(motion0), S.length2(prev_motion))

@@ -24,7 +24,7 @@ its byte time.
 
 from __future__ import annotations
 
-from ..bvh.wide import ARITY, IDS_OFF, LEAF_K, META_OFF, ROW, decode_ids
+from ..bvh.wide import _META_MASK, ARITY, IDS_OFF, LEAF_K, META_OFF, ROW, decode_ids
 
 PEAK_BYTES = 3.35e12
 PEAK_F32_OPS = 67e12 / 2
@@ -40,6 +40,9 @@ K1_BYTES, K1_OPS = 5, 6
 K2_OPS_INTERNAL, K2_OPS_CHILD = 9, 27
 K2_OPS_LEAF, K2_OPS_TRIANGLE = 1, 59
 K2_OPS_CULL, K2_OPS_ENTER = 34, 33
+# the float child sort (tables above 2^20 - 1 rows): the bitonic network's
+# compares per popped internal row
+K2_OPS_FLOAT_SORT = 24
 # bytes of a table row the function needs, in the float4s the rows are
 # stored in: an internal row's 6 bound planes and ids; a leaf row's 9 vertex
 # planes and ids for each group of 4 triangles up to the first pad; an
@@ -48,9 +51,13 @@ K2_OPS_CULL, K2_OPS_ENTER = 34, 33
 K2_BYTES_INTERNAL = 14 * 16
 K2_BYTES_LEAF_GROUP = 10 * 16
 K2_BYTES_CULL, K2_BYTES_ENTER = 2 * 16, 3 * 16
+# the masked variant reads the instance row's mask too (one more float4)
+K2_BYTES_MASK = 16
 # per lane: origin, direction, tmax, shadow, active in and t, tri, inst, u,
-# v, found, pops out; a dead lane reads only active and tmax
+# v, found, pops out (and the ray mask in, when masked); a dead lane reads
+# only active and tmax
 K2_BYTES_LIVE_LANE = 30 + 25
+K2_BYTES_RAY_MASK = 4
 K2_BYTES_DEAD_LANE = 5 + 25
 
 
@@ -67,12 +74,13 @@ def k1(shape) -> tuple[float, str]:
     return least_ms(n * K1_OPS, n * K1_BYTES)
 
 
-def k2_work(table, n_internal: int, n_leaf: int, visits) -> dict[str, int]:
+def k2_work(table, n_internal: int, n_leaf: int, visits, masked: bool = False) -> dict[str, int]:
     """K2's work in one call, from the plain version's ``visits`` (per table
     row: its pops, and the rays that entered it if it is an instance row)
     and the table's own rows: the pops by row type, the children and
     triangles those pops test, the entries, the ops and the bytes of the
-    distinct rows read."""
+    distinct rows read. ``masked``: the rays carried masks (the masked
+    variant); a table above 2^20 - 1 rows takes the float child sort."""
     pops, entered = visits[:, 0], visits[:, 1]
     inst_base = n_internal + n_leaf
     children = (decode_ids(table[:n_internal, META_OFF:META_OFF + ARITY]) >= 0).sum(1)
@@ -87,16 +95,20 @@ def k2_work(table, n_internal: int, n_leaf: int, visits) -> dict[str, int]:
     w["ops"] = (w["pops_internal"] * K2_OPS_INTERNAL + w["children"] * K2_OPS_CHILD
                 + w["pops_leaf"] * K2_OPS_LEAF + w["triangles"] * K2_OPS_TRIANGLE
                 + w["pops_instance"] * K2_OPS_CULL + w["entered"] * K2_OPS_ENTER)
+    if table.shape[0] > _META_MASK:
+        w["ops"] += w["pops_internal"] * K2_OPS_FLOAT_SORT
+    cull = K2_BYTES_CULL + (K2_BYTES_MASK if masked else 0)
     w["row_bytes"] = (w["rows_internal"] * K2_BYTES_INTERNAL + w["leaf_groups"] * K2_BYTES_LEAF_GROUP
-                      + w["rows_instance"] * K2_BYTES_CULL + w["rows_entered"] * K2_BYTES_ENTER)
+                      + w["rows_instance"] * cull + w["rows_entered"] * K2_BYTES_ENTER)
     return w
 
 
-def k2(work: dict[str, int], n_lanes: int, n_live: int) -> tuple[float, str]:
+def k2(work: dict[str, int], n_lanes: int, n_live: int, masked: bool = False) -> tuple[float, str]:
     """K2's bound for one call over ``n_lanes`` lanes, ``n_live`` of them
-    active, with ``work`` from ``k2_work``."""
-    nbytes = (work["row_bytes"] + n_live * K2_BYTES_LIVE_LANE
-              + (n_lanes - n_live) * K2_BYTES_DEAD_LANE)
+    active, with ``work`` from ``k2_work`` (``masked``: the rays carried
+    masks)."""
+    live_lane = K2_BYTES_LIVE_LANE + (K2_BYTES_RAY_MASK if masked else 0)
+    nbytes = (work["row_bytes"] + n_live * live_lane + (n_lanes - n_live) * K2_BYTES_DEAD_LANE)
     return least_ms(work["ops"], nbytes)
 
 

@@ -11,8 +11,15 @@ extra samples), each frame one 60 Hz animation step. Run E is the
 reference's interactive configuration (config 5): run C's scene rendered at
 1920x1080 (render scale 0.5), 1 spp, 2 bounces, and presented at
 3840x2160 through the temporal upscaler; each of its frames is a draw and a
-present. ``chip_smoke.py`` drives the same runs (run E in all three
-presenter modes).
+present. Run F is run A's frame with the wavefront's extras on: the floor
+textured with a 2048x2048 base-colour checker and a 1024x1024 normal map
+(NumPy arrays made from a seed), mipmapped sampling, and the two spheres
+masked as light geometry (seen by camera rays, skipped by shadow and bounce
+rays), so K2 runs its masked variant. Run G is run B's frame with the
+dragon replaced by two distinct blob(subdivisions=9) meshes (seeds 7 and 8,
+5,242,880 triangles each): its table has more than 2^20 - 1 rows, so K2
+runs its float-sort variant. ``chip_smoke.py`` drives the same runs (run E
+in all three presenter modes).
 
 For each run, after two warm-up frames, ``frame_walls`` times FRAMES
 unprofiled frames between ``torch.cuda.synchronize()`` calls (every run's
@@ -36,6 +43,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 FRAMES = 4  # unprofiled frames timed per run
@@ -50,20 +58,69 @@ RUNS = {
     "E": dict(scene="run C's scene, 1920x1080 render presented at 3840x2160 (config 5)",
               width=3840, height=2160, dragon_subdivisions=None, robot=True, motion_adaptive=True,
               upscaler="temporal", render_scale=0.5, spp=1, bounces=2),
+    "F": dict(scene="flagship without train/treefir, floor with a 2048^2 checker and a 1024^2 "
+                    "normal map, mipmaps on, the spheres masked as light geometry",
+              width=1920, height=1080, dragon_subdivisions=None, floor_maps=True, mipmaps=True,
+              light_masked_spheres=True),
+    "G": dict(scene="dragon_1m's scene with two blob(subdivisions=9) dragons (seeds 7, 8)",
+              width=1024, height=576, dragon_subdivisions=9, second_dragon_seed=8),
 }
 
 
 def configure(r, motion_adaptive: bool = False, upscaler: str = "off", render_scale: float = 1.0,
-              spp: int = 2, bounces: int = 4):
+              spp: int = 2, bounces: int = 4, mipmaps: bool = False):
     """The main path's settings: 2 spp, 4 bounces, upscaler off,
     motion-adaptive sampling off unless asked for (then the Renderer's
-    default of at most 2 extra samples); run E passes its upscaler, render
-    scale, 1 spp and 2 bounces."""
+    default of at most 2 extra samples), mipmaps off; run E passes its
+    upscaler, render scale, 1 spp and 2 bounces, run F mipmaps."""
     r.upscaler_mode = upscaler
     r.render_scale = render_scale
     r.samples_per_pixel = spp
     r.max_bounces = bounces
     r.use_motion_adaptive_sampling = motion_adaptive
+    r.use_mipmaps = mipmaps
+
+
+def floor_maps(seed: int = 0, base: int = 2048, normal: int = 1024):
+    """Run F's floor maps from ``seed``: a (base, base, 3) checker of 16x16
+    squares in two random colours and a (normal, normal, 3) tangent-space
+    normal map of random slopes over 32-texel blocks."""
+    rng = np.random.default_rng(seed)
+    colours = rng.uniform(0.1, 0.9, (2, 3)).astype(np.float32)
+    cell = np.arange(base) * 16 // base
+    checker = colours[np.add.outer(cell, cell) % 2]
+    slopes = rng.uniform(-0.35, 0.35, (normal // 32, normal // 32, 2)).astype(np.float32)
+    xy = np.repeat(np.repeat(slopes, 32, axis=0), 32, axis=1)
+    nmap = np.concatenate([xy * 0.5 + 0.5, np.ones((normal, normal, 1), np.float32)], axis=-1)
+    return checker, nmap
+
+
+def _extras(scene, run: dict, seed: int):
+    """Run F's floor maps and light-masked spheres, run G's second dragon."""
+    from ..assets import procedural
+    from ..assets.obj import MaterialDef
+    from ..core import types as T
+    from ..engine.scene import Model, ModelMaterialOverride
+
+    models = scene.models
+    if run.get("floor_maps"):
+        checker, nmap = floor_maps(seed)
+        floor = next(m for m in models if m.name == "plane")
+        floor.mesh = procedural.plane(material=MaterialDef(
+            name="floor", map_base_color=checker, map_normal=nmap))
+    if run.get("light_masked_spheres"):
+        for m in models:
+            if m.name == "sphere":
+                m.geometry_mask = T.GEOMETRY_MASK_LIGHT
+    if run.get("second_dragon_seed") is not None:
+        dragon = next(m for m in models if m.name == "dragon")
+        mesh = procedural.blob(subdivisions=run["dragon_subdivisions"], radius=0.28,
+                               seed=run["second_dragon_seed"],
+                               material=MaterialDef(name="Dragon", base_color=(1.0, 0.0, 0.0),
+                                                    specular=(0.2, 0.2, 0.2)))
+        models.insert(models.index(dragon) + 1, Model(
+            "dragon2", position=[-0.45, 0.38, 2.2], rotation=dragon.rotation, scale=dragon.scale,
+            material_override=ModelMaterialOverride.glass(), mesh=mesh))
 
 
 def make_renderer(tag: str, device, seed: int = 0):
@@ -77,9 +134,11 @@ def make_renderer(tag: str, device, seed: int = 0):
     scene = make_app_scene(round(run["width"] * scale), round(run["height"] * scale),
                            include_robot=run.get("robot", False), asset_models=False,
                            dragon_subdivisions=run["dragon_subdivisions"])
+    _extras(scene, run, seed)
     r = Renderer(scene, run["width"], run["height"], seed=seed, device=device)
     configure(r, run.get("motion_adaptive", False),
-              **{k: run[k] for k in ("upscaler", "render_scale", "spp", "bounces") if k in run})
+              **{k: run[k] for k in ("upscaler", "render_scale", "spp", "bounces", "mipmaps")
+                 if k in run})
     return r
 
 

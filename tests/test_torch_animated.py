@@ -24,6 +24,7 @@ from mrt_tpu.engine.scene import Model as JModel
 from mrt_tpu.engine.scene import Scene as JScene
 from mrt_tpu_torch import UPSCALER_OFF, Model, Renderer, Scene
 from test_torch_render import rel_rmse
+from test_torch_scene_bvh import jax_sah
 from test_torch_skinning import _rig, one_torch_thread  # noqa: F401
 
 SIZE = 48
@@ -205,7 +206,8 @@ def test_from_compiled_skinned_matches_own_build():
     js = JScene(SIZE, SIZE)
     js.models = _models("jax", robot=True)
     jd, jst = js.compile()
-    jb = jtl.build(js.models, jd, jst.skin_slices, host_mirror=js.host_mirror)
+    with jax_sah():
+        jb = jtl.build(js.models, jd, jst.skin_slices, host_mirror=js.host_mirror)
     own = Renderer(convert.scene(js), SIZE, SIZE, device="cpu", seed=3)
     carried = Renderer.from_compiled(convert.scene(js), *convert.compiled(jd, jst, jb, device="cpu"),
                                      output_width=SIZE, output_height=SIZE, seed=3)

@@ -232,11 +232,16 @@ def test_default_renderer_presents():
 
 
 def test_gbuffer_supported_and_wavefront_extras_raise():
-    """enable_gbuffer is ported; debug texture modes and mipmaps still raise,
-    naming their ROADMAP slice."""
+    """enable_gbuffer and the wavefront extras (every debug texture mode,
+    mipmaps) are ported and pass; the settings still outside the port (the
+    flat path, geometry sharding) raise, naming their ROADMAP slice."""
     from mrt_tpu_torch.core import types as T
 
     T.check_supported(T.RenderSettings(enable_gbuffer=True))
-    for kw in (dict(debug_mode=T.DEBUG_MODE_NORMAL), dict(use_mipmaps=True)):
-        with pytest.raises(NotImplementedError, match="Slice H"):
+    for kw in [dict(debug_mode=m) for m in range(T.DEBUG_MODE_BASECOLOR, T.DEBUG_MODE_MOTION + 1)] + [
+            dict(use_mipmaps=True)]:
+        T.check_supported(T.RenderSettings(**kw))
+    for kw, slice_ in ((dict(two_level=False), "Slice F"), (dict(traversal_backend="lbvh"), "Slice F"),
+                       (dict(geometry_axis="gp"), "Slice G")):
+        with pytest.raises(NotImplementedError, match=slice_):
             T.check_supported(T.RenderSettings(**kw))

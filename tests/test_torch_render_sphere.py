@@ -17,6 +17,7 @@ from mrt_tpu_torch import UPSCALER_OFF, Model, Renderer, Scene, convert
 from mrt_tpu_torch.render import wavefront
 from mrt_tpu_torch.utils import frame_profile
 from test_torch_render import compare_frames, one_torch_thread, port_like  # noqa: F401
+from test_torch_scene_bvh import jax_sah
 
 SIZE = 64
 
@@ -25,7 +26,8 @@ def jax_renderer(shading_mode=0, fuse=False):
     s = JScene(SIZE, SIZE)
     s.models = [JModel("sphere", position=[0.2, 0.5, 0.3], scale=0.5), JModel("plane", scale=10),
                 JModel("sphere", position=[-0.9, 0.3, -0.4], scale=0.3)]
-    r = JRenderer(s, SIZE, SIZE, seed=7)
+    with jax_sah():  # test_from_compiled_tables_match_own_build compares the tables
+        r = JRenderer(s, SIZE, SIZE, seed=7)
     r.upscaler_mode = J_OFF
     r.samples_per_pixel = 2
     r.max_bounces = 3

@@ -1,6 +1,21 @@
 """Host scene stack and BVH tables: mrt_tpu_torch against mrt_tpu on the
 same models. SceneData arrays and the two-level tables are compared bit for
-bit; the refit after a move too."""
+bit; the refit after a move too.
+
+The JAX package's native loader builds ``build/libmrt_native.so`` in place
+and, if loading fails once, uses the LBVH builder for the rest of the
+process; a test worker that loads the library while another worker writes
+it would then build other tables than the port (which always builds with
+SAH). ``jax_sah`` guards every comparison with a JAX-built table: it makes
+sure the JAX loader has really loaded the SAH builder, rebuilding the
+library atomically under a file lock if needed, and fails the test with the
+loader's error if it still does not load."""
+
+import contextlib
+import ctypes
+import fcntl
+import os
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +32,7 @@ from mrt_tpu.engine.scene import Model as JModel
 from mrt_tpu.engine.scene import ModelMaterialOverride as JOverride
 from mrt_tpu.engine.scene import Scene as JScene
 from mrt_tpu.engine.scene import world_geometry as jworld
+from mrt_tpu.utils import native as jnative
 from mrt_tpu_torch import convert
 from mrt_tpu_torch.bvh import twolevel, wide
 from mrt_tpu_torch.core import types as T
@@ -62,10 +78,55 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _build_jax_native(force: bool):
+    """Compile the JAX package's native library into a temporary file and
+    move it onto its path in one step, under a file lock; unless ``force``,
+    only when it is missing or older than its source."""
+    so = jnative._SO
+    so.parent.mkdir(parents=True, exist_ok=True)
+    with open(so.with_name(so.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not force and so.exists() and so.stat().st_mtime >= jnative._SRC.stat().st_mtime:
+            return
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        subprocess.run(["g++", "-O3", "-std=c++17", "-shared", "-fPIC", str(jnative._SRC), "-o",
+                        str(tmp)], check=True, capture_output=True, timeout=300)
+        os.replace(tmp, so)
+
+
+def ensure_jax_sah(mp: pytest.MonkeyPatch):
+    """The JAX loader's SAH builder, loaded (see the module docstring).
+    Resets the loader's ``_tried``/``_lib`` through ``mp``."""
+    if not jnative._tried:
+        _build_jax_native(force=False)  # a first load finds a whole library
+    if jnative.available():
+        return
+    _build_jax_native(force=True)
+    mp.setattr(jnative, "_tried", False)
+    mp.setattr(jnative, "_lib", None)
+    if jnative.available():
+        return
+    try:
+        ctypes.CDLL(str(jnative._SO))
+        err = "it loads, but its entry points do not bind"
+    except OSError as e:
+        err = str(e)
+    pytest.fail(f"the JAX package's native SAH builder does not load: {err}")
+
+
+@contextlib.contextmanager
+def jax_sah():
+    """Build JAX tables inside this block: they come from the SAH builder."""
+    with pytest.MonkeyPatch.context() as mp:
+        ensure_jax_sah(mp)
+        yield
+
+
 def _both(make):
     js = make()
     jd, jst = js.compile()
-    jb = jtl.build(js.models, jd, jst.skin_slices, host_mirror=js.host_mirror)
+    with jax_sah():
+        jb = jtl.build(js.models, jd, jst.skin_slices, host_mirror=js.host_mirror)
     ps = convert.scene(js)
     pd, pst = ps.compile("cpu")
     pb = twolevel.build(ps.models, pd, ps.host_mirror)
@@ -92,7 +153,7 @@ def test_scene_data_equal(name):
         assert _bits_equal(getattr(jd.materials, f), getattr(pd.materials, f).numpy()), f
     for f in T.Lights._fields:
         assert _bits_equal(getattr(jd.lights, f), getattr(pd.lights, f).numpy()), f
-    for f in ("texels", "rects", "has_map", "packed", "packed_rects"):
+    for f in ("texels", "rects", "has_map", "mip_rects", "n_levels", "packed", "packed_rects"):
         assert _bits_equal(getattr(jd.atlas, f), getattr(pd.atlas, f).numpy()), f
     for f in ("n_vertices", "n_triangles", "n_instances", "n_resources", "n_lights", "any_map",
               "has_refraction", "has_environment", "has_masks"):
@@ -221,7 +282,8 @@ def test_native_build_failure_raises(tmp_path, monkeypatch):
 
 
 def test_unported_scene_features_raise():
-    """Geometry masks and SBVH leaf clip boxes are not ported: both raise."""
+    """SBVH leaf clip boxes are not ported and raise; a scene with geometry
+    masks builds (ported), its BVH flagged ``has_masks``."""
     from types import SimpleNamespace
 
     from mrt_tpu_torch import Model, Scene
@@ -231,5 +293,22 @@ def test_unported_scene_features_raise():
     s = Scene(8, 8)
     s.models = [Model("sphere", geometry_mask=T.GEOMETRY_MASK_LIGHT), Model("plane")]
     d, _ = s.compile("cpu")
-    with pytest.raises(NotImplementedError):
-        twolevel.build(s.models, d, s.host_mirror)
+    b = twolevel.build(s.models, d, s.host_mirror)
+    assert b.has_masks and b.inst_masks == (T.GEOMETRY_MASK_LIGHT, T.GEOMETRY_MASK_GEOMETRY)
+
+
+def test_jax_sah_guard_recovers_failed_loader(tmp_path, monkeypatch):
+    """The JAX loader forced into its failed state (a truncated library,
+    newer than its source, as a worker finds one another worker is still
+    writing): it loads nothing and would build LBVH tables; under the guard
+    it has the SAH builder again and the tables are bit-equal."""
+    so = tmp_path / "libmrt_native.so"
+    so.write_bytes(b"\x7fELF\x02\x01\x01")
+    monkeypatch.setattr(jnative, "_SO", so)
+    monkeypatch.setattr(jnative, "_tried", False)
+    monkeypatch.setattr(jnative, "_lib", None)
+    assert not jnative.available()
+    (_, _, _, jb), (_, _, _, pb) = _both(_config3)
+    assert not jnative.available()  # the guard's resets are undone after the build
+    assert _bits_equal(jb.table, pb.table.numpy())
+    assert _bits_equal(jb.node_child, pb.node_child.numpy())

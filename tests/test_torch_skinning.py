@@ -29,7 +29,7 @@ from mrt_tpu_torch.skinning import animation as anim
 from mrt_tpu_torch.skinning import lbs
 from mrt_tpu_torch.utils import math3d
 from test_skinning import naive_lbs
-from test_torch_scene_bvh import _bits_equal, _both, one_torch_thread  # noqa: F401
+from test_torch_scene_bvh import _bits_equal, _both, jax_sah, one_torch_thread  # noqa: F401
 
 
 def _rig(pkg):
@@ -163,7 +163,8 @@ def test_convert_carries_skinned_state():
     port's classes, and the skin bundle."""
     js = _robot_scene()
     jd, jst = js.compile()
-    jb = jtl.build(js.models, jd, jst.skin_slices, host_mirror=js.host_mirror)
+    with jax_sah():
+        jb = jtl.build(js.models, jd, jst.skin_slices, host_mirror=js.host_mirror)
     pd, pst, pb = convert.compiled(jd, jst, jb, device="cpu")
     assert pst.skin_slices == ((0, 0, 425),)
     assert pb.mesh_meta == tuple(jb.mesh_meta) and pb.mesh_meta[0][8] == 0

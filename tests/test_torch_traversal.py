@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from mrt_tpu.bvh import twolevel as jtl
+from mrt_tpu.bvh import wide as jwide
 from mrt_tpu.core.types import Rays as JRays
 from mrt_tpu_torch import convert
 from mrt_tpu_torch.bvh import intersect, twolevel
@@ -25,7 +26,7 @@ from mrt_tpu_torch.core.types import Rays
 from mrt_tpu_torch.engine.scene import world_geometry
 from mrt_tpu_torch.kernels import traverse2
 from mrt_tpu_torch.utils import bounds
-from test_torch_scene_bvh import SCENES, one_torch_thread  # noqa: F401
+from test_torch_scene_bvh import SCENES, jax_sah, one_torch_thread  # noqa: F401
 
 N = 4096
 
@@ -34,7 +35,8 @@ N = 4096
 def scene(request):
     js = SCENES[request.param]()
     jd, jst = js.compile()
-    jb = jtl.build(js.models, jd, jst.skin_slices, host_mirror=js.host_mirror)
+    with jax_sah():
+        jb = jtl.build(js.models, jd, jst.skin_slices, host_mirror=js.host_mirror)
     pd, _, pb = convert.compiled(jd, jst, jb, device="cpu")
     pos_w, _, _ = world_geometry(pd)
     idx = pd.indices.long()
@@ -241,3 +243,41 @@ def test_kernel_wrapper_rejects_other_devices(scene):
                            torch.zeros(4, dtype=torch.bool, device="meta"),
                            torch.zeros(4, dtype=torch.bool, device="meta"))
     assert traverse2.launches == 0  # CPU tensors never reach the kernel
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_float_sort_pops_match_jax(scene, kind, monkeypatch):
+    """The float child sort that tables above 2^20 - 1 rows take, forced on
+    these small tables in both packages by lowering the packed key's row
+    limit: per-lane pops equal the JAX package's float-sort traversal (the
+    network's pop order, which K2's float-sort instantiation must equal on
+    the card), with the ties of test_pops_match_jax; occlusion equal to the
+    packed sort's, and the closest hits, t, u and v bit-equal to its, since
+    the order of the visits changes no closest hit but an equal-t tie."""
+    mask = scene["mask"]
+    inf = np.full(N, np.inf, np.float32)
+    dist, shadow = (inf, False) if kind == "closest" else (scene["dist"], True)
+    packed = _plain(scene, dist, shadow, mask)
+    monkeypatch.setattr(jwide, "_META_MASK", 1)
+    monkeypatch.setattr(traverse2, "_META_MASK", 1)
+    assert traverse2.variant(scene["pb"].table.shape[0], masked=False) == "float_sort"
+    out = _plain(scene, dist, shadow, mask)
+    skip = np.zeros(0, np.int64)
+    if kind == "closest":
+        jh, jpops = jtl.closest_hit(scene["jb"], _jrays(scene, dist), mask=jnp.asarray(mask),
+                                    count_pops=True)
+        skip = _check_hits(scene, jh, twolevel._hits(scene["pb"], out), mask)
+    else:
+        jo, jpops = jtl.any_hit(scene["jb"], _jrays(scene, dist), mask=jnp.asarray(mask),
+                                count_pops=True, sort_rays=False)
+        assert np.array_equal(np.asarray(jo), out.found.numpy())
+    keep = np.ones(N, bool)
+    keep[skip] = False
+    assert np.array_equal(out.pops.numpy()[keep], np.asarray(jpops)[keep])
+    assert np.array_equal(out.found.numpy(), packed.found.numpy())
+    if kind == "closest":  # a shadow lane keeps whichever hit it finds first
+        same = (out.tri == packed.tri).numpy()
+        assert same.sum() >= N - N // 100
+        for f in ("t", "u", "v"):
+            a, b = getattr(out, f).numpy()[same], getattr(packed, f).numpy()[same]
+            assert np.array_equal(a.view(np.int32), b.view(np.int32)), f

@@ -65,11 +65,30 @@ never prints its last line):
      distinct blob(subdivisions=9) dragons (a table above 2^20 rows; its
      host build seconds printed), launches only the float-sort K2. Runs A-E
      launch only the packed one;
+  6c. run H, a rigged character read from disk, and phase I, a checkpoint
+     on the card. Phase D's character (66,049 vertices, 64 joints, the swing
+     clip) is written in centimetres, with the port's own writers, as a USDZ
+     holding a crate (robot.usdz), a USDZ holding USDA text and a GLB into a
+     temporary directory; each file is loaded through the port's loaders
+     (seconds printed) and checked against the rig: indices, joint indices
+     and weights bit-equal, positions within 1e-6 after the unit change,
+     joint matrices within 1e-5 at t = 0, 0.37 and the clip's duration.
+     Then run C's frame with MRT_ASSET_PATH naming that directory, so the
+     app scene's robot resolves from robot.usdz at the reference's 0.01
+     scale: checked and driven as runs A-C are (packed K2 only), its
+     prepare seconds, LBS against float64 and the refit against the CPU as
+     in phase D, and a 48x48 frame of the same scene on the card against
+     the CPU (1e-2 relative RMSE, rays equal). Phase I: run H's renderer
+     draws 4 frames and is saved (engine/checkpoint.py); a fresh renderer
+     over a fresh load of the file restores it (accumulation, motion, depth
+     and offsets bit-equal to the saved state); both draw 2 more frames,
+     whose accumulations agree within 1e-6 absolute, with equal rays; save
+     and restore seconds and the file's size printed;
   7. after every run was driven, under torch.profiler: K1's device time,
      warm and after a 64 MB write (cold), K2's device time over one more
-     steady frame of runs A-C, F and G (warm L2), the costliest operators
-     of a frame of runs A and F, phase D's LBS and refit device time per
-     animated frame beside their bounds, and run E's present device time
+     steady frame of runs A-C and F-H (warm L2), the costliest operators
+     of a frame of runs A and F, phase D's and run H's LBS and refit device
+     time per animated frame beside their bounds, and run E's present device time
      and events per mode, its resize products' and denoiser's device time
      and K1's at (2160,3840,3), beside their bounds;
   8. a 48x48 frame traced and presented in every presenter mode on the card
@@ -91,6 +110,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -409,38 +429,135 @@ def profile_run(torch, FP, tag, r, present, bounds, check, walls):
 
 
 def make_character(dev):
-    """Phase D's scene: one skinned cylinder of 66,049 vertices, 131,072
-    triangles and 64 joints with the swing rig (a game character's size;
-    the app's robot stand-in has 425 vertices and 4 joints) over a floor,
+    """Phase D's scene: the character of frame_profile.character (66,049
+    vertices, 131,072 triangles, 64 joints, the swing rig) over a floor,
     at 1024x576 with run C's settings. Returns the renderer and its rig."""
     from mrt_tpu_torch import Model, Renderer, Scene
-    from mrt_tpu_torch.assets import procedural
-    from mrt_tpu_torch.engine.appscene import _attach_swing_rig
-    from mrt_tpu_torch.engine.scene import SkinData
     from mrt_tpu_torch.utils import frame_profile as FP
 
     t0 = time.perf_counter()
-    mesh, ji, jw, rest = procedural.skinned_cylinder(segments_h=256, segments_r=256, n_joints=64)
-    character = Model("character", mesh=mesh, position=[-0.5, 0.0, 1.0])
-    character.skin = SkinData(joint_indices=ji, joint_weights=jw, rest_joints=rest)
-    _attach_swing_rig(character)
+    mesh, skin = FP.character()
     scene = Scene(1024, 576)
-    scene.models = [character, Model("plane", scale=10)]
+    scene.models = [Model("character", mesh=mesh, position=[-0.5, 0.0, 1.0], skin=skin),
+                    Model("plane", scale=10)]
     r = Renderer(scene, 1024, 576, seed=0, device=dev)
     FP.configure(r, motion_adaptive=True)
     log(f"phase D scene compile + BVH build: {time.perf_counter() - t0:.1f} s, "
         f"{mesh.positions.shape[0]} vertices, {r.statics.n_triangles} triangles, "
-        f"{rest.shape[0]} joints, table {tuple(r.bvh.table.shape)}")
+        f"{skin.rest_joints.shape[0]} joints, table {tuple(r.bvh.table.shape)}")
     return r, dict(scene="skinned cylinder 256x256 segments, 64 joints, swing rig, over a floor",
-                   joint_indices=ji, joint_weights=jw)
+                   joint_indices=skin.joint_indices, joint_weights=skin.joint_weights)
 
 
-def check_character(torch, r, rig):
-    """LBS on the card against float64 NumPy (positions within 1e-5 of the
-    rig's extent, unit normals within 1e-5), and the card's refit against
+def check_rig_files(paths, mesh, skin) -> dict:
+    """Run H's load checks: each file written by frame_profile.write_character
+    (centimetres) loaded through the port's loader, timed, and held to the
+    rig in metres: triangle indices, joint indices and weights bit-equal,
+    positions within 1e-6 after the unit change, joint matrices within
+    1e-5 at t = 0, 0.37 and the clip's duration. Raises on a mismatch;
+    returns per format its load seconds, bytes and errors."""
+    import numpy as np
+
+    from mrt_tpu_torch.assets import gltf, usd
+    from mrt_tpu_torch.skinning import animation as anim
+
+    d = np.diag([100.0, 100.0, 100.0, 1.0])
+    out = {}
+    for fmt, path in paths.items():
+        t0 = time.perf_counter()
+        m, si = (gltf.load_gltf if fmt == "glb" else usd.load_usd)(path)
+        load_s = time.perf_counter() - t0
+        equal = dict(indices=np.array_equal(m.submeshes[0].indices, mesh.submeshes[0].indices),
+                     joint_indices=np.array_equal(si["joint_indices"], skin.joint_indices),
+                     joint_weights=np.array_equal(si["joint_weights"], skin.joint_weights))
+        pos_err = float(np.abs(m.positions.astype(np.float64) * 0.01 - mesh.positions).max())
+        mat_err = max(float(np.abs(np.linalg.inv(d) @ anim.compute_joint_matrices(
+            si["skeleton"], si["animation"], t) @ d - anim.compute_joint_matrices(
+                skin.skeleton, skin.animation, t)).max())
+            for t in (0.0, 0.37, skin.animation.duration))
+        out[fmt] = dict(load_s=load_s, bytes=path.stat().st_size, equal=equal,
+                        position_err=pos_err, joint_matrix_err=mat_err)
+        log(f"run H load {fmt} ({path.name}, {out[fmt]['bytes']} bytes): {load_s:.2f} s; "
+            f"bit-equal {equal}; positions within {pos_err:.2e} (limit 1e-6), joint matrices "
+            f"within {mat_err:.2e} (limit 1e-5)")
+        if not all(equal.values()) or pos_err > 1e-6 or mat_err > 1e-5:
+            raise AssertionError(f"run H: the {fmt} file does not load back to the rig")
+    return out
+
+
+def check_small_h(dev, asset_dir):
+    """Run H's scene at 48x48 (the robot from the crate) on the card against
+    the CPU: two frames with run C's settings, the accumulation within 1e-2
+    relative RMSE and rays equal per frame."""
+    from mrt_tpu_torch import Renderer, make_app_scene
+    from mrt_tpu_torch.utils import frame_profile as FP
+
+    res = []
+    for device in (dev, "cpu"):
+        with FP.robot_asset(asset_dir):
+            scene = make_app_scene(48, 48, include_robot=True, asset_models=False)
+        r = Renderer(scene, 48, 48, seed=3, device=device)
+        FP.configure(r, motion_adaptive=True)
+        rays = []
+        for _ in range(2):
+            r.draw(1 / 60)
+            rays.append(int(r.last_rays_traced))
+        res.append((r.accum.cpu(), rays))
+    (acc_g, rays_g), (acc_c, rays_c) = res
+    rel = rel_rmse(acc_g, acc_c)
+    log(f"small frame 48x48, run H's scene: card vs CPU relative RMSE {rel:.3e} in the "
+        f"accumulation (limit 1e-2), rays {rays_g} vs {rays_c}")
+    if not (rel < 1e-2 and rays_g == rays_c and min(rays_g) > 0):
+        raise AssertionError("run H's 48x48 frame on the card disagrees with the CPU")
+    return dict(rel_rmse=rel, rays_card=rays_g, rays_cpu=rays_c)
+
+
+def checkpoint_phase(torch, FP, checkpoint, r, asset_dir, dev, path) -> dict:
+    """Phase I: ``r`` (run H) draws 4 frames and is saved to ``path``; a
+    fresh renderer over a fresh load of the file (another seed, so other
+    offsets until the restore) restores it: accumulation, motion, depth and
+    offsets bit-equal to the saved state, the same frame index; both draw 2
+    more frames, their accumulations within 1e-6 absolute and their rays
+    equal. Raises otherwise; returns the numbers."""
+    for _ in range(4):
+        r.draw(1 / 60)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(r, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r2 = FP.make_renderer("H", dev, seed=1, asset_dir=asset_dir)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checkpoint.restore(r2, path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    state = ("accum", "motion", "depth", "offsets")
+    restored = {k: bool(torch.equal(getattr(r, k).view(torch.int32), getattr(r2, k).view(torch.int32)))
+                for k in state}
+    restored["frame_index"] = r2.frame_index == r.frame_index
+    errs, rays = [], []
+    for _ in range(2):
+        r.draw(1 / 60)
+        r2.draw(1 / 60)
+        errs.append(float((r.accum - r2.accum).abs().max()))
+        rays.append((int(r.last_rays_traced), int(r2.last_rays_traced)))
+    line = dict(phase="I", save_s=save_s, restore_s=restore_s, fresh_renderer_s=build_s,
+                file_bytes=os.path.getsize(path), restored_bit_equal=restored,
+                resumed_max_abs_err=errs, rays=rays, frame_index=r2.frame_index)
+    log(json.dumps(line))
+    if not all(restored.values()) or max(errs) > 1e-6 or any(a != b for a, b in rays):
+        raise AssertionError(f"phase I: the resumed renderer does not follow the saved one: {line}")
+    return line
+
+
+def check_character(torch, r, rig, tag="phase D"):
+    """The first skinned model of phase D (or of ``tag``): LBS on the card
+    against float64 NumPy (positions within 1e-5 of the rig's extent, unit
+    normals within 1e-5), and the card's refit against
     the CPU's on the same posed vertices: the skinned BLAS rows and root
     boxes bit-equal, the other rows (instance rows hold a torch.linalg.inv)
-    within 1e-6."""
+    within 1e-6. Each plain version's host time is printed."""
     import numpy as np
 
     from mrt_tpu_torch.bvh import twolevel
@@ -448,22 +565,27 @@ def check_character(torch, r, rig):
 
     sb, jm = r._skin_bundle[0], r._joint_matrices[0]
     pos, nrm = lbs.skin(sb.weights_dense, jm, sb.rest_positions, sb.rest_normals)
-    rest = sb.rest_positions.cpu().numpy()
-    want_p, want_n = lbs_float64(rest, sb.rest_normals.cpu().numpy(), rig["joint_indices"],
-                                 rig["joint_weights"], jm.cpu().numpy())
+    rest, rest_n, jm_host = (x.cpu().numpy() for x in (sb.rest_positions, sb.rest_normals, jm))
+    t0 = time.perf_counter()
+    want_p, want_n = lbs_float64(rest, rest_n, rig["joint_indices"], rig["joint_weights"], jm_host)
+    plain_lbs_ms = (time.perf_counter() - t0) * 1e3
     extent = float((rest.max(axis=0) - rest.min(axis=0)).max())
     err_p = float(np.abs(pos.cpu().numpy() - want_p).max())
     err_n = float(np.abs(nrm.cpu().numpy() - want_n).max())
     moved = float(np.abs(want_p - rest).max())
-    log(f"phase D LBS on the card vs float64 NumPy: max abs error {err_p:.3e} in positions "
+    log(f"{tag} LBS on the card vs float64 NumPy: max abs error {err_p:.3e} in positions "
         f"(limit {1e-5 * extent:.3e} = 1e-5 x the rig's extent {extent:.3f}), {err_n:.3e} in "
-        f"normals (limit 1e-5); the pose moves vertices up to {moved:.4f}")
+        f"normals (limit 1e-5); the pose moves vertices up to {moved:.4f}; float64 NumPy LBS "
+        f"{plain_lbs_ms:.1f} ms on the host")
     if not (err_p <= 1e-5 * extent and err_n <= 1e-5 and moved > 0.0):
-        raise AssertionError("phase D: LBS on the card disagrees with the float64 reference")
+        raise AssertionError(f"{tag}: LBS on the card disagrees with the float64 reference")
 
     posed, M = r.scene_data.positions_obj, r.scene_data.instance_transform
     gpu = twolevel.refit(r.bvh, posed, M)
-    cpu = twolevel.refit(r.bvh.to("cpu"), posed.cpu(), M.cpu())
+    bvh_c, posed_c, M_c = r.bvh.to("cpu"), posed.cpu(), M.cpu()
+    t0 = time.perf_counter()
+    cpu = twolevel.refit(bvh_c, posed_c, M_c)
+    plain_refit_ms = (time.perf_counter() - t0) * 1e3
     gt, ct = gpu.table.cpu(), cpu.table
     skinned = torch.zeros(gt.shape[0], dtype=torch.bool)
     for int_lo, ni, leaf_lo, nl, *_, slot in r.bvh.mesh_meta:
@@ -475,12 +597,12 @@ def check_character(torch, r, rig):
     bad_roots = int((gpu.root_bmin.cpu().view(torch.int32) != cpu.root_bmin.view(torch.int32)).sum()
                     + (gpu.root_bmax.cpu().view(torch.int32) != cpu.root_bmax.view(torch.int32)).sum())
     close = torch.allclose(gt[~skinned], ct[~skinned], rtol=1e-6, atol=1e-6, equal_nan=True)
-    log(f"phase D refit on the card vs the CPU on the same posed vertices: {int(skinned.sum())} "
+    log(f"{tag} refit on the card vs the CPU on the same posed vertices: {int(skinned.sum())} "
         f"skinned BLAS rows, {bad_skin} differ in their bits, root boxes {bad_roots}; the other "
         f"{int((~skinned).sum())} rows: {int(bits[~skinned].sum())} differ in their bits, "
-        f"within 1e-6: {close}")
+        f"within 1e-6: {close}; the CPU's refit {plain_refit_ms:.1f} ms on the host")
     if bad_skin or bad_roots or not close:
-        raise AssertionError("phase D: the skinned refit on the card disagrees with the CPU")
+        raise AssertionError(f"{tag}: the skinned refit on the card disagrees with the CPU")
 
 
 def profile_prepare(torch, r, bounds):
@@ -880,9 +1002,9 @@ def main() -> int:
     # --- 3. kernels against their plain versions ----------------------------------------
     check_halton(torch, H)
 
-    def make(tag):
+    def make(tag, **kw):
         t0 = time.perf_counter()
-        r = FP.make_renderer(tag, dev)
+        r = FP.make_renderer(tag, dev, **kw)
         log(f"run {tag} scene compile + BVH build: {time.perf_counter() - t0:.1f} s, "
             f"{r.statics.n_triangles} triangles, table {tuple(r.bvh.table.shape)}, "
             f"stack {r.bvh.stack_size}")
@@ -965,14 +1087,19 @@ def main() -> int:
     rb = make("B")
     run("B", rb, 2)
     rc = make("C")
+    def prepare_walls(r):
+        """Wall seconds of 5 prepare stages (skinning, world transform,
+        refit) after a warm-up, each between syncs."""
+        prep = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            r.prepare()
+            torch.cuda.synchronize()
+            prep.append(time.perf_counter() - t0)
+        return prep[1:]
+
     run("C", rc, 3)
-    prep = []
-    for _ in range(6):
-        t0 = time.perf_counter()
-        rc.prepare()
-        torch.cuda.synchronize()
-        prep.append(time.perf_counter() - t0)
-    prep = prep[1:]  # the first is a warm-up
+    prep = prepare_walls(rc)
     c = lines["C"]
     n_pix = rc.render_width * rc.render_height
     shares = [[n / n_pix for n in e[1:]] for e in c["pixels_by_extra_samples"]]
@@ -1040,15 +1167,49 @@ def main() -> int:
         raise AssertionError(f"run G: K2 took its {rand['G']['variant']} variant")
     run("G", rg, 2, variant="float_sort")
 
+    # --- 6c. run H: the robot read from disk; phase I: a checkpoint on the card ---------------
+    from mrt_tpu_torch.engine import checkpoint
+
+    h_tmp = tempfile.TemporaryDirectory(prefix="mrt_run_h_")
+    hdir = h_tmp.name
+    t0 = time.perf_counter()
+    hmesh, hskin = FP.character()
+    hpaths = FP.write_character(hdir, hmesh, hskin)
+    write_s = time.perf_counter() - t0
+    hloads = check_rig_files(hpaths, hmesh, hskin)
+    rh = make("H", asset_dir=hdir)
+    robot = rh.scene.models[0]
+    if not (robot.name == "robot" and robot.scale == 0.01 and robot.skin is not None
+            and robot.mesh.positions.shape[0] == hmesh.positions.shape[0]
+            and rh.statics.skin_slices[0][2] == hmesh.positions.shape[0]):
+        raise AssertionError("run H: the app scene's robot did not come from robot.usdz")
+    run("H", rh, 3)
+    h_prep = prepare_walls(rh)
+    if max(lines["H"]["max_motion_px"]) <= 0.5:
+        raise AssertionError(f"run H: the robot moved at most {max(lines['H']['max_motion_px'])} px")
+    check_character(torch, rh, dict(joint_indices=hskin.joint_indices,
+                                    joint_weights=hskin.joint_weights), tag="run H")
+    h_small = check_small_h(dev, hdir)
+    log(json.dumps(dict(run="H", character_and_write_s=write_s, loads=hloads,
+                        mrays_per_s=lines["H"]["mrays_per_s"], frame_walls=lines["H"]["frame_walls"],
+                        frame_walls_c=lines["C"]["frame_walls"], prepare_s=h_prep,
+                        prepare_s_median=sorted(h_prep)[len(h_prep) // 2],
+                        k2_variants=lines["H"]["k2_variants"], small_frame=h_small,
+                        card=card_name, power_limit=power_limit)))
+    phase_i = checkpoint_phase(torch, FP, checkpoint, rh, hdir, dev,
+                               os.path.join(hdir, "run_h_checkpoint.npz"))
+    log(json.dumps(dict(phase_i, card=card_name, power_limit=power_limit)))
+    h_tmp.cleanup()
+
     # --- 7. the profiler last: a process's frames after a profiler session ran
     # slower on the host in this script's runs (PERF.md, Findings)
     profiles = {tag: profile(tag, r) for tag, r in (("A", ra), ("B", rb), ("C", rc), ("F", rf),
-                                                    ("G", rg))}
+                                                    ("G", rg), ("H", rh))}
     # where run F's extra device time goes: its costliest operators beside run A's
     log(json.dumps(dict(top_ops_ms={tag: device_ops(torch, lambda r=r: r.draw(1 / 60), 1, top=12)
                                     for tag, r in (("A", ra), ("F", rf))},
                         card=card_name, power_limit=power_limit)))
-    for tag, r in (("C", rc), ("D", rd)):
+    for tag, r in (("C", rc), ("D", rd), ("H", rh)):
         log(json.dumps(dict(prepare=tag, **profile_prepare(torch, r, bounds),
                             table_clone_ms=clone_ms[tag], card=card_name,
                             power_limit=power_limit)))
@@ -1056,7 +1217,7 @@ def main() -> int:
                                 {m: e_lines[m]["frame_walls_still"] for m in E_MODES})
     log(json.dumps(dict(run="E", profile=e_profile, k1=e_k1, card=card_name,
                         power_limit=power_limit)))
-    del ra, rb, rc, rd, re_, rf, rg, x4k
+    del ra, rb, rc, rd, re_, rf, rg, rh, x4k
 
     # --- 8. a small frame on the card against the CPU plain path -------------------------------
     check_small_frames(dev)

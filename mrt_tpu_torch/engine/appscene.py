@@ -1,10 +1,14 @@
 """Demo scene — counterpart of ``mrt_tpu/engine/appscene.py``: the skinned
 robot, glass dragon, train, treefir, ground plane, two spheres, back plane.
 
-The robot is the procedural stand-in (a rigged cylinder with a swing clip);
-``train`` and ``treefir`` load from OBJ files found in the asset search
-paths, and ``asset_models=False`` leaves them out, so the flagship scene
-builds where those files are absent.
+The robot is ``robot.usdz`` (or ``.usda``, ``.glb``, ``.gltf``) where the
+asset search paths hold one (``engine/scene.py:asset_search_paths``, e.g.
+``MRT_ASSET_PATH``): authored in centimetres as the reference's, it keeps
+the reference's 0.01 scale and its own skeleton and clip. Elsewhere it is
+the procedural stand-in (a rigged cylinder in metres, scale 1, with a swing
+clip). ``train`` and ``treefir`` load from OBJ files found in the asset
+search paths, and ``asset_models=False`` leaves them out, so the flagship
+scene builds where those files are absent.
 """
 
 from __future__ import annotations

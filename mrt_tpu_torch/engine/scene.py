@@ -8,7 +8,10 @@ transforms, a material table and a packed texture atlas, as torch tensors
 on ``device``; the flattening is the JAX package's NumPy code, so the
 arrays are equal. A skinned model (``Model(skin=SkinData(...))``) also gets
 its dense weights and rest pose on the device (``Scene.skin_bundle``) and
-its vertex slice in ``SceneStatics.skin_slices``.
+its vertex slice in ``SceneStatics.skin_slices``. A model named after an
+asset file resolves it as the JAX package does: USDZ/USDA first, then
+glTF/GLB, then OBJ (``assets/usd.py``, ``assets/gltf.py``); a rigged asset
+brings its skin (skeleton, clip, bind transform) with it.
 """
 
 from __future__ import annotations
@@ -28,10 +31,13 @@ from ..core.device import resolve as resolve_device
 from ..skinning import lbs
 from ..utils import math3d
 
-# The repository's own asset folder, then the folders listed in MRT_ASSET_PATH
-# (os.pathsep-separated), where the demo scene's OBJ files are installed.
-ASSET_SEARCH_PATHS = [Path(__file__).resolve().parents[2] / "assets_local"] + [
-    Path(p) for p in os.environ.get("MRT_ASSET_PATH", "").split(os.pathsep) if p]
+
+def asset_search_paths() -> list[Path]:
+    """The repository's own asset folder, then the folders listed in
+    MRT_ASSET_PATH (os.pathsep-separated, read at each resolution), where
+    the demo scene's assets are installed."""
+    return [Path(__file__).resolve().parents[2] / "assets_local"] + [
+        Path(p) for p in os.environ.get("MRT_ASSET_PATH", "").split(os.pathsep) if p]
 
 
 @dataclasses.dataclass
@@ -74,6 +80,13 @@ class Model:
         self.material_override = material_override
         self.mesh = mesh if mesh is not None else _resolve_mesh(name)
         self.skin = skin
+        # rigged asset formats (USD, glTF) attach skin info during resolution
+        si = getattr(self.mesh, "_skin_info", None)
+        if self.skin is None and si:
+            self.skin = SkinData(joint_indices=si["joint_indices"],
+                                 joint_weights=si["joint_weights"],
+                                 rest_joints=si["rest_joints"], skeleton=si["skeleton"],
+                                 animation=si["animation"], geometry_bind=si["geometry_bind"])
 
     def effective_materials(self) -> list[MaterialDef]:
         """Per-submesh materials with this model's override applied (a
@@ -120,23 +133,34 @@ _MESH_CACHE: dict = {}
 
 
 def _resolve_mesh(name: str) -> MeshData:
-    """OBJ from the asset search paths, else the procedural stand-ins of the
-    JAX package. Cached by name, so models of one asset share one mesh (and
-    one BLAS)."""
+    """USD, glTF or OBJ from the asset search paths, else the procedural
+    stand-ins of the JAX package. Cached by name, so models of one asset
+    share one mesh (and one BLAS); pop a name from ``_MESH_CACHE`` to load
+    its file again."""
     if name not in _MESH_CACHE:
         _MESH_CACHE[name] = _resolve_mesh_uncached(name)
     return _MESH_CACHE[name]
 
 
 def _resolve_mesh_uncached(name: str) -> MeshData:
-    for root in ASSET_SEARCH_PATHS:
+    for root in asset_search_paths():
+        # USDZ preferred over other formats (Model.swift:63-67)
         for candidate in (root / f"{name}.usdz", root / name / f"{name}.usdz",
-                          root / f"{name}.usda", root / name / f"{name}.usda",
-                          root / f"{name}.glb", root / f"{name}.gltf",
+                          root / f"{name}.usda", root / name / f"{name}.usda"):
+            if candidate.exists():
+                from ..assets.usd import load_usd
+
+                mesh, skin_info = load_usd(candidate)
+                mesh._skin_info = skin_info
+                return mesh
+        for candidate in (root / f"{name}.glb", root / f"{name}.gltf",
                           root / name / f"{name}.glb", root / name / f"{name}.gltf"):
             if candidate.exists():
-                raise NotImplementedError(
-                    f"{candidate.name}: USD and glTF loaders are not ported yet (ROADMAP Slice D)")
+                from ..assets.gltf import load_gltf
+
+                mesh, skin_info = load_gltf(candidate)
+                mesh._skin_info = skin_info
+                return mesh
         for candidate in (root / f"{name}.obj", root / name / f"{name}.obj"):
             if candidate.exists():
                 return load_obj(candidate)

@@ -18,8 +18,14 @@ masked as light geometry (seen by camera rays, skipped by shadow and bounce
 rays), so K2 runs its masked variant. Run G is run B's frame with the
 dragon replaced by two distinct blob(subdivisions=9) meshes (seeds 7 and 8,
 5,242,880 triangles each): its table has more than 2^20 - 1 rows, so K2
-runs its float-sort variant. ``chip_smoke.py`` drives the same runs (run E
-in all three presenter modes).
+runs its float-sort variant. Run H is run C's frame with the robot read
+from disk: ``character()``, a 66,049-vertex, 64-joint skinned cylinder with
+the swing rig, written in centimetres as a USD crate ``robot.usdz`` (with
+its USDA text and GLB twins, ``write_character``) into a temporary
+directory that ``MRT_ASSET_PATH`` names while the app scene is built, so
+the robot resolves from the file and keeps the reference's 0.01 scale.
+``chip_smoke.py`` drives the same runs (run E in all three presenter
+modes).
 
 For each run, after two warm-up frames, ``frame_walls`` times FRAMES
 unprofiled frames between ``torch.cuda.synchronize()`` calls (every run's
@@ -36,11 +42,13 @@ tables go to ``--out``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -64,6 +72,10 @@ RUNS = {
               light_masked_spheres=True),
     "G": dict(scene="dragon_1m's scene with two blob(subdivisions=9) dragons (seeds 7, 8)",
               width=1024, height=576, dragon_subdivisions=9, second_dragon_seed=8),
+    "H": dict(scene="run C's scene with the robot read from robot.usdz (a USD crate): a "
+                    "66,049-vertex, 64-joint skinned character authored in centimetres",
+              width=1920, height=1080, dragon_subdivisions=None, robot=True, motion_adaptive=True,
+              robot_asset=True),
 }
 
 
@@ -123,17 +135,74 @@ def _extras(scene, run: dict, seed: int):
             material_override=ModelMaterialOverride.glass(), mesh=mesh))
 
 
-def make_renderer(tag: str, device, seed: int = 0):
+def character(segments: int = 256, n_joints: int = 64):
+    """Phase D's and run H's character, in metres: a skinned cylinder of
+    ``segments`` x ``segments`` quads (66,049 vertices and 131,072
+    triangles at 256) and ``n_joints`` joints with the swing rig (a game
+    character's size; the app's robot stand-in has 425 vertices and 4
+    joints). Returns (mesh, SkinData)."""
+    from ..assets import procedural
+    from ..engine.appscene import _attach_swing_rig
+    from ..engine.scene import Model, SkinData
+
+    mesh, ji, jw, rest = procedural.skinned_cylinder(segments_h=segments, segments_r=segments,
+                                                     n_joints=n_joints)
+    m = Model("character", mesh=mesh)
+    m.skin = SkinData(joint_indices=ji, joint_weights=jw, rest_joints=rest)
+    _attach_swing_rig(m)
+    return mesh, m.skin
+
+
+def write_character(directory, mesh=None, skin=None) -> dict:
+    """Write the character (``character()`` unless given) in centimetres to
+    ``directory``: ``robot.usdz`` (a crate layer), ``robot_text.usdz`` (a
+    USDA layer) and ``robot.glb``. Returns the paths by format."""
+    from ..assets import rigexport
+
+    if mesh is None:
+        mesh, skin = character()
+    return rigexport.write_rig(directory, "robot", mesh, skin, unit=100.0)
+
+
+@contextlib.contextmanager
+def robot_asset(directory):
+    """Inside this block the model "robot" resolves from ``directory``
+    (first on MRT_ASSET_PATH), loaded afresh: the name cache is cleared on
+    entry and on exit."""
+    from ..engine import scene as scene_mod
+
+    old = os.environ.get("MRT_ASSET_PATH")
+    os.environ["MRT_ASSET_PATH"] = os.pathsep.join([str(directory)] + ([old] if old else []))
+    scene_mod._MESH_CACHE.pop("robot", None)
+    try:
+        yield
+    finally:
+        scene_mod._MESH_CACHE.pop("robot", None)
+        if old is None:
+            del os.environ["MRT_ASSET_PATH"]
+        else:
+            os.environ["MRT_ASSET_PATH"] = old
+
+
+def make_renderer(tag: str, device, seed: int = 0, asset_dir=None):
     """Scene, BVH and renderer of run ``tag`` with the main path's settings
-    (the scene sized as the render)."""
+    (the scene sized as the render). Run H's robot loads from
+    ``asset_dir`` (``write_character``'s files), else from the files
+    written into a temporary directory here."""
     from ..engine.appscene import make_app_scene
     from ..engine.renderer import Renderer
 
     run = RUNS[tag]
     scale = run.get("render_scale", 1.0)
-    scene = make_app_scene(round(run["width"] * scale), round(run["height"] * scale),
-                           include_robot=run.get("robot", False), asset_models=False,
-                           dragon_subdivisions=run["dragon_subdivisions"])
+    with contextlib.ExitStack() as stack:
+        if run.get("robot_asset"):
+            if asset_dir is None:
+                asset_dir = stack.enter_context(tempfile.TemporaryDirectory())
+                write_character(asset_dir)
+            stack.enter_context(robot_asset(asset_dir))
+        scene = make_app_scene(round(run["width"] * scale), round(run["height"] * scale),
+                               include_robot=run.get("robot", False), asset_models=False,
+                               dragon_subdivisions=run["dragon_subdivisions"])
     _extras(scene, run, seed)
     r = Renderer(scene, run["width"], run["height"], seed=seed, device=device)
     configure(r, run.get("motion_adaptive", False),

@@ -1,7 +1,11 @@
 """Image metrics and golden IO — a NumPy copy of ``mrt_tpu/utils/image.py``:
-golden renders are kept as compressed arrays and compared by RMSE."""
+golden renders are kept as compressed arrays and compared by RMSE; and
+``write_png``, the port's PNG writer (zlib only, no imaging library)."""
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -27,3 +31,20 @@ def save_golden(path: str, image: np.ndarray):
 
 def load_golden(path: str) -> np.ndarray:
     return np.load(path)["image"]
+
+
+def write_png(path: str, image_u8: np.ndarray):
+    """Write an (H,W,3) uint8 RGB image as an 8-bit PNG, row 0 at the top."""
+    img = np.ascontiguousarray(image_u8, np.uint8)
+    h, w, c = img.shape
+    if c != 3:
+        raise ValueError(f"write_png wants (H,W,3) RGB, got {img.shape}")
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))

@@ -18,7 +18,10 @@ never prints its last line):
      padded past 2^20 - 1 rows (the sort's own cost); the masked one over
      run F's table with a random ray mask per ray and the float-sort one
      over run G's table (more than 2^20 - 1 rows) each as soon as its run
-     is built (6b);
+     is built (6b). Then K3, the flat traversal, on the same rays: its flat
+     instantiation over run A's flat table (made by the user's switch,
+     two_level = False) and its float-sort one over that table padded past
+     2^20 - 1 rows;
   4. the port's main path at full width: the flagship scene without the
      train/treefir OBJs at 1920x1080, 2 spp, 4 bounces, upscaler off,
      motion-adaptive sampling off (run A), the 1.31M-triangle dragon at
@@ -84,13 +87,32 @@ never prints its last line):
      and offsets bit-equal to the saved state); both draw 2 more frames,
      whose accumulations agree within 1e-6 absolute, with equal rays; save
      and restore seconds and the file's size printed;
-  7. after every run was driven, under torch.profiler: K1's device time,
-     warm and after a 64 MB write (cold), K2's device time over one more
-     steady frame of runs A-C and F-H (warm L2), the costliest operators
+  6d. run J, the animated app frame on the flat BVH: run C's scene with
+     two_level = False (K3 flat; the whole table refit from the posed
+     triangles every frame), checked and driven as runs A-C are, its
+     prepare seconds, its refit on the card bit-equal to the CPU's, and a
+     48x48 flat frame of the same scene on the card against the CPU (1e-2
+     relative RMSE, rays equal), printed beside run C; then phase K, run A's
+     scene built under MRT_SBVH=1 (SBVH clip boxes): the full refit on the
+     card against the CPU (BLAS rows and root boxes bit-equal, the other
+     rows within 1e-6, equal to the build's table), K2 checked on a frame's
+     launches and 2 frames driven, printed beside run A;
+  7. after every run was driven, under torch.profiler: K1's device time at
+     runs A and B (1920x1080 and 1024x576), warm and after a 64 MB write
+     (cold), K2's device time over one more steady frame of runs A-C and
+     F-H (warm L2), the costliest operators
      of a frame of runs A and F, phase D's and run H's LBS and refit device
      time per animated frame beside their bounds, and run E's present device time
      and events per mode, its resize products' and denoiser's device time
-     and K1's at (2160,3840,3), beside their bounds;
+     and K1's at (2160,3840,3), beside their bounds; K3's device time over a
+     steady frame of run J, its refit's and prepare's device time. A
+     profiler session that misses the kernels it was asked for is logged as
+     a "profiler_dropout" line (what it saw) and taken again, up to three
+     times in all;
+  7b. run G flat: run G's renderer switched to the flat BVH (two_level =
+     False; a table above 2^20 - 1 rows, K3's float-sort instantiation),
+     its rebuild timed, one frame's launches checked and one frame driven
+     (after the profiler, so its wall runs on a slowed host);
   8. a 48x48 frame traced and presented in every presenter mode on the card
      against the same frames on the CPU through the plain versions (the
      accumulation and the presented output within 1e-2 relative RMSE, the
@@ -98,7 +120,8 @@ never prints its last line):
      textured scene with a light-masked sphere, on the card against the
      CPU within 1e-2 relative RMSE and rays within 1 %: mipmaps on, each
      debug view 1-7, and the light-masked frame.
-The line before the last is {"kernels": [...]}, with each kernel's bound
+The line before the last is {"kernels": [...]}: K1, K2's three
+instantiations and K3's two, each with its bound
 (mrt_tpu_torch/utils/bounds.py); the last line is
 {"ok": true, "device": {...}}.
 """
@@ -180,11 +203,22 @@ def device_ms(torch, fn, name: str, reps: int, flush=None) -> float:
             flush()
         fn()
 
-    for _ in range(3):
-        ev = [e for e in device_events(torch, profiled(torch, call, reps)[0]) if name in e.name]
+    for attempt in range(3):
+        seen = device_events(torch, profiled(torch, call, reps)[0])
+        ev = [e for e in seen if name in e.name]
         if len(ev) >= reps // 2:
             return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev)
+        log_dropout(f"'{name}' x{reps}", attempt, len(ev), seen)
     raise AssertionError(f"the profiler saw {len(ev)} '{name}' kernels in {reps} calls")
+
+
+def log_dropout(what: str, attempt: int, n_found: int, seen) -> None:
+    """Log a profiler session that missed the kernels it was asked for
+    (``seen``: every device event it recorded), so that a dropout stays
+    visible in the output whether or not a retry recovers."""
+    names = sorted({e.name[:60] for e in seen})[:8]
+    log(json.dumps(dict(profiler_dropout=what, attempt=attempt + 1, found=n_found,
+                        device_events=len(seen), kernels_seen=names)))
 
 
 def device_total_ms(torch, fn, reps: int) -> tuple[float, float]:
@@ -262,14 +296,40 @@ def k2_mismatches(torch, kout, pout):
     return bad, err
 
 
+def traversal(traverse2, bvh, masked: bool = False):
+    """The traversal of ``bvh``: (the arguments that describe its table, the
+    wrapper's name in kernels/traverse2.py, the plain version, the
+    instantiation's name, whether it is K3). K2 for a two-level BVH
+    (``masked``: rays carry masks), K3 for a flat one."""
+    from mrt_tpu_torch.bvh import kind
+
+    rows = bvh.table.shape[0]
+    if kind.is_flat(bvh):
+        return ((bvh.table, bvh.n_internal, bvh.stack_size), "traverse_flat",
+                traverse2.traverse_flat_plain, traverse2.flat_variant(rows), True)
+    return ((bvh.table, bvh.n_internal, bvh.n_leaf, bvh.tlas_n, bvh.stack_size), "traverse",
+            traverse2.traverse_plain, traverse2.variant(rows, masked), False)
+
+
+def work_bound(bounds, head, visits, n_lanes, n_live, masked: bool, flat: bool):
+    """(work, bound ms, bound kind) of one traversal call on the table
+    ``head`` describes, from the plain version's ``visits``."""
+    if flat:
+        work = bounds.k3_work(head[0], head[1], visits)
+    else:
+        work = bounds.k2_work(head[0], head[1], head[2], visits, masked=masked)
+    return (work,) + bounds.k2(work, n_lanes, n_live, masked=masked, flat=flat)
+
+
 def check_random_rays(torch, tag, bvh, traverse2, bounds, masked: bool = False):
-    """K2 on 2^20 random mixed rays (half of them shadow rays with a finite
-    tmax, 95 % live) over run ``tag``'s table, each with a random ray mask
-    (1, 2 or 3) if ``masked``; then on the same rays with every lane dead,
-    with one live lane, the wavefront's last, and at 2^20 - 1 lanes (the
-    compaction's last block partial) the last lane alone and the random
-    mask. Hit-equal, t/u/v bit-equal and pop-equal to the plain version,
-    or it raises. Returns the random batch's numbers."""
+    """K2 (a two-level BVH) or K3 (a flat one) on 2^20 random mixed rays
+    (half of them shadow rays with a finite tmax, 95 % live) over run
+    ``tag``'s table, each with a random ray mask (1, 2 or 3) if ``masked``;
+    then on the same rays with every lane dead, with one live lane, the
+    wavefront's last, and at 2^20 - 1 lanes (the compaction's last block
+    partial) the last lane alone and the random mask. Hit-equal, t/u/v
+    bit-equal and pop-equal to the plain version, or it raises. Returns the
+    random batch's numbers."""
     dev = bvh.table.device
     g = torch.Generator(device=dev).manual_seed(1)
     n = 1 << 20
@@ -285,21 +345,21 @@ def check_random_rays(torch, tag, bvh, traverse2, bounds, masked: bool = False):
     active = torch.rand(n, generator=g, device=dev) < 0.95
     rmask = (torch.randint(1, 4, (n,), generator=g, device=dev, dtype=torch.int32)
              if masked else None)
-    args = (table, bvh.n_internal, bvh.n_leaf, bvh.tlas_n, bvh.stack_size, org, dirs, tmax,
-            shadow, active)
-    name = traverse2.variant(table.shape[0], masked)
-    k2, p2 = traverse2.traverse(*args, ray_mask=rmask), traverse2.traverse_plain(*args, ray_mask=rmask)
+    head, kname, plain, name, flat = traversal(traverse2, bvh, masked)
+    kw = {} if rmask is None else {"ray_mask": rmask}
+    args = head + (org, dirs, tmax, shadow, active)
+    kern = getattr(traverse2, kname)
+    k2, p2 = kern(*args, **kw), plain(*args, **kw)
     bad, err = k2_mismatches(torch, k2, p2)
-    ms = cuda_ms(lambda: traverse2.traverse(*args, ray_mask=rmask), 10)
-    work = bounds.k2_work(table, bvh.n_internal, bvh.n_leaf, p2.visits, masked=masked)
-    bound = bounds.k2(work, n, int(active.sum()), masked=masked)
-    log(f"K2 traverse ({name}), {n} random mixed rays over the run {tag} table "
-        f"({table.shape[0]} rows){' with random ray masks' if masked else ''}: "
+    ms = cuda_ms(lambda: kern(*args, **kw), 10)
+    _, b_ms, b_by = work_bound(bounds, head, p2.visits, n, int(active.sum()), masked, flat)
+    log(f"{'K3' if flat else 'K2'} {kname} ({name}), {n} random mixed rays over the run {tag} "
+        f"table ({table.shape[0]} rows){' with random ray masks' if masked else ''}: "
         f"{int((p2.tri >= 0).sum())} hits, {int((p2.found & shadow).sum())} occluded, "
         f"{int(p2.pops.sum())} pops; mismatches {bad}; kernel {ms:.3f} ms, "
-        f"bound {bound[0]:.4f} ms ({bound[1]})")
+        f"bound {b_ms:.4f} ms ({b_by})")
     if any(bad.values()):
-        raise AssertionError(f"K2 ({name}) disagrees with its plain version (random mixed rays)")
+        raise AssertionError(f"{kname} ({name}) disagrees with its plain version (random mixed rays)")
     last = torch.zeros(n, dtype=torch.bool, device=dev)
     last[-1] = True
     m = n - 1
@@ -307,27 +367,29 @@ def check_random_rays(torch, tag, bvh, traverse2, bounds, masked: bool = False):
     last_m[-1] = True
     edges = (("all lanes dead", n, torch.zeros_like(active)), ("one live lane, the last", n, last),
              ("one live lane, the last", m, last_m), ("the random mask", m, active[:m]))
+    nh = len(head)
     for what, lanes, act in edges:
-        eargs = args[:5] + tuple(x[:lanes] for x in args[5:9]) + (act,)
-        erm = None if rmask is None else rmask[:lanes]
-        bad, _ = k2_mismatches(torch, traverse2.traverse(*eargs, ray_mask=erm),
-                               traverse2.traverse_plain(*eargs, ray_mask=erm))
-        log(f"K2 traverse ({name}), {lanes} lanes, {what}: mismatches {bad}")
+        eargs = args[:nh] + tuple(x[:lanes] for x in args[nh:nh + 4]) + (act,)
+        ekw = {} if rmask is None else {"ray_mask": rmask[:lanes]}
+        bad, _ = k2_mismatches(torch, kern(*eargs, **ekw), plain(*eargs, **ekw))
+        log(f"{kname} ({name}), {lanes} lanes, {what}: mismatches {bad}")
         if any(bad.values()):
-            raise AssertionError(f"K2 ({name}) disagrees with its plain version ({lanes} lanes, {what})")
-    return dict(variant=name, max_abs_err=err, ms=ms, bound_ms=bound[0], bound_by=bound[1])
+            raise AssertionError(f"{kname} ({name}) disagrees with its plain version ({lanes} "
+                                 f"lanes, {what})")
+    return dict(variant=name, max_abs_err=err, ms=ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_path_kernels(torch, tag, r, present, traverse2, bounds):
-    """Hold K1 and K2 against their plain versions at the shapes run ``tag``
-    gives them, before the run is driven. K1: the edge-case values at the
-    render size, and the frame's own accumulation through present_device;
-    its time from CUDA events over 50 calls (its device times come later,
-    from profile_run). K2: every launch of one frame of the path
+    """Hold K1 and the traversal kernel (K2 on a two-level BVH, K3 on a
+    flat one) against their plain versions at the shapes run ``tag`` gives
+    them, before the run is driven. K1: the edge-case values at the render
+    size, and the frame's own accumulation through present_device; its
+    time from CUDA events over 50 calls (its device times come later, from
+    profile_run). The traversal: every launch of one frame of the path
     (camera, bounce and shadow batches), each held against the plain
     version on the same inputs right after it ran, with its bound from the
     work of the plain version's visits. Raises on any mismatch; returns the
-    kernels' numbers."""
+    kernels' numbers (the traversal's under "k2" or "k3")."""
     h, w = r.render_height, r.render_width
     plain1 = present.tonemap_quantize_plain
     x_cpu = present.edge_case_inputs(h, w)
@@ -338,7 +400,10 @@ def check_path_kernels(torch, tag, r, present, traverse2, bounds):
     k1_ms = cuda_ms(lambda: present.tonemap_quantize(x), 50)
     k1_plain_ms = cuda_ms(lambda: plain1(x), 50)
 
-    orig = traverse2.traverse
+    head0, kname, plain, _, flat = traversal(traverse2, r.bvh)
+    nh = len(head0)  # the table's arguments before the rays'
+    key = "k3" if flat else "k2"
+    orig = getattr(traverse2, kname)
     k2 = dict(launches=0, rays=0, max_abs_err=0.0, frame_ms=0.0, frame_plain_ms=0.0,
               frame_bound_ms=0.0, bound_by={"operations": 0, "bytes": 0}, work={}, variants={})
     first = []
@@ -348,18 +413,19 @@ def check_path_kernels(torch, tag, r, present, traverse2, bounds):
         ev[0].record()
         kout = orig(*args, **kw)
         ev[1].record()
-        pout = traverse2.traverse_plain(*args, **kw)
+        pout = plain(*args, **kw)
         ev[2].record()
         torch.cuda.synchronize()
         masked = kw.get("ray_mask") is not None
-        name = traverse2.variant(args[0].shape[0], masked)
+        rows = args[0].shape[0]
+        name = traverse2.flat_variant(rows) if flat else traverse2.variant(rows, masked)
         bad, err = k2_mismatches(torch, kout, pout)
         if any(bad.values()):
-            raise AssertionError(f"K2 ({name}) disagrees with its plain version (run {tag}, launch "
-                                 f"{k2['launches']}, {kout.t.numel()} rays): {bad}")
-        n_live = int(args[9].sum())
-        work = bounds.k2_work(args[0], args[1], args[2], pout.visits, masked=masked)
-        b_ms, b_by = bounds.k2(work, kout.t.numel(), n_live, masked=masked)
+            raise AssertionError(f"{kname} ({name}) disagrees with its plain version (run {tag}, "
+                                 f"launch {k2['launches']}, {kout.t.numel()} rays): {bad}")
+        n_live = int(args[nh + 4].sum())
+        work, b_ms, b_by = work_bound(bounds, args[:nh], pout.visits, kout.t.numel(), n_live,
+                                      masked, flat)
         k2["variants"][name] = k2["variants"].get(name, 0) + 1
         k2["launches"] += 1
         k2["rays"] += n_live
@@ -368,17 +434,17 @@ def check_path_kernels(torch, tag, r, present, traverse2, bounds):
         k2["frame_plain_ms"] += ev[1].elapsed_time(ev[2])
         k2["frame_bound_ms"] += b_ms
         k2["bound_by"][b_by] += 1
-        for key, val in work.items():
-            k2["work"][key] = k2["work"].get(key, 0) + val
+        for k, val in work.items():
+            k2["work"][k] = k2["work"].get(k, 0) + val
         if not first:
             first.append((args, kw))
         return kout
 
-    traverse2.traverse = checked
+    setattr(traverse2, kname, checked)
     try:
         r.draw(1 / 60)
     finally:
-        traverse2.traverse = orig
+        setattr(traverse2, kname, orig)
     img = r.present_device()
     k1_bad += int((img != plain1(r.accum.contiguous())).sum())
     log(f"K1 present run {tag} ({h},{w},3): {x.numel()} edge values (zeros, tiny, huge, exact .5 "
@@ -391,41 +457,49 @@ def check_path_kernels(torch, tag, r, present, traverse2, bounds):
     cam, cam_kw = first[0]
     masked = cam_kw.get("ray_mask") is not None
     k2["ms"] = cuda_ms(lambda: orig(*cam, **cam_kw), 10)
-    k2["plain_ms"] = cuda_ms(lambda: traverse2.traverse_plain(*cam, **cam_kw), 1)
-    k2["bound_ms"], k2["bound_by_cam"] = bounds.k2(
-        bounds.k2_work(cam[0], cam[1], cam[2], traverse2.traverse_plain(*cam, **cam_kw).visits,
-                       masked=masked),
-        cam[5].shape[0], int(cam[9].sum()), masked=masked)
-    log(f"K2 traverse run {tag} ({k2['variants']}): one frame's {k2['launches']} launches, "
-        f"{k2['rays']} live rays, "
+    k2["plain_ms"] = cuda_ms(lambda: plain(*cam, **cam_kw), 1)
+    _, k2["bound_ms"], k2["bound_by_cam"] = work_bound(
+        bounds, cam[:nh], plain(*cam, **cam_kw).visits, cam[nh].shape[0],
+        int(cam[nh + 4].sum()), masked, flat)
+    log(f"{key.upper()} {kname} run {tag} ({k2['variants']}): one frame's {k2['launches']} "
+        f"launches, {k2['rays']} live rays, "
         f"0 mismatches in tri, inst, occluded, pops and the bits of t, u, v; kernel "
         f"{k2['frame_ms']:.3f} ms (CUDA events, cold L2), plain {k2['frame_plain_ms']:.3f} ms, "
         f"bound {k2['frame_bound_ms']:.3f} ms per frame (launches bound by {k2['bound_by']}); "
-        f"work summed over launches {k2['work']}; camera rays ({cam[5].shape[0]}): kernel {k2['ms']:.3f} ms, "
-        f"plain {k2['plain_ms']:.3f} ms, bound {k2['bound_ms']:.4f} ms ({k2['bound_by_cam']})")
-    return dict(k1_err=k1_err, k1_ms=k1_ms, k1_plain_ms=k1_plain_ms, k2=k2, k1_input=x)
+        f"work summed over launches {k2['work']}; camera rays ({cam[nh].shape[0]}): kernel "
+        f"{k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms, bound {k2['bound_ms']:.4f} ms "
+        f"({k2['bound_by_cam']})")
+    return {"k1_err": k1_err, "k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms, key: k2, "k1_input": x}
 
 
-def profile_run(torch, FP, tag, r, present, bounds, check, walls):
+def profile_run(torch, FP, tag, r, present, bounds, check, walls, k1: bool = False):
     """After the runs were driven, so that no profiler session precedes their
-    timed frames: K1's device time at the render size from the profiler,
-    warm and after a 64 MB write (cold), and K2's device time over one more
-    steady frame (warm L2), its idle share taken against the median of the
-    driven frames' walls (``walls``). Adds them to ``check``; returns the frame's
-    profile line."""
+    timed frames: with ``k1``, K1's device time at the render size from the
+    profiler, warm and after a 64 MB write (cold); and K2's (or K3's) device
+    time over one more steady frame (warm L2), its idle share taken against
+    the median of the driven frames' walls (``walls``); a session that saw
+    no traversal kernel is run again on the next frame, up to three times.
+    Adds them to ``check``; returns the frame's profile line."""
     x = check.pop("k1_input")
-    scratch = torch.empty(16 << 20, dtype=torch.float32, device=r.device)  # 64 MB > the 50 MB L2
-    check["k1_warm"] = device_ms(torch, lambda: present.tonemap_quantize(x), "present_kernel", 20)
-    check["k1_cold"] = device_ms(torch, lambda: present.tonemap_quantize(x), "present_kernel", 20,
-                                 flush=lambda: scratch.fill_(1.0))
-    del scratch, x
     check["k1_bound_ms"], check["k1_bound_by"] = bounds.k1((r.render_height, r.render_width, 3))
-    log(f"K1 present run {tag}: device time {check['k1_warm']:.4f} ms warm, {check['k1_cold']:.4f} ms "
-        f"cold (profiler); bound {check['k1_bound_ms']:.4f} ms ({check['k1_bound_by']})")
-    line = FP.profile_frame(r, walls=walls)
-    if not line["traverse2_launches"] or line["traverse2_s"] <= 0.0:
-        raise AssertionError(f"{tag}: the profiled frame shows no K2 device time")
-    return line
+    if k1:
+        scratch = torch.empty(16 << 20, dtype=torch.float32, device=r.device)  # 64 MB > the 50 MB L2
+        check["k1_warm"] = device_ms(torch, lambda: present.tonemap_quantize(x), "present_kernel", 20)
+        check["k1_cold"] = device_ms(torch, lambda: present.tonemap_quantize(x), "present_kernel", 20,
+                                     flush=lambda: scratch.fill_(1.0))
+        del scratch
+        log(f"K1 present run {tag}: device time {check['k1_warm']:.4f} ms warm, "
+            f"{check['k1_cold']:.4f} ms cold (profiler); bound {check['k1_bound_ms']:.4f} ms "
+            f"({check['k1_bound_by']})")
+    del x
+    for attempt in range(3):
+        line = FP.profile_frame(r, walls=walls)
+        if line["traverse2_launches"] and line["traverse2_s"] > 0.0:
+            return line
+        log(json.dumps(dict(profiler_dropout=f"run {tag} frame", attempt=attempt + 1,
+                            traversal_launches=line["traverse2_launches"],
+                            device_events=line["device_events"])))
+    raise AssertionError(f"{tag}: the profiled frames show no traversal device time")
 
 
 def make_character(dev):
@@ -963,6 +1037,112 @@ def drive_debug(torch, tag, r, mode, present, traverse2, variant, frames=1):
     return line
 
 
+def check_flat_refit(torch, r, tag):
+    """Run ``tag``'s flat table refit on the card against the CPU on the same
+    posed world-space triangles (this frame's prepare stage): every row bit
+    for bit. Returns the numbers; raises on a difference."""
+    from mrt_tpu_torch.bvh import wide
+
+    _, geom, gpu = r.prepare()
+    tris = (geom.tri_v0, geom.tri_v1, geom.tri_v2)
+    t0 = time.perf_counter()
+    cpu = wide.refit(r.bvh.to("cpu"), *(t.cpu() for t in tris))
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    bad = int((gpu.table.cpu().view(torch.int32) != cpu.table.view(torch.int32)).any(dim=1).sum())
+    out = dict(rows=gpu.n_rows, rows_differing=bad, cpu_refit_ms=cpu_ms,
+               events_ms=cuda_ms(lambda: wide.refit(r.bvh, *tris), 20))
+    log(f"run {tag} flat refit on the card vs the CPU on the same posed triangles: {bad} of "
+        f"{out['rows']} rows differ in their bits; card {out['events_ms']:.3f} ms (CUDA events), "
+        f"CPU {cpu_ms:.1f} ms on the host")
+    if bad:
+        raise AssertionError(f"run {tag}: the flat refit on the card disagrees with the CPU")
+    return out
+
+
+def check_small_flat(dev):
+    """Run J's scene at 48x48 (the app scene with the robot, run C's
+    settings, two_level=False) on the card against the CPU: two frames, the
+    accumulation within 1e-2 relative RMSE and rays equal per frame."""
+    from mrt_tpu_torch import Renderer, make_app_scene
+    from mrt_tpu_torch.bvh import wide
+    from mrt_tpu_torch.utils import frame_profile as FP
+
+    res = []
+    for device in (dev, "cpu"):
+        scene = make_app_scene(48, 48, include_robot=True, asset_models=False)
+        r = Renderer(scene, 48, 48, seed=3, device=device)
+        r.two_level = False
+        FP.configure(r, motion_adaptive=True)
+        if not isinstance(r.bvh, wide.WideBVH):
+            raise AssertionError("run J's 48x48 renderer holds no flat BVH")
+        rays = []
+        for _ in range(2):
+            r.draw(1 / 60)
+            rays.append(int(r.last_rays_traced))
+        res.append((r.accum.cpu(), rays))
+    (acc_g, rays_g), (acc_c, rays_c) = res
+    rel = rel_rmse(acc_g, acc_c)
+    log(f"small frame 48x48, run J's scene (flat BVH): card vs CPU relative RMSE {rel:.3e} in "
+        f"the accumulation (limit 1e-2), rays {rays_g} vs {rays_c}")
+    if not (rel < 1e-2 and rays_g == rays_c and min(rays_g) > 0):
+        raise AssertionError("run J's 48x48 flat frame on the card disagrees with the CPU")
+    return dict(rel_rmse=rel, rays_card=rays_g, rays_cpu=rays_c)
+
+
+def group_indices(torch, r, device):
+    """One (Tm,3) local index tensor per mesh group of ``r``'s two-level BVH
+    (the mesh of the group's first instance), as its build refits them."""
+    import numpy as np
+
+    first = {}
+    for i, g in enumerate(r.bvh.inst_mesh):
+        first.setdefault(g, i)
+    return tuple(torch.as_tensor(np.concatenate(
+        [s.indices.reshape(-1, 3) for s in r.scene.models[first[g]].mesh.submeshes]
+    ).astype(np.int32)).to(device) for g in range(len(r.bvh.mesh_meta)))
+
+
+def check_sbvh_refit(torch, r):
+    """Phase K: the SBVH table's full refit (every BLAS, its leaf boxes
+    clamped by the clip boxes) on the card against the CPU on the same
+    vertices: the BLAS rows and root boxes bit-equal, the TLAS and instance
+    rows (a torch.linalg.inv) within 1e-6; the card's refit equal to the
+    build's table; and the clamp binding: rows that an unclipped refit
+    writes otherwise. Returns the numbers; raises on a difference."""
+    from mrt_tpu_torch.bvh import twolevel
+
+    b = r.bvh
+    if b.leaf_clip is None:
+        raise AssertionError("phase K: MRT_SBVH=1 built no clip boxes")
+    pos, M = r.scene_data.positions_obj, r.scene_data.instance_transform
+    gpu = twolevel.refit(b, pos, M, group_indices=group_indices(torch, r, pos.device))
+    t0 = time.perf_counter()
+    cpu = twolevel.refit(b.to("cpu"), pos.cpu(), M.cpu(), group_indices=group_indices(torch, r, "cpu"))
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    unclipped = twolevel.refit(b._replace(leaf_clip=None), pos, M,
+                               group_indices=group_indices(torch, r, pos.device))
+    gt, ct = gpu.table.cpu(), cpu.table
+    blas = slice(b.tlas_n, b.n_internal + b.n_leaf)
+    bits = (gt.view(torch.int32) != ct.view(torch.int32)).any(dim=1)
+    bad_blas = int(bits[blas].sum())
+    bad_roots = int((gpu.root_bmin.cpu().view(torch.int32) != cpu.root_bmin.view(torch.int32)).sum()
+                    + (gpu.root_bmax.cpu().view(torch.int32) != cpu.root_bmax.view(torch.int32)).sum())
+    other = torch.ones(gt.shape[0], dtype=torch.bool)
+    other[blas] = False
+    close = torch.allclose(gt[other], ct[other], rtol=1e-6, atol=1e-6, equal_nan=True)
+    same_as_build = bool(torch.equal(gpu.table.view(torch.int32), b.table.view(torch.int32)))
+    clamped = int((gpu.table.view(torch.int32) != unclipped.table.view(torch.int32)).any(dim=1).sum())
+    clipped_leaves = int(torch.isfinite(b.leaf_clip).all(dim=1).sum())
+    out = dict(rows=gt.shape[0], blas_rows=blas.stop - blas.start, blas_rows_differing=bad_blas,
+               roots_differing=bad_roots, other_rows_within_1e6=close,
+               refit_equals_build=same_as_build, leaves_with_clip_boxes=clipped_leaves,
+               rows_the_clamp_changes=clamped, cpu_refit_ms=cpu_ms)
+    log(f"phase K SBVH refit, card vs CPU: {json.dumps(out)}")
+    if bad_blas or bad_roots or not close or not same_as_build or not clamped:
+        raise AssertionError(f"phase K: the clipped refit on the card disagrees: {out}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1019,14 +1199,28 @@ def main() -> int:
     padded[: ra.bvh.table.shape[0]] = ra.bvh.table
     rand["A padded"] = check_random_rays(torch, "A (padded past 2^20 rows)",
                                          dataclasses.replace(ra.bvh, table=padded), traverse2, bounds)
-    del padded
+    # K3 on the same rays over run A's flat table (built by the user's switch,
+    # two_level = False, and back), then over it padded past 2^20 - 1 rows
+    # (its float-sort instantiation)
+    ra.two_level = False
+    flat_a = ra.bvh
+    ra.two_level = True
+    log(f"run A flat table {tuple(flat_a.table.shape)}, {flat_a.n_internal} internal rows, "
+        f"depth {flat_a.depth}, stack {flat_a.stack_size}")
+    rand["A flat"] = check_random_rays(torch, "A (flat)", flat_a, traverse2, bounds)
+    padded[: flat_a.table.shape[0]] = flat_a.table
+    padded[flat_a.table.shape[0]:] = 0.0
+    rand["A flat padded"] = check_random_rays(torch, "A (flat, padded past 2^20 rows)",
+                                              dataclasses.replace(flat_a, table=padded), traverse2,
+                                              bounds)
+    del padded, flat_a
 
     # --- 4. main path: each run's kernels checked at its shapes, then driven ---------------
     def drive(tag, r, timed, scene_name, variant="packed"):
         """Warm-up + ``timed`` frames with the launch counters set to 0
         first; per timed frame (after its wall) the largest motion vector and
-        the pixels by extra samples earned. Only K2's ``variant`` may
-        launch."""
+        the pixels by extra samples earned. Only the traversal instantiation
+        ``variant`` may launch (K3's names start with "flat")."""
         present.launches = 0
         traverse2.reset_launches()
         r.draw(1 / 60)  # warm-up
@@ -1044,7 +1238,9 @@ def main() -> int:
         seconds = sum(walls)
         img = r.output_image()
         torch.cuda.synchronize()
-        counts = {"present": present.launches, "traverse2": traverse2.launches}
+        counts = {"present": present.launches, "traverse2": traverse2.launches,
+                  "traverse_flat": traverse2.flat_launches}
+        path = ("present", "traverse_flat" if variant.startswith("flat") else "traverse2")
         h, w = r.render_height, r.render_width
         if img.shape != (h, w, 3) or img.dtype != np.uint8:
             raise AssertionError(f"{tag}: image {img.shape} {img.dtype}")
@@ -1053,7 +1249,7 @@ def main() -> int:
             raise AssertionError(f"{tag}: accumulation is not finite or is all black")
         if rays <= 0:
             raise AssertionError(f"{tag}: no rays traced")
-        if min(counts.values()) < 1:
+        if min(counts[k] for k in path) < 1:
             raise AssertionError(f"{tag}: a kernel of the path never launched: {counts}")
         variants = check_variants(tag, traverse2, variant)
         line = dict(run=tag, scene=scene_name, resolution=[w, h], spp=r.samples_per_pixel,
@@ -1070,15 +1266,17 @@ def main() -> int:
         return counts, walls, line
 
     def profile(tag, r):
-        line = profile_run(torch, FP, tag, r, present, bounds, checks[tag], walls[tag])
+        line = profile_run(torch, FP, tag, r, present, bounds, checks[tag], walls[tag],
+                           k1=tag in ("A", "B"))
         log(json.dumps(dict(run=tag, profile=line, card=card_name, power_limit=power_limit)))
         return line
 
     checks, counts, walls, lines, clone_ms = {}, {}, {}, {}, {}
 
-    def run(tag, r, timed, variant="packed"):
+    def run(tag, r, timed, variant="packed", scene_name=None):
         checks[tag] = check_path_kernels(torch, tag, r, present, traverse2, bounds)
-        counts[tag], walls[tag], lines[tag] = drive(tag, r, timed, FP.RUNS[tag]["scene"], variant)
+        counts[tag], walls[tag], lines[tag] = drive(
+            tag, r, timed, scene_name or FP.RUNS[tag]["scene"], variant)
         # refit keeps its input table: it copies the whole table every call
         clone_ms[tag] = cuda_ms(lambda: r.bvh.table.clone(), 20)
 
@@ -1201,10 +1399,45 @@ def main() -> int:
     log(json.dumps(dict(phase_i, card=card_name, power_limit=power_limit)))
     h_tmp.cleanup()
 
+    # --- 6d. run J: the animated app frame on the flat BVH (K3); phase K: SBVH ----------------
+    from mrt_tpu_torch.bvh import wide
+
+    rj = make("J")
+    if not isinstance(rj.bvh, wide.WideBVH) or traverse2.flat_variant(rj.bvh.n_rows) != "flat":
+        raise AssertionError("run J: the renderer holds no flat table of at most 2^20 - 1 rows")
+    run("J", rj, 3, variant="flat")
+    j_prep = prepare_walls(rj)
+    if max(lines["J"]["max_motion_px"]) <= 0.5:
+        raise AssertionError(f"run J: the robot moved at most {max(lines['J']['max_motion_px'])} px")
+    j_refit = check_flat_refit(torch, rj, "J")
+    j_small = check_small_flat(dev)
+    log(json.dumps(dict(run="J", table_rows=rj.bvh.n_rows, n_internal=rj.bvh.n_internal,
+                        depth=rj.bvh.depth, stack=rj.bvh.stack_size,
+                        mrays_per_s=lines["J"]["mrays_per_s"], mrays_per_s_c=lines["C"]["mrays_per_s"],
+                        frame_walls=lines["J"]["frame_walls"], frame_walls_c=lines["C"]["frame_walls"],
+                        prepare_s=j_prep, prepare_s_median=sorted(j_prep)[len(j_prep) // 2],
+                        prepare_s_c=prep, k3=checks["J"]["k3"], refit=j_refit,
+                        small_frame=j_small, card=card_name, power_limit=power_limit)))
+
+    os.environ["MRT_SBVH"] = "1"
+    try:
+        rk = make("A")
+    finally:
+        del os.environ["MRT_SBVH"]
+    k_refit = check_sbvh_refit(torch, rk)
+    run("K", rk, 2, scene_name="run A's scene with SBVH spatial splits (MRT_SBVH=1)")
+    log(json.dumps(dict(phase="K", table=list(rk.bvh.table.shape), refit=k_refit,
+                        frame_walls=lines["K"]["frame_walls"], frame_walls_a=lines["A"]["frame_walls"],
+                        mrays_per_s=lines["K"]["mrays_per_s"], mrays_per_s_a=lines["A"]["mrays_per_s"],
+                        k2=checks["K"]["k2"], k2_a=checks["A"]["k2"], card=card_name,
+                        power_limit=power_limit), default=str))
+    del rk
+    torch.cuda.empty_cache()
+
     # --- 7. the profiler last: a process's frames after a profiler session ran
     # slower on the host in this script's runs (PERF.md, Findings)
     profiles = {tag: profile(tag, r) for tag, r in (("A", ra), ("B", rb), ("C", rc), ("F", rf),
-                                                    ("G", rg), ("H", rh))}
+                                                    ("G", rg), ("H", rh), ("J", rj))}
     # where run F's extra device time goes: its costliest operators beside run A's
     log(json.dumps(dict(top_ops_ms={tag: device_ops(torch, lambda r=r: r.draw(1 / 60), 1, top=12)
                                     for tag, r in (("A", ra), ("F", rf))},
@@ -1213,11 +1446,43 @@ def main() -> int:
         log(json.dumps(dict(prepare=tag, **profile_prepare(torch, r, bounds),
                             table_clone_ms=clone_ms[tag], card=card_name,
                             power_limit=power_limit)))
+    # run J's prepare: the whole flat table refit from the posed triangles
+    _, jgeom, _ = rj.prepare()
+    jtris = (jgeom.tri_v0, jgeom.tri_v1, jgeom.tri_v2)
+    j_refit_ms, j_refit_ev = device_total_ms(torch, lambda: wide.refit(rj.bvh, *jtris), 20)
+    j_prep_ms, j_prep_ev = device_total_ms(torch, rj.prepare, 5)
+    log(json.dumps(dict(prepare="J", refit_ms=j_refit_ms, refit_device_events=j_refit_ev,
+                        prepare_ms=j_prep_ms, prepare_device_events=j_prep_ev,
+                        table_clone_ms=clone_ms["J"], card=card_name, power_limit=power_limit)))
+    del jgeom, jtris
     e_profile, e_k1 = profile_e(torch, FP, re_, present, bounds, x4k,
                                 {m: e_lines[m]["frame_walls_still"] for m in E_MODES})
     log(json.dumps(dict(run="E", profile=e_profile, k1=e_k1, card=card_name,
                         power_limit=power_limit)))
-    del ra, rb, rc, rd, re_, rf, rg, rh, x4k
+    del ra, rb, rc, rd, re_, rf, rh, rj, x4k
+    torch.cuda.empty_cache()
+
+    # --- 7b. run G on the flat BVH: a flat table above 2^20 - 1 rows (K3's float sort) ----------
+    # after the profiler, so its walls run on a host slowed by it
+    t0 = time.perf_counter()
+    rg.two_level = False
+    g_flat_build_s = time.perf_counter() - t0
+    if traverse2.flat_variant(rg.bvh.n_rows) != "flat_float_sort":
+        raise AssertionError(f"run G flat: {rg.bvh.n_rows} rows take K3's "
+                             f"{traverse2.flat_variant(rg.bvh.n_rows)} instantiation")
+    log(f"run G flat: two_level = False rebuilt {tuple(rg.bvh.table.shape)} "
+        f"({rg.bvh.table.numel() * 4 / 1e9:.3f} GB, {rg.bvh.n_internal} internal rows, stack "
+        f"{rg.bvh.stack_size}) in {g_flat_build_s:.1f} s")
+    run("G flat", rg, 1, variant="flat_float_sort",
+        scene_name="run G's scene on the flat BVH (two_level=False)")
+    log(json.dumps(dict(run="G flat", build_s=g_flat_build_s, k3=checks["G flat"]["k3"],
+                        frame_walls=lines["G flat"]["frame_walls"],
+                        frame_walls_g=lines["G"]["frame_walls"],
+                        mrays_per_s=lines["G flat"]["mrays_per_s"],
+                        mrays_per_s_g=lines["G"]["mrays_per_s"], card=card_name,
+                        power_limit=power_limit)))
+    del rg
+    torch.cuda.empty_cache()
 
     # --- 8. a small frame on the card against the CPU plain path -------------------------------
     check_small_frames(dev)
@@ -1225,14 +1490,43 @@ def main() -> int:
 
     # launches: every run's main-path counts. K1: ms is its profiler device
     # time after a 64 MB write (as a frame leaves the L2) at run A's shape.
-    # K2: ms, plain_ms and bound_ms are for run A's camera rays; per run, the
-    # warm profiler time of one frame, the cold CUDA-event time of the
-    # checked frame, its bound, its work by row type and the instantiation
-    # that ran; per instantiation, its main-path launches and its phase-3
-    # check on random rays.
+    # K2 and K3, one entry per instantiation: ms, plain_ms and bound_ms are
+    # for the camera rays of the run that takes it (K2 packed: run A;
+    # masked: F; float sort: G; K3 flat: J; flat float sort: G flat); per
+    # run, the warm profiler time of one frame (where profiled), the cold
+    # CUDA-event time of the checked frame, its bound and its work by row
+    # type; the main-path launches by run and the phase-3 checks on random
+    # rays.
     variant_counts = {t: lines[t]["k2_variants"] for t in lines}
     variant_counts["E"] = {"packed": sum(e_lines[m]["k2_variants"]["packed"] for m in E_MODES)}
     a = checks["A"]
+
+    def traversal_entry(name, key, run_tag, kernel, replaces):
+        runs = {t: c[key] for t, c in checks.items()
+                if key in c and name in lines[t]["k2_variants"]}
+        cam = checks[run_tag][key]
+        return dict(
+            name=f"{kernel} ({name})", route="cuda", source="mrt_tpu_torch/csrc/traverse2.cu",
+            replaces=replaces, launches=sum(v.get(name, 0) for v in variant_counts.values()),
+            launches_by_run={t: v[name] for t, v in variant_counts.items() if name in v},
+            max_abs_err=max([x["max_abs_err"] for x in rand.values() if x["variant"] == name]
+                            + [c["max_abs_err"] for c in runs.values()]),
+            ms=cam["ms"], plain_ms=cam["plain_ms"], bound_ms=cam["bound_ms"],
+            bound_by=cam["bound_by_cam"], library_ms=None, camera_rays_of_run=run_tag,
+            by_run={t: dict(frame_ms_profiler_warm=(profiles[t]["traverse2_s"] * 1e3
+                                                    if t in profiles else None),
+                            frame_launches_profiler=(profiles[t]["traverse2_launches"]
+                                                     if t in profiles else None),
+                            frame_ms_events_cold=c["frame_ms"], frame_plain_ms=c["frame_plain_ms"],
+                            frame_bound_ms=c["frame_bound_ms"], launches_bound_by=c["bound_by"],
+                            pops_by_type={k: c["work"][f"pops_{k}"]
+                                          for k in ("internal", "leaf", "instance")},
+                            work=c["work"], live_rays=c["rays"],
+                            device_busy_s=profiles[t]["device_busy_s"] if t in profiles else None)
+                    for t, c in runs.items()},
+            random_rays=[dict(x, run=t) for t, x in rand.items() if x["variant"] == name])
+
+    k2_src, k3_src = "mrt_tpu/bvh/twolevel.py:593", "mrt_tpu/bvh/wide.py:936"
     kernels = [
         dict(name="K1 present tonemap_quantize", route="cuda",
              source="mrt_tpu_torch/csrc/present.cu", replaces="mrt_tpu/kernels/present.py:52",
@@ -1243,33 +1537,13 @@ def main() -> int:
              library_ms=None,
              by_run=dict({t: dict(ms_cold=c["k1_cold"], ms_warm=c["k1_warm"], ms_events=c["k1_ms"],
                                   plain_ms=c["k1_plain_ms"], bound_ms=c["k1_bound_ms"])
-                          for t, c in checks.items()},
+                          for t, c in checks.items() if "k1_cold" in c},
                          E=dict(shape=e_checks["denoised"]["k1_shape"], **e_k1))),
-        dict(name="K2 two-level traversal", route="cuda",
-             source="mrt_tpu_torch/csrc/traverse2.cu", replaces="mrt_tpu/bvh/twolevel.py:593",
-             launches=sum(c["traverse2"] for c in counts.values()),
-             launches_by_run={t: counts[t]["traverse2"] for t in counts},
-             max_abs_err=max([x["max_abs_err"] for x in rand.values()]
-                             + [c["k2"]["max_abs_err"] for c in checks.values()]),
-             ms=a["k2"]["ms"], plain_ms=a["k2"]["plain_ms"], bound_ms=a["k2"]["bound_ms"],
-             bound_by=a["k2"]["bound_by_cam"], library_ms=None,
-             by_run={t: dict(frame_ms_profiler_warm=profiles[t]["traverse2_s"] * 1e3,
-                             frame_launches_profiler=profiles[t]["traverse2_launches"],
-                             frame_ms_events_cold=c["k2"]["frame_ms"],
-                             frame_plain_ms=c["k2"]["frame_plain_ms"],
-                             frame_bound_ms=c["k2"]["frame_bound_ms"],
-                             launches_bound_by=c["k2"]["bound_by"],
-                             pops_by_type={k: c["k2"]["work"][f"pops_{k}"]
-                                           for k in ("internal", "leaf", "instance")},
-                             work=c["k2"]["work"], live_rays=c["k2"]["rays"],
-                             device_busy_s=profiles[t]["device_busy_s"],
-                             variants=lines[t]["k2_variants"])
-                     for t, c in checks.items()},
-             variants={name: dict(
-                 launches=sum(v.get(name, 0) for v in variant_counts.values()),
-                 launches_by_run={t: v[name] for t, v in variant_counts.items() if name in v},
-                 random_rays=[dict(x, run=t) for t, x in rand.items() if x["variant"] == name])
-                 for name in ("packed", "masked", "float_sort")}),
+        traversal_entry("packed", "k2", "A", "K2 two-level traversal", k2_src),
+        traversal_entry("masked", "k2", "F", "K2 two-level traversal", k2_src),
+        traversal_entry("float_sort", "k2", "G", "K2 two-level traversal", k2_src),
+        traversal_entry("flat", "k3", "J", "K3 flat traversal", k3_src),
+        traversal_entry("flat_float_sort", "k3", "G flat", "K3 flat traversal", k3_src),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

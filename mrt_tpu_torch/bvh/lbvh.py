@@ -1,13 +1,43 @@
-"""Karras LBVH topology — counterpart of ``mrt_tpu/bvh/lbvh.py``.
+"""Karras LBVH — counterpart of ``mrt_tpu/bvh/lbvh.py``.
 
-Host NumPy: a binary radix tree over 30-bit Morton codes. ``bvh.wide``
-collapses it into the wide layout when a build asks for ``method="lbvh"``
-instead of the native SAH builder.
+The topology is host NumPy: a binary radix tree over 30-bit Morton codes.
+``bvh.wide`` collapses it into the wide layout when a build asks for
+``method="lbvh"`` instead of the native SAH builder. The binary tree itself,
+one triangle per leaf with its boxes refit bottom-up in torch ops (``BVH``,
+``refit``, ``build``), is what the traversal oracle ``bvh/traverse.py``
+walks.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
+import torch
+
+from ..core.device import resolve as resolve_device
+
+
+class BVH(NamedTuple):
+    """Binary BVH over ``n_tris`` one-triangle leaves (tensors on one
+    device). Node ids: internal ``[0, N-2]``, leaf ``(N-1)+i`` for the i-th
+    leaf in Morton order."""
+
+    left: torch.Tensor  # (N-1,) int32 node id
+    right: torch.Tensor  # (N-1,) int32
+    parent: torch.Tensor  # (2N-1,) int32, -1 for the root
+    leaf_tri: torch.Tensor  # (N,) int32: Morton order -> triangle id
+    bbox_min: torch.Tensor  # (2N-1, 3) f32
+    bbox_max: torch.Tensor  # (2N-1, 3) f32
+    depth: int  # the tree's depth: the refit's pass count
+
+    @property
+    def n_tris(self) -> int:
+        return self.leaf_tri.shape[0]
+
+    @property
+    def n_internal(self) -> int:
+        return self.n_tris - 1
 
 
 def _bit_length_u32(x: np.ndarray) -> np.ndarray:
@@ -139,3 +169,46 @@ def build_topology(tri_centroids: np.ndarray) -> tuple[np.ndarray, np.ndarray, n
         cur = np.where(active, parent[np.clip(cur, 0, None)], -1)
         dmax += 1
     return left, right, parent, order, int(depth.max()) + 1
+
+
+def triangle_bboxes(v0, v1, v2, pad: float = 1e-7):
+    """(T,3) vertices -> each triangle's box, widened by ``pad``."""
+    bmin = torch.minimum(torch.minimum(v0, v1), v2) - pad
+    bmax = torch.maximum(torch.maximum(v0, v1), v2) + pad
+    return bmin, bmax
+
+
+def refit(bvh: BVH, v0, v1, v2) -> BVH:
+    """Every node's box from (T,3) world-space vertices in the original
+    triangle order: the leaves' own boxes, then ``depth`` bottom-up passes
+    over the internal nodes."""
+    lt = bvh.leaf_tri.long()
+    leaf_min, leaf_max = triangle_bboxes(v0[lt], v1[lt], v2[lt])
+    n_int = bvh.n_internal
+    if n_int == 0:
+        return bvh._replace(bbox_min=leaf_min, bbox_max=leaf_max)
+    dev = leaf_min.device
+    bmin = torch.cat([torch.full((n_int, 3), float("inf"), device=dev), leaf_min])
+    bmax = torch.cat([torch.full((n_int, 3), -float("inf"), device=dev), leaf_max])
+    left, right = bvh.left.long(), bvh.right.long()
+    for _ in range(bvh.depth):
+        bmin = torch.cat([torch.minimum(bmin[left], bmin[right]), bmin[n_int:]])
+        bmax = torch.cat([torch.maximum(bmax[left], bmax[right]), bmax[n_int:]])
+    return bvh._replace(bbox_min=bmin, bbox_max=bmax)
+
+
+def build(v0, v1, v2, device=None) -> BVH:
+    """Topology on the host from (T,3) NumPy vertices, then the refit on
+    ``device`` (default: the card)."""
+    device = resolve_device(device)
+    v0, v1, v2 = (np.asarray(v, np.float32) for v in (v0, v1, v2))
+    left, right, parent, leaf_tri, depth = build_topology((v0 + v1 + v2) / 3.0)
+    n = v0.shape[0]
+
+    def dev(a):
+        return torch.as_tensor(a).to(device)
+
+    bvh = BVH(left=dev(left), right=dev(right), parent=dev(parent), leaf_tri=dev(leaf_tri),
+              bbox_min=torch.zeros((2 * n - 1, 3), device=device),
+              bbox_max=torch.zeros((2 * n - 1, 3), device=device), depth=depth)
+    return refit(bvh, dev(v0), dev(v1), dev(v2))

@@ -5,8 +5,12 @@ One unified table of 128-float rows: TLAS internal rows first, then every
 BLAS's internal rows, then all leaf rows, then one row per instance
 ({world->object 3x4 inverse, world AABB, BLAS root, instance id, mask}).
 The host build and the row layout are the JAX package's, so for the same
-scene the tables are equal. An instance's geometry mask is tested against
-the ray's mask on its instance row, only when some instance has a
+scene the tables are equal. Under ``MRT_SBVH=1`` the static groups are
+built with SBVH reference splits, as the JAX package builds them: the BVH
+then holds per-leaf clip boxes (``leaf_clip``, +-inf for the other groups)
+that every refit intersects with the leaf boxes. An instance's geometry
+mask is tested against the ray's mask on its instance row, only when some
+instance has a
 non-default mask (``has_masks``). A skinned instance gets a BLAS of its own;
 ``refit`` rewrites every skinned BLAS from the posed vertex pool, then the
 instance and TLAS rows (and, at build time, every BLAS), with torch ops.
@@ -16,6 +20,7 @@ Traversal runs kernel K2 (``kernels/traverse2.py``).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -23,8 +28,8 @@ import torch
 from ..core.types import GEOMETRY_MASK_GEOMETRY, Hits, Rays
 from ..kernels import traverse2
 from . import lbvh
-from .wide import ARITY, LEAF_K, ROW, _stack_alloc, build_topology_wide, encode_ids, \
-    exact_stack_bound
+from .wide import ARITY, LEAF_K, ROW, _clip_leaf_boxes, _internal_rows, _pack_leaf_rows, \
+    _stack_alloc, build_topology_wide, encode_ids, exact_stack_bound
 
 # instance-row layout (floats)
 _I_MINV = 0  # 12: rows of the 3x4 world->object affine
@@ -58,6 +63,9 @@ class TwoLevelBVH:
     inst_masks: tuple
     # one (Tm,3) local index tensor per SKINNED group, by skin_slot
     skin_indices: tuple = ()
+    # SBVH: (NL, 6) f32 per-leaf clip boxes [min xyz, max xyz] (+-inf rows
+    # clip nothing), or None when no group was built with spatial splits
+    leaf_clip: torch.Tensor | None = None
 
     def _replace(self, **kw) -> "TwoLevelBVH":
         return dataclasses.replace(self, **kw)
@@ -117,25 +125,29 @@ def _tlas_topology(n_inst: int):
     return nodes, d[0]
 
 
-def _mesh_topology(obj_tris: np.ndarray, method: str):
-    """(Tm,9) object-space tris -> (node_child_local, leaf_tri, depth).
-    ``method``: "sah" (native binned-SAH builder) or "lbvh" (Karras tree)."""
+def _mesh_topology(obj_tris: np.ndarray, method: str, spatial: bool = False):
+    """(Tm,9) object-space tris -> (node_child_local, leaf_tri, depth,
+    leaf_clip or None). ``method``: "sah" (native binned-SAH builder; with
+    ``spatial``, SBVH reference splits and their clip boxes) or "lbvh"
+    (Karras tree)."""
     if method == "sah":
         from ..utils import native
 
-        return native.build_wide_bvh_sah(obj_tris, ARITY, LEAF_K)
+        return native.build_wide_bvh_sah(obj_tris, ARITY, LEAF_K, spatial=spatial)
     if method != "lbvh":
         raise ValueError(f"unknown BVH build method {method!r}")
     centroids = (obj_tris[:, 0:3] + obj_tris[:, 3:6] + obj_tris[:, 6:9]) / 3.0
     bl, br, _, order, _ = lbvh.build_topology(centroids)
-    return build_topology_wide(bl, br, order)
+    return (*build_topology_wide(bl, br, order), None)
 
 
 def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLevelBVH:
     """Host-side build over a compiled scene (``host_mirror`` is
     ``Scene.host_mirror`` from ``Scene.compile``), then a full refit on the
     scene's device. Models with a ``skin`` get exclusive mesh groups: their
-    pose is refit every frame."""
+    pose is refit every frame. With ``MRT_SBVH=1`` (read at each build) the
+    static groups take SBVH spatial splits (off by default, as in the JAX
+    package, where it measured a loss: docs/PERF.md round 4h)."""
     vertex_instance = host_mirror["vertex_instance"]
     tri_instance = host_mirror["tri_instance"]
     n_inst = len(models)
@@ -160,12 +172,15 @@ def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLeve
 
     tlas_nodes, tlas_depth = _tlas_topology(n_inst)
     tlas_n = len(tlas_nodes)
+    # SBVH splits for static groups only: a skinned group re-poses every
+    # frame, and a clip box holds only for the vertices the builder saw
+    sbvh = os.environ.get("MRT_SBVH", "0") == "1"
     topos = []
     for g in groups:
         pos = np.asarray(g["positions"], np.float32)
         idx = g["indices_local"]
         tris = np.concatenate([pos[idx[:, 0]], pos[idx[:, 1]], pos[idx[:, 2]]], axis=1)
-        topos.append(_mesh_topology(tris, method))
+        topos.append(_mesh_topology(tris, method, spatial=sbvh and not g["skinned"]))
 
     n_int_total = tlas_n + sum(t[0].shape[0] for t in topos)
     n_leaf_total = sum(t[1].shape[0] for t in topos)
@@ -173,13 +188,19 @@ def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLeve
 
     node_child = np.full((n_int_total, ARITY), -1, np.int32)
     leaf_tri = np.full((n_leaf_total, LEAF_K), -1, np.int32)
+    leaf_clip = None
+    if any(t[3] is not None for t in topos):  # +-inf: no clamp in the other groups
+        leaf_clip = np.full((n_leaf_total, 6), np.inf, np.float32)
+        leaf_clip[:, :3] = -np.inf
     device = scene_data.positions_obj.device
     mesh_meta = []
     skin_indices = []
     int_cursor = tlas_n
     leaf_cursor = 0
-    for g, (child, leaf, depth) in zip(groups, topos):
+    for g, (child, leaf, depth, clip) in zip(groups, topos):
         ni, nl = child.shape[0], leaf.shape[0]
+        if clip is not None:
+            leaf_clip[leaf_cursor : leaf_cursor + nl] = clip
         c = child.copy()
         is_int = (c >= 0) & (c < ni)
         is_lf = c >= ni
@@ -227,6 +248,7 @@ def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLeve
         stack_bound=stack_bound,
         inst_masks=tuple(int(getattr(m, "geometry_mask", GEOMETRY_MASK_GEOMETRY)) for m in models),
         skin_indices=tuple(skin_indices),
+        leaf_clip=None if leaf_clip is None else torch.as_tensor(leaf_clip).to(device),
     )
     all_indices = tuple(torch.as_tensor(g["indices_local"]).to(device) for g in groups)
     return refit(bvh, scene_data.positions_obj, scene_data.instance_transform,
@@ -236,47 +258,6 @@ def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLeve
 # ---------------------------------------------------------------------------
 # Refit (torch ops)
 # ---------------------------------------------------------------------------
-
-def _pack_leaf_rows(w0, w1, w2, leaf_ids):
-    """(nl, K, 3) leaf verts -> (nl, ROW) leaf rows + leaf AABBs."""
-    pad = (leaf_ids < 0)[..., None]
-    nan = torch.tensor(float("nan"), dtype=torch.float32, device=w0.device)
-    w0 = torch.where(pad, nan, w0)
-    w1 = torch.where(pad, nan, w1)
-    w2 = torch.where(pad, nan, w2)
-    comps = [w[:, :, a] for w in (w0, w1, w2) for a in range(3)]
-    rows = torch.cat(comps + [encode_ids(leaf_ids)], dim=1)
-    rows = torch.nn.functional.pad(rows, (0, ROW - rows.shape[1]))
-    stacked = torch.stack([w0, w1, w2], dim=2)  # (nl, K, 3, 3)
-    valid = ~pad[..., None]
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=w0.device)
-    bmin = torch.where(valid, stacked, inf).amin(dim=(1, 2)) - 1e-7
-    bmax = torch.where(valid, stacked, -inf).amax(dim=(1, 2)) + 1e-7
-    return rows, bmin, bmax
-
-
-def _internal_rows(child, empty, local, ebmin, ebmax, depth):
-    """Bottom-up child AABB propagation (``depth`` passes over entry boxes
-    ``ebmin/ebmax``, internal entries first) and the packed internal rows."""
-    n = child.shape[0]
-    flat = local.reshape(-1).long()
-    inf = float("inf")
-
-    def child_boxes(bmin, bmax):
-        cmin = bmin[flat].reshape(n, ARITY, 3).masked_fill(empty[..., None], inf)
-        cmax = bmax[flat].reshape(n, ARITY, 3).masked_fill(empty[..., None], -inf)
-        return cmin, cmax
-
-    for _ in range(depth):
-        cmin, cmax = child_boxes(ebmin, ebmax)
-        ebmin = torch.cat([cmin.amin(dim=1), ebmin[n:]])
-        ebmax = torch.cat([cmax.amax(dim=1), ebmax[n:]])
-    cmin, cmax = child_boxes(ebmin, ebmax)
-    rows = torch.cat([cmin[:, :, 0], cmin[:, :, 1], cmin[:, :, 2],
-                      cmax[:, :, 0], cmax[:, :, 1], cmax[:, :, 2], encode_ids(child)], dim=1)
-    rows = torch.nn.functional.pad(rows, (0, ROW - rows.shape[1]))
-    return rows, ebmin[0], ebmax[0]
-
 
 def _refit_group(table, root_bmin, root_bmax, bvh, gi, verts, idx):
     """Rewrite one group's BLAS rows (leaf packing + internal AABBs) from
@@ -290,6 +271,8 @@ def _refit_group(table, root_bmin, root_bmax, bvh, gi, verts, idx):
         return verts[idx[:, col]][tid].reshape(nl, LEAF_K, 3)
 
     leaf_rows, leaf_bmin, leaf_bmax = _pack_leaf_rows(g(0), g(1), g(2), leaf_ids)
+    leaf_bmin, leaf_bmax = _clip_leaf_boxes(
+        leaf_bmin, leaf_bmax, None if bvh.leaf_clip is None else bvh.leaf_clip[leaf_lo : leaf_lo + nl])
     table[bvh.n_internal + leaf_lo : bvh.n_internal + leaf_lo + nl] = leaf_rows
     if ni == 0:
         root_bmin[gi] = leaf_bmin[0]

@@ -1,7 +1,17 @@
-"""Wide-BVH constants, host topology and the packed-row id encoding —
-counterpart of the host half of ``mrt_tpu/bvh/wide.py``.
+"""Wide (ARITY-ary) BVH with packed 128-float rows — counterpart of
+``mrt_tpu/bvh/wide.py``: the constants, the host topology and the
+packed-row id encoding shared with the two-level BVH, and the flat
+single-level path (``two_level=False``): ``WideBVH``, its host ``build``
+(native binned SAH, with SBVH reference splits on request, or Karras LBVH),
+``refit`` in torch ops (bit-equal to the JAX package's table) and the
+traversal entry points ``closest_hit``, ``trace_mixed`` and ``any_hit``,
+which run kernel K3 (``kernels/traverse2.py:traverse_flat``). The JAX
+package's TPU scheduling around its traversal loop (chunking, ray sorting,
+hit priming, streaming, multipass) changes no result: its arguments are
+accepted and ignored.
 
-Row layout of the unified table (one 128-float row per entry):
+Row layout of the unified table (one 128-float row per entry; internal
+rows first, then leaf rows):
   internal: [bminx*A|bminy*A|bminz*A|bmaxx*A|bmaxy*A|bmaxz*A|child ids*A] = 7A
   leaf:     [v0x*K|v0y*K|v0z*K|v1x*K|...|v2z*K|tri ids*K] = 10K
 Integer ids ride in the f32 table as ``bitcast(id + 2^30)`` so small ids are
@@ -10,8 +20,14 @@ never denormal floats.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from ..core.device import resolve as resolve_device
+from ..core.types import Hits, Rays
+from . import lbvh
 
 ARITY = 8
 LEAF_K = 12
@@ -188,3 +204,224 @@ def build_topology_wide(bin_left: np.ndarray, bin_right: np.ndarray, leaf_order:
             if 0 <= c < n_i:
                 depth[i] = max(depth[i], depth[c] + 1)
     return child_arr, leaf_arr, int(depth[0]) + 1
+
+
+# ---------------------------------------------------------------------------
+# The flat single-level BVH: table, host build, refit (torch ops)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class WideBVH:
+    """Unified flat table over world-space triangles (tensors on one device)."""
+
+    table: torch.Tensor  # (N, ROW) f32: internal rows [0, n_internal), then leaf rows
+    node_child: torch.Tensor  # (Ni, ARITY) int32 entry ids, -1 = empty
+    leaf_tri: torch.Tensor  # (Nl, LEAF_K) int32 global triangle ids, -1 = pad
+    n_internal: int
+    depth: int
+    # the exact worst-case stack occupancy (exact_stack_bound); None falls
+    # back to the depth heuristic
+    stack_bound: int | None = None
+    # SBVH: (Nl, 6) f32 per-leaf clip boxes [min xyz, max xyz] from the
+    # spatial-split builder, which refit intersects with the leaf boxes;
+    # valid only for the vertices the builder saw
+    leaf_clip: torch.Tensor | None = None
+
+    has_masks = False  # no per-instance geometry masks on the flat path
+
+    @property
+    def n_rows(self) -> int:
+        return self.table.shape[0]
+
+    @property
+    def stack_size(self) -> int:
+        """Traversal stack entries a lane needs."""
+        return _stack_alloc(self.stack_bound, self.depth)
+
+    def _replace(self, **kw) -> "WideBVH":
+        return dataclasses.replace(self, **kw)
+
+    def to(self, device) -> "WideBVH":
+        """The same BVH with every tensor on ``device``."""
+        return self._replace(**{f.name: getattr(self, f.name).to(device)
+                                for f in dataclasses.fields(self)
+                                if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+def _pack_leaf_rows(w0, w1, w2, leaf_ids, ids=None):
+    """(nl, K, 3) leaf verts -> (nl, ROW) leaf rows + leaf AABBs. Slots where
+    ``leaf_ids`` < 0 are pads (NaN vertices, no box); the rows encode ``ids``
+    (default ``leaf_ids``)."""
+    pad = (leaf_ids < 0)[..., None]
+    nan = torch.tensor(float("nan"), dtype=torch.float32, device=w0.device)
+    w0 = torch.where(pad, nan, w0)
+    w1 = torch.where(pad, nan, w1)
+    w2 = torch.where(pad, nan, w2)
+    comps = [w[:, :, a] for w in (w0, w1, w2) for a in range(3)]
+    rows = torch.cat(comps + [encode_ids(leaf_ids if ids is None else ids)], dim=1)
+    rows = torch.nn.functional.pad(rows, (0, ROW - rows.shape[1]))
+    stacked = torch.stack([w0, w1, w2], dim=2)  # (nl, K, 3, 3)
+    valid = ~pad[..., None]
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=w0.device)
+    bmin = torch.where(valid, stacked, inf).amin(dim=(1, 2)) - 1e-7
+    bmax = torch.where(valid, stacked, -inf).amax(dim=(1, 2)) + 1e-7
+    return rows, bmin, bmax
+
+
+def _clip_leaf_boxes(bmin, bmax, clip):
+    """SBVH: the leaf boxes intersected with the builder's clip boxes (a
+    triangle split across leaves would otherwise widen both to its whole
+    extent); ``clip`` None leaves them as they are."""
+    if clip is None:
+        return bmin, bmax
+    return torch.maximum(bmin, clip[:, :3]), torch.minimum(bmax, clip[:, 3:])
+
+
+def _internal_rows(child, empty, local, ebmin, ebmax, depth):
+    """Bottom-up child AABB propagation (``depth`` passes over entry boxes
+    ``ebmin/ebmax``, internal entries first) and the packed internal rows."""
+    n = child.shape[0]
+    flat = local.reshape(-1).long()
+    inf = float("inf")
+
+    def child_boxes(bmin, bmax):
+        cmin = bmin[flat].reshape(n, ARITY, 3).masked_fill(empty[..., None], inf)
+        cmax = bmax[flat].reshape(n, ARITY, 3).masked_fill(empty[..., None], -inf)
+        return cmin, cmax
+
+    for _ in range(depth):
+        cmin, cmax = child_boxes(ebmin, ebmax)
+        ebmin = torch.cat([cmin.amin(dim=1), ebmin[n:]])
+        ebmax = torch.cat([cmax.amax(dim=1), ebmax[n:]])
+    cmin, cmax = child_boxes(ebmin, ebmax)
+    rows = torch.cat([cmin[:, :, 0], cmin[:, :, 1], cmin[:, :, 2],
+                      cmax[:, :, 0], cmax[:, :, 1], cmax[:, :, 2], encode_ids(child)], dim=1)
+    rows = torch.nn.functional.pad(rows, (0, ROW - rows.shape[1]))
+    return rows, ebmin[0], ebmax[0]
+
+
+def refit(wbvh: WideBVH, v0, v1, v2, row_ids=None) -> WideBVH:
+    """The table rebuilt from (T,3) world-space triangle vertices: leaf rows
+    (vertices and ids) and every internal row's child boxes, bottom-up.
+    ``row_ids``: optional (Nl, LEAF_K) ids to encode in the leaf rows in
+    place of ``leaf_tri`` (a shard's rows read vertices by local ids but
+    report global ones). Returns a new BVH."""
+    n_i = wbvh.n_internal
+    leaf_tri = wbvh.leaf_tri
+    n_l = leaf_tri.shape[0]
+    tid = leaf_tri.clamp_min(0).reshape(-1).long()
+
+    def g(v):
+        return v[tid].reshape(n_l, LEAF_K, 3)
+
+    ids = None if row_ids is None else torch.where(leaf_tri < 0, -1, row_ids)
+    leaf_rows, leaf_bmin, leaf_bmax = _pack_leaf_rows(g(v0), g(v1), g(v2), leaf_tri, ids)
+    leaf_bmin, leaf_bmax = _clip_leaf_boxes(leaf_bmin, leaf_bmax, wbvh.leaf_clip)
+    if n_i == 0:
+        return wbvh._replace(table=leaf_rows)
+    child = wbvh.node_child
+    empty = child < 0
+    dev = leaf_rows.device
+    ebmin = torch.cat([torch.full((n_i, 3), float("inf"), device=dev), leaf_bmin])
+    ebmax = torch.cat([torch.full((n_i, 3), -float("inf"), device=dev), leaf_bmax])
+    rows, _, _ = _internal_rows(child, empty, child.clamp_min(0), ebmin, ebmax, wbvh.depth)
+    return wbvh._replace(table=torch.cat([rows, leaf_rows]))
+
+
+def build(v0, v1, v2, method: str = "auto", spatial: bool = False, device=None) -> WideBVH:
+    """Host topology build over (T,3) world-space triangle vertices (NumPy),
+    then a refit on ``device`` (default: the card).
+
+    ``method``: "sah" or "auto" (the native binned-SAH builder; a failed
+    native build raises) or "lbvh" (the Karras tree, collapsed).
+    ``spatial=True`` asks the native builder for SBVH reference splits: the
+    BVH then carries leaf clip boxes that ``refit`` honours, so it suits
+    only geometry that is never refit with other vertices."""
+    device = resolve_device(device)
+    v0, v1, v2 = (np.asarray(v, np.float32) for v in (v0, v1, v2))
+    clip = None
+    if method in ("auto", "sah"):
+        from ..utils import native
+
+        child, leaf, depth, clip = native.build_wide_bvh_sah(
+            np.concatenate([v0, v1, v2], axis=1), ARITY, LEAF_K, spatial=spatial)
+    elif method == "lbvh":
+        bl, br, _, order, _ = lbvh.build_topology((v0 + v1 + v2) / 3.0)
+        child, leaf, depth = build_topology_wide(bl, br, order)
+    else:
+        raise ValueError(f"unknown BVH build method {method!r}")
+    n_i = int(child.shape[0])
+    bound = exact_stack_bound(
+        lambda n: [int(c) for c in child[n] if c >= 0] if n < n_i else []) if n_i else 1
+    wbvh = WideBVH(
+        table=torch.zeros((n_i + leaf.shape[0], ROW), dtype=torch.float32, device=device),
+        node_child=torch.as_tensor(child).to(device), leaf_tri=torch.as_tensor(leaf).to(device),
+        n_internal=n_i, depth=int(depth), stack_bound=bound,
+        leaf_clip=None if clip is None else torch.as_tensor(clip).to(device))
+    return refit(wbvh, *(torch.as_tensor(v).to(device) for v in (v0, v1, v2)))
+
+
+# ---------------------------------------------------------------------------
+# Traversal (kernel K3)
+# ---------------------------------------------------------------------------
+
+# the JAX package's TPU scheduling arguments: accepted, and ignored (none
+# changes a result; priming re-tests its candidate)
+_SCHEDULING = frozenset(("chunks", "sort_rays", "prime_tri", "tri_rows", "stream_window",
+                         "refill_every", "unroll", "sort_hint"))
+
+
+def _traverse(wbvh: WideBVH, rays: Rays, shadow, mask, t_min: float, scheduling: dict):
+    from ..kernels import traverse2
+
+    unknown = set(scheduling) - _SCHEDULING
+    if unknown:
+        raise TypeError(f"unexpected arguments {sorted(unknown)}")
+    n = rays.origin.shape[0]
+    dev = rays.origin.device
+    if mask is None:
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+    return traverse2.traverse_flat(
+        wbvh.table, wbvh.n_internal, wbvh.stack_size, rays.origin.contiguous(),
+        rays.direction.contiguous(), rays.max_distance.contiguous(), shadow.contiguous(),
+        mask.contiguous(), t_min)
+
+
+def _hits(out) -> Hits:
+    found = out.tri >= 0
+    return Hits(t=torch.where(found, out.t, float("inf")), triangle=out.tri, u=out.u, v=out.v)
+
+
+def closest_hit(wbvh: WideBVH, rays: Rays, t_min: float = 0.0, mask=None,
+                count_pops: bool = False, **scheduling):
+    """Closest hit per ray (triangle ids are the scene's global ids; t is
+    inf and the triangle -1 on a miss); with ``count_pops`` also the rows
+    each lane popped."""
+    shadow = torch.zeros(rays.origin.shape[0], dtype=torch.bool, device=rays.origin.device)
+    out = _traverse(wbvh, rays, shadow, mask, t_min, scheduling)
+    return (_hits(out), out.pops) if count_pops else _hits(out)
+
+
+def trace_mixed(wbvh: WideBVH, rays: Rays, shadow, t_min: float = 0.0, mask=None,
+                count_pops: bool = False, **scheduling):
+    """One traversal over a mixed batch: ``shadow`` lanes retire at their
+    first hit, the others find the closest. Returns (Hits, occluded) and,
+    with ``count_pops``, the pops."""
+    out = _traverse(wbvh, rays, shadow, mask, t_min, scheduling)
+    res = (_hits(out), out.found & shadow)
+    return res + (out.pops,) if count_pops else res
+
+
+def any_hit(wbvh: WideBVH, rays: Rays, t_min: float = 0.0, mask=None,
+            return_tri: bool = False, count_pops: bool = False, **scheduling):
+    """Occlusion per ray within ``rays.max_distance``; with ``return_tri``
+    also the first blocking triangle found (-1 if none), with ``count_pops``
+    the pops."""
+    shadow = torch.ones(rays.origin.shape[0], dtype=torch.bool, device=rays.origin.device)
+    out = _traverse(wbvh, rays, shadow, mask, t_min, scheduling)
+    res = (out.found,)
+    if return_tri:
+        res += (torch.where(out.found, out.tri, -1),)
+    if count_pops:
+        res += (out.pops,)
+    return res if len(res) > 1 else res[0]

@@ -3,7 +3,8 @@
 Every function takes the JAX package's objects and reads their arrays with
 ``np.asarray`` (this module imports no JAX), so the port can render from the
 very tables the JAX package built: ``Renderer.from_compiled(scene(js),
-*compiled(jax_scene_data, jax_statics, jax_bvh, device))``. ``device``
+*compiled(jax_scene_data, jax_statics, jax_bvh, device))``, with either
+of its BVHs (two-level or flat, SBVH clip boxes included). ``device``
 defaults to the card and raises where there is none; CPU use passes
 ``device="cpu"``. Skinned state comes across too: the skin slices, the
 BVH's skinned index tensors, each model's ``SkinData`` (its skeleton and
@@ -19,7 +20,9 @@ import torch
 
 from .assets.obj import MaterialDef, MeshData, SubmeshData
 from .assets.texture import TextureAtlas
+from .bvh import kind
 from .bvh.twolevel import TwoLevelBVH
+from .bvh.wide import WideBVH
 from .core import types as T
 from .core.device import resolve as resolve_device
 from .engine.scene import (Model, ModelMaterialOverride, Scene, SceneData, SceneStatics, SkinData,
@@ -69,10 +72,15 @@ def statics(st) -> SceneStatics:
                         skin_slices=tuple(tuple(int(x) for x in sl) for sl in st.skin_slices))
 
 
-def bvh(b, device=None) -> TwoLevelBVH:
+def bvh(b, device=None) -> TwoLevelBVH | WideBVH:
+    """The JAX package's ``TwoLevelBVH`` or flat ``WideBVH``."""
     device = resolve_device(device)
-    if getattr(b, "leaf_clip", None) is not None:
-        raise NotImplementedError("SBVH-clipped BVHs are not ported yet (ROADMAP Slice F)")
+    clip = getattr(b, "leaf_clip", None)
+    clip = None if clip is None else _t(clip, device)
+    if kind.is_flat(b):
+        return WideBVH(table=_t(b.table, device), node_child=_t(b.node_child, device),
+                       leaf_tri=_t(b.leaf_tri, device), n_internal=b.n_internal, depth=b.depth,
+                       stack_bound=b.stack_bound, leaf_clip=clip)
     return TwoLevelBVH(
         table=_t(b.table, device), node_child=_t(b.node_child, device),
         leaf_tri=_t(b.leaf_tri, device), root_bmin=_t(b.root_bmin, device),
@@ -80,11 +88,12 @@ def bvh(b, device=None) -> TwoLevelBVH:
         n_internal=b.n_internal, n_leaf=b.n_leaf, n_instances=b.n_instances,
         tlas_n=b.tlas_n, tlas_depth=b.tlas_depth, mesh_meta=tuple(b.mesh_meta),
         inst_mesh=tuple(b.inst_mesh), stack_bound=b.stack_bound,
-        inst_masks=tuple(b.inst_masks), skin_indices=tuple(_t(x, device) for x in b.skin_indices))
+        inst_masks=tuple(b.inst_masks), skin_indices=tuple(_t(x, device) for x in b.skin_indices),
+        leaf_clip=clip)
 
 
 def compiled(sd, st, b, device=None):
-    """(SceneData, SceneStatics, TwoLevelBVH) for ``Renderer.from_compiled``."""
+    """(SceneData, SceneStatics, BVH) for ``Renderer.from_compiled``."""
     return scene_data(sd, device), statics(st), bvh(b, device)
 
 

@@ -209,10 +209,12 @@ class RenderSettings:
 
 
 def check_supported(settings: RenderSettings) -> None:
-    """Raise ``NotImplementedError`` for settings outside the ported slice
-    (each names its ROADMAP item); never ignore them silently."""
-    if not settings.two_level or settings.traversal_backend != "wide":
-        raise NotImplementedError("only the two-level wide BVH is ported (flat path: ROADMAP Slice F)")
+    """Raise ``NotImplementedError`` for settings outside the ported slices
+    (naming the ROADMAP item) and ``ValueError`` for settings no package
+    has; never ignore them silently."""
+    if settings.traversal_backend != "wide":
+        raise ValueError(f"unknown traversal_backend {settings.traversal_backend!r}: only 'wide' "
+                         "exists (two_level picks the two-level or the flat table)")
     if settings.geometry_axis:
         raise NotImplementedError("geometry sharding is not ported yet (ROADMAP Slice G)")
     if settings.light_sampling not in ("uniform", "power"):

@@ -1,5 +1,5 @@
-// K2: two-level wide-BVH traversal: a compaction kernel, then a persistent
-// traversal kernel.
+// K2: two-level wide-BVH traversal, and K3: flat wide-BVH traversal: a
+// compaction kernel, then a persistent traversal kernel.
 //
 // Replaces mrt_tpu/bvh/twolevel.py:_step2 as looped by _traverse2 for
 // closest_hit / any_hit / trace_mixed (leaf test wide.py:_mt_leaf, child
@@ -21,9 +21,26 @@
 // Ids decode as bitcast_i32(f) - 2^30. Each lane also counts the rows it
 // popped (the JAX package's count_pops).
 //
-// Two template parameters give four instantiations; an unmasked scene with a
-// table of at most 2^20 - 1 rows runs <false, false>, the code that existed
-// before the other three:
+// K3 (FLAT, the third template parameter) replaces
+// mrt_tpu/bvh/wide.py:_traverse_flat_rows (:936), the flat single-level
+// table's loop for wide.closest_hit / any_hit / trace_mixed: K2's step with
+// the instance branch compiled out. Every row below n_internal is internal,
+// every other one a leaf; the ray stays in world space, so leaves and
+// internal rows read the world registers, and leaf ids are the scene's
+// global triangle ids (inst stays -1). Its instantiations <false, false,
+// true> ("flat") and <false, true, true> ("flat_float_sort", tables above
+// 2^20 - 1 rows) run the same row code as K2's; masks never reach the flat
+// path. The world direction never changes, so a lane inverts it once (as
+// _traverse_flat_rows does per ray, :945-946) and its internal rows skip
+// the reciprocals. What bounds it is K2's, less the instance rows: the leaf
+// operations and the distinct rows' float4s below, the internal operations
+// with the 9 of the guarded reciprocals counted once per live lane instead
+// of once per internal row, 51 B per live lane (30 in, 21 out: no instance
+// id) and 26 B per dead lane.
+//
+// K2's two other template parameters give four instantiations; an unmasked
+// scene with a table of at most 2^20 - 1 rows runs <false, false, false>,
+// the code that existed before the other three:
 //  * MASKED (twolevel.py:_step2's mask test, :618-623): each lane carries a
 //    ray mask, and an instance row is skipped when its geometry mask (column
 //    20, one more float4) shares no bit with it;
@@ -236,14 +253,19 @@ __device__ __forceinline__ void fswap(float* ts, int* ids, int a, int b) {
 
 // Internal row: 6 planes of ARITY child bounds (bmin xyz, bmax xyz), then the
 // ARITY child ids; read by halves, 4 children at a time. TLAS rows (entry <
-// tlas_n) test the world registers.
-template <bool FLOAT_SORT>
+// tlas_n) test the world registers. FLAT: every row tests the world
+// registers with the lane's world inverse direction (wix, wiy, wiz), taken
+// once per lane as _traverse_flat_rows takes it once per ray; K2 ignores
+// those three and inverts per row, since its direction changes at instances.
+template <bool FLOAT_SORT, bool FLAT>
 __device__ __forceinline__ void internal_row(const float4* __restrict__ row, bool tl, const Lane& L,
-                                             int* stack, int& sp, int stack_size) {
+                                             float wix, float wiy, float wiz, int* stack, int& sp,
+                                             int stack_size) {
     const float t_cap = L.best_t;
     const float px = tl ? L.wox : L.ox, py = tl ? L.woy : L.oy, pz = tl ? L.woz : L.oz;
-    const float ix = guarded_inv(tl ? L.wdx : L.dx), iy = guarded_inv(tl ? L.wdy : L.dy),
-                iz = guarded_inv(tl ? L.wdz : L.dz);
+    const float ix = FLAT ? wix : guarded_inv(tl ? L.wdx : L.dx),
+                iy = FLAT ? wiy : guarded_inv(tl ? L.wdy : L.dy),
+                iz = FLAT ? wiz : guarded_inv(tl ? L.wdz : L.dz);
     int keys[ARITY];
     float ts[ARITY];  // FLOAT_SORT: t and id per child
     int ids[ARITY];
@@ -348,8 +370,9 @@ __global__ void __launch_bounds__(COMPACT_BLOCK) traverse2_compact_kernel(
     }
 }
 
-// Trace live lane i to its end and write its results.
-template <bool MASKED, bool FLOAT_SORT>
+// Trace live lane i to its end and write its results. FLAT: no instance
+// rows, every internal row in world space.
+template <bool MASKED, bool FLOAT_SORT, bool FLAT>
 __device__ __forceinline__ void trace_lane(
     const float4* __restrict__ table, int n_internal, int n_leaf, int tlas_n, int stack_size,
     const float* __restrict__ origin, const float* __restrict__ direction,
@@ -369,6 +392,12 @@ __device__ __forceinline__ void trace_lane(
     L.shadow = shadow[i] != 0;
     L.ray_mask = MASKED ? ray_mask[i] : 0;
     const int inst_base = n_internal + n_leaf;
+    float wix = 0.0f, wiy = 0.0f, wiz = 0.0f;
+    if (FLAT) {
+        wix = guarded_inv(L.wdx);
+        wiy = guarded_inv(L.wdy);
+        wiz = guarded_inv(L.wdz);
+    }
 
     int stack[MAX_STACK];
     int pops = 0, sp = 0;
@@ -377,9 +406,10 @@ __device__ __forceinline__ void trace_lane(
         const int entry = stack[--sp];
         ++pops;
         const float4* row = table + (long long)entry * ROW4;
-        if (entry >= inst_base) instance_row<MASKED>(row, L, stack, sp, stack_size);
+        if (!FLAT && entry >= inst_base) instance_row<MASKED>(row, L, stack, sp, stack_size);
         else if (entry >= n_internal) leaf_row(row, L, sp, t_min);
-        else internal_row<FLOAT_SORT>(row, entry < tlas_n, L, stack, sp, stack_size);
+        else internal_row<FLOAT_SORT, FLAT>(row, FLAT || entry < tlas_n, L, wix, wiy, wiz, stack,
+                                            sp, stack_size);
     }
     out.t[i] = L.best_t;
     out.tri[i] = L.best_tri;
@@ -391,7 +421,7 @@ __device__ __forceinline__ void trace_lane(
 }
 
 // Persistent over the live list: each warp takes 32 entries at a time.
-template <bool MASKED, bool FLOAT_SORT>
+template <bool MASKED, bool FLOAT_SORT, bool FLAT>
 __global__ void __launch_bounds__(BLOCK) traverse2_kernel(
     const float4* __restrict__ table, int n_internal, int n_leaf, int tlas_n, int stack_size,
     const float* __restrict__ origin, const float* __restrict__ direction,
@@ -406,16 +436,16 @@ __global__ void __launch_bounds__(BLOCK) traverse2_kernel(
         base = __shfl_sync(FULL, base, 0);
         if (base >= n_live) break;
         if (base + lane < n_live)
-            trace_lane<MASKED, FLOAT_SORT>(table, n_internal, n_leaf, tlas_n, stack_size, origin,
-                                           direction, tmax, shadow, ray_mask, t_min,
-                                           live[base + lane], out);
+            trace_lane<MASKED, FLOAT_SORT, FLAT>(table, n_internal, n_leaf, tlas_n, stack_size,
+                                                 origin, direction, tmax, shadow, ray_mask, t_min,
+                                                 live[base + lane], out);
     }
 }
 
 // The persistent kernel's grid on the current device: SMs x the blocks per
 // SM its registers allow (asked once per device and instantiation). Returns
 // a CUDA error code.
-template <bool MASKED, bool FLOAT_SORT>
+template <bool MASKED, bool FLOAT_SORT, bool FLAT>
 static int persistent_grid(int* blocks) {
     static int cached[64];
     int dev = 0;
@@ -428,8 +458,8 @@ static int persistent_grid(int* blocks) {
     int sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, traverse2_kernel<MASKED, FLOAT_SORT>,
-                                                      BLOCK, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, traverse2_kernel<MASKED, FLOAT_SORT, FLAT>, BLOCK, 0);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     *blocks = sms * per_sm;
@@ -437,16 +467,16 @@ static int persistent_grid(int* blocks) {
     return 0;
 }
 
-template <bool MASKED, bool FLOAT_SORT>
+template <bool MASKED, bool FLOAT_SORT, bool FLAT>
 static int launch_traverse(const float4* table, int n_internal, int n_leaf, int tlas_n,
                            int stack_size, const float* origin, const float* direction,
                            const float* tmax, const unsigned char* shadow, const int* ray_mask,
                            float t_min, const int* live, int* counters, const Outputs& out,
                            cudaStream_t s) {
     int blocks = 0;
-    int rc = persistent_grid<MASKED, FLOAT_SORT>(&blocks);
+    int rc = persistent_grid<MASKED, FLOAT_SORT, FLAT>(&blocks);
     if (rc != 0) return rc;
-    traverse2_kernel<MASKED, FLOAT_SORT><<<blocks, BLOCK, 0, s>>>(
+    traverse2_kernel<MASKED, FLOAT_SORT, FLAT><<<blocks, BLOCK, 0, s>>>(
         table, n_internal, n_leaf, tlas_n, stack_size, origin, direction, tmax, shadow, ray_mask,
         t_min, live, counters, out);
     return (int)cudaGetLastError();
@@ -454,11 +484,13 @@ static int launch_traverse(const float4* table, int n_internal, int n_leaf, int 
 
 // scratch: n + 2 ints (the live list, then the two counters). ray_mask: n
 // ints, or null for the unmasked instantiations; float_sort != 0 selects the
-// float child sort.
+// float child sort. flat != 0 runs K3 over a flat table of internal rows
+// [0, n_internal) and leaf rows after them (n_leaf, tlas_n and ray_mask are
+// not read; out_inst is filled with -1).
 extern "C" int mrt_traverse2(const void* table, int n_internal, int n_leaf, int tlas_n,
                              int stack_size, const void* origin, const void* direction,
                              const void* tmax, const void* shadow, const void* active,
-                             const void* ray_mask, int float_sort, int n, float t_min,
+                             const void* ray_mask, int float_sort, int flat, int n, float t_min,
                              void* out_t, void* out_tri, void* out_inst, void* out_u, void* out_v,
                              void* out_found, void* out_pops, void* scratch, void* stream) {
     if (n <= 0) return 0;
@@ -476,15 +508,21 @@ extern "C" int mrt_traverse2(const void* table, int n_internal, int n_leaf, int 
     const float *o = (const float*)origin, *d = (const float*)direction, *tm = (const float*)tmax;
     const unsigned char* sh = (const unsigned char*)shadow;
     const int* rm = (const int*)ray_mask;
+    if (flat && float_sort)
+        return launch_traverse<false, true, true>(tb, n_internal, 0, 0, stack_size, o, d, tm, sh,
+                                                  nullptr, t_min, live, counters, out, s);
+    if (flat)
+        return launch_traverse<false, false, true>(tb, n_internal, 0, 0, stack_size, o, d, tm, sh,
+                                                   nullptr, t_min, live, counters, out, s);
     if (rm != nullptr && float_sort)
-        return launch_traverse<true, true>(tb, n_internal, n_leaf, tlas_n, stack_size, o, d, tm, sh,
-                                           rm, t_min, live, counters, out, s);
+        return launch_traverse<true, true, false>(tb, n_internal, n_leaf, tlas_n, stack_size, o, d,
+                                                  tm, sh, rm, t_min, live, counters, out, s);
     if (rm != nullptr)
-        return launch_traverse<true, false>(tb, n_internal, n_leaf, tlas_n, stack_size, o, d, tm, sh,
-                                            rm, t_min, live, counters, out, s);
+        return launch_traverse<true, false, false>(tb, n_internal, n_leaf, tlas_n, stack_size, o, d,
+                                                   tm, sh, rm, t_min, live, counters, out, s);
     if (float_sort)
-        return launch_traverse<false, true>(tb, n_internal, n_leaf, tlas_n, stack_size, o, d, tm,
-                                            sh, rm, t_min, live, counters, out, s);
-    return launch_traverse<false, false>(tb, n_internal, n_leaf, tlas_n, stack_size, o, d, tm, sh,
-                                         rm, t_min, live, counters, out, s);
+        return launch_traverse<false, true, false>(tb, n_internal, n_leaf, tlas_n, stack_size, o,
+                                                   d, tm, sh, rm, t_min, live, counters, out, s);
+    return launch_traverse<false, false, false>(tb, n_internal, n_leaf, tlas_n, stack_size, o, d,
+                                                tm, sh, rm, t_min, live, counters, out, s);
 }

@@ -1,7 +1,8 @@
 """Renderer — the frame loop, counterpart of ``mrt_tpu/engine/renderer.py``.
 
-Owns the compiled scene, the two-level BVH, the accumulation state and the
-tunables of the JAX ``Renderer`` (same names and defaults). Every
+Owns the compiled scene, the BVH (two-level by default; the flat
+single-level table with ``two_level = False``), the accumulation state and
+the tunables of the JAX ``Renderer`` (same names and defaults). Every
 quality-affecting property assignment restarts accumulation
 (``frame_index = 0``) and, like any direct ``frame_index = 0`` (orbit,
 zoom, presets), drops the presenter's history. One ``draw`` steps the
@@ -20,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from ..bvh import twolevel
+from ..bvh import kind, twolevel, wide
 from ..core import halton as H
 from ..core import types as T
 from ..core.device import resolve as resolve_device
@@ -64,7 +65,8 @@ VIEW_MODE_TPS = "tps"
 
 def prepare_frame(statics, scene_data, bvh, skin_bundle=(), joint_matrices=()):
     """Skinning -> world transform -> packed per-triangle rows -> BVH refit
-    (skinned BLASes, instance and TLAS rows; static BLASes are never refit).
+    (two-level: skinned BLASes, instance and TLAS rows, static BLASes never
+    refit; flat: the whole table from the world-space triangles).
     Each skinned model's slice of the vertex pool is re-skinned from its
     rest pose with ``joint_matrices`` (one (J,4,4) tensor per model, in
     ``statics.skin_slices`` order). Returns (scene_data with the skinned
@@ -80,8 +82,7 @@ def prepare_frame(statics, scene_data, bvh, skin_bundle=(), joint_matrices=()):
         scene_data = scene_data._replace(positions_obj=pos_obj, normals_obj=nrm_obj)
     pos_w, prev_w, nrm_w = scene_mod.world_geometry(scene_data)
     geom = wf.build_geometry(scene_data, pos_w, prev_w, nrm_w)
-    bvh = twolevel.refit(bvh, scene_data.positions_obj, scene_data.instance_transform)
-    return scene_data, geom, bvh
+    return scene_data, geom, kind.refit(bvh, scene_data, geom)
 
 
 class FrameStats:
@@ -191,9 +192,10 @@ class Renderer:
 
         if _compiled is None:
             self.scene_data, self.statics = scene.compile(self.device)
-            self.bvh = twolevel.build(scene.models, self.scene_data, scene.host_mirror)
+            self._build_bvh()
         else:
             self.scene_data, self.statics, self.bvh = _compiled
+            self.two_level = not kind.is_flat(self.bvh)
         self._skin_bundle = tuple(scene_mod.SkinModelData(*(t.to(self.device) for t in sb))
                                   for sb in scene.skin_bundle)
         self._clear_presenter_history()
@@ -203,14 +205,16 @@ class Renderer:
     @classmethod
     def from_compiled(cls, scene: scene_mod.Scene, scene_data, statics, bvh, **kw) -> "Renderer":
         """Render from state compiled elsewhere (e.g. ``convert.py``'s copy of
-        the JAX package's SceneData/SceneStatics/TwoLevelBVH); ``scene``
-        supplies the camera, lights and dirty flag."""
+        the JAX package's SceneData/SceneStatics and its two-level or flat
+        BVH, which sets ``two_level``); ``scene`` supplies the camera,
+        lights and dirty flag."""
         kw.setdefault("device", scene_data.positions_obj.device)
         return cls(scene, _compiled=(scene_data, statics, bvh), **kw)
 
     # -- accumulation-reset idiom ------------------------------------------------
     def __setattr__(self, name, value):
         old = getattr(self, name, None)
+        changed = old is not value
         object.__setattr__(self, name, value)
         if getattr(self, "_initialized", False):
             if name in _RESET_PROPS:
@@ -220,17 +224,16 @@ class Renderer:
                 # direct resets (orbit, zoom, presets) drop the presenter's
                 # history too, so that stale output history cannot ghost
                 self._clear_presenter_history()
-            if name in ("traversal_backend", "two_level") and old is not value:
-                if not (self.two_level and self.traversal_backend == "wide"):
+            if name in ("traversal_backend", "two_level") and changed:
+                try:
+                    self._build_bvh()
+                except Exception:
+                    # a switch the scene refuses (an unknown backend, a masked
+                    # scene off the two-level BVH): the old value and BVH stay
                     object.__setattr__(self, name, old)
-                    if any(m.geometry_mask != T.GEOMETRY_MASK_GEOMETRY for m in self.scene.models):
-                        # as the JAX package's _build_bvh refuses it
-                        raise ValueError(
-                            "geometry masks require the two-level traversal backend "
-                            "(two_level=True, traversal_backend='wide'); the flat backend has "
-                            "no per-instance mask filtering")
-                    raise NotImplementedError(
-                        "only the two-level wide BVH is ported (flat path: ROADMAP Slice F)")
+                    raise
+                object.__setattr__(self, "frame_index", 0)
+                self._clear_presenter_history()
 
     def _clear_presenter_history(self):
         """Drop the output-size upscale history and the denoiser's state;
@@ -296,9 +299,41 @@ class Renderer:
         self._state_size = (h, w)
         self.frame_index = 0
 
+    def _build_bvh(self):
+        """Build the BVH the settings ask for from the current scene, as the
+        JAX package's ``_build_bvh`` does: the two-level BVH, or the flat
+        table over world-space triangles placed by the LIVE model
+        transforms (a rebuild after large moves sees the current pose; a
+        skinned model's vertices are its rest pose, which each frame's
+        refit corrects)."""
+        if self.traversal_backend != "wide":
+            raise ValueError(f"unknown traversal_backend {self.traversal_backend!r}: only 'wide' "
+                             "exists (two_level picks the two-level or the flat table)")
+        if not self.two_level and any(m.geometry_mask != T.GEOMETRY_MASK_GEOMETRY
+                                      for m in self.scene.models):
+            raise ValueError(
+                "geometry masks require the two-level traversal backend "
+                "(two_level=True, traversal_backend='wide'); the flat/cluster "
+                "backends have no per-instance mask filtering")
+        host = getattr(self.scene, "host_mirror", None)
+        if host is None:  # state compiled elsewhere (from_compiled): read it back
+            sd = self.scene_data
+            host = {k: getattr(sd, f).cpu().numpy() for k, f in (
+                ("positions", "positions_obj"), ("indices", "indices"),
+                ("vertex_instance", "vertex_instance"), ("tri_instance", "tri_instance"))}
+        if self.two_level:
+            self.bvh = twolevel.build(self.scene.models, self.scene_data, host)
+            return
+        M = self.scene.instance_transforms()[host["vertex_instance"]]
+        pos_w = np.einsum("vij,vj->vi", M[:, :3, :3], host["positions"]) + M[:, :3, 3]
+        idx = host["indices"]
+        self.bvh = wide.build(pos_w[idx[:, 0]], pos_w[idx[:, 1]], pos_w[idx[:, 2]],
+                              device=self.device)
+
     def rebuild_bvh(self):
-        """Rebuild the BVH topology from the current scene."""
-        self.bvh = twolevel.build(self.scene.models, self.scene_data, self.scene.host_mirror)
+        """Rebuild the BVH topology from the current scene (the flat table
+        from the current instance transforms)."""
+        self._build_bvh()
 
     # -- camera controls ------------------------------------------------------------------
     def orbit(self, delta_x: float, delta_y: float):

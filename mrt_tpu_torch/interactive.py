@@ -30,7 +30,7 @@ Controls (one command per line; an empty line draws one more frame):
   loop N [DX]     N frames back to back, orbiting DX each, with an FPS readout
   save PATH       write current image
   stats           print frame stats
-  instancing B    two-level BVH on/off (off, the flat path, is not ported: an error)
+  instancing B    two-level BVH on/off (off: the flat single-level BVH, rebuilt)
   stream N        traversal stream window (kept, changes no result)
   priming B       hit priming on/off (kept, changes no result)
   quit

@@ -1,0 +1,76 @@
+"""Compare the SASS of two builds of ``csrc/traverse2.cu``: every kernel of
+the older source must compile to the same instructions from the newer one.
+
+Run on a machine with the CUDA toolkit:
+
+    python -m mrt_tpu_torch.kernels.sass_diff OLD.cu [NEW.cu]
+
+NEW.cu defaults to this checkout's ``csrc/traverse2.cu``. A kernel that
+gained template parameters is matched by appending ``false`` for each one
+(K2's ``<MASKED, FLOAT_SORT>`` to ``<MASKED, FLOAT_SORT, false>``). Prints one
+line per kernel of OLD.cu and exits 1 if any differs or is missing.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+from .build import CSRC, NVCC_FLAGS, _nvcc
+
+_PARAMS = re.compile(r"I((?:Lb[01]E)+)Ev")
+
+
+def sass(src: str, workdir: str) -> dict[str, list[str]]:
+    """{mangled kernel name: its SASS lines} of ``src`` built with K1-K3's
+    flags."""
+    nvcc = _nvcc()
+    cubin = os.path.join(workdir, os.path.basename(src) + ".cubin")
+    flags = [f for f in NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    subprocess.run([nvcc, *flags, "-cubin", src, "-o", cubin], check=True)
+    txt = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
+                         check=True, capture_output=True, text=True).stdout
+    funcs, cur = {}, None
+    for line in txt.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            funcs[cur] = []
+        elif cur is not None and line.strip():
+            funcs[cur].append(line.strip())
+    return funcs
+
+
+def twin(name: str, new: dict) -> str | None:
+    """``name``'s kernel in ``new``: itself, or with ``false`` appended to
+    its boolean template parameters until it is found."""
+    for extra in range(4):
+        cand = _PARAMS.sub(lambda m: "I" + m.group(1) + "Lb0E" * extra + "Ev", name)
+        if cand in new:
+            return cand
+    return None
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or len(argv) > 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    new_src = argv[1] if len(argv) > 1 else os.path.join(CSRC, "traverse2.cu")
+    with tempfile.TemporaryDirectory() as d:
+        old, new = sass(argv[0], d), sass(new_src, d)
+    bad = 0
+    for name, body in old.items():
+        t = twin(name, new)
+        same = t is not None and new[t] == body
+        bad += not same
+        print(f"{name} -> {t}: {len(body)} SASS lines, identical: {same}", flush=True)
+    print("only in the new source:", sorted(set(new) - {twin(n, new) for n in old}))
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,6 @@
-"""Kernel K2 — two-level wide-BVH traversal (``csrc/traverse2.cu``), its
-wrapper and its plain PyTorch version.
+"""Kernels K2 — two-level wide-BVH traversal — and K3 — flat wide-BVH
+traversal — (``csrc/traverse2.cu``), their wrappers and their plain PyTorch
+versions.
 
 Replaces ``mrt_tpu/bvh/twolevel.py:_step2`` (looped by ``_traverse2``). The
 wrapper launches the CUDA kernels for CUDA tensors (a compaction of the live
@@ -19,6 +20,14 @@ Both count the rows each lane popped (the JAX package's ``count_pops``); the
 plain version also counts the pops of each table row and the rays that
 entered each instance row, from which ``utils/bounds.py`` gives the least
 time the card could take.
+
+K3 replaces ``mrt_tpu/bvh/wide.py:_traverse_flat_rows`` (the flat
+single-level table of ``bvh/wide.py``): K2's step without instance rows,
+on world-space rays throughout; leaf rows hold global triangle ids. It is
+K2's kernel with its instance branch compiled out (instantiations ``flat``
+and ``flat_float_sort``); ``traverse_flat`` launches it and
+``traverse_flat_plain``, a transcription of ``_traverse_flat_rows`` built
+from the same row steps as ``traverse_plain``, is its plain version.
 """
 
 from __future__ import annotations
@@ -32,11 +41,15 @@ from ..bvh.wide import ARITY, IDS_OFF, LEAF_K, META_OFF, _KEY_MAX, _META_BITS, _
     decode_ids
 
 MAX_STACK = 128  # the kernel's compile-time stack cap (csrc/traverse2.cu)
-# the kernel's instantiations: (masked, float sort) -> name
+# K2's instantiations: (masked, float sort) -> name
 VARIANTS = {(False, False): "packed", (True, False): "masked", (False, True): "float_sort",
             (True, True): "masked_float_sort"}
-launches = 0  # kernel launches by ``traverse`` in this process
-variant_launches = dict.fromkeys(VARIANTS.values(), 0)  # the same, by instantiation
+# K3's instantiations: float sort -> name
+FLAT_VARIANTS = {False: "flat", True: "flat_float_sort"}
+launches = 0  # K2 launches by ``traverse`` in this process
+flat_launches = 0  # K3 launches by ``traverse_flat`` in this process
+# the same, by instantiation
+variant_launches = dict.fromkeys(list(VARIANTS.values()) + list(FLAT_VARIANTS.values()), 0)
 
 _I_WBMIN, _I_WBMAX, _I_ROOT, _I_ID, _I_MASK = 12, 15, 18, 19, 20
 
@@ -47,10 +60,15 @@ def variant(n_rows: int, masked: bool) -> str:
     return VARIANTS[(masked, n_rows > _META_MASK)]
 
 
+def flat_variant(n_rows: int) -> str:
+    """The K3 instantiation a flat table of ``n_rows`` rows takes."""
+    return FLAT_VARIANTS[n_rows > _META_MASK]
+
+
 def reset_launches():
     """Set every launch count to 0."""
-    global launches
-    launches = 0
+    global launches, flat_launches
+    launches = flat_launches = 0
     for k in variant_launches:
         variant_launches[k] = 0
 
@@ -137,6 +155,77 @@ def _slab3(lo, hi, o, inv):
     return tn, tf
 
 
+def _leaf_step(L, r, o, d, t_cap, t_min: float, st: dict):
+    """Leaf rows ``r`` popped by lanes ``L``: the LEAF_K-wide
+    Moller-Trumbore test (``wide._mt_leaf``) of the lanes' rays (``o``,
+    ``d``: (m,3), in the leaf's space) within [t_min, t_cap], and each
+    lane's nearest hit kept in ``st`` (best_t/tri/u/v, updated in place)
+    where strictly nearer than its best t (the first slot on equal t).
+    Sets ``st["cand_any"]`` (any slot hit) and returns (the lanes that took
+    a hit, their slots)."""
+    K = LEAF_K
+    ox, oy, oz = (o[:, a:a + 1] for a in range(3))
+    dx, dy, dz = (d[:, a:a + 1] for a in range(3))
+    v0x, v0y, v0z = r[:, 0:K], r[:, K:2 * K], r[:, 2 * K:3 * K]
+    v1x, v1y, v1z = r[:, 3 * K:4 * K], r[:, 4 * K:5 * K], r[:, 5 * K:6 * K]
+    v2x, v2y, v2z = r[:, 6 * K:7 * K], r[:, 7 * K:8 * K], r[:, 8 * K:9 * K]
+    e1x, e1y, e1z = v1x - v0x, v1y - v0y, v1z - v0z
+    e2x, e2y, e2z = v2x - v0x, v2y - v0y, v2z - v0z
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    valid = det.abs() > 1e-9
+    inv = torch.where(valid, torch.ones_like(det) / torch.where(valid, det, 1.0), 0.0)
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv
+    hit = valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= t_min) & (t <= t_cap[:, None])
+    t_m = torch.where(hit, t, float("inf"))
+    jb = torch.argmin(t_m, dim=1, keepdim=True)
+    cand_t = t_m.gather(1, jb)[:, 0]
+    cand_any = hit.any(dim=1)
+    take = cand_any & (cand_t < st["best_t"][L])
+    T, jt = L[take], jb[take]
+    st["best_t"][T] = cand_t[take]
+    st["best_tri"][T] = decode_ids(r[take, IDS_OFF:IDS_OFF + K]).gather(1, jt)[:, 0]
+    st["best_u"][T] = u[take].gather(1, jt)[:, 0]
+    st["best_v"][T] = v[take].gather(1, jt)[:, 0]
+    st["cand_any"] = cand_any
+    return T, jt
+
+
+def _internal_step(L, r, po, inv, t_cap, n_rows: int, stack, sp, S: int):
+    """Internal rows ``r`` popped by lanes ``L``: the ARITY child slab tests
+    (``wide._aabb_children``) of the rays (``po``, ``inv``: (m,3) origin and
+    guarded reciprocal direction) within ``t_cap``, then the entered
+    children pushed nearest-first (``sorted_candidates``) onto ``stack``
+    (the top at ``sp - 1``; ``sp`` capped at ``S``; both in place)."""
+    A = ARITY
+    tnear, tfar = _slab3([r[:, a * A:(a + 1) * A] for a in range(3)],
+                         [r[:, (3 + a) * A:(4 + a) * A] for a in range(3)],
+                         [po[:, a:a + 1] for a in range(3)],
+                         [inv[:, a:a + 1] for a in range(3)])
+    hit = (tnear <= tfar) & (tfar >= 0.0) & (tnear <= t_cap[:, None])
+    a_t = torch.where(tnear > 0.0, tnear, 0.0)
+    meta = decode_ids(r[:, META_OFF:META_OFF + A])
+    t_a = torch.where(hit & (meta >= 0), a_t, float("inf"))
+    cands, valid = sorted_candidates(t_a, meta, n_rows)
+    n_push = valid.sum(dim=1).to(torch.int32)
+    spi = sp[L]
+    kpos = torch.arange(A, device=r.device)
+    pos = spi[:, None] + (n_push[:, None] - 1 - kpos[None, :])
+    write = (kpos[None, :] < n_push[:, None]) & (pos < S)
+    rows_w = L[:, None].expand(-1, A)[write]
+    stack[rows_w, pos[write].long()] = cands[write]
+    sp[L] = torch.clamp(spi + n_push, max=S)
+    return spi + n_push
+
+
 def traverse_plain(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size: int,
                    origin, direction, tmax, shadow, active, t_min: float = 0.0,
                    ray_mask=None) -> TraverseOut:
@@ -151,6 +240,7 @@ def traverse_plain(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size:
     best_u = torch.zeros(R, dtype=torch.float32, device=dev)
     best_v = torch.zeros(R, dtype=torch.float32, device=dev)
     found = torch.zeros(R, dtype=torch.bool, device=dev)
+    st = dict(best_t=best_t, best_tri=best_tri, best_u=best_u, best_v=best_v)
     o = origin.clone()
     d = direction.clone()
     cur_inst = torch.full((R,), -1, dtype=torch.int32, device=dev)
@@ -159,8 +249,6 @@ def traverse_plain(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size:
     pops = torch.zeros(R, dtype=torch.int32, device=dev)
     visits = torch.zeros((table.shape[0], 2), dtype=torch.int64, device=dev)
     inst_base = n_internal + n_leaf
-    inf = float("inf")
-    kpos = torch.arange(ARITY, device=dev)
 
     lanes = torch.nonzero(sp > 0).squeeze(1)
     while lanes.numel():
@@ -200,85 +288,150 @@ def traverse_plain(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size:
 
         # --- leaf rows: LEAF_K-wide Moller-Trumbore --------------------------------
         if bool(is_leaf.any()):
-            L, r = lanes[is_leaf], row[is_leaf]
-            K = LEAF_K
-            ox, oy, oz = (o[L, a:a + 1] for a in range(3))
-            dx, dy, dz = (d[L, a:a + 1] for a in range(3))
-            v0x, v0y, v0z = r[:, 0:K], r[:, K:2 * K], r[:, 2 * K:3 * K]
-            v1x, v1y, v1z = r[:, 3 * K:4 * K], r[:, 4 * K:5 * K], r[:, 5 * K:6 * K]
-            v2x, v2y, v2z = r[:, 6 * K:7 * K], r[:, 7 * K:8 * K], r[:, 8 * K:9 * K]
-            e1x, e1y, e1z = v1x - v0x, v1y - v0y, v1z - v0z
-            e2x, e2y, e2z = v2x - v0x, v2y - v0y, v2z - v0z
-            px = dy * e2z - dz * e2y
-            py = dz * e2x - dx * e2z
-            pz = dx * e2y - dy * e2x
-            det = e1x * px + e1y * py + e1z * pz
-            valid = det.abs() > 1e-9
-            inv = torch.where(valid, torch.ones_like(det) / torch.where(valid, det, 1.0), 0.0)
-            tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
-            u = (tx * px + ty * py + tz * pz) * inv
-            qx = ty * e1z - tz * e1y
-            qy = tz * e1x - tx * e1z
-            qz = tx * e1y - ty * e1x
-            v = (dx * qx + dy * qy + dz * qz) * inv
-            t = (e2x * qx + e2y * qy + e2z * qz) * inv
-            tc = t_cap[is_leaf][:, None]
-            hit = valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= t_min) & (t <= tc)
-            t_m = torch.where(hit, t, inf)
-            jb = torch.argmin(t_m, dim=1, keepdim=True)
-            cand_t = t_m.gather(1, jb)[:, 0]
-            cand_any = hit.any(dim=1)
-            take = cand_any & (cand_t < best_t[L])
-            T, jt = L[take], jb[take]
-            best_t[T] = cand_t[take]
-            best_tri[T] = decode_ids(r[take, IDS_OFF:IDS_OFF + K]).gather(1, jt)[:, 0]
+            L = lanes[is_leaf]
+            T, jt = _leaf_step(L, row[is_leaf], o[L], d[L], t_cap[is_leaf], t_min, st)
             best_inst[T] = cur_inst[T]
-            best_u[T] = u[take].gather(1, jt)[:, 0]
-            best_v[T] = v[take].gather(1, jt)[:, 0]
-            found[L] = found[L] | cand_any
+            found[L] = found[L] | st["cand_any"]
             sp[L] = torch.where(found[L] & shadow[L], 0, sp[L])
 
         # --- internal rows: ARITY child slabs + nearest-first push -----------------
         if bool(is_int.any()):
-            L, r = lanes[is_int], row[is_int]
+            L = lanes[is_int]
             tl = (entry[is_int] < tlas_n)[:, None]
-            po = torch.where(tl, origin[L], o[L])
-            inv = _guarded_inv(torch.where(tl, direction[L], d[L]))
-            A = ARITY
-            tnear, tfar = _slab3([r[:, a * A:(a + 1) * A] for a in range(3)],
-                                 [r[:, (3 + a) * A:(4 + a) * A] for a in range(3)],
-                                 [po[:, a:a + 1] for a in range(3)],
-                                 [inv[:, a:a + 1] for a in range(3)])
-            hit = (tnear <= tfar) & (tfar >= 0.0) & (tnear <= t_cap[is_int][:, None])
-            a_t = torch.where(tnear > 0.0, tnear, 0.0)
-            meta = decode_ids(r[:, META_OFF:META_OFF + A])
-            t_a = torch.where(hit & (meta >= 0), a_t, inf)
-            cands, valid = sorted_candidates(t_a, meta, table.shape[0])
-            n_push = valid.sum(dim=1).to(torch.int32)
-            spi = sp[L]
-            pos = spi[:, None] + (n_push[:, None] - 1 - kpos[None, :])
-            write = (kpos[None, :] < n_push[:, None]) & (pos < S)
-            rows_w = L[:, None].expand(-1, A)[write]
-            stack[rows_w, pos[write].long()] = cands[write]
-            sp[L] = torch.clamp(spi + n_push, max=S)
+            _internal_step(L, row[is_int], torch.where(tl, origin[L], o[L]),
+                           _guarded_inv(torch.where(tl, direction[L], d[L])), t_cap[is_int],
+                           table.shape[0], stack, sp, S)
 
         lanes = lanes[sp[lanes] > 0]
     return TraverseOut(best_t, best_tri, best_inst, best_u, best_v, found, pops, visits)
+
+
+def traverse_flat_plain(table, n_internal: int, stack_size: int, origin, direction, tmax, shadow,
+                        active, t_min: float = 0.0) -> TraverseOut:
+    """Plain PyTorch flat traversal (any device): ``wide._traverse_flat_rows``
+    step for step over the lanes that still have stack entries. Per step a
+    lane pops one entry and reads its row: a leaf row (entry >=
+    ``n_internal``) takes the 12-wide leaf test, any other the 8 slab
+    tests and the nearest-first push. A ``shadow`` lane stops at its first
+    hit; ``found`` is any leaf hit within the lane's best t. The stack holds
+    ``stack_size`` entries, the table's exact worst case, so the JAX
+    package's shift stack never drops an entry; this raises if one would
+    be. Returns per-lane pops and per-row pops (``visits[:, 0]``; column 1,
+    the rays that entered an instance row, stays 0); ``inst`` is -1."""
+    R = origin.shape[0]
+    dev = origin.device
+    S = stack_size
+    st = dict(best_t=tmax.clone(), best_tri=torch.full((R,), -1, dtype=torch.int32, device=dev),
+              best_u=torch.zeros(R, dtype=torch.float32, device=dev),
+              best_v=torch.zeros(R, dtype=torch.float32, device=dev))
+    found = torch.zeros(R, dtype=torch.bool, device=dev)
+    inv = _guarded_inv(direction)
+    stack = torch.zeros((R, S), dtype=torch.int32, device=dev)  # the root, 0, on top
+    sp = active.to(torch.int32)
+    pops = torch.zeros(R, dtype=torch.int32, device=dev)
+    visits = torch.zeros((table.shape[0], 2), dtype=torch.int64, device=dev)
+
+    lanes = torch.nonzero(sp > 0).squeeze(1)
+    while lanes.numel():
+        spl = sp[lanes] - 1
+        entry = stack[lanes, spl.long()]
+        sp[lanes] = spl
+        pops[lanes] += 1
+        e = entry.long()
+        visits[:, 0].index_add_(0, e, torch.ones_like(e))
+        row = table[e]
+        t_cap = st["best_t"][lanes]
+        is_leaf = entry >= n_internal
+        if bool(is_leaf.any()):
+            L = lanes[is_leaf]
+            _leaf_step(L, row[is_leaf], origin[L], direction[L], t_cap[is_leaf], t_min, st)
+            found[L] = found[L] | st["cand_any"]
+            sp[L] = torch.where(found[L] & shadow[L], 0, sp[L])
+        if not bool(is_leaf.all()):
+            L = lanes[~is_leaf]
+            want = _internal_step(L, row[~is_leaf], origin[L], inv[L], t_cap[~is_leaf],
+                                  table.shape[0], stack, sp, S)
+            if bool((want > S).any()):
+                raise RuntimeError(f"traverse_flat_plain: a lane needs more than the {S} stack "
+                                   "entries given (the BVH's stack bound)")
+        lanes = lanes[sp[lanes] > 0]
+    return TraverseOut(st["best_t"], st["best_tri"], torch.full((R,), -1, dtype=torch.int32, device=dev),
+                       st["best_u"], st["best_v"], found, pops, visits)
 
 
 def _ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _check(name, t, dtype, shape, device):
+def _check(what, name, t, dtype, shape, device):
     if t.device != device:
-        raise ValueError(f"traverse: {name} is on {t.device}, expected {device}")
+        raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"traverse: {name} has dtype {t.dtype}, expected {dtype}")
+        raise TypeError(f"{what}: {name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"traverse: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"traverse: {name} is not contiguous")
+        raise ValueError(f"{what}: {name} is not contiguous")
+
+
+def _outputs(what, table, stack_size, origin, direction, tmax, shadow, active, ray_mask=None):
+    """Check a launch's inputs (device, dtype, shape, contiguity, the stack
+    and id limits) and allocate its TraverseOut."""
+    if origin.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {origin.device}")
+    R = origin.shape[0]
+    dev = origin.device
+    _check(what, "table", table, torch.float32, (table.shape[0], 128), dev)
+    _check(what, "origin", origin, torch.float32, (R, 3), dev)
+    _check(what, "direction", direction, torch.float32, (R, 3), dev)
+    _check(what, "tmax", tmax, torch.float32, (R,), dev)
+    _check(what, "shadow", shadow, torch.bool, (R,), dev)
+    _check(what, "active", active, torch.bool, (R,), dev)
+    if ray_mask is not None:
+        _check(what, "ray_mask", ray_mask, torch.int32, (R,), dev)
+    if stack_size > MAX_STACK:
+        raise ValueError(f"{what}: the BVH needs a stack of {stack_size} entries; the kernel holds {MAX_STACK}")
+    if table.shape[0] >= 1 << 30:
+        raise ValueError(f"{what}: row ids must stay below 2^30 (the table's id encoding)")
+    if table.data_ptr() % 16:
+        raise ValueError(f"{what}: the table must be 16-byte aligned (its rows are read as float4)")
+    return TraverseOut(*(torch.empty(R, dtype=dt, device=dev) for dt in (
+        torch.float32, torch.int32, torch.int32, torch.float32, torch.float32, torch.bool,
+        torch.int32)))
+
+
+def _out_ptrs(out: TraverseOut):
+    return tuple(_ptr(x) for x in out[:7])
+
+
+def _launch(what: str, name: str, table, n_internal: int, n_leaf: int, tlas_n: int,
+            stack_size: int, origin, direction, tmax, shadow, active, t_min: float, ray_mask,
+            flat: bool) -> TraverseOut:
+    """Check the arguments and launch instantiation ``name`` of K2, or of K3
+    if ``flat``; counts the launch."""
+    global launches, flat_launches
+    out = _outputs(what, table, stack_size, origin, direction, tmax, shadow, active, ray_mask)
+    R = origin.shape[0]
+    if R == 0:
+        return out
+    from . import build
+
+    lib = build.load()
+    scratch = torch.empty(R + 2, dtype=torch.int32, device=origin.device)  # live-lane list, 2 counters
+    stream = ctypes.c_void_p(torch.cuda.current_stream(origin.device).cuda_stream)
+    rc = lib.mrt_traverse2(_ptr(table), n_internal, n_leaf, tlas_n, stack_size,
+                           _ptr(origin), _ptr(direction), _ptr(tmax), _ptr(shadow), _ptr(active),
+                           None if ray_mask is None else _ptr(ray_mask),
+                           int(table.shape[0] > _META_MASK), int(flat), R, float(t_min),
+                           *_out_ptrs(out), _ptr(scratch), stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} ({name}) kernel launch failed: CUDA error {rc}")
+    if flat:
+        flat_launches += 1
+    else:
+        launches += 1
+    variant_launches[name] += 1
+    return out
 
 
 def traverse(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size: int,
@@ -289,54 +442,22 @@ def traverse(table, n_internal: int, n_leaf: int, tlas_n: int, stack_size: int,
     ``ray_mask`` (optional, (R,) int32) skips the instances whose geometry
     mask shares no bit with the ray's. CPU tensors take the plain version;
     CUDA tensors launch the kernels."""
-    global launches
     if origin.device.type == "cpu":
         return traverse_plain(table, n_internal, n_leaf, tlas_n, stack_size, origin, direction,
                               tmax, shadow, active, t_min, ray_mask)
-    if origin.device.type != "cuda":
-        raise ValueError(f"traverse: unsupported device {origin.device}")
-    R = origin.shape[0]
-    dev = origin.device
-    _check("table", table, torch.float32, (table.shape[0], 128), dev)
-    _check("origin", origin, torch.float32, (R, 3), dev)
-    _check("direction", direction, torch.float32, (R, 3), dev)
-    _check("tmax", tmax, torch.float32, (R,), dev)
-    _check("shadow", shadow, torch.bool, (R,), dev)
-    _check("active", active, torch.bool, (R,), dev)
-    if ray_mask is not None:
-        _check("ray_mask", ray_mask, torch.int32, (R,), dev)
-    if stack_size > MAX_STACK:
-        raise ValueError(f"traverse: the BVH needs a stack of {stack_size} entries; the kernel holds {MAX_STACK}")
-    if table.shape[0] >= 1 << 30:
-        raise ValueError("traverse: row ids must stay below 2^30 (the table's id encoding)")
-    if table.data_ptr() % 16:
-        raise ValueError("traverse: the table must be 16-byte aligned (its rows are read as float4)")
-    out = TraverseOut(
-        t=torch.empty(R, dtype=torch.float32, device=dev),
-        tri=torch.empty(R, dtype=torch.int32, device=dev),
-        inst=torch.empty(R, dtype=torch.int32, device=dev),
-        u=torch.empty(R, dtype=torch.float32, device=dev),
-        v=torch.empty(R, dtype=torch.float32, device=dev),
-        found=torch.empty(R, dtype=torch.bool, device=dev),
-        pops=torch.empty(R, dtype=torch.int32, device=dev),
-    )
-    if R == 0:
-        return out
-    from . import build
+    return _launch("traverse2", variant(table.shape[0], ray_mask is not None), table, n_internal,
+                   n_leaf, tlas_n, stack_size, origin, direction, tmax, shadow, active, t_min,
+                   ray_mask, flat=False)
 
-    lib = build.load()
-    scratch = torch.empty(R + 2, dtype=torch.int32, device=dev)  # live-lane list, 2 counters
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    name = variant(table.shape[0], ray_mask is not None)
-    rc = lib.mrt_traverse2(_ptr(table), n_internal, n_leaf, tlas_n, stack_size,
-                           _ptr(origin), _ptr(direction), _ptr(tmax), _ptr(shadow), _ptr(active),
-                           None if ray_mask is None else _ptr(ray_mask),
-                           int(table.shape[0] > _META_MASK), R, float(t_min), _ptr(out.t),
-                           _ptr(out.tri), _ptr(out.inst), _ptr(out.u), _ptr(out.v),
-                           _ptr(out.found), _ptr(out.pops), _ptr(scratch), stream)
-    if rc != 0:
-        raise RuntimeError(f"traverse2 ({name}) kernel launch failed: CUDA error {rc}")
-    launches += 1
-    variant_launches[name] += 1
-    return out
 
+def traverse_flat(table, n_internal: int, stack_size: int, origin, direction, tmax, shadow,
+                  active, t_min: float = 0.0) -> TraverseOut:
+    """Trace (R,) world-space rays through a flat table (K3). ``shadow``
+    lanes stop at their first hit; lanes with ``active`` False return the
+    miss record; ``inst`` is -1. CPU tensors take the plain version; CUDA
+    tensors launch the kernels."""
+    if origin.device.type == "cpu":
+        return traverse_flat_plain(table, n_internal, stack_size, origin, direction, tmax, shadow,
+                                   active, t_min)
+    return _launch("traverse_flat", flat_variant(table.shape[0]), table, n_internal, 0, 0,
+                   stack_size, origin, direction, tmax, shadow, active, t_min, None, flat=True)

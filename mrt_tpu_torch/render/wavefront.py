@@ -18,6 +18,10 @@ and geometry-mask filtering, whose ray masks (primary or secondary for
 closest-hit rays, shadow for any-hit rays) are passed to the traversal only
 when some instance has a non-default mask (``TwoLevelBVH.has_masks``).
 
+The rays traverse the BVH the renderer holds: the two-level one
+(``bvh/twolevel.py``, kernel K2) or the flat table (``bvh/wide.py``,
+kernel K3), whose hits carry the same global triangle ids.
+
 Shadow rays are traced as their own batch right after they are made (the
 JAX package may defer them into the next bounce's closest-hit batch; that
 changes only the order of the radiance sums). ``rays_traced`` counts the
@@ -32,7 +36,7 @@ from typing import NamedTuple
 import torch
 
 from ..assets import texture as tex
-from ..bvh import twolevel
+from ..bvh import kind, twolevel, wide
 from ..core import halton as H
 from ..core import types as T
 from ..engine.scene import SceneData, SceneStatics
@@ -153,7 +157,8 @@ def _where3(m, a, b):
 
 
 def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: SceneData,
-                 bvh: twolevel.TwoLevelBVH, geom: Geometry, uniforms: T.FrameUniforms,
+                 bvh: twolevel.TwoLevelBVH | wide.WideBVH, geom: Geometry,
+                 uniforms: T.FrameUniforms,
                  pixel_x: torch.Tensor, pixel_y: torch.Tensor, offsets: torch.Tensor,
                  prev_motion: torch.Tensor, sample_base: int | None = None) -> TileOutputs:
     """Trace every sample of P pixels (lanes). pixel_x/pixel_y/offsets: (P,)
@@ -182,10 +187,12 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
         up_len = torch.sqrt((cam.up ** 2).sum())
         fwd_len = torch.sqrt((cam.forward ** 2).sum())
         pixel_angle = 2.0 * up_len / (height_f * torch.clamp(fwd_len, min=1e-5))
+    trav = kind.traversal(bvh)
     # Raytracing.metal:317,733-735: closest-hit rays see the LIGHT bit only
     # from the camera; shadow rays never do
-    rm_shadow = (torch.full((P,), T.RAY_MASK_SHADOW, dtype=torch.int32, device=dev)
-                 if bvh.has_masks else None)
+    # the masks reach the traversal only for a masked (two-level) scene
+    shadow_kw = ({"ray_mask": torch.full((P,), T.RAY_MASK_SHADOW, dtype=torch.int32, device=dev)}
+                 if bvh.has_masks else {})
 
     def camera_rays(sidx: int):
         hidx0 = offsets + base + sidx
@@ -232,12 +239,11 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
         while it < max_iters and bool(active.any()):
             it += 1
             rays = rays + active.to(torch.int32)
-            rm_closest = None
+            closest_kw = {}
             if bvh.has_masks:
-                rm_closest = torch.where(bounce == 0, T.RAY_MASK_PRIMARY,
-                                         T.RAY_MASK_SECONDARY).to(torch.int32)
-            hits = twolevel.closest_hit(bvh, T.Rays(ray_o, ray_d, inf_d), mask=active,
-                                        ray_mask=rm_closest)
+                closest_kw["ray_mask"] = torch.where(bounce == 0, T.RAY_MASK_PRIMARY,
+                                                     T.RAY_MASK_SECONDARY).to(torch.int32)
+            hits = trav.closest_hit(bvh, T.Rays(ray_o, ray_d, inf_d), mask=active, **closest_kw)
             hit = hits.hit & active
             if statics.has_environment:
                 missed = active & ~hit
@@ -504,8 +510,8 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
                 contrib = color * direct
 
             rays = rays + need_shadow.to(torch.int32)
-            occluded = twolevel.any_hit(bvh, T.Rays(shadow_o, l_dir, shadow_dist), mask=need_shadow,
-                                        ray_mask=rm_shadow)
+            occluded = trav.any_hit(bvh, T.Rays(shadow_o, l_dir, shadow_dist), mask=need_shadow,
+                                    **shadow_kw)
             accumulated = accumulated + _where3(need_shadow & ~occluded, contrib, 0.0)
 
             if settings.shading_mode == T.SHADING_MODE_LEGACY:

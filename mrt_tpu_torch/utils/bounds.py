@@ -3,8 +3,9 @@
 A kernel's bound is the larger of two times: the bytes its function must move
 (each input read once, each output written once) over the memory rate, and
 the f32 operations it does on these inputs over the rate the card issues
-them. Where the work depends on the data (K2's traversal), it is counted
-from what one call's data needs, from the plain version's per-row visits.
+them. Where the work depends on the data (K2's and K3's traversals), it is
+counted from what one call's data needs, from the plain version's per-row
+visits.
 
 Peak rates, H100 SXM (NVIDIA's data sheet, 700 W): 3.35 TB/s of HBM3 and
 67 TFLOP/s of f32 outside the tensor cores, a rate that counts a fused
@@ -59,6 +60,9 @@ K2_BYTES_MASK = 16
 K2_BYTES_LIVE_LANE = 30 + 25
 K2_BYTES_RAY_MASK = 4
 K2_BYTES_DEAD_LANE = 5 + 25
+# K3 (the flat traversal, K2's kernel without instance rows) needs no
+# instance id out
+K3_BYTES_NO_INST = 4
 
 
 def least_ms(ops: float, nbytes: float) -> tuple[float, str]:
@@ -103,13 +107,29 @@ def k2_work(table, n_internal: int, n_leaf: int, visits, masked: bool = False) -
     return w
 
 
-def k2(work: dict[str, int], n_lanes: int, n_live: int, masked: bool = False) -> tuple[float, str]:
+def k2(work: dict[str, int], n_lanes: int, n_live: int, masked: bool = False,
+       flat: bool = False) -> tuple[float, str]:
     """K2's bound for one call over ``n_lanes`` lanes, ``n_live`` of them
     active, with ``work`` from ``k2_work`` (``masked``: the rays carried
-    masks)."""
+    masks). ``flat``: K3's bound, for ``work`` from ``k3_work``."""
     live_lane = K2_BYTES_LIVE_LANE + (K2_BYTES_RAY_MASK if masked else 0)
-    nbytes = (work["row_bytes"] + n_live * live_lane + (n_lanes - n_live) * K2_BYTES_DEAD_LANE)
+    dead_lane = K2_BYTES_DEAD_LANE
+    if flat:
+        live_lane, dead_lane = live_lane - K3_BYTES_NO_INST, dead_lane - K3_BYTES_NO_INST
+    nbytes = (work["row_bytes"] + n_live * live_lane + (n_lanes - n_live) * dead_lane)
     return least_ms(work["ops"], nbytes)
+
+
+def k3_work(table, n_internal: int, visits) -> dict[str, int]:
+    """K3's work in one call over a flat table: ``k2_work`` with every row
+    past the internal ones a leaf row, so no instance pops, and the guarded
+    reciprocals of the world direction taken once per live lane (as
+    ``wide._traverse_flat_rows`` takes them once per ray) rather than once
+    per internal pop. Every live lane pops the root, row 0, exactly once."""
+    w = k2_work(table, n_internal, table.shape[0] - n_internal, visits)
+    w["lanes"] = int(visits[0, 0])
+    w["ops"] += (w["lanes"] - w["pops_internal"]) * K2_OPS_INTERNAL
+    return w
 
 
 def lbs(n_vertices: int, n_joints: int) -> tuple[float, str]:

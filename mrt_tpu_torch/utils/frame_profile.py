@@ -24,8 +24,10 @@ the swing rig, written in centimetres as a USD crate ``robot.usdz`` (with
 its USDA text and GLB twins, ``write_character``) into a temporary
 directory that ``MRT_ASSET_PATH`` names while the app scene is built, so
 the robot resolves from the file and keeps the reference's 0.01 scale.
-``chip_smoke.py`` drives the same runs (run E in all three presenter
-modes).
+Run J is run C's frame on the flat single-level BVH (``two_level=False``):
+the whole table is refit from the posed world-space triangles every frame
+and kernel K3 traverses it. ``chip_smoke.py`` drives the same runs (run E
+in all three presenter modes).
 
 For each run, after two warm-up frames, ``frame_walls`` times FRAMES
 unprofiled frames between ``torch.cuda.synchronize()`` calls (every run's
@@ -76,6 +78,9 @@ RUNS = {
                     "66,049-vertex, 64-joint skinned character authored in centimetres",
               width=1920, height=1080, dragon_subdivisions=None, robot=True, motion_adaptive=True,
               robot_asset=True),
+    "J": dict(scene="run C's scene on the flat single-level BVH (two_level=False)",
+              width=1920, height=1080, dragon_subdivisions=None, robot=True, motion_adaptive=True,
+              flat=True),
 }
 
 
@@ -205,6 +210,8 @@ def make_renderer(tag: str, device, seed: int = 0, asset_dir=None):
                                dragon_subdivisions=run["dragon_subdivisions"])
     _extras(scene, run, seed)
     r = Renderer(scene, run["width"], run["height"], seed=seed, device=device)
+    if run.get("flat"):
+        r.two_level = False
     configure(r, run.get("motion_adaptive", False),
               **{k: run[k] for k in ("upscaler", "render_scale", "spp", "bounces", "mipmaps")
                  if k in run})
@@ -257,7 +264,10 @@ def profile_frame(r, table_out=None, walls=None) -> dict:
     activities = [ProfilerActivity.CPU]
     if torch.device(dev).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    launches0 = traverse2.launches
+    def traversals():  # K2 and K3 launches so far
+        return traverse2.launches + traverse2.flat_launches
+
+    launches0 = traversals()
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         frame(r)
@@ -271,7 +281,7 @@ def profile_frame(r, table_out=None, walls=None) -> dict:
     median = statistics.median(walls)
     line = dict(frame_wall_s=walls, frame_wall_median_s=median, frame_wall_profiled_s=wall,
                 prepare_s=prepare_s, device_busy_s=busy, device_events=len(dev_events),
-                traverse2_s=trav, traverse2_launches=traverse2.launches - launches0,
+                traverse2_s=trav, traverse2_launches=traversals() - launches0,
                 gather_s=gather, idle_share=1.0 - busy / median,
                 idle_share_profiled=1.0 - busy / wall, rays=int(r.last_rays_traced))
     if table_out is not None:

@@ -45,17 +45,23 @@ def _load():
     lib.mrt_wide_n_leaves.restype = ctypes.c_int32
     lib.mrt_wide_depth.restype = ctypes.c_int32
     lib.mrt_wide_fetch.argtypes = [ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
+    lib.mrt_wide_fetch_clip.argtypes = [ctypes.POINTER(ctypes.c_float)]
     _lib = lib
     return lib
 
 
-def build_wide_bvh_sah(tri_verts: np.ndarray, arity: int, leaf_k: int):
+def build_wide_bvh_sah(tri_verts: np.ndarray, arity: int, leaf_k: int, spatial: bool = False):
     """Binned-SAH wide topology over (T, 9) f32 [v0 v1 v2] triangles.
-    Returns (node_child (Ni,arity) int32, leaf_tri (Nl,leaf_k) int32, depth)."""
+    Returns (node_child (Ni,arity) int32, leaf_tri (Nl,leaf_k) int32, depth,
+    leaf_clip). ``spatial=True`` lets the builder split references (SBVH):
+    ``leaf_clip`` (Nl, 6) f32 [min xyz, max xyz] holds each leaf's clipped
+    box, which a refit intersects with the box of the leaf's triangles (so
+    valid only for the vertices the builder saw); else it is None."""
     lib = _load()
     tv = np.ascontiguousarray(tri_verts, np.float32)
     rc = lib.mrt_build_wide_bvh_sp(
-        tv.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), tv.shape[0], arity, leaf_k, 0)
+        tv.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), tv.shape[0], arity, leaf_k,
+        1 if spatial else 0)
     if rc != 0:
         raise RuntimeError(f"native wide-BVH build failed (rc={rc})")
     ni = int(lib.mrt_wide_n_internal())
@@ -65,4 +71,8 @@ def build_wide_bvh_sah(tri_verts: np.ndarray, arity: int, leaf_k: int):
     leaf = np.empty((nl, leaf_k), np.int32)
     lib.mrt_wide_fetch(child.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
                        leaf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
-    return child, leaf, depth
+    clip = None
+    if spatial:
+        clip = np.empty((nl, 6), np.float32)
+        lib.mrt_wide_fetch_clip(clip.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return child, leaf, depth, clip

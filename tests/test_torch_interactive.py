@@ -7,9 +7,7 @@ a sphere; 24x24) and through the same renderer calls on mrt_tpu's renderer
 (the branch of ``scripts/interactive.py:main`` for that command, then a
 draw): after each, both renderers hold the same controls (camera, settings,
 render size, frame index) and their scenes the same model transforms and
-lights. One deliberate divergence: ``instancing 0`` selects the flat BVH,
-which the port does not have yet (ROADMAP Slice F), so the port prints the
-error, keeps the two-level BVH and draws no frame. The driver itself runs
+lights; ``instancing 0`` switches both to the flat BVH. The driver itself runs
 in a subprocess on the CPU over the app scene without its OBJ models and
 keeps the JAX REPL's accumulation-restart sequence.
 """
@@ -58,7 +56,8 @@ upscaler off
 CONTROLS = ("frame_index", "camera_azimuth", "camera_elevation", "camera_distance",
             "camera_fov_degrees", "samples_per_pixel", "max_bounces", "render_scale",
             "accumulation_weight", "upscaler_mode", "shading_mode", "debug_texture_mode",
-            "view_mode", "traversal_stream", "hit_priming", "render_width", "render_height")
+            "view_mode", "traversal_stream", "hit_priming", "two_level", "render_width",
+            "render_height")
 
 
 def _jax_command(r, cmd, args):
@@ -103,6 +102,8 @@ def _jax_command(r, cmd, args):
         r.traversal_stream = int(args[0])
     elif cmd == "priming":
         r.hit_priming = args[0] in ("1", "on", "true")
+    elif cmd == "instancing":
+        r.two_level = args[0] in ("1", "on", "true")
     else:
         raise AssertionError(cmd)
     for _ in range(n):
@@ -136,11 +137,9 @@ def test_each_command_leaves_the_same_state(tmp_path, capsys):
         cmd, args = line.split()[0], line.split()[1:]
         interactive.run_commands(rp, [line], out)
         printed = capsys.readouterr().out
-        if cmd == "instancing":  # the flat BVH is not ported: an error, no frame
-            assert printed.startswith("error:") and "Slice F" in printed
-            assert rp.two_level
-            continue
         _jax_command(rj, cmd, args)
+        if cmd == "instancing":
+            assert type(rp.bvh).__name__ == type(rj.bvh).__name__ == "WideBVH"
         assert printed.splitlines()[-1] == f"frame {rp.frame_index} -> {out}", (line, printed)
         _assert_same_controls(rj, rp, line)
     assert os.path.getsize(out) > 0

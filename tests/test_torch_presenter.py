@@ -232,16 +232,18 @@ def test_default_renderer_presents():
 
 
 def test_gbuffer_supported_and_wavefront_extras_raise():
-    """enable_gbuffer and the wavefront extras (every debug texture mode,
-    mipmaps) are ported and pass; the settings still outside the port (the
-    flat path, geometry sharding) raise, naming their ROADMAP slice."""
+    """enable_gbuffer, the wavefront extras (every debug texture mode,
+    mipmaps) and the flat BVH (two_level=False) are ported and pass; an
+    unknown traversal backend raises ValueError naming it, as the JAX
+    package's renderer does; geometry sharding, still outside the port,
+    raises naming its ROADMAP slice."""
     from mrt_tpu_torch.core import types as T
 
     T.check_supported(T.RenderSettings(enable_gbuffer=True))
     for kw in [dict(debug_mode=m) for m in range(T.DEBUG_MODE_BASECOLOR, T.DEBUG_MODE_MOTION + 1)] + [
-            dict(use_mipmaps=True)]:
+            dict(use_mipmaps=True), dict(two_level=False)]:
         T.check_supported(T.RenderSettings(**kw))
-    for kw, slice_ in ((dict(two_level=False), "Slice F"), (dict(traversal_backend="lbvh"), "Slice F"),
-                       (dict(geometry_axis="gp"), "Slice G")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            T.check_supported(T.RenderSettings(**kw))
+    with pytest.raises(ValueError, match="'lbvh'"):
+        T.check_supported(T.RenderSettings(traversal_backend="lbvh"))
+    with pytest.raises(NotImplementedError, match="Slice G"):
+        T.check_supported(T.RenderSettings(geometry_axis="gp"))

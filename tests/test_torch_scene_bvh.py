@@ -214,11 +214,12 @@ def test_lbvh_topology_matches():
     idx = mesh.submeshes[0].indices
     pos = mesh.positions
     tris = np.concatenate([pos[idx[:, 0]], pos[idx[:, 1]], pos[idx[:, 2]]], axis=1)
-    child, leaf, depth = twolevel._mesh_topology(tris, "lbvh")
+    child, leaf, depth, clip = twolevel._mesh_topology(tris, "lbvh")
     cent = (tris[:, 0:3] + tris[:, 3:6] + tris[:, 6:9]) / 3.0
     bl, br, _, order, _ = jlbvh.build_topology(cent)
     jchild, jleaf, jdepth = jwide.build_topology_wide(bl, br, order)
     assert np.array_equal(child, jchild) and np.array_equal(leaf, jleaf) and depth == jdepth
+    assert clip is None
 
 
 def test_lbvh_table_traces_like_sah():
@@ -282,14 +283,21 @@ def test_native_build_failure_raises(tmp_path, monkeypatch):
 
 
 def test_unported_scene_features_raise():
-    """SBVH leaf clip boxes are not ported and raise; a scene with geometry
-    masks builds (ported), its BVH flagged ``has_masks``."""
+    """SBVH leaf clip boxes are ported: convert.bvh carries them instead of
+    raising. Geometry sharding, not yet ported, still raises. A scene with
+    geometry masks builds (ported), its BVH flagged ``has_masks``."""
     from types import SimpleNamespace
 
     from mrt_tpu_torch import Model, Scene
 
-    with pytest.raises(NotImplementedError):
-        convert.bvh(SimpleNamespace(leaf_clip=np.zeros((1, 6), np.float32)), device="cpu")
+    clip = np.zeros((1, 6), np.float32)
+    carried = convert.bvh(SimpleNamespace(
+        table=np.zeros((1, 128), np.float32), node_child=np.zeros((0, 8), np.int32),
+        leaf_tri=np.zeros((1, 12), np.int32), n_internal=0, depth=1, stack_bound=1,
+        leaf_clip=clip), device="cpu")
+    assert isinstance(carried, wide.WideBVH) and np.array_equal(carried.leaf_clip.numpy(), clip)
+    with pytest.raises(NotImplementedError, match="Slice G"):
+        T.check_supported(T.RenderSettings(geometry_axis="gp"))
     s = Scene(8, 8)
     s.models = [Model("sphere", geometry_mask=T.GEOMETRY_MASK_LIGHT), Model("plane")]
     d, _ = s.compile("cpu")

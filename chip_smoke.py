@@ -113,6 +113,28 @@ never prints its last line):
      False; a table above 2^20 - 1 rows, K3's float-sort instantiation),
      its rebuild timed, one frame's launches checked and one frame driven
      (after the profiler, so its wall runs on a slowed host);
+  7c. phase L, the sharded renderers (mrt_tpu_torch/dist), each rank a
+     process of its own on this card (dist.launch.launch; every line names
+     its backend; the ranks share one card, so no wall is a multi-GPU
+     scaling figure). L1, one rank over nccl: DistributedRenderer (dp=1,
+     sp=1) at run A's settings, 3 frames bit-equal to the single-device
+     Renderer with equal rays, then GeometryShardedRenderer at gp=1 on run
+     B's scene, 2 frames against the flat single device (two_level=False)
+     within 1e-5. L2, two ranks over gloo (NCCL refuses two ranks on one
+     GPU): dp=2 at run A bit-equal, with K1 on rank 0's gathered image
+     uint8-equal to its plain version; sp=2 at run A within 1e-6 of the
+     mean of the two sample windows the single device traces; gp=2 at run
+     B within 1e-5 of the flat single device (pixels outside counted, rays
+     equal or differing only where pixels differ), each rank's table bytes
+     beside the single table's, then one more frame in which each rank
+     holds every K3 launch on its padded shard table against the plain
+     version (hits, t/u/v bits, pops; no padded row visited). L3, four
+     ranks over gloo at 48x48: (dp, gp) = (2, 2) with the banded atlas on
+     a textured scene, 3 frames within 1e-5 of the flat single device and
+     a fourth checked as L2's, save_dist after the second, restore_dist in
+     a fresh world and one frame, bit-equal to the uninterrupted third.
+     Walls, rays, Mrays/s and the ranks' start-up seconds printed; K1, K2
+     (packed) and K3 (flat) must launch;
   8. a 48x48 frame traced and presented in every presenter mode on the card
      against the same frames on the CPU through the plain versions (the
      accumulation and the presented output within 1e-2 relative RMSE, the
@@ -121,7 +143,8 @@ never prints its last line):
      CPU within 1e-2 relative RMSE and rays within 1 %: mipmaps on, each
      debug view 1-7, and the light-masked frame.
 The line before the last is {"kernels": [...]}: K1, K2's three
-instantiations and K3's two, each with its bound
+instantiations and K3's two (launches counted over the main-path runs and
+phase L's ranks), each with its bound
 (mrt_tpu_torch/utils/bounds.py); the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1143,6 +1166,240 @@ def check_sbvh_refit(torch, r):
     return out
 
 
+def l3_scene(size: int = 48):
+    """Phase L3's textured scene: a sphere over a floor with a 64x64
+    checker and a 32x32 normal map made from a seed (phase 8's floor), no
+    geometry masks (gp has no mask test)."""
+    from mrt_tpu_torch import Model, Scene
+    from mrt_tpu_torch.assets import procedural
+    from mrt_tpu_torch.assets.obj import MaterialDef
+    from mrt_tpu_torch.utils import frame_profile as FP
+
+    checker, nmap = FP.floor_maps(seed=5, base=64, normal=32)
+    floor = procedural.plane(material=MaterialDef(name="floor", map_base_color=checker,
+                                                  map_normal=nmap))
+    s = Scene(size, size)
+    s.models = [Model("sphere", position=[0, 0.6, 0], scale=0.4), Model("floor", mesh=floor, scale=6)]
+    return s
+
+
+def reference_frames(torch, r, frames: int) -> dict:
+    """``frames`` draws of the single-device renderer ``r`` at its render
+    size: each accumulation (NumPy), rays and wall (synchronised)."""
+    r._allocate_state()
+    out = dict(images=[], rays=[], walls=[], offsets=r.offsets.cpu().numpy(),
+               settings=r.settings(), table_bytes=r.bvh.table.numel() * 4)
+    for _ in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.draw()
+        torch.cuda.synchronize()
+        out["walls"].append(time.perf_counter() - t0)
+        out["images"].append(r.accum.cpu().numpy())
+        out["rays"].append(int(r.last_rays_traced))
+    return out
+
+
+def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
+    """Phase L: the sharded renderers (mrt_tpu_torch/dist), each rank a
+    process of its own on this one card (dist.launch.launch). L1: a world
+    of one rank over nccl: DistributedRenderer (dp=1, sp=1) at run A's
+    settings, 3 frames bit-equal to the single-device Renderer with equal
+    rays; GeometryShardedRenderer at gp=1 on run B's scene, 2 frames within
+    1e-5 of the flat single-device renderer. L2: two ranks over gloo (NCCL
+    refuses two ranks on one GPU): dp=2 at run A (bit-equal, K1 on rank
+    0's gathered image uint8-equal to its plain version), sp=2 at run A
+    (within 1e-6 of the mean of the two sample windows the single device
+    traces), gp=2 at run B (within 1e-5 of the flat single device; pixels
+    outside counted, rays equal or differing only with such pixels; each
+    rank's table bytes; then one frame with each K3 launch of every rank
+    held against the plain version on its padded shard table). L3: four
+    ranks over gloo at 48x48, (dp, gp) = (2, 2) with the banded atlas on
+    ``l3_scene`` (3 frames within 1e-5 of the flat single device, a
+    fourth checked as L2's), save_dist after frame 2, restore_dist in a
+    fresh world and one frame, bit-equal to the uninterrupted third. The
+    ranks share one card, so no wall here is a multi-GPU scaling figure.
+    Returns each sub-phase's launch counts, summed over its ranks."""
+    import numpy as np
+
+    from mrt_tpu_torch import Renderer
+    from mrt_tpu_torch.core import types as T
+    from mrt_tpu_torch.dist import launch as L
+    from mrt_tpu_torch.render import wavefront as wf
+
+    t_phase = time.perf_counter()
+    note = "ranks share one card: not a multi-GPU scaling figure"
+    counts = {}
+
+    def launches(tag, results):
+        c = {"present": 0, "traverse2": 0, "traverse_flat": 0, "variants": {}}
+        for rank in results:
+            for job in rank:
+                for k in ("present", "traverse2", "traverse_flat"):
+                    c[k] += job["launches"][k]
+                for k, n in job["launches"]["variants"].items():
+                    c["variants"][k] = c["variants"].get(k, 0) + n
+        counts[tag] = c
+        return c
+
+    def frame_line(job, ref, tol):
+        """The rank-0 frames of ``job`` against the reference frames."""
+        errs = [float(np.abs(a - b).max()) for a, b in zip(job["images"], ref["images"])]
+        outside = [int((np.abs(a - b) > tol).any(axis=-1).sum())
+                   for a, b in zip(job["images"], ref["images"])]
+        differing = [int((a != b).any(axis=-1).sum()) for a, b in zip(job["images"], ref["images"])]
+        return dict(backend=job["backend"], setup_s=job["setup_s"], frames=len(job["images"]),
+                    frame_walls=job["walls"],
+                    rays=job["rays"], rays_single=ref["rays"][: len(job["rays"])],
+                    mrays_per_s=sum(job["rays"]) / sum(job["walls"]) / 1e6, max_abs_err=errs,
+                    tolerance=tol, pixels_outside=outside, pixels_differing=differing,
+                    bit_equal=not any(differing))
+
+    def flat_checks(tag, ranks, job):
+        """Each rank's check of one frame's K3 launches on its padded shard
+        table against traverse_flat_plain (``drive(check_flat=True)``);
+        raises on a mismatch, on a rank that launched no K3, on a lane that
+        reached a padded row, and when no rank's table is padded."""
+        checks = [rank[job]["flat_check"] for rank in ranks]
+        for r, c in enumerate(checks):
+            log(f"K3 traverse_flat phase {tag} rank {r}: one frame's {c['launches']} launches, "
+                f"{c['lanes']} lanes, on the shard table of {c['rows']} rows ({c['padded_rows']} "
+                f"padded, depth {c['depth']}, stack {c['stack_size']}) against the plain version: "
+                f"mismatches {c['mismatches']}, largest |t| difference {c['max_abs_err']}, "
+                f"padded rows visited {c['padded_visits']}")
+        if (any(c["launches"] < 1 or any(c["mismatches"].values()) or c["padded_visits"]
+                for c in checks) or not any(c["padded_rows"] for c in checks)):
+            raise AssertionError(f"phase {tag}: K3 on a padded shard table disagrees with its "
+                                 f"plain version: {checks}")
+        return checks
+
+    # single-device references: run A (two-level) and run B (flat)
+    ra = FP.make_renderer("A", dev)
+    ref_a = reference_frames(torch, ra, 3)
+    s_a = ref_a["settings"]
+    # frame 0's two sample windows, traced by the single device: sp=2's reference
+    sd, geom, bvh = ra.prepare()
+    uni = T.make_frame_uniforms(camera=ra.current_camera(), frame_index=0)
+    zeros = torch.zeros_like(ra.motion)
+    wins = [wf.trace_frame(s_a, ra.statics, sd, bvh, geom, uni, ra.offsets, zeros,
+                           sample_base=k * s_a.sample_stride) for k in (0, 1)]
+    ref_sp = dict(images=[((wins[0].color + wins[1].color) / 2).cpu().numpy()],
+                  rays=[sum(int(w.rays_traced.sum(dtype=torch.int64)) for w in wins)])
+    del ra, sd, geom, bvh, wins, zeros
+    rb = FP.make_renderer("B", dev)
+    rb.two_level = False
+    ref_b = reference_frames(torch, rb, 2)
+    del rb
+    torch.cuda.empty_cache()
+    scene_a, scene_b = FP.make_scene("A"), FP.make_scene("B")
+    log(f"phase L references and scenes: {time.perf_counter() - t_phase:.1f} s")
+
+    # --- L1: one rank over nccl
+    t0, st1 = time.perf_counter(), {}
+    l1 = L.launch(L.run_jobs, 1, [
+        (L.drive, ("dp", scene_a, s_a, {"dp": 1, "sp": 1}, 3), dict(offsets=ref_a["offsets"],
+                                                                  present=True)),
+        (L.drive, ("gp", scene_b, ref_b["settings"], {"gp": 1}, 2), dict(offsets=ref_b["offsets"])),
+    ], stats=st1)  # the launcher's defaults: the card, nccl
+    l1_s = time.perf_counter() - t0
+    dp1, gp1 = l1[0]
+    line = dict(phase="L1", world=1, backend="nccl", launch_s=l1_s, rank_times_s=st1["ranks"], note=note,
+                card=card_name, power_limit=power_limit,
+                dp1=dict(frame_line(dp1, ref_a, 0.0), frame_walls_single=ref_a["walls"],
+                         frame_walls_run_a=lines["A"]["frame_walls"],
+                         mrays_per_s_run_a=lines["A"]["mrays_per_s"],
+                         k1_max_err=dp1["present_max_err"]),
+                gp1=dict(frame_line(gp1, ref_b, 1e-5), frame_walls_single_flat=ref_b["walls"],
+                         table_bytes=gp1["table_bytes"], table_bytes_single=ref_b["table_bytes"]),
+                launches=launches("L1", l1))
+    log(json.dumps(line))
+    if not (line["dp1"]["bit_equal"] and dp1["rays"] == ref_a["rays"] and dp1["present_max_err"] == 0
+            and max(line["gp1"]["max_abs_err"]) <= 1e-5 and gp1["rays"] == ref_b["rays"]):
+        raise AssertionError(f"phase L1: a sharded frame disagrees with the single device: {line}")
+
+    # --- L2: two ranks sharing the card over gloo
+    t0, st2 = time.perf_counter(), {}
+    l2 = L.launch(L.run_jobs, 2, [
+        (L.drive, ("dp", scene_a, s_a, {"dp": 2, "sp": 1}, 2), dict(offsets=ref_a["offsets"],
+                                                                  present=True)),
+        (L.drive, ("dp", scene_a, s_a, {"dp": 1, "sp": 2}, 1), dict(offsets=ref_a["offsets"])),
+        (L.drive, ("gp", scene_b, ref_b["settings"], {"gp": 2}, 2), dict(offsets=ref_b["offsets"],
+                                                                         check_flat=True)),
+    ], backend="gloo", stats=st2)
+    l2_s = time.perf_counter() - t0
+    dp2, sp2, gp2 = l2[0]
+    gp_rays_local = [rank[2]["rays_local"] for rank in l2]
+    line = dict(phase="L2", world=2, backend="gloo", launch_s=l2_s, rank_times_s=st2["ranks"], note=note,
+                card=card_name, power_limit=power_limit,
+                dp2=dict(frame_line(dp2, ref_a, 0.0), k1_max_err=dp2["present_max_err"]),
+                sp2=frame_line(sp2, ref_sp, 1e-6),
+                gp2=dict(frame_line(gp2, ref_b, 1e-5), rays_local_by_rank=gp_rays_local,
+                         table_bytes_by_rank=[rank[2]["table_bytes"] for rank in l2],
+                         table_bytes_single=ref_b["table_bytes"],
+                         k3_checked_by_rank=flat_checks("L2 gp=2", l2, 2)),
+                launches=launches("L2", l2))
+    log(json.dumps(line))
+    g = line["gp2"]
+    # a lane that parts at a tie between shards may trace other rays: the
+    # rays differ only by what such (differing) pixels can trace
+    s_b = ref_b["settings"]
+    per_pixel = 2 * s_b.sample_stride * (s_b.max_bounces * (s_b.max_bounces + 2) + 2)
+    rays_ok = all(abs(a - b) <= n * per_pixel
+                  for a, b, n in zip(g["rays"], g["rays_single"], g["pixels_differing"]))
+    if not (line["dp2"]["bit_equal"] and dp2["rays"] == ref_a["rays"][:2]
+            and dp2["present_max_err"] == 0 and max(line["sp2"]["max_abs_err"]) <= 1e-6
+            and sp2["rays"] == ref_sp["rays"] and rays_ok
+            and all(x == gp_rays_local[0] for x in gp_rays_local)):
+        raise AssertionError(f"phase L2: a sharded frame disagrees with the single device: {line}")
+    if max(g["max_abs_err"]) > 1e-5:
+        log(f"phase L2 gp=2: {g['pixels_outside']} pixels outside 1e-5 of the flat single device")
+        raise AssertionError("phase L2 gp=2: pixels outside 1e-5 of the flat single device")
+
+    # --- L3: four ranks over gloo, (dp, gp) = (2, 2), banded atlas, save and resume
+    r3 = Renderer(l3_scene(), 48, 48, seed=3, device=dev)
+    FP.configure(r3)
+    r3.two_level = False
+    ref_3 = reference_frames(torch, r3, 3)
+    del r3
+    tmp = tempfile.TemporaryDirectory(prefix="mrt_phase_l_")
+    path = os.path.join(tmp.name, "l3.npz")
+    t0, st3, st3b = time.perf_counter(), {}, {}
+    l3 = L.launch(L.run_jobs, 4, [
+        (L.drive, ("gp", l3_scene(), ref_3["settings"], {"dp": 2, "gp": 2}, 3),
+         dict(offsets=ref_3["offsets"], banded=True, save=(2, path), check_flat=True)),
+    ], backend="gloo", stats=st3)
+    l3b = L.launch(L.run_jobs, 4, [
+        (L.drive, ("gp", l3_scene(), ref_3["settings"], {"dp": 2, "gp": 2}, 1),
+         dict(banded=True, restore=path)),
+    ], backend="gloo", stats=st3b)
+    l3_s = time.perf_counter() - t0
+    tmp.cleanup()
+    run3, resumed = l3[0][0], l3b[0][0]
+    launches("L3", [rank for rank in l3] + [rank for rank in l3b])
+    line = dict(phase="L3", world=4, backend="gloo", mesh={"dp": 2, "gp": 2}, banded=True,
+                launch_s=l3_s,
+                rank_times_s=[st3["ranks"], st3b["ranks"]], note=note, card=card_name,
+                power_limit=power_limit,
+                dp_gp=dict(frame_line(run3, ref_3, 1e-5),
+                           k3_checked_by_rank=flat_checks("L3 dp*gp=2*2", l3, 0)),
+                resumed_bit_equal=bool(np.array_equal(resumed["images"][0], run3["images"][2])),
+                resumed_rays=resumed["rays"], uninterrupted_rays=run3["rays"][2:],
+                launches=counts["L3"])
+    log(json.dumps(line))
+    if not (max(line["dp_gp"]["max_abs_err"]) <= 1e-5 and line["resumed_bit_equal"]
+            and resumed["rays"] == run3["rays"][2:]):
+        raise AssertionError(f"phase L3: the sharded frames or the resumed frame disagree: {line}")
+    for tag, kernels in (("L1", ("present", "traverse2", "traverse_flat")),
+                         ("L2", ("present", "traverse2", "traverse_flat")),
+                         ("L3", ("traverse_flat",))):
+        if min(counts[tag][k] for k in kernels) < 1:
+            raise AssertionError(f"phase {tag}: a kernel of the path never launched: {counts[tag]}")
+    if counts["L1"]["variants"].get("flat", 0) < 1 or counts["L2"]["variants"].get("packed", 0) < 1:
+        raise AssertionError(f"phase L: K3 flat or K2 packed missing: {counts}")
+    log(f"phase L: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1271,7 +1528,7 @@ def main() -> int:
         log(json.dumps(dict(run=tag, profile=line, card=card_name, power_limit=power_limit)))
         return line
 
-    checks, counts, walls, lines, clone_ms = {}, {}, {}, {}, {}
+    checks, counts, walls, lines, clone_ms, variant_counts_l = {}, {}, {}, {}, {}, {}
 
     def run(tag, r, timed, variant="packed", scene_name=None):
         checks[tag] = check_path_kernels(torch, tag, r, present, traverse2, bounds)
@@ -1484,6 +1741,11 @@ def main() -> int:
     del rg
     torch.cuda.empty_cache()
 
+    # --- 7c. phase L: the sharded renderers, each rank a process on this card ---------------------
+    for tag, c in phase_l(torch, FP, dev, lines, card_name, power_limit).items():
+        counts[tag] = {k: c[k] for k in ("present", "traverse2", "traverse_flat")}
+        variant_counts_l[tag] = c["variants"]
+
     # --- 8. a small frame on the card against the CPU plain path -------------------------------
     check_small_frames(dev)
     check_small_extras(dev)
@@ -1499,6 +1761,7 @@ def main() -> int:
     # rays.
     variant_counts = {t: lines[t]["k2_variants"] for t in lines}
     variant_counts["E"] = {"packed": sum(e_lines[m]["k2_variants"]["packed"] for m in E_MODES)}
+    variant_counts.update({t: {k: n for k, n in v.items() if n} for t, v in variant_counts_l.items()})
     a = checks["A"]
 
     def traversal_entry(name, key, run_tag, kernel, replaces):

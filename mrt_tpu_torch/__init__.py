@@ -13,19 +13,26 @@ kernels for BVH traversal and present::
     r.upscaler_mode = UPSCALER_OFF
     r.draw()
     image = r.output_image()  # uint8 RGB
+
+Across several ranks (one process each, ``torch.distributed`` set up by
+``torchrun`` or ``dist.launch.launch``): ``DistributedRenderer`` shards the
+image rows (dp) and the samples (sp), ``GeometryShardedRenderer`` the
+triangles (gp).
 """
 
 from .core import types
 from .core.types import (Camera, FrameUniforms, Lights, Materials, RenderSettings, area_light,
                          orbit_camera, point_light, spot_light, sun_light)
+from .dist.geometry import GeometryShardedRenderer
+from .dist.sharding import DistributedRenderer, make_mesh
 from .engine.appscene import make_app_scene
 from .engine.renderer import (UPSCALER_DENOISED, UPSCALER_OFF, UPSCALER_SPATIAL,
                               UPSCALER_TEMPORAL, Renderer)
 from .engine.scene import Model, ModelMaterialOverride, Scene, SkinData
 
 __all__ = [
-    "Camera", "FrameUniforms", "Lights", "Materials", "Model", "ModelMaterialOverride",
-    "RenderSettings", "Renderer", "Scene", "SkinData", "UPSCALER_DENOISED", "UPSCALER_OFF",
-    "UPSCALER_SPATIAL", "UPSCALER_TEMPORAL", "area_light", "make_app_scene", "orbit_camera",
+    "Camera", "DistributedRenderer", "FrameUniforms", "GeometryShardedRenderer", "Lights",
+    "Materials", "Model", "ModelMaterialOverride", "RenderSettings", "Renderer", "Scene", "SkinData", "UPSCALER_DENOISED", "UPSCALER_OFF",
+    "UPSCALER_SPATIAL", "UPSCALER_TEMPORAL", "area_light", "make_app_scene", "make_mesh", "orbit_camera",
     "point_light", "spot_light", "sun_light", "types",
 ]

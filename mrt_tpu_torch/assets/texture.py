@@ -6,7 +6,9 @@ atlas layout is identical. The device side is the bilinear sampling of the
 channel-packed atlas (``sample_packed``), of a per-map rect
 (``sample_bilinear``) and, with ``RenderSettings.use_mipmaps``, the
 trilinear sampling of each map's mip chain at a ray-cone LOD
-(``sample_trilinear``), as torch gathers.
+(``sample_trilinear``), as torch gathers. Under geometry sharding the
+packed atlas may be split into row bands over the ranks (``band_atlas``):
+each rank keeps one band and ``sample_packed_banded`` weighs the taps it owns.
 """
 
 from __future__ import annotations
@@ -65,6 +67,10 @@ class TextureAtlas(NamedTuple):
     n_levels: torch.Tensor  # (R, N_MAP_TYPES) int32 >= 1
     packed: torch.Tensor  # (Hp, Wp, PACKED_C) f32
     packed_rects: torch.Tensor  # (R, 4) int32 x0, y0, w, h
+    # gp banding (band_atlas): ``packed`` holds only this rank's row band of
+    # the packed atlas and ``band_lo`` its first global row; None for a
+    # whole atlas
+    band_lo: int | None = None
 
     @property
     def height(self) -> int:
@@ -318,6 +324,52 @@ def sample_packed(atlas: TextureAtlas, resource: torch.Tensor, uv: torch.Tensor)
     top = c00 * (1 - fx) + c10 * fx
     bot = c01 * (1 - fx) + c11 * fx
     return top * (1 - fy) + bot * fy
+
+
+def sample_packed_banded(atlas: TextureAtlas, resource: torch.Tensor,
+                         uv: torch.Tensor) -> torch.Tensor:
+    """This rank's share of ``sample_packed`` over a gp-banded atlas:
+    ``atlas.packed`` holds only this rank's band (global rows [band_lo,
+    band_lo + Hb)); the rank weighs the bilinear taps it owns and adds
+    zeros for the others. The sum of the ranks' shares
+    (``render/wavefront.sample_packed_across``) is the whole sample: a band
+    holds whole rows, so each of the two row terms of ``sample_packed``'s
+    bilinear sum is computed whole on its owner, and the sum over the ranks
+    equals ``sample_packed``'s (-0.0 aside)."""
+    gx0, gx1, gy0, gy1, fx, fy = _packed_taps(atlas.packed_rects, resource, uv)
+    band = atlas.packed
+    hb, width = band.shape[0], band.shape[1]
+    flat = band.reshape(-1, PACKED_C)
+    lo = atlas.band_lo
+
+    def fetch(gx, gy):
+        ly = gy - lo
+        own = (ly >= 0) & (ly < hb)
+        idx = torch.clamp(ly, 0, hb - 1) * width + gx
+        return torch.where(own[:, None], flat[idx.long()], 0.0)
+
+    c00 = fetch(gx0, gy0)
+    c10 = fetch(gx1, gy0)
+    c01 = fetch(gx0, gy1)
+    c11 = fetch(gx1, gy1)
+    return (c00 * (1 - fx) + c10 * fx) * (1 - fy) + (c01 * (1 - fx) + c11 * fx) * fy
+
+
+def band_atlas(atlas: TextureAtlas, n_bands: int) -> torch.Tensor:
+    """The packed atlas split into ``n_bands`` equal row bands (rows padded
+    with zeros): (n_bands, Hb, Wp, PACKED_C)."""
+    packed = atlas.packed
+    hp, wp, c = packed.shape
+    hb = -(-hp // n_bands)
+    packed = torch.nn.functional.pad(packed, (0, 0, 0, 0, 0, n_bands * hb - hp))
+    return packed.reshape(n_bands, hb, wp, c)
+
+
+def atlas_band(atlas: TextureAtlas, n_bands: int, k: int) -> TextureAtlas:
+    """``atlas`` with its packed texels cut to band ``k`` of ``band_atlas``
+    (a copy: the whole packed atlas can be freed)."""
+    band = band_atlas(atlas, n_bands)[k].clone()
+    return atlas._replace(packed=band, band_lo=k * band.shape[0])
 
 
 def packed_map(sampled: torch.Tensor, map_type: int) -> torch.Tensor:

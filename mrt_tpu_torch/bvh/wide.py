@@ -328,6 +328,21 @@ def refit(wbvh: WideBVH, v0, v1, v2, row_ids=None) -> WideBVH:
     return wbvh._replace(table=torch.cat([rows, leaf_rows]))
 
 
+def topology(v0, v1, v2, method: str = "auto", spatial: bool = False):
+    """The host half of ``build``: (node_child, leaf_tri, depth, leaf clip
+    boxes or None) as NumPy over (T,3) triangle vertices."""
+    v0, v1, v2 = (np.asarray(v, np.float32) for v in (v0, v1, v2))
+    if method in ("auto", "sah"):
+        from ..utils import native
+
+        return native.build_wide_bvh_sah(np.concatenate([v0, v1, v2], axis=1), ARITY, LEAF_K,
+                                         spatial=spatial)
+    if method == "lbvh":
+        bl, br, _, order, _ = lbvh.build_topology((v0 + v1 + v2) / 3.0)
+        return build_topology_wide(bl, br, order) + (None,)
+    raise ValueError(f"unknown BVH build method {method!r}")
+
+
 def build(v0, v1, v2, method: str = "auto", spatial: bool = False, device=None) -> WideBVH:
     """Host topology build over (T,3) world-space triangle vertices (NumPy),
     then a refit on ``device`` (default: the card).
@@ -339,17 +354,7 @@ def build(v0, v1, v2, method: str = "auto", spatial: bool = False, device=None) 
     only geometry that is never refit with other vertices."""
     device = resolve_device(device)
     v0, v1, v2 = (np.asarray(v, np.float32) for v in (v0, v1, v2))
-    clip = None
-    if method in ("auto", "sah"):
-        from ..utils import native
-
-        child, leaf, depth, clip = native.build_wide_bvh_sah(
-            np.concatenate([v0, v1, v2], axis=1), ARITY, LEAF_K, spatial=spatial)
-    elif method == "lbvh":
-        bl, br, _, order, _ = lbvh.build_topology((v0 + v1 + v2) / 3.0)
-        child, leaf, depth = build_topology_wide(bl, br, order)
-    else:
-        raise ValueError(f"unknown BVH build method {method!r}")
+    child, leaf, depth, clip = topology(v0, v1, v2, method, spatial)
     n_i = int(child.shape[0])
     bound = exact_stack_bound(
         lambda n: [int(c) for c in child[n] if c >= 0] if n < n_i else []) if n_i else 1

@@ -6,7 +6,8 @@ very tables the JAX package built: ``Renderer.from_compiled(scene(js),
 *compiled(jax_scene_data, jax_statics, jax_bvh, device))``, with either
 of its BVHs (two-level or flat, SBVH clip boxes included). ``device``
 defaults to the card and raises where there is none; CPU use passes
-``device="cpu"``. Skinned state comes across too: the skin slices, the
+``device="cpu"``. The geometry-sharded BVHs come across as per-rank
+shards (``sharded_bvhs``). Skinned state comes across too: the skin slices, the
 BVH's skinned index tensors, each model's ``SkinData`` (its skeleton and
 clip rebuilt as the port's own classes) and the scene's skin bundle. So does
 the presenter's state: a frame's G-buffer, the denoiser's ``DenoiseState``
@@ -36,7 +37,8 @@ def _t(a, device):
 
 
 def _nt(cls, src, device):
-    return cls(*(_t(getattr(src, f), device) for f in cls._fields))
+    return cls(*(None if getattr(src, f, None) is None else _t(getattr(src, f), device)
+                 for f in cls._fields))
 
 
 def scene_data(sd, device=None) -> SceneData:
@@ -90,6 +92,21 @@ def bvh(b, device=None) -> TwoLevelBVH | WideBVH:
         inst_mesh=tuple(b.inst_mesh), stack_bound=b.stack_bound,
         inst_masks=tuple(b.inst_masks), skin_indices=tuple(_t(x, device) for x in b.skin_indices),
         leaf_clip=clip)
+
+
+def sharded_bvhs(stacked, gids, row_gids, device=None) -> list:
+    """The JAX package's ``dist.geometry.build_sharded_bvhs`` output (its
+    ``WideBVH`` stacked over the shards, the stacked ``gids`` and
+    ``row_gids``) in the port's per-rank form: (WideBVH, gids, row_gids)
+    by shard, as the port's ``build_sharded_bvhs`` returns them."""
+    device = resolve_device(device)
+    table, child, leaf = (np.asarray(a) for a in (stacked.table, stacked.node_child,
+                                                   stacked.leaf_tri))
+    gids, row_gids = np.asarray(gids), np.asarray(row_gids)
+    return [(WideBVH(table=_t(table[k], device), node_child=_t(child[k], device),
+                     leaf_tri=_t(leaf[k], device), n_internal=stacked.n_internal,
+                     depth=stacked.depth, stack_bound=stacked.stack_bound),
+             _t(gids[k], device), _t(row_gids[k], device)) for k in range(gids.shape[0])]
 
 
 def compiled(sd, st, b, device=None):

@@ -8,8 +8,8 @@ both packages read the same tables.
 ``RenderSettings`` accepts every field of the JAX settings. The fields that
 only steer how XLA schedules work on a TPU (tile size, chunking, sorting,
 streaming, priming, VMEM placement) leave the result unchanged and are
-ignored here; :func:`check_supported` raises ``NotImplementedError`` for the
-settings this port does not cover yet.
+ignored here; :func:`check_supported` raises ``ValueError`` for settings no
+package has.
 """
 
 from __future__ import annotations
@@ -209,14 +209,12 @@ class RenderSettings:
 
 
 def check_supported(settings: RenderSettings) -> None:
-    """Raise ``NotImplementedError`` for settings outside the ported slices
-    (naming the ROADMAP item) and ``ValueError`` for settings no package
-    has; never ignore them silently."""
+    """Raise ``ValueError`` for settings no package has; never ignore them
+    silently. (``geometry_axis`` is set by ``dist.geometry``'s step, whose
+    geometry carries the axis's collectives.)"""
     if settings.traversal_backend != "wide":
         raise ValueError(f"unknown traversal_backend {settings.traversal_backend!r}: only 'wide' "
                          "exists (two_level picks the two-level or the flat table)")
-    if settings.geometry_axis:
-        raise NotImplementedError("geometry sharding is not ported yet (ROADMAP Slice G)")
     if settings.light_sampling not in ("uniform", "power"):
         raise ValueError(f"unknown light_sampling {settings.light_sampling!r}")
 

@@ -9,6 +9,11 @@ the skinned pose buffers and the previous camera. A checkpoint written by
 either package restores in the other. The JAX package's hit-priming caches
 (``prime_primary``, ``prime_shadow``) are hints the port does not keep: it
 writes neither key and ignores both on restore.
+
+``save_dist`` and ``restore_dist`` do the same for the sharded renderers
+(``dist/sharding.py``, ``dist/geometry.py``) with the JAX package's
+``save_dist`` keys: the row blocks are gathered and rank 0 writes the
+whole images; every rank reads the file and keeps its own rows.
 """
 
 from __future__ import annotations
@@ -110,3 +115,73 @@ def restore(renderer, path: str) -> None:
     # LAST: the property writes above reset frame_index (the accumulation-
     # restart idiom)
     object.__setattr__(renderer, "frame_index", int(z["frame_index"]))
+
+
+def save_dist(dr, path: str) -> None:
+    """Checkpoint a sharded renderer. Collective: every rank calls it. The
+    row blocks are gathered over dp, rank 0 writes the file, and every rank
+    returns once it is written (a broadcast from rank 0; a failed write
+    raises on every rank). The port keeps no workload hints, so
+    ``step_hint`` is written as (H,W) int32 zeros for the JAX package's
+    ``restore_dist`` to find."""
+    full = {k: _host(dr.gather(getattr(dr, k))) for k in ("accum", "motion", "depth", "offsets")}
+    prev = dr._previous_camera
+    err = None
+    if dr.mesh.rank == 0:
+        try:
+            np.savez_compressed(
+                path,
+                version=FORMAT_VERSION,
+                scene_fingerprint=np.asarray(_fingerprint(dr), np.int64),
+                accum=full["accum"],
+                motion=full["motion"],
+                depth=full["depth"],
+                step_hint=np.zeros(full["depth"].shape, np.int32),
+                offsets=full["offsets"].astype(np.int32),
+                frame_index=dr.frame_index,
+                prev_camera=(np.stack([_host(x) for x in prev]) if prev is not None
+                             else np.zeros((0, 3), np.float32)),
+                joint_matrices=(np.concatenate([_host(m).reshape(-1, 4, 4)
+                                                for m in dr._joint_matrices])
+                                if dr._joint_matrices else np.zeros((0, 4, 4), np.float32)),
+            )
+        except Exception as e:  # the other ranks wait on the broadcast below
+            err = e
+    failed = dr.mesh.broadcast(torch.tensor([0 if err is None else 1], dtype=torch.int32,
+                                            device=dr.device))
+    if err is not None:
+        raise err
+    if int(failed.item()):
+        raise RuntimeError(f"rank 0 could not write the checkpoint {path}")
+
+
+def restore_dist(dr, path: str) -> None:
+    """Load ``save_dist`` state (of either package) into a sharded renderer
+    over the same scene and settings, any mesh shape: each rank keeps its
+    rows. Raises ValueError on another version, resolution or scene."""
+    z = np.load(path, allow_pickle=False)
+    if int(z["version"]) != FORMAT_VERSION:
+        raise ValueError(f"checkpoint version {int(z['version'])} != {FORMAT_VERSION}")
+    fp = tuple(int(x) for x in z["scene_fingerprint"])
+    if fp != _fingerprint(dr):
+        raise ValueError(f"checkpoint scene fingerprint {fp} != renderer scene {_fingerprint(dr)}")
+    expected = (dr.settings.height, dr.settings.width, 3)
+    if z["accum"].shape != expected:
+        raise ValueError(f"checkpoint resolution {z['accum'].shape} != {expected}")
+    rows = slice(dr.y0, dr.y0 + dr.local_h)
+
+    def block(key, dtype):
+        return torch.as_tensor(np.ascontiguousarray(z[key][rows]), dtype=dtype).to(dr.device)
+
+    dr.accum = block("accum", torch.float32)
+    dr.motion = block("motion", torch.float32)
+    dr.depth = block("depth", torch.float32)
+    dr.offsets = block("offsets", torch.int32)
+    dr.frame_index = int(z["frame_index"])
+    if z["prev_camera"].shape[0] == 4:
+        pc = z["prev_camera"].astype(np.float32)
+        dr._previous_camera = Camera(*(torch.as_tensor(pc[k]).to(dr.device) for k in range(4)))
+    jm = z["joint_matrices"]
+    if jm.shape[0] and dr._joint_matrices:
+        ends = np.cumsum([m.shape[0] for m in dr._joint_matrices])
+        dr.set_joint_matrices(tuple(np.split(jm.astype(np.float32), ends[:-1])))

@@ -63,26 +63,73 @@ VIEW_MODE_WORLD = "world"
 VIEW_MODE_TPS = "tps"
 
 
+def pose(statics, scene_data, skin_bundle=(), joint_matrices=()):
+    """``scene_data`` with each skinned model's slice of the vertex pool
+    re-skinned from its rest pose with ``joint_matrices`` (one (J,4,4)
+    tensor per model, in ``statics.skin_slices`` order)."""
+    if not statics.skin_slices:
+        return scene_data
+    pos_obj = scene_data.positions_obj.clone()
+    nrm_obj = scene_data.normals_obj.clone()
+    for k, (_, start, count) in enumerate(statics.skin_slices):
+        sb = skin_bundle[k]
+        sp, sn = lbs.skin(sb.weights_dense, joint_matrices[k], sb.rest_positions, sb.rest_normals)
+        pos_obj[start : start + count] = sp
+        nrm_obj[start : start + count] = sn
+    return scene_data._replace(positions_obj=pos_obj, normals_obj=nrm_obj)
+
+
 def prepare_frame(statics, scene_data, bvh, skin_bundle=(), joint_matrices=()):
-    """Skinning -> world transform -> packed per-triangle rows -> BVH refit
-    (two-level: skinned BLASes, instance and TLAS rows, static BLASes never
-    refit; flat: the whole table from the world-space triangles).
-    Each skinned model's slice of the vertex pool is re-skinned from its
-    rest pose with ``joint_matrices`` (one (J,4,4) tensor per model, in
-    ``statics.skin_slices`` order). Returns (scene_data with the skinned
-    pose, geometry, BVH)."""
-    if statics.skin_slices:
-        pos_obj = scene_data.positions_obj.clone()
-        nrm_obj = scene_data.normals_obj.clone()
-        for k, (_, start, count) in enumerate(statics.skin_slices):
-            sb = skin_bundle[k]
-            sp, sn = lbs.skin(sb.weights_dense, joint_matrices[k], sb.rest_positions, sb.rest_normals)
-            pos_obj[start : start + count] = sp
-            nrm_obj[start : start + count] = sn
-        scene_data = scene_data._replace(positions_obj=pos_obj, normals_obj=nrm_obj)
+    """Skinning (``pose``) -> world transform -> packed per-triangle rows ->
+    BVH refit (two-level: skinned BLASes, instance and TLAS rows, static
+    BLASes never refit; flat: the whole table from the world-space
+    triangles). Returns (scene_data with the skinned pose, geometry, BVH)."""
+    scene_data = pose(statics, scene_data, skin_bundle, joint_matrices)
     pos_w, prev_w, nrm_w = scene_mod.world_geometry(scene_data)
     geom = wf.build_geometry(scene_data, pos_w, prev_w, nrm_w)
     return scene_data, geom, kind.refit(bvh, scene_data, geom)
+
+
+def _host_mirror(scene: scene_mod.Scene, scene_data) -> dict:
+    """The compiled scene's host arrays (read back from ``scene_data`` when
+    it was compiled elsewhere, e.g. ``from_compiled``)."""
+    host = getattr(scene, "host_mirror", None)
+    if host is None:
+        host = {k: getattr(scene_data, f).cpu().numpy() for k, f in (
+            ("positions", "positions_obj"), ("indices", "indices"),
+            ("vertex_instance", "vertex_instance"), ("tri_instance", "tri_instance"))}
+    return host
+
+
+def world_triangles(scene: scene_mod.Scene, scene_data) -> tuple:
+    """(v0, v1, v2), each (T,3) f32 NumPy: the scene's triangles placed by
+    the LIVE model transforms (host einsum, as the JAX package's renderer
+    computes them for its flat table)."""
+    host = _host_mirror(scene, scene_data)
+    M = scene.instance_transforms()[host["vertex_instance"]]
+    pos_w = np.einsum("vij,vj->vi", M[:, :3, :3], host["positions"]) + M[:, :3, 3]
+    idx = host["indices"]
+    return pos_w[idx[:, 0]], pos_w[idx[:, 1]], pos_w[idx[:, 2]]
+
+
+def build_bvh(scene: scene_mod.Scene, scene_data, two_level: bool, device,
+              traversal_backend: str = "wide"):
+    """The BVH the settings ask for, built from the current scene as the JAX
+    package's ``_build_bvh`` builds it: the two-level BVH, or the flat table
+    over ``world_triangles`` (a rebuild after large moves sees the current
+    pose; a skinned model's vertices are its rest pose, which each frame's
+    refit corrects)."""
+    if traversal_backend != "wide":
+        raise ValueError(f"unknown traversal_backend {traversal_backend!r}: only 'wide' "
+                         "exists (two_level picks the two-level or the flat table)")
+    if not two_level and any(m.geometry_mask != T.GEOMETRY_MASK_GEOMETRY for m in scene.models):
+        raise ValueError(
+            "geometry masks require the two-level traversal backend "
+            "(two_level=True, traversal_backend='wide'); the flat/cluster "
+            "backends have no per-instance mask filtering")
+    if two_level:
+        return twolevel.build(scene.models, scene_data, _host_mirror(scene, scene_data))
+    return wide.build(*world_triangles(scene, scene_data), device=device)
 
 
 class FrameStats:
@@ -300,35 +347,10 @@ class Renderer:
         self.frame_index = 0
 
     def _build_bvh(self):
-        """Build the BVH the settings ask for from the current scene, as the
-        JAX package's ``_build_bvh`` does: the two-level BVH, or the flat
-        table over world-space triangles placed by the LIVE model
-        transforms (a rebuild after large moves sees the current pose; a
-        skinned model's vertices are its rest pose, which each frame's
-        refit corrects)."""
-        if self.traversal_backend != "wide":
-            raise ValueError(f"unknown traversal_backend {self.traversal_backend!r}: only 'wide' "
-                             "exists (two_level picks the two-level or the flat table)")
-        if not self.two_level and any(m.geometry_mask != T.GEOMETRY_MASK_GEOMETRY
-                                      for m in self.scene.models):
-            raise ValueError(
-                "geometry masks require the two-level traversal backend "
-                "(two_level=True, traversal_backend='wide'); the flat/cluster "
-                "backends have no per-instance mask filtering")
-        host = getattr(self.scene, "host_mirror", None)
-        if host is None:  # state compiled elsewhere (from_compiled): read it back
-            sd = self.scene_data
-            host = {k: getattr(sd, f).cpu().numpy() for k, f in (
-                ("positions", "positions_obj"), ("indices", "indices"),
-                ("vertex_instance", "vertex_instance"), ("tri_instance", "tri_instance"))}
-        if self.two_level:
-            self.bvh = twolevel.build(self.scene.models, self.scene_data, host)
-            return
-        M = self.scene.instance_transforms()[host["vertex_instance"]]
-        pos_w = np.einsum("vij,vj->vi", M[:, :3, :3], host["positions"]) + M[:, :3, 3]
-        idx = host["indices"]
-        self.bvh = wide.build(pos_w[idx[:, 0]], pos_w[idx[:, 1]], pos_w[idx[:, 2]],
-                              device=self.device)
+        """Build the BVH the settings ask for from the current scene
+        (``build_bvh``)."""
+        self.bvh = build_bvh(self.scene, self.scene_data, self.two_level, self.device,
+                             self.traversal_backend)
 
     def rebuild_bvh(self):
         """Rebuild the BVH topology from the current scene (the flat table

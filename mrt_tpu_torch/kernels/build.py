@@ -6,12 +6,16 @@ with a plain C interface, ``build/torch_kernels/libmrt_kernels.so``, loaded
 with ctypes. ``-fmad=false`` keeps every multiply and add separately
 rounded, as the JAX package's unfused arithmetic is. The build happens at
 first use, never at import; a stale library (older than a source) is
-rebuilt.
+rebuilt. Processes that start at once (the ranks of a world) build under a
+file lock, each into object files of its own, and the library appears in
+one step: a process loads a whole library or builds it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -48,16 +52,37 @@ def _stale() -> bool:
     return LIB.stat().st_mtime < newest
 
 
+@contextlib.contextmanager
+def _locked():
+    """Hold the build directory's lock (released if the holder dies)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
 def build(verbose: bool = False) -> float:
-    """Compile every source in parallel and link the library. Returns the
-    build's wall seconds. Raises with the compiler's output on failure."""
+    """Compile every source in parallel and link the library, under the
+    build lock. Returns the build's wall seconds. Raises with the
+    compiler's output on failure."""
+    with _locked():
+        return _build(verbose)
+
+
+def ensure_built() -> None:
+    """Build the library if it is missing or stale (under the build lock)."""
+    with _locked():
+        if _stale():
+            _build()
+
+
+def _build(verbose: bool = False) -> float:
     global build_seconds
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = []
     for src in _sources():
-        obj = BUILD_DIR / (src.stem + ".o")
+        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.STDOUT, text=True)))
@@ -74,6 +99,8 @@ def build(verbose: bool = False) -> float:
     tmp = LIB.with_suffix(f".{os.getpid()}.tmp")
     link = subprocess.run([nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
                            *objs, "-o", str(tmp)], capture_output=True, text=True, timeout=600)
+    for obj in objs:
+        os.remove(obj)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
     os.replace(tmp, LIB)
@@ -86,8 +113,7 @@ def load():
     global _lib
     if _lib is not None:
         return _lib
-    if _stale():
-        build()
+    ensure_built()
     lib = ctypes.CDLL(str(LIB))
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.mrt_present.argtypes = [p, p, ll, p]

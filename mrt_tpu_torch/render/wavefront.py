@@ -20,7 +20,13 @@ when some instance has a non-default mask (``TwoLevelBVH.has_masks``).
 
 The rays traverse the BVH the renderer holds: the two-level one
 (``bvh/twolevel.py``, kernel K2) or the flat table (``bvh/wide.py``,
-kernel K3), whose hits carry the same global triangle ids.
+kernel K3), whose hits carry the same global triangle ids. Under geometry
+sharding (``settings.geometry_axis``, ``dist/geometry.py``) every rank of
+the gp axis traces the same lanes against its own shard's flat table: the
+closest hits are combined by min-t (``combine_hits_across``), the shadow
+rays' occlusion by a max, and each hit's shade and motion rows, which only
+the shard that owns the triangle holds, by a sum (``_tri_rows``), so every
+rank then shades identically.
 
 Shadow rays are traced as their own batch right after they are made (the
 JAX package may defer them into the next bounce's closest-hit batch; that
@@ -39,6 +45,7 @@ from ..assets import texture as tex
 from ..bvh import kind, twolevel, wide
 from ..core import halton as H
 from ..core import types as T
+from ..dist import comm
 from ..engine.scene import SceneData, SceneStatics
 from . import shade as S
 
@@ -61,6 +68,47 @@ class Geometry(NamedTuple):
     motion_rows: torch.Tensor
     # (R,16): [base(3) specular(3) emission(3) spec_exp ior opacity flags pad(3)]
     mat_rows: torch.Tensor
+    # geometry sharding (dist/geometry.py): global triangle id -> this
+    # shard's row (-1: another rank's); the shade and motion rows are then
+    # the shard's own, and ``axis`` (dist.comm.Axis) is the gp axis
+    g2l: torch.Tensor | None = None
+    axis: object = None
+
+
+def _tri_rows(table: torch.Tensor, tri: torch.Tensor, geom: Geometry) -> torch.Tensor:
+    """Per-hit rows of ``table`` for the (P,) triangle ids ``tri``. Under
+    geometry sharding the rank that owns a triangle gathers its row, the
+    others add zeros, and a psum over the gp axis gives every rank the row
+    (exact; -0.0 comes back as +0.0)."""
+    if geom.g2l is None:
+        return table[tri]
+    loc = geom.g2l[tri].long()
+    rows = torch.where((loc >= 0)[:, None], table[loc.clamp_min(0)], 0.0)
+    return comm.psum(rows, geom.axis)
+
+
+def sample_packed_across(atlas: tex.TextureAtlas, resource: torch.Tensor, uv: torch.Tensor,
+                         axis) -> torch.Tensor:
+    """``tex.sample_packed`` over an atlas banded over the gp ``axis``
+    (``dist.comm.Axis``): each rank's share of the taps
+    (``tex.sample_packed_banded``), summed over the axis."""
+    return comm.psum(tex.sample_packed_banded(atlas, resource, uv), axis)
+
+
+def combine_hits_across(hits: T.Hits, axis) -> T.Hits:
+    """Min-t reduction of the ranks' closest hits over a geometry-sharded
+    mesh axis (``dist.comm.Axis``): every rank traced the same rays against
+    its own shard; the winner is the globally closest hit, a tie going to
+    the lowest rank; the triangle is -1 where no rank hit."""
+    t_min = comm.pmin(hits.t, axis)
+    mine = (hits.t == t_min) & (hits.triangle >= 0)
+    winner_rank = comm.pmin(torch.where(mine, axis.index, 1 << 30).to(torch.int32), axis)
+    winner = mine & (winner_rank == axis.index)
+    ids = comm.psum(torch.stack([torch.where(winner, hits.triangle, 0), winner.to(torch.int32)]),
+                    axis)
+    uv = comm.psum(torch.stack([torch.where(winner, hits.u, 0.0),
+                                torch.where(winner, hits.v, 0.0)]), axis)
+    return T.Hits(t=t_min, triangle=ids[0] - (1 - ids[1]), u=uv[0], v=uv[1])
 
 
 def pack_mat_rows(m: T.Materials) -> torch.Tensor:
@@ -163,8 +211,16 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
                  prev_motion: torch.Tensor, sample_base: int | None = None) -> TileOutputs:
     """Trace every sample of P pixels (lanes). pixel_x/pixel_y/offsets: (P,)
     int32 on the scene's device; prev_motion (P,2): the previous frame's
-    motion at these pixels, for the motion-adaptive extra samples."""
+    motion at these pixels, for the motion-adaptive extra samples;
+    ``sample_base``: the Halton index base (default frame_index *
+    sample_stride)."""
     T.check_supported(settings)
+    gax = None
+    if settings.geometry_axis:
+        gax = geom.axis
+        if gax is None or not kind.is_flat(bvh):
+            raise ValueError("geometry_axis needs a shard's flat table and its shard geometry "
+                             "(dist.geometry)")
     P = pixel_x.shape[0]
     dev = pixel_x.device
     f32 = torch.float32
@@ -244,6 +300,8 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
                 closest_kw["ray_mask"] = torch.where(bounce == 0, T.RAY_MASK_PRIMARY,
                                                      T.RAY_MASK_SECONDARY).to(torch.int32)
             hits = trav.closest_hit(bvh, T.Rays(ray_o, ray_d, inf_d), mask=active, **closest_kw)
+            if gax is not None:
+                hits = combine_hits_across(hits, gax)
             hit = hits.hit & active
             if statics.has_environment:
                 missed = active & ~hit
@@ -252,7 +310,7 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
             active = active & hit
 
             tri = hits.triangle.clamp_min(0).long()
-            srow = geom.shade_rows[tri]
+            srow = _tri_rows(geom.shade_rows, tri, geom)
             res = srow[:, 15].to(torch.int32)
             world_point = ray_o + ray_d * hits.t[:, None]
             u_b1 = hits.u[:, None]
@@ -267,7 +325,7 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
                 prim_v = torch.where(primary, hits.v, prim_v)
 
             if settings.use_mipmaps or motion_view:
-                mrow = geom.motion_rows[tri]
+                mrow = _tri_rows(geom.motion_rows, tri, geom)
 
             # --- surface normal ------------------------------------------------------
             nrm_raw = u_b1 * srow[:, 3:6] + v_b1 * srow[:, 6:9] + w_b1 * srow[:, 0:3]
@@ -303,7 +361,10 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
                 if settings.use_mipmaps:
                     return tex.sample_trilinear(scene.atlas, res, map_type, tex_coord, lod_base)
                 if not packed:
-                    packed.append(tex.sample_packed(scene.atlas, res, tex_coord))
+                    if gax is not None and scene.atlas.band_lo is not None:
+                        packed.append(sample_packed_across(scene.atlas, res, tex_coord, gax))
+                    else:
+                        packed.append(tex.sample_packed(scene.atlas, res, tex_coord))
                 return tex.packed_map(packed[0], map_type)
 
             def has(bit):
@@ -369,7 +430,7 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
             shading_nrm = nrm
             if statics.any_map[tex.MAP_NORMAL]:
                 if not (settings.use_mipmaps or motion_view):
-                    mrow = geom.motion_rows[tri]
+                    mrow = _tri_rows(geom.motion_rows, tri, geom)
                 valid_tb, tangent, _ = S.tangent_basis_rows(
                     mrow[:, 0:3], mrow[:, 3:6], mrow[:, 6:9],
                     srow[:, 9:11], srow[:, 11:13], srow[:, 13:15])
@@ -512,6 +573,8 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
             rays = rays + need_shadow.to(torch.int32)
             occluded = trav.any_hit(bvh, T.Rays(shadow_o, l_dir, shadow_dist), mask=need_shadow,
                                     **shadow_kw)
+            if gax is not None:
+                occluded = comm.pmax(occluded.to(torch.int32), gax) > 0
             accumulated = accumulated + _where3(need_shadow & ~occluded, contrib, 0.0)
 
             if settings.shading_mode == T.SHADING_MODE_LEGACY:
@@ -535,7 +598,7 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
 
         if is_sample0:
             # depth/motion from the recorded bounce-0 hit
-            mrow_p = geom.motion_rows[prim_tri.clamp_min(0).long()]
+            mrow_p = _tri_rows(geom.motion_rows, prim_tri.clamp_min(0).long(), geom)
             mot, pdepth = _screen_motion(uniforms, mrow_p, prim_u[:, None], prim_v[:, None],
                                          width_f, height_f)
             had0 = prim_tri >= 0
@@ -560,20 +623,24 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
 
 
 def trace_frame(settings, statics, scene, bvh, geom, uniforms, offsets: torch.Tensor,
-                prev_motion: torch.Tensor) -> TileOutputs:
-    """Trace the whole (H,W) frame, ``LANE_BATCH`` pixels at a time;
-    ``prev_motion`` (H,W,2) is the previous frame's motion. Returns
-    TileOutputs with (H,W) leading dims."""
+                prev_motion: torch.Tensor, y0: int = 0,
+                sample_base: int | None = None) -> TileOutputs:
+    """Trace the (h,W) row block of ``offsets`` whose first row is image row
+    ``y0`` (the whole frame by default; data-parallel ranks each trace their
+    own rows), ``LANE_BATCH`` pixels at a time; ``prev_motion`` (h,W,2) is
+    the previous frame's motion; ``sample_base`` as ``trace_pixels``'s.
+    Returns TileOutputs with (h,W) leading dims."""
     h, w = offsets.shape
     dev = offsets.device
     n = h * w
     idx = torch.arange(n, dtype=torch.int32, device=dev)
-    px_all, py_all, offs_all = idx % w, idx // w, offsets.reshape(-1)
+    px_all, py_all, offs_all = idx % w, idx // w + y0, offsets.reshape(-1)
     pmot_all = prev_motion.reshape(n, 2)
     parts = []
     for s in range(0, n, LANE_BATCH):
         sl = slice(s, min(s + LANE_BATCH, n))
         parts.append(trace_pixels(settings, statics, scene, bvh, geom, uniforms,
-                                  px_all[sl], py_all[sl], offs_all[sl], pmot_all[sl]))
+                                  px_all[sl], py_all[sl], offs_all[sl], pmot_all[sl],
+                                  sample_base=sample_base))
     return TileOutputs(*(None if f[0] is None else torch.cat(f).reshape((h, w) + f[0].shape[1:])
                          for f in zip(*parts)))

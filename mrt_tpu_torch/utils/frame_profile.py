@@ -189,13 +189,9 @@ def robot_asset(directory):
             os.environ["MRT_ASSET_PATH"] = old
 
 
-def make_renderer(tag: str, device, seed: int = 0, asset_dir=None):
-    """Scene, BVH and renderer of run ``tag`` with the main path's settings
-    (the scene sized as the render). Run H's robot loads from
-    ``asset_dir`` (``write_character``'s files), else from the files
-    written into a temporary directory here."""
+def make_scene(tag: str, seed: int = 0, asset_dir=None):
+    """Run ``tag``'s scene (sized as its render; see ``make_renderer``)."""
     from ..engine.appscene import make_app_scene
-    from ..engine.renderer import Renderer
 
     run = RUNS[tag]
     scale = run.get("render_scale", 1.0)
@@ -209,7 +205,19 @@ def make_renderer(tag: str, device, seed: int = 0, asset_dir=None):
                                include_robot=run.get("robot", False), asset_models=False,
                                dragon_subdivisions=run["dragon_subdivisions"])
     _extras(scene, run, seed)
-    r = Renderer(scene, run["width"], run["height"], seed=seed, device=device)
+    return scene
+
+
+def make_renderer(tag: str, device, seed: int = 0, asset_dir=None):
+    """Scene, BVH and renderer of run ``tag`` with the main path's settings
+    (the scene sized as the render). Run H's robot loads from
+    ``asset_dir`` (``write_character``'s files), else from the files
+    written into a temporary directory here."""
+    from ..engine.renderer import Renderer
+
+    run = RUNS[tag]
+    r = Renderer(make_scene(tag, seed, asset_dir), run["width"], run["height"], seed=seed,
+                 device=device)
     if run.get("flat"):
         r.two_level = False
     configure(r, run.get("motion_adaptive", False),

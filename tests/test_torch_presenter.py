@@ -235,15 +235,13 @@ def test_gbuffer_supported_and_wavefront_extras_raise():
     """enable_gbuffer, the wavefront extras (every debug texture mode,
     mipmaps) and the flat BVH (two_level=False) are ported and pass; an
     unknown traversal backend raises ValueError naming it, as the JAX
-    package's renderer does; geometry sharding, still outside the port,
-    raises naming its ROADMAP slice."""
+    package's renderer does; geometry sharding (``geometry_axis``, set by
+    ``dist.geometry``'s step) is ported and passes."""
     from mrt_tpu_torch.core import types as T
 
     T.check_supported(T.RenderSettings(enable_gbuffer=True))
     for kw in [dict(debug_mode=m) for m in range(T.DEBUG_MODE_BASECOLOR, T.DEBUG_MODE_MOTION + 1)] + [
-            dict(use_mipmaps=True), dict(two_level=False)]:
+            dict(use_mipmaps=True), dict(two_level=False), dict(geometry_axis="gp")]:
         T.check_supported(T.RenderSettings(**kw))
     with pytest.raises(ValueError, match="'lbvh'"):
         T.check_supported(T.RenderSettings(traversal_backend="lbvh"))
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        T.check_supported(T.RenderSettings(geometry_axis="gp"))

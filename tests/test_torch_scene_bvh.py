@@ -284,7 +284,7 @@ def test_native_build_failure_raises(tmp_path, monkeypatch):
 
 def test_unported_scene_features_raise():
     """SBVH leaf clip boxes are ported: convert.bvh carries them instead of
-    raising. Geometry sharding, not yet ported, still raises. A scene with
+    raising. Geometry sharding is ported: its setting passes. A scene with
     geometry masks builds (ported), its BVH flagged ``has_masks``."""
     from types import SimpleNamespace
 
@@ -296,8 +296,7 @@ def test_unported_scene_features_raise():
         leaf_tri=np.zeros((1, 12), np.int32), n_internal=0, depth=1, stack_bound=1,
         leaf_clip=clip), device="cpu")
     assert isinstance(carried, wide.WideBVH) and np.array_equal(carried.leaf_clip.numpy(), clip)
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        T.check_supported(T.RenderSettings(geometry_axis="gp"))
+    T.check_supported(T.RenderSettings(geometry_axis="gp"))
     s = Scene(8, 8)
     s.models = [Model("sphere", geometry_mask=T.GEOMETRY_MASK_LIGHT), Model("plane")]
     d, _ = s.compile("cpu")

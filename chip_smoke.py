@@ -37,13 +37,21 @@ never prints its last line):
      prints the seconds of its prepare stage (skinning, world transform,
      refit) per animated frame, the share of pixels that earned 1 and 2
      extra samples, and its largest motion vector (> 0.5 px: the robot
-     moves); the whole-table copy of each run's refit is timed;
+     moves), and its refit is checked as phase D's (below); the whole-table
+     copy of each run's refit is timed. Runs C, E, H launch K4 ``blas``
+     and K5 (the refit kernels) every animated frame, run J K4 ``flat``;
+     their counts are set to 0 and read with the others;
   5. phase D, skinning and refit at character scale: one skinned cylinder
      of 66,049 vertices, 131,072 triangles and 64 joints with the swing rig
      over a floor at 1024x576 with run C's settings, 2 frames driven.
      Checks: the card's LBS against a float64 NumPy LBS within 1e-5 of the
-     rig's extent; the card's refit bit-equal to the CPU's on the same
-     posed vertices in the skinned BLAS rows, the other rows within 1e-6;
+     rig's extent; the card's refit (K4 ``blas`` and K5) bit-equal to the
+     plain refit on the card in the whole table and the root boxes (K4's
+     and K5's device times, the plain versions' and the bounds printed),
+     and to the CPU's on the same posed vertices in the skinned BLAS rows,
+     the other rows within 1e-6; then one refit with a NaN in a real slot
+     of the posed vertices, bit-equal to the plain version on the card
+     with the NaN in the root box and the rows above it;
   6. run E, the presenter chain: run C's scene rendered at 1920x1080
      (render scale 0.5), 1 spp, 2 bounces, motion-adaptive sampling on, and
      presented at 3840x2160 through the spatial (Lanczos-3), temporal and
@@ -66,8 +74,10 @@ never prints its last line):
      masked K2; then one frame of each debug view 1-6 on run F's scene and
      of the motion view (7) on run C's; run G, run B's scene with two
      distinct blob(subdivisions=9) dragons (a table above 2^20 rows; its
-     host build seconds printed), launches only the float-sort K2. Runs A-E
-     launch only the packed one;
+     host build seconds printed), launches only the float-sort K2; its
+     build's refit of every group (K4 ``blas``, K5) is counted and checked
+     bit-equal to the plain version on the card, and equal to the built
+     table. Runs A-E launch only the packed one;
   6c. run H, a rigged character read from disk, and phase I, a checkpoint
      on the card. Phase D's character (66,049 vertices, 64 joints, the swing
      clip) is written in centimetres, with the port's own writers, as a USDZ
@@ -90,19 +100,24 @@ never prints its last line):
   6d. run J, the animated app frame on the flat BVH: run C's scene with
      two_level = False (K3 flat; the whole table refit from the posed
      triangles every frame), checked and driven as runs A-C are, its
-     prepare seconds, its refit on the card bit-equal to the CPU's, and a
+     prepare seconds, its refit (K4 ``flat``) bit-equal to the plain
+     version on the card and to the CPU's, and a
      48x48 flat frame of the same scene on the card against the CPU (1e-2
      relative RMSE, rays equal), printed beside run C; then phase K, run A's
-     scene built under MRT_SBVH=1 (SBVH clip boxes): the full refit on the
-     card against the CPU (BLAS rows and root boxes bit-equal, the other
-     rows within 1e-6, equal to the build's table), K2 checked on a frame's
-     launches and 2 frames driven, printed beside run A;
+     scene built under MRT_SBVH=1 (SBVH clip boxes; the build's K4 and K5
+     launches counted): the full refit on the card bit-equal to the plain
+     version on the card, and against the CPU (BLAS rows and root boxes
+     bit-equal, the other rows within 1e-6, equal to the build's table), K2
+     checked on a frame's launches and 2 frames driven, printed beside run
+     A;
   7. after every run was driven, under torch.profiler: K1's device time at
      runs A and B (1920x1080 and 1024x576), warm and after a 64 MB write
      (cold), K2's device time over one more steady frame of runs A-C and
      F-H (warm L2), the costliest operators
      of a frame of runs A and F, phase D's and run H's LBS and refit device
-     time per animated frame beside their bounds, and run E's present device time
+     time per animated frame beside their bounds (the refit's device events
+     per call by name, K4's and K5's time among them, and its CUDA-event
+     time), and run E's present device time
      and events per mode, its resize products' and denoiser's device time
      and K1's at (2160,3840,3), beside their bounds; K3's device time over a
      steady frame of run J, its refit's and prepare's device time. A
@@ -111,8 +126,9 @@ never prints its last line):
      times in all;
   7b. run G flat: run G's renderer switched to the flat BVH (two_level =
      False; a table above 2^20 - 1 rows, K3's float-sort instantiation),
-     its rebuild timed, one frame's launches checked and one frame driven
-     (after the profiler, so its wall runs on a slowed host);
+     its rebuild timed (its K4 ``flat`` launch counted), one frame's
+     launches checked and one frame driven (after the profiler, so its wall
+     runs on a slowed host), its refit checked as run J's on the card;
   7c. phase L, the sharded renderers (mrt_tpu_torch/dist), each rank a
      process of its own on this card (dist.launch.launch; every line names
      its backend; the ranks share one card, so no wall is a multi-GPU
@@ -128,13 +144,14 @@ never prints its last line):
      equal or differing only where pixels differ), each rank's table bytes
      beside the single table's, then one more frame in which each rank
      holds every K3 launch on its padded shard table against the plain
-     version (hits, t/u/v bits, pops; no padded row visited). L3, four
+     version (hits, t/u/v bits, pops; no padded row visited), and its K4
+     ``flat`` refit of that table (every row's bits). L3, four
      ranks over gloo at 48x48: (dp, gp) = (2, 2) with the banded atlas on
      a textured scene, 3 frames within 1e-5 of the flat single device and
      a fourth checked as L2's, save_dist after the second, restore_dist in
      a fresh world and one frame, bit-equal to the uninterrupted third.
      Walls, rays, Mrays/s and the ranks' start-up seconds printed; K1, K2
-     (packed) and K3 (flat) must launch;
+     (packed), K3 (flat) and K4 (flat) must launch;
   8. a 48x48 frame traced and presented in every presenter mode on the card
      against the same frames on the CPU through the plain versions (the
      accumulation and the presented output within 1e-2 relative RMSE, the
@@ -143,8 +160,9 @@ never prints its last line):
      CPU within 1e-2 relative RMSE and rays within 1 %: mipmaps on, each
      debug view 1-7, and the light-masked frame.
 The line before the last is {"kernels": [...]}: K1, K2's three
-instantiations and K3's two (launches counted over the main-path runs and
-phase L's ranks), each with its bound
+instantiations, K3's two, K4's two and K5 (launches counted over the
+main-path runs, the builds of runs G and K and of run G flat, and phase
+L's ranks), each with its bound
 (mrt_tpu_torch/utils/bounds.py); the last line is
 {"ok": true, "device": {...}}.
 """
@@ -648,13 +666,111 @@ def checkpoint_phase(torch, FP, checkpoint, r, asset_dir, dev, path) -> dict:
     return line
 
 
-def check_character(torch, r, rig, tag="phase D"):
+REFIT_KEYS = ("refit_blas", "refit_flat", "refit_tlas")
+
+
+def refit_counts(refit) -> dict:
+    """K4's (by instantiation) and K5's launches since their counts were
+    last set to 0."""
+    return {"refit_blas": refit.rows_launches["blas"], "refit_flat": refit.rows_launches["flat"],
+            "refit_tlas": refit.tlas_launches}
+
+
+def build_counts(tag, refit, need) -> dict:
+    """The launch counts of a BVH build (its refit: K4 and K5 since their
+    counts were set to 0; no frame, so no K1, K2 or K3); raises when a
+    kernel of ``need`` never launched."""
+    c = {"present": 0, "traverse2": 0, "traverse_flat": 0, **refit_counts(refit)}
+    if min(c[k] for k in need) < 1:
+        raise AssertionError(f"{tag}: a refit kernel of the build never launched: {c}")
+    log(f"{tag}: launches {json.dumps(c)}")
+    return c
+
+
+def max_abs_err(torch, a, b) -> float:
+    """The largest |a - b| over the entries whose bits differ (inf where
+    one is NaN); 0.0 when every bit agrees."""
+    if a.numel() == 0:
+        return 0.0
+    same = a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32)
+    d = (a - b).abs().nan_to_num(nan=float("inf"))
+    return float(torch.where(same, torch.zeros_like(d), d).max())
+
+
+def rows_differing(torch, a, b) -> int:
+    """Rows of ``a`` whose bits differ from ``b``'s (NaN compared by bits)."""
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes differ: {tuple(a.shape)} against {tuple(b.shape)}")
+    return int((a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32))
+               .reshape(a.shape[0], -1).any(dim=1).sum())
+
+
+def device_names(torch, fn, reps: int, name: str) -> tuple[float, float, dict]:
+    """(device ms per call, device events per call, {kernel name: [events,
+    ms] per call}) of ``fn`` from torch.profiler over ``reps`` calls, each
+    of which launches one kernel whose name holds ``name``: a session that
+    saw fewer of them is logged and taken again, up to three times."""
+    for attempt in range(3):
+        ev = device_events(torch, profiled(torch, fn, reps)[0])
+        found = sum(name in e.name for e in ev)
+        if found == reps:
+            break
+        log_dropout(f"'{name}' x{reps}", attempt, found, ev)
+    else:
+        raise AssertionError(f"the profiler saw {found} '{name}' kernels in {reps} calls")
+    names = {}
+    for e in ev:
+        n = names.setdefault(e.name[:80], [0.0, 0.0])
+        n[0] += 1 / reps
+        n[1] += e.time_range.elapsed_us() / 1e3 / reps
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps, len(ev) / reps, names
+
+
+def check_twolevel_refit(torch, refit, bounds, tag, b, pos, M, group_indices=None,
+                         timed: bool = True) -> dict:
+    """One two-level refit through K4 ``blas`` and K5 held against the plain
+    version on the same CUDA tensors: the whole table and the root boxes
+    bit for bit (NaN by its bits). ``timed``: K4's and K5's device times
+    (profiler, warm, 10 calls), the plain versions' (CUDA events) and their
+    bounds. Raises on a difference; returns the numbers."""
+    kt, kmin, kmax = refit.twolevel(b, pos, M, group_indices)
+    pt, pmin, pmax = refit.twolevel_plain(b, pos, M, group_indices)
+    out = dict(rows=kt.shape[0], rows_differing=rows_differing(torch, kt, pt),
+               roots_differing=rows_differing(torch, kmin, pmin) + rows_differing(torch, kmax, pmax),
+               max_abs_err=max(max_abs_err(torch, kt, pt), max_abs_err(torch, kmin, pmin),
+                               max_abs_err(torch, kmax, pmax)),
+               groups_refit=len(b.mesh_meta) if group_indices is not None else
+               sum(m[8] >= 0 for m in b.mesh_meta),
+               nan_rows=int(torch.isnan(kt[:, :48]).any(dim=1).sum()),
+               nan_roots=int(torch.isnan(kmin).any(dim=1).sum()))
+    if timed:
+        all_groups = group_indices is not None
+
+        def call():
+            return refit.twolevel(b, pos, M, group_indices)
+
+        table, rbmin, rbmax = pt.clone(), pmin.clone(), pmax.clone()
+        out.update(
+            k4_ms=device_ms(torch, call, "refit_rows", 10), k5_ms=device_ms(torch, call, "refit_tlas", 10),
+            k4_plain_ms=cuda_ms(lambda: refit.blas_plain(table, rbmin, rbmax, b, pos, group_indices), 3),
+            k5_plain_ms=cuda_ms(lambda: refit.tlas_plain(table, rbmin, rbmax, b, M), 3))
+        out["k4_bound_ms"], out["k4_bound_by"] = bounds.blas_refit(b, all_groups)
+        out["k5_bound_ms"], out["k5_bound_by"] = bounds.tlas_refit(b)
+    log(f"K4 refit_rows (blas) and K5 refit_tlas, {tag}: {json.dumps(out)}")
+    if out["rows_differing"] or out["roots_differing"]:
+        raise AssertionError(f"{tag}: K4/K5 disagree with the plain refit on the card: {out}")
+    return out
+
+
+def check_character(torch, r, rig, refit, bounds, tag="phase D"):
     """The first skinned model of phase D (or of ``tag``): LBS on the card
     against float64 NumPy (positions within 1e-5 of the rig's extent, unit
-    normals within 1e-5), and the card's refit against
-    the CPU's on the same posed vertices: the skinned BLAS rows and root
-    boxes bit-equal, the other rows (instance rows hold a torch.linalg.inv)
-    within 1e-6. Each plain version's host time is printed."""
+    normals within 1e-5); the card's refit (K4 ``blas`` and K5) against the
+    plain version on the card, the whole table and the root boxes bit for
+    bit (``check_twolevel_refit``), and against the CPU's on the same posed
+    vertices: the skinned BLAS rows and root boxes bit-equal, the other
+    rows (instance rows hold a library 3x3 inverse) within 1e-6. Each plain
+    version's host time is printed. Returns the kernel check's numbers."""
     import numpy as np
 
     from mrt_tpu_torch.bvh import twolevel
@@ -678,6 +794,7 @@ def check_character(torch, r, rig, tag="phase D"):
         raise AssertionError(f"{tag}: LBS on the card disagrees with the float64 reference")
 
     posed, M = r.scene_data.positions_obj, r.scene_data.instance_transform
+    kernels = check_twolevel_refit(torch, refit, bounds, tag, r.bvh, posed, M)
     gpu = twolevel.refit(r.bvh, posed, M)
     bvh_c, posed_c, M_c = r.bvh.to("cpu"), posed.cpu(), M.cpu()
     t0 = time.perf_counter()
@@ -700,13 +817,30 @@ def check_character(torch, r, rig, tag="phase D"):
         f"within 1e-6: {close}; the CPU's refit {plain_refit_ms:.1f} ms on the host")
     if bad_skin or bad_roots or not close:
         raise AssertionError(f"{tag}: the skinned refit on the card disagrees with the CPU")
+    return dict(kernels, cpu_refit_ms=plain_refit_ms)
+
+
+def check_refit_nan(torch, r, refit, bounds, tag="phase D"):
+    """One refit of ``r``'s two-level BVH with a NaN in a real slot of its
+    first skinned model's posed vertices (a y coordinate): K4 and K5
+    against the plain version on the card, bit for bit, the NaN carried up
+    to the group's root box and the TLAS as the plain version carries it."""
+    posed = r.scene_data.positions_obj.clone()
+    _, start, count = r.statics.skin_slices[0]
+    posed[start + count // 3, 1] = float("nan")
+    out = check_twolevel_refit(torch, refit, bounds, f"{tag} with a NaN vertex", r.bvh, posed,
+                               r.scene_data.instance_transform, timed=False)
+    if not (out["nan_roots"] and out["nan_rows"]):
+        raise AssertionError(f"{tag}: the NaN vertex reached no root box or internal row: {out}")
+    return out
 
 
 def profile_prepare(torch, r, bounds):
     """Device time per animated frame of LBS (each skinned model) and of
-    the refit (profiler, warm, 20 calls each) and of the whole prepare
-    stage; beside them the CUDA-event time of the same calls (which holds
-    the host's launch gaps), the bounds and the refit's whole-table copy."""
+    the refit (profiler, warm, 20 calls each: its device events per call by
+    name, K4's and K5's among them) and of the whole prepare stage; beside
+    them the CUDA-event time of the same calls (which holds the host's
+    launch gaps), the bounds and the refit's whole-table copy."""
     from mrt_tpu_torch.bvh import twolevel
     from mrt_tpu_torch.skinning import lbs
 
@@ -727,7 +861,10 @@ def profile_prepare(torch, r, bounds):
     def refit():
         return twolevel.refit(r.bvh, posed, M)
 
-    out["refit_ms"], out["refit_device_events"] = device_total_ms(torch, refit, 20)
+    out["refit_ms"], out["refit_device_events"], names = device_names(torch, refit, 20, "refit_tlas")
+    out["refit_events_by_name"] = names
+    out["refit_k4_ms"] = sum(v[1] for k, v in names.items() if "refit_rows" in k)
+    out["refit_k5_ms"] = sum(v[1] for k, v in names.items() if "refit_tlas" in k)
     out["refit_events_ms"] = cuda_ms(refit, 20)
     out["refit_bound_ms"], out["refit_bound_by"] = bounds.refit(r.bvh)
     out["prepare_ms"], out["prepare_device_events"] = device_total_ms(torch, r.prepare, 5)
@@ -768,7 +905,7 @@ def check_variants(tag, traverse2, want: str):
     return rose
 
 
-def drive_e(torch, r, mode, present, traverse2, presenter, timed=3):
+def drive_e(torch, r, mode, present, traverse2, presenter, refit, timed=3):
     """Run E in one presenter mode, with the launch counters set to 0 first:
     a warm-up frame, ``timed`` orbit frames (orbit(0.02, 0), draw(1/30),
     present_device, as the reference's interactive drive) and ``timed``
@@ -780,6 +917,7 @@ def drive_e(torch, r, mode, present, traverse2, presenter, timed=3):
     r.upscaler_mode = mode
     present.launches = 0
     traverse2.reset_launches()
+    refit.reset_launches()
     r.orbit(0.02, 0.0)
     r.draw(1 / 30)
     r.present_device()  # warm-up
@@ -808,8 +946,8 @@ def drive_e(torch, r, mode, present, traverse2, presenter, timed=3):
             kind, how = ("orbit", "differs from") if orbit else ("still", "equals")
             raise AssertionError(f"run E {mode}, frame {i} ({kind}): the present {how} a "
                                  "history-free one")
-    counts = {"present": present.launches, "traverse2": traverse2.launches}
-    if min(counts.values()) < 1:
+    counts = {"present": present.launches, "traverse2": traverse2.launches, **refit_counts(refit)}
+    if min(counts[k] for k in ("present", "traverse2", "refit_blas", "refit_tlas")) < 1:
         raise AssertionError(f"run E {mode}: a kernel of the path never launched: {counts}")
     variants = check_variants(f"E {mode}", traverse2, "packed")
     acc = r.accum
@@ -1060,25 +1198,34 @@ def drive_debug(torch, tag, r, mode, present, traverse2, variant, frames=1):
     return line
 
 
-def check_flat_refit(torch, r, tag):
-    """Run ``tag``'s flat table refit on the card against the CPU on the same
-    posed world-space triangles (this frame's prepare stage): every row bit
-    for bit. Returns the numbers; raises on a difference."""
+def check_flat_refit(torch, r, tag, refit, bounds, cpu: bool = True):
+    """Run ``tag``'s flat table refit (this frame's prepare stage, kernel K4
+    ``flat``) against its plain version on the card on the same posed
+    world-space triangles, every row bit for bit, with K4's device time
+    (profiler, warm, 10 calls), the plain version's (CUDA events) and the
+    bound; with ``cpu``, also against the CPU's refit. Returns the numbers;
+    raises on a difference."""
     from mrt_tpu_torch.bvh import wide
 
     _, geom, gpu = r.prepare()
     tris = (geom.tri_v0, geom.tri_v1, geom.tri_v2)
-    t0 = time.perf_counter()
-    cpu = wide.refit(r.bvh.to("cpu"), *(t.cpu() for t in tris))
-    cpu_ms = (time.perf_counter() - t0) * 1e3
-    bad = int((gpu.table.cpu().view(torch.int32) != cpu.table.view(torch.int32)).any(dim=1).sum())
-    out = dict(rows=gpu.n_rows, rows_differing=bad, cpu_refit_ms=cpu_ms,
+    plain = refit.flat_plain(r.bvh, *tris)
+    bound_ms, bound_by = bounds.flat_refit(r.bvh)
+    out = dict(rows=gpu.n_rows, unreached_rows=int(r.bvh.walkup.unreached.numel()),
+               rows_differing_plain=rows_differing(torch, gpu.table, plain),
+               max_abs_err=max_abs_err(torch, gpu.table, plain),
+               k4_ms=device_ms(torch, lambda: wide.refit(r.bvh, *tris), "refit_rows", 10),
+               k4_plain_ms=cuda_ms(lambda: refit.flat_plain(r.bvh, *tris), 3),
+               k4_bound_ms=bound_ms, k4_bound_by=bound_by,
                events_ms=cuda_ms(lambda: wide.refit(r.bvh, *tris), 20))
-    log(f"run {tag} flat refit on the card vs the CPU on the same posed triangles: {bad} of "
-        f"{out['rows']} rows differ in their bits; card {out['events_ms']:.3f} ms (CUDA events), "
-        f"CPU {cpu_ms:.1f} ms on the host")
-    if bad:
-        raise AssertionError(f"run {tag}: the flat refit on the card disagrees with the CPU")
+    if cpu:
+        t0 = time.perf_counter()
+        ct = wide.refit(r.bvh.to("cpu"), *(t.cpu() for t in tris)).table
+        out["cpu_refit_ms"] = (time.perf_counter() - t0) * 1e3
+        out["rows_differing_cpu"] = rows_differing(torch, gpu.table.cpu(), ct)
+    log(f"K4 refit_rows (flat), run {tag}, on the same posed triangles: {json.dumps(out)}")
+    if out["rows_differing_plain"] or out.get("rows_differing_cpu"):
+        raise AssertionError(f"run {tag}: the flat refit on the card disagrees: {out}")
     return out
 
 
@@ -1125,19 +1272,23 @@ def group_indices(torch, r, device):
     ).astype(np.int32)).to(device) for g in range(len(r.bvh.mesh_meta)))
 
 
-def check_sbvh_refit(torch, r):
+def check_sbvh_refit(torch, r, refit, bounds):
     """Phase K: the SBVH table's full refit (every BLAS, its leaf boxes
-    clamped by the clip boxes) on the card against the CPU on the same
-    vertices: the BLAS rows and root boxes bit-equal, the TLAS and instance
-    rows (a torch.linalg.inv) within 1e-6; the card's refit equal to the
-    build's table; and the clamp binding: rows that an unclipped refit
-    writes otherwise. Returns the numbers; raises on a difference."""
+    clamped by the clip boxes): K4 ``blas`` and K5 against the plain
+    version on the card, bit for bit (``check_twolevel_refit``); the card
+    against the CPU on the same vertices: the BLAS rows and root boxes
+    bit-equal, the TLAS and instance rows (a library 3x3 inverse) within
+    1e-6; the card's refit equal to the build's table; and the clamp
+    binding: rows that an unclipped refit writes otherwise. Returns the
+    numbers; raises on a difference."""
     from mrt_tpu_torch.bvh import twolevel
 
     b = r.bvh
     if b.leaf_clip is None:
         raise AssertionError("phase K: MRT_SBVH=1 built no clip boxes")
     pos, M = r.scene_data.positions_obj, r.scene_data.instance_transform
+    kernels = check_twolevel_refit(torch, refit, bounds, "phase K (every group, clipped)", b, pos, M,
+                                   group_indices(torch, r, pos.device), timed=False)
     gpu = twolevel.refit(b, pos, M, group_indices=group_indices(torch, r, pos.device))
     t0 = time.perf_counter()
     cpu = twolevel.refit(b.to("cpu"), pos.cpu(), M.cpu(), group_indices=group_indices(torch, r, "cpu"))
@@ -1157,7 +1308,7 @@ def check_sbvh_refit(torch, r):
     clamped = int((gpu.table.view(torch.int32) != unclipped.table.view(torch.int32)).any(dim=1).sum())
     clipped_leaves = int(torch.isfinite(b.leaf_clip).all(dim=1).sum())
     out = dict(rows=gt.shape[0], blas_rows=blas.stop - blas.start, blas_rows_differing=bad_blas,
-               roots_differing=bad_roots, other_rows_within_1e6=close,
+               roots_differing=bad_roots, other_rows_within_1e6=close, kernels=kernels,
                refit_equals_build=same_as_build, leaves_with_clip_boxes=clipped_leaves,
                rows_the_clamp_changes=clamped, cpu_refit_ms=cpu_ms)
     log(f"phase K SBVH refit, card vs CPU: {json.dumps(out)}")
@@ -1233,9 +1384,10 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
 
     def launches(tag, results):
         c = {"present": 0, "traverse2": 0, "traverse_flat": 0, "variants": {}}
+        c.update(dict.fromkeys(REFIT_KEYS, 0))
         for rank in results:
             for job in rank:
-                for k in ("present", "traverse2", "traverse_flat"):
+                for k in ("present", "traverse2", "traverse_flat") + REFIT_KEYS:
                     c[k] += job["launches"][k]
                 for k, n in job["launches"]["variants"].items():
                     c["variants"][k] = c["variants"].get(k, 0) + n
@@ -1256,21 +1408,24 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
                     bit_equal=not any(differing))
 
     def flat_checks(tag, ranks, job):
-        """Each rank's check of one frame's K3 launches on its padded shard
-        table against traverse_flat_plain (``drive(check_flat=True)``);
-        raises on a mismatch, on a rank that launched no K3, on a lane that
-        reached a padded row, and when no rank's table is padded."""
+        """Each rank's check of one frame's K3 launches and its K4 ``flat``
+        refit on its padded shard table against traverse_flat_plain and
+        flat_plain (``drive(check_flat=True)``); raises on a mismatch, on a
+        rank that launched no K3 or K4, on a lane that reached a padded row,
+        and when no rank's table is padded."""
         checks = [rank[job]["flat_check"] for rank in ranks]
         for r, c in enumerate(checks):
             log(f"K3 traverse_flat phase {tag} rank {r}: one frame's {c['launches']} launches, "
                 f"{c['lanes']} lanes, on the shard table of {c['rows']} rows ({c['padded_rows']} "
                 f"padded, depth {c['depth']}, stack {c['stack_size']}) against the plain version: "
                 f"mismatches {c['mismatches']}, largest |t| difference {c['max_abs_err']}, "
-                f"padded rows visited {c['padded_visits']}")
+                f"padded rows visited {c['padded_visits']}; K4 refit_rows (flat) on it: "
+                f"{json.dumps(c['refit'])}")
         if (any(c["launches"] < 1 or any(c["mismatches"].values()) or c["padded_visits"]
-                for c in checks) or not any(c["padded_rows"] for c in checks)):
-            raise AssertionError(f"phase {tag}: K3 on a padded shard table disagrees with its "
-                                 f"plain version: {checks}")
+                or c["refit"]["launches"] < 1 or c["refit"]["rows_differing"] for c in checks)
+                or not any(c["padded_rows"] for c in checks)):
+            raise AssertionError(f"phase {tag}: K3 or K4 on a padded shard table disagrees with "
+                                 f"its plain version: {checks}")
         return checks
 
     # single-device references: run A (two-level) and run B (flat)
@@ -1339,6 +1494,7 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
                          k3_checked_by_rank=flat_checks("L2 gp=2", l2, 2)),
                 launches=launches("L2", l2))
     log(json.dumps(line))
+    line_l2 = line
     g = line["gp2"]
     # a lane that parts at a tie between shards may trace other rays: the
     # rays differ only by what such (differing) pixels can trace
@@ -1389,9 +1545,10 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
     if not (max(line["dp_gp"]["max_abs_err"]) <= 1e-5 and line["resumed_bit_equal"]
             and resumed["rays"] == run3["rays"][2:]):
         raise AssertionError(f"phase L3: the sharded frames or the resumed frame disagree: {line}")
-    for tag, kernels in (("L1", ("present", "traverse2", "traverse_flat")),
-                         ("L2", ("present", "traverse2", "traverse_flat")),
-                         ("L3", ("traverse_flat",))):
+    counts["L2"]["gp_refit"] = [c["refit"] for c in line_l2["gp2"]["k3_checked_by_rank"]]
+    for tag, kernels in (("L1", ("present", "traverse2", "traverse_flat", "refit_flat")),
+                         ("L2", ("present", "traverse2", "traverse_flat", "refit_flat")),
+                         ("L3", ("traverse_flat", "refit_flat"))):
         if min(counts[tag][k] for k in kernels) < 1:
             raise AssertionError(f"phase {tag}: a kernel of the path never launched: {counts[tag]}")
     if counts["L1"]["variants"].get("flat", 0) < 1 or counts["L2"]["variants"].get("packed", 0) < 1:
@@ -1413,7 +1570,7 @@ def main() -> int:
 
     from mrt_tpu_torch.core import halton as H
     from mrt_tpu_torch.core import types as T
-    from mrt_tpu_torch.kernels import build, present, traverse2
+    from mrt_tpu_torch.kernels import build, present, refit, traverse2
     from mrt_tpu_torch.upscale import presenter
     from mrt_tpu_torch.utils import bounds
     from mrt_tpu_torch.utils import frame_profile as FP
@@ -1473,13 +1630,15 @@ def main() -> int:
     del padded, flat_a
 
     # --- 4. main path: each run's kernels checked at its shapes, then driven ---------------
-    def drive(tag, r, timed, scene_name, variant="packed"):
+    def drive(tag, r, timed, scene_name, variant="packed", refits=()):
         """Warm-up + ``timed`` frames with the launch counters set to 0
         first; per timed frame (after its wall) the largest motion vector and
         the pixels by extra samples earned. Only the traversal instantiation
-        ``variant`` may launch (K3's names start with "flat")."""
+        ``variant`` may launch (K3's names start with "flat"); each refit
+        kernel in ``refits`` (REFIT_KEYS) must."""
         present.launches = 0
         traverse2.reset_launches()
+        refit.reset_launches()
         r.draw(1 / 60)  # warm-up
         torch.cuda.synchronize()
         rays, walls, motion, extras = 0, [], [], []
@@ -1496,8 +1655,8 @@ def main() -> int:
         img = r.output_image()
         torch.cuda.synchronize()
         counts = {"present": present.launches, "traverse2": traverse2.launches,
-                  "traverse_flat": traverse2.flat_launches}
-        path = ("present", "traverse_flat" if variant.startswith("flat") else "traverse2")
+                  "traverse_flat": traverse2.flat_launches, **refit_counts(refit)}
+        path = ("present", "traverse_flat" if variant.startswith("flat") else "traverse2") + refits
         h, w = r.render_height, r.render_width
         if img.shape != (h, w, 3) or img.dtype != np.uint8:
             raise AssertionError(f"{tag}: image {img.shape} {img.dtype}")
@@ -1530,10 +1689,10 @@ def main() -> int:
 
     checks, counts, walls, lines, clone_ms, variant_counts_l = {}, {}, {}, {}, {}, {}
 
-    def run(tag, r, timed, variant="packed", scene_name=None):
+    def run(tag, r, timed, variant="packed", scene_name=None, refits=()):
         checks[tag] = check_path_kernels(torch, tag, r, present, traverse2, bounds)
         counts[tag], walls[tag], lines[tag] = drive(
-            tag, r, timed, scene_name or FP.RUNS[tag]["scene"], variant)
+            tag, r, timed, scene_name or FP.RUNS[tag]["scene"], variant, refits)
         # refit keeps its input table: it copies the whole table every call
         clone_ms[tag] = cuda_ms(lambda: r.bvh.table.clone(), 20)
 
@@ -1553,8 +1712,13 @@ def main() -> int:
             prep.append(time.perf_counter() - t0)
         return prep[1:]
 
-    run("C", rc, 3)
+    skinned = ("refit_blas", "refit_tlas")
+    run("C", rc, 3, refits=skinned)
     prep = prepare_walls(rc)
+    robot_skin = rc.scene.models[0].skin
+    refit_checks = {"C": check_character(torch, rc, dict(joint_indices=robot_skin.joint_indices,
+                                                         joint_weights=robot_skin.joint_weights),
+                                         refit, bounds, tag="run C")}
     c = lines["C"]
     n_pix = rc.render_width * rc.render_height
     shares = [[n / n_pix for n in e[1:]] for e in c["pixels_by_extra_samples"]]
@@ -1568,16 +1732,17 @@ def main() -> int:
 
     # --- 5. phase D: skinning and refit at character scale ----------------------------------
     rd, dparts = make_character(dev)
-    counts["D"], _, lines["D"] = drive("D", rd, 1, dparts["scene"])
+    counts["D"], _, lines["D"] = drive("D", rd, 1, dparts["scene"], refits=skinned)
     clone_ms["D"] = cuda_ms(lambda: rd.bvh.table.clone(), 20)
-    check_character(torch, rd, dparts)
+    refit_checks["D"] = check_character(torch, rd, dparts, refit, bounds)
+    refit_checks["D NaN"] = check_refit_nan(torch, rd, refit, bounds)
 
     # --- 6. run E: the presenter chain, a 1080p render presented at 4K -----------------------
     re_ = make("E")
     e_lines, e_checks = {}, {}
-    counts["E"] = {"present": 0, "traverse2": 0}
+    counts["E"] = {"present": 0, "traverse2": 0, **dict.fromkeys(REFIT_KEYS, 0)}
     for mode in E_MODES:
-        c, e_lines[mode] = drive_e(torch, re_, mode, present, traverse2, presenter)
+        c, e_lines[mode] = drive_e(torch, re_, mode, present, traverse2, presenter, refit)
         counts["E"] = {k: n + c[k] for k, n in counts["E"].items()}
         e_checks[mode], x4k = check_e_mode(torch, re_, present, presenter, T)
         e_lines[mode].update(e_checks[mode], card=card_name, power_limit=power_limit)
@@ -1611,7 +1776,17 @@ def main() -> int:
         raise AssertionError("run C, motion view: no motion shown (blue, the magnitude, is 0)")
     torch.cuda.empty_cache()
 
+    refit.reset_launches()
     rg = make("G")
+    counts["G build"] = build_counts("G build", refit, skinned)
+    refit_checks["G build"] = check_twolevel_refit(
+        torch, refit, bounds, "run G's build-time refit of every group", rg.bvh,
+        rg.scene_data.positions_obj, rg.scene_data.instance_transform,
+        group_indices(torch, rg, dev))
+    if rows_differing(torch, refit.twolevel(rg.bvh, rg.scene_data.positions_obj,
+                                            rg.scene_data.instance_transform,
+                                            group_indices(torch, rg, dev))[0], rg.bvh.table):
+        raise AssertionError("run G: a refit of every group does not give the build's table")
     if rg.bvh.table.shape[0] <= 2 ** 20 - 1:
         raise AssertionError(f"run G: the table has {rg.bvh.table.shape[0]} rows, not more than "
                              "2^20 - 1")
@@ -1638,12 +1813,13 @@ def main() -> int:
             and robot.mesh.positions.shape[0] == hmesh.positions.shape[0]
             and rh.statics.skin_slices[0][2] == hmesh.positions.shape[0]):
         raise AssertionError("run H: the app scene's robot did not come from robot.usdz")
-    run("H", rh, 3)
+    run("H", rh, 3, refits=skinned)
     h_prep = prepare_walls(rh)
     if max(lines["H"]["max_motion_px"]) <= 0.5:
         raise AssertionError(f"run H: the robot moved at most {max(lines['H']['max_motion_px'])} px")
-    check_character(torch, rh, dict(joint_indices=hskin.joint_indices,
-                                    joint_weights=hskin.joint_weights), tag="run H")
+    refit_checks["H"] = check_character(torch, rh, dict(joint_indices=hskin.joint_indices,
+                                                        joint_weights=hskin.joint_weights),
+                                        refit, bounds, tag="run H")
     h_small = check_small_h(dev, hdir)
     log(json.dumps(dict(run="H", character_and_write_s=write_s, loads=hloads,
                         mrays_per_s=lines["H"]["mrays_per_s"], frame_walls=lines["H"]["frame_walls"],
@@ -1662,11 +1838,11 @@ def main() -> int:
     rj = make("J")
     if not isinstance(rj.bvh, wide.WideBVH) or traverse2.flat_variant(rj.bvh.n_rows) != "flat":
         raise AssertionError("run J: the renderer holds no flat table of at most 2^20 - 1 rows")
-    run("J", rj, 3, variant="flat")
+    run("J", rj, 3, variant="flat", refits=("refit_flat",))
     j_prep = prepare_walls(rj)
     if max(lines["J"]["max_motion_px"]) <= 0.5:
         raise AssertionError(f"run J: the robot moved at most {max(lines['J']['max_motion_px'])} px")
-    j_refit = check_flat_refit(torch, rj, "J")
+    j_refit = refit_checks["J"] = check_flat_refit(torch, rj, "J", refit, bounds)
     j_small = check_small_flat(dev)
     log(json.dumps(dict(run="J", table_rows=rj.bvh.n_rows, n_internal=rj.bvh.n_internal,
                         depth=rj.bvh.depth, stack=rj.bvh.stack_size,
@@ -1677,11 +1853,13 @@ def main() -> int:
                         small_frame=j_small, card=card_name, power_limit=power_limit)))
 
     os.environ["MRT_SBVH"] = "1"
+    refit.reset_launches()
     try:
         rk = make("A")
     finally:
         del os.environ["MRT_SBVH"]
-    k_refit = check_sbvh_refit(torch, rk)
+    counts["K build"] = build_counts("K build", refit, skinned)
+    k_refit = check_sbvh_refit(torch, rk, refit, bounds)
     run("K", rk, 2, scene_name="run A's scene with SBVH spatial splits (MRT_SBVH=1)")
     log(json.dumps(dict(phase="K", table=list(rk.bvh.table.shape), refit=k_refit,
                         frame_walls=lines["K"]["frame_walls"], frame_walls_a=lines["A"]["frame_walls"],
@@ -1706,9 +1884,13 @@ def main() -> int:
     # run J's prepare: the whole flat table refit from the posed triangles
     _, jgeom, _ = rj.prepare()
     jtris = (jgeom.tri_v0, jgeom.tri_v1, jgeom.tri_v2)
-    j_refit_ms, j_refit_ev = device_total_ms(torch, lambda: wide.refit(rj.bvh, *jtris), 20)
+    j_refit_ms, j_refit_ev, j_names = device_names(torch, lambda: wide.refit(rj.bvh, *jtris), 20,
+                                                   "refit_rows")
     j_prep_ms, j_prep_ev = device_total_ms(torch, rj.prepare, 5)
     log(json.dumps(dict(prepare="J", refit_ms=j_refit_ms, refit_device_events=j_refit_ev,
+                        refit_events_by_name=j_names,
+                        refit_events_ms=cuda_ms(lambda: wide.refit(rj.bvh, *jtris), 20),
+                        refit_bound_ms=bounds.flat_refit(rj.bvh)[0],
                         prepare_ms=j_prep_ms, prepare_device_events=j_prep_ev,
                         table_clone_ms=clone_ms["J"], card=card_name, power_limit=power_limit)))
     del jgeom, jtris
@@ -1722,8 +1904,10 @@ def main() -> int:
     # --- 7b. run G on the flat BVH: a flat table above 2^20 - 1 rows (K3's float sort) ----------
     # after the profiler, so its walls run on a host slowed by it
     t0 = time.perf_counter()
+    refit.reset_launches()
     rg.two_level = False
     g_flat_build_s = time.perf_counter() - t0
+    counts["G flat rebuild"] = build_counts("G flat rebuild", refit, ("refit_flat",))
     if traverse2.flat_variant(rg.bvh.n_rows) != "flat_float_sort":
         raise AssertionError(f"run G flat: {rg.bvh.n_rows} rows take K3's "
                              f"{traverse2.flat_variant(rg.bvh.n_rows)} instantiation")
@@ -1732,6 +1916,7 @@ def main() -> int:
         f"{rg.bvh.stack_size}) in {g_flat_build_s:.1f} s")
     run("G flat", rg, 1, variant="flat_float_sort",
         scene_name="run G's scene on the flat BVH (two_level=False)")
+    refit_checks["G flat"] = check_flat_refit(torch, rg, "G flat", refit, bounds, cpu=False)
     log(json.dumps(dict(run="G flat", build_s=g_flat_build_s, k3=checks["G flat"]["k3"],
                         frame_walls=lines["G flat"]["frame_walls"],
                         frame_walls_g=lines["G"]["frame_walls"],
@@ -1743,7 +1928,9 @@ def main() -> int:
 
     # --- 7c. phase L: the sharded renderers, each rank a process on this card ---------------------
     for tag, c in phase_l(torch, FP, dev, lines, card_name, power_limit).items():
-        counts[tag] = {k: c[k] for k in ("present", "traverse2", "traverse_flat")}
+        counts[tag] = {k: c[k] for k in ("present", "traverse2", "traverse_flat") + REFIT_KEYS}
+        if "gp_refit" in c:
+            refit_checks["L2 gp=2"] = c["gp_refit"]
         variant_counts_l[tag] = c["variants"]
 
     # --- 8. a small frame on the card against the CPU plain path -------------------------------
@@ -1794,7 +1981,7 @@ def main() -> int:
         dict(name="K1 present tonemap_quantize", route="cuda",
              source="mrt_tpu_torch/csrc/present.cu", replaces="mrt_tpu/kernels/present.py:52",
              launches=sum(c["present"] for c in counts.values()),
-             launches_by_run={t: counts[t]["present"] for t in counts},
+             launches_by_run={t: counts[t]["present"] for t in counts if counts[t]["present"]},
              max_abs_err=max(c["k1_err"] for c in checks.values()), ms=a["k1_cold"],
              plain_ms=a["k1_plain_ms"], bound_ms=a["k1_bound_ms"], bound_by=a["k1_bound_by"],
              library_ms=None,
@@ -1808,6 +1995,35 @@ def main() -> int:
         traversal_entry("flat", "k3", "J", "K3 flat traversal", k3_src),
         traversal_entry("flat_float_sort", "k3", "G flat", "K3 flat traversal", k3_src),
     ]
+    d, j = refit_checks["D"], refit_checks["J"]
+
+    def refit_entry(name, key, replaces, head, prefix, by_run):
+        return dict(
+            name=name, route="cuda", source="mrt_tpu_torch/csrc/refit.cu", replaces=replaces,
+            launches=sum(c[key] for c in counts.values()),
+            launches_by_run={t: c[key] for t, c in counts.items() if c[key]},
+            max_abs_err=max(x.get("max_abs_err", 0.0) for x in by_run.values()),
+            ms=head[f"{prefix}_ms"], plain_ms=head[f"{prefix}_plain_ms"],
+            bound_ms=head[f"{prefix}_bound_ms"], bound_by=head[f"{prefix}_bound_by"],
+            library_ms=None, by_run=by_run)
+
+    twolevel_checks = {t: c for t, c in refit_checks.items() if "roots_differing" in c}
+    twolevel_checks["K"] = k_refit["kernels"]
+    flat_refits = {t: refit_checks[t] for t in ("J", "G flat")}
+    flat_refits.update({f"L2 gp=2 rank {i}": dict(c, max_abs_err=0.0 if not c["rows_differing"]
+                                                  else float("inf"))
+                        for i, c in enumerate(refit_checks["L2 gp=2"])})
+    kernels += [
+        refit_entry("K4 refit_rows (blas)", "refit_blas", "mrt_tpu/bvh/twolevel.py:387", d, "k4",
+                    twolevel_checks),
+        refit_entry("K4 refit_rows (flat)", "refit_flat", "mrt_tpu/bvh/wide.py:358", j, "k4",
+                    flat_refits),
+        refit_entry("K5 refit_tlas", "refit_tlas", "mrt_tpu/bvh/twolevel.py:460", d, "k5",
+                    twolevel_checks),
+    ]
+    if any(k["launches"] < 1 or k["max_abs_err"] != 0.0 for k in kernels[-3:]):
+        raise AssertionError(f"a refit kernel never launched on the main path or disagreed: "
+                             f"{kernels[-3:]}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,8 +12,9 @@ that every refit intersects with the leaf boxes. An instance's geometry
 mask is tested against the ray's mask on its instance row, only when some
 instance has a
 non-default mask (``has_masks``). A skinned instance gets a BLAS of its own;
-``refit`` rewrites every skinned BLAS from the posed vertex pool, then the
-instance and TLAS rows (and, at build time, every BLAS), with torch ops.
+``refit`` rewrites every skinned BLAS from the posed vertex pool (kernel
+K4 ``blas``), then the instance and TLAS rows (kernel K5), and at build
+time every BLAS (``kernels/refit.py``).
 Traversal runs kernel K2 (``kernels/traverse2.py``).
 """
 
@@ -26,10 +27,10 @@ import numpy as np
 import torch
 
 from ..core.types import GEOMETRY_MASK_GEOMETRY, Hits, Rays
+from ..kernels import refit as refit_k
 from ..kernels import traverse2
 from . import lbvh
-from .wide import ARITY, LEAF_K, ROW, _clip_leaf_boxes, _internal_rows, _pack_leaf_rows, \
-    _stack_alloc, build_topology_wide, encode_ids, exact_stack_bound
+from .wide import ARITY, LEAF_K, ROW, _stack_alloc, build_topology_wide, exact_stack_bound
 
 # instance-row layout (floats)
 _I_MINV = 0  # 12: rows of the 3x4 world->object affine
@@ -66,6 +67,10 @@ class TwoLevelBVH:
     # SBVH: (NL, 6) f32 per-leaf clip boxes [min xyz, max xyz] (+-inf rows
     # clip nothing), or None when no group was built with spatial splits
     leaf_clip: torch.Tensor | None = None
+    # what the refit kernels read besides the table
+    # (``kernels/refit.py:TwoLevelMeta``), made where the BVH is made; a
+    # refit on the card needs it
+    refit_meta: object | None = None
 
     def _replace(self, **kw) -> "TwoLevelBVH":
         return dataclasses.replace(self, **kw)
@@ -74,7 +79,7 @@ class TwoLevelBVH:
         """The same BVH with every tensor on ``device``."""
         return self._replace(**{f.name: getattr(self, f.name).to(device)
                                 for f in dataclasses.fields(self)
-                                if isinstance(getattr(self, f.name), torch.Tensor)},
+                                if hasattr(getattr(self, f.name), "to")},
                              skin_indices=tuple(t.to(device) for t in self.skin_indices))
 
     @property
@@ -230,6 +235,7 @@ def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLeve
         return []
 
     stack_bound = exact_stack_bound(_kids) if n_int_total else 1
+    inst_masks = tuple(int(getattr(m, "geometry_mask", GEOMETRY_MASK_GEOMETRY)) for m in models)
 
     bvh = TwoLevelBVH(
         table=torch.zeros((inst_base + n_inst, ROW), dtype=torch.float32, device=device),
@@ -246,9 +252,11 @@ def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLeve
         mesh_meta=tuple(mesh_meta),
         inst_mesh=tuple(int(x) for x in inst_group),
         stack_bound=stack_bound,
-        inst_masks=tuple(int(getattr(m, "geometry_mask", GEOMETRY_MASK_GEOMETRY)) for m in models),
+        inst_masks=inst_masks,
         skin_indices=tuple(skin_indices),
         leaf_clip=None if leaf_clip is None else torch.as_tensor(leaf_clip).to(device),
+        refit_meta=refit_k.twolevel_meta(node_child, tlas_n, n_leaf_total, mesh_meta, inst_group,
+                                         inst_masks, skin_indices, device),
     )
     all_indices = tuple(torch.as_tensor(g["indices_local"]).to(device) for g in groups)
     return refit(bvh, scene_data.positions_obj, scene_data.instance_transform,
@@ -256,49 +264,8 @@ def build(models, scene_data, host_mirror: dict, method: str = "sah") -> TwoLeve
 
 
 # ---------------------------------------------------------------------------
-# Refit (torch ops)
+# Refit (kernels K4 and K5)
 # ---------------------------------------------------------------------------
-
-def _refit_group(table, root_bmin, root_bmax, bvh, gi, verts, idx):
-    """Rewrite one group's BLAS rows (leaf packing + internal AABBs) from
-    (Vm,3) object-space verts and (Tm,3) local indices (in place)."""
-    int_lo, ni, leaf_lo, nl, depth = bvh.mesh_meta[gi][:5]
-    leaf_ids = bvh.leaf_tri[leaf_lo : leaf_lo + nl]
-    tid = leaf_ids.clamp_min(0).reshape(-1).long()
-    idx = idx.long()
-
-    def g(col):
-        return verts[idx[:, col]][tid].reshape(nl, LEAF_K, 3)
-
-    leaf_rows, leaf_bmin, leaf_bmax = _pack_leaf_rows(g(0), g(1), g(2), leaf_ids)
-    leaf_bmin, leaf_bmax = _clip_leaf_boxes(
-        leaf_bmin, leaf_bmax, None if bvh.leaf_clip is None else bvh.leaf_clip[leaf_lo : leaf_lo + nl])
-    table[bvh.n_internal + leaf_lo : bvh.n_internal + leaf_lo + nl] = leaf_rows
-    if ni == 0:
-        root_bmin[gi] = leaf_bmin[0]
-        root_bmax[gi] = leaf_bmax[0]
-        return
-    child = bvh.node_child[int_lo : int_lo + ni]
-    empty = child < 0
-    local = torch.where(child < bvh.n_internal, child - int_lo, ni + (child - bvh.n_internal - leaf_lo))
-    local = torch.where(empty, 0, local).clamp(0, ni + nl - 1)
-    dev = verts.device
-    ebmin = torch.cat([torch.full((ni, 3), float("inf"), device=dev), leaf_bmin])
-    ebmax = torch.cat([torch.full((ni, 3), -float("inf"), device=dev), leaf_bmax])
-    rows, rmin, rmax = _internal_rows(child, empty, local, ebmin, ebmax, depth)
-    table[int_lo : int_lo + ni] = rows
-    root_bmin[gi] = rmin
-    root_bmax[gi] = rmax
-
-
-def _affine_inverse(M: torch.Tensor) -> torch.Tensor:
-    """(I,4,4) -> (I,3,4) inverse of the affine [R|t]."""
-    Rinv = torch.linalg.inv(M[:, :3, :3])
-    t = M[:, :3, 3]
-    tinv = -(Rinv[:, :, 0] * t[:, None, 0] + Rinv[:, :, 1] * t[:, None, 1]
-             + Rinv[:, :, 2] * t[:, None, 2])
-    return torch.cat([Rinv, tinv[:, :, None]], dim=2)
-
 
 def refit(bvh: TwoLevelBVH, positions_obj, instance_transform, *,
           group_indices: tuple | None = None) -> TwoLevelBVH:
@@ -306,56 +273,11 @@ def refit(bvh: TwoLevelBVH, positions_obj, instance_transform, *,
     vertex pool ``positions_obj`` (V,3), then the instance rows and the TLAS
     rows from ``instance_transform`` (I,4,4); with ``group_indices`` (one
     (Tm,3) local index tensor per mesh group, as at build time) every BLAS
-    is refit. Static BLASes are never refit per frame. Returns a new BVH;
-    the input's table is not modified (the whole table is copied first)."""
-    table = bvh.table.clone()
-    rbmin, rbmax = bvh.root_bmin.clone(), bvh.root_bmax.clone()
-    for gi, meta in enumerate(bvh.mesh_meta):
-        v_start, v_count, slot = meta[6], meta[7], meta[8]
-        if slot >= 0:
-            idx = bvh.skin_indices[slot]
-        elif group_indices is not None:
-            idx = group_indices[gi]
-        else:
-            continue
-        _refit_group(table, rbmin, rbmax, bvh, gi, positions_obj[v_start : v_start + v_count], idx)
-
-    # --- instance rows --------------------------------------------------------
-    I = bvh.n_instances
-    dev = table.device
-    M = instance_transform
-    minv = _affine_inverse(M)
-    gidx = torch.as_tensor(bvh.inst_mesh, dtype=torch.long, device=dev)
-    bmin = rbmin[gidx]
-    bmax = rbmax[gidx]
-    sel = torch.tensor([[(c >> a) & 1 for a in range(3)] for c in range(8)],
-                       dtype=torch.float32, device=dev)
-    corners = bmin[:, None, :] * (1 - sel)[None] + bmax[:, None, :] * sel[None]  # (I,8,3)
-    wc = torch.stack([M[:, None, a, 0] * corners[:, :, 0] + M[:, None, a, 1] * corners[:, :, 1]
-                      + M[:, None, a, 2] * corners[:, :, 2] + M[:, None, a, 3]
-                      for a in range(3)], dim=2)
-    wbmin = wc.amin(dim=1)
-    wbmax = wc.amax(dim=1)
-    roots = torch.as_tensor([m[5] for m in bvh.mesh_meta], dtype=torch.int32, device=dev)
-    inst_rows = torch.cat([
-        minv.reshape(I, 12), wbmin, wbmax,
-        encode_ids(roots[gidx])[:, None],
-        encode_ids(torch.arange(I, dtype=torch.int32, device=dev))[:, None],
-        encode_ids(torch.as_tensor(bvh.inst_masks, dtype=torch.int32, device=dev))[:, None],
-    ], dim=1)
-    inst_base = bvh.n_internal + bvh.n_leaf
-    table[inst_base:] = torch.nn.functional.pad(inst_rows, (0, ROW - inst_rows.shape[1]))
-
-    # --- TLAS rows (world space) ------------------------------------------------
-    tn = bvh.tlas_n
-    child = bvh.node_child[:tn]
-    empty = child < 0
-    local = torch.where(child >= inst_base, tn + (child - inst_base), child)
-    local = torch.where(empty, 0, local).clamp(0, tn + I - 1)
-    ebmin = torch.cat([torch.full((tn, 3), float("inf"), device=dev), wbmin])
-    ebmax = torch.cat([torch.full((tn, 3), -float("inf"), device=dev), wbmax])
-    rows, _, _ = _internal_rows(child, empty, local, ebmin, ebmax, bvh.tlas_depth)
-    table[:tn] = rows
+    is refit. Static BLASes are never refit per frame. Kernels K4 ``blas``
+    and K5 on the card (``kernels/refit.py``), their plain versions on the
+    CPU. Returns a new BVH; the input's table is not modified (the whole
+    table is copied first)."""
+    table, rbmin, rbmax = refit_k.twolevel(bvh, positions_obj, instance_transform, group_indices)
     return bvh._replace(table=table, root_bmin=rbmin, root_bmax=rbmax)
 
 

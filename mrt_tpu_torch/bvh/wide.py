@@ -3,7 +3,8 @@
 packed-row id encoding shared with the two-level BVH, and the flat
 single-level path (``two_level=False``): ``WideBVH``, its host ``build``
 (native binned SAH, with SBVH reference splits on request, or Karras LBVH),
-``refit`` in torch ops (bit-equal to the JAX package's table) and the
+``refit`` (kernel K4 ``flat``, ``kernels/refit.py``; bit-equal to the JAX
+package's table) and the
 traversal entry points ``closest_hit``, ``trace_mixed`` and ``any_hit``,
 which run kernel K3 (``kernels/traverse2.py:traverse_flat``). The JAX
 package's TPU scheduling around its traversal loop (chunking, ray sorting,
@@ -207,7 +208,7 @@ def build_topology_wide(bin_left: np.ndarray, bin_right: np.ndarray, leaf_order:
 
 
 # ---------------------------------------------------------------------------
-# The flat single-level BVH: table, host build, refit (torch ops)
+# The flat single-level BVH: table, host build, refit (kernel K4)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
@@ -226,6 +227,10 @@ class WideBVH:
     # spatial-split builder, which refit intersects with the leaf boxes;
     # valid only for the vertices the builder saw
     leaf_clip: torch.Tensor | None = None
+    # what the refit kernel's walk-up reads (``kernels/refit.py:Walkup``),
+    # derived from node_child where the BVH is made; a refit on the card
+    # needs it
+    walkup: object | None = None
 
     has_masks = False  # no per-instance geometry masks on the flat path
 
@@ -245,87 +250,19 @@ class WideBVH:
         """The same BVH with every tensor on ``device``."""
         return self._replace(**{f.name: getattr(self, f.name).to(device)
                                 for f in dataclasses.fields(self)
-                                if isinstance(getattr(self, f.name), torch.Tensor)})
-
-
-def _pack_leaf_rows(w0, w1, w2, leaf_ids, ids=None):
-    """(nl, K, 3) leaf verts -> (nl, ROW) leaf rows + leaf AABBs. Slots where
-    ``leaf_ids`` < 0 are pads (NaN vertices, no box); the rows encode ``ids``
-    (default ``leaf_ids``)."""
-    pad = (leaf_ids < 0)[..., None]
-    nan = torch.tensor(float("nan"), dtype=torch.float32, device=w0.device)
-    w0 = torch.where(pad, nan, w0)
-    w1 = torch.where(pad, nan, w1)
-    w2 = torch.where(pad, nan, w2)
-    comps = [w[:, :, a] for w in (w0, w1, w2) for a in range(3)]
-    rows = torch.cat(comps + [encode_ids(leaf_ids if ids is None else ids)], dim=1)
-    rows = torch.nn.functional.pad(rows, (0, ROW - rows.shape[1]))
-    stacked = torch.stack([w0, w1, w2], dim=2)  # (nl, K, 3, 3)
-    valid = ~pad[..., None]
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=w0.device)
-    bmin = torch.where(valid, stacked, inf).amin(dim=(1, 2)) - 1e-7
-    bmax = torch.where(valid, stacked, -inf).amax(dim=(1, 2)) + 1e-7
-    return rows, bmin, bmax
-
-
-def _clip_leaf_boxes(bmin, bmax, clip):
-    """SBVH: the leaf boxes intersected with the builder's clip boxes (a
-    triangle split across leaves would otherwise widen both to its whole
-    extent); ``clip`` None leaves them as they are."""
-    if clip is None:
-        return bmin, bmax
-    return torch.maximum(bmin, clip[:, :3]), torch.minimum(bmax, clip[:, 3:])
-
-
-def _internal_rows(child, empty, local, ebmin, ebmax, depth):
-    """Bottom-up child AABB propagation (``depth`` passes over entry boxes
-    ``ebmin/ebmax``, internal entries first) and the packed internal rows."""
-    n = child.shape[0]
-    flat = local.reshape(-1).long()
-    inf = float("inf")
-
-    def child_boxes(bmin, bmax):
-        cmin = bmin[flat].reshape(n, ARITY, 3).masked_fill(empty[..., None], inf)
-        cmax = bmax[flat].reshape(n, ARITY, 3).masked_fill(empty[..., None], -inf)
-        return cmin, cmax
-
-    for _ in range(depth):
-        cmin, cmax = child_boxes(ebmin, ebmax)
-        ebmin = torch.cat([cmin.amin(dim=1), ebmin[n:]])
-        ebmax = torch.cat([cmax.amax(dim=1), ebmax[n:]])
-    cmin, cmax = child_boxes(ebmin, ebmax)
-    rows = torch.cat([cmin[:, :, 0], cmin[:, :, 1], cmin[:, :, 2],
-                      cmax[:, :, 0], cmax[:, :, 1], cmax[:, :, 2], encode_ids(child)], dim=1)
-    rows = torch.nn.functional.pad(rows, (0, ROW - rows.shape[1]))
-    return rows, ebmin[0], ebmax[0]
+                                if hasattr(getattr(self, f.name), "to")})
 
 
 def refit(wbvh: WideBVH, v0, v1, v2, row_ids=None) -> WideBVH:
     """The table rebuilt from (T,3) world-space triangle vertices: leaf rows
-    (vertices and ids) and every internal row's child boxes, bottom-up.
-    ``row_ids``: optional (Nl, LEAF_K) ids to encode in the leaf rows in
-    place of ``leaf_tri`` (a shard's rows read vertices by local ids but
+    (vertices and ids) and every internal row's child boxes, bottom-up
+    (kernel K4 ``flat``, ``kernels/refit.py``; its plain version on the
+    CPU). ``row_ids``: optional (Nl, LEAF_K) ids to encode in the leaf rows
+    in place of ``leaf_tri`` (a shard's rows read vertices by local ids but
     report global ones). Returns a new BVH."""
-    n_i = wbvh.n_internal
-    leaf_tri = wbvh.leaf_tri
-    n_l = leaf_tri.shape[0]
-    tid = leaf_tri.clamp_min(0).reshape(-1).long()
+    from ..kernels import refit as refit_k
 
-    def g(v):
-        return v[tid].reshape(n_l, LEAF_K, 3)
-
-    ids = None if row_ids is None else torch.where(leaf_tri < 0, -1, row_ids)
-    leaf_rows, leaf_bmin, leaf_bmax = _pack_leaf_rows(g(v0), g(v1), g(v2), leaf_tri, ids)
-    leaf_bmin, leaf_bmax = _clip_leaf_boxes(leaf_bmin, leaf_bmax, wbvh.leaf_clip)
-    if n_i == 0:
-        return wbvh._replace(table=leaf_rows)
-    child = wbvh.node_child
-    empty = child < 0
-    dev = leaf_rows.device
-    ebmin = torch.cat([torch.full((n_i, 3), float("inf"), device=dev), leaf_bmin])
-    ebmax = torch.cat([torch.full((n_i, 3), -float("inf"), device=dev), leaf_bmax])
-    rows, _, _ = _internal_rows(child, empty, child.clamp_min(0), ebmin, ebmax, wbvh.depth)
-    return wbvh._replace(table=torch.cat([rows, leaf_rows]))
+    return wbvh._replace(table=refit_k.flat(wbvh, v0, v1, v2, row_ids))
 
 
 def topology(v0, v1, v2, method: str = "auto", spatial: bool = False):
@@ -352,6 +289,8 @@ def build(v0, v1, v2, method: str = "auto", spatial: bool = False, device=None) 
     ``spatial=True`` asks the native builder for SBVH reference splits: the
     BVH then carries leaf clip boxes that ``refit`` honours, so it suits
     only geometry that is never refit with other vertices."""
+    from ..kernels import refit as refit_k
+
     device = resolve_device(device)
     v0, v1, v2 = (np.asarray(v, np.float32) for v in (v0, v1, v2))
     child, leaf, depth, clip = topology(v0, v1, v2, method, spatial)
@@ -362,7 +301,8 @@ def build(v0, v1, v2, method: str = "auto", spatial: bool = False, device=None) 
         table=torch.zeros((n_i + leaf.shape[0], ROW), dtype=torch.float32, device=device),
         node_child=torch.as_tensor(child).to(device), leaf_tri=torch.as_tensor(leaf).to(device),
         n_internal=n_i, depth=int(depth), stack_bound=bound,
-        leaf_clip=None if clip is None else torch.as_tensor(clip).to(device))
+        leaf_clip=None if clip is None else torch.as_tensor(clip).to(device),
+        walkup=refit_k.flat_walkup(child, leaf.shape[0], device))
     return refit(wbvh, *(torch.as_tensor(v).to(device) for v in (v0, v1, v2)))
 
 

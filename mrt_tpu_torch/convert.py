@@ -28,6 +28,7 @@ from .core import types as T
 from .core.device import resolve as resolve_device
 from .engine.scene import (Model, ModelMaterialOverride, Scene, SceneData, SceneStatics, SkinData,
                            SkinModelData)
+from .kernels import refit as refit_k
 from .skinning import animation as anim
 from .upscale.denoise import DenoiseState
 
@@ -79,19 +80,24 @@ def bvh(b, device=None) -> TwoLevelBVH | WideBVH:
     device = resolve_device(device)
     clip = getattr(b, "leaf_clip", None)
     clip = None if clip is None else _t(clip, device)
+    child = np.asarray(b.node_child)
     if kind.is_flat(b):
-        return WideBVH(table=_t(b.table, device), node_child=_t(b.node_child, device),
+        return WideBVH(table=_t(b.table, device), node_child=_t(child, device),
                        leaf_tri=_t(b.leaf_tri, device), n_internal=b.n_internal, depth=b.depth,
-                       stack_bound=b.stack_bound, leaf_clip=clip)
+                       stack_bound=b.stack_bound, leaf_clip=clip,
+                       walkup=refit_k.flat_walkup(child, np.asarray(b.leaf_tri).shape[0], device))
+    skin_indices = tuple(_t(x, device) for x in b.skin_indices)
     return TwoLevelBVH(
-        table=_t(b.table, device), node_child=_t(b.node_child, device),
+        table=_t(b.table, device), node_child=_t(child, device),
         leaf_tri=_t(b.leaf_tri, device), root_bmin=_t(b.root_bmin, device),
         root_bmax=_t(b.root_bmax, device), flat_tri_base=_t(b.flat_tri_base, device),
         n_internal=b.n_internal, n_leaf=b.n_leaf, n_instances=b.n_instances,
         tlas_n=b.tlas_n, tlas_depth=b.tlas_depth, mesh_meta=tuple(b.mesh_meta),
         inst_mesh=tuple(b.inst_mesh), stack_bound=b.stack_bound,
-        inst_masks=tuple(b.inst_masks), skin_indices=tuple(_t(x, device) for x in b.skin_indices),
-        leaf_clip=clip)
+        inst_masks=tuple(b.inst_masks), skin_indices=skin_indices, leaf_clip=clip,
+        refit_meta=refit_k.twolevel_meta(child, b.tlas_n, b.n_leaf, tuple(b.mesh_meta),
+                                         tuple(b.inst_mesh), tuple(b.inst_masks), skin_indices,
+                                         device))
 
 
 def sharded_bvhs(stacked, gids, row_gids, device=None) -> list:
@@ -105,7 +111,8 @@ def sharded_bvhs(stacked, gids, row_gids, device=None) -> list:
     gids, row_gids = np.asarray(gids), np.asarray(row_gids)
     return [(WideBVH(table=_t(table[k], device), node_child=_t(child[k], device),
                      leaf_tri=_t(leaf[k], device), n_internal=stacked.n_internal,
-                     depth=stacked.depth, stack_bound=stacked.stack_bound),
+                     depth=stacked.depth, stack_bound=stacked.stack_bound,
+                     walkup=refit_k.flat_walkup(child[k], leaf.shape[1], device)),
              _t(gids[k], device), _t(row_gids[k], device)) for k in range(gids.shape[0])]
 
 

@@ -32,6 +32,7 @@ from ..core import types as T
 from ..core.device import resolve as resolve_device
 from ..engine import renderer as renderer_mod
 from ..engine import scene as scene_mod
+from ..kernels import refit as refit_k
 from ..render import accumulate as acc
 from ..render import wavefront as wf
 from . import comm
@@ -54,8 +55,10 @@ def _equalized(child, leaf, tri_ids, n_internal: int, n_leaf: int, depth: int, t
     Leaf ids stay shard-local (the refit gathers the shard's vertices);
     ``row_gids`` holds the global ids the leaf rows encode. Padded internal
     rows have no child and padded leaves no triangle: no traversal reaches
-    them (the padded leaves turn NaN in a refit). The stack comes from the
-    shared ``depth``, as the JAX package's stacked shards take it."""
+    them (the padded leaves turn NaN in a refit; the refit kernel writes the
+    padded internal rows apart, ``kernels/refit.py:Walkup``). The stack
+    comes from the shared ``depth``, as the JAX package's stacked shards
+    take it."""
     ni, nl = child.shape[0], leaf.shape[0]
     pad_i, pad_l = n_internal - ni, n_leaf - nl
     child = np.where(child >= ni, child + pad_i, child)
@@ -68,7 +71,8 @@ def _equalized(child, leaf, tri_ids, n_internal: int, n_leaf: int, depth: int, t
     bvh = wide.WideBVH(
         table=torch.zeros((n_internal + n_leaf, wide.ROW), dtype=torch.float32, device=device),
         node_child=torch.as_tensor(child).to(device),
-        leaf_tri=torch.as_tensor(leaf_local).to(device), n_internal=n_internal, depth=depth)
+        leaf_tri=torch.as_tensor(leaf_local).to(device), n_internal=n_internal, depth=depth,
+        walkup=refit_k.flat_walkup(child, n_leaf, device))
     return bvh, torch.as_tensor(gids).to(device), torch.as_tensor(row_g).to(device)
 
 

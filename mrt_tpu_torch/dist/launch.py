@@ -128,8 +128,8 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
     ``present``: rank 0 runs kernel K1 on the last gathered image and
     compares it with K1's plain version. ``check_flat`` ("gp"): after those
     draws, one more frame in which every rank holds each launch of kernel
-    K3 on its shard table against the plain version
-    (``_checked_flat_frame``).
+    K3 on its shard table against the plain version, and its refit of the
+    shard table (kernel K4 ``flat``) too (``_checked_flat_frame``).
 
     Returns a dict: ``setup_s`` (the mesh's and the renderer's
     construction, and the restore), ``images`` (each frame's full
@@ -137,12 +137,13 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
     ``rays_local`` ("gp": this rank's own count before the reductions),
     ``walls`` (each draw's seconds, the device synchronised),
     ``prepare_reused`` (whether the frame reused the prepared geometry;
-    "dp" only), the kernels' launch counts over the draws and the present,
+    "dp" only), the kernels' launch counts over the draws and the present
+    (K4's and K5's under ``refit_blas``, ``refit_flat``, ``refit_tlas``),
     with ``present`` the uint8 image and K1's largest difference from its
     plain version, and with ``check_flat`` this rank's check (``flat_check``)."""
     from ..engine import checkpoint
     from ..kernels import present as k1
-    from ..kernels import traverse2
+    from ..kernels import refit, traverse2
     from .geometry import GeometryShardedRenderer
     from .sharding import DistributedRenderer
 
@@ -164,6 +165,7 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
                setup_s=time.perf_counter() - t0)
     k1.launches = 0
     traverse2.reset_launches()
+    refit.reset_launches()
     img = None
     for k in range(frames):
         if k < len(joints) and joints[k] is not None:
@@ -191,7 +193,9 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
     sync()
     out["launches"] = dict(present=k1.launches, traverse2=traverse2.launches,
                            traverse_flat=traverse2.flat_launches,
-                           variants=dict(traverse2.variant_launches))
+                           variants=dict(traverse2.variant_launches),
+                           refit_blas=refit.rows_launches["blas"],
+                           refit_flat=refit.rows_launches["flat"], refit_tlas=refit.tlas_launches)
     return out
 
 
@@ -202,9 +206,16 @@ def _checked_flat_frame(r, traverse2) -> dict:
     their bits. The shard table is padded to the shapes every shard shares
     (internal rows without a child, leaves without a triangle, NaN boxes
     after the refit): the plain version's per-row visits show whether a
-    lane reached one. Returns the launches, lanes, mismatches by field,
-    the largest |t| difference over hits, and the padded rows and their
+    lane reached one. The frame's refit of the shard table is held
+    against ``kernels.refit.flat_plain`` on the same triangles and ids,
+    every row bit for bit (``refit``: launches, rows differing, the rows no
+    leaf reaches, the kernel's CUDA-event ms where it ran on the card and
+    its bound). Returns the launches, lanes, mismatches by field, the
+    largest |t| difference over hits, and the padded rows and their
     visits."""
+    from ..kernels import refit
+    from ..utils import bounds
+
     bvh = r.bvh
     padded = torch.cat([(bvh.node_child < 0).all(dim=1), (bvh.leaf_tri < 0).all(dim=1)])
     fields = ("tri", "found", "pops", "t", "u", "v")
@@ -212,6 +223,26 @@ def _checked_flat_frame(r, traverse2) -> dict:
                rows=bvh.n_rows, n_internal=bvh.n_internal, depth=bvh.depth,
                stack_size=bvh.stack_size, padded_rows=int(padded.sum()), padded_visits=0)
     orig = traverse2.traverse_flat
+    orig_refit = refit.flat
+    res["refit"] = dict(launches=0, rows=bvh.n_rows, rows_differing=0,
+                        unreached_rows=int(bvh.walkup.unreached.numel()), ms=None,
+                        bound_ms=bounds.flat_refit(bvh, row_ids=True)[0])
+
+    def checked_refit(wbvh, *args):
+        cuda = args[0].device.type == "cuda"
+        if cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        table = orig_refit(wbvh, *args)
+        if cuda:
+            ev[1].record()
+            torch.cuda.synchronize()
+            res["refit"]["ms"] = ev[0].elapsed_time(ev[1])
+        plain = refit.flat_plain(wbvh, *args)
+        res["refit"]["rows_differing"] += int(
+            (table.view(torch.int32) != plain.view(torch.int32)).any(dim=1).sum())
+        res["refit"]["launches"] += 1
+        return table
 
     def checked(*args, **kw):
         kout = orig(*args, **kw)
@@ -232,10 +263,12 @@ def _checked_flat_frame(r, traverse2) -> dict:
         return kout
 
     traverse2.traverse_flat = checked
+    refit.flat = checked_refit
     try:
         r.draw()
     finally:
         traverse2.traverse_flat = orig
+        refit.flat = orig_refit
     return res
 
 

@@ -121,5 +121,11 @@ def load():
     lib.mrt_traverse2.argtypes = [p, i, i, i, i, p, p, p, p, p, p, i, i, i, f, p, p, p, p, p, p, p,
                                   p, p]
     lib.mrt_traverse2.restype = i
+    lib.mrt_refit_rows.argtypes = [i, p, i, p, p, p, p, p, p, i, p, i, p, p, p, p, p, p, p, p, p, p,
+                                   p, p, p, p]
+    lib.mrt_refit_rows.restype = i
+    lib.mrt_refit_tlas.argtypes = [p, ll, i, i, i, i, i, p, p, p, ll, ll, ll, p, p, p, p, p, p, p,
+                                   p, p, p]
+    lib.mrt_refit_tlas.restype = i
     _lib = lib
     return lib

@@ -14,9 +14,11 @@ kernels are built with ``-fmad=false``, so each add, sub, mul, min, max,
 compare and division they count is one instruction, issued at half that:
 PEAK_F32_OPS. A product's fused multiply-add is one instruction too.
 
-Besides the kernels: the two torch-op stages of an animated frame's
-prepare, the LBS product (``lbs``) and the skinned refit (``refit``), and
-the presenter's torch-op chains (``resize``, ``temporal_chain``,
+K4 and K5, the refit kernels (``flat_refit``, ``blas_refit``,
+``tlas_refit``, and ``refit`` for a whole two-level refit), count what one
+call's table needs: the triangles that are not pads and the children that
+are not empty. Besides the kernels: the LBS product of an animated frame's
+prepare (``lbs``), and the presenter's torch-op chains (``resize``, ``temporal_chain``,
 ``denoiser``, ``denoised_chain``), whose bounds say what a hand kernel could
 gain there. The presenter's bounds count bytes only: a banded resize needs
 6 taps per axis (Lanczos-3 at 2x), so its operations take a fraction of
@@ -142,26 +144,89 @@ def lbs(n_vertices: int, n_joints: int) -> tuple[float, str]:
     return least_ms(v * j * 12 + v * 33, nbytes)
 
 
-def refit(bvh) -> tuple[float, str]:
-    """Bound of one per-frame ``bvh.twolevel.refit``: the skinned groups'
-    posed vertices, indices, leaf and child ids and the instance transforms
-    read; the skinned groups' leaf and internal rows, the instance rows,
-    the TLAS rows and the root boxes written (512 B a row). Operations: the
-    leaf boxes (a min and a max per vertex coordinate), one min and max per
-    child box coordinate in each of the depth + 1 internal passes, the 8
-    corners and the inverse of each instance, and the TLAS passes."""
-    nbytes = ops = 0
-    for _il, ni, _ll, nl, depth, _root, _vs, v_count, slot in bvh.mesh_meta:
-        if slot < 0:
+# K4 and K5 (csrc/refit.cu): bytes of a packed row; per gathered triangle
+# its three vertices; per leaf row its ids (and row_ids, clip box); per
+# internal row its child ids
+REFIT_ROW_BYTES = ROW * 4
+REFIT_TRI_BYTES = 3 * 12
+REFIT_IDS_BYTES, REFIT_CLIP_BYTES, REFIT_CHILD_BYTES = LEAF_K * 4, 6 * 4, ARITY * 4
+# operations: a min and a max per vertex coordinate of a triangle that is
+# not a pad; per leaf box the +-1e-7 (and the clip clamp); a min and a max
+# per coordinate of a child that is not empty
+REFIT_OPS_TRI, REFIT_OPS_LEAF, REFIT_OPS_CLIP, REFIT_OPS_CHILD = 18, 6, 6, 6
+# K5 per instance: -(Rinv t) (3 x 3 mul, 2 add, 1 neg), the 8 corners (per
+# coordinate 1 - s, 2 mul, 1 add), their transform (per coordinate 3 mul,
+# 3 add) and the world box (7 min and 7 max per axis); per instance the
+# 4x4 transform and 3x3 inverse read, per group its root box read and written
+K5_OPS_INSTANCE = 18 + 8 * 3 * 4 + 8 * 3 * 6 + 2 * 3 * 7
+K5_BYTES_INSTANCE = 16 * 4 + 9 * 4
+K5_BYTES_GROUP = 2 * 6 * 4
+
+
+def _rows_work(leaf_tri, node_child, clipped: bool, row_ids: bool = False) -> tuple[int, int]:
+    """(ops, bytes) of K4 over the leaf rows ``leaf_tri`` (Nl, LEAF_K) and
+    the internal rows ``node_child`` (Ni, ARITY) of one table region."""
+    tris = int((leaf_tri >= 0).sum())
+    kids = int((node_child >= 0).sum())
+    nl, ni = leaf_tri.shape[0], node_child.shape[0]
+    leaf_bytes = REFIT_IDS_BYTES * (2 if row_ids else 1) + (REFIT_CLIP_BYTES if clipped else 0)
+    nbytes = (tris * REFIT_TRI_BYTES + nl * leaf_bytes + ni * REFIT_CHILD_BYTES
+              + (nl + ni) * REFIT_ROW_BYTES)
+    ops = (tris * REFIT_OPS_TRI + nl * (REFIT_OPS_LEAF + (REFIT_OPS_CLIP if clipped else 0))
+           + kids * REFIT_OPS_CHILD)
+    return ops, nbytes
+
+
+def flat_refit(wbvh, row_ids: bool = False) -> tuple[float, str]:
+    """Bound of one ``bvh.wide.refit`` (K4 ``flat``): the gathered
+    triangles, the leaf ids (and ``row_ids``, and the SBVH clip boxes) and
+    the child ids read, every row written; the leaf boxes' and the child
+    boxes' min and max."""
+    return least_ms(*_rows_work(wbvh.leaf_tri, wbvh.node_child, wbvh.leaf_clip is not None, row_ids))
+
+
+def _blas_work(bvh, all_groups: bool) -> tuple[int, int]:
+    ops = nbytes = 0
+    for int_lo, ni, leaf_lo, nl, _depth, _root, _vs, v_count, slot in bvh.mesh_meta:
+        if slot < 0 and not all_groups:
             continue
-        n_tris = bvh.skin_indices[slot].shape[0]
-        nbytes += v_count * 12 + n_tris * 12 + nl * LEAF_K * 4 + ni * ARITY * 4
-        nbytes += (nl + ni) * ROW * 4 + 24
-        ops += nl * LEAF_K * 9 * 2 + ni * ARITY * 3 * 2 * (depth + 1)
-    n_inst, tn = bvh.n_instances, bvh.tlas_n
-    nbytes += n_inst * 64 + tn * ARITY * 4 + (n_inst + tn) * ROW * 4
-    ops += n_inst * (8 * 3 * 8 + 60) + tn * ARITY * 3 * 2 * (bvh.tlas_depth + 1)
-    return least_ms(ops, nbytes)
+        o, b = _rows_work(bvh.leaf_tri[leaf_lo:leaf_lo + nl], bvh.node_child[int_lo:int_lo + ni],
+                          bvh.leaf_clip is not None)
+        n_tris = int((bvh.leaf_tri[leaf_lo:leaf_lo + nl] >= 0).sum())
+        # the group's vertices and its local indices in place of gathered
+        # triangles, each read once
+        ops += o
+        nbytes += b - n_tris * REFIT_TRI_BYTES + v_count * 12 + n_tris * 12 + 24
+    return ops, nbytes
+
+
+def _tlas_work(bvh) -> tuple[int, int]:
+    tn, n_inst = bvh.tlas_n, bvh.n_instances
+    o, b = _rows_work(bvh.leaf_tri[:0], bvh.node_child[:tn], False)
+    return (o + n_inst * K5_OPS_INSTANCE,
+            b + n_inst * (K5_BYTES_INSTANCE + REFIT_ROW_BYTES) + len(bvh.mesh_meta) * K5_BYTES_GROUP)
+
+
+def blas_refit(bvh, all_groups: bool = False) -> tuple[float, str]:
+    """Bound of K4 ``blas`` in one ``bvh.twolevel.refit``: every skinned
+    group (``all_groups``: every group, as at build time): its posed
+    vertices and local indices, leaf and child ids read, its rows and root
+    box written; the leaf and child boxes' min and max."""
+    return least_ms(*_blas_work(bvh, all_groups))
+
+
+def tlas_refit(bvh) -> tuple[float, str]:
+    """Bound of K5: the instance transforms and inverses and the root boxes
+    read, the instance rows and the TLAS rows written; each instance's
+    corners, their transform and its world box, the TLAS boxes."""
+    return least_ms(*_tlas_work(bvh))
+
+
+def refit(bvh) -> tuple[float, str]:
+    """Bound of one per-frame ``bvh.twolevel.refit`` (K4 ``blas`` over the
+    skinned groups and K5 together)."""
+    (o1, b1), (o2, b2) = _blas_work(bvh, False), _tlas_work(bvh)
+    return least_ms(o1 + o2, b1 + b2)
 
 
 # f32 values per pixel of the denoiser (upscale/denoise.py:svgf_filter): in,

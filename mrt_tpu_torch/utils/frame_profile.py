@@ -32,7 +32,9 @@ in all three presenter modes).
 For each run, after two warm-up frames, ``frame_walls`` times FRAMES
 unprofiled frames between ``torch.cuda.synchronize()`` calls (every run's
 before any profiler session); then ``profile_frame`` times one
-``Renderer.prepare`` and one frame under ``torch.profiler``. The device's busy time is the sum of the
+``Renderer.prepare``, then profiles one prepare (its device time and
+events, and those of its refit kernels K4 and K5, ``prepare_profiled``) and
+one frame under ``torch.profiler``. The device's busy time is the sum of the
 device events of the profiled frame (kernels, copies, fills; one stream, so
 they do not overlap); the idle share is 1 - busy / the median unprofiled
 frame wall, because the profiler slows the host that issues the ops but not
@@ -259,7 +261,7 @@ def profile_frame(r, table_out=None, walls=None) -> dict:
     ``walls`` are its unprofiled frame walls, timed here when None."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ..kernels import traverse2
+    from ..kernels import refit, traverse2
 
     dev = r.device
     if walls is None:
@@ -275,21 +277,43 @@ def profile_frame(r, table_out=None, walls=None) -> dict:
     def traversals():  # K2 and K3 launches so far
         return traverse2.launches + traverse2.flat_launches
 
+    def refits():  # K4 and K5 launches so far
+        return dict(refit.rows_launches, tlas=refit.tlas_launches)
+
+    def device_events(prof):
+        return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def named_s(events, name):
+        return sum(e.time_range.elapsed_us() for e in events if name in e.name) / 1e6
+
+    # the prepare stage alone: its refit's kernels K4 (refit_rows) and K5
+    # (refit_tlas) among its device events
+    refits0 = refits()
+    with profile(activities=activities) as prof:
+        r.prepare()
+        _sync(dev)
+    prep_events = device_events(prof)
+    prepare = dict(device_s=sum(e.time_range.elapsed_us() for e in prep_events) / 1e6,
+                   device_events=len(prep_events), refit_rows_s=named_s(prep_events, "refit_rows"),
+                   refit_tlas_s=named_s(prep_events, "refit_tlas"),
+                   refit_launches={k: n - refits0[k] for k, n in refits().items()})
+
     launches0 = traversals()
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         frame(r)
         _sync(dev)
         wall = time.perf_counter() - t0
-    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_events = device_events(prof)
     busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e6
-    trav = sum(e.time_range.elapsed_us() for e in dev_events if "traverse2" in e.name) / 1e6
+    trav = named_s(dev_events, "traverse2")
     gather = sum(e.time_range.elapsed_us() for e in dev_events
                  if "gather" in e.name or "index" in e.name) / 1e6
     median = statistics.median(walls)
     line = dict(frame_wall_s=walls, frame_wall_median_s=median, frame_wall_profiled_s=wall,
-                prepare_s=prepare_s, device_busy_s=busy, device_events=len(dev_events),
-                traverse2_s=trav, traverse2_launches=traversals() - launches0,
+                prepare_s=prepare_s, prepare_profiled=prepare, device_busy_s=busy,
+                device_events=len(dev_events), traverse2_s=trav,
+                traverse2_launches=traversals() - launches0,
                 gather_s=gather, idle_share=1.0 - busy / median,
                 idle_share_profiled=1.0 - busy / wall, rays=int(r.last_rays_traced))
     if table_out is not None:

@@ -328,8 +328,8 @@ def test_gp4_matches_single_device(world, jax_side):
     """gp=4, whole atlas: within 1e-5 of the single device, and of JAX's gp
     step within the parity bar, rays equal. In the checked frame after it
     (``drive(check_flat=True)``) every rank held each traversal of its
-    shard table against the plain version, and no lane reached a padded
-    row of a table that has them."""
+    shard table, and its refit of it, against the plain versions, and no
+    lane reached a padded row of a table that has them."""
     single, rays = _single(OFFSETS)
     _check_frame(world["gp4"], single[0], jax_side["gp4"][0], rays, jax_side["gp4"][1])
     checks = [x["flat_check"] for x in world["gp4"]]
@@ -337,6 +337,7 @@ def test_gp4_matches_single_device(world, jax_side):
         assert check["launches"] > 0 and check["lanes"] > 0
         assert not any(check["mismatches"].values()) and check["max_abs_err"] == 0.0
         assert check["padded_visits"] == 0
+        assert check["refit"]["launches"] > 0 and check["refit"]["rows_differing"] == 0
     assert max(check["padded_rows"] for check in checks) > 0
 
 

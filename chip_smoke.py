@@ -22,6 +22,29 @@ never prints its last line):
      instantiation over run A's flat table (made by the user's switch,
      two_level = False) and its float-sort one over that table padded past
      2^20 - 1 rows;
+  3c. the wavefront's stages K6-K8 (mrt_tpu_torch/csrc/wavefront.cu)
+     against their plain versions on the card: their Halton device function
+     (csrc/halton.cuh, through the test entry mrt_halton) bit-equal to the
+     CPU's halton_base over check_halton's sweep at 24 and 11 digits; then
+     every K6, K7 and K8 launch of one frame of run A held against its plain
+     version on the card on the same (cloned) lane state right after it ran,
+     every output field compared in its bits (K7's shadow rays where both
+     cast one): the target is bit-equality, a float field that is not
+     bit-equal must stay within STAGE_REL_TOL relative (its largest ULP
+     printed), an integer or bool field equal on STAGE_INT_SHARE of lanes.
+     K7's first launch is also held on the same state with every material
+     glass (the glass-heavy state). Then a frame each with power light
+     sampling and with legacy shading, each stage's time at the frame's
+     first launch (CUDA events) beside its plain version's and its bound,
+     and one whole frame of the kernel route against the plain route
+     (kernel_route answering False) on the card: bit-equal, or the
+     accumulation within 1e-3 relative RMSE and the rays within 1e-4. The
+     same for a 512x512 scene with all four light types and an environment
+     map made from a seed (lights_env_renderer), uniform and power
+     sampled, which the app scene leaves unexercised. Every
+     later run on the kernel route (B, C, E denoised for the G-buffer, G,
+     H, J, K, G flat) is checked the same way before it is driven, and
+     every run's line names its route;
   4. the port's main path at full width: the flagship scene without the
      train/treefir OBJs at 1920x1080, 2 spp, 4 bounces, upscaler off,
      motion-adaptive sampling off (run A), the 1.31M-triangle dragon at
@@ -33,7 +56,8 @@ never prints its last line):
      frames (hit-equal, t/u/v bit-equal, pops equal) are held against their
      plain versions at that run's shapes and timed, with K2's bound per
      launch from the plain version's visits. Then the run is driven with
-     each kernel's launch counter set to 0 and checked to rise. Run C also
+     each kernel's launch counter set to 0 and checked to rise (K6-K8's
+     on the kernel route; off it, at run F, they must stay 0). Run C also
      prints the seconds of its prepare stage (skinning, world transform,
      refit) per animated frame, the share of pixels that earned 1 and 2
      extra samples, and its largest motion vector (> 0.5 px: the robot
@@ -160,11 +184,11 @@ never prints its last line):
      CPU within 1e-2 relative RMSE and rays within 1 %: mipmaps on, each
      debug view 1-7, and the light-masked frame.
 The line before the last is {"kernels": [...]}: K1, K2's three
-instantiations, K3's two, K4's two and K5 (launches counted over the
-main-path runs, the builds of runs G and K and of run G flat, and phase
-L's ranks), each with its bound
-(mrt_tpu_torch/utils/bounds.py); the last line is
-{"ok": true, "device": {...}}.
+instantiations, K3's two, K4's two, K5, and K6, K7 and K8 (launches counted
+over the main-path runs, the builds of runs G and K and of run G flat, and
+phase L's ranks), each with its bound (mrt_tpu_torch/utils/bounds.py);
+runs A, B, C, E, G, H and J must have launched K6-K8. The script prints its
+total seconds; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -478,7 +502,10 @@ def check_path_kernels(torch, tag, r, present, traverse2, bounds):
         for k, val in work.items():
             k2["work"][k] = k2["work"].get(k, 0) + val
         if not first:
-            first.append((args, kw))
+            # copies: K7 updates the lane state (rays, active) in place later
+            first.append((args[:nh] + tuple(x.clone() if torch.is_tensor(x) else x
+                                            for x in args[nh:]),
+                          {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()}))
         return kout
 
     setattr(traverse2, kname, checked)
@@ -511,6 +538,360 @@ def check_path_kernels(torch, tag, r, present, traverse2, bounds):
         f"{k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms, bound {k2['bound_ms']:.4f} ms "
         f"({k2['bound_by_cam']})")
     return {"k1_err": k1_err, "k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms, key: k2, "k1_input": x}
+
+
+# phase 3c: a float output of K6-K8 that is not bit-equal to its plain
+# version must stay within this relative error (per lane, against the lane's
+# largest component), and an integer or bool output equal on this share of
+# lanes
+STAGE_REL_TOL = 1e-5
+STAGE_INT_SHARE = 0.9999
+
+
+def ordered_bits(torch, x):
+    """f32 bits as int64 in the order of the values (so a difference is a
+    distance in units in the last place)."""
+    i = x.contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def field_diff(torch, k, p, lanes=None) -> dict:
+    """Kernel output ``k`` against plain ``p`` (over ``lanes`` if given):
+    lanes differing, and for f32 the largest ULP and relative error."""
+    if lanes is not None:
+        k, p = k[lanes], p[lanes]
+    if k.dtype != torch.float32:
+        bad = (k != p) if k.ndim == 1 else (k != p).any(dim=-1)
+        return dict(lanes=int(k.shape[0]), differing=int(bad.sum()))
+    cols = int(torch.tensor(k.shape[1:]).prod()) if k.ndim > 1 else 1
+    kk, pp = k.reshape(k.shape[0], cols), p.reshape(p.shape[0], cols)
+    bad = (kk.view(torch.int32) != pp.view(torch.int32)).any(dim=1)
+    out = dict(lanes=int(k.shape[0]), differing=int(bad.sum()), max_ulp=0, max_rel=0.0,
+               max_abs=0.0)
+    if out["differing"]:
+        kb, pb = kk[bad], pp[bad]
+        out["max_ulp"] = int((ordered_bits(torch, kb) - ordered_bits(torch, pb)).abs().max())
+        both_nan = torch.isnan(kb) & torch.isnan(pb)
+        err = torch.where(both_nan, 0.0, (kb - pb).abs()).nan_to_num(float("inf"))
+        scale = pb.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+        out["max_rel"] = float((err / scale).max())
+        out["max_abs"] = float(err.max())
+    return out
+
+
+def field_ok(d: dict) -> bool:
+    if "max_ulp" in d:
+        return d["max_rel"] <= STAGE_REL_TOL
+    return d["differing"] <= (1.0 - STAGE_INT_SHARE) * max(d["lanes"], 1)
+
+
+def merge_fields(acc: dict, new: dict):
+    for name, d in new.items():
+        a = acc.setdefault(name, dict(lanes=0, differing=0))
+        a["lanes"] += d["lanes"]
+        a["differing"] += d["differing"]
+        if "max_ulp" in d:
+            for m in ("max_ulp", "max_rel", "max_abs"):
+                a[m] = max(a.get(m, 0), d[m])
+
+
+def state_diff(torch, W, k, p) -> dict:
+    """Every LaneState field of the kernel's state ``k`` against the plain
+    version's ``p``."""
+    return {f: field_diff(torch, getattr(k, f), getattr(p, f).contiguous())
+            for f in W.LaneState._fields if getattr(p, f) is not None}
+
+
+def shadow_diff(torch, k, p) -> dict:
+    """The shadow rays: the mask on every lane, the rays where both cast one."""
+    both = k.need & p.need
+    out = {"need": field_diff(torch, k.need, p.need)}
+    for f in ("origin", "direction", "distance", "contrib"):
+        out[f"shadow.{f}"] = field_diff(torch, getattr(k, f), getattr(p, f), both)
+    return out
+
+
+def check_stages(torch, tag, r, W, bounds, glass_heavy: bool = False) -> dict:
+    """Phase 3c at run ``tag``: every launch of K6, K7 and K8 in one frame
+    of ``r`` held against its plain version on the card on the same inputs
+    (the state cloned first: the kernels update it in place), right after it
+    ran; the frame goes on with the kernel's outputs. Every field's lanes
+    differing, largest ULP and relative error are summed per stage; each
+    launch's CUDA-event time beside the plain version's and its bound
+    (bounds.k6/k7/k8). With ``glass_heavy``, K7's first launch is also held
+    on the same state with every material glass (ior 1.5, opacity 0.5).
+    Raises if a field is outside STAGE_REL_TOL / STAGE_INT_SHARE; returns
+    the stages' numbers and the first launch's inputs (for timing)."""
+    orig = {s: getattr(W, s) for s in W.STAGES}
+    res = {s: dict(launches=0, fields={}, frame_ms=0.0, frame_plain_ms=0.0, frame_bound_ms=0.0,
+                   bound_by={"bytes": 0, "operations": 0}) for s in W.STAGES}
+    res["shade_hit"]["work"] = {}
+    first = {}
+    extra = {}
+    where = {"sidx": 0, "iter": 0}
+
+    def timed(fk, fp):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        ok = fk()
+        ev[1].record()
+        op = fp()
+        ev[2].record()
+        torch.cuda.synchronize()
+        return ok, op, ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+
+    def account(stage, fields, ms, pms, bound):
+        r_ = res[stage]
+        r_["launches"] += 1
+        merge_fields(r_["fields"], fields)
+        r_["frame_ms"] += ms
+        r_["frame_plain_ms"] += pms
+        r_["frame_bound_ms"] += bound[0]
+        r_["bound_by"][bound[1]] += 1
+        bad = {f: d for f, d in fields.items() if not field_ok(d)}
+        if bad:
+            raise AssertionError(f"phase 3c run {tag}: {stage} (sample {where['sidx']}, "
+                                 f"iteration {where['iter']}) disagrees with its plain version "
+                                 f"on the card: {bad}")
+
+    def c_sample_start(fr, sidx, total, prev=None):
+        where.update(sidx=sidx, iter=0)
+        st_k, st_p, ms, pms = timed(lambda: orig["sample_start"](fr, sidx, total, prev),
+                                    lambda: W.sample_start_plain(fr, sidx, total, prev))
+        account("sample_start", state_diff(torch, W, st_k, st_p), ms, pms,
+                bounds.k6(fr.pixel_x.shape[0]))
+        first.setdefault("sample_start", (fr, sidx, total.clone(), prev))
+        return st_k
+
+    def c_shade_hit(fr, st, hits, sidx):
+        st_in = W.clone_state(st)
+        (st_k, sh_k), (st_p, sh_p), ms, pms = timed(
+            lambda: orig["shade_hit"](fr, st, hits, sidx),
+            lambda: W.shade_hit_plain(fr, st_in, hits, sidx))
+        fields = state_diff(torch, W, st_k, st_p)
+        fields.update(shadow_diff(torch, sh_k, sh_p))
+        work = bounds.k7_work(fr, st_in, hits, sh_p)
+        for k_, v in work.items():
+            res["shade_hit"]["work"][k_] = res["shade_hit"]["work"].get(k_, 0) + v
+        account("shade_hit", fields, ms, pms, bounds.k7(work))
+        if "shade_hit" not in first:
+            first["shade_hit"] = (fr, W.clone_state(st_in), hits, sidx, work)
+            if glass_heavy:
+                glassy = fr.geom.mat_rows.clone()
+                glassy[:, 10] = 1.5
+                glassy[:, 11] = 0.5
+                fr_g = fr._replace(geom=fr.geom._replace(mat_rows=glassy))
+                gk, gsk = orig["shade_hit"](fr_g, W.clone_state(st_in), hits, sidx)
+                gp, gsp = W.shade_hit_plain(fr_g, W.clone_state(st_in), hits, sidx)
+                gf = state_diff(torch, W, gk, gp)
+                gf.update(shadow_diff(torch, gsk, gsp))
+                gwork = bounds.k7_work(fr_g, st_in, hits, gsp)
+                extra["glass_heavy"] = dict(work=gwork, not_bit_equal={
+                    f: d for f, d in gf.items() if d["differing"]})
+                bad = {f: d for f, d in gf.items() if not field_ok(d)}
+                if bad or gwork["glass"] < gwork["hit"] // 2:
+                    raise AssertionError(f"phase 3c run {tag}: the glass-heavy K7 state "
+                                         f"disagrees or holds few glass hits: {gwork} {bad}")
+        where["iter"] += 1
+        return st_k, sh_k
+
+    def c_resolve(st, shadow, occluded):
+        st_in = st._replace(accumulated=st.accumulated.clone())
+        st_k, st_p, ms, pms = timed(lambda: orig["resolve_shadow"](st, shadow, occluded),
+                                    lambda: W.resolve_shadow_plain(st_in, shadow, occluded))
+        n_add = int((shadow.need & ~occluded).sum())
+        account("resolve_shadow",
+                {"accumulated": field_diff(torch, st_k.accumulated, st_p.accumulated)}, ms, pms,
+                bounds.k8(occluded.shape[0], n_add))
+        first.setdefault("resolve_shadow", (st_in._replace(accumulated=st_in.accumulated.clone()),
+                                            shadow, occluded))
+        return st_k
+
+    for s, f in (("sample_start", c_sample_start), ("shade_hit", c_shade_hit),
+                 ("resolve_shadow", c_resolve)):
+        setattr(W, s, f)
+    try:
+        r.draw(1 / 60)
+    finally:
+        for s, f in orig.items():
+            setattr(W, s, f)
+    torch.cuda.synchronize()
+    if min(res[s]["launches"] for s in W.STAGES) < 1:
+        raise AssertionError(f"phase 3c run {tag}: a stage never launched: "
+                             f"{ {s: res[s]['launches'] for s in W.STAGES} }")
+    not_bit_equal = {s: {f: d for f, d in res[s]["fields"].items() if d["differing"]}
+                     for s in W.STAGES}
+    log(json.dumps(dict(phase="3c", run=tag, route="kernel",
+                        launches={s: res[s]["launches"] for s in W.STAGES},
+                        not_bit_equal=not_bit_equal, glass_heavy=extra.get("glass_heavy"),
+                        frame_ms={s: res[s]["frame_ms"] for s in W.STAGES},
+                        frame_plain_ms={s: res[s]["frame_plain_ms"] for s in W.STAGES},
+                        frame_bound_ms={s: res[s]["frame_bound_ms"] for s in W.STAGES},
+                        k7_work=res["shade_hit"]["work"])))
+    return dict(stages=res, first=first, not_bit_equal=not_bit_equal, extra=extra)
+
+
+def time_stages(torch, W, bounds, first, reps: int = 5) -> dict:
+    """K6, K7 and K8's time at a frame's first launch (the whole wavefront
+    live), from CUDA events over ``reps`` launches (each K7 launch on its
+    own copy of the state), beside the plain version's and the bound."""
+    out = {}
+    fr, sidx, total, prev = first["sample_start"]
+    out["sample_start"] = dict(ms=cuda_ms(lambda: W.sample_start(fr, sidx, total, prev), reps),
+                               plain_ms=cuda_ms(lambda: W.sample_start_plain(fr, sidx, total,
+                                                                             prev), reps))
+    out["sample_start"]["bound_ms"], out["sample_start"]["bound_by"] = bounds.k6(
+        fr.pixel_x.shape[0])
+    fr, st, hits, sidx, work = first["shade_hit"]
+    copies = [W.clone_state(st) for _ in range(reps)]
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for c in copies:
+        W.shade_hit(fr, c, hits, sidx)
+    end.record()
+    torch.cuda.synchronize()
+    del copies
+    out["shade_hit"] = dict(ms=start.elapsed_time(end) / reps,
+                            plain_ms=cuda_ms(lambda: W.shade_hit_plain(fr, st, hits, sidx), 2),
+                            work=work)
+    out["shade_hit"]["bound_ms"], out["shade_hit"]["bound_by"] = bounds.k7(work)
+    st, shadow, occluded = first["resolve_shadow"]
+    out["resolve_shadow"] = dict(
+        ms=cuda_ms(lambda: W.resolve_shadow(st, shadow, occluded), reps),
+        plain_ms=cuda_ms(lambda: W.resolve_shadow_plain(st, shadow, occluded), reps))
+    out["resolve_shadow"]["bound_ms"], out["resolve_shadow"]["bound_by"] = bounds.k8(
+        occluded.shape[0], int((shadow.need & ~occluded).sum()))
+    return out
+
+
+def route_of(W, r) -> bool:
+    """Whether run ``r``'s frames take the kernel route (K6-K8), from its
+    settings and its last frame's geometry (a fresh prepare if it drew
+    none)."""
+    prepared = getattr(r, "_prepared", None)
+    geom = (prepared if prepared is not None else r.prepare())[1]
+    return W.kernel_route(r.settings(), r.statics, geom)
+
+
+def check_route_frame(torch, tag, r, W, wf) -> dict:
+    """One frame of run ``tag`` on the kernel route against the plain route
+    on the card, on the same inputs (``trace_frame`` run twice, the second
+    time with ``kernel_route`` answering False); the frame goes on with the
+    kernel route's outputs. The accumulation, rays, samples, depth, motion
+    and the G-buffer bit-equal, or the accumulation within 1e-3 relative
+    RMSE and the rays within 1e-4 relative. Raises otherwise."""
+    orig_tf, orig_route = wf.trace_frame, W.kernel_route
+    out = {}
+
+    def both(*a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        ok = orig_tf(*a, **k)
+        ev[1].record()
+        W.kernel_route = lambda *_a, **_k: False
+        try:
+            op = orig_tf(*a, **k)
+        finally:
+            W.kernel_route = orig_route
+        ev[2].record()
+        torch.cuda.synchronize()
+        out["kernel_route_ms"] = ev[0].elapsed_time(ev[1])
+        out["plain_route_ms"] = ev[1].elapsed_time(ev[2])
+        fields = {}
+        for f in ok._fields:
+            a, b = getattr(ok, f), getattr(op, f)
+            if a is None:
+                continue
+            fields[f] = field_diff(torch, a.reshape(-1, *a.shape[2:]), b.reshape(-1, *b.shape[2:]))
+        out["fields"] = fields
+        out["color_rel_rmse"] = rel_rmse(ok.color, op.color)
+        rk, rp = int(ok.rays_traced.sum()), int(op.rays_traced.sum())
+        out["rays"] = [rk, rp]
+        out["rays_rel"] = abs(rk - rp) / max(rp, 1)
+        return ok
+
+    wf.trace_frame = both
+    try:
+        r.draw(1 / 60)
+    finally:
+        wf.trace_frame = orig_tf
+    out["bit_equal"] = not any(d["differing"] for d in out["fields"].values())
+    log(json.dumps(dict(phase="3c", run=tag, frame="kernel route vs plain route on the card",
+                        **out)))
+    if not out["bit_equal"] and (out["color_rel_rmse"] > 1e-3 or out["rays_rel"] > 1e-4):
+        raise AssertionError(f"run {tag}: the kernel route's frame disagrees with the plain "
+                             f"route's: {out}")
+    return out
+
+
+def lights_env_renderer(dev, size: int = 512):
+    """Phase 3c's scene for K7's environment and light-type code, which the
+    runs' app scene (an area and a spot light, no environment) leaves
+    unexercised: a glass, a red and an emissive sphere over a floor (the CPU
+    tests' config 3 without its texture maps), the default area and spot
+    lights plus a point and a sun light, and a 64x128 equirect environment
+    made from a seed; size x size, 2 spp, 4 bounces."""
+    import numpy as np
+
+    from mrt_tpu_torch import Model, Renderer, Scene
+    from mrt_tpu_torch.assets import procedural
+    from mrt_tpu_torch.assets.obj import MaterialDef
+    from mrt_tpu_torch.core import types as T
+    from mrt_tpu_torch.engine.scene import ModelMaterialOverride
+    from mrt_tpu_torch.utils import frame_profile as FP
+
+    s = Scene(size, size)
+    s.models = [
+        Model("glass", mesh=procedural.uv_sphere(12, 24), position=[0.0, 0.6, 1.2], scale=0.5,
+              material_override=ModelMaterialOverride.glass()),
+        Model("red", mesh=procedural.uv_sphere(12, 24), position=[-0.1, 0.5, -0.6], scale=0.5,
+              material_override=ModelMaterialOverride(base_color=(0.75, 0.12, 0.1))),
+        Model("glow", mesh=procedural.uv_sphere(12, 24, material=MaterialDef(
+            name="glow", base_color=(0.1, 0.1, 0.1), emission=(0.4, 1.2, 0.5))),
+            position=[0.9, 0.25, 0.2], scale=0.22),
+        Model("floor", mesh=procedural.plane(), position=[0, 0, 0], scale=10),
+    ]
+    s.lights = T.concat_lights(s.lights,
+                               T.point_light(position=(1.5, 2.5, 1.0), color=(2.0, 1.8, 1.4)),
+                               T.sun_light(direction=(-0.3, -1.0, -0.2), color=(0.25, 0.25, 0.3)))
+    rng = np.random.default_rng(5)
+    s.set_environment(rng.uniform(0.0, 2.0, (64, 128, 3)).astype(np.float32), intensity=0.8)
+    r = Renderer(s, size, size, seed=3, device=dev)
+    FP.configure(r)
+    r.draw()
+    return r
+
+
+def check_halton_kernel(torch, H, W):
+    """K6's and K7's Halton device function (csrc/halton.cuh, through the
+    test entry mrt_halton) bit-equal to halton_base on the CPU over
+    check_halton's sweep, at 24 and 11 digits (the per-step bases are
+    primes[2:])."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    idx, bases = [], []
+    for d in range(100):
+        b = int(H.PRIMES[d])
+        ks = np.unique(rng.integers(1, (1 << 24) // b, size=64))
+        i = np.unique(np.concatenate([ks * b - 1, ks * b, ks * b + 1, np.arange(0, 4096, 97),
+                                      rng.integers(1 << 20, 1 << 24, size=64)]))
+        i = i[(i >= 0) & (i < (1 << 24))]
+        idx.append(i)
+        bases.append(np.full(i.shape, b))
+    i = torch.as_tensor(np.concatenate(idx).astype(np.int32))
+    b = torch.as_tensor(np.concatenate(bases).astype(np.int32))
+    step = b >= 5
+    bad = {}
+    for digits, sel in ((24, torch.ones_like(step)), (11, step)):
+        cpu = H.halton_base(i[sel], b[sel], digits)
+        gpu = W.halton(i[sel].cuda(), b[sel].cuda(), digits).cpu()
+        bad[digits] = int((cpu.view(torch.int32) != gpu.view(torch.int32)).sum())
+    log(f"halton through K6/K7's device function (csrc/halton.cuh): {i.numel()} indices at 24 "
+        f"digits, {int(step.sum())} at 11, bit mismatches against the CPU {bad}")
+    if any(bad.values()):
+        raise AssertionError("K6/K7's Halton differs from the CPU Halton")
 
 
 def profile_run(torch, FP, tag, r, present, bounds, check, walls, k1: bool = False):
@@ -914,10 +1295,13 @@ def drive_e(torch, r, mode, present, traverse2, presenter, refit, timed=3):
     history lifecycle: in the stateful modes an orbit frame's new state is
     bit-equal to a history-free present's, a still frame's output differs
     from it. Returns (launch counts, the mode's line)."""
+    from mrt_tpu_torch.kernels import wavefront as W
+
     r.upscaler_mode = mode
     present.launches = 0
     traverse2.reset_launches()
     refit.reset_launches()
+    W.reset_launches()
     r.orbit(0.02, 0.0)
     r.draw(1 / 30)
     r.present_device()  # warm-up
@@ -946,8 +1330,9 @@ def drive_e(torch, r, mode, present, traverse2, presenter, refit, timed=3):
             kind, how = ("orbit", "differs from") if orbit else ("still", "equals")
             raise AssertionError(f"run E {mode}, frame {i} ({kind}): the present {how} a "
                                  "history-free one")
-    counts = {"present": present.launches, "traverse2": traverse2.launches, **refit_counts(refit)}
-    if min(counts[k] for k in ("present", "traverse2", "refit_blas", "refit_tlas")) < 1:
+    counts = {"present": present.launches, "traverse2": traverse2.launches, **refit_counts(refit),
+              **W.launches}
+    if min(counts[k] for k in ("present", "traverse2", "refit_blas", "refit_tlas") + W.STAGES) < 1:
         raise AssertionError(f"run E {mode}: a kernel of the path never launched: {counts}")
     variants = check_variants(f"E {mode}", traverse2, "packed")
     acc = r.accum
@@ -955,7 +1340,8 @@ def drive_e(torch, r, mode, present, traverse2, presenter, refit, timed=3):
         raise AssertionError(f"run E {mode}: accumulation is not finite or is all black")
     if img.shape != (r.output_height, r.output_width, 3) or img.dtype != torch.uint8:
         raise AssertionError(f"run E {mode}: image {tuple(img.shape)} {img.dtype}")
-    line = dict(run="E", mode=mode, output=[r.output_width, r.output_height],
+    line = dict(run="E", mode=mode, route="kernel" if route_of(W, r) else "plain",
+                output=[r.output_width, r.output_height],
                 resolution=[r.render_width, r.render_height], spp=r.samples_per_pixel,
                 bounces=r.max_bounces, upscaler=r.upscaler_mode,
                 motion_adaptive=r.use_motion_adaptive_sampling, frames=2 * timed,
@@ -1376,6 +1762,7 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
     from mrt_tpu_torch import Renderer
     from mrt_tpu_torch.core import types as T
     from mrt_tpu_torch.dist import launch as L
+    from mrt_tpu_torch.kernels import wavefront as W
     from mrt_tpu_torch.render import wavefront as wf
 
     t_phase = time.perf_counter()
@@ -1384,10 +1771,10 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
 
     def launches(tag, results):
         c = {"present": 0, "traverse2": 0, "traverse_flat": 0, "variants": {}}
-        c.update(dict.fromkeys(REFIT_KEYS, 0))
+        c.update(dict.fromkeys(REFIT_KEYS + W.STAGES, 0))
         for rank in results:
             for job in rank:
-                for k in ("present", "traverse2", "traverse_flat") + REFIT_KEYS:
+                for k in ("present", "traverse2", "traverse_flat") + REFIT_KEYS + W.STAGES:
                     c[k] += job["launches"][k]
                 for k, n in job["launches"]["variants"].items():
                     c["variants"][k] = c["variants"].get(k, 0) + n
@@ -1546,8 +1933,9 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
             and resumed["rays"] == run3["rays"][2:]):
         raise AssertionError(f"phase L3: the sharded frames or the resumed frame disagree: {line}")
     counts["L2"]["gp_refit"] = [c["refit"] for c in line_l2["gp2"]["k3_checked_by_rank"]]
-    for tag, kernels in (("L1", ("present", "traverse2", "traverse_flat", "refit_flat")),
-                         ("L2", ("present", "traverse2", "traverse_flat", "refit_flat")),
+    # L1's and L2's dp frames take the kernel route; gp frames (L1, L2, L3) are off it
+    for tag, kernels in (("L1", ("present", "traverse2", "traverse_flat", "refit_flat") + W.STAGES),
+                         ("L2", ("present", "traverse2", "traverse_flat", "refit_flat") + W.STAGES),
                          ("L3", ("traverse_flat", "refit_flat"))):
         if min(counts[tag][k] for k in kernels) < 1:
             raise AssertionError(f"phase {tag}: a kernel of the path never launched: {counts[tag]}")
@@ -1571,6 +1959,8 @@ def main() -> int:
     from mrt_tpu_torch.core import halton as H
     from mrt_tpu_torch.core import types as T
     from mrt_tpu_torch.kernels import build, present, refit, traverse2
+    from mrt_tpu_torch.kernels import wavefront as W
+    from mrt_tpu_torch.render import wavefront as wf
     from mrt_tpu_torch.upscale import presenter
     from mrt_tpu_torch.utils import bounds
     from mrt_tpu_torch.utils import frame_profile as FP
@@ -1629,6 +2019,38 @@ def main() -> int:
                                               bounds)
     del padded, flat_a
 
+    # --- 3c. K6-K8, the wavefront's stages, against their plain versions on the card ----------
+    check_halton_kernel(torch, H, W)
+    stage_checks, route_frames = {}, {}
+    stage_checks["A"] = check_stages(torch, "A", ra, W, bounds, glass_heavy=True)
+    stage_times = time_stages(torch, W, bounds, stage_checks["A"]["first"])
+    log(json.dumps(dict(phase="3c", run="A", stage_times=stage_times, card=card_name,
+                        power_limit=power_limit)))
+    ra.light_sampling = "power"
+    stage_checks["A power"] = check_stages(torch, "A power", ra, W, bounds)
+    ra.light_sampling = "uniform"
+    ra.shading_mode = T.SHADING_MODE_LEGACY
+    stage_checks["A legacy"] = check_stages(torch, "A legacy", ra, W, bounds)
+    ra.shading_mode = T.SHADING_MODE_PBR
+    route_frames["A"] = check_route_frame(torch, "A", ra, W, wf)
+    # the environment and all four light types, uniform and power sampled
+    rl = lights_env_renderer(dev)
+    lt = sorted(set(rl.scene_data.lights.type.tolist()))
+    if not (rl.statics.has_environment and lt == [T.LIGHT_TYPE_SUNLIGHT, T.LIGHT_TYPE_SPOTLIGHT,
+                                                  T.LIGHT_TYPE_POINTLIGHT, T.LIGHT_TYPE_AREA]):
+        raise AssertionError(f"phase 3c: the lights scene has light types {lt}, environment "
+                             f"{rl.statics.has_environment}")
+    stage_checks["lights+env"] = check_stages(torch, "lights+env", rl, W, bounds)
+    rl.light_sampling = "power"
+    stage_checks["lights+env power"] = check_stages(torch, "lights+env power", rl, W, bounds)
+    route_frames["lights+env power"] = check_route_frame(torch, "lights+env power", rl, W, wf)
+    env_miss = stage_checks["lights+env"]["stages"]["shade_hit"]["work"]["env_miss"]
+    if env_miss < 1:
+        raise AssertionError("phase 3c: no lane of the lights scene missed into the environment")
+    del rl
+    for tag in ("A", "A power", "A legacy", "lights+env", "lights+env power"):
+        stage_checks[tag].pop("first", None)
+
     # --- 4. main path: each run's kernels checked at its shapes, then driven ---------------
     def drive(tag, r, timed, scene_name, variant="packed", refits=()):
         """Warm-up + ``timed`` frames with the launch counters set to 0
@@ -1639,7 +2061,9 @@ def main() -> int:
         present.launches = 0
         traverse2.reset_launches()
         refit.reset_launches()
+        W.reset_launches()
         r.draw(1 / 60)  # warm-up
+        route = route_of(W, r)
         torch.cuda.synchronize()
         rays, walls, motion, extras = 0, [], [], []
         for _ in range(timed):
@@ -1655,8 +2079,13 @@ def main() -> int:
         img = r.output_image()
         torch.cuda.synchronize()
         counts = {"present": present.launches, "traverse2": traverse2.launches,
-                  "traverse_flat": traverse2.flat_launches, **refit_counts(refit)}
+                  "traverse_flat": traverse2.flat_launches, **refit_counts(refit), **W.launches}
         path = ("present", "traverse_flat" if variant.startswith("flat") else "traverse2") + refits
+        if route:
+            path += W.STAGES
+        elif any(W.launches.values()):
+            raise AssertionError(f"{tag}: off the kernel route, yet a stage kernel launched: "
+                                 f"{counts}")
         h, w = r.render_height, r.render_width
         if img.shape != (h, w, 3) or img.dtype != np.uint8:
             raise AssertionError(f"{tag}: image {img.shape} {img.dtype}")
@@ -1672,6 +2101,7 @@ def main() -> int:
                     bounces=r.max_bounces, upscaler=r.upscaler_mode,
                     motion_adaptive=r.use_motion_adaptive_sampling,
                     triangles=r.statics.n_triangles, table_bytes=r.bvh.table.numel() * 4,
+                    route="kernel" if route else "plain",
                     frames=timed, total_rays=rays, seconds=seconds, frame_walls=walls,
                     mrays_per_s=rays / seconds / 1e6, launches=counts, k2_variants=variants,
                     mipmaps=r.use_mipmaps, has_masks=r.bvh.has_masks,
@@ -1691,6 +2121,12 @@ def main() -> int:
 
     def run(tag, r, timed, variant="packed", scene_name=None, refits=()):
         checks[tag] = check_path_kernels(torch, tag, r, present, traverse2, bounds)
+        if route_of(W, r):
+            if tag not in stage_checks:
+                stage_checks[tag] = check_stages(torch, tag, r, W, bounds)
+                stage_checks[tag].pop("first")
+            if tag not in route_frames:
+                route_frames[tag] = check_route_frame(torch, tag, r, W, wf)
         counts[tag], walls[tag], lines[tag] = drive(
             tag, r, timed, scene_name or FP.RUNS[tag]["scene"], variant, refits)
         # refit keeps its input table: it copies the whole table every call
@@ -1740,13 +2176,19 @@ def main() -> int:
     # --- 6. run E: the presenter chain, a 1080p render presented at 4K -----------------------
     re_ = make("E")
     e_lines, e_checks = {}, {}
-    counts["E"] = {"present": 0, "traverse2": 0, **dict.fromkeys(REFIT_KEYS, 0)}
+    counts["E"] = {"present": 0, "traverse2": 0, **dict.fromkeys(REFIT_KEYS + W.STAGES, 0)}
     for mode in E_MODES:
         c, e_lines[mode] = drive_e(torch, re_, mode, present, traverse2, presenter, refit)
         counts["E"] = {k: n + c[k] for k, n in counts["E"].items()}
         e_checks[mode], x4k = check_e_mode(torch, re_, present, presenter, T)
         e_lines[mode].update(e_checks[mode], card=card_name, power_limit=power_limit)
         log(json.dumps(e_lines[mode]))
+    # the G-buffer state (denoised mode): K7 writes it at sample 0's first hit
+    if not (re_.settings().enable_gbuffer and route_of(W, re_)):
+        raise AssertionError("run E denoised: no G-buffer, or off the kernel route")
+    stage_checks["E denoised"] = check_stages(torch, "E denoised", re_, W, bounds)
+    stage_checks["E denoised"].pop("first")
+    route_frames["E denoised"] = check_route_frame(torch, "E denoised", re_, W, wf)
 
     # --- 6b. runs F and G: the masked and the float-sort K2 on the main path ----------------
     from mrt_tpu_torch.assets import texture as tex
@@ -1928,7 +2370,8 @@ def main() -> int:
 
     # --- 7c. phase L: the sharded renderers, each rank a process on this card ---------------------
     for tag, c in phase_l(torch, FP, dev, lines, card_name, power_limit).items():
-        counts[tag] = {k: c[k] for k in ("present", "traverse2", "traverse_flat") + REFIT_KEYS}
+        counts[tag] = {k: c[k] for k in ("present", "traverse2", "traverse_flat") + REFIT_KEYS
+                       + W.STAGES}
         if "gp_refit" in c:
             refit_checks["L2 gp=2"] = c["gp_refit"]
         variant_counts_l[tag] = c["variants"]
@@ -2024,6 +2467,43 @@ def main() -> int:
     if any(k["launches"] < 1 or k["max_abs_err"] != 0.0 for k in kernels[-3:]):
         raise AssertionError(f"a refit kernel never launched on the main path or disagreed: "
                              f"{kernels[-3:]}")
+
+    # K6-K8: ms, plain_ms and bound_ms at run A's first launch of a frame
+    # (sample 0's camera rays, every lane live; phase 3c); the phase-3c
+    # checks by run (launches held, the fields not bit-equal with their
+    # largest ULP and relative error), the checked frames' CUDA-event times
+    # beside the plain versions' and the bounds, the kernel route's frames
+    # against the plain route's, and the profiled frames' device time
+    def stage_entry(name, stage, replaces):
+        t = stage_times[stage]
+        errs = [d.get("max_abs", 0.0) for c in stage_checks.values()
+                for d in c["stages"][stage]["fields"].values()]
+        return dict(
+            name=name, route="cuda", source="mrt_tpu_torch/csrc/wavefront.cu", replaces=replaces,
+            launches=sum(c.get(stage, 0) for c in counts.values()),
+            launches_by_run={t_: c[stage] for t_, c in counts.items() if c.get(stage)},
+            max_abs_err=max(errs + [0.0]), ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+            checked={run: dict(launches=c["stages"][stage]["launches"],
+                               not_bit_equal=c["not_bit_equal"][stage],
+                               frame_ms=c["stages"][stage]["frame_ms"],
+                               frame_plain_ms=c["stages"][stage]["frame_plain_ms"],
+                               frame_bound_ms=c["stages"][stage]["frame_bound_ms"])
+                     for run, c in stage_checks.items()},
+            profiled_frame_ms={t_: p["stage_s"][stage] * 1e3 for t_, p in profiles.items()})
+
+    kernels += [
+        stage_entry("K6 sample_start", "sample_start", "mrt_tpu/render/wavefront.py:290"),
+        stage_entry("K7 shade_hit", "shade_hit", "mrt_tpu/render/wavefront.py:372"),
+        stage_entry("K8 resolve_shadow", "resolve_shadow", "mrt_tpu/render/wavefront.py:372"),
+    ]
+    log(json.dumps(dict(route_frames=route_frames, card=card_name, power_limit=power_limit)))
+    if any(k["launches"] < 1 for k in kernels[-3:]):
+        raise AssertionError(f"a stage kernel never launched on the main path: {kernels[-3:]}")
+    for tag in ("A", "B", "C", "E", "G", "H", "J"):
+        c = counts[tag]
+        if min(c[s] for s in W.STAGES) < 1:
+            raise AssertionError(f"run {tag}: off the kernel route or a stage never launched: {c}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -332,7 +332,7 @@ def sample_packed_banded(atlas: TextureAtlas, resource: torch.Tensor,
     ``atlas.packed`` holds only this rank's band (global rows [band_lo,
     band_lo + Hb)); the rank weighs the bilinear taps it owns and adds
     zeros for the others. The sum of the ranks' shares
-    (``render/wavefront.sample_packed_across``) is the whole sample: a band
+    (``kernels/wavefront.sample_packed_across``) is the whole sample: a band
     holds whole rows, so each of the two row terms of ``sample_packed``'s
     bilinear sum is computed whole on its owner, and the sum over the ranks
     equals ``sample_packed``'s (-0.0 aside)."""

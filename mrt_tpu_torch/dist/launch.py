@@ -138,12 +138,14 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
     ``walls`` (each draw's seconds, the device synchronised),
     ``prepare_reused`` (whether the frame reused the prepared geometry;
     "dp" only), the kernels' launch counts over the draws and the present
-    (K4's and K5's under ``refit_blas``, ``refit_flat``, ``refit_tlas``),
+    (K4's and K5's under ``refit_blas``, ``refit_flat``, ``refit_tlas``,
+    K6-K8's under their stage names, ``kernels.wavefront.STAGES``),
     with ``present`` the uint8 image and K1's largest difference from its
     plain version, and with ``check_flat`` this rank's check (``flat_check``)."""
     from ..engine import checkpoint
     from ..kernels import present as k1
     from ..kernels import refit, traverse2
+    from ..kernels import wavefront as W
     from .geometry import GeometryShardedRenderer
     from .sharding import DistributedRenderer
 
@@ -166,6 +168,7 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
     k1.launches = 0
     traverse2.reset_launches()
     refit.reset_launches()
+    W.reset_launches()
     img = None
     for k in range(frames):
         if k < len(joints) and joints[k] is not None:
@@ -195,7 +198,8 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
                            traverse_flat=traverse2.flat_launches,
                            variants=dict(traverse2.variant_launches),
                            refit_blas=refit.rows_launches["blas"],
-                           refit_flat=refit.rows_launches["flat"], refit_tlas=refit.tlas_launches)
+                           refit_flat=refit.rows_launches["flat"], refit_tlas=refit.tlas_launches,
+                           **W.launches)
     return out
 
 

@@ -132,6 +132,9 @@ def build_bvh(scene: scene_mod.Scene, scene_data, two_level: bool, device,
     return wide.build(*world_triangles(scene, scene_data), device=device)
 
 
+FOLD_FRAMES = 1024  # pending per-frame ray counts FrameStats keeps before folding them
+
+
 class FrameStats:
     """Frame times (host clock between draws, EMA) and ray totals (int64)."""
 
@@ -146,6 +149,11 @@ class FrameStats:
     def record(self, rays_traced: torch.Tensor):
         now = time.perf_counter()
         self._pending.append(rays_traced)
+        if len(self._pending) > FOLD_FRAMES:
+            # bound the pending tensors of a long session: fold them into one
+            # int64 device sum (exact, no host sync), as the JAX package
+            # stacks its pending scalars every 1024 frames
+            self._pending = [torch.stack(self._pending).sum(dtype=torch.int64)]
         if self._last is not None:
             dt_ms = (now - self._last) * 1e3
             self.frame_ms = dt_ms if self.frame_ms is None else self.ema * self.frame_ms + (1 - self.ema) * dt_ms

@@ -1,0 +1,854 @@
+"""Kernels K6 — sample_start —, K7 — shade_hit — and K8 — resolve_shadow —
+(``csrc/wavefront.cu``, Halton in ``csrc/halton.cuh``), their wrappers, their
+plain PyTorch versions and the per-lane state they pass along.
+
+They replace the body of ``mrt_tpu/render/wavefront.py:trace_tile``, which
+XLA fuses into a few programs per bounce on the TPU: K6 the camera rays and
+the per-sample state (``camera_rays``/``init_state``, :290-363), K7 and K8
+the bounce loop's body (:372-1020) around the two traversals. Per sample,
+``render/wavefront.py:trace_pixels`` runs ``sample_start``, then per
+iteration the closest-hit traversal, ``shade_hit``, the any-hit traversal
+of the shadow rays and ``resolve_shadow``:
+
+- ``sample_start``: Halton dims 0/1 (24 digits) of each pixel's index, the
+  camera ray, and a fresh ``LaneState`` (a lane past its own sample count
+  starts dead);
+- ``shade_hit``: everything between the two traversals — the hit record,
+  the environment on a miss, the normal, the material, the glass branch
+  with its Halton transparency dimension, emission, the five post-glass
+  Halton dimensions, the 1-of-N light pick (uniform or ``power``) and the
+  four light types, PBR or legacy shading, the shadow ray — and the
+  throughput, dead-lane and cosine-bounce update that follows the shadow
+  ray, which reads neither the occlusion nor the radiance sum, so it runs
+  before the any-hit traversal. It writes the next ray into the state and
+  the shadow ray, its radiance and its lane mask into a ``Shadow``;
+- ``resolve_shadow``: ``accumulated += contrib`` where the shadow ray is
+  live and not occluded, right after the any-hit traversal, so the radiance
+  is summed in the plain loop's order: env(k), emission(k), contrib(k),
+  env(k+1).
+
+``kernel_route`` decides by the settings alone whether a frame's stages
+are the kernels (the debug views, mipmapped sampling, texture maps and
+geometry sharding are off the route: their frames run the plain stages on
+any device). On the route, the wrappers take the plain versions only for
+CPU tensors; on CUDA tensors they launch the kernels or raise. The plain
+versions are the port's torch-op wavefront body as it was.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from ..assets import texture as tex
+from ..core import halton as H
+from ..core import types as T
+from ..dist import comm
+from ..render import shade as S
+from .traverse2 import _check
+
+STAGES = ("sample_start", "shade_hit", "resolve_shadow")
+launches = dict.fromkeys(STAGES, 0)  # kernel launches in this process, by stage
+
+# K7's per-light table: [type pos(3) color(3) direction(3) forward(3) right(3)
+# up(3) cos(cone_angle) pmf cdf], one row per light
+LIGHT_COLS = 22
+
+
+def reset_launches():
+    """Set every stage's launch count to 0."""
+    for k in launches:
+        launches[k] = 0
+
+
+class LaneState(NamedTuple):
+    """Every per-lane tensor of one sample's bounce loop; (P,) unless noted.
+    The G-buffer fields (sample 0's first hit) are None unless
+    ``settings.enable_gbuffer``; they carry over from sample to sample."""
+
+    ray_o: torch.Tensor  # (P,3) f32
+    ray_d: torch.Tensor  # (P,3) f32
+    color: torch.Tensor  # (P,3) f32 path throughput
+    accumulated: torch.Tensor  # (P,3) f32 this sample's radiance
+    bounce: torch.Tensor  # int32
+    step: torch.Tensor  # int32 Halton step (bounces and transparency passes)
+    tpasses: torch.Tensor  # int32 transparency passes since the last bounce
+    active: torch.Tensor  # bool
+    rays: torch.Tensor  # int32 traversals launched for this lane
+    prim_tri: torch.Tensor  # int32 sample 0's bounce-0 hit (-1: none)
+    prim_u: torch.Tensor  # f32
+    prim_v: torch.Tensor  # f32
+    cone_t: torch.Tensor  # f32 path length, for the mip LOD
+    diffuse_albedo: torch.Tensor | None = None  # (P,3)
+    specular_albedo: torch.Tensor | None = None  # (P,3)
+    normal: torch.Tensor | None = None  # (P,3)
+    roughness: torch.Tensor | None = None  # (P,)
+    wrote_gb: torch.Tensor | None = None  # bool
+
+
+GBUFFER_FIELDS = ("diffuse_albedo", "specular_albedo", "normal", "roughness", "wrote_gb")
+
+# each LaneState field's dtype and columns (0: a (P,) vector)
+_STATE_LAYOUT = dict(
+    ray_o=(torch.float32, 3), ray_d=(torch.float32, 3), color=(torch.float32, 3),
+    accumulated=(torch.float32, 3), bounce=(torch.int32, 0), step=(torch.int32, 0),
+    tpasses=(torch.int32, 0), active=(torch.bool, 0), rays=(torch.int32, 0),
+    prim_tri=(torch.int32, 0), prim_u=(torch.float32, 0), prim_v=(torch.float32, 0),
+    cone_t=(torch.float32, 0), diffuse_albedo=(torch.float32, 3),
+    specular_albedo=(torch.float32, 3), normal=(torch.float32, 3), roughness=(torch.float32, 0),
+    wrote_gb=(torch.bool, 0))
+
+
+class Shadow(NamedTuple):
+    """``shade_hit``'s shadow rays: origin, direction and extent are the
+    any-hit batch, ``contrib`` the radiance each adds if unoccluded; all are
+    defined only where ``need`` is set."""
+
+    origin: torch.Tensor  # (P,3) f32
+    direction: torch.Tensor  # (P,3) f32
+    distance: torch.Tensor  # (P,) f32
+    contrib: torch.Tensor  # (P,3) f32
+    need: torch.Tensor  # (P,) bool
+
+
+class Frame(NamedTuple):
+    """What the stages read that stays fixed over one ``trace_pixels`` call
+    (``had0``/``motion0``: sample 0's hit record, set after sample 0, for
+    the motion view; ``camera``/``lights``: the kernels' packed tables, made
+    by ``make_frame`` on the kernel route on a CUDA device, else None)."""
+
+    settings: T.RenderSettings
+    statics: object  # engine.scene.SceneStatics
+    scene: object  # engine.scene.SceneData
+    geom: object  # render.wavefront.Geometry
+    uniforms: T.FrameUniforms
+    pixel_x: torch.Tensor  # (P,) int32
+    pixel_y: torch.Tensor  # (P,) int32
+    offsets: torch.Tensor  # (P,) int32 Halton index offsets
+    prev_motion: torch.Tensor  # (P,2) f32
+    base: int  # Halton index base of sample 0
+    width_f: torch.Tensor  # 0-d f32
+    height_f: torch.Tensor  # 0-d f32
+    pixel_angle: torch.Tensor | None = None  # 0-d f32 (mipmaps)
+    had0: torch.Tensor | None = None
+    motion0: torch.Tensor | None = None
+    camera: torch.Tensor | None = None  # (12,) f32: position right up forward
+    lights: torch.Tensor | None = None  # (L, LIGHT_COLS) f32
+    step_bases: torch.Tensor | None = None  # (20, 12) int32: halton._STEP_BASES_PAIR
+
+
+def kernel_route(settings: T.RenderSettings, statics, geom) -> bool:
+    """Whether a frame's stages are kernels K6-K8 (decided by the settings
+    alone; on the route the wrappers still take the plain versions for CPU
+    tensors). Off the route: the debug views, mipmapped sampling, texture
+    maps with normal mapping, and geometry sharding (whose rows and taps
+    are psum'd over the gp axis)."""
+    return (settings.debug_mode == T.DEBUG_MODE_NONE and not settings.use_mipmaps
+            and not settings.geometry_axis and getattr(geom, "g2l", None) is None
+            and not any(statics.any_map))
+
+
+def pack_lights(lights: T.Lights, light_sampling: str) -> torch.Tensor:
+    """(L, LIGHT_COLS) f32: K7's light table, with the cone's cosine and the
+    ``power`` pmf and cdf computed by the plain version's torch ops (so the
+    values are the plain version's own); pmf and cdf are 0 unless ``power``
+    sampling picks among several lights."""
+    n = lights.type.shape[0]
+    pmf = cdf = torch.zeros(n, dtype=torch.float32, device=lights.type.device)
+    if light_sampling == "power" and n > 1:
+        pmf, cdf = _power_pmf_cdf(lights)
+    return torch.cat([lights.type.to(torch.float32)[:, None], lights.position, lights.color,
+                      lights.direction, lights.forward, lights.right, lights.up,
+                      torch.cos(lights.cone_angle)[:, None], pmf[:, None], cdf[:, None]],
+                     dim=1).contiguous()
+
+
+def make_frame(settings, statics, scene, geom, uniforms, pixel_x, pixel_y, offsets, prev_motion,
+               base: int) -> Frame:
+    """The ``Frame`` of one ``trace_pixels`` call, with the kernels' packed
+    tables where its stages run as kernels (the kernel route, on CUDA)."""
+    dev = pixel_x.device
+    f32 = torch.float32
+    # 0-d device tensors: a Python scalar numerator would turn ``c / x`` into
+    # ``reciprocal(x) * c`` (two roundings), and a CUDA ``x / c`` into ``x * (1/c)``
+    width_f = torch.tensor(float(settings.width), dtype=f32, device=dev)
+    height_f = torch.tensor(float(settings.height), dtype=f32, device=dev)
+    cam = uniforms.camera
+    pixel_angle = None
+    if settings.use_mipmaps:
+        # the pixel's angular size, for the ray cone's footprint
+        up_len = torch.sqrt((cam.up ** 2).sum())
+        fwd_len = torch.sqrt((cam.forward ** 2).sum())
+        pixel_angle = 2.0 * up_len / (height_f * torch.clamp(fwd_len, min=1e-5))
+    packed = {}
+    if dev.type == "cuda" and kernel_route(settings, statics, geom):
+        packed = dict(
+            camera=torch.cat([cam.position, cam.right, cam.up, cam.forward]).to(f32).contiguous(),
+            lights=pack_lights(scene.lights, settings.light_sampling),
+            step_bases=torch.as_tensor(H._STEP_BASES_PAIR).to(dev).contiguous())
+    return Frame(settings, statics, scene, geom, uniforms, pixel_x, pixel_y, offsets, prev_motion,
+                 base, width_f, height_f, pixel_angle, **packed)
+
+
+# ---------------------------------------------------------------------------
+# Helpers of the plain body
+# ---------------------------------------------------------------------------
+
+def _where3(m, a, b):
+    return torch.where(m[:, None], a, b)
+
+
+def _tri_rows(table: torch.Tensor, tri: torch.Tensor, geom) -> torch.Tensor:
+    """Per-hit rows of ``table`` for the (P,) triangle ids ``tri``. Under
+    geometry sharding the rank that owns a triangle gathers its row, the
+    others add zeros, and a psum over the gp axis gives every rank the row
+    (exact; -0.0 comes back as +0.0)."""
+    if geom.g2l is None:
+        return table[tri]
+    loc = geom.g2l[tri].long()
+    rows = torch.where((loc >= 0)[:, None], table[loc.clamp_min(0)], 0.0)
+    return comm.psum(rows, geom.axis)
+
+
+def sample_packed_across(atlas: tex.TextureAtlas, resource: torch.Tensor, uv: torch.Tensor,
+                         axis) -> torch.Tensor:
+    """``tex.sample_packed`` over an atlas banded over the gp ``axis``
+    (``dist.comm.Axis``): each rank's share of the taps
+    (``tex.sample_packed_banded``), summed over the axis."""
+    return comm.psum(tex.sample_packed_banded(atlas, resource, uv), axis)
+
+
+def sample_environment(env_map: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
+    """Bilinear equirect lookup. direction (R,3) unit -> (R,3) radiance."""
+    d = direction
+    u = 0.5 + torch.atan2(d[:, 2], d[:, 0]) / (2.0 * S.PI)
+    v = torch.clamp(0.5 - torch.asin(torch.clamp(d[:, 1], -1.0, 1.0)) / S.PI, 0.0, 1.0)
+    he, we = env_map.shape[0], env_map.shape[1]
+    x = u * we - 0.5
+    y = v * he - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[:, None]
+    fy = (y - y0)[:, None]
+    xi0 = torch.remainder(x0.to(torch.int32), we)
+    xi1 = torch.remainder(x0.to(torch.int32) + 1, we)
+    yi0 = torch.clamp(y0.to(torch.int32), 0, he - 1)
+    yi1 = torch.clamp(y0.to(torch.int32) + 1, 0, he - 1)
+    flat = env_map.reshape(-1, 3)
+    c00 = flat[(yi0 * we + xi0).long()]
+    c10 = flat[(yi0 * we + xi1).long()]
+    c01 = flat[(yi1 * we + xi0).long()]
+    c11 = flat[(yi1 * we + xi1).long()]
+    top = c00 * (1 - fx) + c10 * fx
+    bot = c01 * (1 - fx) + c11 * fx
+    return top * (1 - fy) + bot * fy
+
+
+def _project(camera: T.Camera, world_pos: torch.Tensor):
+    """Screen projection used for motion vectors."""
+    view = world_pos - camera.position
+    sx = S.dot3(view, camera.right)
+    sy = S.dot3(view, camera.up)
+    depth = S.dot3(view, camera.forward)
+    denom = torch.clamp(depth, min=0.001)
+    return sx / denom, sy / denom, depth
+
+
+def screen_motion(uniforms: T.FrameUniforms, mrow, u, v, width_f, height_f):
+    """Motion in pixels (+Y down) and depth of the surface point at
+    barycentrics (u, v) (each (P,1)) of the (P,18) motion rows."""
+    w = 1.0 - u - v
+    cam = uniforms.camera
+    obj_pos_w = u * mrow[:, 3:6] + v * mrow[:, 6:9] + w * mrow[:, 0:3]
+    prev_pos_w = u * mrow[:, 12:15] + v * mrow[:, 15:18] + w * mrow[:, 9:12]
+    sx, sy, pdepth = _project(cam, obj_pos_w)
+    psx, psy, _ = _project(uniforms.previous_camera, prev_pos_w)
+    right_scale = torch.clamp(S.length(cam.right), min=1e-5)
+    up_scale = torch.clamp(S.length(cam.up), min=1e-5)
+    motion_px_x = (sx - psx) * (width_f / (2.0 * right_scale))
+    motion_px_y = -((sy - psy) * (height_f / (2.0 * up_scale)))
+    return torch.stack([motion_px_x, motion_px_y], -1), pdepth
+
+
+def _power_pmf_cdf(lights: T.Lights):
+    """The ``power`` light pick's pmf and cdf (luminance, times the area of
+    an area light)."""
+    lum = torch.clamp(lights.color.abs().sum(dim=1), min=1e-6)
+    area = S.length(S.cross(lights.right, lights.up))
+    wgt = torch.where(lights.type == T.LIGHT_TYPE_AREA, lum * torch.clamp(area, min=1e-6), lum)
+    pmf = wgt / wgt.sum()
+    return pmf, torch.cumsum(pmf, dim=0)
+
+
+def _hidx(fr: Frame, sidx: int) -> torch.Tensor:
+    return fr.offsets + fr.base + sidx
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the port's torch-op wavefront body)
+# ---------------------------------------------------------------------------
+
+def sample_start_plain(fr: Frame, sidx: int, total: torch.Tensor,
+                       prev: LaneState | None = None) -> LaneState:
+    """K6's plain version: sample ``sidx``'s camera rays and fresh lane
+    state (``total``: each lane's sample count; a lane at or past it starts
+    dead). The G-buffer carries over from ``prev`` (zeros at sample 0)."""
+    P = fr.pixel_x.shape[0]
+    dev = fr.pixel_x.device
+    f32 = torch.float32
+    cam = fr.uniforms.camera
+    hidx0 = _hidx(fr, sidx)
+    rx = H.halton(hidx0, 0)
+    ry = H.halton(hidx0, 1)
+    u = (fr.pixel_x.to(f32) + rx) / fr.width_f * 2.0 - 1.0
+    v = (fr.pixel_y.to(f32) + ry) / fr.height_f * 2.0 - 1.0
+    ray_d = S.normalize(u[:, None] * cam.right + v[:, None] * cam.up + cam.forward)
+    return LaneState(
+        ray_o=cam.position.expand(P, 3), ray_d=ray_d,
+        color=torch.ones((P, 3), dtype=f32, device=dev),
+        accumulated=torch.zeros((P, 3), dtype=f32, device=dev),
+        bounce=torch.zeros(P, dtype=torch.int32, device=dev),
+        step=torch.zeros(P, dtype=torch.int32, device=dev),
+        tpasses=torch.zeros(P, dtype=torch.int32, device=dev),
+        # a lane past its own sample count neither adds radiance nor counts rays
+        active=total > sidx,
+        rays=torch.zeros(P, dtype=torch.int32, device=dev),
+        prim_tri=torch.full((P,), -1, dtype=torch.int32, device=dev),
+        prim_u=torch.zeros(P, dtype=f32, device=dev),
+        prim_v=torch.zeros(P, dtype=f32, device=dev),
+        cone_t=torch.zeros(P, dtype=f32, device=dev), **_gbuffer(fr, prev))
+
+
+def _gbuffer(fr: Frame, prev: LaneState | None) -> dict:
+    """A sample's G-buffer fields: ``prev``'s (they carry over), zeros at
+    sample 0, none unless ``settings.enable_gbuffer``."""
+    if not fr.settings.enable_gbuffer:
+        return {}
+    if prev is not None:
+        return {k: getattr(prev, k) for k in GBUFFER_FIELDS}
+    P = fr.pixel_x.shape[0]
+    dev = fr.pixel_x.device
+    return {k: torch.zeros((P, cols) if cols else (P,), dtype=dtype, device=dev)
+            for k, (dtype, cols) in _STATE_LAYOUT.items() if k in GBUFFER_FIELDS}
+
+
+def shade_hit_plain(fr: Frame, st: LaneState, hits: T.Hits, sidx: int):
+    """K7's plain version: one iteration's body between the closest-hit and
+    the any-hit traversal of sample ``sidx``, from the closest ``hits`` of
+    the lanes ``st.active`` traced. Returns (the next state, the shadow
+    rays); in a debug view the lanes retire at their first hit and the
+    shadow rays are None (no any-hit traversal)."""
+    settings, statics, scene, geom = fr.settings, fr.statics, fr.scene, fr.geom
+    P = st.active.shape[0]
+    dev = st.active.device
+    f32 = torch.float32
+    gax = geom.axis if settings.geometry_axis else None
+    debug_mode = settings.debug_mode
+    motion_view = debug_mode == T.DEBUG_MODE_MOTION
+    is_sample0 = sidx == 0
+    hidx = _hidx(fr, sidx)
+    ray_o, ray_d, color, accumulated = st.ray_o, st.ray_d, st.color, st.accumulated
+    bounce, step, tpasses, active = st.bounce, st.step, st.tpasses, st.active
+    prim_tri, prim_u, prim_v, cone_t = st.prim_tri, st.prim_u, st.prim_v, st.cone_t
+    gb = None if st.wrote_gb is None else {k: getattr(st, k) for k in GBUFFER_FIELDS}
+    rays = st.rays + active.to(torch.int32)
+
+    hit = hits.hit & active
+    if statics.has_environment:
+        missed = active & ~hit
+        env = sample_environment(scene.env_map, ray_d) * scene.env_intensity
+        accumulated = accumulated + _where3(missed, color * env, 0.0)
+    active = active & hit
+
+    tri = hits.triangle.clamp_min(0).long()
+    srow = _tri_rows(geom.shade_rows, tri, geom)
+    res = srow[:, 15].to(torch.int32)
+    world_point = ray_o + ray_d * hits.t[:, None]
+    u_b1 = hits.u[:, None]
+    v_b1 = hits.v[:, None]
+    w_b1 = 1.0 - u_b1 - v_b1
+
+    # --- primary hit record (bounce 0, sample 0) ----------------------------
+    if is_sample0:
+        primary = hit & (bounce == 0)
+        prim_tri = torch.where(primary, hits.triangle, prim_tri)
+        prim_u = torch.where(primary, hits.u, prim_u)
+        prim_v = torch.where(primary, hits.v, prim_v)
+
+    if settings.use_mipmaps or motion_view:
+        mrow = _tri_rows(geom.motion_rows, tri, geom)
+
+    # --- surface normal ------------------------------------------------------
+    nrm_raw = u_b1 * srow[:, 3:6] + v_b1 * srow[:, 6:9] + w_b1 * srow[:, 0:3]
+    degenerate = S.length(nrm_raw) < 1e-10
+    nrm = _where3(degenerate, -ray_d, S.normalize(nrm_raw))
+
+    # --- ray-cone mip LOD: the cone's radius grows with the path
+    # length; its footprint goes to UV units by the hit triangle's
+    # uv-area / world-area ratio
+    if settings.use_mipmaps:
+        dist = cone_t + torch.where(hit, hits.t, 0.0)
+        e1w = mrow[:, 3:6] - mrow[:, 0:3]
+        e2w = mrow[:, 6:9] - mrow[:, 0:3]
+        world_area = 0.5 * S.length(S.cross(e1w, e2w))
+        du1 = srow[:, 11:13] - srow[:, 9:11]
+        du2 = srow[:, 13:15] - srow[:, 9:11]
+        uv_area = 0.5 * (du1[:, 0] * du2[:, 1] - du1[:, 1] * du2[:, 0]).abs()
+        cos_inc = torch.clamp(S.dot3(ray_d, nrm).abs(), min=0.25)
+        footprint_w = dist * fr.pixel_angle / cos_inc
+        footprint_uv = footprint_w * torch.sqrt(uv_area / torch.clamp(world_area, min=1e-12))
+        lod_base = torch.log2(torch.clamp(footprint_uv, min=1e-8))
+        cone_t = cone_t + torch.where(hit, hits.t, 0.0)
+
+    # --- material + textures ---------------------------------------------------
+    matrow = geom.mat_rows[res.long()]
+    albedo = matrow[:, 0:3]
+    flags = matrow[:, 12].to(torch.int32)
+    tex_coord = u_b1 * srow[:, 11:13] + v_b1 * srow[:, 13:15] + w_b1 * srow[:, 9:11]
+    tex_coord = torch.stack([tex_coord[:, 0], 1.0 - tex_coord[:, 1]], dim=1)
+    packed = []
+
+    def tex_sample(map_type):
+        if settings.use_mipmaps:
+            return tex.sample_trilinear(scene.atlas, res, map_type, tex_coord, lod_base)
+        if not packed:
+            if gax is not None and scene.atlas.band_lo is not None:
+                packed.append(sample_packed_across(scene.atlas, res, tex_coord, gax))
+            else:
+                packed.append(tex.sample_packed(scene.atlas, res, tex_coord))
+        return tex.packed_map(packed[0], map_type)
+
+    def has(bit):
+        return (flags & bit) != 0
+
+    base_sample = None
+    if statics.any_map[tex.MAP_BASECOLOR]:
+        base_sample = tex_sample(tex.MAP_BASECOLOR)
+        albedo = _where3(has(T.MATERIAL_TEXTURE_BASECOLOR), albedo * base_sample, albedo)
+    roughness = torch.ones(P, dtype=f32, device=dev)
+    if statics.any_map[tex.MAP_ROUGHNESS]:
+        s = tex_sample(tex.MAP_ROUGHNESS)[:, 0]
+        roughness = torch.where(has(T.MATERIAL_TEXTURE_ROUGHNESS), s, roughness)
+    metallic = torch.zeros(P, dtype=f32, device=dev)
+    if statics.any_map[tex.MAP_METALLIC]:
+        s = tex_sample(tex.MAP_METALLIC)[:, 0]
+        metallic = torch.where(has(T.MATERIAL_TEXTURE_METALLIC), s, metallic)
+    ao = torch.ones(P, dtype=f32, device=dev)
+    if T.ENABLE_AO and statics.any_map[tex.MAP_AO]:
+        s = tex_sample(tex.MAP_AO)[:, 0]
+        ao = torch.where(has(T.MATERIAL_TEXTURE_AO), s, ao)
+    opacity = torch.clamp(matrow[:, 11], 0.0, 1.0)
+    if statics.any_map[tex.MAP_OPACITY]:
+        s = tex_sample(tex.MAP_OPACITY)[:, 0]
+        opacity = torch.where(has(T.MATERIAL_TEXTURE_OPACITY), opacity * s, opacity)
+    emission = matrow[:, 6:9]
+    if statics.any_map[tex.MAP_EMISSION]:
+        s = tex_sample(tex.MAP_EMISSION)
+        emission = _where3(has(T.MATERIAL_TEXTURE_EMISSION), s, emission)
+
+    # --- debug views: the colour at the hit, then the lane retires -----------------
+    if debug_mode != T.DEBUG_MODE_NONE:
+        magenta = torch.tensor([1.0, 0.0, 1.0], dtype=f32, device=dev).expand(P, 3)
+        if debug_mode == T.DEBUG_MODE_BASECOLOR:
+            debug = (magenta if base_sample is None
+                     else _where3(has(T.MATERIAL_TEXTURE_BASECOLOR), base_sample, magenta))
+        elif debug_mode == T.DEBUG_MODE_NORMAL:
+            debug = nrm * 0.5 + 0.5
+            if statics.any_map[tex.MAP_NORMAL]:
+                debug = _where3(has(T.MATERIAL_TEXTURE_NORMAL), tex_sample(tex.MAP_NORMAL), debug)
+        elif debug_mode == T.DEBUG_MODE_ROUGHNESS:
+            debug = roughness[:, None].expand(P, 3)
+        elif debug_mode == T.DEBUG_MODE_METALLIC:
+            debug = metallic[:, None].expand(P, 3)
+        elif debug_mode == T.DEBUG_MODE_AO:
+            debug = ao[:, None].expand(P, 3) if T.ENABLE_AO else magenta
+        elif debug_mode == T.DEBUG_MODE_EMISSION:
+            debug = emission
+        else:  # the motion view: sample 0's motion (Raytracing.metal:342,482-487)
+            if is_sample0:
+                now, _ = screen_motion(fr.uniforms, mrow, u_b1, v_b1, fr.width_f, fr.height_f)
+                mp = _where3(hit, now, fr.prev_motion)
+            else:
+                mp = _where3(fr.had0, fr.motion0, fr.prev_motion)
+            scaled = torch.clamp(mp * 0.05, -1.0, 1.0)
+            mag = torch.clamp(S.length2(mp) * 0.1, 0.0, 1.0)
+            debug = torch.stack([scaled[:, 0] * 0.5 + 0.5, scaled[:, 1] * 0.5 + 0.5, mag], -1)
+        accumulated = _where3(hit, debug, accumulated)
+        return st._replace(accumulated=accumulated, active=torch.zeros_like(active), rays=rays,
+                           prim_tri=prim_tri, prim_u=prim_u, prim_v=prim_v, cone_t=cone_t), None
+
+    # --- normal mapping ------------------------------------------------------------
+    shading_nrm = nrm
+    if statics.any_map[tex.MAP_NORMAL]:
+        if not (settings.use_mipmaps or motion_view):
+            mrow = _tri_rows(geom.motion_rows, tri, geom)
+        valid_tb, tangent, _ = S.tangent_basis_rows(
+            mrow[:, 0:3], mrow[:, 3:6], mrow[:, 6:9],
+            srow[:, 9:11], srow[:, 11:13], srow[:, 13:15])
+        world_t = S.normalize(tangent - nrm * S.dot3(tangent, nrm)[:, None])
+        world_b = S.normalize(S.cross(nrm, world_t))
+        nmap = tex_sample(tex.MAP_NORMAL) * 2.0 - 1.0
+        mapped = S.normalize(nmap[:, 0:1] * world_t + nmap[:, 1:2] * world_b
+                             + nmap[:, 2:3] * nrm)
+        shading_nrm = _where3(has(T.MATERIAL_TEXTURE_NORMAL) & valid_tb, mapped, nrm)
+
+    # --- G-buffer: sample 0's first hit, before the glass branch -------------------
+    if gb is not None and is_sample0:
+        write_gb = hit & ~gb["wrote_gb"]
+        m = metallic[:, None]
+        gb["diffuse_albedo"] = _where3(write_gb, albedo * (1.0 - m), gb["diffuse_albedo"])
+        gb["specular_albedo"] = _where3(write_gb, 0.04 + (albedo - 0.04) * m,
+                                        gb["specular_albedo"])
+        gb["normal"] = _where3(write_gb, shading_nrm * 0.5 + 0.5, gb["normal"])
+        gb["roughness"] = torch.where(write_gb, torch.clamp(roughness, 0.0, 1.0),
+                                      gb["roughness"])
+        gb["wrote_gb"] = gb["wrote_gb"] | write_gb
+
+    # --- glass / transparency branch ---------------------------------------------
+    step0 = step
+    qmc_cur, qmc_nxt = H.step_bases_pair(step0)
+    skip_lighting = torch.zeros(P, dtype=torch.bool, device=dev)
+    if statics.has_refraction:
+        ior = torch.clamp(matrow[:, 10], min=1.0)
+        clamped_op = torch.clamp(opacity, 0.0, 1.0)
+        glass = hit & ((clamped_op < 0.999) | (ior > 1.01))
+        N = shading_nrm
+        I = ray_d
+        cosi = torch.clamp(S.dot3(-I, N), -1.0, 1.0)
+        inside = cosi < 0.0
+        cosi = cosi.abs()
+        N = _where3(inside, -N, N)
+        one = torch.ones_like(ior)
+        eta_i = torch.where(inside, ior, one)
+        eta_t = torch.where(inside, one, ior)
+        eta = eta_i / eta_t
+        k = 1.0 - eta * eta * (1.0 - cosi * cosi)
+        f0 = ((eta_t - eta_i) / (eta_t + eta_i)) ** 2
+        F = f0 + (1.0 - f0) * torch.pow(torch.clamp(1.0 - cosi, 0.0, 1.0), 5.0)
+        transmission = 1.0 - clamped_op
+        reflect_w = F
+        refract_w = (1.0 - F) * transmission
+        total_w = torch.clamp(reflect_w + refract_w, min=1e-4)
+        reflect_prob = reflect_w / total_w
+        choice = H.halton_base(hidx, qmc_cur["transparency"], H.STEP_MAX_DIGITS)
+        do_reflect = (k < 0.0) | (choice < reflect_prob)
+        reflect_dir = S.normalize(I - 2.0 * S.dot3(I, N)[:, None] * N)
+        cos_t = torch.sqrt(torch.clamp(k, min=0.0))
+        refract_dir = S.normalize(eta[:, None] * I + (eta * cosi - cos_t)[:, None] * N)
+        new_dir = _where3(do_reflect, reflect_dir, refract_dir)
+        new_origin = world_point + new_dir * 1e-3
+        new_color = _where3(do_reflect, color * total_w[:, None],
+                            color * total_w[:, None] * albedo)
+        ray_d = _where3(glass, new_dir, ray_d)
+        ray_o = _where3(glass, new_origin, ray_o)
+        color = _where3(glass, new_color, color)
+        consume_bounce = ~(glass & ~do_reflect)
+        skip_lighting = glass
+        g_bounce = torch.where(consume_bounce, bounce + 1, bounce)
+        g_tp = torch.where(consume_bounce, 0, tpasses + 1)
+        overflow = ~consume_bounce & (g_tp > settings.max_bounces)
+        g_bounce = torch.where(overflow, g_bounce + 1, g_bounce)
+        g_tp = torch.where(overflow, 0, g_tp)
+        step = torch.where(glass, step + 1, step)
+        bounce = torch.where(glass, g_bounce, bounce)
+        tpasses = torch.where(glass, g_tp, tpasses)
+
+    lit = active & ~skip_lighting
+    accumulated = accumulated + _where3(lit, color * emission, 0.0)
+
+    adv = step > step0  # glass lanes advanced one step
+
+    def qmc(name):
+        return H.halton_base(hidx, torch.where(adv, qmc_nxt[name], qmc_cur[name]),
+                             H.STEP_MAX_DIGITS)
+
+    light_sample = qmc("light_pick")
+    u_area = torch.stack([qmc("area_a"), qmc("area_b")], -1)
+    u_b = torch.stack([qmc("bounce_x"), qmc("bounce_y")], -1)
+
+    # --- pick 1 of N lights ----------------------------------------------------------
+    n_lights = statics.n_lights
+    lights = scene.lights
+    if settings.light_sampling == "power" and n_lights > 1:
+        pmf, cdf = _power_pmf_cdf(lights)
+        light_index = torch.searchsorted(cdf, light_sample).clamp(0, n_lights - 1)
+        light_weight = (1.0 / torch.clamp(pmf[light_index], min=1e-8))[:, None]
+    else:
+        light_index = torch.clamp((light_sample * n_lights).to(torch.int32),
+                                  max=n_lights - 1)
+        light_weight = float(n_lights)
+    l_dir, l_col, l_dist = S.evaluate_light(lights, light_index, u_area, world_point)
+    l_col = l_col * light_weight
+
+    # --- shading ------------------------------------------------------------------------
+    shadow_o = world_point + nrm * 1e-3
+    shadow_dist = l_dist - 1e-3
+    if settings.shading_mode == T.SHADING_MODE_LEGACY:
+        L = S.normalize(l_dir)
+        n_dot_l = S.saturate(S.dot3(shading_nrm, L))
+        legacy_color = color * albedo
+        dead_before = S.length(legacy_color) < 0.001
+        active = active & ~(lit & dead_before)
+        lit = lit & ~dead_before
+        need_shadow = lit & (S.length(l_col) > 0.0001) & (n_dot_l > 0.0)
+        contrib = legacy_color * l_col * n_dot_l[:, None]
+    else:
+        perceptual_roughness = torch.clamp(roughness, 0.04, 1.0)
+        alpha = perceptual_roughness * perceptual_roughness
+        F0 = 0.04 + (albedo - 0.04) * metallic[:, None]
+        V = S.normalize(-ray_d)
+        has_light = S.length(l_col) > 0.0001
+        L = S.normalize(l_dir)
+        Hv = S.normalize(V + L)
+        n_dot_l = S.saturate(S.dot3(shading_nrm, L))
+        n_dot_v = S.saturate(S.dot3(shading_nrm, V))
+        n_dot_h = S.saturate(S.dot3(shading_nrm, Hv))
+        v_dot_h = S.saturate(S.dot3(V, Hv))
+        Fr = S.fresnel_schlick(v_dot_h, F0)
+        D = S.distribution_ggx(n_dot_h, alpha)
+        kk = perceptual_roughness + 1.0
+        kk = (kk * kk) / 8.0
+        G = S.geometry_smith(n_dot_v, n_dot_l, kk)
+        specular = (D * G)[:, None] * Fr / torch.clamp(4.0 * n_dot_v * n_dot_l, min=1e-4)[:, None]
+        kD = (1.0 - Fr) * (1.0 - metallic)[:, None]
+        diffuse = kD * albedo / S.PI
+        direct = (diffuse + specular) * l_col * n_dot_l[:, None]
+        need_shadow = lit & has_light
+        contrib = color * direct
+
+    rays = rays + need_shadow.to(torch.int32)
+
+    # --- after the shadow ray: throughput, dead lanes, the next bounce ----------------
+    # (reads neither the occlusion nor the radiance sum, so it runs before
+    # the any-hit traversal)
+    if settings.shading_mode == T.SHADING_MODE_LEGACY:
+        new_color = legacy_color * ao[:, None]
+    else:
+        # throughput: diffuse only, AO on indirect
+        new_color = color * albedo * ((1.0 - metallic) * ao)[:, None]
+    color = _where3(lit, new_color, color)
+    dead = S.length(color) < 0.001
+    active = active & ~(lit & dead)
+    lit = lit & ~dead
+
+    # --- cosine-hemisphere bounce ---------------------------------------------------------
+    bounce_dir = S.align_hemisphere_with_normal(S.sample_cosine_hemisphere(u_b), shading_nrm)
+    ray_o = _where3(lit, world_point + nrm * 1e-3, ray_o)
+    ray_d = _where3(lit, bounce_dir, ray_d)
+    step = torch.where(lit, step + 1, step)
+    bounce = torch.where(lit, bounce + 1, bounce)
+    tpasses = torch.where(lit, 0, tpasses)
+    active = active & (bounce < settings.max_bounces)
+
+    nxt = LaneState(ray_o, ray_d, color, accumulated, bounce, step, tpasses, active, rays,
+                    prim_tri, prim_u, prim_v, cone_t, **(gb or {}))
+    return nxt, Shadow(shadow_o, l_dir, shadow_dist, contrib, need_shadow)
+
+
+def resolve_shadow_plain(st: LaneState, shadow: Shadow, occluded: torch.Tensor) -> LaneState:
+    """K8's plain version: the shadow rays' radiance where they are live and
+    not ``occluded``."""
+    return st._replace(accumulated=st.accumulated
+                       + _where3(shadow.need & ~occluded, shadow.contrib, 0.0))
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+def _ptr(t):
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*(_ptr(t) for t in ts))
+
+
+def _cuda_route(what: str, fr: Frame) -> torch.device:
+    dev = fr.pixel_x.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if fr.camera is None or fr.lights is None or fr.step_bases is None:
+        raise ValueError(f"{what}: the frame's settings are off the kernel route "
+                         "(kernel_route), or the frame was not made by make_frame")
+    return dev
+
+
+def _check_state(what: str, st: LaneState, P: int, dev, gbuffer: bool):
+    for name, (dtype, cols) in _STATE_LAYOUT.items():
+        t = getattr(st, name)
+        if name in GBUFFER_FIELDS and not gbuffer:
+            continue
+        if t is None:
+            raise ValueError(f"{what}: the lane state has no {name}")
+        _check(what, name, t, dtype, (P, cols) if cols else (P,), dev)
+
+
+def _lane_ptrs(st: LaneState):
+    return _ptrs([getattr(st, k) for k in LaneState._fields])
+
+
+def _frame_ptrs(fr: Frame):
+    scene, geom = fr.scene, fr.geom
+    return _ptrs([fr.pixel_x, fr.pixel_y, fr.offsets, fr.camera, fr.lights, geom.shade_rows,
+                  geom.mat_rows, fr.step_bases, scene.env_map,
+                  scene.env_intensity])
+
+
+def _check_frame(what: str, fr: Frame, P: int, dev):
+    for name in ("pixel_x", "pixel_y", "offsets"):
+        _check(what, name, getattr(fr, name), torch.int32, (P,), dev)
+    _check(what, "camera", fr.camera, torch.float32, (12,), dev)
+    _check(what, "step_bases", fr.step_bases, torch.int32, H._STEP_BASES_PAIR.shape, dev)
+    n_lights = fr.lights.shape[0]
+    if n_lights < 1 or n_lights != fr.statics.n_lights:
+        raise ValueError(f"{what}: the light table has {n_lights} rows for "
+                         f"{fr.statics.n_lights} lights")
+    _check(what, "lights", fr.lights, torch.float32, (n_lights, LIGHT_COLS), dev)
+    g = fr.geom
+    _check(what, "shade_rows", g.shade_rows, torch.float32, (g.shade_rows.shape[0], 16), dev)
+    _check(what, "mat_rows", g.mat_rows, torch.float32, (g.mat_rows.shape[0], 16), dev)
+    env = fr.scene.env_map
+    _check(what, "env_map", env, torch.float32, (env.shape[0], env.shape[1], 3), dev)
+    _check(what, "env_intensity", fr.scene.env_intensity, torch.float32, (), dev)
+
+
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _hbase(fr: Frame, sidx: int) -> int:
+    """``base + sidx`` as the int32 the plain version's ``offsets + base +
+    sidx`` adds (wrapping)."""
+    x = (fr.base + sidx) & 0xFFFFFFFF
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def sample_start(fr: Frame, sidx: int, total: torch.Tensor,
+                 prev: LaneState | None = None) -> LaneState:
+    """Sample ``sidx``'s camera rays and fresh lane state (see
+    ``sample_start_plain``). CPU tensors take the plain version; CUDA
+    tensors launch K6."""
+    if fr.pixel_x.device.type == "cpu":
+        return sample_start_plain(fr, sidx, total, prev)
+    what = "sample_start"
+    dev = _cuda_route(what, fr)
+    P = fr.pixel_x.shape[0]
+    _check_frame(what, fr, P, dev)
+    _check(what, "total", total, torch.int32, (P,), dev)
+    st = LaneState(**{k: torch.empty((P, cols) if cols else (P,), dtype=dtype, device=dev)
+                      for k, (dtype, cols) in _STATE_LAYOUT.items() if k not in GBUFFER_FIELDS},
+                   **_gbuffer(fr, prev))
+    _check_state(what, st, P, dev, fr.settings.enable_gbuffer)
+    if P == 0:
+        return st
+    from . import build
+
+    lib = build.load()
+    rc = lib.mrt_sample_start(_lane_ptrs(st), _frame_ptrs(fr), _ptr(total), P,
+                              _hbase(fr, sidx), sidx, float(fr.settings.width),
+                              float(fr.settings.height), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    launches["sample_start"] += 1
+    return st
+
+
+def _flags(fr: Frame, sidx: int) -> int:
+    s, st = fr.settings, fr.statics
+    return ((sidx == 0) | (bool(s.enable_gbuffer) << 1) | (bool(st.has_refraction) << 2)
+            | (bool(st.has_environment) << 3) | ((s.shading_mode == T.SHADING_MODE_LEGACY) << 4)
+            | ((s.light_sampling == "power" and st.n_lights > 1) << 5))
+
+
+def shade_hit(fr: Frame, st: LaneState, hits: T.Hits, sidx: int):
+    """One iteration's body between the traversals (see
+    ``shade_hit_plain``). CPU tensors take the plain version; CUDA tensors
+    launch K7, which updates ``st`` in place. Returns (state, Shadow)."""
+    if fr.pixel_x.device.type == "cpu":
+        return shade_hit_plain(fr, st, hits, sidx)
+    what = "shade_hit"
+    dev = _cuda_route(what, fr)
+    P = fr.pixel_x.shape[0]
+    _check_frame(what, fr, P, dev)
+    _check_state(what, st, P, dev, fr.settings.enable_gbuffer)
+    for name, dtype in (("t", torch.float32), ("triangle", torch.int32), ("u", torch.float32),
+                        ("v", torch.float32)):
+        _check(what, f"hits.{name}", getattr(hits, name), dtype, (P,), dev)
+    sh = Shadow(torch.empty((P, 3), dtype=torch.float32, device=dev),
+                torch.empty((P, 3), dtype=torch.float32, device=dev),
+                torch.empty(P, dtype=torch.float32, device=dev),
+                torch.empty((P, 3), dtype=torch.float32, device=dev),
+                torch.empty(P, dtype=torch.bool, device=dev))
+    if P == 0:
+        return st, sh
+    from . import build
+
+    lib = build.load()
+    env = fr.scene.env_map
+    rc = lib.mrt_shade_hit(_lane_ptrs(st), _frame_ptrs(fr), _ptrs(list(hits)), _ptrs(list(sh)), P,
+                           _hbase(fr, sidx), fr.lights.shape[0], env.shape[0], env.shape[1],
+                           _flags(fr, sidx), fr.settings.max_bounces, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    launches["shade_hit"] += 1
+    return st, sh
+
+
+def resolve_shadow(st: LaneState, shadow: Shadow, occluded: torch.Tensor) -> LaneState:
+    """``accumulated += contrib`` where the shadow ray is live and not
+    ``occluded``. CPU tensors take the plain version; CUDA tensors launch K8
+    (in place)."""
+    dev = occluded.device
+    if dev.type == "cpu":
+        return resolve_shadow_plain(st, shadow, occluded)
+    what = "resolve_shadow"
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    P = occluded.shape[0]
+    _check(what, "accumulated", st.accumulated, torch.float32, (P, 3), dev)
+    _check(what, "contrib", shadow.contrib, torch.float32, (P, 3), dev)
+    _check(what, "need", shadow.need, torch.bool, (P,), dev)
+    _check(what, "occluded", occluded, torch.bool, (P,), dev)
+    if P == 0:
+        return st
+    from . import build
+
+    lib = build.load()
+    rc = lib.mrt_resolve_shadow(_ptr(st.accumulated), _ptr(shadow.contrib), _ptr(shadow.need),
+                                _ptr(occluded), P, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    launches["resolve_shadow"] += 1
+    return st
+
+
+def clone_state(st: LaneState) -> LaneState:
+    """A copy of ``st`` (contiguous), for running a stage twice on the same
+    input (the kernels update the state in place)."""
+    return LaneState(*(None if t is None else t.contiguous().clone() for t in st))
+
+
+def halton(i: torch.Tensor, b: torch.Tensor, digits: int) -> torch.Tensor:
+    """Halton through K6's and K7's device function (``csrc/halton.cuh``):
+    the radical inverse of int32 ``i`` in int32 base ``b`` (both (N,), on
+    the card) with ``digits`` digits; a test entry, held bit-equal to
+    ``core.halton.halton_base`` on the CPU."""
+    dev = i.device
+    if dev.type != "cuda":
+        raise ValueError(f"halton: unsupported device {dev}")
+    n = i.shape[0]
+    _check("halton", "i", i, torch.int32, (n,), dev)
+    _check("halton", "b", b, torch.int32, (n,), dev)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    from . import build
+
+    lib = build.load()
+    rc = lib.mrt_halton(_ptr(i), _ptr(b), _ptr(out), n, digits, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"halton kernel launch failed: CUDA error {rc}")
+    return out

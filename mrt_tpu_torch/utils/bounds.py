@@ -22,7 +22,9 @@ prepare (``lbs``), and the presenter's torch-op chains (``resize``, ``temporal_c
 ``denoiser``, ``denoised_chain``), whose bounds say what a hand kernel could
 gain there. The presenter's bounds count bytes only: a banded resize needs
 6 taps per axis (Lanczos-3 at 2x), so its operations take a fraction of
-its byte time.
+its byte time. K6-K8, the wavefront's stages (``k6``, ``k7``, ``k8``),
+count per lane what the lane's state needs: K7 from one iteration's lanes
+that are live, hit, glass, lit and cast a shadow ray (``k7_work``).
 """
 
 from __future__ import annotations
@@ -261,3 +263,82 @@ def denoised_chain(h: int, w: int, out_h: int, out_w: int) -> tuple[float, str]:
     """Bound of the denoised chain (denoiser, then the temporal upscaler):
     the denoised colour between them need not leave the chip."""
     return _bytes_ms(h * w * (DENOISER_IN + DENOISER_OUT - 3) + out_h * out_w * (4 + 4 + 3))
+
+
+# K6-K8, the wavefront's stages (csrc/wavefront.cu), counted per lane from
+# the source. A Halton digit: the quotient's mul and floor, the remainder's
+# mul and sub, two compares, the weight's mul, the sum's mul and add
+HALTON_DIGIT_OPS = 9
+# K6, per lane: pixel x/y, offset and sample count in (16 B); ray origin and
+# direction, throughput and radiance (48 B), five int32 (20 B), the active
+# flag (1 B), the hit record's u/v and the cone (12 B) out; two 24-digit
+# Halton loops and the camera ray's 30 operations
+K6_BYTES = 16 + 48 + 20 + 1 + 12
+K6_OPS = 2 * 24 * HALTON_DIGIT_OPS + 30
+# K7: every lane reads its active flag and writes its shadow mask; a live
+# lane reads its hit's triangle, its ray, throughput, radiance, four int32
+# and its Halton offset and writes its radiance, active flag and ray count;
+# a hit reads t/u/v, the normals and resource of its shade row (10 f32) and
+# the albedo, emission, ior and opacity of its material row (8 f32) and
+# writes its ray, throughput and three int32; a shadow ray writes origin,
+# direction, extent and radiance; a miss with an environment reads 4 texels
+K7_BYTES_LANE = 2
+K7_BYTES_LIVE = 4 + 64 + 4 + 12 + 1 + 4
+K7_BYTES_HIT = 12 + 40 + 32 + 36 + 12
+K7_BYTES_SHADOW = 40
+K7_BYTES_ENV = 48
+# operations: a hit's point, barycentrics, normal and its normalisation and
+# the material's clamps (45); the glass branch's Fresnel and directions (60)
+# and its 11-digit transparency dimension; a lit lane's five 11-digit
+# dimensions, the light's evaluation (40), PBR shading (110) and the
+# cosine-hemisphere bounce (60); a miss's environment lookup (35)
+K7_OPS_LIVE = 2
+K7_OPS_HIT = 45
+K7_OPS_GLASS = 60 + 11 * HALTON_DIGIT_OPS
+K7_OPS_LIT = 5 * 11 * HALTON_DIGIT_OPS + 40 + 110 + 60
+K7_OPS_ENV = 35
+# K8: every lane reads its shadow mask and occlusion; a lane that adds reads
+# its radiance and contribution and writes its radiance (3 adds)
+K8_BYTES_LANE, K8_BYTES_ADD, K8_OPS_ADD = 2, 36, 3
+
+
+def k6(n_lanes: int) -> tuple[float, str]:
+    """K6's bound for one sample of ``n_lanes`` lanes."""
+    return least_ms(n_lanes * K6_OPS, n_lanes * K6_BYTES)
+
+
+def k7(work: dict[str, int]) -> tuple[float, str]:
+    """K7's bound for one iteration's lane counts (``k7_work``)."""
+    nbytes = (work["lanes"] * K7_BYTES_LANE + work["live"] * K7_BYTES_LIVE
+              + work["hit"] * K7_BYTES_HIT + work["shadow"] * K7_BYTES_SHADOW
+              + work["env_miss"] * K7_BYTES_ENV)
+    ops = (work["live"] * K7_OPS_LIVE + work["hit"] * K7_OPS_HIT + work["glass"] * K7_OPS_GLASS
+           + work["lit"] * K7_OPS_LIT + work["env_miss"] * K7_OPS_ENV)
+    return least_ms(ops, nbytes)
+
+
+def k8(n_lanes: int, n_added: int) -> tuple[float, str]:
+    """K8's bound: ``n_lanes`` lanes, ``n_added`` of them adding radiance."""
+    return least_ms(n_added * K8_OPS_ADD, n_lanes * K8_BYTES_LANE + n_added * K8_BYTES_ADD)
+
+
+def k7_work(fr, st, hits, shadow) -> dict[str, int]:
+    """K7's lane counts for one iteration, from the plain version's inputs
+    (the ``kernels.wavefront.Frame`` ``fr``, the state ``st`` before it and
+    the closest ``hits``) and its shadow rays: lanes, live lanes, hits,
+    glass hits, lit hits, shadow rays and misses that read the
+    environment."""
+    import torch
+
+    live = st.active
+    hit = live & (hits.triangle >= 0)
+    glass = torch.zeros_like(hit)
+    if fr.statics.has_refraction:
+        res = fr.geom.shade_rows[hits.triangle.clamp_min(0).long(), 15].to(torch.int32).long()
+        mat = fr.geom.mat_rows[res]
+        glass = hit & ((torch.clamp(mat[:, 11], 0.0, 1.0) < 0.999)
+                       | (torch.clamp(mat[:, 10], min=1.0) > 1.01))
+    env_miss = live & ~hit if fr.statics.has_environment else torch.zeros_like(hit)
+    return dict(lanes=int(live.numel()), live=int(live.sum()), hit=int(hit.sum()),
+                glass=int(glass.sum()), lit=int((hit & ~glass).sum()),
+                shadow=int(shadow.need.sum()), env_miss=int(env_miss.sum()))

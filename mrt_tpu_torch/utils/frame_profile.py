@@ -39,7 +39,8 @@ device events of the profiled frame (kernels, copies, fills; one stream, so
 they do not overlap); the idle share is 1 - busy / the median unprofiled
 frame wall, because the profiler slows the host that issues the ops but not
 the kernels. ``idle_share_profiled`` is the same share against the profiled
-frame's own wall. One JSON line per run goes to stdout; the profiler's
+frame's own wall; ``stage_s`` the device seconds of the wavefront's stage
+kernels K6-K8 in the profiled frame (``stage_launches`` their launches). One JSON line per run goes to stdout; the profiler's
 tables go to ``--out``.
 """
 
@@ -262,6 +263,7 @@ def profile_frame(r, table_out=None, walls=None) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from ..kernels import refit, traverse2
+    from ..kernels import wavefront as W
 
     dev = r.device
     if walls is None:
@@ -299,6 +301,7 @@ def profile_frame(r, table_out=None, walls=None) -> dict:
                    refit_launches={k: n - refits0[k] for k, n in refits().items()})
 
     launches0 = traversals()
+    stages0 = dict(W.launches)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         frame(r)
@@ -314,7 +317,10 @@ def profile_frame(r, table_out=None, walls=None) -> dict:
                 prepare_s=prepare_s, prepare_profiled=prepare, device_busy_s=busy,
                 device_events=len(dev_events), traverse2_s=trav,
                 traverse2_launches=traversals() - launches0,
-                gather_s=gather, idle_share=1.0 - busy / median,
+                gather_s=gather,
+                stage_s={s: named_s(dev_events, f"{s}_kernel") for s in W.STAGES},
+                stage_launches={s: W.launches[s] - stages0[s] for s in W.STAGES},
+                idle_share=1.0 - busy / median,
                 idle_share_profiled=1.0 - busy / wall, rays=int(r.last_rays_traced))
     if table_out is not None:
         ka = prof.key_averages()

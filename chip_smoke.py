@@ -27,15 +27,22 @@ never prints its last line):
      (csrc/halton.cuh, through the test entry mrt_halton) bit-equal to the
      CPU's halton_base over check_halton's sweep at 24 and 11 digits; then
      every K6, K7 and K8 launch of one frame of run A held against its plain
-     version on the card on the same (cloned) lane state right after it ran,
-     every output field compared in its bits (K7's shadow rays where both
-     cast one): the target is bit-equality, a float field that is not
-     bit-equal must stay within STAGE_REL_TOL relative (its largest ULP
-     printed), an integer or bool field equal on STAGE_INT_SHARE of lanes.
-     K7's first launch is also held on the same state with every material
-     glass (the glass-heavy state). Then a frame each with power light
-     sampling and with legacy shading, each stage's time at the frame's
-     first launch (CUDA events) beside its plain version's and its bound,
+     version on the card on the same (cloned) lane state and Wave right
+     after it ran, every output field compared in its bits: K7, the listed
+     step, against resolve_shadow_plain then shade_hit_plain on the
+     traversal's raw record made Hits (every state field and the shadow
+     mask on every lane, the shadow rays where both cast one, the live
+     count, and its lane list against the plain one: the lanes live or
+     holding a shadow ray, none twice), the trailing K8 (once per sample)
+     against resolve_shadow_plain: the target is bit-equality, a float
+     field that is not bit-equal must stay within STAGE_REL_TOL relative
+     (its largest ULP printed), an integer or bool field equal on
+     STAGE_INT_SHARE of lanes, a list exactly. K7's first launch is also
+     held on the same state with every material glass (the glass-heavy
+     state). Then a frame each with power light sampling and with legacy
+     shading, each stage's time (CUDA events) beside its plain version's
+     and its bound: K6 and K7 at the frame's first launch, K7 also at its
+     first launch with under 5 % of the lanes live, K8 at a sample's end;
      and one whole frame of the kernel route against the plain route
      (kernel_route answering False) on the card: bit-equal, or the
      accumulation within 1e-3 relative RMSE and the rays within 1e-4. The
@@ -187,7 +194,8 @@ The line before the last is {"kernels": [...]}: K1, K2's three
 instantiations, K3's two, K4's two, K5, and K6, K7 and K8 (launches counted
 over the main-path runs, the builds of runs G and K and of run G flat, and
 phase L's ranks), each with its bound (mrt_tpu_torch/utils/bounds.py);
-runs A, B, C, E, G, H and J must have launched K6-K8. The script prints its
+runs A, B, C, E, G, H and J must have launched K6-K8, K8 once per sample
+(each run's line prints its K8 launches per frame). The script prints its
 total seconds; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -611,21 +619,34 @@ def shadow_diff(torch, k, p) -> dict:
     return out
 
 
-def check_stages(torch, tag, r, W, bounds, glass_heavy: bool = False) -> dict:
+# the card's name and power limit, set in main and put on every phase-3c line
+CARD: dict = {}
+
+
+def check_stages(torch, tag, r, W, traverse2, bounds, glass_heavy: bool = False) -> dict:
     """Phase 3c at run ``tag``: every launch of K6, K7 and K8 in one frame
     of ``r`` held against its plain version on the card on the same inputs
-    (the state cloned first: the kernels update it in place), right after it
-    ran; the frame goes on with the kernel's outputs. Every field's lanes
-    differing, largest ULP and relative error are summed per stage; each
-    launch's CUDA-event time beside the plain version's and its bound
-    (bounds.k6/k7/k8). With ``glass_heavy``, K7's first launch is also held
-    on the same state with every material glass (ior 1.5, opacity 0.5).
-    Raises if a field is outside STAGE_REL_TOL / STAGE_INT_SHARE; returns
-    the stages' numbers and the first launch's inputs (for timing)."""
+    (the state and the Wave cloned first: the kernels update them in place),
+    right after it ran; the frame goes on with the kernel's outputs. K7 (the
+    listed step) against ``resolve_shadow_plain`` then ``shade_hit_plain``
+    (``shade_hit_listed_plain``, on ``traverse2.hits_of`` of the raw
+    record): every state field and ``need`` on every lane, the shadow rays
+    where both cast one, the live count, and its list against the plain
+    one (``active | need``: the same lanes, none twice). The trailing K8
+    against ``resolve_shadow_plain``. Every field's lanes differing, largest
+    ULP and relative error are summed per stage; each launch's CUDA-event
+    time beside the plain version's and its bound (bounds.k6, k7_listed,
+    k8). With ``glass_heavy``, K7's first launch is also held on the
+    same state with every material glass (ior 1.5, opacity 0.5). Raises if
+    a list differs or a field is outside STAGE_REL_TOL / STAGE_INT_SHARE;
+    returns the stages' numbers and the inputs of K7's first launch, of its
+    first late launch (under 5 % of the lanes live) and of the first K8
+    (for timing)."""
     orig = {s: getattr(W, s) for s in W.STAGES}
     res = {s: dict(launches=0, fields={}, frame_ms=0.0, frame_plain_ms=0.0, frame_bound_ms=0.0,
                    bound_by={"bytes": 0, "operations": 0}) for s in W.STAGES}
     res["shade_hit"]["work"] = {}
+    lists = dict(checked=0, lanes=0)
     first = {}
     extra = {}
     where = {"sidx": 0, "iter": 0}
@@ -663,48 +684,72 @@ def check_stages(torch, tag, r, W, bounds, glass_heavy: bool = False) -> dict:
         first.setdefault("sample_start", (fr, sidx, total.clone(), prev))
         return st_k
 
-    def c_shade_hit(fr, st, hits, sidx):
-        st_in = W.clone_state(st)
-        (st_k, sh_k), (st_p, sh_p), ms, pms = timed(
-            lambda: orig["shade_hit"](fr, st, hits, sidx),
-            lambda: W.shade_hit_plain(fr, st_in, hits, sidx))
+    def plain_step(fr, st, hits, sidx, wv):
+        return W.shade_hit_listed_plain(fr, W.clone_state(st), traverse2.hits_of(hits, fr.tri_base),
+                                        sidx, wv._replace(buf=None))
+
+    def step_fields(st_k, wv_k, live_k, st_p, wv_p, live_p) -> dict:
         fields = state_diff(torch, W, st_k, st_p)
-        fields.update(shadow_diff(torch, sh_k, sh_p))
-        work = bounds.k7_work(fr, st_in, hits, sh_p)
+        fields.update(shadow_diff(torch, wv_k.shadow, wv_p.shadow))
+        fields["live"] = dict(lanes=1, differing=int(int(live_k) != int(live_p)))
+        lk = W.listed(wv_k)
+        lp = torch.nonzero(wv_p.keep).squeeze(1).to(torch.int32)
+        if lk.numel() != lp.numel() or not torch.equal(lk.sort().values, lp):
+            raise AssertionError(f"phase 3c run {tag}: K7's list (sample {where['sidx']}, "
+                                 f"iteration {where['iter']}) holds {lk.numel()} lanes, "
+                                 f"{int(lk.unique().numel())} distinct; the lanes live or with a "
+                                 f"shadow ray are {lp.numel()}")
+        lists["checked"] += 1
+        lists["lanes"] += lp.numel()
+        return fields
+
+    def c_shade_hit(fr, st, hits, sidx, wv):
+        st_in, wv_in = W.clone_state(st), W.clone_wave(wv)
+        P = st.active.shape[0]
+        n_listed = P if wv.steps == 0 else int(W.listed(wv).numel())
+        (st_k, wv_k, live_k), (st_p, wv_p, live_p), ms, pms = timed(
+            lambda: orig["shade_hit"](fr, st, hits, sidx, wv),
+            lambda: plain_step(fr, st_in, hits, sidx, wv_in))
+        fields = step_fields(st_k, wv_k, live_k, st_p, wv_p, live_p)
+        work = bounds.k7_work(fr, st_in, traverse2.hits_of(hits, fr.tri_base), wv_p.shadow,
+                              n_listed=n_listed, pending=wv_in.shadow, occluded=wv_in.occluded)
         for k_, v in work.items():
             res["shade_hit"]["work"][k_] = res["shade_hit"]["work"].get(k_, 0) + v
-        account("shade_hit", fields, ms, pms, bounds.k7(work))
+        account("shade_hit", fields, ms, pms, bounds.k7_listed(work))
         if "shade_hit" not in first:
-            first["shade_hit"] = (fr, W.clone_state(st_in), hits, sidx, work)
+            first["shade_hit"] = (fr, st_in, hits, sidx, wv_in, work)
             if glass_heavy:
                 glassy = fr.geom.mat_rows.clone()
                 glassy[:, 10] = 1.5
                 glassy[:, 11] = 0.5
                 fr_g = fr._replace(geom=fr.geom._replace(mat_rows=glassy))
-                gk, gsk = orig["shade_hit"](fr_g, W.clone_state(st_in), hits, sidx)
-                gp, gsp = W.shade_hit_plain(fr_g, W.clone_state(st_in), hits, sidx)
-                gf = state_diff(torch, W, gk, gp)
-                gf.update(shadow_diff(torch, gsk, gsp))
-                gwork = bounds.k7_work(fr_g, st_in, hits, gsp)
+                gk = orig["shade_hit"](fr_g, W.clone_state(st_in), hits, sidx, W.clone_wave(wv_in))
+                gp = plain_step(fr_g, st_in, hits, sidx, wv_in)
+                gf = step_fields(*gk, *gp)
+                gwork = bounds.k7_work(fr_g, st_in, traverse2.hits_of(hits, fr.tri_base),
+                                       gp[1].shadow)
                 extra["glass_heavy"] = dict(work=gwork, not_bit_equal={
                     f: d for f, d in gf.items() if d["differing"]})
                 bad = {f: d for f, d in gf.items() if not field_ok(d)}
                 if bad or gwork["glass"] < gwork["hit"] // 2:
                     raise AssertionError(f"phase 3c run {tag}: the glass-heavy K7 state "
                                          f"disagrees or holds few glass hits: {gwork} {bad}")
+        elif "shade_hit_late" not in first and wv_in.steps > 0 and work["live"] < 0.05 * P:
+            first["shade_hit_late"] = (fr, st_in, hits, sidx, wv_in, work)
         where["iter"] += 1
-        return st_k, sh_k
+        return st_k, wv_k, live_k
 
-    def c_resolve(st, shadow, occluded):
+    def c_resolve(st, wv):
         st_in = st._replace(accumulated=st.accumulated.clone())
-        st_k, st_p, ms, pms = timed(lambda: orig["resolve_shadow"](st, shadow, occluded),
-                                    lambda: W.resolve_shadow_plain(st_in, shadow, occluded))
-        n_add = int((shadow.need & ~occluded).sum())
+        n_listed = int(W.listed(wv).numel())
+        st_k, st_p, ms, pms = timed(lambda: orig["resolve_shadow"](st, wv),
+                                    lambda: W.resolve_shadow_listed_plain(st_in, wv))
+        n_add = int((wv.shadow.need & ~wv.occluded).sum())
         account("resolve_shadow",
                 {"accumulated": field_diff(torch, st_k.accumulated, st_p.accumulated)}, ms, pms,
-                bounds.k8(occluded.shape[0], n_add))
+                bounds.k8(n_listed, n_add))
         first.setdefault("resolve_shadow", (st_in._replace(accumulated=st_in.accumulated.clone()),
-                                            shadow, occluded))
+                                            W.clone_wave(wv), n_listed, n_add))
         return st_k
 
     for s, f in (("sample_start", c_sample_start), ("shade_hit", c_shade_hit),
@@ -719,22 +764,29 @@ def check_stages(torch, tag, r, W, bounds, glass_heavy: bool = False) -> dict:
     if min(res[s]["launches"] for s in W.STAGES) < 1:
         raise AssertionError(f"phase 3c run {tag}: a stage never launched: "
                              f"{ {s: res[s]['launches'] for s in W.STAGES} }")
+    if res["resolve_shadow"]["launches"] != res["sample_start"]["launches"]:
+        raise AssertionError(f"phase 3c run {tag}: K8 launched {res['resolve_shadow']['launches']} "
+                             f"times for {res['sample_start']['launches']} samples")
     not_bit_equal = {s: {f: d for f, d in res[s]["fields"].items() if d["differing"]}
                      for s in W.STAGES}
     log(json.dumps(dict(phase="3c", run=tag, route="kernel",
                         launches={s: res[s]["launches"] for s in W.STAGES},
                         not_bit_equal=not_bit_equal, glass_heavy=extra.get("glass_heavy"),
+                        lists_checked=lists,
                         frame_ms={s: res[s]["frame_ms"] for s in W.STAGES},
                         frame_plain_ms={s: res[s]["frame_plain_ms"] for s in W.STAGES},
                         frame_bound_ms={s: res[s]["frame_bound_ms"] for s in W.STAGES},
-                        k7_work=res["shade_hit"]["work"])))
-    return dict(stages=res, first=first, not_bit_equal=not_bit_equal, extra=extra)
+                        k7_work=res["shade_hit"]["work"], **CARD)))
+    return dict(stages=res, first=first, not_bit_equal=not_bit_equal, extra=extra, lists=lists)
 
 
-def time_stages(torch, W, bounds, first, reps: int = 5) -> dict:
-    """K6, K7 and K8's time at a frame's first launch (the whole wavefront
-    live), from CUDA events over ``reps`` launches (each K7 launch on its
-    own copy of the state), beside the plain version's and the bound."""
+def time_stages(torch, W, traverse2, bounds, first, reps: int = 5) -> dict:
+    """K6, K7 and K8's time from CUDA events over ``reps`` launches (each K7
+    launch on its own copy of the state and the Wave), beside the plain
+    version's and the bound: K6 and K7 at a frame's first launch (the whole
+    wavefront live), K7 also at its first late launch (under 5 % of the
+    lanes live; ``shade_hit_late``), K8 at its first launch (a sample's
+    end)."""
     out = {}
     fr, sidx, total, prev = first["sample_start"]
     out["sample_start"] = dict(ms=cuda_ms(lambda: W.sample_start(fr, sidx, total, prev), reps),
@@ -742,26 +794,32 @@ def time_stages(torch, W, bounds, first, reps: int = 5) -> dict:
                                                                              prev), reps))
     out["sample_start"]["bound_ms"], out["sample_start"]["bound_by"] = bounds.k6(
         fr.pixel_x.shape[0])
-    fr, st, hits, sidx, work = first["shade_hit"]
-    copies = [W.clone_state(st) for _ in range(reps)]
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for c in copies:
-        W.shade_hit(fr, c, hits, sidx)
-    end.record()
-    torch.cuda.synchronize()
-    del copies
-    out["shade_hit"] = dict(ms=start.elapsed_time(end) / reps,
-                            plain_ms=cuda_ms(lambda: W.shade_hit_plain(fr, st, hits, sidx), 2),
-                            work=work)
-    out["shade_hit"]["bound_ms"], out["shade_hit"]["bound_by"] = bounds.k7(work)
-    st, shadow, occluded = first["resolve_shadow"]
+    for key in ("shade_hit", "shade_hit_late"):
+        if key not in first:
+            out[key] = None
+            continue
+        fr, st, hits, sidx, wv, work = first[key]
+        copies = [(W.clone_state(st), W.clone_wave(wv)) for _ in range(reps)]
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for c, w in copies:
+            W.shade_hit(fr, c, hits, sidx, w)
+        end.record()
+        torch.cuda.synchronize()
+        del copies
+        out[key] = dict(ms=start.elapsed_time(end) / reps, step=wv.steps, work=work,
+                        plain_ms=cuda_ms(lambda: W.shade_hit_listed_plain(
+                            fr, st, traverse2.hits_of(hits, fr.tri_base), sidx,
+                            wv._replace(buf=None)), 2))
+        out[key]["bound_ms"], out[key]["bound_by"] = bounds.k7_listed(work)
+    st, wv, n_listed, n_add = first["resolve_shadow"]
     out["resolve_shadow"] = dict(
-        ms=cuda_ms(lambda: W.resolve_shadow(st, shadow, occluded), reps),
-        plain_ms=cuda_ms(lambda: W.resolve_shadow_plain(st, shadow, occluded), reps))
+        ms=cuda_ms(lambda: W.resolve_shadow(st, wv), reps),
+        plain_ms=cuda_ms(lambda: W.resolve_shadow_listed_plain(st, wv), reps),
+        listed=n_listed, added=n_add)
     out["resolve_shadow"]["bound_ms"], out["resolve_shadow"]["bound_by"] = bounds.k8(
-        occluded.shape[0], int((shadow.need & ~occluded).sum()))
+        n_listed, n_add)
     return out
 
 
@@ -818,7 +876,7 @@ def check_route_frame(torch, tag, r, W, wf) -> dict:
         wf.trace_frame = orig_tf
     out["bit_equal"] = not any(d["differing"] for d in out["fields"].values())
     log(json.dumps(dict(phase="3c", run=tag, frame="kernel route vs plain route on the card",
-                        **out)))
+                        **out, **CARD)))
     if not out["bit_equal"] and (out["color_rel_rmse"] > 1e-3 or out["rays_rel"] > 1e-4):
         raise AssertionError(f"run {tag}: the kernel route's frame disagrees with the plain "
                              f"route's: {out}")
@@ -1976,6 +2034,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     card_name, power_limit = (s.strip() for s in card.split(",", 1))
+    CARD.update(card=card_name, power_limit=power_limit)
 
     # --- 2. build ---------------------------------------------------------------------
     secs = build.build(verbose=True)
@@ -2022,15 +2081,15 @@ def main() -> int:
     # --- 3c. K6-K8, the wavefront's stages, against their plain versions on the card ----------
     check_halton_kernel(torch, H, W)
     stage_checks, route_frames = {}, {}
-    stage_checks["A"] = check_stages(torch, "A", ra, W, bounds, glass_heavy=True)
-    stage_times = time_stages(torch, W, bounds, stage_checks["A"]["first"])
+    stage_checks["A"] = check_stages(torch, "A", ra, W, traverse2, bounds, glass_heavy=True)
+    stage_times = time_stages(torch, W, traverse2, bounds, stage_checks["A"]["first"])
     log(json.dumps(dict(phase="3c", run="A", stage_times=stage_times, card=card_name,
                         power_limit=power_limit)))
     ra.light_sampling = "power"
-    stage_checks["A power"] = check_stages(torch, "A power", ra, W, bounds)
+    stage_checks["A power"] = check_stages(torch, "A power", ra, W, traverse2, bounds)
     ra.light_sampling = "uniform"
     ra.shading_mode = T.SHADING_MODE_LEGACY
-    stage_checks["A legacy"] = check_stages(torch, "A legacy", ra, W, bounds)
+    stage_checks["A legacy"] = check_stages(torch, "A legacy", ra, W, traverse2, bounds)
     ra.shading_mode = T.SHADING_MODE_PBR
     route_frames["A"] = check_route_frame(torch, "A", ra, W, wf)
     # the environment and all four light types, uniform and power sampled
@@ -2040,9 +2099,9 @@ def main() -> int:
                                                   T.LIGHT_TYPE_POINTLIGHT, T.LIGHT_TYPE_AREA]):
         raise AssertionError(f"phase 3c: the lights scene has light types {lt}, environment "
                              f"{rl.statics.has_environment}")
-    stage_checks["lights+env"] = check_stages(torch, "lights+env", rl, W, bounds)
+    stage_checks["lights+env"] = check_stages(torch, "lights+env", rl, W, traverse2, bounds)
     rl.light_sampling = "power"
-    stage_checks["lights+env power"] = check_stages(torch, "lights+env power", rl, W, bounds)
+    stage_checks["lights+env power"] = check_stages(torch, "lights+env power", rl, W, traverse2, bounds)
     route_frames["lights+env power"] = check_route_frame(torch, "lights+env power", rl, W, wf)
     env_miss = stage_checks["lights+env"]["stages"]["shade_hit"]["work"]["env_miss"]
     if env_miss < 1:
@@ -2083,6 +2142,10 @@ def main() -> int:
         path = ("present", "traverse_flat" if variant.startswith("flat") else "traverse2") + refits
         if route:
             path += W.STAGES
+            # the listed K7 folds K8's add in: K8 runs once per sample, at its end
+            if counts["resolve_shadow"] != counts["sample_start"]:
+                raise AssertionError(f"{tag}: K8 launched {counts['resolve_shadow']} times for "
+                                     f"{counts['sample_start']} samples")
         elif any(W.launches.values()):
             raise AssertionError(f"{tag}: off the kernel route, yet a stage kernel launched: "
                                  f"{counts}")
@@ -2104,6 +2167,7 @@ def main() -> int:
                     route="kernel" if route else "plain",
                     frames=timed, total_rays=rays, seconds=seconds, frame_walls=walls,
                     mrays_per_s=rays / seconds / 1e6, launches=counts, k2_variants=variants,
+                    k8_launches_per_frame=counts["resolve_shadow"] / (timed + 1),
                     mipmaps=r.use_mipmaps, has_masks=r.bvh.has_masks,
                     max_motion_px=motion, pixels_by_extra_samples=extras,
                     accum_mean=float(acc.mean()), image_mean=float(img.mean()),
@@ -2123,7 +2187,7 @@ def main() -> int:
         checks[tag] = check_path_kernels(torch, tag, r, present, traverse2, bounds)
         if route_of(W, r):
             if tag not in stage_checks:
-                stage_checks[tag] = check_stages(torch, tag, r, W, bounds)
+                stage_checks[tag] = check_stages(torch, tag, r, W, traverse2, bounds)
                 stage_checks[tag].pop("first")
             if tag not in route_frames:
                 route_frames[tag] = check_route_frame(torch, tag, r, W, wf)
@@ -2186,7 +2250,7 @@ def main() -> int:
     # the G-buffer state (denoised mode): K7 writes it at sample 0's first hit
     if not (re_.settings().enable_gbuffer and route_of(W, re_)):
         raise AssertionError("run E denoised: no G-buffer, or off the kernel route")
-    stage_checks["E denoised"] = check_stages(torch, "E denoised", re_, W, bounds)
+    stage_checks["E denoised"] = check_stages(torch, "E denoised", re_, W, traverse2, bounds)
     stage_checks["E denoised"].pop("first")
     route_frames["E denoised"] = check_route_frame(torch, "E denoised", re_, W, wf)
 
@@ -2469,7 +2533,8 @@ def main() -> int:
                              f"{kernels[-3:]}")
 
     # K6-K8: ms, plain_ms and bound_ms at run A's first launch of a frame
-    # (sample 0's camera rays, every lane live; phase 3c); the phase-3c
+    # (sample 0's camera rays, every lane live; K8: a sample's end; phase
+    # 3c), K7 also at its first late launch (under 5 % of the lanes live); the phase-3c
     # checks by run (launches held, the fields not bit-equal with their
     # largest ULP and relative error), the checked frames' CUDA-event times
     # beside the plain versions' and the bounds, the kernel route's frames
@@ -2484,6 +2549,7 @@ def main() -> int:
             launches_by_run={t_: c[stage] for t_, c in counts.items() if c.get(stage)},
             max_abs_err=max(errs + [0.0]), ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+            **({"late_launch": stage_times["shade_hit_late"]} if stage == "shade_hit" else {}),
             checked={run: dict(launches=c["stages"][stage]["launches"],
                                not_bit_equal=c["not_bit_equal"][stage],
                                frame_ms=c["stages"][stage]["frame_ms"],

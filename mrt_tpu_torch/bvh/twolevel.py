@@ -297,17 +297,8 @@ def _traverse(bvh: TwoLevelBVH, rays: Rays, shadow, mask, t_min: float, ray_mask
         ray_mask=None if ray_mask is None else ray_mask.contiguous())
 
 
-def _to_flat(bvh: TwoLevelBVH, local, inst):
-    ok = (local >= 0) & (inst >= 0)
-    flat = bvh.flat_tri_base[inst.clamp_min(0).long()] + local.clamp_min(0)
-    return torch.where(ok, flat, -1)
-
-
-def _hits(bvh, out) -> Hits:
-    found = (out.tri >= 0) & (out.inst >= 0)
-    return Hits(t=torch.where(found, out.t, float("inf")),
-                triangle=torch.where(found, _to_flat(bvh, out.tri, out.inst), -1),
-                u=out.u, v=out.v)
+def _hits(bvh: TwoLevelBVH, out) -> Hits:
+    return traverse2.hits_of(out, bvh.flat_tri_base)
 
 
 # ``ray_mask``: optional (R,) int32 per-ray mask bits; an instance whose
@@ -321,6 +312,17 @@ def closest_hit(bvh: TwoLevelBVH, rays: Rays, t_min: float = 0.0, mask=None,
     return _hits(bvh, _traverse(bvh, rays, shadow, mask, t_min, ray_mask))
 
 
+def closest_raw(bvh: TwoLevelBVH, rays: Rays, flags, mask=None,
+                ray_mask=None) -> traverse2.TraverseOut:
+    """The closest-hit traversal's own record (LOCAL triangle and instance
+    ids; t is the ray's max distance on a miss), for a caller that reads it
+    itself, as the wavefront's K7 does (``traverse2.hits_of`` gives
+    ``closest_hit``'s record from it). ``flags``: an all-False (R,) bool,
+    the traversal's shadow flags, made once by a caller that traces many
+    batches."""
+    return _traverse(bvh, rays, flags, mask, 0.0, ray_mask)
+
+
 def trace_mixed(bvh: TwoLevelBVH, rays: Rays, shadow, t_min: float = 0.0, mask=None,
                 ray_mask=None):
     """One traversal over a mixed batch: ``shadow`` lanes retire at their first
@@ -330,7 +332,10 @@ def trace_mixed(bvh: TwoLevelBVH, rays: Rays, shadow, t_min: float = 0.0, mask=N
 
 
 def any_hit(bvh: TwoLevelBVH, rays: Rays, t_min: float = 0.0, mask=None,
-            ray_mask=None) -> torch.Tensor:
-    """Occlusion per ray within ``rays.max_distance``."""
-    shadow = torch.ones(rays.origin.shape[0], dtype=torch.bool, device=rays.origin.device)
-    return _traverse(bvh, rays, shadow, mask, t_min, ray_mask).found
+            ray_mask=None, flags=None) -> torch.Tensor:
+    """Occlusion per ray within ``rays.max_distance``. ``flags``: an
+    all-True (R,) bool to use as the traversal's shadow flags (made once by
+    a caller that traces many batches; made here if None)."""
+    if flags is None:
+        flags = torch.ones(rays.origin.shape[0], dtype=torch.bool, device=rays.origin.device)
+    return _traverse(bvh, rays, flags, mask, t_min, ray_mask).found

@@ -333,8 +333,9 @@ def _traverse(wbvh: WideBVH, rays: Rays, shadow, mask, t_min: float, scheduling:
 
 
 def _hits(out) -> Hits:
-    found = out.tri >= 0
-    return Hits(t=torch.where(found, out.t, float("inf")), triangle=out.tri, u=out.u, v=out.v)
+    from ..kernels.traverse2 import hits_of
+
+    return hits_of(out)
 
 
 def closest_hit(wbvh: WideBVH, rays: Rays, t_min: float = 0.0, mask=None,
@@ -345,6 +346,16 @@ def closest_hit(wbvh: WideBVH, rays: Rays, t_min: float = 0.0, mask=None,
     shadow = torch.zeros(rays.origin.shape[0], dtype=torch.bool, device=rays.origin.device)
     out = _traverse(wbvh, rays, shadow, mask, t_min, scheduling)
     return (_hits(out), out.pops) if count_pops else _hits(out)
+
+
+def closest_raw(wbvh: WideBVH, rays: Rays, flags, mask=None):
+    """The closest-hit traversal's own record (``kernels.traverse2.TraverseOut``:
+    global triangle ids, instance -1; t is the ray's max distance on a
+    miss), for a caller that reads it itself, as the wavefront's K7 does
+    (``traverse2.hits_of`` gives ``closest_hit``'s record from it).
+    ``flags``: an all-False (R,) bool, the traversal's shadow flags, made
+    once by a caller that traces many batches."""
+    return _traverse(wbvh, rays, flags, mask, 0.0, {})
 
 
 def trace_mixed(wbvh: WideBVH, rays: Rays, shadow, t_min: float = 0.0, mask=None,
@@ -358,12 +369,15 @@ def trace_mixed(wbvh: WideBVH, rays: Rays, shadow, t_min: float = 0.0, mask=None
 
 
 def any_hit(wbvh: WideBVH, rays: Rays, t_min: float = 0.0, mask=None,
-            return_tri: bool = False, count_pops: bool = False, **scheduling):
+            return_tri: bool = False, count_pops: bool = False, flags=None, **scheduling):
     """Occlusion per ray within ``rays.max_distance``; with ``return_tri``
     also the first blocking triangle found (-1 if none), with ``count_pops``
-    the pops."""
-    shadow = torch.ones(rays.origin.shape[0], dtype=torch.bool, device=rays.origin.device)
-    out = _traverse(wbvh, rays, shadow, mask, t_min, scheduling)
+    the pops. ``flags``: an all-True (R,) bool to use as the traversal's
+    shadow flags (made once by a caller that traces many batches; made here
+    if None)."""
+    if flags is None:
+        flags = torch.ones(rays.origin.shape[0], dtype=torch.bool, device=rays.origin.device)
+    out = _traverse(wbvh, rays, flags, mask, t_min, scheduling)
     res = (out.found,)
     if return_tri:
         res += (torch.where(out.found, out.tri, -1),)

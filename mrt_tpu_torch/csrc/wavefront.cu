@@ -6,34 +6,76 @@
 // per-sample state (camera_rays/init_state, :290-363), K7 and K8 the bounce
 // loop's body (:372-1020). The port ran that body as ~1,700 eager torch ops
 // per iteration over the whole wavefront (kernels/wavefront.py keeps them as
-// the plain versions); here each stage is one launch, one thread per lane.
+// the plain versions); here each stage is one launch.
 //
 // What each computes, op for op as the plain version on the card (PyTorch's
 // CUDA kernels), so that the outputs are its bits:
 //   K6: Halton dims 0/1 (24 digits, bases 2 and 3) of offsets + base + sidx,
 //       the pixel's camera ray, the sample's fresh lane state.
-//   K7: the hit record, the environment on a miss, the interpolated normal,
+//   K7: first the previous iteration's shadow ray (K8's add, folded in:
+//       accumulated += contrib where it was cast and is not occluded), then
+//       the hit record, the environment on a miss, the interpolated normal,
 //       the material, the glass branch (Fresnel, the Halton transparency
 //       pick, reflect or refract), emission, the light pick (uniform or
 //       power, by the plain version's cdf) and the four light types, PBR or
 //       legacy shading, the shadow ray, then the throughput, dead-lane and
 //       cosine-hemisphere bounce update. A lane that was not live when the
-//       closest-hit batch was traced writes only its shadow mask.
-//   K8: accumulated += contrib where the shadow ray is live and unoccluded.
-// Matching PyTorch's CUDA ops: a division by a Python scalar is a multiply
-// by the f32 reciprocal (x / PI, x / (2 PI), x / 8); 1 / x and a
-// normalisation's v / |v| are true divisions; Python constants are the f32
-// of the double (F(x)); clamp propagates NaN (clampf); torch.pow(x, 5.0) is
-// powf; dot products add x, y, z in that order; searchsorted is left-sided.
-// Built with -fmad=false, so no multiply-add is contracted.
+//       closest-hit batch was traced only resolves and clears its shadow
+//       mask.
+//   K8: after a sample's last iteration, the last shadow rays' add.
+// The radiance adds keep the plain loop's order: env(k), emission(k),
+// contrib(k), env(k+1). Matching PyTorch's CUDA ops: a division by a Python
+// scalar is a multiply by the f32 reciprocal (x / PI, x / (2 PI), x / 8);
+// 1 / x and a normalisation's v / |v| are true divisions; Python constants
+// are the f32 of the double (F(x)); clamp propagates NaN (clampf);
+// torch.pow(x, 5.0) is powf; dot products add x, y, z in that order;
+// searchsorted is left-sided. Built with -fmad=false, so no multiply-add is
+// contracted.
 //
-// Bound: bytes, per live lane. K7 reads the hits (16 B), the lane state
-// (~105 B), the lane's shade row and material row (128 B, gathered by its
-// triangle and resource) and writes the state and the shadow ray (~85 B);
-// its operations (~600 f32, dominated by six 11-digit Halton loops of ~10
-// ops each) put it near the ridge. The design is the simple one: SoA
-// state, one thread per lane, no shared-memory staging. A lane that is dead
-// costs one byte read and one written.
+// Bound: bytes, per listed lane. K7 reads the raw hit record (20 B: t, the
+// local triangle and instance, u, v), the lane state (~105 B), the lane's
+// shade row and material row (128 B, gathered by its triangle and
+// resource), and writes the state and the shadow ray (~85 B); its
+// operations (~600 f32, dominated by six 11-digit Halton loops of ~10 ops
+// each) put it near the ridge. Each listed lane also reads its shadow mask
+// and occlusion, and a lane that adds reads its contribution
+// (utils/bounds.py:k7_listed, :k8).
+//
+// What held the full-width design (one thread per lane of the whole
+// wavefront, K8 a second full-width launch, the hits remade by torch ops)
+// from that bound, and what this one does about it:
+//  * Dead lanes. After the first bounces few lanes are live, scattered
+//    through warps that are mostly dead, so each live lane's field loads
+//    cost a 32-B sector apiece and every dead lane still read and wrote a
+//    byte. Here K7 runs over a device-side lane list: each launch appends
+//    the lanes that are live or hold a shadow ray after it to the list the
+//    next launch reads (the live ones at its front, so that they share
+//    warps); a lane outside the list is dead with its mask already clear.
+//    The list's length stays on the device; its live part's length (one
+//    int32 per launch) is what the host reads to end the loop.
+//  * Idle warps and atomics. A list's length is on the device only, so a
+//    listed K7 runs the grid that is resident at once (the SMs times the
+//    blocks the runtime reports for its registers), its blocks striding
+//    over the list 256 entries a round; a block compacts its round's lanes
+//    (ballots, a prefix over its warps) and appends them with one atomicAdd
+//    per part of the list, as K2's compaction does. The first step of a
+//    sample, over every lane, runs one round per block.
+//  * K8's launch per iteration, over every lane: folded into the next K7
+//    for its listed lanes; K8 stays only as the trailing resolve after a
+//    sample's last iteration, over the last list, writing only the lanes
+//    that add.
+//  * The hits' glue: K7 reads the traversal's record and makes the flat id
+//    (flat_tri_base[inst] + tri, int32, as bvh/twolevel.py's _hits) itself.
+//  * Dependent scalar row gathers: the shade row is 4 float4 loads and the
+//    material row 3, through the read-only path (rows 16-B aligned, checked
+//    by the wrapper).
+// Counters: two int32 per step slot s (list s's live lanes at its front,
+// its lanes that only hold a shadow ray at its back),
+// zeroed once per sample; step s reads list s (slot s, the list buffer
+// s % 2; step 0: every lane) and writes list s + 1. Packing the live lanes
+// at the front keeps them together in warps: late in a sample most listed
+// lanes only resolve, and mixed with them a live lane would take its warp
+// through the whole body for a few lanes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,11 +111,16 @@ struct Frame {
 };
 static_assert(sizeof(Frame) == 10 * sizeof(void*), "Frame mirrors _frame_ptrs");
 
-struct Hits {
+// kernels/traverse2.py:TraverseOut's t, tri, inst, u, v, as the closest-hit
+// traversal wrote them, and a two-level BVH's first flat triangle id per
+// instance (null for a flat table, whose tri is already the global id)
+struct Raw {
     const float* t;
-    const int* tri;
+    const int *tri, *inst;
     const float *u, *v;
+    const int* tri_base;
 };
+static_assert(sizeof(Raw) == 6 * sizeof(void*), "Raw mirrors kernels/wavefront.py:_raw_ptrs");
 
 struct ShadowOut {
     float *origin, *direction, *distance, *contrib;
@@ -87,6 +134,7 @@ enum {
     FLAG_ENVIRONMENT = 8,
     FLAG_LEGACY = 16,
     FLAG_POWER = 32,
+    FLAG_RESOLVE = 64,  // a shadow ray of the previous iteration is pending
 };
 
 // kernels/wavefront.py:pack_lights's columns
@@ -247,19 +295,36 @@ __global__ void sample_start_kernel(Lane S, Frame Fr, const int* __restrict__ to
     S.cone_t[i] = 0.0f;
 }
 
-__global__ void shade_hit_kernel(Lane S, Frame Fr, Hits Hh, ShadowOut Sh, int n, int hbase,
-                                 int n_lights, int env_h, int env_w, int flags, int max_bounces) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
+// One listed lane of K7: the previous iteration's shadow ray, then this
+// iteration's body. Sets alive (the lane is live after it) and keep (live,
+// or holding a shadow ray: the lane belongs to the next list).
+__device__ __forceinline__ void shade_lane(const Lane& S, const Frame& Fr, const Raw& R,
+                                           const ShadowOut& Sh, const bool* __restrict__ occluded,
+                                           int i, int hbase, int n_lights, int env_h, int env_w,
+                                           int flags, int max_bounces, bool& alive, bool& keep) {
+    // K8 folded in: the resolve of the previous iteration comes first, as the
+    // plain loop adds contrib(k) before env(k+1)
+    const bool add = (flags & FLAG_RESOLVE) && Sh.need[i] && !occluded[i];
     if (!S.active[i]) {  // the plain version leaves a dead lane's state as it is
+        if (add) st3(S.accumulated + 3 * i, ld3(S.accumulated + 3 * i) + ld3(Sh.contrib + 3 * i));
         Sh.need[i] = false;
         return;
     }
+    f3 acc = ld3(S.accumulated + 3 * i);
+    if (flags & FLAG_RESOLVE) acc = acc + (add ? ld3(Sh.contrib + 3 * i) : mk(0.0f, 0.0f, 0.0f));
     int rays = S.rays[i] + 1;
     f3 ray_o = ld3(S.ray_o + 3 * i), ray_d = ld3(S.ray_d + 3 * i);
-    f3 color = ld3(S.color + 3 * i), acc = ld3(S.accumulated + 3 * i);
-    const int tri = Hh.tri[i];
-    const bool hit = tri >= 0;
+    f3 color = ld3(S.color + 3 * i);
+    // the hit record as bvh/twolevel.py's _hits makes it: a hit needs a
+    // triangle (and, in a two-level BVH, an instance); its flat id is the
+    // instance's first flat id plus the local one
+    int tri = R.tri[i];
+    bool hit = tri >= 0;
+    if (R.tri_base != nullptr) {
+        const int inst = R.inst[i];
+        hit = hit && inst >= 0;
+        if (hit) tri = R.tri_base[inst] + tri;
+    }
     if (flags & FLAG_ENVIRONMENT) {
         f3 ce = mk(0.0f, 0.0f, 0.0f);
         if (!hit)
@@ -274,9 +339,11 @@ __global__ void shade_hit_kernel(Lane S, Frame Fr, Hits Hh, ShadowOut Sh, int n,
         return;
     }
     int bounce = S.bounce[i], step = S.step[i], tpasses = S.tpasses[i];
-    const float t = Hh.t[i], hu = Hh.u[i], hv = Hh.v[i];
-    const float* srow = Fr.shade_rows + 16 * (long long)tri;
-    const int res = (int)srow[15];
+    const float t = R.t[i], hu = R.u[i], hv = R.v[i];
+    // shade row [n0(3) n1(3) n2(3) uv0(2) uv1(2) uv2(2) resource]: 4 float4
+    const float4* srow = reinterpret_cast<const float4*>(Fr.shade_rows) + 4 * (long long)tri;
+    const float4 s0 = __ldg(srow), s1 = __ldg(srow + 1), s2 = __ldg(srow + 2), s3 = __ldg(srow + 3);
+    const int res = (int)s3.w;
     const f3 wp = ray_o + ray_d * t;
     const float w = 1.0f - hu - hv;
 
@@ -288,16 +355,18 @@ __global__ void shade_hit_kernel(Lane S, Frame Fr, Hits Hh, ShadowOut Sh, int n,
     }
 
     // surface normal
-    f3 nrm_raw = ld3(srow + 3) * hu + ld3(srow + 6) * hv + ld3(srow) * w;
+    f3 nrm_raw = mk(s0.w, s1.x, s1.y) * hu + mk(s1.z, s1.w, s2.x) * hv + mk(s0.x, s0.y, s0.z) * w;
     f3 nrm = length3(nrm_raw) < F(1e-10) ? -ray_d : normalize(nrm_raw);
     const f3 shading_nrm = nrm;  // no normal map on the kernel route
 
     // material (no texture maps on the kernel route: roughness 1, metallic 0, ao 1)
-    const float* mrow = Fr.mat_rows + 16 * (long long)res;
-    const f3 albedo = ld3(mrow);
-    const f3 emission = ld3(mrow + 6);
+    // material row [base(3) specular(3) emission(3) spec_exp ior opacity ...]: 3 float4
+    const float4* mrow = reinterpret_cast<const float4*>(Fr.mat_rows) + 4 * (long long)res;
+    const float4 m0 = __ldg(mrow), m1 = __ldg(mrow + 1), m2 = __ldg(mrow + 2);
+    const f3 albedo = mk(m0.x, m0.y, m0.z);
+    const f3 emission = mk(m1.z, m1.w, m2.x);
     const float roughness = 1.0f, metallic = 0.0f, ao = 1.0f;
-    const float opacity = clampf(mrow[11], 0.0f, 1.0f);
+    const float opacity = clampf(m2.w, 0.0f, 1.0f);
 
     // G-buffer: sample 0's first hit, before the glass branch
     if ((flags & FLAG_GBUFFER) && (flags & FLAG_SAMPLE0) && !S.wrote_gb[i]) {
@@ -313,7 +382,7 @@ __global__ void shade_hit_kernel(Lane S, Frame Fr, Hits Hh, ShadowOut Sh, int n,
     const int* bases = Fr.step_bases + STEP_COLS * clampi(step, 0, SHADING_STEPS - 1);
     bool glass = false;
     if (flags & FLAG_REFRACTION) {
-        const float ior = clamp_min(mrow[10], 1.0f);
+        const float ior = clamp_min(m2.z, 1.0f);
         const float clamped_op = clampf(opacity, 0.0f, 1.0f);
         glass = (clamped_op < F(0.999)) || (ior > F(1.01));
         if (glass) {
@@ -472,19 +541,107 @@ __global__ void shade_hit_kernel(Lane S, Frame Fr, Hits Hh, ShadowOut Sh, int n,
     S.bounce[i] = bounce;
     S.step[i] = step;
     S.tpasses[i] = tpasses;
-    S.active[i] = active && bounce < max_bounces;
+    alive = active && bounce < max_bounces;
+    keep = alive || need;
+    S.active[i] = alive;
     S.rays[i] = rays;
     Sh.need[i] = need;
 }
 
+
+constexpr unsigned FULL = 0xffffffffu;
+const int SHADE_BLOCK = 256;
+
+// counters[2 * s + k] of step slot s: k = 0 the lanes live after step s - 1
+// (list s's front), 1 the lanes that only hold a shadow ray (its back)
+enum { C_LIVE = 0, C_REST = 1, C_SLOT = 2 };
+constexpr int SHADE_WARPS = SHADE_BLOCK / 32;
+
+// Entry j of a list of n lanes whose front holds n_live entries and whose
+// back the rest, from the end down
+__device__ __forceinline__ int list_entry(const int* __restrict__ list, int j, int n_live, int n) {
+    return j < n_live ? list[j] : list[n - 1 - (j - n_live)];
+}
+
+// Over step s's list (every lane when in is null), a block's 256 entries a
+// round, the rounds strided over the grid. The lanes live after the step are
+// appended to the front of out, those that only hold a shadow ray to its
+// back: a warp ballot, a prefix over the block's warps and one atomicAdd per
+// block, round and part, so the next step's live lanes share warps.
+// 4 blocks of 256 a SM (64 registers, a few bytes of the body spilled): the
+// occupancy of the full-width K7; at the 80 registers it takes unbounded, 3 fit.
+__global__ void __launch_bounds__(SHADE_BLOCK, 4) shade_hit_kernel(
+    Lane S, Frame Fr, Raw R, ShadowOut Sh, const bool* __restrict__ occluded,
+    const int* __restrict__ in, int* __restrict__ out, const int* __restrict__ cin, int* cout,
+    int n, int hbase, int n_lights, int env_h, int env_w, int flags, int max_bounces) {
+    __shared__ int at[2][SHADE_WARPS];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n_live = in != nullptr ? cin[C_LIVE] : n;
+    const int n_in = in != nullptr ? n_live + cin[C_REST] : n;
+    for (int base = blockIdx.x * SHADE_BLOCK; base < n_in; base += gridDim.x * SHADE_BLOCK) {
+        const int j = base + threadIdx.x;
+        bool alive = false, keep = false;
+        int i = 0;
+        if (j < n_in) {
+            i = in != nullptr ? list_entry(in, j, n_live, n) : j;
+            shade_lane(S, Fr, R, Sh, occluded, i, hbase, n_lights, env_h, env_w, flags,
+                       max_bounces, alive, keep);
+        }
+        const unsigned front = __ballot_sync(FULL, alive);
+        const unsigned back = __ballot_sync(FULL, keep && !alive);
+        if (lane == 0) {
+            at[0][warp] = __popc(front);
+            at[1][warp] = __popc(back);
+        }
+        __syncthreads();
+        if (warp == 0) {
+            const int c0 = lane < SHADE_WARPS ? at[0][lane] : 0;
+            const int c1 = lane < SHADE_WARPS ? at[1][lane] : 0;
+            int s0 = c0, s1 = c1;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int y0 = __shfl_up_sync(FULL, s0, o);
+                const int y1 = __shfl_up_sync(FULL, s1, o);
+                if (lane >= o) {
+                    s0 += y0;
+                    s1 += y1;
+                }
+            }
+            const int t0 = __shfl_sync(FULL, s0, 31), t1 = __shfl_sync(FULL, s1, 31);
+            int b0 = 0, b1 = 0;
+            if (lane == 0) {
+                if (t0 > 0) b0 = atomicAdd(&cout[C_LIVE], t0);
+                if (t1 > 0) b1 = atomicAdd(&cout[C_REST], t1);
+            }
+            b0 = __shfl_sync(FULL, b0, 0);
+            b1 = __shfl_sync(FULL, b1, 0);
+            if (lane < SHADE_WARPS) {
+                at[0][lane] = b0 + s0 - c0;
+                at[1][lane] = b1 + s1 - c1;
+            }
+        }
+        __syncthreads();
+        const unsigned below = (1u << lane) - 1u;
+        if (alive) out[at[0][warp] + __popc(front & below)] = i;
+        else if (keep) out[n - 1 - (at[1][warp] + __popc(back & below))] = i;
+        __syncthreads();  // at[] is rewritten next round
+    }
+}
+
+// The trailing resolve of a sample: accumulated += contrib over the last
+// list (its front and back; lengths in its slot), where the shadow ray was
+// cast and is not occluded.
 __global__ void resolve_shadow_kernel(float* __restrict__ acc, const float* __restrict__ contrib,
                                       const bool* __restrict__ need,
-                                      const bool* __restrict__ occluded, int n) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    f3 add = mk(0.0f, 0.0f, 0.0f);
-    if (need[i] && !occluded[i]) add = ld3(contrib + 3 * i);
-    st3(acc + 3 * i, ld3(acc + 3 * i) + add);
+                                      const bool* __restrict__ occluded,
+                                      const int* __restrict__ list, const int* __restrict__ slot,
+                                      int n) {
+    const int n_live = slot[C_LIVE];
+    const int n_in = n_live + slot[C_REST];
+    for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n_in; j += gridDim.x * blockDim.x) {
+        const int i = list_entry(list, j, n_live, n);
+        if (need[i] && !occluded[i]) st3(acc + 3 * i, ld3(acc + 3 * i) + ld3(contrib + 3 * i));
+    }
 }
 
 __global__ void halton_kernel(const int* __restrict__ idx, const int* __restrict__ base,
@@ -504,6 +661,34 @@ T unpack(void* const* p) {
     return out;
 }
 
+// The grid of K7 that is resident at once on the current device: SMs x the
+// blocks per SM its registers allow, asked once per device; and the SM count
+// (for K8's grid). Returns a CUDA error code.
+int shade_grid(int* blocks_out, int* sms_out) {
+    static int cached_blocks[64], cached_sms[64];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64 && cached_blocks[dev] > 0) {
+        *blocks_out = cached_blocks[dev];
+        *sms_out = cached_sms[dev];
+        return 0;
+    }
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shade_hit_kernel, SHADE_BLOCK, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    *blocks_out = sms * per_sm;
+    *sms_out = sms;
+    if (dev < 64) {
+        cached_blocks[dev] = *blocks_out;
+        cached_sms[dev] = sms;
+    }
+    return 0;
+}
+
 }  // namespace
 
 extern "C" int mrt_sample_start(void* const* lane, void* const* frame, const void* total, int n,
@@ -515,21 +700,46 @@ extern "C" int mrt_sample_start(void* const* lane, void* const* frame, const voi
     return (int)cudaGetLastError();
 }
 
-extern "C" int mrt_shade_hit(void* const* lane, void* const* frame, void* const* hits,
-                             void* const* shadow, int n, int hbase, int n_lights, int env_h,
+// Step ``step`` of a sample (0: its first, over every lane). lists: two
+// lists of n int32 (step s reads list s % 2 and writes list (s + 1) % 2);
+// counters: 2 int32 per step slot, zeroed at the sample's start; occluded:
+// the previous step's any-hit result (read from step 1 on).
+extern "C" int mrt_shade_hit(void* const* lane, void* const* frame, void* const* raw,
+                             void* const* shadow, const void* occluded, void* lists,
+                             void* counters, int step, int n, int hbase, int n_lights, int env_h,
                              int env_w, int flags, int max_bounces, void* stream) {
     if (n <= 0) return 0;
-    shade_hit_kernel<<<blocks(n), BLOCK, 0, (cudaStream_t)stream>>>(
-        unpack<Lane>(lane), unpack<Frame>(frame), unpack<Hits>(hits), unpack<ShadowOut>(shadow),
-        n, hbase, n_lights, env_h, env_w, flags, max_bounces);
+    int grid = 0, sms = 0;
+    int rc = shade_grid(&grid, &sms);
+    if (rc != 0) return rc;
+    int* l = (int*)lists;
+    int* c = (int*)counters + C_SLOT * step;
+    if (step > 0) flags |= FLAG_RESOLVE;
+    // step 0 runs one round per block over every lane; a list's length is on
+    // the device only, so later steps take the grid that is resident at once
+    const unsigned full = (unsigned)((n + SHADE_BLOCK - 1) / SHADE_BLOCK);
+    if (step == 0 || full < (unsigned)grid) grid = (int)full;
+    shade_hit_kernel<<<grid, SHADE_BLOCK, 0, (cudaStream_t)stream>>>(
+        unpack<Lane>(lane), unpack<Frame>(frame), unpack<Raw>(raw), unpack<ShadowOut>(shadow),
+        (const bool*)occluded, step > 0 ? l + (size_t)(step & 1) * n : nullptr,
+        l + (size_t)((step + 1) & 1) * n, c, c + C_SLOT, n, hbase, n_lights, env_h, env_w, flags,
+        max_bounces);
     return (int)cudaGetLastError();
 }
 
+// The trailing resolve after ``steps`` steps: over list ``steps`` (its
+// length on the device, in slot ``steps``).
 extern "C" int mrt_resolve_shadow(void* acc, const void* contrib, const void* need,
-                                  const void* occluded, int n, void* stream) {
-    if (n <= 0) return 0;
-    resolve_shadow_kernel<<<blocks(n), BLOCK, 0, (cudaStream_t)stream>>>(
-        (float*)acc, (const float*)contrib, (const bool*)need, (const bool*)occluded, n);
+                                  const void* occluded, const void* lists, const void* counters,
+                                  int steps, int n, void* stream) {
+    if (n <= 0 || steps <= 0) return 0;
+    int grid = 0, sms = 0;
+    int rc = shade_grid(&grid, &sms);
+    if (rc != 0) return rc;
+    const unsigned g = blocks(n) < (unsigned)(sms * 8) ? blocks(n) : (unsigned)(sms * 8);
+    resolve_shadow_kernel<<<g, BLOCK, 0, (cudaStream_t)stream>>>(
+        (float*)acc, (const float*)contrib, (const bool*)need, (const bool*)occluded,
+        (const int*)lists + (size_t)(steps & 1) * n, (const int*)counters + C_SLOT * steps, n);
     return (int)cudaGetLastError();
 }
 

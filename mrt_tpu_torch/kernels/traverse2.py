@@ -39,6 +39,7 @@ import torch
 
 from ..bvh.wide import ARITY, IDS_OFF, LEAF_K, META_OFF, _KEY_MAX, _META_BITS, _META_MASK, \
     decode_ids
+from ..core.types import Hits
 
 MAX_STACK = 128  # the kernel's compile-time stack cap (csrc/traverse2.cu)
 # K2's instantiations: (masked, float sort) -> name
@@ -125,6 +126,21 @@ class TraverseOut(NamedTuple):
     # (table rows, 2) int64 from the plain version (None from the kernel):
     # the pops of each row, and the rays that entered each instance row
     visits: torch.Tensor | None = None
+
+
+def hits_of(out: TraverseOut, tri_base=None):
+    """The closest-hit record as ``core.types.Hits``: t inf and the triangle
+    -1 on a miss. With ``tri_base`` (a two-level BVH's first flat triangle
+    id per instance, int32) a hit needs an instance too, and its id is made
+    flat: ``tri_base[inst] + tri``; without it (a flat table) ``tri`` is
+    already the global id. Kernel K7 reads ``out`` and does the same itself
+    (``csrc/wavefront.cu``)."""
+    found = out.tri >= 0
+    tri = out.tri
+    if tri_base is not None:
+        found = found & (out.inst >= 0)
+        tri = torch.where(found, tri_base[out.inst.clamp_min(0).long()] + out.tri.clamp_min(0), -1)
+    return Hits(t=torch.where(found, out.t, float("inf")), triangle=tri, u=out.u, v=out.v)
 
 
 def _guarded_inv(d):

@@ -7,37 +7,59 @@ XLA fuses into a few programs per bounce on the TPU: K6 the camera rays and
 the per-sample state (``camera_rays``/``init_state``, :290-363), K7 and K8
 the bounce loop's body (:372-1020) around the two traversals. Per sample,
 ``render/wavefront.py:trace_pixels`` runs ``sample_start``, then per
-iteration the closest-hit traversal, ``shade_hit``, the any-hit traversal
-of the shadow rays and ``resolve_shadow``:
+iteration the closest-hit traversal, ``shade_hit`` and the any-hit
+traversal of the shadow rays, and after the last iteration
+``resolve_shadow``:
 
 - ``sample_start``: Halton dims 0/1 (24 digits) of each pixel's index, the
   camera ray, and a fresh ``LaneState`` (a lane past its own sample count
   starts dead);
-- ``shade_hit``: everything between the two traversals — the hit record,
-  the environment on a miss, the normal, the material, the glass branch
-  with its Halton transparency dimension, emission, the five post-glass
-  Halton dimensions, the 1-of-N light pick (uniform or ``power``) and the
-  four light types, PBR or legacy shading, the shadow ray — and the
-  throughput, dead-lane and cosine-bounce update that follows the shadow
-  ray, which reads neither the occlusion nor the radiance sum, so it runs
-  before the any-hit traversal. It writes the next ray into the state and
-  the shadow ray, its radiance and its lane mask into a ``Shadow``;
-- ``resolve_shadow``: ``accumulated += contrib`` where the shadow ray is
-  live and not occluded, right after the any-hit traversal, so the radiance
-  is summed in the plain loop's order: env(k), emission(k), contrib(k),
-  env(k+1).
+- ``shade_hit``: first the previous iteration's shadow rays
+  (``accumulated += contrib`` where one was cast and is not occluded: the
+  add K8 made after every any-hit in the full-width design), then
+  everything between the two traversals — the hit record, the environment on a miss, the normal,
+  the material, the glass branch with its Halton transparency dimension,
+  emission, the five post-glass Halton dimensions, the 1-of-N light pick
+  (uniform or ``power``) and the four light types, PBR or legacy shading,
+  the shadow ray — and the throughput, dead-lane and cosine-bounce update
+  that follows the shadow ray, which reads neither the occlusion nor the
+  radiance sum, so it runs before the any-hit traversal. It writes the next
+  ray into the state and the shadow ray, its radiance and its lane mask into
+  the ``Wave``'s ``Shadow``, and the lanes the next step runs over (those
+  live or holding a shadow ray) into its list;
+- ``resolve_shadow``: the last iteration's shadow rays, once per sample.
+The radiance is summed in the plain loop's order: env(k), emission(k),
+contrib(k), env(k+1).
 
-``kernel_route`` decides by the settings alone whether a frame's stages
-are the kernels (the debug views, mipmapped sampling, texture maps and
-geometry sharding are off the route: their frames run the plain stages on
-any device). On the route, the wrappers take the plain versions only for
-CPU tensors; on CUDA tensors they launch the kernels or raise. The plain
-versions are the port's torch-op wavefront body as it was.
+On the card, K7 replaces a one-thread-per-lane K7 and a full-width K8
+per iteration: it is persistent over a device-side lane list that each
+launch writes for the next (the first launch of a sample runs over every
+lane), reads the closest-hit traversal's raw record
+(``traverse2.TraverseOut``) and makes the flat triangle id itself, and
+reads its shade and material rows as float4. Its buffers (the two lists,
+the counters, the ``Shadow``) are made once per ``trace_pixels`` call
+(``make_wave``) and its counters zeroed once per sample (``new_sample``);
+the host reads one int32 per launch, the live-lane count, to end the loop.
+Its bound counts the listed lanes and the adds it folds in
+(``utils/bounds.py:k7_listed``, ``k8``).
+
+The plain version of the new K7 is ``resolve_shadow_plain`` followed by
+``shade_hit_plain``, both the port's torch-op body as it was, over every
+lane, with the list as the lanes ``active | need``
+(``shade_hit_listed_plain``); of the trailing K8 ``resolve_shadow_plain``
+(``resolve_shadow_listed_plain``). ``kernel_route`` decides by the settings
+alone whether a frame's stages are the kernels (the debug views,
+mipmapped sampling, texture maps and geometry sharding are off the route:
+their frames run the plain stages on any device, with the traversals'
+``closest_hit`` records). On the route, the wrappers take the plain
+versions only for CPU tensors; on CUDA tensors they launch the kernels or
+raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -47,6 +69,7 @@ from ..core import halton as H
 from ..core import types as T
 from ..dist import comm
 from ..render import shade as S
+from . import traverse2
 from .traverse2 import _check
 
 STAGES = ("sample_start", "shade_hit", "resolve_shadow")
@@ -137,6 +160,10 @@ class Frame(NamedTuple):
     camera: torch.Tensor | None = None  # (12,) f32: position right up forward
     lights: torch.Tensor | None = None  # (L, LIGHT_COLS) f32
     step_bases: torch.Tensor | None = None  # (20, 12) int32: halton._STEP_BASES_PAIR
+    # a two-level BVH's first flat triangle id per instance (I,) int32, which
+    # turns the closest-hit traversal's local ids into flat ones; None for a
+    # flat table
+    tri_base: torch.Tensor | None = None
 
 
 def kernel_route(settings: T.RenderSettings, statics, geom) -> bool:
@@ -166,9 +193,11 @@ def pack_lights(lights: T.Lights, light_sampling: str) -> torch.Tensor:
 
 
 def make_frame(settings, statics, scene, geom, uniforms, pixel_x, pixel_y, offsets, prev_motion,
-               base: int) -> Frame:
+               base: int, tri_base: torch.Tensor | None = None) -> Frame:
     """The ``Frame`` of one ``trace_pixels`` call, with the kernels' packed
-    tables where its stages run as kernels (the kernel route, on CUDA)."""
+    tables where its stages run as kernels (the kernel route, on CUDA);
+    ``tri_base``: the two-level BVH's ``flat_tri_base`` (None for a flat
+    table)."""
     dev = pixel_x.device
     f32 = torch.float32
     # 0-d device tensors: a Python scalar numerator would turn ``c / x`` into
@@ -189,7 +218,108 @@ def make_frame(settings, statics, scene, geom, uniforms, pixel_x, pixel_y, offse
             lights=pack_lights(scene.lights, settings.light_sampling),
             step_bases=torch.as_tensor(H._STEP_BASES_PAIR).to(dev).contiguous())
     return Frame(settings, statics, scene, geom, uniforms, pixel_x, pixel_y, offsets, prev_motion,
-                 base, width_f, height_f, pixel_angle, **packed)
+                 base, width_f, height_f, pixel_angle, tri_base=tri_base, **packed)
+
+
+@dataclasses.dataclass
+class WaveBuffers:
+    """K7's and K8's buffers for one ``trace_pixels`` call on the card
+    (``make_wave``), with what the wrappers checked and packed once: the
+    frame and the state last seen (by identity) and their pointers."""
+
+    shadow: Shadow  # the shadow rays, written in place by every K7 launch
+    lists: torch.Tensor  # (2, P) int32: step s reads list s % 2, writes (s + 1) % 2;
+    #                      the live lanes from the front, the others from the back
+    counters: torch.Tensor  # (2 * (max_steps + 1),) int32: per step slot its list's
+    #                         live lanes and other lanes; zeroed per sample
+    frame: Frame
+    frame_ptrs: object
+    shadow_ptrs: object
+    state: LaneState | None = None
+    state_ptrs: object = None
+
+    @property
+    def max_steps(self) -> int:
+        return self.counters.shape[0] // 2 - 1
+
+
+class Wave(NamedTuple):
+    """What a sample's steps hand on, beside the lane state: the shadow rays
+    the last ``shade_hit`` cast (``need`` set on every lane), their
+    occlusion once the any-hit traversal has traced them, and the lanes the
+    next step runs over. On the kernel route on the card (``buf``) the
+    shadow rays and the list live in buffers made once per call and written
+    in place; elsewhere each step returns new tensors."""
+
+    shadow: Shadow | None = None  # None: no shadow ray pending
+    occluded: torch.Tensor | None = None  # (P,) bool, set by the caller after the any-hit
+    keep: torch.Tensor | None = None  # plain: (P,) bool, the next step's lanes (None: every lane)
+    steps: int = 0  # ``shade_hit`` steps run in this sample
+    buf: WaveBuffers | None = None
+
+
+def make_wave(fr: Frame, max_steps: int) -> Wave:
+    """A ``trace_pixels`` call's ``Wave``: on the kernel route on the card
+    (``fr`` made by ``make_frame`` with the packed tables) with K7's and
+    K8's buffers for at most ``max_steps`` steps a sample (the frame is
+    checked here, once); elsewhere without."""
+    if fr.camera is None:
+        return Wave()
+    what = "make_wave"
+    dev = _cuda_route(what, fr)
+    P = fr.pixel_x.shape[0]
+    _check_frame(what, fr, P, dev, rows=True)
+    f32 = torch.float32
+    sh = Shadow(torch.empty((P, 3), dtype=f32, device=dev),
+                torch.empty((P, 3), dtype=f32, device=dev),
+                torch.empty(P, dtype=f32, device=dev), torch.empty((P, 3), dtype=f32, device=dev),
+                torch.zeros(P, dtype=torch.bool, device=dev))
+    buf = WaveBuffers(sh, torch.empty((2, P), dtype=torch.int32, device=dev),
+                      torch.zeros(2 * (max_steps + 1), dtype=torch.int32, device=dev), fr,
+                      _frame_ptrs(fr), _ptrs(list(sh)))
+    return Wave(buf=buf)
+
+
+def new_sample(wv: Wave) -> Wave:
+    """``wv`` at a sample's start: nothing pending, every lane to run; on
+    the card the counters zeroed (once per sample)."""
+    if wv.buf is not None:
+        wv.buf.counters.zero_()
+    return Wave(buf=wv.buf)
+
+
+def listed(wv: Wave) -> torch.Tensor:
+    """The lanes the next ``shade_hit`` step of ``wv`` runs over (int32, in
+    no set order; every lane before a sample's first step)."""
+    b = wv.buf
+    if b is not None:
+        P = b.lists.shape[1]
+        if wv.steps == 0:
+            return torch.arange(P, dtype=torch.int32, device=b.lists.device)
+        n_live, n_rest = b.counters[2 * wv.steps:2 * wv.steps + 2].tolist()
+        lst = b.lists[wv.steps % 2]
+        return torch.cat([lst[:n_live], lst[P - n_rest:]])
+    if wv.keep is None:
+        raise ValueError("listed: a plain Wave before its first step lists every lane; it does "
+                         "not know how many")
+    return torch.nonzero(wv.keep).squeeze(1).to(torch.int32)
+
+
+def clone_wave(wv: Wave) -> Wave:
+    """A copy of ``wv`` with buffers of its own, for running a step twice
+    on the same input (K7 writes its buffers in place)."""
+    b = wv.buf
+
+    def c(t):
+        return None if t is None else t.clone()
+
+    if b is None:
+        sh = None if wv.shadow is None else Shadow(*(c(t) for t in wv.shadow))
+        return Wave(sh, c(wv.occluded), c(wv.keep), wv.steps)
+    sh = Shadow(*(t.clone() for t in b.shadow))
+    nb = WaveBuffers(sh, b.lists.clone(), b.counters.clone(), b.frame, b.frame_ptrs,
+                     _ptrs(list(sh)))
+    return Wave(None if wv.shadow is None else sh, c(wv.occluded), None, wv.steps, nb)
 
 
 # ---------------------------------------------------------------------------
@@ -654,6 +784,25 @@ def resolve_shadow_plain(st: LaneState, shadow: Shadow, occluded: torch.Tensor) 
                        + _where3(shadow.need & ~occluded, shadow.contrib, 0.0))
 
 
+def shade_hit_listed_plain(fr: Frame, st: LaneState, hits: T.Hits, sidx: int, wv: Wave):
+    """K7's plain version: ``wv``'s pending shadow rays resolved
+    (``resolve_shadow_plain``), then ``shade_hit_plain``, over every lane;
+    the next step's lanes are those live or holding a shadow ray (``active
+    | need``). Returns (the next state, the next ``Wave``, the live-lane
+    count as a 0-d int32 tensor)."""
+    if wv.shadow is not None:
+        st = resolve_shadow_plain(st, wv.shadow, wv.occluded)
+    st, sh = shade_hit_plain(fr, st, hits, sidx)
+    keep = st.active if sh is None else st.active | sh.need
+    return st, Wave(sh, None, keep, wv.steps + 1, wv.buf), st.active.sum(dtype=torch.int32)
+
+
+def resolve_shadow_listed_plain(st: LaneState, wv: Wave) -> LaneState:
+    """K8's plain version at a sample's end: ``wv``'s pending shadow rays
+    resolved (``resolve_shadow_plain``), if any."""
+    return st if wv.shadow is None else resolve_shadow_plain(st, wv.shadow, wv.occluded)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -697,7 +846,7 @@ def _frame_ptrs(fr: Frame):
                   scene.env_intensity])
 
 
-def _check_frame(what: str, fr: Frame, P: int, dev):
+def _check_frame(what: str, fr: Frame, P: int, dev, rows: bool = False):
     for name in ("pixel_x", "pixel_y", "offsets"):
         _check(what, name, getattr(fr, name), torch.int32, (P,), dev)
     _check(what, "camera", fr.camera, torch.float32, (12,), dev)
@@ -713,6 +862,13 @@ def _check_frame(what: str, fr: Frame, P: int, dev):
     env = fr.scene.env_map
     _check(what, "env_map", env, torch.float32, (env.shape[0], env.shape[1], 3), dev)
     _check(what, "env_intensity", fr.scene.env_intensity, torch.float32, (), dev)
+    if rows:  # K7 reads them as float4
+        for name, t in (("shade_rows", g.shade_rows), ("mat_rows", g.mat_rows)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{what}: {name} must be 16-byte aligned (its rows are read as "
+                                 "float4)")
+    if fr.tri_base is not None:
+        _check(what, "tri_base", fr.tri_base, torch.int32, (fr.tri_base.shape[0],), dev)
 
 
 def _stream(dev):
@@ -763,62 +919,101 @@ def _flags(fr: Frame, sidx: int) -> int:
             | ((s.light_sampling == "power" and st.n_lights > 1) << 5))
 
 
-def shade_hit(fr: Frame, st: LaneState, hits: T.Hits, sidx: int):
-    """One iteration's body between the traversals (see
-    ``shade_hit_plain``). CPU tensors take the plain version; CUDA tensors
-    launch K7, which updates ``st`` in place. Returns (state, Shadow)."""
-    if fr.pixel_x.device.type == "cpu":
-        return shade_hit_plain(fr, st, hits, sidx)
-    what = "shade_hit"
+def _buffers(what: str, fr: Frame, st: LaneState, wv: Wave) -> WaveBuffers:
+    """``wv``'s buffers, with ``fr`` and ``st`` checked and packed unless
+    they are the ones last seen."""
     dev = _cuda_route(what, fr)
+    b = wv.buf
+    if b is None:
+        raise ValueError(f"{what}: the Wave has no buffers (make it with make_wave on the kernel "
+                         "route)")
     P = fr.pixel_x.shape[0]
-    _check_frame(what, fr, P, dev)
-    _check_state(what, st, P, dev, fr.settings.enable_gbuffer)
-    for name, dtype in (("t", torch.float32), ("triangle", torch.int32), ("u", torch.float32),
-                        ("v", torch.float32)):
+    if b.lists.shape != (2, P) or b.lists.device != dev:
+        raise ValueError(f"{what}: the Wave's buffers are for {b.lists.shape[1]} lanes on "
+                         f"{b.lists.device}, not {P} on {dev}")
+    if fr is not b.frame:
+        _check_frame(what, fr, P, dev, rows=True)
+        b.frame, b.frame_ptrs = fr, _frame_ptrs(fr)
+    if st is not b.state:
+        _check_state(what, st, P, dev, fr.settings.enable_gbuffer)
+        b.state, b.state_ptrs = st, _lane_ptrs(st)
+    return b
+
+
+def shade_hit(fr: Frame, st: LaneState, hits: traverse2.TraverseOut, sidx: int, wv: Wave):
+    """One step of a sample (see ``shade_hit_listed_plain``): ``wv``'s
+    pending shadow rays resolved, then the body between the traversals, from
+    the closest-hit traversal's raw record ``hits`` of the lanes
+    ``st.active`` traced. CPU tensors take the plain version (``hits`` made
+    a ``Hits`` by ``traverse2.hits_of``); CUDA tensors launch K7 over
+    ``wv``'s list, which updates ``st`` and the buffers in place. Returns
+    (state, the next ``Wave``, the live-lane count as a 0-d int32
+    tensor)."""
+    if fr.pixel_x.device.type == "cpu":
+        return shade_hit_listed_plain(fr, st, traverse2.hits_of(hits, fr.tri_base), sidx, wv)
+    what = "shade_hit"
+    b = _buffers(what, fr, st, wv)
+    dev = b.lists.device
+    P = b.lists.shape[1]
+    s = wv.steps
+    if s >= b.max_steps:
+        raise ValueError(f"{what}: step {s} is past the {b.max_steps} steps the Wave was made for")
+    for name, dtype in (("t", torch.float32), ("tri", torch.int32), ("inst", torch.int32),
+                        ("u", torch.float32), ("v", torch.float32)):
         _check(what, f"hits.{name}", getattr(hits, name), dtype, (P,), dev)
-    sh = Shadow(torch.empty((P, 3), dtype=torch.float32, device=dev),
-                torch.empty((P, 3), dtype=torch.float32, device=dev),
-                torch.empty(P, dtype=torch.float32, device=dev),
-                torch.empty((P, 3), dtype=torch.float32, device=dev),
-                torch.empty(P, dtype=torch.bool, device=dev))
+    if s > 0:
+        if wv.shadow is None or wv.occluded is None:
+            raise ValueError(f"{what}: step {s} needs the previous step's shadow rays traced "
+                             "(Wave.occluded)")
+        _check(what, "occluded", wv.occluded, torch.bool, (P,), dev)
+    live = b.counters[2 * (s + 1)]
     if P == 0:
-        return st, sh
+        return st, wv._replace(shadow=b.shadow, occluded=None, steps=s + 1), live
     from . import build
 
     lib = build.load()
     env = fr.scene.env_map
-    rc = lib.mrt_shade_hit(_lane_ptrs(st), _frame_ptrs(fr), _ptrs(list(hits)), _ptrs(list(sh)), P,
+    rc = lib.mrt_shade_hit(b.state_ptrs, b.frame_ptrs,
+                           _ptrs([hits.t, hits.tri, hits.inst, hits.u, hits.v, fr.tri_base]),
+                           b.shadow_ptrs, _ptr(wv.occluded), _ptr(b.lists), _ptr(b.counters), s, P,
                            _hbase(fr, sidx), fr.lights.shape[0], env.shape[0], env.shape[1],
                            _flags(fr, sidx), fr.settings.max_bounces, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     launches["shade_hit"] += 1
-    return st, sh
+    return st, wv._replace(shadow=b.shadow, occluded=None, steps=s + 1), live
 
 
-def resolve_shadow(st: LaneState, shadow: Shadow, occluded: torch.Tensor) -> LaneState:
-    """``accumulated += contrib`` where the shadow ray is live and not
-    ``occluded``. CPU tensors take the plain version; CUDA tensors launch K8
-    (in place)."""
-    dev = occluded.device
+def resolve_shadow(st: LaneState, wv: Wave) -> LaneState:
+    """The last step's shadow rays at a sample's end (see
+    ``resolve_shadow_listed_plain``). CPU tensors take the plain version;
+    CUDA tensors launch K8 over ``wv``'s last list (in place)."""
+    dev = st.accumulated.device
     if dev.type == "cpu":
-        return resolve_shadow_plain(st, shadow, occluded)
+        return resolve_shadow_listed_plain(st, wv)
     what = "resolve_shadow"
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
-    P = occluded.shape[0]
+    b = wv.buf
+    if b is None:
+        raise ValueError(f"{what}: the Wave has no buffers (make it with make_wave on the kernel "
+                         "route)")
+    if wv.shadow is None:
+        return st
+    if wv.occluded is None:
+        raise ValueError(f"{what}: the last step's shadow rays were not traced (Wave.occluded)")
+    P = b.lists.shape[1]
     _check(what, "accumulated", st.accumulated, torch.float32, (P, 3), dev)
-    _check(what, "contrib", shadow.contrib, torch.float32, (P, 3), dev)
-    _check(what, "need", shadow.need, torch.bool, (P,), dev)
-    _check(what, "occluded", occluded, torch.bool, (P,), dev)
+    _check(what, "occluded", wv.occluded, torch.bool, (P,), dev)
     if P == 0:
         return st
     from . import build
 
     lib = build.load()
-    rc = lib.mrt_resolve_shadow(_ptr(st.accumulated), _ptr(shadow.contrib), _ptr(shadow.need),
-                                _ptr(occluded), P, _stream(dev))
+    sh = wv.shadow
+    rc = lib.mrt_resolve_shadow(_ptr(st.accumulated), _ptr(sh.contrib), _ptr(sh.need),
+                                _ptr(wv.occluded), _ptr(b.lists), _ptr(b.counters), wv.steps, P,
+                                _stream(dev))
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     launches["resolve_shadow"] += 1

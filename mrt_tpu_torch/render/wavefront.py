@@ -138,9 +138,12 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
     motion at these pixels, for the motion-adaptive extra samples;
     ``sample_base``: the Halton index base (default frame_index *
     sample_stride). Each sample runs ``sample_start``, then per iteration
-    the closest-hit traversal, ``shade_hit``, the any-hit traversal and
-    ``resolve_shadow`` (``kernels/wavefront.py``): kernels K6-K8 on the
-    kernel route (``W.kernel_route``), the plain stages off it."""
+    the closest-hit traversal, ``shade_hit`` (which first resolves the
+    previous iteration's shadow rays) and the any-hit traversal, and after
+    its last iteration ``resolve_shadow`` (``kernels/wavefront.py``):
+    kernels K6-K8 on the kernel route (``W.kernel_route``), K7 reading the
+    closest-hit traversal's raw record; the plain stages off it, on the
+    traversal's ``Hits``."""
     T.check_supported(settings)
     gax = None
     if settings.geometry_axis:
@@ -152,13 +155,14 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
     dev = pixel_x.device
     f32 = torch.float32
     base = uniforms.frame_index * settings.sample_stride if sample_base is None else sample_base
+    route = W.kernel_route(settings, statics, geom)
     fr = W.make_frame(settings, statics, scene, geom, uniforms, pixel_x, pixel_y, offsets,
-                      prev_motion, base)
-    if W.kernel_route(settings, statics, geom):
+                      prev_motion, base, tri_base=None if kind.is_flat(bvh) else bvh.flat_tri_base)
+    if route:
         sample_start, shade_hit, resolve_shadow = W.sample_start, W.shade_hit, W.resolve_shadow
     else:
-        sample_start, shade_hit, resolve_shadow = (W.sample_start_plain, W.shade_hit_plain,
-                                                   W.resolve_shadow_plain)
+        sample_start, shade_hit, resolve_shadow = (W.sample_start_plain, W.shade_hit_listed_plain,
+                                                   W.resolve_shadow_listed_plain)
     base_samples = settings.base_samples
     max_extra = settings.max_extra_samples
     # each iteration consumes a bounce or a transparency pass (passes cap at
@@ -171,6 +175,10 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
     # the masks reach the traversal only for a masked (two-level) scene
     shadow_kw = ({"ray_mask": torch.full((P,), T.RAY_MASK_SHADOW, dtype=torch.int32, device=dev)}
                  if bvh.has_masks else {})
+    if route:  # the traversals' shadow flags, made once
+        closest_flags = torch.zeros(P, dtype=torch.bool, device=dev)
+        shadow_kw["flags"] = torch.ones(P, dtype=torch.bool, device=dev)
+    wv = W.make_wave(fr, max_iters)
 
     total_color = torch.zeros((P, 3), dtype=f32, device=dev)
     rays_total = torch.zeros(P, dtype=torch.int32, device=dev)
@@ -181,25 +189,34 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
     sidx = 0
     while sidx < n_samples:
         st = sample_start(fr, sidx, total, st)
+        wv = W.new_sample(wv)
+        # a sample starts with a live lane (total > sidx somewhere); then the
+        # loop reads shade_hit's live-lane count: one host sync per iteration
+        live = P > 0
         it = 0
-        while it < max_iters and bool(st.active.any()):
+        while it < max_iters and live:
             it += 1
             closest_kw = {}
             if bvh.has_masks:
                 closest_kw["ray_mask"] = torch.where(st.bounce == 0, T.RAY_MASK_PRIMARY,
                                                      T.RAY_MASK_SECONDARY).to(torch.int32)
-            hits = trav.closest_hit(bvh, T.Rays(st.ray_o, st.ray_d, inf_d), mask=st.active,
-                                    **closest_kw)
-            if gax is not None:
-                hits = combine_hits_across(hits, gax)
-            st, shadow = shade_hit(fr, st, hits, sidx)
-            if shadow is None:  # a debug view: every lane retired at its first hit
-                continue
-            occluded = trav.any_hit(bvh, T.Rays(shadow.origin, shadow.direction, shadow.distance),
-                                    mask=shadow.need, **shadow_kw)
-            if gax is not None:
-                occluded = comm.pmax(occluded.to(torch.int32), gax) > 0
-            st = resolve_shadow(st, shadow, occluded)
+            rays = T.Rays(st.ray_o, st.ray_d, inf_d)
+            if route:
+                hits = trav.closest_raw(bvh, rays, closest_flags, mask=st.active, **closest_kw)
+            else:
+                hits = trav.closest_hit(bvh, rays, mask=st.active, **closest_kw)
+                if gax is not None:
+                    hits = combine_hits_across(hits, gax)
+            st, wv, n_live = shade_hit(fr, st, hits, sidx, wv)
+            if wv.shadow is not None:  # None: a debug view retired every lane at its first hit
+                sh = wv.shadow
+                occluded = trav.any_hit(bvh, T.Rays(sh.origin, sh.direction, sh.distance),
+                                        mask=sh.need, **shadow_kw)
+                if gax is not None:
+                    occluded = comm.pmax(occluded.to(torch.int32), gax) > 0
+                wv = wv._replace(occluded=occluded)
+            live = bool(n_live)
+        st = resolve_shadow(st, wv)
 
         if sidx == 0:
             # depth/motion from the recorded bounce-0 hit

@@ -24,7 +24,10 @@ gain there. The presenter's bounds count bytes only: a banded resize needs
 6 taps per axis (Lanczos-3 at 2x), so its operations take a fraction of
 its byte time. K6-K8, the wavefront's stages (``k6``, ``k7``, ``k8``),
 count per lane what the lane's state needs: K7 from one iteration's lanes
-that are live, hit, glass, lit and cast a shadow ray (``k7_work``).
+that are live, hit, glass, lit and cast a shadow ray (``k7_work``). K7 runs
+over a lane list and folds K8's add in (``k7_listed``; ``k7`` stays the
+bound of a full-width launch), and K8 runs once per sample over the last
+list (``k8`` of its lanes).
 """
 
 from __future__ import annotations
@@ -300,6 +303,9 @@ K7_OPS_ENV = 35
 # K8: every lane reads its shadow mask and occlusion; a lane that adds reads
 # its radiance and contribution and writes its radiance (3 adds)
 K8_BYTES_LANE, K8_BYTES_ADD, K8_OPS_ADD = 2, 36, 3
+# the contribution alone: what an add folded into K7 reads for a live lane,
+# whose radiance K7 reads and writes already (K7_BYTES_LIVE)
+K8_BYTES_CONTRIB = 12
 
 
 def k6(n_lanes: int) -> tuple[float, str]:
@@ -307,27 +313,54 @@ def k6(n_lanes: int) -> tuple[float, str]:
     return least_ms(n_lanes * K6_OPS, n_lanes * K6_BYTES)
 
 
+def _k7_bytes(work: dict[str, int]) -> int:
+    return (work["lanes"] * K7_BYTES_LANE + work["live"] * K7_BYTES_LIVE
+            + work["hit"] * K7_BYTES_HIT + work["shadow"] * K7_BYTES_SHADOW
+            + work["env_miss"] * K7_BYTES_ENV)
+
+
+def _k7_ops(work: dict[str, int]) -> int:
+    return (work["live"] * K7_OPS_LIVE + work["hit"] * K7_OPS_HIT + work["glass"] * K7_OPS_GLASS
+            + work["lit"] * K7_OPS_LIT + work["env_miss"] * K7_OPS_ENV)
+
+
 def k7(work: dict[str, int]) -> tuple[float, str]:
-    """K7's bound for one iteration's lane counts (``k7_work``)."""
-    nbytes = (work["lanes"] * K7_BYTES_LANE + work["live"] * K7_BYTES_LIVE
-              + work["hit"] * K7_BYTES_HIT + work["shadow"] * K7_BYTES_SHADOW
-              + work["env_miss"] * K7_BYTES_ENV)
-    ops = (work["live"] * K7_OPS_LIVE + work["hit"] * K7_OPS_HIT + work["glass"] * K7_OPS_GLASS
-           + work["lit"] * K7_OPS_LIT + work["env_miss"] * K7_OPS_ENV)
-    return least_ms(ops, nbytes)
+    """K7's bound for one iteration's lane counts (``k7_work``), every lane
+    of the wavefront run (the full-width K7)."""
+    return least_ms(_k7_ops(work), _k7_bytes(work))
 
 
 def k8(n_lanes: int, n_added: int) -> tuple[float, str]:
-    """K8's bound: ``n_lanes`` lanes, ``n_added`` of them adding radiance."""
+    """K8's bound: ``n_lanes`` lanes, ``n_added`` of them adding radiance
+    (the trailing K8's lanes are the last list's)."""
     return least_ms(n_added * K8_OPS_ADD, n_lanes * K8_BYTES_LANE + n_added * K8_BYTES_ADD)
 
 
-def k7_work(fr, st, hits, shadow) -> dict[str, int]:
+def k7_listed(work: dict[str, int]) -> tuple[float, str]:
+    """The listed K7's bound for one step's lane counts
+    (``k7_work`` with a list): ``k7``'s over its listed lanes
+    (``work["lanes"]``) plus the adds it folds in: each listed lane reads its
+    shadow mask and occlusion when a shadow ray may be pending
+    (``work["resolved"]``), and each lane that adds (``work["added"]``)
+    reads its contribution and, unless it is live (``work["added_live"]``,
+    whose radiance K7 moves already), reads and writes its radiance."""
+    added, live = work.get("added", 0), work.get("added_live", 0)
+    nbytes = (_k7_bytes(work) + work.get("resolved", 0) * K8_BYTES_LANE
+              + (added - live) * K8_BYTES_ADD + live * K8_BYTES_CONTRIB)
+    ops = _k7_ops(work) + added * K8_OPS_ADD
+    return least_ms(ops, nbytes)
+
+
+def k7_work(fr, st, hits, shadow, n_listed: int | None = None, pending=None,
+            occluded=None) -> dict[str, int]:
     """K7's lane counts for one iteration, from the plain version's inputs
     (the ``kernels.wavefront.Frame`` ``fr``, the state ``st`` before it and
     the closest ``hits``) and its shadow rays: lanes, live lanes, hits,
     glass hits, lit hits, shadow rays and misses that read the
-    environment."""
+    environment. For the listed K7, ``n_listed`` is the lanes it ran over,
+    and with the ``pending`` shadow rays of the step before and their
+    ``occluded`` the work also counts the lanes that resolve one, the lanes
+    that add (``need & ~occluded``) and those of them live."""
     import torch
 
     live = st.active
@@ -339,6 +372,11 @@ def k7_work(fr, st, hits, shadow) -> dict[str, int]:
         glass = hit & ((torch.clamp(mat[:, 11], 0.0, 1.0) < 0.999)
                        | (torch.clamp(mat[:, 10], min=1.0) > 1.01))
     env_miss = live & ~hit if fr.statics.has_environment else torch.zeros_like(hit)
-    return dict(lanes=int(live.numel()), live=int(live.sum()), hit=int(hit.sum()),
-                glass=int(glass.sum()), lit=int((hit & ~glass).sum()),
+    work = dict(lanes=int(live.numel()) if n_listed is None else n_listed, live=int(live.sum()),
+                hit=int(hit.sum()), glass=int(glass.sum()), lit=int((hit & ~glass).sum()),
                 shadow=int(shadow.need.sum()), env_miss=int(env_miss.sum()))
+    if pending is not None:
+        add = pending.need & ~occluded
+        work.update(resolved=work["lanes"], added=int(add.sum()),
+                    added_live=int((add & live).sum()))
+    return work

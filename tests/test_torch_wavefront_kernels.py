@@ -16,7 +16,10 @@ card) on the CPU.
   J are on the route; the debug views, mipmaps, texture maps and geometry
   sharding are off it.
 - The wrappers take the plain versions for CPU tensors and raise
-  ``ValueError`` on another device (a ``meta`` tensor).
+  ``ValueError`` on another device (a ``meta`` tensor): ``sample_start``,
+  the listed ``shade_hit`` (from the closest-hit traversal's raw record,
+  with a ``Wave``), ``resolve_shadow`` at a sample's end, ``make_wave``
+  (buffers only on the card) and ``halton``.
 - ``csrc/halton.cuh``, compiled by the host compiler with
   ``-ffp-contract=off`` (every product and sum rounded on its own, as nvcc's
   ``-fmad=false`` builds it for the card), bit-equal to the port's and to
@@ -188,7 +191,8 @@ def _frame(r, device="cpu"):
     idx = torch.arange(P, dtype=torch.int32)
     px, py = idx % r.render_width, idx // r.render_width
     fr = W.make_frame(settings, r.statics, sd, geom, uniforms, px.to(device), py.to(device),
-                      r.offsets.reshape(-1).to(device), torch.zeros((P, 2), device=device), 0)
+                      r.offsets.reshape(-1).to(device), torch.zeros((P, 2), device=device), 0,
+                      tri_base=bvh.flat_tri_base.to(device))
     return fr, bvh
 
 
@@ -212,17 +216,31 @@ def test_wrappers_take_plain_on_cpu_and_raise_elsewhere(small_app):
     for a, b in zip(st, st_p):
         _same(a, b)
     from mrt_tpu_torch.bvh import twolevel
+    from mrt_tpu_torch.kernels import traverse2
 
-    hits = twolevel.closest_hit(bvh, T.Rays(st.ray_o, st.ray_d, torch.full((P,), float("inf"))),
-                                mask=st.active)
+    rays = T.Rays(st.ray_o, st.ray_d, torch.full((P,), float("inf")))
+    hits = twolevel.closest_hit(bvh, rays, mask=st.active)
     assert bool((hits.triangle >= 0).any())
-    nxt, sh = W.shade_hit(fr, W.clone_state(st), hits, 0)
-    nxt_p, sh_p = W.shade_hit_plain(fr, st, hits, 0)
-    for a, b in zip(list(nxt) + list(sh), list(nxt_p) + list(sh_p)):
+    # the listed K7: the traversal's raw record, a Wave; its plain version on
+    # the CPU, resolve_shadow_plain (nothing pending at a sample's start)
+    # then shade_hit_plain on closest_hit's Hits
+    raw = twolevel.closest_raw(bvh, rays, torch.zeros(P, dtype=torch.bool), mask=st.active)
+    for a, b in zip(traverse2.hits_of(raw, fr.tri_base), hits):
         _same(a, b)
+    wv = W.new_sample(W.make_wave(fr, 8))
+    assert wv == W.Wave()  # buffers only for the card
+    nxt, wv1, live = W.shade_hit(fr, W.clone_state(st), raw, 0, wv)
+    nxt_p, sh_p = W.shade_hit_plain(fr, st, hits, 0)
+    for a, b in zip(list(nxt) + list(wv1.shadow), list(nxt_p) + list(sh_p)):
+        _same(a, b)
+    assert wv1.steps == 1 and int(live) == int(nxt_p.active.sum())
+    assert torch.equal(W.listed(wv1), torch.nonzero(nxt_p.active | sh_p.need).squeeze(1).int())
     occ = torch.zeros(P, dtype=torch.bool)
-    assert torch.equal(W.resolve_shadow(nxt, sh, occ).accumulated,
+    occ[::3] = True
+    wv1 = wv1._replace(occluded=occ)
+    assert torch.equal(W.resolve_shadow(nxt, wv1).accumulated,
                        W.resolve_shadow_plain(nxt_p, sh_p, occ).accumulated)
+    assert W.resolve_shadow(nxt, W.Wave()) is nxt  # nothing pending
     assert fr.camera is None and fr.lights is None  # packed only for the card
     assert not any(W.launches.values())
 
@@ -232,12 +250,17 @@ def test_wrappers_take_plain_on_cpu_and_raise_elsewhere(small_app):
     with pytest.raises(ValueError, match="unsupported device"):
         W.sample_start(fr_m, 0, total.to(meta))
     st_m = W.LaneState(*(None if t is None else t.to(meta) for t in st))
-    hits_m = T.Hits(*(t.to(meta) for t in hits))
+    raw_m = traverse2.TraverseOut(*(None if t is None else t.to(meta) for t in raw))
     with pytest.raises(ValueError, match="unsupported device"):
-        W.shade_hit(fr_m, st_m, hits_m, 0)
-    sh_m = W.Shadow(*(t.to(meta) for t in sh))
+        W.shade_hit(fr_m, st_m, raw_m, 0, W.Wave())
     with pytest.raises(ValueError, match="unsupported device"):
-        W.resolve_shadow(st_m, sh_m, occ.to(meta))
+        W.resolve_shadow(st_m, W.Wave(shadow=W.Shadow(*(t.to(meta) for t in sh_p)),
+                                      occluded=occ.to(meta), steps=1))
+    packed = fr_m._replace(camera=torch.zeros(12, device=meta),
+                           lights=torch.zeros((2, W.LIGHT_COLS), device=meta),
+                           step_bases=torch.zeros((20, 12), dtype=torch.int32, device=meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        W.make_wave(packed, 8)
     with pytest.raises(ValueError, match="unsupported device"):
         W.halton(torch.zeros(4, dtype=torch.int32), torch.full((4,), 2, dtype=torch.int32), 24)
 

@@ -70,19 +70,26 @@ never prints its last line):
      extra samples, and its largest motion vector (> 0.5 px: the robot
      moves), and its refit is checked as phase D's (below); the whole-table
      copy of each run's refit is timed. Runs C, E, H launch K4 ``blas``
-     and K5 (the refit kernels) every animated frame, run J K4 ``flat``;
-     their counts are set to 0 and read with the others;
+     with K5 in its last block (one launch, both counted) every animated
+     frame, run J K4 ``flat``; their counts are set to 0 and read with the
+     others;
   5. phase D, skinning and refit at character scale: one skinned cylinder
      of 66,049 vertices, 131,072 triangles and 64 joints with the swing rig
      over a floor at 1024x576 with run C's settings, 2 frames driven.
      Checks: the card's LBS against a float64 NumPy LBS within 1e-5 of the
-     rig's extent; the card's refit (K4 ``blas`` and K5) bit-equal to the
-     plain refit on the card in the whole table and the root boxes (K4's
-     and K5's device times, the plain versions' and the bounds printed),
-     and to the CPU's on the same posed vertices in the skinned BLAS rows,
-     the other rows within 1e-6; then one refit with a NaN in a real slot
-     of the posed vertices, bit-equal to the plain version on the card
-     with the NaN in the root box and the rows above it;
+     rig's extent; the card's refit (one launch of K4 ``blas`` with K5)
+     bit-equal to the plain refit on the card in the whole table and the
+     root boxes, and K5's work alone (the same BVH with every group static:
+     one block) bit-equal to its plain version; per refit its device events
+     by name (the table's copy and the launch, at most 3; any other event,
+     a library 3x3 inverse among them, raises), their device ms and the
+     CUDA-event ms, the launch's device ms beside its bound, K5's one-block
+     launch beside its own, the plain versions' times and K4's registers
+     and spills printed; and to the CPU's on the same posed vertices in the
+     skinned BLAS rows, the other rows within 1e-6; then one refit with a
+     NaN in a real slot of the posed vertices, bit-equal to the plain
+     version on the card with the NaN in the root box and the rows above
+     it;
   6. run E, the presenter chain: run C's scene rendered at 1920x1080
      (render scale 0.5), 1 spp, 2 bounces, motion-adaptive sampling on, and
      presented at 3840x2160 through the spatial (Lanczos-3), temporal and
@@ -147,8 +154,8 @@ never prints its last line):
      F-H (warm L2), the costliest operators
      of a frame of runs A and F, phase D's and run H's LBS and refit device
      time per animated frame beside their bounds (the refit's device events
-     per call by name, K4's and K5's time among them, and its CUDA-event
-     time), and run E's present device time
+     per call by name, raising on any but the copy and K4's launch with
+     K5, and its CUDA-event time), and run E's present device time
      and events per mode, its resize products' and denoiser's device time
      and K1's at (2160,3840,3), beside their bounds; K3's device time over a
      steady frame of run J, its refit's and prepare's device time. A
@@ -1165,50 +1172,103 @@ def device_names(torch, fn, reps: int, name: str) -> tuple[float, float, dict]:
     return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps, len(ev) / reps, names
 
 
+def as_static(b):
+    """The two-level BVH ``b`` with every mesh group static: a refit of it
+    rewrites no BLAS, so its launch is one block that runs K5's work alone
+    (as a moved static scene's refit)."""
+    meta = b.refit_meta
+    none = meta.skin_leaves[:0]
+    return b._replace(mesh_meta=tuple(tuple(m[:8]) + (-1,) for m in b.mesh_meta),
+                      refit_meta=dataclasses.replace(
+                          meta, group_skinned=meta.group_skinned * 0, skin_leaves=none,
+                          skin_unreached=none))
+
+
+def refit_resources() -> dict:
+    """K4's instantiations' registers, stack and spills as ``-Xptxas -v``
+    printed them in this process's build (K5 runs inside ``blas``)."""
+    from mrt_tpu_torch.kernels import build
+
+    return {("blas" if "ILb1E" in k else "flat"): v for k, v in build.ptxas.items()
+            if "refit_rows_kernel" in k}
+
+
+def check_refit_events(tag, names: dict, events: float) -> None:
+    """A two-level refit on the card is the table's copy and one launch of
+    K4 with K5 (at most 3 device events): raise on a library call (the 3x3
+    inverse is K5's own) or any other kernel."""
+    other = [n for n in names if "refit_rows" not in n and "memcpy" not in n.lower()]
+    if other or events > 3:
+        raise AssertionError(f"{tag}: a two-level refit ran {events} device events, "
+                             f"unexpected: {other} (all: {names})")
+
+
 def check_twolevel_refit(torch, refit, bounds, tag, b, pos, M, group_indices=None,
-                         timed: bool = True) -> dict:
-    """One two-level refit through K4 ``blas`` and K5 held against the plain
-    version on the same CUDA tensors: the whole table and the root boxes
-    bit for bit (NaN by its bits). ``timed``: K4's and K5's device times
-    (profiler, warm, 10 calls), the plain versions' (CUDA events) and their
-    bounds. Raises on a difference; returns the numbers."""
+                         timed: bool = True, time_k5: bool = False) -> dict:
+    """One two-level refit (one launch: K4 ``blas``, K5 in its last block)
+    held against the plain version on the same CUDA tensors: the whole
+    table and the root boxes bit for bit (NaN by its bits); the same for
+    K5's work alone (``as_static``: one block). ``timed``: per refit the
+    device events by name and their ms (profiler, warm, 10 calls; raises
+    on any but the copy and the launch), the CUDA-event ms, K4's launch
+    beside the bound of its work and K5's (``bounds.refit``), the plain
+    versions' CUDA-event ms, K5's bound and K4's registers and spills;
+    ``time_k5``: also K5's one-block launch (profiler, warm, 30 calls: a
+    longer profiler run, as short ones lost their device events). Raises on a
+    difference; returns the numbers."""
     kt, kmin, kmax = refit.twolevel(b, pos, M, group_indices)
     pt, pmin, pmax = refit.twolevel_plain(b, pos, M, group_indices)
+    bs = as_static(b)
+    st, smin, smax = refit.twolevel(bs, pos, M)
+    sp = refit.twolevel_plain(bs, pos, M)
     out = dict(rows=kt.shape[0], rows_differing=rows_differing(torch, kt, pt),
                roots_differing=rows_differing(torch, kmin, pmin) + rows_differing(torch, kmax, pmax),
+               k5_alone_rows_differing=(rows_differing(torch, st, sp[0])
+                                        + rows_differing(torch, smin, sp[1])
+                                        + rows_differing(torch, smax, sp[2])),
                max_abs_err=max(max_abs_err(torch, kt, pt), max_abs_err(torch, kmin, pmin),
-                               max_abs_err(torch, kmax, pmax)),
+                               max_abs_err(torch, kmax, pmax), max_abs_err(torch, st, sp[0])),
                groups_refit=len(b.mesh_meta) if group_indices is not None else
                sum(m[8] >= 0 for m in b.mesh_meta),
                nan_rows=int(torch.isnan(kt[:, :48]).any(dim=1).sum()),
                nan_roots=int(torch.isnan(kmin).any(dim=1).sum()))
+    del st, smin, smax, sp
     if timed:
         all_groups = group_indices is not None
 
         def call():
             return refit.twolevel(b, pos, M, group_indices)
 
+        ms, events, names = device_names(torch, call, 10, "refit_rows")
+        check_refit_events(tag, names, events)
         table, rbmin, rbmax = pt.clone(), pmin.clone(), pmax.clone()
         out.update(
-            k4_ms=device_ms(torch, call, "refit_rows", 10), k5_ms=device_ms(torch, call, "refit_tlas", 10),
+            device_ms=ms, device_events=events, events_by_name=names,
+            events_ms=cuda_ms(call, 20),
+            k4_ms=sum(v[1] for n, v in names.items() if "refit_rows" in n),
             k4_plain_ms=cuda_ms(lambda: refit.blas_plain(table, rbmin, rbmax, b, pos, group_indices), 3),
-            k5_plain_ms=cuda_ms(lambda: refit.tlas_plain(table, rbmin, rbmax, b, M), 3))
-        out["k4_bound_ms"], out["k4_bound_by"] = bounds.blas_refit(b, all_groups)
+            k5_plain_ms=cuda_ms(lambda: refit.tlas_plain(table, rbmin, rbmax, b, M), 3),
+            resources=refit_resources()["blas"])
+        out["k4_bound_ms"], out["k4_bound_by"] = bounds.refit(b, all_groups)
+        out["k4_share"] = out["k4_bound_ms"] / out["k4_ms"]
         out["k5_bound_ms"], out["k5_bound_by"] = bounds.tlas_refit(b)
-    log(f"K4 refit_rows (blas) and K5 refit_tlas, {tag}: {json.dumps(out)}")
-    if out["rows_differing"] or out["roots_differing"]:
+        if time_k5:
+            out["k5_ms"] = device_ms(torch, lambda: refit.twolevel(bs, pos, M), "refit_rows", 30)
+    log(f"K4 refit_rows (blas) with K5 refit_tlas, {tag}: {json.dumps(out)}")
+    if out["rows_differing"] or out["roots_differing"] or out["k5_alone_rows_differing"]:
         raise AssertionError(f"{tag}: K4/K5 disagree with the plain refit on the card: {out}")
     return out
 
 
-def check_character(torch, r, rig, refit, bounds, tag="phase D"):
+def check_character(torch, r, rig, refit, bounds, tag="phase D", time_k5=False):
     """The first skinned model of phase D (or of ``tag``): LBS on the card
     against float64 NumPy (positions within 1e-5 of the rig's extent, unit
     normals within 1e-5); the card's refit (K4 ``blas`` and K5) against the
     plain version on the card, the whole table and the root boxes bit for
     bit (``check_twolevel_refit``), and against the CPU's on the same posed
     vertices: the skinned BLAS rows and root boxes bit-equal, the other
-    rows (instance rows hold a library 3x3 inverse) within 1e-6. Each plain
+    rows within 1e-6 (their bits differing printed: the instance rows' 3x3
+    inverse is the same sequence of f32 operations on both). Each plain
     version's host time is printed. Returns the kernel check's numbers."""
     import numpy as np
 
@@ -1233,7 +1293,7 @@ def check_character(torch, r, rig, refit, bounds, tag="phase D"):
         raise AssertionError(f"{tag}: LBS on the card disagrees with the float64 reference")
 
     posed, M = r.scene_data.positions_obj, r.scene_data.instance_transform
-    kernels = check_twolevel_refit(torch, refit, bounds, tag, r.bvh, posed, M)
+    kernels = check_twolevel_refit(torch, refit, bounds, tag, r.bvh, posed, M, time_k5=time_k5)
     gpu = twolevel.refit(r.bvh, posed, M)
     bvh_c, posed_c, M_c = r.bvh.to("cpu"), posed.cpu(), M.cpu()
     t0 = time.perf_counter()
@@ -1277,9 +1337,10 @@ def check_refit_nan(torch, r, refit, bounds, tag="phase D"):
 def profile_prepare(torch, r, bounds):
     """Device time per animated frame of LBS (each skinned model) and of
     the refit (profiler, warm, 20 calls each: its device events per call by
-    name, K4's and K5's among them) and of the whole prepare stage; beside
-    them the CUDA-event time of the same calls (which holds the host's
-    launch gaps), the bounds and the refit's whole-table copy."""
+    name, the copy and K4's launch with K5; raises on any other) and of the
+    whole prepare stage; beside them the CUDA-event time of the same calls
+    (which holds the host's launch gaps), the bounds and the refit's
+    whole-table copy."""
     from mrt_tpu_torch.bvh import twolevel
     from mrt_tpu_torch.skinning import lbs
 
@@ -1300,10 +1361,10 @@ def profile_prepare(torch, r, bounds):
     def refit():
         return twolevel.refit(r.bvh, posed, M)
 
-    out["refit_ms"], out["refit_device_events"], names = device_names(torch, refit, 20, "refit_tlas")
+    out["refit_ms"], out["refit_device_events"], names = device_names(torch, refit, 20, "refit_rows")
+    check_refit_events("the prepare's refit", names, out["refit_device_events"])
     out["refit_events_by_name"] = names
-    out["refit_k4_ms"] = sum(v[1] for k, v in names.items() if "refit_rows" in k)
-    out["refit_k5_ms"] = sum(v[1] for k, v in names.items() if "refit_tlas" in k)
+    out["refit_k4_k5_ms"] = sum(v[1] for k, v in names.items() if "refit_rows" in k)
     out["refit_events_ms"] = cuda_ms(refit, 20)
     out["refit_bound_ms"], out["refit_bound_by"] = bounds.refit(r.bvh)
     out["prepare_ms"], out["prepare_device_events"] = device_total_ms(torch, r.prepare, 5)
@@ -1719,10 +1780,10 @@ def group_indices(torch, r, device):
 def check_sbvh_refit(torch, r, refit, bounds):
     """Phase K: the SBVH table's full refit (every BLAS, its leaf boxes
     clamped by the clip boxes): K4 ``blas`` and K5 against the plain
-    version on the card, bit for bit (``check_twolevel_refit``); the card
-    against the CPU on the same vertices: the BLAS rows and root boxes
-    bit-equal, the TLAS and instance rows (a library 3x3 inverse) within
-    1e-6; the card's refit equal to the build's table; and the clamp
+    version on the card, bit for bit, with its device events and times
+    (``check_twolevel_refit``); the card against the CPU on the same
+    vertices: the BLAS rows and root boxes bit-equal, the TLAS and instance
+    rows within 1e-6; the card's refit equal to the build's table; and the clamp
     binding: rows that an unclipped refit writes otherwise. Returns the
     numbers; raises on a difference."""
     from mrt_tpu_torch.bvh import twolevel
@@ -1732,7 +1793,7 @@ def check_sbvh_refit(torch, r, refit, bounds):
         raise AssertionError("phase K: MRT_SBVH=1 built no clip boxes")
     pos, M = r.scene_data.positions_obj, r.scene_data.instance_transform
     kernels = check_twolevel_refit(torch, refit, bounds, "phase K (every group, clipped)", b, pos, M,
-                                   group_indices(torch, r, pos.device), timed=False)
+                                   group_indices(torch, r, pos.device))
     gpu = twolevel.refit(b, pos, M, group_indices=group_indices(torch, r, pos.device))
     t0 = time.perf_counter()
     cpu = twolevel.refit(b.to("cpu"), pos.cpu(), M.cpu(), group_indices=group_indices(torch, r, "cpu"))
@@ -2234,7 +2295,7 @@ def main() -> int:
     rd, dparts = make_character(dev)
     counts["D"], _, lines["D"] = drive("D", rd, 1, dparts["scene"], refits=skinned)
     clone_ms["D"] = cuda_ms(lambda: rd.bvh.table.clone(), 20)
-    refit_checks["D"] = check_character(torch, rd, dparts, refit, bounds)
+    refit_checks["D"] = check_character(torch, rd, dparts, refit, bounds, time_k5=True)
     refit_checks["D NaN"] = check_refit_nan(torch, rd, refit, bounds)
 
     # --- 6. run E: the presenter chain, a 1080p render presented at 4K -----------------------

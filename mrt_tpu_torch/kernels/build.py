@@ -17,6 +17,7 @@ import contextlib
 import ctypes
 import fcntl
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -31,6 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process (None: cached)
+# each kernel's resources as `-Xptxas -v` printed them in this process's
+# last build, by mangled name: registers, stack, spill stores and loads (B)
+ptxas = {}
 
 
 def _nvcc() -> str:
@@ -91,8 +95,10 @@ def _build(verbose: bool = False) -> float:
         out, _ = p.communicate(timeout=600)
         if p.returncode != 0:
             failed.append(f"{src.name}:\n{out}")
-        elif verbose:
-            print(out.strip())
+        else:
+            ptxas.update(parse_ptxas(out))
+            if verbose:
+                print(out.strip())
         objs.append(str(obj))
     if failed:
         raise RuntimeError("nvcc failed\n" + "\n".join(failed))
@@ -108,6 +114,29 @@ def _build(verbose: bool = False) -> float:
     return build_seconds
 
 
+def parse_ptxas(text: str) -> dict:
+    """{mangled kernel name: {registers, stack, spill_stores, spill_loads}}
+    from `-Xptxas -v` output."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return {k: v for k, v in out.items() if "registers" in v}
+
+
 def load():
     """The loaded kernel library (built first if missing or stale)."""
     global _lib
@@ -121,12 +150,11 @@ def load():
     lib.mrt_traverse2.argtypes = [p, i, i, i, i, p, p, p, p, p, p, i, i, i, f, p, p, p, p, p, p, p,
                                   p, p]
     lib.mrt_traverse2.restype = i
-    lib.mrt_refit_rows.argtypes = [i, p, i, p, p, p, p, p, p, i, p, i, p, p, p, p, p, p, p, p, p, p,
-                                   p, p, p, p]
-    lib.mrt_refit_rows.restype = i
-    lib.mrt_refit_tlas.argtypes = [p, ll, i, i, i, i, i, p, p, p, ll, ll, ll, p, p, p, p, p, p, p,
-                                   p, p, p]
-    lib.mrt_refit_tlas.restype = i
+    lib.mrt_refit_flat.argtypes = [p, i, p, p, p, p, p, p, i, p, i, p, p, p, p, p, p, p]
+    lib.mrt_refit_flat.restype = i
+    lib.mrt_refit_twolevel.argtypes = [p, i, p, p, p, p, p, p, p, i, p, i, p, p, p, p, p, p, p, p,
+                                       ll, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p]
+    lib.mrt_refit_twolevel.restype = i
     lib.mrt_sample_start.argtypes = [p, p, p, i, i, i, f, f, p]
     lib.mrt_sample_start.restype = i
     lib.mrt_shade_hit.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]

@@ -1,5 +1,5 @@
 """Kernels K4 — refit_rows — and K5 — refit_tlas — (``csrc/refit.cu``), their
-wrappers, their plain PyTorch versions and the walk-up metadata they read.
+wrappers, their plain PyTorch versions and the per-BVH metadata they read.
 
 K4 replaces ``mrt_tpu/bvh/twolevel.py:_refit_group`` (with ``_pack_leaf_rows``)
 as looped by ``refit`` over the mesh groups, and ``mrt_tpu/bvh/wide.py:refit``:
@@ -11,23 +11,24 @@ groups' root boxes) and ``flat`` (the whole ``WideBVH`` table from world
 triangles, with the optional ``row_ids`` and SBVH ``leaf_clip``). K5
 replaces the instance and TLAS part of ``mrt_tpu/bvh/twolevel.py:refit``:
 the instance rows (the 3x4 inverse, the world box of the 8 transformed
-corners of the group's root box, the root, id and mask) and the TLAS rows,
-in one block. The 3x3 inverse stays the library's, as the JAX package
-takes ``jnp.linalg.inv`` (``torch.linalg.solve_ex`` against a kept
-identity: ``torch.linalg.inv``'s own computation, without its host sync).
+corners of the group's root box, the root, id and mask) and the TLAS rows.
+A two-level refit is one launch: K5 runs in the block that finishes K4's
+launch last, and computes the instances' 3x3 inverse itself (Gaussian
+elimination with partial pivoting, the sequence of ``_affine_inverse``;
+the JAX package takes ``jnp.linalg.inv``, an LU with partial pivoting).
 
 The wrappers ``twolevel`` and ``flat`` take the plain versions only for CPU
 tensors; on CUDA tensors they launch the kernels or raise. The plain
-versions are the port's torch-op refit as it was (``blas_plain``,
-``tlas_plain``, ``flat_plain``, with ``twolevel_plain`` running the first
-two): ``depth`` passes of child-box gathers. The kernel walks up instead:
-each leaf row's thread writes its row and box, then adds one to its
-parent's arrival count; the last child to arrive writes the parent's row
-and walks on. Min and max are exact in any order, so the bits do not
-depend on which child came last. The parent of every entry, the arrivals
-each internal row waits for and the internal rows no leaf reaches are
-derived once per BVH from ``node_child`` (``Walkup``), where the BVH is
-made.
+versions are the port's torch-op refit (``blas_plain``, ``tlas_plain``,
+``flat_plain``, with ``twolevel_plain`` running the first two): ``depth``
+passes of child-box gathers. The kernel walks up instead: a warp writes a
+leaf row and its box, then adds one to its parent's arrival count; the
+warp whose arrival is the last writes the parent's row and walks on. Min
+and max are exact in any order, so the bits do not depend on which child
+came last. The parent of every entry, the arrivals each internal row waits
+for and the internal rows no leaf reaches are derived once per BVH from
+``node_child`` (``Walkup``), where the BVH is made; a two-level BVH also
+carries the count of K4's finished blocks that elects K5's block.
 """
 
 from __future__ import annotations
@@ -70,13 +71,16 @@ class Walkup:
     arrivals it waits for); 0 flags a row no leaf reaches (every child
     empty or itself unreached), whose row K4 writes apart, all boxes empty.
     ``unreached``: those rows (outside a two-level BVH's TLAS, which K5
-    writes). ``arrivals``: K4's arrival counts, all 0 between launches (the
-    last arrival at a row sets its count back to 0), so the refits of one
-    BVH run in stream order."""
+    writes). ``boxed``: per internal row, bit j set where child j holds a
+    box (a leaf, or a row a leaf reaches): the children whose boxes K4
+    reads, ``need`` of them. ``arrivals``: K4's arrival counts, all 0
+    between launches (the last arrival at a row sets its count back to 0),
+    so the refits of one BVH run in stream order."""
 
     parent: torch.Tensor  # (n_internal + n_leaf,) int32
     need: torch.Tensor  # (n_internal,) int32
     unreached: torch.Tensor  # (U,) int32 row ids
+    boxed: torch.Tensor  # (n_internal,) uint8
     arrivals: torch.Tensor  # (max(n_internal, 1),) int32
 
     def to(self, device) -> "Walkup":
@@ -84,8 +88,8 @@ class Walkup:
 
 
 def walkup_arrays(node_child: np.ndarray, n_leaf: int, roots=(), skip: int = 0):
-    """(parent, need, unreached) as NumPy for the (Ni, ARITY) ``node_child``
-    over entries [0, Ni + n_leaf); ``roots``: the root entry of each
+    """(parent, need, unreached, boxed) as NumPy for the (Ni, ARITY)
+    ``node_child`` over entries [0, Ni + n_leaf); ``roots``: the root entry of each
     two-level mesh group (marked -(g + 2)); rows below ``skip`` (a TLAS)
     are left out of ``unreached``. Raises if an entry has two parents."""
     child = np.asarray(node_child, np.int64)
@@ -109,11 +113,13 @@ def walkup_arrays(node_child: np.ndarray, n_leaf: int, roots=(), skip: int = 0):
             break
         reached[:ni] = now
     unreached = np.nonzero(need[skip:] == 0)[0].astype(np.int32) + skip
-    return parent, need.astype(np.int32), unreached.astype(np.int32)
+    boxed = np.zeros(ni, np.int64)
+    np.add.at(boxed, rows, reached[kids].astype(np.int64) << slots)
+    return parent, need.astype(np.int32), unreached.astype(np.int32), boxed.astype(np.uint8)
 
 
-def _walkup(parent, need, unreached, device) -> Walkup:
-    return Walkup(*(torch.as_tensor(a).to(device) for a in (parent, need, unreached)),
+def _walkup(parent, need, unreached, boxed, device) -> Walkup:
+    return Walkup(*(torch.as_tensor(a).to(device) for a in (parent, need, unreached, boxed)),
                   arrivals=torch.zeros(max(need.shape[0], 1), dtype=torch.int32, device=device))
 
 
@@ -129,8 +135,11 @@ class TwoLevelMeta:
     group, per group its vertex start and root entry, the skinned groups'
     leaves, unreached rows and concatenated local indices (``skin_tris``,
     ``skin_toff`` the first triangle of each group there, -1 for a static
-    group), per instance its group and geometry mask, and the (I,3,3)
-    identity the instances' inverse is solved against."""
+    group, ``skin_tris_at`` the address of that triangle, 0 for a static
+    group: what K4 reads), per instance its group and geometry mask, and
+    ``done``: the count of a launch's finished blocks (the one that
+    completes it runs K5 and sets it back to 0, so it is 0 between
+    launches, as the arrival counts)."""
 
     walkup: Walkup
     leaf_group: torch.Tensor  # (NL,) int32
@@ -141,13 +150,24 @@ class TwoLevelMeta:
     skin_unreached: torch.Tensor  # (Us,) int32
     skin_tris: torch.Tensor  # (sum Tm, 3) int32
     skin_toff: torch.Tensor  # (G,) int32
+    skin_tris_at: torch.Tensor  # (G,) int64 device addresses into skin_tris
     inst_group: torch.Tensor  # (I,) int32
     inst_mask: torch.Tensor  # (I,) int32
-    eye: torch.Tensor  # (I, 3, 3) f32
+    done: torch.Tensor  # (1,) int32
 
     def to(self, device) -> "TwoLevelMeta":
-        return TwoLevelMeta(**{f.name: getattr(self, f.name).to(device)
-                               for f in dataclasses.fields(self)})
+        moved = {f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+                 if f.name != "skin_tris_at"}
+        at = _tris_at(moved["skin_tris"], self.skin_toff, device)
+        return TwoLevelMeta(**moved, skin_tris_at=at)
+
+
+def _tris_at(tris: torch.Tensor, toff: torch.Tensor, device) -> torch.Tensor:
+    """(G,) int64 on ``device``: the address of each group's first index
+    triple in ``tris`` (on ``device``), 0 where ``toff`` is -1."""
+    base, size = tris.data_ptr(), tris.element_size() * 3
+    return torch.tensor([0 if o < 0 else base + size * o for o in toff.tolist()],
+                        dtype=torch.int64).to(device)
 
 
 def twolevel_meta(node_child: np.ndarray, tlas_n: int, n_leaf: int, mesh_meta, inst_mesh,
@@ -155,8 +175,8 @@ def twolevel_meta(node_child: np.ndarray, tlas_n: int, n_leaf: int, mesh_meta, i
     """``TwoLevelMeta`` of a two-level BVH from its host topology
     (``node_child`` as NumPy, global entry ids) and its metadata."""
     ni = node_child.shape[0]
-    parent, need, unreached = walkup_arrays(node_child, n_leaf, [m[5] for m in mesh_meta],
-                                            skip=tlas_n)
+    parent, need, unreached, boxed = walkup_arrays(node_child, n_leaf, [m[5] for m in mesh_meta],
+                                                   skip=tlas_n)
     leaf_group = np.zeros(n_leaf, np.int32)
     skin_leaves, skin_toff, toff = [], [], 0
     row_group = np.full(ni, -1, np.int32)
@@ -177,15 +197,16 @@ def twolevel_meta(node_child: np.ndarray, tlas_n: int, n_leaf: int, mesh_meta, i
 
     dev = torch.device(device)
     tris = (torch.cat([x.to(dev) for x in skin_indices]) if skin_indices
-            else torch.zeros((0, 3), dtype=torch.int32, device=dev))
+            else torch.zeros((0, 3), dtype=torch.int32, device=dev)).to(torch.int32).contiguous()
     return TwoLevelMeta(
-        walkup=_walkup(parent, need, unreached, device), leaf_group=t(leaf_group),
+        walkup=_walkup(parent, need, unreached, boxed, device), leaf_group=t(leaf_group),
         group_vstart=t([m[6] for m in mesh_meta]), group_root=t([m[5] for m in mesh_meta]),
         group_skinned=t(skinned),
         skin_leaves=t(np.concatenate(skin_leaves) if skin_leaves else np.zeros(0)),
-        skin_unreached=t(skin_unreached), skin_tris=tris.to(torch.int32).contiguous(),
-        skin_toff=t(skin_toff), inst_group=t(inst_mesh), inst_mask=t(inst_masks),
-        eye=torch.eye(3, device=dev).expand(len(inst_mesh), 3, 3).contiguous())
+        skin_unreached=t(skin_unreached), skin_tris=tris, skin_toff=t(skin_toff),
+        skin_tris_at=_tris_at(tris, t(skin_toff), dev), inst_group=t(inst_mesh),
+        inst_mask=t(inst_masks),
+        done=torch.zeros(1, dtype=torch.int32, device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -321,9 +342,61 @@ def blas_plain(table, root_bmin, root_bmax, bvh, positions_obj, group_indices=No
                      idx)
 
 
+def _swap_rows(c, rows, i, k):
+    """Rows ``i`` and ``k`` of the 3x3 list of columns ``rows`` swapped
+    where ``c``."""
+    for j in range(3):
+        x, y = rows[i][j], rows[k][j]
+        rows[i][j], rows[k][j] = torch.where(c, y, x), torch.where(c, x, y)
+
+
+def _inverse3(M: torch.Tensor) -> torch.Tensor:
+    """(I,3,3) inverse of ``M[:, :3, :3]`` by Gaussian elimination with
+    partial pivoting, each f32 operation on its own, in K5's order
+    (``csrc/refit.cu``): the row with the largest |a_i0| (the first on
+    ties) to the top, r0 = 1 / a00, multipliers a_i0 * r0, the rows below
+    (and the identity's) updated; the same for column 1; r2 = 1 / a22; the
+    result's rows from the last up, x_k = b_k * r_k."""
+    a = [[M[:, i, j] for j in range(3)] for i in range(3)]
+    one, zero = torch.ones_like(a[0][0]), torch.zeros_like(a[0][0])
+    b = [[one if i == j else zero for j in range(3)] for i in range(3)]
+    p1 = a[1][0].abs() > a[0][0].abs()
+    p2 = a[2][0].abs() > torch.where(p1, a[1][0].abs(), a[0][0].abs())
+    for rows in (a, b):
+        _swap_rows(p1 & ~p2, rows, 0, 1)
+        _swap_rows(p2, rows, 0, 2)
+    r0 = torch.reciprocal(a[0][0])
+    l1, l2 = a[1][0] * r0, a[2][0] * r0
+    for j in (1, 2):
+        a[1][j] = a[1][j] - l1 * a[0][j]
+        a[2][j] = a[2][j] - l2 * a[0][j]
+    for j in range(3):
+        b[1][j] = b[1][j] - l1 * b[0][j]
+        b[2][j] = b[2][j] - l2 * b[0][j]
+    s = a[2][1].abs() > a[1][1].abs()
+    for rows in (a, b):
+        _swap_rows(s, rows, 1, 2)
+    r1 = torch.reciprocal(a[1][1])
+    l = a[2][1] * r1
+    a[2][2] = a[2][2] - l * a[1][2]
+    for j in range(3):
+        b[2][j] = b[2][j] - l * b[1][j]
+    r2 = torch.reciprocal(a[2][2])
+    x = [[None] * 3 for _ in range(3)]
+    for j in range(3):
+        x[2][j] = b[2][j] * r2
+        b[1][j] = b[1][j] - x[2][j] * a[1][2]
+        b[0][j] = b[0][j] - x[2][j] * a[0][2]
+        x[1][j] = b[1][j] * r1
+        b[0][j] = b[0][j] - x[1][j] * a[0][1]
+        x[0][j] = b[0][j] * r0
+    return torch.stack([torch.stack(row, dim=1) for row in x], dim=1)
+
+
 def _affine_inverse(M: torch.Tensor) -> torch.Tensor:
-    """(I,4,4) -> (I,3,4) inverse of the affine [R|t]."""
-    Rinv = torch.linalg.inv(M[:, :3, :3])
+    """(I,4,4) -> (I,3,4) inverse of the affine [R|t]: the 3x3 by
+    ``_inverse3``, the translation -(Rinv t) summed left to right."""
+    Rinv = _inverse3(M)
     t = M[:, :3, 3]
     tinv = -(Rinv[:, :, 0] * t[:, None, 0] + Rinv[:, :, 1] * t[:, None, 1]
              + Rinv[:, :, 2] * t[:, None, 2])
@@ -396,32 +469,10 @@ def _check_table(what, table, n_rows, dev):
         raise ValueError(f"{what}: the table must be 16-byte aligned (its rows are written as float4)")
 
 
-def _launch_rows(what, name, table, walkup, node_child, leaf_tri, leaf_clip, leaves, n_leaves,
-                 unreached, n_internal, flat_args, blas_args):
-    """Launch K4's instantiation ``name`` (``flat_args``: v0, v1, v2,
-    row_ids; ``blas_args``: verts, tris, toff, vstart, leaf_group,
-    root_bmin, root_bmax) and count it."""
-    n_work = n_leaves + unreached.shape[0]
-    if n_work == 0:
-        return
-    dev = table.device
-    ebox = torch.empty((walkup.parent.shape[0], 6), dtype=torch.float32, device=dev)
+def _lib_stream(dev):
     from . import build
 
-    lib = build.load()
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    v0, v1, v2, row_ids = flat_args if flat_args is not None else (None,) * 4
-    verts, tris, toff, vstart, leaf_group, rbmin, rbmax = (blas_args if blas_args is not None
-                                                          else (None,) * 7)
-    rc = lib.mrt_refit_rows(int(name == "blas"), _ptr(table), n_internal, _ptr(node_child),
-                            _ptr(walkup.parent), _ptr(walkup.need), _ptr(leaf_tri),
-                            _ptr(leaf_clip), _ptr(leaves), n_leaves, _ptr(unreached),
-                            unreached.shape[0], _ptr(v0), _ptr(v1), _ptr(v2), _ptr(row_ids),
-                            _ptr(verts), _ptr(tris), _ptr(toff), _ptr(vstart), _ptr(leaf_group),
-                            _ptr(rbmin), _ptr(rbmax), _ptr(ebox), _ptr(walkup.arrivals), stream)
-    if rc != 0:
-        raise RuntimeError(f"{what} ({name}) kernel launch failed: CUDA error {rc}")
-    rows_launches[name] += 1
+    return build.load(), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 def flat(wbvh, v0, v1, v2, row_ids=None) -> torch.Tensor:
@@ -445,34 +496,43 @@ def flat(wbvh, v0, v1, v2, row_ids=None) -> torch.Tensor:
     _check(what, "node_child", wbvh.node_child, torch.int32, (n_i, ARITY), dev)
     _check(what, "leaf_tri", wbvh.leaf_tri, torch.int32, (n_l, LEAF_K), dev)
     _check(what, "parent", wbvh.walkup.parent, torch.int32, (n_i + n_l,), dev)
+    _check(what, "boxed", wbvh.walkup.boxed, torch.uint8, (n_i,), dev)
     if wbvh.leaf_clip is not None:
         _check(what, "leaf_clip", wbvh.leaf_clip, torch.float32, (n_l, 6), dev)
     if row_ids is not None:
         _check(what, "row_ids", row_ids, torch.int32, (n_l, LEAF_K), dev)
     table = torch.empty((n_i + n_l, ROW), dtype=torch.float32, device=dev)
     _check_table(what, table, n_i + n_l, dev)
-    _launch_rows(what, "flat", table, wbvh.walkup, wbvh.node_child, wbvh.leaf_tri,
-                 wbvh.leaf_clip, None, n_l, wbvh.walkup.unreached, n_i, (v0, v1, v2, row_ids),
-                 None)
+    wu = wbvh.walkup
+    ebox = torch.empty((n_i + n_l, 6), dtype=torch.float32, device=dev)
+    lib, stream = _lib_stream(dev)
+    rc = lib.mrt_refit_flat(_ptr(table), n_i, _ptr(wbvh.node_child), _ptr(wu.parent),
+                            _ptr(wu.need), _ptr(wu.boxed), _ptr(wbvh.leaf_tri),
+                            _ptr(wbvh.leaf_clip), n_l, _ptr(wu.unreached), wu.unreached.shape[0],
+                            _ptr(v0), _ptr(v1), _ptr(v2), _ptr(row_ids), _ptr(ebox),
+                            _ptr(wu.arrivals), stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} (flat) kernel launch failed: CUDA error {rc}")
+    if n_l + wu.unreached.shape[0]:
+        rows_launches["flat"] += 1
     return table
 
 
 def _group_tris(bvh, group_indices, dev):
-    """(tris, toff) for a build-time refit of every group: the groups'
-    local indices concatenated (a skinned group's own), each group's first
-    triangle there."""
-    idx = [i for _, i in _refit_groups(bvh, group_indices)]
+    """(index tensors, their addresses) for a build-time refit of every
+    group: each group's (Tm,3) local indices as int32 on ``dev`` (a skinned
+    group's own), and a (G,) int64 tensor of their addresses on ``dev``."""
+    idx = [i.to(dev, torch.int32).contiguous() for _, i in _refit_groups(bvh, group_indices)]
     if len(idx) != len(bvh.mesh_meta):
         raise ValueError("refit: group_indices must hold one index tensor per mesh group")
-    toff = np.cumsum([0] + [int(i.shape[0]) for i in idx[:-1]])
-    tris = torch.cat([i.to(dev, torch.int32) for i in idx]).contiguous()
-    return tris, torch.as_tensor(toff.astype(np.int32)).to(dev)
+    return idx, torch.tensor([i.data_ptr() for i in idx], dtype=torch.int64).to(dev)
 
 
 def twolevel(bvh, positions_obj, instance_transform, group_indices=None):
     """The two-level refit: (table, root_bmin, root_bmax), the input's table
     copied first. CPU tensors take the plain version; CUDA tensors launch
-    K4 ``blas`` (when a group is refit) and K5."""
+    K4 ``blas`` with K5 in its last block (one launch; one block, K5's work
+    alone, when no group is refit)."""
     global tlas_launches
     if positions_obj.device.type == "cpu":
         return twolevel_plain(bvh, positions_obj, instance_transform, group_indices)
@@ -491,6 +551,9 @@ def twolevel(bvh, positions_obj, instance_transform, group_indices=None):
     _check(what, "node_child", bvh.node_child, torch.int32, (ni, ARITY), dev)
     _check(what, "leaf_tri", bvh.leaf_tri, torch.int32, (nl, LEAF_K), dev)
     _check(what, "parent", meta.walkup.parent, torch.int32, (ni + nl,), dev)
+    _check(what, "boxed", meta.walkup.boxed, torch.uint8, (ni,), dev)
+    _check(what, "done", meta.done, torch.int32, (1,), dev)
+    _check(what, "skin_tris_at", meta.skin_tris_at, torch.int64, (G,), dev)
     for name in ("root_bmin", "root_bmax"):
         _check(what, name, getattr(bvh, name), torch.float32, (G, 3), dev)
     if bvh.leaf_clip is not None:
@@ -501,30 +564,29 @@ def twolevel(bvh, positions_obj, instance_transform, group_indices=None):
     rbmax = torch.empty((G, 3), dtype=torch.float32, device=dev)
     refit_all = group_indices is not None
     if refit_all:
-        tris, toff = _group_tris(bvh, group_indices, dev)
+        # the converted indices live in _kept through the launch
+        _kept, tris_at = _group_tris(bvh, group_indices, dev)
         leaves, n_leaves, unreached = None, nl, meta.walkup.unreached
     else:
-        tris, toff = meta.skin_tris, meta.skin_toff
+        tris_at = meta.skin_tris_at
         leaves, n_leaves, unreached = meta.skin_leaves, meta.skin_leaves.shape[0], meta.skin_unreached
-    _launch_rows(what, "blas", table, meta.walkup, bvh.node_child, bvh.leaf_tri, bvh.leaf_clip,
-                 leaves, n_leaves, unreached, ni,
-                 None, (positions_obj, tris, toff, meta.group_vstart, meta.leaf_group, rbmin, rbmax))
-    # the 3x3 inverse from the library, as the plain version's
-    # torch.linalg.inv takes it: that is inv_ex, which fills an identity and
-    # calls solve_ex; here solve_ex against a kept identity, without inv's
-    # error check (a host sync) and inv_ex's fill (bit-equal: PERF.md, Findings)
-    rinv = torch.linalg.solve_ex(instance_transform[:, :3, :3], meta.eye)[0]
-    scratch = torch.empty((bvh.tlas_n + I, 6), dtype=torch.float32, device=dev)
-    from . import build
-
-    lib = build.load()
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    rc = lib.mrt_refit_tlas(_ptr(table), ni + nl, I, bvh.tlas_n, bvh.tlas_depth, G, int(refit_all),
-                            _ptr(bvh.node_child), _ptr(instance_transform), _ptr(rinv),
-                            *rinv.stride(), _ptr(meta.inst_group), _ptr(meta.group_root),
-                            _ptr(meta.inst_mask), _ptr(meta.group_skinned), _ptr(bvh.root_bmin),
-                            _ptr(bvh.root_bmax), _ptr(rbmin), _ptr(rbmax), _ptr(scratch), stream)
+    # scratch: the entry boxes, then the TLAS rows' and the instances'
+    box = torch.empty((ni + nl + bvh.tlas_n + I, 6), dtype=torch.float32, device=dev)
+    wu = meta.walkup
+    lib, stream = _lib_stream(dev)
+    rc = lib.mrt_refit_twolevel(
+        _ptr(table), ni, _ptr(bvh.node_child), _ptr(wu.parent), _ptr(wu.need), _ptr(wu.boxed),
+        _ptr(bvh.leaf_tri), _ptr(bvh.leaf_clip), _ptr(leaves), n_leaves, _ptr(unreached),
+        unreached.shape[0], _ptr(positions_obj), _ptr(tris_at), _ptr(meta.group_vstart),
+        _ptr(meta.leaf_group),
+        _ptr(rbmin), _ptr(rbmax), _ptr(box), _ptr(wu.arrivals), ni + nl, I, bvh.tlas_n,
+        bvh.tlas_depth, G, int(refit_all), _ptr(instance_transform), _ptr(meta.inst_group),
+        _ptr(meta.group_root), _ptr(meta.inst_mask), _ptr(meta.group_skinned), _ptr(bvh.root_bmin),
+        _ptr(bvh.root_bmax), _ptr(box[ni + nl:]), _ptr(meta.done), stream)
     if rc != 0:
-        raise RuntimeError(f"{what} (refit_tlas) kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{what} (refit_rows with refit_tlas) kernel launch failed: "
+                           f"CUDA error {rc}")
+    if n_leaves + unreached.shape[0]:
+        rows_launches["blas"] += 1
     tlas_launches += 1
     return table, rbmin, rbmax

@@ -1,11 +1,15 @@
-"""Compare the SASS of two builds of ``csrc/traverse2.cu``: every kernel of
-the older source must compile to the same instructions from the newer one.
+"""Compare the SASS of two builds of a kernel source (``csrc/traverse2.cu``
+unless named): every kernel of the older source must compile to the same
+instructions from the newer one.
 
 Run on a machine with the CUDA toolkit:
 
     python -m mrt_tpu_torch.kernels.sass_diff OLD.cu [NEW.cu]
 
-NEW.cu defaults to this checkout's ``csrc/traverse2.cu``. A kernel that
+NEW.cu defaults to this checkout's ``csrc/traverse2.cu`` (for another
+source, name this checkout's, e.g. ``mrt_tpu_torch/csrc/wavefront.cu``).
+Kernels in an anonymous namespace are matched without the hash of the
+source's path that their mangled names hold. A kernel that
 gained template parameters is matched by appending ``false`` for each one
 (K2's ``<MASKED, FLOAT_SORT>`` to ``<MASKED, FLOAT_SORT, false>``). Prints one
 line per kernel of OLD.cu and exits 1 if any differs or is missing.
@@ -22,6 +26,7 @@ import tempfile
 from .build import CSRC, NVCC_FLAGS, _nvcc
 
 _PARAMS = re.compile(r"I((?:Lb[01]E)+)Ev")
+_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_")
 
 
 def sass(src: str, workdir: str) -> dict[str, list[str]]:
@@ -33,6 +38,9 @@ def sass(src: str, workdir: str) -> dict[str, list[str]]:
     subprocess.run([nvcc, *flags, "-cubin", src, "-o", cubin], check=True)
     txt = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
                          check=True, capture_output=True, text=True).stdout
+    # an anonymous namespace's mangled name holds a hash of the source's
+    # path: the same kernel from two checkouts would not match without this
+    txt = _ANON.sub("_GLOBAL__N__", txt)
     funcs, cur = {}, None
     for line in txt.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)

@@ -15,8 +15,8 @@ compare and division they count is one instruction, issued at half that:
 PEAK_F32_OPS. A product's fused multiply-add is one instruction too.
 
 K4 and K5, the refit kernels (``flat_refit``, ``blas_refit``,
-``tlas_refit``, and ``refit`` for a whole two-level refit), count what one
-call's table needs: the triangles that are not pads and the children that
+``tlas_refit``, and ``refit`` for a whole two-level refit, one launch of
+both), count what one call's table needs: the triangles that are not pads and the children that
 are not empty. Besides the kernels: the LBS product of an animated frame's
 prepare (``lbs``), and the presenter's torch-op chains (``resize``, ``temporal_chain``,
 ``denoiser``, ``denoised_chain``), whose bounds say what a hand kernel could
@@ -159,12 +159,16 @@ REFIT_IDS_BYTES, REFIT_CLIP_BYTES, REFIT_CHILD_BYTES = LEAF_K * 4, 6 * 4, ARITY 
 # not a pad; per leaf box the +-1e-7 (and the clip clamp); a min and a max
 # per coordinate of a child that is not empty
 REFIT_OPS_TRI, REFIT_OPS_LEAF, REFIT_OPS_CLIP, REFIT_OPS_CHILD = 18, 6, 6, 6
-# K5 per instance: -(Rinv t) (3 x 3 mul, 2 add, 1 neg), the 8 corners (per
-# coordinate 1 - s, 2 mul, 1 add), their transform (per coordinate 3 mul,
-# 3 add) and the world box (7 min and 7 max per axis); per instance the
-# 4x4 transform and 3x3 inverse read, per group its root box read and written
-K5_OPS_INSTANCE = 18 + 8 * 3 * 4 + 8 * 3 * 6 + 2 * 3 * 7
-K5_BYTES_INSTANCE = 16 * 4 + 9 * 4
+# K5 per instance: the 3x3 inverse (5 abs and 3 compares for the pivots, 3
+# reciprocals, 3 multipliers, 5 mul and 5 sub on the matrix, 9 and 9 on the
+# identity's rows, 9 mul for the result's rows and 9 mul and 9 sub between
+# them), -(Rinv t) (3 x 3 mul, 2 add, 1 neg), the 8 corners (per coordinate
+# 1 - s, 2 mul, 1 add), their transform (per coordinate 3 mul, 3 add) and
+# the world box (7 min and 7 max per axis); per instance its 4x4 transform
+# read, per group its root box read and written
+K5_OPS_INVERSE = 8 + 3 + 3 + 10 + 18 + 9 + 18
+K5_OPS_INSTANCE = K5_OPS_INVERSE + 18 + 8 * 3 * 4 + 8 * 3 * 6 + 2 * 3 * 7
+K5_BYTES_INSTANCE = 16 * 4
 K5_BYTES_GROUP = 2 * 6 * 4
 
 
@@ -227,10 +231,11 @@ def tlas_refit(bvh) -> tuple[float, str]:
     return least_ms(*_tlas_work(bvh))
 
 
-def refit(bvh) -> tuple[float, str]:
-    """Bound of one per-frame ``bvh.twolevel.refit`` (K4 ``blas`` over the
-    skinned groups and K5 together)."""
-    (o1, b1), (o2, b2) = _blas_work(bvh, False), _tlas_work(bvh)
+def refit(bvh, all_groups: bool = False) -> tuple[float, str]:
+    """Bound of one ``bvh.twolevel.refit``, K4 ``blas`` and K5 together (one
+    launch): the skinned groups of a frame, or every group
+    (``all_groups``, as at build time)."""
+    (o1, b1), (o2, b2) = _blas_work(bvh, all_groups), _tlas_work(bvh)
     return least_ms(o1 + o2, b1 + b2)
 
 

@@ -288,8 +288,8 @@ def profile_frame(r, table_out=None, walls=None) -> dict:
     def named_s(events, name):
         return sum(e.time_range.elapsed_us() for e in events if name in e.name) / 1e6
 
-    # the prepare stage alone: its refit's kernels K4 (refit_rows) and K5
-    # (refit_tlas) among its device events
+    # the prepare stage alone: its refit's launch (refit_rows: K4, with K5
+    # in its last block on a two-level BVH) among its device events
     refits0 = refits()
     with profile(activities=activities) as prof:
         r.prepare()
@@ -297,7 +297,6 @@ def profile_frame(r, table_out=None, walls=None) -> dict:
     prep_events = device_events(prof)
     prepare = dict(device_s=sum(e.time_range.elapsed_us() for e in prep_events) / 1e6,
                    device_events=len(prep_events), refit_rows_s=named_s(prep_events, "refit_rows"),
-                   refit_tlas_s=named_s(prep_events, "refit_tlas"),
                    refit_launches={k: n - refits0[k] for k, n in refits().items()})
 
     launches0 = traversals()

@@ -148,6 +148,31 @@ never prints its last line):
      bit-equal, the other rows within 1e-6, equal to the build's table), K2
      checked on a frame's launches and 2 frames driven, printed beside run
      A;
+  6e. phase M, the user entry points: python -m mrt_tpu_torch.smoke and
+     python -m mrt_tpu_torch.demo, each driven in this process through its
+     main(argv) with no device flag (so on the card) at 1024x1024 output:
+     the smoke (--size 1024: sphere and plane, upscaler off, 1 spp, 1
+     bounce, a first and 4 steady draws, one PNG) and the demo (--size 1024
+     --frames 30 --no-asset-models: 30 steps of orbit(3.0, 0.6) and 3
+     draws of 1/60 s, 90 draws, at the Renderer's defaults but 2 spp and 2
+     bounces: a 686x686 render, spatial upscaler, motion-adaptive
+     accumulation and sampling, the robot animating; a GIF and a final
+     PNG). Each with every launch count set to 0 just before and read just
+     after: K1, K2 (packed only) and K6-K8 must launch, the demo K4 ``blas``
+     with K5 too, every draw on the kernel route (K6 at least once per
+     base sample) and K8 once per sample. The PNG and the GIF are read back
+     by the port's own readers (mrt_tpu_torch/utils/image.py: the PNG equal
+     to the image, each of the GIF's 30 frames within GIF_QUANT_ERROR of its
+     step's image, 1/30 s a frame); the images have non-zero pixels and the
+     accumulation is finite with rays traced. Printed per entry point:
+     first-draw seconds, the steady draws' median wall and Mrays/s,
+     stats.report(), the GIF's encoding seconds and, for the demo, one
+     profiled draw's device busy time and idle share. Then on each entry
+     point's renderer K1 and every K2 launch of a frame, and every K6-K8
+     launch of another, are held against their plain versions (as for the
+     runs above), and a 48x48 run of each entry point on the card is held
+     to the same on the CPU (the last accumulation within 1e-2 relative
+     RMSE, rays equal per draw);
   7. after every run was driven, under torch.profiler: K1's device time at
      runs A and B (1920x1080 and 1024x576), warm and after a 64 MB write
      (cold), K2's device time over one more steady frame of runs A-C and
@@ -199,9 +224,10 @@ never prints its last line):
      debug view 1-7, and the light-masked frame.
 The line before the last is {"kernels": [...]}: K1, K2's three
 instantiations, K3's two, K4's two, K5, and K6, K7 and K8 (launches counted
-over the main-path runs, the builds of runs G and K and of run G flat, and
-phase L's ranks), each with its bound (mrt_tpu_torch/utils/bounds.py);
-runs A, B, C, E, G, H and J must have launched K6-K8, K8 once per sample
+over the main-path runs, the builds of runs G and K and of run G flat,
+phase M's entry points and phase L's ranks), each with its bound
+(mrt_tpu_torch/utils/bounds.py); runs A, B, C, E, G, H and J and phase M's
+smoke and demo must have launched K6-K8, K8 once per sample
 (each run's line prints its K8 launches per frame). The script prints its
 total seconds; the last line is {"ok": true, "device": {...}}.
 """
@@ -463,7 +489,8 @@ def check_path_kernels(torch, tag, r, present, traverse2, bounds):
     """Hold K1 and the traversal kernel (K2 on a two-level BVH, K3 on a
     flat one) against their plain versions at the shapes run ``tag`` gives
     them, before the run is driven. K1: the edge-case values at the render
-    size, and the frame's own accumulation through present_device; its
+    size, and the frame's present (its accumulation, or the upscaled output
+    where the renderer upscales) through present_device; its
     time from CUDA events over 50 calls (its device times come later, from
     profile_run). The traversal: every launch of one frame of the path
     (camera, bounce and shadow batches), each held against the plain
@@ -528,10 +555,14 @@ def check_path_kernels(torch, tag, r, present, traverse2, bounds):
         r.draw(1 / 60)
     finally:
         setattr(traverse2, kname, orig)
+    from mrt_tpu_torch.upscale import presenter
+
+    lin = presenter.present_linear(r)[0]  # the accumulation itself where nothing upscales
     img = r.present_device()
-    k1_bad += int((img != plain1(r.accum.contiguous())).sum())
+    k1_bad += int((img != plain1(lin.contiguous())).sum())
     log(f"K1 present run {tag} ({h},{w},3): {x.numel()} edge values (zeros, tiny, huge, exact .5 "
-        f"landings, random) and the frame's accumulation, kernel vs plain mismatches {k1_bad}; "
+        f"landings, random) and the frame's present {tuple(img.shape)}, kernel vs plain "
+        f"mismatches {k1_bad}; "
         f"kernel {k1_ms:.4f} ms (CUDA events over 50 calls), plain {k1_plain_ms:.4f} ms")
     if k1_bad:
         raise AssertionError(f"K1 disagrees with its plain version (run {tag})")
@@ -2064,6 +2095,180 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
     return counts
 
 
+def run_entry(torch, module, argv, W):
+    """``module.main(argv)`` (``mrt_tpu_torch.smoke`` or ``.demo``, the user
+    entry points) in this process, its ``Renderer`` a subclass that times
+    each draw between syncs and keeps its rays and its K6 launches, and its
+    GIF writer (the demo's) timed. Returns (what main returns, the record)."""
+    from mrt_tpu_torch.engine.renderer import Renderer
+
+    rec = dict(walls=[], rays=[], k6=[], gif_s=None)
+
+    class Recorded(Renderer):
+        def draw(self, delta_time=None):
+            cuda = self.device.type == "cuda"
+            if cuda:
+                torch.cuda.synchronize()
+            k6, t0 = W.launches["sample_start"], time.perf_counter()
+            out = super().draw(delta_time)
+            if cuda:
+                torch.cuda.synchronize()
+            rec["walls"].append(time.perf_counter() - t0)
+            rec["rays"].append(self.last_rays_traced)
+            rec["k6"].append(W.launches["sample_start"] - k6)
+            return out
+
+    saved = {"Renderer": module.Renderer}
+    if hasattr(module, "write_gif"):
+        saved["write_gif"] = module.write_gif
+
+        def timed_gif(*a, **k):
+            t0 = time.perf_counter()
+            saved["write_gif"](*a, **k)
+            rec["gif_s"] = time.perf_counter() - t0
+
+        module.write_gif = timed_gif
+    module.Renderer = Recorded
+    try:
+        out = module.main(argv)
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+    # a copy: the renderer goes on recording its later draws (the checks, the profiler)
+    return out, dict(rec, walls=list(rec["walls"]), rays=[int(x) for x in rec["rays"]],
+                     k6=list(rec["k6"]))
+
+
+def phase_m(torch, present, traverse2, refit, W, bounds, tmp, checks, stage_checks) -> tuple:
+    """Phase M: the user entry points, each in this process through its
+    main(argv) with no device flag (so on the card), at 1024x1024 output:
+    the smoke (sphere and plane, 1 spp, 1 bounce, upscaler off; a first and
+    4 steady draws) and the demo (the app scene without train/treefir, 30
+    steps of an orbit and 3 draws of 1/60 s at the Renderer's defaults but
+    2 spp and 2 bounces: a 0.67-scale render, spatial upscaler,
+    motion-adaptive accumulation and sampling; a GIF and a final PNG).
+    With every launch count set to 0 first; after, K1, K2 (packed only) and
+    K6-K8 must have launched (the demo: K4 ``blas`` with K5 too), every
+    draw on the kernel route (K6 at least once per base sample), K8 once
+    per sample. The files are read back by the port's own readers (the
+    PNG equal to the image, each GIF frame within GIF_QUANT_ERROR of its
+    step's image); images with non-zero pixels, rays traced. Then, on each
+    entry point's renderer, K1 and every K2 launch of a frame and every
+    K6-K8 launch of another held against their plain versions (as for the
+    runs; into ``checks`` and ``stage_checks``), one profiled draw of the
+    demo (device busy and idle share against its median draw wall), and a
+    48x48 run of each entry point on the card against the CPU (the last
+    accumulation within 1e-2 relative RMSE, rays equal per draw). Returns
+    ({tag: launch counts}, {tag: line})."""
+    import statistics
+
+    import numpy as np
+
+    from mrt_tpu_torch import demo, smoke
+    from mrt_tpu_torch.utils import image
+
+    png, gif = os.path.join(tmp, "smoke.png"), os.path.join(tmp, "demo.gif")
+    entries = {"M smoke": (smoke, ["--size", "1024", "--out", png]),
+               "M demo": (demo, ["--size", "1024", "--frames", "30", "--no-asset-models",
+                                 "--out", gif])}
+    counts, lines, renderers = {}, {}, {}
+    for tag, (module, argv) in entries.items():
+        present.launches = 0
+        traverse2.reset_launches()
+        refit.reset_launches()
+        W.reset_launches()
+        t0 = time.perf_counter()
+        (r, out), rec = run_entry(torch, module, argv, W)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        c = {"present": present.launches, "traverse2": traverse2.launches,
+             "traverse_flat": traverse2.flat_launches, **refit_counts(refit), **W.launches}
+        variants = {k: n for k, n in traverse2.variant_launches.items() if n}
+        need = ("present", "traverse2") + W.STAGES
+        if tag == "M demo":
+            need += ("refit_blas", "refit_tlas")
+        walls, rays = rec["walls"], rec["rays"]
+        if (r.device.type != "cuda" or min(c[k] for k in need) < 1 or set(variants) != {"packed"}
+                or c["traverse_flat"] or c["resolve_shadow"] != c["sample_start"]
+                or min(rec["k6"]) < r.samples_per_pixel or not route_of(W, r)):
+            raise AssertionError(f"phase {tag}: a kernel of the path never launched, a draw left "
+                                 f"the kernel route or ran off the card: launches {c}, K2 "
+                                 f"{variants}, K6 per draw {rec['k6']}, device {r.device}")
+        images = out if tag == "M demo" else [out]
+        size = (1024, 1024, 3)
+        if tag == "M smoke":
+            if not np.array_equal(image.read_png(png), out):
+                raise AssertionError(f"phase {tag}: the PNG does not read back as the image")
+            files = {png: os.path.getsize(png)}
+        else:
+            frames, delays = image.read_gif(gif)
+            final = gif.rsplit(".", 1)[0] + "_final.png"
+            gif_err = max(int(abs(f.astype("int16") - im).max()) for f, im in zip(frames, images))
+            if (frames.shape != (30,) + size or delays != [0.03] * 30
+                    or gif_err > image.GIF_QUANT_ERROR
+                    or not np.array_equal(image.read_png(final), images[-1])):
+                raise AssertionError(f"phase {tag}: the GIF ({frames.shape}, delays {set(delays)}, "
+                                     f"largest error {gif_err}) or the final PNG does not read "
+                                     "back as the images")
+            files = {gif: os.path.getsize(gif), final: os.path.getsize(final)}
+        nonzero = [float((im.sum(-1) > 0).mean()) for im in images]
+        if (any(im.shape != size for im in images) or min(nonzero) <= 0.0
+                or not bool(torch.isfinite(r.accum).all()) or int(r.last_rays_traced) <= 0
+                or min(rays) <= 0):
+            raise AssertionError(f"phase {tag}: images {[im.shape for im in images][:2]}, non-zero "
+                                 f"shares {nonzero}, rays {rays[:4]}")
+        steady = walls[1:]
+        line = dict(phase="M", entry=tag, argv=argv, output=[r.output_width, r.output_height],
+                    render=[r.render_width, r.render_height], spp=r.samples_per_pixel,
+                    bounces=r.max_bounces, upscaler=r.upscaler_mode, render_scale=r.render_scale,
+                    motion_adaptive_sampling=r.use_motion_adaptive_sampling,
+                    motion_adaptive_accumulation=r.use_motion_adaptive_accumulation,
+                    triangles=r.statics.n_triangles, draws=len(walls), main_s=total_s,
+                    first_frame_s=walls[0], steady_frame_median_s=statistics.median(steady),
+                    frame_walls=walls, mrays_per_s=sum(rays[1:]) / sum(steady) / 1e6,
+                    total_rays=sum(rays), launches=c, k2_variants=variants,
+                    k6_per_draw=sorted(set(rec["k6"])), stats=r.stats.report(),
+                    gif_encode_s=rec["gif_s"], files_bytes=files, nonzero_share=nonzero[-1],
+                    image_mean=float(images[-1].mean()), card=CARD["card"],
+                    power_limit=CARD["power_limit"])
+        if tag == "M demo":
+            busy_ms, events = device_total_ms(torch, lambda: r.draw(1 / 60), 1)
+            line.update(device_busy_s=busy_ms / 1e3, device_events=events,
+                        idle_share=1.0 - busy_ms / 1e3 / line["steady_frame_median_s"])
+        counts[tag], lines[tag], renderers[tag] = c, line, r
+        log(json.dumps(line))
+
+    # each kernel at the shapes the entry points give it, against its plain version
+    for tag, r in renderers.items():
+        checks[tag] = check_path_kernels(torch, tag, r, present, traverse2, bounds)
+        checks[tag].pop("k1_input")
+        stage_checks[tag] = check_stages(torch, tag, r, W, traverse2, bounds)
+        stage_checks[tag].pop("first")
+    del renderers
+
+    # 48x48: each entry point on the card against the CPU
+    small = {}
+    for tag, (module, argv) in (("M smoke", (smoke, ["--size", "48"])),
+                                ("M demo", (demo, ["--size", "48", "--frames", "1",
+                                                   "--no-asset-models"]))):
+        res = []
+        for device in ("cuda", "cpu"):
+            ext = "png" if module is smoke else "gif"
+            (r, _), rec = run_entry(torch, module, argv + ["--device", device, "--out",
+                                                           os.path.join(tmp, f"s{device}.{ext}")], W)
+            res.append((r.accum.cpu(), rec["rays"]))
+        (acc_g, rays_g), (acc_c, rays_c) = res
+        rel = rel_rmse(acc_g, acc_c)
+        small[tag] = dict(rel_rmse=rel, rays_card=rays_g, rays_cpu=rays_c)
+        log(f"small frame 48x48, phase {tag}: card vs CPU relative RMSE {rel:.3e} in the last "
+            f"accumulation (limit 1e-2), rays per draw {rays_g} vs {rays_c}")
+        if not (rel < 1e-2 and rays_g == rays_c and min(rays_g) > 0):
+            raise AssertionError(f"phase {tag}: the 48x48 run on the card disagrees with the CPU")
+    for tag in lines:
+        lines[tag]["small_frame"] = small[tag]
+    return counts, lines
+
+
 def main() -> int:
     import torch
 
@@ -2436,6 +2641,16 @@ def main() -> int:
     del rk
     torch.cuda.empty_cache()
 
+    # --- 6e. phase M: the user entry points, smoke and demo, through their main(argv) ----------
+    m_tmp = tempfile.TemporaryDirectory(prefix="mrt_phase_m_")
+    t0 = time.perf_counter()
+    m_counts, m_lines = phase_m(torch, present, traverse2, refit, W, bounds, m_tmp.name, checks,
+                                stage_checks)
+    m_tmp.cleanup()
+    counts.update(m_counts)
+    lines.update(m_lines)
+    log(f"phase M: {time.perf_counter() - t0:.1f} s")
+
     # --- 7. the profiler last: a process's frames after a profiler session ran
     # slower on the host in this script's runs (PERF.md, Findings)
     profiles = {tag: profile(tag, r) for tag, r in (("A", ra), ("B", rb), ("C", rc), ("F", rf),
@@ -2627,7 +2842,7 @@ def main() -> int:
     log(json.dumps(dict(route_frames=route_frames, card=card_name, power_limit=power_limit)))
     if any(k["launches"] < 1 for k in kernels[-3:]):
         raise AssertionError(f"a stage kernel never launched on the main path: {kernels[-3:]}")
-    for tag in ("A", "B", "C", "E", "G", "H", "J"):
+    for tag in ("A", "B", "C", "E", "G", "H", "J", "M smoke", "M demo"):
         c = counts[tag]
         if min(c[s] for s in W.STAGES) < 1:
             raise AssertionError(f"run {tag}: off the kernel route or a stage never launched: {c}")

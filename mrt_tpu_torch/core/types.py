@@ -21,6 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .device import resolve
+
 # --- geometry / ray masks ------------------------------------------------------
 GEOMETRY_MASK_TRIANGLE = 1
 GEOMETRY_MASK_LIGHT = 2
@@ -154,6 +156,19 @@ class Materials(NamedTuple):
     refraction_index: torch.Tensor  # (R,) f32
     opacity: torch.Tensor  # (R,) f32
     texture_flags: torch.Tensor  # (R,) int32 (bits <= 127)
+
+
+def default_materials(count: int, device=None) -> Materials:
+    """Material defaults as in SubMesh.swift:291-299 (white, ior=1,
+    opacity=1, flags=0), on ``device`` (None: the card; raises where there
+    is none)."""
+    dev = resolve(device)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return Materials(
+        base_color=torch.ones((count, 3), **f32), specular=torch.zeros((count, 3), **f32),
+        emission=torch.zeros((count, 3), **f32), specular_exponent=torch.zeros((count,), **f32),
+        refraction_index=torch.ones((count,), **f32), opacity=torch.ones((count,), **f32),
+        texture_flags=torch.zeros((count,), dtype=torch.int32, device=dev))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,6 +11,30 @@ from ..core import types as T
 PI = 3.14159265358979323846
 
 
+def take_rows_onehot(table: torch.Tensor, idx: torch.Tensor, max_rows: int = 128) -> torch.Tensor:
+    """Rows ``idx`` of ``table``. The JAX package selects the rows of a
+    table of at most ``max_rows`` by a one-hot product, a TPU device that
+    gives the same finite rows as a gather; here every table is gathered,
+    and ``max_rows`` is kept for the signature."""
+    return table.index_select(0, idx.long())
+
+
+def interpolate_attribute(attr, indices, tri, u, v):
+    """``interpolateVertexAttribute`` (Raytracing.metal:61-74): (u, v)
+    weight vertices 1 and 2 of triangle ``tri``, vertex 0 gets 1-u-v.
+    attr: (V, C); indices: (T, 3); tri: (R,) (negative: triangle 0);
+    u/v: (R,)."""
+    idx = indices.index_select(0, tri.clamp(min=0).long()).long()
+    a0, a1, a2 = (attr.index_select(0, idx[:, k]) for k in range(3))
+    w = (1.0 - u - v)[:, None]
+    return u[:, None] * a1 + v[:, None] * a2 + w * a0
+
+
+def reinhard_tonemap(color):
+    """c / (1 + c) (Shaders.metal:49)."""
+    return color / (1.0 + color)
+
+
 def dot3(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
@@ -120,6 +144,17 @@ def evaluate_light(lights: T.Lights, light_index: torch.Tensor, u_area: torch.Te
     distance = torch.where(is_area[:, 0], a_dist,
                            torch.where(is_spot[:, 0] | is_point[:, 0], s_dist, inf))
     return direction, color, distance
+
+
+def compute_tangent_basis(positions_w, uvs, indices, tri, eps=1e-8):
+    """``computeTangentBasis`` (Raytracing.metal:185-218) from world-space
+    positions (V,3) and uvs (V,2) of triangle ``tri``: seven gathers, then
+    ``tangent_basis_rows``. Returns (valid (R,), tangent (R,3), bitangent
+    (R,3))."""
+    idx = indices.index_select(0, tri.clamp(min=0).long()).long()
+    p0, p1, p2 = (positions_w.index_select(0, idx[:, k]) for k in range(3))
+    uv0, uv1, uv2 = (uvs.index_select(0, idx[:, k]) for k in range(3))
+    return tangent_basis_rows(p0, p1, p2, uv0, uv1, uv2, eps)
 
 
 def tangent_basis_rows(p0, p1, p2, uv0, uv1, uv2, eps=1e-8):

@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.device import resolve
 from .temporal import bilinear_sample, edge_pad
 
 _LUMA = (0.2126, 0.7152, 0.0722)
@@ -32,8 +33,10 @@ class DenoiseState(NamedTuple):
     normal: torch.Tensor  # (h,w,3) last frame's shading normal (decoded)
 
 
-def init_state(h: int, w: int, device="cpu") -> DenoiseState:
-    z = dict(dtype=torch.float32, device=device)
+def init_state(h: int, w: int, device=None) -> DenoiseState:
+    """The empty history at (h, w), on ``device`` (None: the card; raises
+    where there is none)."""
+    z = dict(dtype=torch.float32, device=resolve(device))
     return DenoiseState(demod=torch.zeros((h, w, 3), **z), m1=torch.zeros((h, w), **z),
                         m2=torch.zeros((h, w), **z), history_length=torch.zeros((h, w), **z),
                         depth=torch.full((h, w), 1.0e8, **z), normal=torch.zeros((h, w, 3), **z))

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..kernels.present import tonemap_quantize
+from ..utils.image import write_png  # noqa: F401  (presenter.write_png, as in the JAX package)
 from . import denoise, spatial, temporal
 
 
@@ -92,8 +93,3 @@ def present(renderer) -> np.ndarray:
     """The uint8 RGB image on the host, row 0 at the top."""
     return present_device(renderer).cpu().numpy()[::-1]
 
-
-def write_png(path: str, image_u8: np.ndarray):
-    from PIL import Image
-
-    Image.fromarray(np.ascontiguousarray(image_u8), "RGB").save(path)

@@ -1,6 +1,8 @@
 """Image metrics and golden IO — a NumPy copy of ``mrt_tpu/utils/image.py``:
-golden renders are kept as compressed arrays and compared by RMSE; and
-``write_png``, the port's PNG writer (zlib only, no imaging library)."""
+golden renders are kept as compressed arrays and compared by RMSE; and the
+port's image files, with no imaging library: ``write_png`` (zlib) and
+``write_gif`` (animated, one fixed palette), and ``read_png``/``read_gif``,
+which read back what those two write."""
 
 from __future__ import annotations
 
@@ -48,3 +50,160 @@ def write_png(path: str, image_u8: np.ndarray):
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def read_png(path: str) -> np.ndarray:
+    """The (H,W,3) uint8 image of a PNG as ``write_png`` writes it (8-bit
+    RGB, not interlaced, every row unfiltered); raises ``ValueError`` on any
+    other PNG or a bad chunk CRC."""
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, head, idat = 8, None, []
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != zlib.crc32(kind + body):
+            raise ValueError(f"{path}: bad CRC in chunk {kind!r}")
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    if head is None or head[2:] != (8, 2, 0, 0, 0):
+        raise ValueError(f"{path}: not an 8-bit RGB PNG as write_png writes one: {head}")
+    w, h = head[:2]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        raise ValueError(f"{path}: filtered rows (write_png writes none)")
+    return raw[:, 1:].reshape(h, w, 3).copy()
+
+
+# GIF: one global palette of 256 colours, the 6x6x6 cube (levels 0, 51, ...,
+# 255) and 40 greys between. A pixel takes the entry whose largest channel
+# error is least; the cube alone bounds that error by GIF_QUANT_ERROR.
+GIF_QUANT_ERROR = 25
+_CUBE = np.arange(6) * 51
+_GREYS = np.round(np.arange(1, 41) * 255 / 41).astype(np.int16)
+_PALETTE = np.concatenate([
+    np.stack(np.meshgrid(_CUBE, _CUBE, _CUBE, indexing="ij"), -1).reshape(216, 3),
+    np.repeat(_GREYS[:, None], 3, axis=1)]).astype(np.uint8)
+# The LZW stream holds 9-bit literal codes only, a clear code before each run
+# of _GIF_RUN: a decoder's table then stays below 512 entries (it would widen
+# its codes after 254 literals), so the codes pack without any dictionary.
+_GIF_CLEAR, _GIF_END, _GIF_RUN = 256, 257, 250
+_LEVEL = (np.arange(256) + 25) // 51  # each channel value's nearest cube level
+_CUBE_36, _CUBE_6, _CUBE_1 = ((_LEVEL * k).astype(np.uint8) for k in (36, 6, 1))
+_CUBE_ERR = np.abs(np.arange(256) - _LEVEL * 51).astype(np.uint8)
+# the grey nearest to (min + max) / 2, by min + max
+_GREY_OF_SUM = np.clip(np.round(np.arange(511) / 2 * 41 / 255) - 1, 0, 39).astype(np.uint8)
+
+
+def _gif_quantize(image_u8: np.ndarray) -> np.ndarray:
+    """(H,W,3) uint8 -> (H,W) uint8 indices into ``_PALETTE`` (table
+    lookups per channel, and per min + max channel for the greys)."""
+    v = np.asarray(image_u8, np.uint8)
+    r, g, b = v[..., 0], v[..., 1], v[..., 2]
+    cube = _CUBE_36[r] + _CUBE_6[g] + _CUBE_1[b]
+    cube_err = np.maximum(np.maximum(_CUBE_ERR[r], _CUBE_ERR[g]), _CUBE_ERR[b])
+    lo = np.minimum(np.minimum(r, g), b).astype(np.int16)
+    hi = np.maximum(np.maximum(r, g), b).astype(np.int16)
+    grey = _GREY_OF_SUM[lo + hi]
+    level = _GREYS[grey]
+    grey_err = np.maximum(hi - level, level - lo)
+    return np.where(grey_err < cube_err, grey + np.uint8(216), cube)
+
+
+def _lzw_literals(index: np.ndarray) -> bytes:
+    """The LZW data of ``index`` (uint8) as 9-bit literal codes, in GIF
+    sub-blocks: a clear code before every _GIF_RUN literals, an end code."""
+    n = index.size
+    runs = -(-n // _GIF_RUN)
+    literals = np.zeros(runs * _GIF_RUN, np.uint16)
+    literals[:n] = index.ravel()
+    codes = np.full((runs, 1 + _GIF_RUN), _GIF_CLEAR, np.uint16)
+    codes[:, 1:] = literals.reshape(runs, _GIF_RUN)
+    codes = np.append(codes.ravel()[: runs + n], np.uint16(_GIF_END))  # the last run's padding cut
+    bits = ((codes[:, None] >> np.arange(9, dtype=np.uint16)) & 1).astype(np.uint8)
+    data = np.packbits(bits.ravel(), bitorder="little")
+    full, rest = divmod(data.size, 255)
+    blocks = np.empty((full, 256), np.uint8)
+    blocks[:, 0] = 255
+    blocks[:, 1:] = data[: full * 255].reshape(full, 255)
+    tail = bytes([rest]) + data[full * 255:].tobytes() if rest else b""
+    return blocks.tobytes() + tail + b"\x00"
+
+
+def write_gif(path: str, frames, duration: float = 1 / 30, loop: int = 0):
+    """Write (H,W,3) uint8 RGB ``frames`` (row 0 at the top) as an animated
+    GIF, ``duration`` seconds a frame (in hundredths), looping ``loop``
+    times (0: forever). Colours are quantized to ``_PALETTE``; NumPy
+    only, no imaging library."""
+    frames = [np.ascontiguousarray(f, np.uint8) for f in frames]
+    h, w, _ = frames[0].shape
+    if any(f.shape != (h, w, 3) for f in frames):
+        raise ValueError(f"write_gif wants (H,W,3) RGB frames of one size, got "
+                         f"{sorted({f.shape for f in frames})}")
+    delay = int(round(duration * 100))
+    out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0xF7, 0, 0), _PALETTE.tobytes(),
+           b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", loop) + b"\x00"]
+    for f in frames:
+        out += [b"\x21\xf9\x04\x04" + struct.pack("<H", delay) + b"\x00\x00",
+                b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0), b"\x08",
+                _lzw_literals(_gif_quantize(f))]
+    out.append(b"\x3b")
+    with open(path, "wb") as fh:
+        fh.write(b"".join(out))
+
+
+def read_gif(path: str):
+    """(frames (N,H,W,3) uint8, delays in seconds) of a GIF as ``write_gif``
+    writes it; raises ``ValueError`` on another LZW stream (one that
+    widens its codes past 9 bits or refers to its table)."""
+    data = open(path, "rb").read()
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError(f"{path}: not a GIF")
+    w, h, flags = struct.unpack("<HHB", data[6:11])
+    if not flags & 0x80:
+        raise ValueError(f"{path}: no global palette")
+    size = 2 << (flags & 7)
+    palette = np.frombuffer(data[13:13 + 3 * size], np.uint8).reshape(size, 3)
+    pos, frames, delays, delay = 13 + 3 * size, [], [], 0.0
+
+    def sub_blocks(pos):
+        parts = []
+        while data[pos]:
+            parts.append(data[pos + 1:pos + 1 + data[pos]])
+            pos += 1 + data[pos]
+        return b"".join(parts), pos + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            label = data[pos + 1]
+            body, pos = sub_blocks(pos + 2)
+            if label == 0xF9:
+                delay = struct.unpack("<H", body[1:3])[0] / 100
+        elif data[pos] == 0x2C:
+            x, y, fw, fh, fflags = struct.unpack("<HHHHB", data[pos + 1:pos + 10])
+            if (x, y, fw, fh) != (0, 0, w, h) or fflags or data[pos + 10] != 8:
+                raise ValueError(f"{path}: a frame write_gif does not write")
+            body, pos = sub_blocks(pos + 11)
+            bits = np.unpackbits(np.frombuffer(body, np.uint8), bitorder="little")
+            n = bits.size // 9
+            codes = (bits[: n * 9].reshape(n, 9).astype(np.uint16)
+                     << np.arange(9, dtype=np.uint16)).sum(axis=1)
+            ends = np.flatnonzero(codes == _GIF_END)
+            if not ends.size or codes[0] != _GIF_CLEAR:
+                raise ValueError(f"{path}: an LZW stream write_gif does not write")
+            codes = codes[: ends[0]]
+            runs = np.diff(np.append(np.flatnonzero(codes == _GIF_CLEAR), codes.size)) - 1
+            if runs.max() > 254 or (codes > _GIF_CLEAR).any():
+                raise ValueError(f"{path}: an LZW stream write_gif does not write")
+            index = codes[codes != _GIF_CLEAR]
+            if index.size != w * h:
+                raise ValueError(f"{path}: a frame of {index.size} pixels, not {w * h}")
+            frames.append(palette[index].reshape(h, w, 3))
+            delays.append(delay)
+        else:
+            raise ValueError(f"{path}: unknown block {data[pos]:#x} at byte {pos}")
+    return np.stack(frames), delays

@@ -75,6 +75,15 @@ def trs_quat(translation, quat_xyzw, s) -> np.ndarray:
     return translate(translation) @ quat_to_matrix(np.asarray(quat_xyzw, np.float32)) @ scale(s)
 
 
+def pack_3x4(m):
+    """Top 3 rows of a 4x4 as contiguous f32 — the packed transform layout
+    of ``MTLIndirectAccelerationStructureInstanceDescriptor``
+    (Renderer.swift:1393-1401). A tensor stays on its device."""
+    if isinstance(m, torch.Tensor):
+        return m[:3, :].to(torch.float32).contiguous()
+    return np.ascontiguousarray(m[:3, :], dtype=np.float32)
+
+
 def apply_affine(M: torch.Tensor, p: torch.Tensor, translate: bool) -> torch.Tensor:
     """Per-row 3x4 affine ``M`` (..., 3, >=3) applied to (V,3) points, with
     each dot product's adds written out in a fixed order (no matmul, no

@@ -46,8 +46,23 @@ def _load():
     lib.mrt_wide_depth.restype = ctypes.c_int32
     lib.mrt_wide_fetch.argtypes = [ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
     lib.mrt_wide_fetch_clip.argtypes = [ctypes.POINTER(ctypes.c_float)]
+    lib.mrt_obj_parse.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+    lib.mrt_obj_parse.restype = ctypes.c_int
+    lib.mrt_obj_n_vertices.restype = ctypes.c_int64
+    lib.mrt_obj_n_triangles.restype = ctypes.c_int64
+    lib.mrt_obj_fetch.argtypes = [ctypes.POINTER(ctypes.c_float)] * 3 + [ctypes.POINTER(ctypes.c_int32)]
     _lib = lib
     return lib
+
+
+def available() -> bool:
+    """Whether the native library builds and loads (a query: no path of
+    the port picks a route by it)."""
+    try:
+        _load()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def build_wide_bvh_sah(tri_verts: np.ndarray, arity: int, leaf_k: int, spatial: bool = False):
@@ -76,3 +91,21 @@ def build_wide_bvh_sah(tri_verts: np.ndarray, arity: int, leaf_k: int, spatial: 
         clip = np.empty((nl, 6), np.float32)
         lib.mrt_wide_fetch_clip(clip.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
     return child, leaf, depth, clip
+
+
+def parse_obj_geometry(path: str):
+    """The native OBJ geometry parse: (positions (V,3), uvs (V,2), normals
+    (V,3) with NaN where unauthored, indices (T,3)) as NumPy arrays, or None
+    where the parser rejects the file. Raises where the library does not
+    build."""
+    lib = _load()
+    data = Path(path).read_bytes()
+    if lib.mrt_obj_parse(data, len(data)) != 0:
+        return None
+    v, t = int(lib.mrt_obj_n_vertices()), int(lib.mrt_obj_n_triangles())
+    pos, uv, nrm = (np.empty((v, c), np.float32) for c in (3, 2, 3))
+    idx = np.empty((t, 3), np.int32)
+    f32 = ctypes.POINTER(ctypes.c_float)
+    lib.mrt_obj_fetch(pos.ctypes.data_as(f32), uv.ctypes.data_as(f32), nrm.ctypes.data_as(f32),
+                      idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return pos, uv, nrm, idx

@@ -9,8 +9,10 @@ import torch
 from mrt_tpu.bvh import twolevel as jtl
 from mrt_tpu.engine.scene import Model as JModel
 from mrt_tpu.engine.scene import Scene as JScene
-from mrt_tpu_torch import Model, Renderer, Scene, convert
+from mrt_tpu_torch import Model, Renderer, Scene, convert, demo, smoke
 from mrt_tpu_torch.core.device import resolve
+from mrt_tpu_torch.core.types import default_materials
+from mrt_tpu_torch.upscale import denoise
 from test_torch_scene_bvh import one_torch_thread  # noqa: F401
 
 
@@ -32,6 +34,24 @@ def test_renderer_without_device_raises_without_card(no_card):
         Renderer(_scene(), 16, 16, device="cuda")
     r = Renderer(_scene(), 16, 16, device="cpu")
     assert r.device == torch.device("cpu") and r.bvh.table.device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["denoise.init_state", "default_materials", "smoke", "demo"])
+def test_state_and_entry_points_without_device_raise_without_card(no_card, entry, tmp_path):
+    """The denoiser's empty state, the default materials and the two user
+    entry points (``python -m mrt_tpu_torch.smoke`` / ``.demo`` with
+    neither --cpu nor --device) resolve to the card and raise without one;
+    the first two are made on the CPU when asked."""
+    make = {"denoise.init_state": lambda d: denoise.init_state(4, 5, d),
+            "default_materials": lambda d: default_materials(3, d),
+            "smoke": lambda d: smoke.main(["--size", "8", "--out", str(tmp_path / "s.png")]),
+            "demo": lambda d: demo.main(["--size", "8", "--frames", "1", "--no-asset-models",
+                                         "--out", str(tmp_path / "d.gif")])}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make(None)
+    assert not any(tmp_path.iterdir())
+    if entry in ("denoise.init_state", "default_materials"):
+        assert all(t.device.type == "cpu" for t in make("cpu"))
 
 
 def test_scene_compile_and_convert_default_to_card(no_card):

@@ -108,7 +108,7 @@ def test_svgf_filter_matches_jax():
     every state field within 1e-5 relative RMSE."""
     rng = np.random.default_rng(2)
     h, w = 24, 32
-    st_j, st_p = jdenoise.init_state(h, w), denoise.init_state(h, w)
+    st_j, st_p = jdenoise.init_state(h, w), denoise.init_state(h, w, "cpu")
     for f in range(5):
         color = rng.random((h, w, 3), dtype=np.float32) * 2.0
         depth = np.ones((h, w), np.float32)

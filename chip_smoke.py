@@ -39,8 +39,10 @@ never prints its last line):
      (its largest ULP printed), an integer or bool field equal on
      STAGE_INT_SHARE of lanes, a list exactly. K7's first launch is also
      held on the same state with every material glass (the glass-heavy
-     state). Then a frame each with power light sampling and with legacy
-     shading, each stage's time (CUDA events) beside its plain version's
+     state). Then a frame each with power light sampling, with legacy
+     shading and with mipmaps (K7's maps_mips instantiation on a scene
+     without maps: the ray cone's length only), each stage's time (CUDA
+     events) beside its plain version's
      and its bound: K6 and K7 at the frame's first launch, K7 also at its
      first launch with under 5 % of the lanes live, K8 at a sample's end;
      and one whole frame of the kernel route against the plain route
@@ -64,7 +66,7 @@ never prints its last line):
      plain versions at that run's shapes and timed, with K2's bound per
      launch from the plain version's visits. Then the run is driven with
      each kernel's launch counter set to 0 and checked to rise (K6-K8's
-     on the kernel route; off it, at run F, they must stay 0). Run C also
+     on the kernel route; off it they must stay 0). Run C also
      prints the seconds of its prepare stage (skinning, world transform,
      refit) per animated frame, the share of pixels that earned 1 and 2
      extra samples, and its largest motion vector (> 0.5 px: the robot
@@ -104,13 +106,23 @@ never prints its last line):
      against the same on the CPU (linear output, new history and
      DenoiseState within 1e-5 relative RMSE, uint8 within 1 LSB); K1
      uint8-equal to its plain version on each mode's (2160,3840,3) output;
-  6b. runs F and G, each checked and driven as runs A-C are, with each K2
-     instantiation's launch count read on its own: run F, the wavefront's
-     extras at run A's width (the floor with a 2048x2048 base-colour
-     checker and a 1024x1024 normal map made from a seed, mipmapped
-     sampling, the two spheres masked as light geometry), launches only the
-     masked K2; then one frame of each debug view 1-6 on run F's scene and
-     of the motion view (7) on run C's; run G, run B's scene with two
+  6b. runs F, N and G, each checked and driven as runs A-C are, with each
+     K2 instantiation's launch count read on its own: run F, the
+     wavefront's extras at run A's width (the floor with a 2048x2048
+     base-colour checker and a 1024x1024 normal map made from a seed,
+     mipmapped sampling, the two spheres masked as light geometry),
+     launches only the masked K2 and only K7's textured, mipmapped
+     instantiation (maps_mips); run N, run F at the Renderer's default
+     use_mipmaps=False, only the masked K2 and K7's packed-atlas
+     instantiation (maps). At F and N every K7 launch of one frame is held
+     field by field to its plain version (phase 3c), the kernel route's
+     frame bit-equal to the plain route's, and K6-K8 timed at their first
+     launches. Then one frame of each debug view 1-6 on run F's scene, of
+     the base colour view on run N's and of the motion view (7) on run C's
+     (K7's maps_mips_debug, maps_debug and debug instantiations), each
+     first held launch by launch and frame by frame, bit-equal, to the
+     plain stages, and driven with K6 and its K7 instantiation launched and
+     K8 not (a debug view casts no shadow ray); run G, run B's scene with two
      distinct blob(subdivisions=9) dragons (a table above 2^20 rows; its
      host build seconds printed), launches only the float-sort K2; its
      build's refit of every group (K4 ``blas``, K5) is counted and checked
@@ -221,14 +233,19 @@ never prints its last line):
      G-buffer within 1e-5 on at least 99.9 % of pixels); then a 48x48
      textured scene with a light-masked sphere, on the card against the
      CPU within 1e-2 relative RMSE and rays within 1 %: mipmaps on, each
-     debug view 1-7, and the light-masked frame.
+     debug view 1-7, and the light-masked frame, each on the kernel route
+     (K6 and only K7's instantiation for its settings launched).
 The line before the last is {"kernels": [...]}: K1, K2's three
-instantiations, K3's two, K4's two, K5, and K6, K7 and K8 (launches counted
+instantiations, K3's two, K4's two, K5, K6, K7 and K8 (launches counted
 over the main-path runs, the builds of runs G and K and of run G flat,
-phase M's entry points and phase L's ranks), each with its bound
+phase M's entry points and phase L's ranks), then K7 by instantiation
+(untextured, maps, maps_mips, maps_debug, maps_mips_debug, debug: its
+launches, checks, registers and spills, and its times at the first launch
+of the run that takes it), each with its bound
 (mrt_tpu_torch/utils/bounds.py); runs A, B, C, E, G, H and J and phase M's
-smoke and demo must have launched K6-K8, K8 once per sample
-(each run's line prints its K8 launches per frame). The script prints its
+smoke and demo must have launched K6-K8 with only the untextured K7, runs
+F and N only their textured one, K8 once per sample (each run's line
+prints its K8 launches per frame). The script prints its
 total seconds; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -237,6 +254,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -330,8 +348,13 @@ def log_dropout(what: str, attempt: int, n_found: int, seen) -> None:
 def device_total_ms(torch, fn, reps: int) -> tuple[float, float]:
     """Mean device time in ms of everything ``fn`` runs on the card
     (kernels, copies, fills) and its device events per call, from
-    torch.profiler over ``reps`` calls."""
-    ev = device_events(torch, profiled(torch, fn, reps)[0])
+    torch.profiler over ``reps`` calls. A session that saw no device event
+    is run again, up to three times."""
+    for attempt in range(3):
+        ev = device_events(torch, profiled(torch, fn, reps)[0])
+        if ev:
+            break
+        log_dropout(f"every device event x{reps}", attempt, 0, ev)
     if not ev:
         raise AssertionError("the profiler saw no device events")
     return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps, len(ev) / reps
@@ -728,7 +751,12 @@ def check_stages(torch, tag, r, W, traverse2, bounds, glass_heavy: bool = False)
 
     def step_fields(st_k, wv_k, live_k, st_p, wv_p, live_p) -> dict:
         fields = state_diff(torch, W, st_k, st_p)
-        fields.update(shadow_diff(torch, wv_k.shadow, wv_p.shadow))
+        if (wv_k.shadow is None) != (wv_p.shadow is None):
+            raise AssertionError(f"phase 3c run {tag}: K7 cast shadow rays "
+                                 f"{wv_k.shadow is not None}, its plain version "
+                                 f"{wv_p.shadow is not None} (a debug view casts none)")
+        if wv_p.shadow is not None:
+            fields.update(shadow_diff(torch, wv_k.shadow, wv_p.shadow))
         fields["live"] = dict(lanes=1, differing=int(int(live_k) != int(live_p)))
         lk = W.listed(wv_k)
         lp = torch.nonzero(wv_p.keep).squeeze(1).to(torch.int32)
@@ -778,6 +806,8 @@ def check_stages(torch, tag, r, W, traverse2, bounds, glass_heavy: bool = False)
         return st_k, wv_k, live_k
 
     def c_resolve(st, wv):
+        if wv.shadow is None:  # a debug view: no shadow ray pending, K8 does not launch
+            return orig["resolve_shadow"](st, wv)
         st_in = st._replace(accumulated=st.accumulated.clone())
         n_listed = int(W.listed(wv).numel())
         st_k, st_p, ms, pms = timed(lambda: orig["resolve_shadow"](st, wv),
@@ -799,15 +829,20 @@ def check_stages(torch, tag, r, W, traverse2, bounds, glass_heavy: bool = False)
         for s, f in orig.items():
             setattr(W, s, f)
     torch.cuda.synchronize()
-    if min(res[s]["launches"] for s in W.STAGES) < 1:
+    debug = r.debug_texture_mode != 0
+    # a debug view retires every lane at its first hit: one K7 step a
+    # sample, no shadow ray and no K8
+    k8_want = 0 if debug else res["sample_start"]["launches"]
+    if min(res[s]["launches"] for s in W.STAGES if s != "resolve_shadow" or not debug) < 1:
         raise AssertionError(f"phase 3c run {tag}: a stage never launched: "
                              f"{ {s: res[s]['launches'] for s in W.STAGES} }")
-    if res["resolve_shadow"]["launches"] != res["sample_start"]["launches"]:
+    if res["resolve_shadow"]["launches"] != k8_want:
         raise AssertionError(f"phase 3c run {tag}: K8 launched {res['resolve_shadow']['launches']} "
                              f"times for {res['sample_start']['launches']} samples")
     not_bit_equal = {s: {f: d for f, d in res[s]["fields"].items() if d["differing"]}
                      for s in W.STAGES}
     log(json.dumps(dict(phase="3c", run=tag, route="kernel",
+                        k7_variant=W.K7_VARIANTS[W.k7_variant(r.settings(), r.statics)],
                         launches={s: res[s]["launches"] for s in W.STAGES},
                         not_bit_equal=not_bit_equal, glass_heavy=extra.get("glass_heavy"),
                         lists_checked=lists,
@@ -815,7 +850,8 @@ def check_stages(torch, tag, r, W, traverse2, bounds, glass_heavy: bool = False)
                         frame_plain_ms={s: res[s]["frame_plain_ms"] for s in W.STAGES},
                         frame_bound_ms={s: res[s]["frame_bound_ms"] for s in W.STAGES},
                         k7_work=res["shade_hit"]["work"], **CARD)))
-    return dict(stages=res, first=first, not_bit_equal=not_bit_equal, extra=extra, lists=lists)
+    return dict(stages=res, first=first, not_bit_equal=not_bit_equal, extra=extra, lists=lists,
+                variant=W.K7_VARIANTS[W.k7_variant(r.settings(), r.statics)])
 
 
 def time_stages(torch, W, traverse2, bounds, first, reps: int = 5) -> dict:
@@ -851,6 +887,8 @@ def time_stages(torch, W, traverse2, bounds, first, reps: int = 5) -> dict:
                             fr, st, traverse2.hits_of(hits, fr.tri_base), sidx,
                             wv._replace(buf=None)), 2))
         out[key]["bound_ms"], out[key]["bound_by"] = bounds.k7_listed(work)
+    if "resolve_shadow" not in first:  # a debug view: K8 never launched
+        return out
     st, wv, n_listed, n_add = first["resolve_shadow"]
     out["resolve_shadow"] = dict(
         ms=cuda_ms(lambda: W.resolve_shadow(st, wv), reps),
@@ -870,13 +908,14 @@ def route_of(W, r) -> bool:
     return W.kernel_route(r.settings(), r.statics, geom)
 
 
-def check_route_frame(torch, tag, r, W, wf) -> dict:
+def check_route_frame(torch, tag, r, W, wf, strict: bool = False) -> dict:
     """One frame of run ``tag`` on the kernel route against the plain route
     on the card, on the same inputs (``trace_frame`` run twice, the second
     time with ``kernel_route`` answering False); the frame goes on with the
     kernel route's outputs. The accumulation, rays, samples, depth, motion
-    and the G-buffer bit-equal, or the accumulation within 1e-3 relative
-    RMSE and the rays within 1e-4 relative. Raises otherwise."""
+    and the G-buffer bit-equal, or (unless ``strict``) the accumulation
+    within 1e-3 relative RMSE and the rays within 1e-4 relative. Raises
+    otherwise."""
     orig_tf, orig_route = wf.trace_frame, W.kernel_route
     out = {}
 
@@ -915,7 +954,8 @@ def check_route_frame(torch, tag, r, W, wf) -> dict:
     out["bit_equal"] = not any(d["differing"] for d in out["fields"].values())
     log(json.dumps(dict(phase="3c", run=tag, frame="kernel route vs plain route on the card",
                         **out, **CARD)))
-    if not out["bit_equal"] and (out["color_rel_rmse"] > 1e-3 or out["rays_rel"] > 1e-4):
+    if not out["bit_equal"] and (strict or out["color_rel_rmse"] > 1e-3
+                                 or out["rays_rel"] > 1e-4):
         raise AssertionError(f"run {tag}: the kernel route's frame disagrees with the plain "
                              f"route's: {out}")
     return out
@@ -1427,6 +1467,11 @@ def history_free(r, presenter):
         object.__setattr__(r, "_denoise_state", saved[1])
 
 
+def stage_counts(W) -> dict:
+    """K6-K8's launch counts and K7's by instantiation (``k7 <variant>``)."""
+    return {**W.launches, **{f"k7 {k}": n for k, n in W.variant_launches.items()}}
+
+
 def check_variants(tag, traverse2, want: str):
     """Only K2's ``want`` instantiation launched since the counts were last
     set to 0 (runs A-E: the packed one; F: masked; G: float sort)."""
@@ -1481,7 +1526,7 @@ def drive_e(torch, r, mode, present, traverse2, presenter, refit, timed=3):
             raise AssertionError(f"run E {mode}, frame {i} ({kind}): the present {how} a "
                                  "history-free one")
     counts = {"present": present.launches, "traverse2": traverse2.launches, **refit_counts(refit),
-              **W.launches}
+              **stage_counts(W)}
     if min(counts[k] for k in ("present", "traverse2", "refit_blas", "refit_tlas") + W.STAGES) < 1:
         raise AssertionError(f"run E {mode}: a kernel of the path never launched: {counts}")
     variants = check_variants(f"E {mode}", traverse2, "packed")
@@ -1648,12 +1693,13 @@ def small_extras(device) -> dict:
     over a floor with a 64x64 checker and a 32x32 normal map made from a
     seed. Two frames with the extras off (the light mask only), two with
     mipmaps on, then one frame of each debug view 1-7 (for the motion view
-    the sphere moves after a first frame). Per case the accumulation and
-    rays, on the CPU."""
+    the sphere moves after a first frame). Per case the accumulation, rays,
+    and the K6-K8 and K7 instantiation launches of its frames."""
     from mrt_tpu_torch import Model, Renderer, Scene
     from mrt_tpu_torch.assets import procedural
     from mrt_tpu_torch.assets.obj import MaterialDef
     from mrt_tpu_torch.core import types as T
+    from mrt_tpu_torch.kernels import wavefront as W
     from mrt_tpu_torch.utils import frame_profile as FP
 
     checker, nmap = FP.floor_maps(seed=5, base=64, normal=32)
@@ -1668,9 +1714,12 @@ def small_extras(device) -> dict:
     out = {}
 
     def frames(name, n):
+        W.reset_launches()
         for _ in range(n):
             r.draw()
-        out[name] = (r.accum.cpu(), int(r.last_rays_traced))
+        out[name] = (r.accum.cpu(), int(r.last_rays_traced),
+                     dict(stage_counts(W), route=route_of(W, r),
+                          k7_variant=W.K7_VARIANTS[W.k7_variant(r.settings(), r.statics)]))
 
     frames("light_masked", 2)
     r.use_mipmaps = True
@@ -1686,30 +1735,40 @@ def small_extras(device) -> dict:
 
 
 def check_small_extras(dev):
-    """Phase 8's extras: the textured frames on the card against the CPU
-    plain path, the accumulation within 1e-2 relative RMSE and rays within
-    1 %."""
+    """Phase 8's extras: the textured frames on the card, each on the kernel
+    route (K6 and K7's instantiation for its settings launched, only it),
+    against the CPU plain path, the accumulation within 1e-2 relative RMSE
+    and rays within 1 %."""
     small_g, small_c = small_extras(dev), small_extras("cpu")
-    for case, (acc_g, rays_g) in small_g.items():
-        acc_c, rays_c = small_c[case]
+    for case, (acc_g, rays_g, k) in small_g.items():
+        acc_c, rays_c, _ = small_c[case]
         rel = rel_rmse(acc_g, acc_c)
         log(f"small frame 48x48, {case}: card vs CPU relative RMSE {rel:.3e} in the accumulation "
-            f"(limit 1e-2), rays {rays_g} vs {rays_c}")
+            f"(limit 1e-2), rays {rays_g} vs {rays_c}; K7 {k['k7_variant']} launched "
+            f"{k['k7 ' + k['k7_variant']]} of {k['shade_hit']}, K6 {k['sample_start']}")
         if not (rel < 1e-2 and rays_g > 0 and abs(rays_g - rays_c) <= 0.01 * rays_c):
             raise AssertionError(f"the card's frame disagrees with the CPU reference ({case})")
+        if (not k["route"] or k["sample_start"] < 1 or k["shade_hit"] < 1
+                or k["k7 " + k["k7_variant"]] != k["shade_hit"]):
+            raise AssertionError(f"small frame 48x48, {case}: off the kernel route or another K7 "
+                                 f"instantiation launched: {k}")
 
 
 def drive_debug(torch, tag, r, mode, present, traverse2, variant, frames=1):
     """``frames`` frames of debug view ``mode`` on run ``tag``'s renderer
     with the launch counters set to 0 first (the last frame's wall between
     syncs): the accumulation finite and, but for the metallic and emission
-    views, not all black, K1 and only K2's
-    ``variant`` launched; then the beauty view again. Returns its line."""
+    views, not all black, K1 and only K2's ``variant`` launched, K6 and
+    K7's debug instantiation for the scene on the kernel route and no K8 (a
+    debug view casts no shadow ray); then the beauty view again. Returns its
+    line."""
     from mrt_tpu_torch.core import types as T
+    from mrt_tpu_torch.kernels import wavefront as W
 
     r.debug_texture_mode = mode
     present.launches = 0
     traverse2.reset_launches()
+    W.reset_launches()
     for _ in range(frames):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1718,9 +1777,11 @@ def drive_debug(torch, tag, r, mode, present, traverse2, variant, frames=1):
         wall = time.perf_counter() - t0
     img = r.output_image()
     acc = r.accum
-    counts = {"present": present.launches, "traverse2": traverse2.launches}
+    k7_variant = W.K7_VARIANTS[W.k7_variant(r.settings(), r.statics)]
+    counts = {"present": present.launches, "traverse2": traverse2.launches, **stage_counts(W)}
     line = dict(run=tag, debug_mode=mode, frames=frames, frame_wall=wall,
-                rays=int(r.last_rays_traced), launches=counts,
+                rays=int(r.last_rays_traced), launches=counts, route=route_of(W, r),
+                k7_variant=k7_variant,
                 k2_variants=check_variants(f"{tag} debug {mode}", traverse2, variant),
                 accum_mean=[float(x) for x in acc.mean(dim=(0, 1))],
                 accum_max=[float(x) for x in acc.amax(dim=(0, 1))], image_mean=float(img.mean()))
@@ -1728,7 +1789,9 @@ def drive_debug(torch, tag, r, mode, present, traverse2, variant, frames=1):
     # metallic or emissive (runs A-C's scene)
     black_ok = mode in (T.DEBUG_MODE_METALLIC, T.DEBUG_MODE_EMISSION)
     if (not bool(torch.isfinite(acc).all()) or (float(acc.max()) <= 0.0 and not black_ok)
-            or min(counts.values()) < 1):
+            or min(counts[k] for k in ("present", "traverse2", "sample_start", "shade_hit")) < 1
+            or counts["resolve_shadow"] or not line["route"] or not k7_variant.endswith("debug")
+            or counts[f"k7 {k7_variant}"] != counts["shade_hit"]):
         raise AssertionError(f"run {tag}, debug view {mode}: {line}")
     r.debug_texture_mode = 0
     return line
@@ -2182,7 +2245,7 @@ def phase_m(torch, present, traverse2, refit, W, bounds, tmp, checks, stage_chec
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         c = {"present": present.launches, "traverse2": traverse2.launches,
-             "traverse_flat": traverse2.flat_launches, **refit_counts(refit), **W.launches}
+             "traverse_flat": traverse2.flat_launches, **refit_counts(refit), **stage_counts(W)}
         variants = {k: n for k, n in traverse2.variant_launches.items() if n}
         need = ("present", "traverse2") + W.STAGES
         if tag == "M demo":
@@ -2357,6 +2420,11 @@ def main() -> int:
     ra.shading_mode = T.SHADING_MODE_LEGACY
     stage_checks["A legacy"] = check_stages(torch, "A legacy", ra, W, traverse2, bounds)
     ra.shading_mode = T.SHADING_MODE_PBR
+    # mipmaps on a scene without maps: K7's maps_mips instantiation, which
+    # samples no map and carries the ray cone's length
+    ra.use_mipmaps = True
+    stage_checks["A mipmaps"] = check_stages(torch, "A mipmaps", ra, W, traverse2, bounds)
+    ra.use_mipmaps = False
     route_frames["A"] = check_route_frame(torch, "A", ra, W, wf)
     # the environment and all four light types, uniform and power sampled
     rl = lights_env_renderer(dev)
@@ -2373,7 +2441,7 @@ def main() -> int:
     if env_miss < 1:
         raise AssertionError("phase 3c: no lane of the lights scene missed into the environment")
     del rl
-    for tag in ("A", "A power", "A legacy", "lights+env", "lights+env power"):
+    for tag in ("A", "A power", "A legacy", "A mipmaps", "lights+env", "lights+env power"):
         stage_checks[tag].pop("first", None)
 
     # --- 4. main path: each run's kernels checked at its shapes, then driven ---------------
@@ -2404,7 +2472,8 @@ def main() -> int:
         img = r.output_image()
         torch.cuda.synchronize()
         counts = {"present": present.launches, "traverse2": traverse2.launches,
-                  "traverse_flat": traverse2.flat_launches, **refit_counts(refit), **W.launches}
+                  "traverse_flat": traverse2.flat_launches, **refit_counts(refit),
+                  **stage_counts(W)}
         path = ("present", "traverse_flat" if variant.startswith("flat") else "traverse2") + refits
         if route:
             path += W.STAGES
@@ -2448,15 +2517,26 @@ def main() -> int:
         return line
 
     checks, counts, walls, lines, clone_ms, variant_counts_l = {}, {}, {}, {}, {}, {}
+    stage_times_by = {"A": stage_times}  # K6-K8's times at a run's first launches
 
-    def run(tag, r, timed, variant="packed", scene_name=None, refits=()):
+    def check_route(tag, r, strict=False, timed=False):
+        """Phase 3c at run ``tag`` (its K6-K8 launches, then a frame of the
+        kernel route against the plain route; with ``strict`` the frame
+        bit-equal, with ``timed`` the stages timed at their first launches)."""
+        if tag not in stage_checks:
+            stage_checks[tag] = check_stages(torch, tag, r, W, traverse2, bounds)
+            first = stage_checks[tag].pop("first")
+            if timed:
+                stage_times_by[tag] = time_stages(torch, W, traverse2, bounds, first)
+                log(json.dumps(dict(phase="3c", run=tag, stage_times=stage_times_by[tag],
+                                    card=card_name, power_limit=power_limit)))
+        if tag not in route_frames:
+            route_frames[tag] = check_route_frame(torch, tag, r, W, wf, strict=strict)
+
+    def run(tag, r, timed, variant="packed", scene_name=None, refits=(), strict=False):
         checks[tag] = check_path_kernels(torch, tag, r, present, traverse2, bounds)
         if route_of(W, r):
-            if tag not in stage_checks:
-                stage_checks[tag] = check_stages(torch, tag, r, W, traverse2, bounds)
-                stage_checks[tag].pop("first")
-            if tag not in route_frames:
-                route_frames[tag] = check_route_frame(torch, tag, r, W, wf)
+            check_route(tag, r, strict, timed=strict)
         counts[tag], walls[tag], lines[tag] = drive(
             tag, r, timed, scene_name or FP.RUNS[tag]["scene"], variant, refits)
         # refit keeps its input table: it copies the whole table every call
@@ -2506,7 +2586,8 @@ def main() -> int:
     # --- 6. run E: the presenter chain, a 1080p render presented at 4K -----------------------
     re_ = make("E")
     e_lines, e_checks = {}, {}
-    counts["E"] = {"present": 0, "traverse2": 0, **dict.fromkeys(REFIT_KEYS + W.STAGES, 0)}
+    counts["E"] = {"present": 0, "traverse2": 0, **dict.fromkeys(REFIT_KEYS, 0),
+                   **dict.fromkeys(stage_counts(W), 0)}
     for mode in E_MODES:
         c, e_lines[mode] = drive_e(torch, re_, mode, present, traverse2, presenter, refit)
         counts["E"] = {k: n + c[k] for k, n in counts["E"].items()}
@@ -2537,11 +2618,33 @@ def main() -> int:
             or floor_res["normal"] != [1024, 1024] or not rf.bvh.has_masks or not rf.use_mipmaps):
         raise AssertionError("run F: the floor's maps, the light masks or mipmaps are missing")
     rand["F"] = check_random_rays(torch, "F", rf.bvh, traverse2, bounds, masked=True)
-    run("F", rf, 3, variant="masked")
-    debug_lines = [drive_debug(torch, "F", rf, mode, present, traverse2, "masked")
-                   for mode in range(T.DEBUG_MODE_BASECOLOR, T.DEBUG_MODE_EMISSION + 1)]
-    debug_lines.append(drive_debug(torch, "C", rc, T.DEBUG_MODE_MOTION, present, traverse2,
-                                   "packed", frames=2))
+    run("F", rf, 3, variant="masked", strict=True)
+    # run N: run F at the Renderer's default use_mipmaps=False (the packed atlas)
+    rn = make("N")
+    if rn.use_mipmaps or not any(rn.statics.any_map):
+        raise AssertionError("run N: mipmaps on, or the scene has no texture map")
+    run("N", rn, 3, variant="masked", strict=True)
+    # the debug views: 1-6 on run F's scene (mipmaps), the base colour view on
+    # run N's (the packed atlas) and the motion view (7) on run C's; each
+    # view's K6-K8 launches and a frame of its kernel route held bit-equal
+    # to the plain route first
+    debug_lines = []
+    for tag, r_, modes, variant in (
+            ("F", rf, range(T.DEBUG_MODE_BASECOLOR, T.DEBUG_MODE_EMISSION + 1), "masked"),
+            ("N", rn, (T.DEBUG_MODE_BASECOLOR,), "masked"),
+            ("C", rc, (T.DEBUG_MODE_MOTION,), "packed")):
+        for mode in modes:
+            dtag = f"{tag} debug {mode}"
+            r_.debug_texture_mode = mode
+            try:
+                check_route(dtag, r_, strict=True,
+                            timed=mode in (T.DEBUG_MODE_BASECOLOR, T.DEBUG_MODE_MOTION))
+            finally:
+                r_.debug_texture_mode = 0
+            line = drive_debug(torch, tag, r_, mode, present, traverse2, variant,
+                               frames=2 if mode == T.DEBUG_MODE_MOTION else 1)
+            counts[dtag] = line["launches"]
+            debug_lines.append(line)
     for line in debug_lines:
         log(json.dumps(dict(line, card=card_name, power_limit=power_limit)))
     if debug_lines[-1]["accum_max"][2] <= 0.0:
@@ -2654,8 +2757,8 @@ def main() -> int:
     # --- 7. the profiler last: a process's frames after a profiler session ran
     # slower on the host in this script's runs (PERF.md, Findings)
     profiles = {tag: profile(tag, r) for tag, r in (("A", ra), ("B", rb), ("C", rc), ("F", rf),
-                                                    ("G", rg), ("H", rh), ("J", rj))}
-    # where run F's extra device time goes: its costliest operators beside run A's
+                                                    ("N", rn), ("G", rg), ("H", rh), ("J", rj))}
+    # run F's costliest operators (K7's textured instantiation, the masked K2) beside run A's
     log(json.dumps(dict(top_ops_ms={tag: device_ops(torch, lambda r=r: r.draw(1 / 60), 1, top=12)
                                     for tag, r in (("A", ra), ("F", rf))},
                         card=card_name, power_limit=power_limit)))
@@ -2680,7 +2783,7 @@ def main() -> int:
                                 {m: e_lines[m]["frame_walls_still"] for m in E_MODES})
     log(json.dumps(dict(run="E", profile=e_profile, k1=e_k1, card=card_name,
                         power_limit=power_limit)))
-    del ra, rb, rc, rd, re_, rf, rh, rj, x4k
+    del ra, rb, rc, rd, re_, rf, rn, rh, rj, x4k
     torch.cuda.empty_cache()
 
     # --- 7b. run G on the flat BVH: a flat table above 2^20 - 1 rows (K3's float sort) ----------
@@ -2783,8 +2886,8 @@ def main() -> int:
     def refit_entry(name, key, replaces, head, prefix, by_run):
         return dict(
             name=name, route="cuda", source="mrt_tpu_torch/csrc/refit.cu", replaces=replaces,
-            launches=sum(c[key] for c in counts.values()),
-            launches_by_run={t: c[key] for t, c in counts.items() if c[key]},
+            launches=sum(c.get(key, 0) for c in counts.values()),
+            launches_by_run={t: c[key] for t, c in counts.items() if c.get(key)},
             max_abs_err=max(x.get("max_abs_err", 0.0) for x in by_run.values()),
             ms=head[f"{prefix}_ms"], plain_ms=head[f"{prefix}_plain_ms"],
             bound_ms=head[f"{prefix}_bound_ms"], bound_by=head[f"{prefix}_bound_by"],
@@ -2842,10 +2945,59 @@ def main() -> int:
     log(json.dumps(dict(route_frames=route_frames, card=card_name, power_limit=power_limit)))
     if any(k["launches"] < 1 for k in kernels[-3:]):
         raise AssertionError(f"a stage kernel never launched on the main path: {kernels[-3:]}")
+    # K7 by instantiation: its launches on the main path, the phase-3c checks
+    # of the frames that took it, its registers and spills (-Xptxas -v), and
+    # ms, plain_ms and bound_ms at the first launch of the run that times it
+    # (the untextured one: run A's; the K7 entry above sums them all)
+    k7_regs = {}
+    for name, res_ in build.ptxas.items():
+        if "shade_hit_kernel" in name:
+            k7_regs["untextured"] = res_
+        elif "shade_hit_tex_kernel" in name:
+            bits = [b == "1" for b in re.findall(r"Lb([01])E", name)[:3]]
+            v = sum(1 << k for k, b in enumerate(bits) if b)
+            k7_regs[W.K7_VARIANTS[v]] = res_
+    k7_timed = {"untextured": "A", "maps": "N", "maps_mips": "F", "maps_debug": "N debug 1",
+                "maps_mips_debug": "F debug 1", "debug": "C debug 7"}
+    k7_replaces = {"untextured": "mrt_tpu/render/wavefront.py:372",
+                   "maps": "mrt_tpu/render/wavefront.py:619",
+                   "maps_mips": "mrt_tpu/render/wavefront.py:572",
+                   "maps_debug": "mrt_tpu/render/wavefront.py:661",
+                   "maps_mips_debug": "mrt_tpu/render/wavefront.py:661",
+                   "debug": "mrt_tpu/render/wavefront.py:661"}
+    for v, tag in k7_timed.items():
+        t = stage_times_by[tag]["shade_hit"]
+        mine = {run_: c for run_, c in stage_checks.items() if c["variant"] == v}
+        errs = [d.get("max_abs", 0.0) for c in mine.values()
+                for d in c["stages"]["shade_hit"]["fields"].values()]
+        kernels.append(dict(
+            name=f"K7 shade_hit ({v})", route="cuda", source="mrt_tpu_torch/csrc/wavefront.cu",
+            replaces=k7_replaces[v],
+            launches=sum(c.get(f"k7 {v}", 0) for c in counts.values())
+            + (sum(counts[t_]["shade_hit"] for t_ in variant_counts_l) if v == "untextured" else 0),
+            launches_by_run={t_: c[f"k7 {v}"] for t_, c in counts.items() if c.get(f"k7 {v}")},
+            max_abs_err=max(errs + [0.0]), ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None, timed_at=tag,
+            registers=k7_regs.get(v),
+            checked={run_: dict(launches=c["stages"]["shade_hit"]["launches"],
+                                not_bit_equal=c["not_bit_equal"]["shade_hit"],
+                                frame_ms=c["stages"]["shade_hit"]["frame_ms"],
+                                frame_plain_ms=c["stages"]["shade_hit"]["frame_plain_ms"],
+                                frame_bound_ms=c["stages"]["shade_hit"]["frame_bound_ms"])
+                     for run_, c in mine.items()}))
+        if kernels[-1]["launches"] < 1 or not mine:
+            raise AssertionError(f"K7's {v} instantiation never launched on the main path or was "
+                                 f"never checked: {kernels[-1]}")
     for tag in ("A", "B", "C", "E", "G", "H", "J", "M smoke", "M demo"):
         c = counts[tag]
-        if min(c[s] for s in W.STAGES) < 1:
-            raise AssertionError(f"run {tag}: off the kernel route or a stage never launched: {c}")
+        if min(c[s] for s in W.STAGES) < 1 or c["k7 untextured"] != c["shade_hit"]:
+            raise AssertionError(f"run {tag}: off the kernel route, a stage never launched or a "
+                                 f"textured K7 launched: {c}")
+    for tag, v in (("F", "maps_mips"), ("N", "maps")):
+        c = counts[tag]
+        if min(c[s] for s in W.STAGES) < 1 or c[f"k7 {v}"] != c["shade_hit"]:
+            raise AssertionError(f"run {tag}: K6-K8 or K7's {v} instantiation never launched, or "
+                                 f"another K7 did: {c}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

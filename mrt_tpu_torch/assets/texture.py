@@ -14,6 +14,7 @@ each rank keeps one band and ``sample_packed_banded`` weighs the taps it owns.
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import NamedTuple
 
 import numpy as np
@@ -88,7 +89,22 @@ def srgb_to_linear(c: np.ndarray) -> np.ndarray:
 
 def load_image(path: str) -> np.ndarray | None:
     """Load an image file to (H, W, 3) float32 in [0, 1]; None on failure
-    (texture-load fallback posture, SubMesh.swift:104,176-241)."""
+    (texture-load fallback posture, SubMesh.swift:104,176-241). A
+    non-interlaced 8-bit PNG is decoded by the port's own decoder
+    (``utils/image.decode_png``, PIL's ``convert("RGB")`` to the byte), PIL
+    or no PIL; any other file goes to PIL where it is installed."""
+    from ..utils.image import PNG_SIGNATURE, decode_png
+
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return None
+    if data[:8] == PNG_SIGNATURE:
+        try:
+            return decode_png(data, path).astype(np.float32) / 255.0
+        except (ValueError, zlib.error):
+            pass
     try:
         from PIL import Image
 
@@ -285,7 +301,13 @@ def _resize_bilinear(img: np.ndarray, h: int, w: int) -> np.ndarray:
 def _packed_taps(packed_rects: torch.Tensor, resource: torch.Tensor, uv: torch.Tensor):
     """The 4 global tap coordinates (repeat addressing inside the resource's
     rect) and the (R, 1) bilinear weights."""
-    rect = packed_rects[resource.long()]
+    return rect_taps(packed_rects[resource.long()], uv)
+
+
+def rect_taps(rect: torch.Tensor, uv: torch.Tensor):
+    """Bilinear taps with repeat addressing inside per-lane rects (R, 4)
+    (x0, y0, w, h): the int32 global columns gx0, gx1 and rows gy0, gy1 of
+    the 4 taps and the (R, 1) weights fx, fy."""
     x0 = rect[:, 0].to(torch.float32)
     y0 = rect[:, 1].to(torch.float32)
     w = rect[:, 2].to(torch.float32)
@@ -393,6 +415,16 @@ def sample_trilinear(atlas: TextureAtlas, resource: torch.Tensor, map_type: int,
     """Trilinear sample of one map's mip chain. ``lod_base`` (R,) is log2 of
     the ray-cone footprint in UV units; the map's LOD adds log2 of its
     level-0 texel size, so one footprint drives every map of a hit."""
+    rect0, rect1, frac = trilinear_rects(atlas, resource, map_type, lod_base)
+    c0 = _bilinear_rect(atlas, rect0, uv)
+    c1 = _bilinear_rect(atlas, rect1, uv)
+    return c0 * (1.0 - frac) + c1 * frac
+
+
+def trilinear_rects(atlas: TextureAtlas, resource: torch.Tensor, map_type: int,
+                    lod_base: torch.Tensor):
+    """``sample_trilinear``'s two mip levels: their rects (R, 4) and the
+    (R, 1) weight of the second."""
     f32 = torch.float32
     res = resource.long()
     r0 = atlas.rects[res, map_type]
@@ -404,43 +436,22 @@ def sample_trilinear(atlas: TextureAtlas, resource: torch.Tensor, map_type: int,
     frac = (lod - l0)[:, None]
     flat_mr = atlas.mip_rects.reshape(-1, 4)
     base = (res * N_MAP_TYPES + map_type) * MAX_MIPS
-    rect0 = flat_mr[base + l0.long()]
-    rect1 = flat_mr[base + l1.long()]
-    c0 = _bilinear_rect(atlas, rect0, uv)
-    c1 = _bilinear_rect(atlas, rect1, uv)
-    return c0 * (1.0 - frac) + c1 * frac
+    return flat_mr[base + l0.long()], flat_mr[base + l1.long()], frac
 
 
 def _bilinear_rect(atlas: TextureAtlas, rect: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """Bilinear sample with repeat addressing inside a per-lane rect (R,4)."""
-    x0 = rect[:, 0].to(torch.float32)
-    y0 = rect[:, 1].to(torch.float32)
-    w = rect[:, 2].to(torch.float32)
-    h = rect[:, 3].to(torch.float32)
-    u = uv[:, 0] - torch.floor(uv[:, 0])
-    v = uv[:, 1] - torch.floor(uv[:, 1])
-    x = u * w - 0.5
-    y = v * h - 0.5
-    xf = torch.floor(x)
-    yf = torch.floor(y)
-    fx = (x - xf)[:, None]
-    fy = (y - yf)[:, None]
-    xi0 = torch.remainder(xf, w)
-    xi1 = torch.remainder(xf + 1.0, w)
-    yi0 = torch.remainder(yf, h)
-    yi1 = torch.remainder(yf + 1.0, h)
+    gx0, gx1, gy0, gy1, fx, fy = rect_taps(rect, uv)
     width = atlas.width
     flat = atlas.texels.reshape(-1, 3)
 
-    def fetch(xi, yi):
-        gx = (x0 + xi).to(torch.int32)
-        gy = (y0 + yi).to(torch.int32)
+    def fetch(gx, gy):
         return flat[(gy * width + gx).long()]
 
-    c00 = fetch(xi0, yi0)
-    c10 = fetch(xi1, yi0)
-    c01 = fetch(xi0, yi1)
-    c11 = fetch(xi1, yi1)
+    c00 = fetch(gx0, gy0)
+    c10 = fetch(gx1, gy0)
+    c01 = fetch(gx0, gy1)
+    c11 = fetch(gx1, gy1)
     top = c00 * (1 - fx) + c10 * fx
     bot = c01 * (1 - fx) + c11 * fx
     return top * (1 - fy) + bot * fy

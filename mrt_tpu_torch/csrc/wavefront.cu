@@ -21,7 +21,14 @@
 //       legacy shading, the shadow ray, then the throughput, dead-lane and
 //       cosine-hemisphere bounce update. A lane that was not live when the
 //       closest-hit batch was traced only resolves and clears its shadow
-//       mask.
+//       mask. Its textured and debug instantiations
+//       (shade_hit_tex_kernel<MAPS, MIPS, DEBUG>, textured_hit) add the rest
+//       of trace_tile's hit (:572-714): the texture maps of the hit's
+//       material from the channel-packed atlas (4 bilinear taps of 16
+//       floats) or, with mipmaps, the ray cone's LOD and two taps of each
+//       map's mip chain (assets/texture.py:sample_packed, sample_trilinear),
+//       normal mapping in the triangle's tangent basis, and the debug views,
+//       which write the colour at the first hit and retire the lane.
 //   K8: after a sample's last iteration, the last shadow rays' add.
 // The radiance adds keep the plain loop's order: env(k), emission(k),
 // contrib(k), env(k+1). Matching PyTorch's CUDA ops: a division by a Python
@@ -29,7 +36,9 @@
 // 1 / x and a normalisation's v / |v| are true divisions; Python constants
 // are the f32 of the double (F(x)); clamp propagates NaN (clampf);
 // torch.pow(x, 5.0) is powf; dot products add x, y, z in that order;
-// searchsorted is left-sided. Built with -fmad=false, so no multiply-add is
+// searchsorted is left-sided; torch.remainder of f32 is fmodf, then + b
+// where the signs differ; torch.minimum keeps a NaN; log2 and sqrt are
+// log2f and sqrtf. Built with -fmad=false, so no multiply-add is
 // contracted.
 //
 // Bound: bytes, per listed lane. K7 reads the raw hit record (20 B: t, the
@@ -39,7 +48,12 @@
 // operations (~600 f32, dominated by six 11-digit Halton loops of ~10 ops
 // each) put it near the ridge. Each listed lane also reads its shadow mask
 // and occlusion, and a lane that adds reads its contribution
-// (utils/bounds.py:k7_listed, :k8).
+// (utils/bounds.py:k7_listed, :k8). A textured hit also reads its texture
+// bits (16 B), its taps (4 of 64 B in the packed atlas, or 2 x 4 of 12 B per
+// map with mipmaps; the bound counts each distinct texel once, since
+// neighbouring hits share them) and a 72-B motion row where the LOD, the
+// tangent basis or the motion view needs its vertices: scattered loads, a
+// 32-B sector each at least (the taps are not made faster here).
 //
 // What held the full-width design (one thread per lane of the whole
 // wavefront, K8 a second full-width launch, the hits remade by torch ops)
@@ -127,6 +141,34 @@ struct ShadowOut {
     bool* need;
 };
 
+// What the textured instantiations read beyond Frame: the atlas (the
+// channel-packed level 0 and the mip chains, assets/texture.py), the motion
+// rows (current and previous world vertices of each triangle), the pixel's
+// cone angle, and the motion view's previous camera and sample-0 record;
+// kernels/wavefront.py:_maps_ptrs's order (null where not needed)
+struct Maps {
+    const float* packed;       // (Hp, Wp, 16): every map of a resource at one rect
+    const int* packed_rects;   // (R, 4): x0 y0 w h
+    const float* texels;       // (H, W, 3): every map's mip chain
+    const int* rects;          // (R, 7, 4): level 0's rect per map
+    const int* mip_rects;      // (R, 7, 12, 4)
+    const int* n_levels;       // (R, 7)
+    const float* motion_rows;  // (T, 18): v0 v1 v2, then their previous positions
+    const float* pixel_angle;  // 0-d
+    const float* prev_camera;  // (12,): the previous frame's position right up forward
+    const float* prev_motion;  // (P, 2)
+    const bool* had0;          // (P,): sample 0's first ray hit
+    const float* motion0;      // (P, 2): its motion
+};
+static_assert(sizeof(Maps) == 12 * sizeof(void*), "Maps mirrors kernels/wavefront.py:_maps_ptrs");
+
+struct MapsInfo {
+    int any_map;     // bit m: some resource has map m (SceneStatics.any_map)
+    int debug_mode;  // 0, or the debug view 1-7
+    int packed_w, texel_w;  // the packed atlas's and the texels' widths
+    float width, height;    // the render's, for the motion view
+};
+
 enum {
     FLAG_SAMPLE0 = 1,
     FLAG_GBUFFER = 2,
@@ -135,7 +177,20 @@ enum {
     FLAG_LEGACY = 16,
     FLAG_POWER = 32,
     FLAG_RESOLVE = 64,  // a shadow ray of the previous iteration is pending
+    FLAG_AO = 128,      // core/types.py:ENABLE_AO
 };
+
+// assets/texture.py's map types, the material's texture bits
+// (core/types.py:MATERIAL_TEXTURE_*), the packed texel's channels and the
+// debug views (core/types.py:DEBUG_MODE_*)
+enum { MAP_BASECOLOR, MAP_NORMAL, MAP_ROUGHNESS, MAP_METALLIC, MAP_AO, MAP_OPACITY, MAP_EMISSION,
+       N_MAP_TYPES, MAX_MIPS = 12, PACKED_C = 16 };
+enum { TEX_BASECOLOR = 1, TEX_NORMAL = 2, TEX_ROUGHNESS = 4, TEX_METALLIC = 8, TEX_AO = 16,
+       TEX_EMISSION = 32, TEX_OPACITY = 64 };
+enum { PK_BASECOLOR = 0, PK_NORMAL = 3, PK_EMISSION = 6, PK_ROUGHNESS = 9, PK_METALLIC = 10,
+       PK_AO = 11, PK_OPACITY = 12 };
+enum { DEBUG_BASECOLOR = 1, DEBUG_NORMAL, DEBUG_ROUGHNESS, DEBUG_METALLIC, DEBUG_AO,
+       DEBUG_EMISSION, DEBUG_MOTION };
 
 // kernels/wavefront.py:pack_lights's columns
 enum {
@@ -269,6 +324,118 @@ __device__ LightSample evaluate_light(const float* L, float ua, float ub, f3 p) 
     return s;
 }
 
+// --- the textured instantiations' pieces --------------------------------------------
+
+// torch.remainder of f32 on CUDA: fmod, then + b where the signs differ
+__device__ __forceinline__ float py_fmodf(float a, float b) {
+    float m = fmodf(a, b);
+    if ((m != 0.0f) && ((b < 0.0f) != (m < 0.0f))) m += b;
+    return m;
+}
+
+// torch.minimum: a NaN on either side is the result
+__device__ __forceinline__ float minimum(float a, float b) {
+    return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
+}
+
+// assets/texture.py:_packed_taps and _bilinear_rect's addressing: repeat
+// inside the rect (x0 y0 w h), the four taps' global texel coordinates and
+// the bilinear weights
+struct Taps {
+    int x0, x1, y0, y1;
+    float fx, fy;
+};
+
+__device__ __forceinline__ Taps repeat_taps(int4 rect, float tu, float tv) {
+    const float x0 = (float)rect.x, y0 = (float)rect.y, w = (float)rect.z, h = (float)rect.w;
+    const float u = tu - floorf(tu);
+    const float v = tv - floorf(tv);
+    const float x = u * w - 0.5f;
+    const float y = v * h - 0.5f;
+    const float xf = floorf(x);
+    const float yf = floorf(y);
+    Taps t;
+    t.fx = x - xf;
+    t.fy = y - yf;
+    t.x0 = (int)(x0 + py_fmodf(xf, w));
+    t.x1 = (int)(x0 + py_fmodf(xf + 1.0f, w));
+    t.y0 = (int)(y0 + py_fmodf(yf, h));
+    t.y1 = (int)(y0 + py_fmodf(yf + 1.0f, h));
+    return t;
+}
+
+// the plain order: top = c00 (1 - fx) + c10 fx, bot likewise, top (1 - fy) + bot fy
+__device__ __forceinline__ float blend(float c00, float c10, float c01, float c11, float gx,
+                                       float fx, float gy, float fy) {
+    const float top = c00 * gx + c10 * fx;
+    const float bot = c01 * gx + c11 * fx;
+    return top * gy + bot * fy;
+}
+
+// assets/texture.py:sample_packed: one bilinear sample of every map of
+// resource res at uv (PACKED_C channels; 4 taps of 4 float4 each)
+__device__ __forceinline__ void sample_packed(const Maps& M, int packed_w, int res, float tu,
+                                              float tv, float out[PACKED_C]) {
+    const Taps t = repeat_taps(__ldg(reinterpret_cast<const int4*>(M.packed_rects) + res), tu, tv);
+    const float4* p = reinterpret_cast<const float4*>(M.packed);
+    const float4* p00 = p + 4 * (long long)(t.y0 * packed_w + t.x0);
+    const float4* p10 = p + 4 * (long long)(t.y0 * packed_w + t.x1);
+    const float4* p01 = p + 4 * (long long)(t.y1 * packed_w + t.x0);
+    const float4* p11 = p + 4 * (long long)(t.y1 * packed_w + t.x1);
+    const float gx = 1.0f - t.fx, gy = 1.0f - t.fy;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const float4 a = __ldg(p00 + q), b = __ldg(p10 + q), c = __ldg(p01 + q), d = __ldg(p11 + q);
+        out[4 * q] = blend(a.x, b.x, c.x, d.x, gx, t.fx, gy, t.fy);
+        out[4 * q + 1] = blend(a.y, b.y, c.y, d.y, gx, t.fx, gy, t.fy);
+        out[4 * q + 2] = blend(a.z, b.z, c.z, d.z, gx, t.fx, gy, t.fy);
+        out[4 * q + 3] = blend(a.w, b.w, c.w, d.w, gx, t.fx, gy, t.fy);
+    }
+}
+
+__device__ __forceinline__ f3 texel(const Maps& M, int texel_w, int x, int y) {
+    const float* p = M.texels + 3 * (long long)(y * texel_w + x);
+    return mk(__ldg(p), __ldg(p + 1), __ldg(p + 2));
+}
+
+// assets/texture.py:_bilinear_rect: a bilinear sample of the texels inside rect
+__device__ __forceinline__ f3 bilinear_rect(const Maps& M, int texel_w, int4 rect, float tu,
+                                            float tv) {
+    const Taps t = repeat_taps(rect, tu, tv);
+    const f3 c00 = texel(M, texel_w, t.x0, t.y0), c10 = texel(M, texel_w, t.x1, t.y0);
+    const f3 c01 = texel(M, texel_w, t.x0, t.y1), c11 = texel(M, texel_w, t.x1, t.y1);
+    const float gx = 1.0f - t.fx, gy = 1.0f - t.fy;
+    return mk(blend(c00.x, c10.x, c01.x, c11.x, gx, t.fx, gy, t.fy),
+              blend(c00.y, c10.y, c01.y, c11.y, gx, t.fx, gy, t.fy),
+              blend(c00.z, c10.z, c01.z, c11.z, gx, t.fx, gy, t.fy));
+}
+
+// assets/texture.py:sample_trilinear: map m of resource res at the ray
+// cone's lod_base, plus half log2 of the map's level-0 texel count
+__device__ __forceinline__ f3 sample_trilinear(const Maps& M, int texel_w, int res, int m,
+                                               float tu, float tv, float lod_base) {
+    const int rm = res * N_MAP_TYPES + m;
+    const int4 r0 = __ldg(reinterpret_cast<const int4*>(M.rects) + rm);
+    const float nl = (float)__ldg(M.n_levels + rm);
+    const float size0 = clamp_min((float)r0.z * (float)r0.w, 1.0f);
+    const float lod = minimum(clamp_min(lod_base + 0.5f * log2f(size0), 0.0f), nl - 1.0f);
+    const float l0 = floorf(lod);
+    const float l1 = minimum(l0 + 1.0f, nl - 1.0f);
+    const float frac = lod - l0;
+    const int4* mr = reinterpret_cast<const int4*>(M.mip_rects) + (long long)rm * MAX_MIPS;
+    const f3 c0 = bilinear_rect(M, texel_w, __ldg(mr + (int)l0), tu, tv);
+    const f3 c1 = bilinear_rect(M, texel_w, __ldg(mr + (int)l1), tu, tv);
+    return c0 * (1.0f - frac) + c1 * frac;
+}
+
+// kernels/wavefront.py:_project: screen x, y over the clamped depth
+__device__ __forceinline__ void project(const float* cam, f3 pos, float& sx, float& sy) {
+    const f3 view = pos - ld3(cam);
+    const float denom = clamp_min(dot3(view, ld3(cam + 9)), F(0.001));
+    sx = dot3(view, ld3(cam + 3)) / denom;
+    sy = dot3(view, ld3(cam + 6)) / denom;
+}
+
 __global__ void sample_start_kernel(Lane S, Frame Fr, const int* __restrict__ total, int n,
                                     int hbase, int sidx, float width, float height) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -295,11 +462,197 @@ __global__ void sample_start_kernel(Lane S, Frame Fr, const int* __restrict__ to
     S.cone_t[i] = 0.0f;
 }
 
+// The first 2 * N2 floats of triangle tri's motion row (18 floats, 72 B:
+// 8-B aligned, so float2 loads)
+template <int N2>
+__device__ __forceinline__ void motion_row(const Maps& M, int tri, float m[2 * N2]) {
+    const float2* p = reinterpret_cast<const float2*>(M.motion_rows) + 9 * (long long)tri;
+#pragma unroll
+    for (int k = 0; k < N2; ++k) {
+        const float2 a = __ldg(p + k);
+        m[2 * k] = a.x;
+        m[2 * k + 1] = a.y;
+    }
+}
+
+// What a hit's material gives the shading, after its texture maps
+struct Surface {
+    f3 albedo, emission;
+    float roughness, metallic, ao, opacity;
+    f3 shading_nrm;
+};
+
+// The textured and debug instantiations' part of a hit (the untextured K7
+// has none of it): with MIPS (which comes with MAPS) the ray cone's length
+// and LOD;
+// the texture maps (map m is sampled where some resource has it and the
+// material's bit is set: the plain version samples every lane and
+// selects), each replacing or scaling its part of sf; with DEBUG the
+// view's colour replaces the radiance, the lane retires and the function
+// returns true; else a normal map bends sf.shading_nrm. s2, s3: the shade
+// row's last two float4 (the uvs); mrow: the material row.
+template <bool MAPS, bool MIPS, bool DEBUG>
+__device__ __forceinline__ bool textured_hit(const Lane& S, const ShadowOut& Sh, const Frame& Fr,
+                                             const Maps& M, const MapsInfo& I, int i, int tri,
+                                             int res, int flags, int rays, float t, float hu,
+                                             float hv, float w, float4 s2, float4 s3, f3 ray_d,
+                                             f3 nrm, const float4* mrow, Surface& sf) {
+    static_assert(MAPS || !MIPS, "mipmaps come with the MAPS instantiation");
+    // the hit's world vertices v0 v1 v2 (the motion row's first 9 floats),
+    // for the ray cone's footprint and the tangent basis
+    float mv[10];
+    float lod_base = 0.0f;
+    if constexpr (MIPS) {
+        // the ray cone's mip LOD: its radius grows with the path length, its
+        // footprint goes to uv units by the triangle's uv area over its world area
+        const float cone = S.cone_t[i] + t;
+        S.cone_t[i] = cone;
+        motion_row<5>(M, tri, mv);
+        const f3 v0 = mk(mv[0], mv[1], mv[2]);
+        const float world_area =
+            0.5f * length3(cross(mk(mv[3], mv[4], mv[5]) - v0, mk(mv[6], mv[7], mv[8]) - v0));
+        const float du1x = s2.w - s2.y, du1y = s3.x - s2.z;
+        const float du2x = s3.y - s2.y, du2y = s3.z - s2.z;
+        const float uv_area = 0.5f * fabsf(du1x * du2y - du1y * du2x);
+        const float cos_inc = clamp_min(fabsf(dot3(ray_d, nrm)), 0.25f);
+        const float footprint_w = cone * __ldg(M.pixel_angle) / cos_inc;
+        const float footprint_uv = footprint_w * sqrtf(uv_area / clamp_min(world_area, F(1e-12)));
+        lod_base = log2f(clamp_min(footprint_uv, F(1e-8)));
+    }
+
+    int mflags = 0;
+    float tu = 0.0f, tv = 0.0f;
+    float pk[PACKED_C];
+    f3 base_sample = mk(1.0f, 0.0f, 1.0f);  // magenta: the base colour view without a map
+    auto has = [&](int m, int bit) { return ((I.any_map >> m) & 1) && (mflags & bit); };
+    auto sample3 = [&](int m, int c0) -> f3 {  // map m: with mipmaps its chain, else the packed
+        if constexpr (MIPS) return sample_trilinear(M, I.texel_w, res, m, tu, tv, lod_base);
+        else if constexpr (MAPS) return mk(pk[c0], pk[c0 + 1], pk[c0 + 2]);
+        else return mk(0.0f, 0.0f, 0.0f);  // no map to sample: never called
+    };
+    auto sample1 = [&](int m, int c0) -> float { return sample3(m, c0).x; };
+    if constexpr (MAPS) {
+        mflags = (int)__ldg(mrow + 3).x;
+        // the barycentric blend of the uvs (u uv1 + v uv2 + w uv0), y flipped
+        tu = hu * s2.w + hv * s3.y + w * s2.y;
+        tv = 1.0f - (hu * s3.x + hv * s3.z + w * s2.z);
+        if constexpr (!MIPS) {
+            const bool any = has(MAP_BASECOLOR, TEX_BASECOLOR) || has(MAP_NORMAL, TEX_NORMAL) ||
+                             has(MAP_ROUGHNESS, TEX_ROUGHNESS) || has(MAP_METALLIC, TEX_METALLIC) ||
+                             ((flags & FLAG_AO) && has(MAP_AO, TEX_AO)) ||
+                             has(MAP_OPACITY, TEX_OPACITY) || has(MAP_EMISSION, TEX_EMISSION);
+            if (any) sample_packed(M, I.packed_w, res, tu, tv, pk);
+        }
+        if (has(MAP_BASECOLOR, TEX_BASECOLOR)) {
+            base_sample = sample3(MAP_BASECOLOR, PK_BASECOLOR);
+            sf.albedo = sf.albedo * base_sample;
+        }
+        if (has(MAP_ROUGHNESS, TEX_ROUGHNESS)) sf.roughness = sample1(MAP_ROUGHNESS, PK_ROUGHNESS);
+        if (has(MAP_METALLIC, TEX_METALLIC)) sf.metallic = sample1(MAP_METALLIC, PK_METALLIC);
+        if ((flags & FLAG_AO) && has(MAP_AO, TEX_AO)) sf.ao = sample1(MAP_AO, PK_AO);
+        if (has(MAP_OPACITY, TEX_OPACITY))
+            sf.opacity = sf.opacity * sample1(MAP_OPACITY, PK_OPACITY);
+        if (has(MAP_EMISSION, TEX_EMISSION)) sf.emission = sample3(MAP_EMISSION, PK_EMISSION);
+    }
+
+    // debug views: the colour at the hit replaces the radiance, the lane retires
+    if constexpr (DEBUG) {
+        const f3 magenta = mk(1.0f, 0.0f, 1.0f);
+        const int mode = I.debug_mode;
+        f3 dbg;
+        if (mode == DEBUG_BASECOLOR) {
+            dbg = base_sample;
+        } else if (mode == DEBUG_NORMAL) {
+            dbg = nrm * 0.5f + mk(0.5f, 0.5f, 0.5f);
+            if constexpr (MAPS) {
+                if (has(MAP_NORMAL, TEX_NORMAL)) dbg = sample3(MAP_NORMAL, PK_NORMAL);
+            }
+        } else if (mode == DEBUG_ROUGHNESS) {
+            dbg = mk(sf.roughness, sf.roughness, sf.roughness);
+        } else if (mode == DEBUG_METALLIC) {
+            dbg = mk(sf.metallic, sf.metallic, sf.metallic);
+        } else if (mode == DEBUG_AO) {
+            dbg = (flags & FLAG_AO) ? mk(sf.ao, sf.ao, sf.ao) : magenta;
+        } else if (mode == DEBUG_EMISSION) {
+            dbg = sf.emission;
+        } else {  // the motion view: sample 0's motion (kernels/wavefront.py:screen_motion)
+            float mpx, mpy;
+            if (flags & FLAG_SAMPLE0) {
+                float m[18];
+                motion_row<9>(M, tri, m);
+                const f3 obj = mk(m[3], m[4], m[5]) * hu + mk(m[6], m[7], m[8]) * hv +
+                               mk(m[0], m[1], m[2]) * w;
+                const f3 prev = mk(m[12], m[13], m[14]) * hu + mk(m[15], m[16], m[17]) * hv +
+                                mk(m[9], m[10], m[11]) * w;
+                float sx, sy, psx, psy;
+                project(Fr.camera, obj, sx, sy);
+                project(M.prev_camera, prev, psx, psy);
+                const float right_scale = clamp_min(length3(ld3(Fr.camera + 3)), F(1e-5));
+                const float up_scale = clamp_min(length3(ld3(Fr.camera + 6)), F(1e-5));
+                mpx = (sx - psx) * (I.width / (2.0f * right_scale));
+                mpy = -((sy - psy) * (I.height / (2.0f * up_scale)));
+            } else if (M.had0[i]) {
+                mpx = M.motion0[2 * i];
+                mpy = M.motion0[2 * i + 1];
+            } else {
+                mpx = M.prev_motion[2 * i];
+                mpy = M.prev_motion[2 * i + 1];
+            }
+            const float scx = clampf(mpx * F(0.05), -1.0f, 1.0f);
+            const float scy = clampf(mpy * F(0.05), -1.0f, 1.0f);
+            const float mag = clampf(sqrtf(mpx * mpx + mpy * mpy) * F(0.1), 0.0f, 1.0f);
+            dbg = mk(scx * 0.5f + 0.5f, scy * 0.5f + 0.5f, mag);
+        }
+        st3(S.accumulated + 3 * i, dbg);
+        S.active[i] = false;
+        S.rays[i] = rays;
+        Sh.need[i] = false;
+        return true;
+    }
+
+    // normal mapping: the map's tangent-space normal in the triangle's
+    // tangent basis (render/shade.py:tangent_basis_rows), Gram-Schmidt
+    // against the interpolated normal
+    if constexpr (MAPS) {
+        if (has(MAP_NORMAL, TEX_NORMAL)) {
+            if constexpr (!MIPS) motion_row<5>(M, tri, mv);
+            const f3 v0 = mk(mv[0], mv[1], mv[2]);
+            const f3 e1 = mk(mv[3], mv[4], mv[5]) - v0, e2 = mk(mv[6], mv[7], mv[8]) - v0;
+            const float du1x = s2.w - s2.y, du1y = s3.x - s2.z;
+            const float du2x = s3.y - s2.y, du2y = s3.z - s2.z;
+            const float denom = du1x * du2y - du1y * du2x;
+            bool valid = fabsf(denom) >= F(1e-8);
+            const float r = valid ? 1.0f / denom : 0.0f;
+            const f3 tangent = (e1 * du2y - e2 * du1y) * r;
+            const f3 bitangent = (e2 * du1x - e1 * du2x) * r;
+            valid = valid && (length3(tangent) > F(1e-8)) && (length3(bitangent) > F(1e-8));
+            if (valid) {
+                const f3 world_t = normalize(tangent - nrm * dot3(tangent, nrm));
+                const f3 world_b = normalize(cross(nrm, world_t));
+                const f3 sm = sample3(MAP_NORMAL, PK_NORMAL);
+                const f3 nm = mk(sm.x * 2.0f - 1.0f, sm.y * 2.0f - 1.0f, sm.z * 2.0f - 1.0f);
+                sf.shading_nrm = normalize(world_t * nm.x + world_b * nm.y + nrm * nm.z);
+            }
+        }
+    }
+    return false;
+}
+
 // One listed lane of K7: the previous iteration's shadow ray, then this
 // iteration's body. Sets alive (the lane is live after it) and keep (live,
 // or holding a shadow ray: the lane belongs to the next list).
+// The instantiation <false, false, false> is the untextured K7. MAPS: the
+// scene has texture maps (SceneStatics.any_map; the per-map bits in
+// I.any_map), sampled from the packed atlas, or with MIPS trilinearly at
+// the ray cone's LOD (use_mipmaps, which also carries the cone's length and
+// comes with MAPS);
+// a normal map bends the shading normal. DEBUG: a debug view
+// (I.debug_mode): the colour at the first hit replaces the radiance and the
+// lane retires, casting no shadow ray.
+template <bool MAPS, bool MIPS, bool DEBUG>
 __device__ __forceinline__ void shade_lane(const Lane& S, const Frame& Fr, const Raw& R,
                                            const ShadowOut& Sh, const bool* __restrict__ occluded,
+                                           const Maps* M, const MapsInfo* I,
                                            int i, int hbase, int n_lights, int env_h, int env_w,
                                            int flags, int max_bounces, bool& alive, bool& keep) {
     // K8 folded in: the resolve of the previous iteration comes first, as the
@@ -357,16 +710,29 @@ __device__ __forceinline__ void shade_lane(const Lane& S, const Frame& Fr, const
     // surface normal
     f3 nrm_raw = mk(s0.w, s1.x, s1.y) * hu + mk(s1.z, s1.w, s2.x) * hv + mk(s0.x, s0.y, s0.z) * w;
     f3 nrm = length3(nrm_raw) < F(1e-10) ? -ray_d : normalize(nrm_raw);
-    const f3 shading_nrm = nrm;  // no normal map on the kernel route
+    f3 shading_nrm = nrm;  // bent by a normal map (MAPS)
 
-    // material (no texture maps on the kernel route: roughness 1, metallic 0, ao 1)
-    // material row [base(3) specular(3) emission(3) spec_exp ior opacity ...]: 3 float4
+    // material row [base(3) specular(3) emission(3) spec_exp ior opacity flags ...]: 3 float4
+    // (untextured: roughness 1, metallic 0, ao 1)
     const float4* mrow = reinterpret_cast<const float4*>(Fr.mat_rows) + 4 * (long long)res;
     const float4 m0 = __ldg(mrow), m1 = __ldg(mrow + 1), m2 = __ldg(mrow + 2);
-    const f3 albedo = mk(m0.x, m0.y, m0.z);
-    const f3 emission = mk(m1.z, m1.w, m2.x);
-    const float roughness = 1.0f, metallic = 0.0f, ao = 1.0f;
-    const float opacity = clampf(m2.w, 0.0f, 1.0f);
+    f3 albedo = mk(m0.x, m0.y, m0.z);
+    f3 emission = mk(m1.z, m1.w, m2.x);
+    float roughness = 1.0f, metallic = 0.0f, ao = 1.0f;
+    float opacity = clampf(m2.w, 0.0f, 1.0f);
+    if constexpr (MAPS || MIPS || DEBUG) {
+        Surface sf{albedo, emission, roughness, metallic, ao, opacity, shading_nrm};
+        if (textured_hit<MAPS, MIPS, DEBUG>(S, Sh, Fr, *M, *I, i, tri, res, flags, rays, t, hu, hv,
+                                            w, s2, s3, ray_d, nrm, mrow, sf))
+            return;  // a debug view: the lane retired
+        albedo = sf.albedo;
+        emission = sf.emission;
+        roughness = sf.roughness;
+        metallic = sf.metallic;
+        ao = sf.ao;
+        opacity = sf.opacity;
+        shading_nrm = sf.shading_nrm;
+    }
 
     // G-buffer: sample 0's first hit, before the glass branch
     if ((flags & FLAG_GBUFFER) && (flags & FLAG_SAMPLE0) && !S.wrote_gb[i]) {
@@ -567,13 +933,16 @@ __device__ __forceinline__ int list_entry(const int* __restrict__ list, int j, i
 // round, the rounds strided over the grid. The lanes live after the step are
 // appended to the front of out, those that only hold a shadow ray to its
 // back: a warp ballot, a prefix over the block's warps and one atomicAdd per
-// block, round and part, so the next step's live lanes share warps.
-// 4 blocks of 256 a SM (64 registers, a few bytes of the body spilled): the
-// occupancy of the full-width K7; at the 80 registers it takes unbounded, 3 fit.
-__global__ void __launch_bounds__(SHADE_BLOCK, 4) shade_hit_kernel(
-    Lane S, Frame Fr, Raw R, ShadowOut Sh, const bool* __restrict__ occluded,
-    const int* __restrict__ in, int* __restrict__ out, const int* __restrict__ cin, int* cout,
-    int n, int hbase, int n_lights, int env_h, int env_w, int flags, int max_bounces) {
+// block, round and part, so the next step's live lanes share warps. The
+// structs come by value and the maps by pointer (null in the untextured
+// K7): so the untextured instantiation keeps, register for register, the
+// instructions it had as a kernel of its own (kernels/sass_diff.py).
+template <bool MAPS, bool MIPS, bool DEBUG>
+__device__ __forceinline__ void shade_rounds(
+    Lane S, Frame Fr, Raw R, ShadowOut Sh,
+    const bool* __restrict__ occluded, const int* __restrict__ in, int* __restrict__ out,
+    const int* __restrict__ cin, int* cout, int n, int hbase, int n_lights, int env_h, int env_w,
+    int flags, int max_bounces, const Maps* M, const MapsInfo* I) {
     __shared__ int at[2][SHADE_WARPS];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int n_live = in != nullptr ? cin[C_LIVE] : n;
@@ -584,8 +953,8 @@ __global__ void __launch_bounds__(SHADE_BLOCK, 4) shade_hit_kernel(
         int i = 0;
         if (j < n_in) {
             i = in != nullptr ? list_entry(in, j, n_live, n) : j;
-            shade_lane(S, Fr, R, Sh, occluded, i, hbase, n_lights, env_h, env_w, flags,
-                       max_bounces, alive, keep);
+            shade_lane<MAPS, MIPS, DEBUG>(S, Fr, R, Sh, occluded, M, I, i, hbase, n_lights,
+                                          env_h, env_w, flags, max_bounces, alive, keep);
         }
         const unsigned front = __ballot_sync(FULL, alive);
         const unsigned back = __ballot_sync(FULL, keep && !alive);
@@ -628,6 +997,50 @@ __global__ void __launch_bounds__(SHADE_BLOCK, 4) shade_hit_kernel(
     }
 }
 
+// The untextured K7. 4 blocks of 256 a SM (64 registers, a few bytes of the
+// body spilled): the occupancy of the full-width K7; at the 80 registers it
+// takes unbounded, 3 fit. It reads no Maps.
+__global__ void __launch_bounds__(SHADE_BLOCK, 4) shade_hit_kernel(
+    Lane S, Frame Fr, Raw R, ShadowOut Sh, const bool* __restrict__ occluded,
+    const int* __restrict__ in, int* __restrict__ out, const int* __restrict__ cin, int* cout,
+    int n, int hbase, int n_lights, int env_h, int env_w, int flags, int max_bounces) {
+    shade_rounds<false, false, false>(S, Fr, R, Sh, occluded, in, out, cin, cout, n, hbase,
+                                      n_lights, env_h, env_w, flags, max_bounces, nullptr,
+                                      nullptr);
+}
+
+// K7's textured and debug instantiations: 2 blocks of 256 a SM, the
+// registers the taps and the tangent basis hold beside the body's.
+template <bool MAPS, bool MIPS, bool DEBUG>
+__global__ void __launch_bounds__(SHADE_BLOCK, 2) shade_hit_tex_kernel(
+    Lane S, Frame Fr, Raw R, ShadowOut Sh, const bool* __restrict__ occluded,
+    const int* __restrict__ in, int* __restrict__ out, const int* __restrict__ cin, int* cout,
+    int n, int hbase, int n_lights, int env_h, int env_w, int flags, int max_bounces, Maps M,
+    MapsInfo I) {
+    shade_rounds<MAPS, MIPS, DEBUG>(S, Fr, R, Sh, occluded, in, out, cin, cout, n, hbase,
+                                    n_lights, env_h, env_w, flags, max_bounces, &M, &I);
+}
+
+typedef void (*ShadeTexKernel)(Lane, Frame, Raw, ShadowOut, const bool*, const int*, int*,
+                               const int*, int*, int, int, int, int, int, int, int, Maps,
+                               MapsInfo);
+
+// K7's instantiations by variant: bit 0 MAPS, 1 MIPS, 2 DEBUG (0: the
+// untextured shade_hit_kernel). Mipmaps come with MAPS (a scene without
+// maps samples none, and keeps the cone's length), so variants 2 and 6
+// have none.
+constexpr int N_VARIANTS = 8;
+const ShadeTexKernel TEX_KERNELS[N_VARIANTS] = {
+    nullptr,
+    shade_hit_tex_kernel<true, false, false>,
+    nullptr,
+    shade_hit_tex_kernel<true, true, false>,
+    shade_hit_tex_kernel<false, false, true>,
+    shade_hit_tex_kernel<true, false, true>,
+    nullptr,
+    shade_hit_tex_kernel<true, true, true>,
+};
+
 // The trailing resolve of a sample: accumulated += contrib over the last
 // list (its front and back; lengths in its slot), where the shadow ray was
 // cast and is not occluded.
@@ -661,29 +1074,32 @@ T unpack(void* const* p) {
     return out;
 }
 
-// The grid of K7 that is resident at once on the current device: SMs x the
-// blocks per SM its registers allow, asked once per device; and the SM count
-// (for K8's grid). Returns a CUDA error code.
-int shade_grid(int* blocks_out, int* sms_out) {
-    static int cached_blocks[64], cached_sms[64];
+// The grid of a K7 instantiation (variant, as TEX_KERNELS) that is resident
+// at once on the current device: SMs x the blocks per SM its registers
+// allow, asked once per device and variant; and the SM count (for K8's
+// grid). Returns a CUDA error code.
+int shade_grid(int variant, int* blocks_out, int* sms_out) {
+    static int cached_blocks[N_VARIANTS][64], cached_sms[64];
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
-    if (dev < 64 && cached_blocks[dev] > 0) {
-        *blocks_out = cached_blocks[dev];
+    if (dev < 64 && cached_blocks[variant][dev] > 0) {
+        *blocks_out = cached_blocks[variant][dev];
         *sms_out = cached_sms[dev];
         return 0;
     }
     int sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shade_hit_kernel, SHADE_BLOCK, 0);
+    const void* fn = variant == 0 ? (const void*)shade_hit_kernel
+                                  : (const void*)TEX_KERNELS[variant];
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, SHADE_BLOCK, 0);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     *blocks_out = sms * per_sm;
     *sms_out = sms;
     if (dev < 64) {
-        cached_blocks[dev] = *blocks_out;
+        cached_blocks[variant][dev] = *blocks_out;
         cached_sms[dev] = sms;
     }
     return 0;
@@ -703,14 +1119,21 @@ extern "C" int mrt_sample_start(void* const* lane, void* const* frame, const voi
 // Step ``step`` of a sample (0: its first, over every lane). lists: two
 // lists of n int32 (step s reads list s % 2 and writes list (s + 1) % 2);
 // counters: 2 int32 per step slot, zeroed at the sample's start; occluded:
-// the previous step's any-hit result (read from step 1 on).
+// the previous step's any-hit result (read from step 1 on). variant: bit 0
+// texture maps, 1 mipmaps, 2 a debug view (0: the untextured K7); maps:
+// _maps_ptrs's pointers (read by the textured and debug instantiations);
+// any_map: bit m set where some resource has map m.
 extern "C" int mrt_shade_hit(void* const* lane, void* const* frame, void* const* raw,
-                             void* const* shadow, const void* occluded, void* lists,
-                             void* counters, int step, int n, int hbase, int n_lights, int env_h,
-                             int env_w, int flags, int max_bounces, void* stream) {
+                             void* const* shadow, void* const* maps, const void* occluded,
+                             void* lists, void* counters, int step, int n, int hbase, int n_lights,
+                             int env_h, int env_w, int flags, int max_bounces, int variant,
+                             int any_map, int debug_mode, int packed_w, int texel_w, float width,
+                             float height, void* stream) {
     if (n <= 0) return 0;
+    if (variant < 0 || variant >= N_VARIANTS || (variant != 0 && TEX_KERNELS[variant] == nullptr))
+        return (int)cudaErrorInvalidValue;
     int grid = 0, sms = 0;
-    int rc = shade_grid(&grid, &sms);
+    int rc = shade_grid(variant, &grid, &sms);
     if (rc != 0) return rc;
     int* l = (int*)lists;
     int* c = (int*)counters + C_SLOT * step;
@@ -719,11 +1142,20 @@ extern "C" int mrt_shade_hit(void* const* lane, void* const* frame, void* const*
     // the device only, so later steps take the grid that is resident at once
     const unsigned full = (unsigned)((n + SHADE_BLOCK - 1) / SHADE_BLOCK);
     if (step == 0 || full < (unsigned)grid) grid = (int)full;
-    shade_hit_kernel<<<grid, SHADE_BLOCK, 0, (cudaStream_t)stream>>>(
-        unpack<Lane>(lane), unpack<Frame>(frame), unpack<Raw>(raw), unpack<ShadowOut>(shadow),
-        (const bool*)occluded, step > 0 ? l + (size_t)(step & 1) * n : nullptr,
-        l + (size_t)((step + 1) & 1) * n, c, c + C_SLOT, n, hbase, n_lights, env_h, env_w, flags,
-        max_bounces);
+    const int* in = step > 0 ? l + (size_t)(step & 1) * n : nullptr;
+    int* out = l + (size_t)((step + 1) & 1) * n;
+    if (variant == 0) {
+        shade_hit_kernel<<<grid, SHADE_BLOCK, 0, (cudaStream_t)stream>>>(
+            unpack<Lane>(lane), unpack<Frame>(frame), unpack<Raw>(raw), unpack<ShadowOut>(shadow),
+            (const bool*)occluded, in, out, c, c + C_SLOT, n, hbase, n_lights, env_h, env_w, flags,
+            max_bounces);
+    } else {
+        const MapsInfo info{any_map, debug_mode, packed_w, texel_w, width, height};
+        TEX_KERNELS[variant]<<<grid, SHADE_BLOCK, 0, (cudaStream_t)stream>>>(
+            unpack<Lane>(lane), unpack<Frame>(frame), unpack<Raw>(raw), unpack<ShadowOut>(shadow),
+            (const bool*)occluded, in, out, c, c + C_SLOT, n, hbase, n_lights, env_h, env_w, flags,
+            max_bounces, unpack<Maps>(maps), info);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -734,7 +1166,7 @@ extern "C" int mrt_resolve_shadow(void* acc, const void* contrib, const void* ne
                                   int steps, int n, void* stream) {
     if (n <= 0 || steps <= 0) return 0;
     int grid = 0, sms = 0;
-    int rc = shade_grid(&grid, &sms);
+    int rc = shade_grid(0, &grid, &sms);
     if (rc != 0) return rc;
     const unsigned g = blocks(n) < (unsigned)(sms * 8) ? blocks(n) : (unsigned)(sms * 8);
     resolve_shadow_kernel<<<g, BLOCK, 0, (cudaStream_t)stream>>>(

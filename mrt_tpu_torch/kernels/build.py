@@ -157,7 +157,8 @@ def load():
     lib.mrt_refit_twolevel.restype = i
     lib.mrt_sample_start.argtypes = [p, p, p, i, i, i, f, f, p]
     lib.mrt_sample_start.restype = i
-    lib.mrt_shade_hit.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.mrt_shade_hit.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i,
+                                  f, f, p]
     lib.mrt_shade_hit.restype = i
     lib.mrt_resolve_shadow.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.mrt_resolve_shadow.restype = i

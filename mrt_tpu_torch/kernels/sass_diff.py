@@ -9,7 +9,11 @@ Run on a machine with the CUDA toolkit:
 NEW.cu defaults to this checkout's ``csrc/traverse2.cu`` (for another
 source, name this checkout's, e.g. ``mrt_tpu_torch/csrc/wavefront.cu``).
 Kernels in an anonymous namespace are matched without the hash of the
-source's path that their mangled names hold. A kernel that
+source's path that their mangled names hold. Branch labels (``.L_x_N``,
+numbered over the whole module, so a kernel added before another renumbers
+the other's) are renumbered per kernel in the order they appear, and runs of
+blanks made one (cuobjdump pads every instruction to the module's widest). A
+kernel that
 gained template parameters is matched by appending ``false`` for each one
 (K2's ``<MASKED, FLOAT_SORT>`` to ``<MASKED, FLOAT_SORT, false>``). Prints one
 line per kernel of OLD.cu and exits 1 if any differs or is missing.
@@ -27,6 +31,15 @@ from .build import CSRC, NVCC_FLAGS, _nvcc
 
 _PARAMS = re.compile(r"I((?:Lb[01]E)+)Ev")
 _ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_")
+_LABEL = re.compile(r"\.L_x_\d+")
+
+
+def _local_labels(lines: list[str]) -> list[str]:
+    """``lines`` with each branch label renumbered in the order it first
+    appears."""
+    seen = {}
+    return [_LABEL.sub(lambda m: seen.setdefault(m.group(0), f".L_{len(seen)}"), line)
+            for line in lines]
 
 
 def sass(src: str, workdir: str) -> dict[str, list[str]]:
@@ -48,8 +61,9 @@ def sass(src: str, workdir: str) -> dict[str, list[str]]:
             cur = m.group(1)
             funcs[cur] = []
         elif cur is not None and line.strip():
-            funcs[cur].append(line.strip())
-    return funcs
+            # cuobjdump pads each instruction to the module's widest one
+            funcs[cur].append(" ".join(line.split()))
+    return {name: _local_labels(lines) for name, lines in funcs.items()}
 
 
 def twin(name: str, new: dict) -> str | None:
@@ -76,6 +90,12 @@ def main(argv=None) -> int:
         same = t is not None and new[t] == body
         bad += not same
         print(f"{name} -> {t}: {len(body)} SASS lines, identical: {same}", flush=True)
+        if t is not None and not same:
+            k = next((k for k, (a, b) in enumerate(zip(body, new[t])) if a != b),
+                     min(len(body), len(new[t])))
+            print(f"  first difference at line {k} of {len(body)} / {len(new[t])}:\n"
+                  f"  old: {body[k] if k < len(body) else None}\n"
+                  f"  new: {new[t][k] if k < len(new[t]) else None}", flush=True)
     print("only in the new source:", sorted(set(new) - {twin(n, new) for n in old}))
     return 1 if bad else 0
 

@@ -48,12 +48,18 @@ The plain version of the new K7 is ``resolve_shadow_plain`` followed by
 lane, with the list as the lanes ``active | need``
 (``shade_hit_listed_plain``); of the trailing K8 ``resolve_shadow_plain``
 (``resolve_shadow_listed_plain``). ``kernel_route`` decides by the settings
-alone whether a frame's stages are the kernels (the debug views,
-mipmapped sampling, texture maps and geometry sharding are off the route:
-their frames run the plain stages on any device, with the traversals'
-``closest_hit`` records). On the route, the wrappers take the plain
-versions only for CPU tensors; on CUDA tensors they launch the kernels or
-raise.
+alone whether a frame's stages are the kernels: only geometry sharding is
+off the route (its frames run the plain stages on any device, with the
+traversals' ``closest_hit`` records). On the route, the wrappers take the
+plain versions only for CPU tensors; on CUDA tensors they launch the
+kernels or raise.
+
+K7 has one instantiation per ``k7_variant`` (``K7_VARIANTS``): the
+untextured one, and with the scene's texture maps (the packed atlas's
+four taps, or with ``use_mipmaps`` the ray cone's length and LOD and two
+taps of each map's mip chain; a normal map bends the shading normal), and
+in a debug view (the colour at the first hit, the lane retired, no shadow
+ray), alone or with the maps.
 """
 
 from __future__ import annotations
@@ -74,6 +80,11 @@ from .traverse2 import _check
 
 STAGES = ("sample_start", "shade_hit", "resolve_shadow")
 launches = dict.fromkeys(STAGES, 0)  # kernel launches in this process, by stage
+# K7's instantiations (csrc/wavefront.cu:TEX_KERNELS) by k7_variant, and
+# their launches in this process
+K7_VARIANTS = {0: "untextured", 1: "maps", 3: "maps_mips", 4: "debug", 5: "maps_debug",
+               7: "maps_mips_debug"}
+variant_launches = dict.fromkeys(K7_VARIANTS.values(), 0)
 
 # K7's per-light table: [type pos(3) color(3) direction(3) forward(3) right(3)
 # up(3) cos(cone_angle) pmf cdf], one row per light
@@ -81,9 +92,11 @@ LIGHT_COLS = 22
 
 
 def reset_launches():
-    """Set every stage's launch count to 0."""
+    """Set every stage's and K7 instantiation's launch count to 0."""
     for k in launches:
         launches[k] = 0
+    for k in variant_launches:
+        variant_launches[k] = 0
 
 
 class LaneState(NamedTuple):
@@ -140,7 +153,8 @@ class Frame(NamedTuple):
     """What the stages read that stays fixed over one ``trace_pixels`` call
     (``had0``/``motion0``: sample 0's hit record, set after sample 0, for
     the motion view; ``camera``/``lights``: the kernels' packed tables, made
-    by ``make_frame`` on the kernel route on a CUDA device, else None)."""
+    by ``make_frame`` on the kernel route on a CUDA device, else None;
+    ``prev_camera`` the same for the motion view)."""
 
     settings: T.RenderSettings
     statics: object  # engine.scene.SceneStatics
@@ -164,17 +178,26 @@ class Frame(NamedTuple):
     # turns the closest-hit traversal's local ids into flat ones; None for a
     # flat table
     tri_base: torch.Tensor | None = None
+    prev_camera: torch.Tensor | None = None  # (12,) f32: the previous frame's camera
 
 
 def kernel_route(settings: T.RenderSettings, statics, geom) -> bool:
     """Whether a frame's stages are kernels K6-K8 (decided by the settings
     alone; on the route the wrappers still take the plain versions for CPU
-    tensors). Off the route: the debug views, mipmapped sampling, texture
-    maps with normal mapping, and geometry sharding (whose rows and taps
-    are psum'd over the gp axis)."""
-    return (settings.debug_mode == T.DEBUG_MODE_NONE and not settings.use_mipmaps
-            and not settings.geometry_axis and getattr(geom, "g2l", None) is None
-            and not any(statics.any_map))
+    tensors). Off the route: geometry sharding (whose rows and taps are
+    psum'd over the gp axis)."""
+    return not settings.geometry_axis and getattr(geom, "g2l", None) is None
+
+
+def k7_variant(settings: T.RenderSettings, statics) -> int:
+    """The key in ``K7_VARIANTS`` of the K7 instantiation a frame takes:
+    bit 0 the scene has a texture map or mipmapped sampling is on (which
+    carries the ray cone's length: the maps' instantiation, sampling no
+    map where the scene has none), bit 1 mipmapped sampling, bit 2 a debug
+    view."""
+    mips = bool(settings.use_mipmaps)
+    return ((bool(any(statics.any_map)) or mips) | (mips << 1)
+            | ((settings.debug_mode != T.DEBUG_MODE_NONE) << 2))
 
 
 def pack_lights(lights: T.Lights, light_sampling: str) -> torch.Tensor:
@@ -190,6 +213,11 @@ def pack_lights(lights: T.Lights, light_sampling: str) -> torch.Tensor:
                       lights.direction, lights.forward, lights.right, lights.up,
                       torch.cos(lights.cone_angle)[:, None], pmf[:, None], cdf[:, None]],
                      dim=1).contiguous()
+
+
+def _pack_camera(cam: T.Camera) -> torch.Tensor:
+    """(12,) f32: position right up forward."""
+    return torch.cat([cam.position, cam.right, cam.up, cam.forward]).to(torch.float32).contiguous()
 
 
 def make_frame(settings, statics, scene, geom, uniforms, pixel_x, pixel_y, offsets, prev_motion,
@@ -214,9 +242,10 @@ def make_frame(settings, statics, scene, geom, uniforms, pixel_x, pixel_y, offse
     packed = {}
     if dev.type == "cuda" and kernel_route(settings, statics, geom):
         packed = dict(
-            camera=torch.cat([cam.position, cam.right, cam.up, cam.forward]).to(f32).contiguous(),
-            lights=pack_lights(scene.lights, settings.light_sampling),
+            camera=_pack_camera(cam), lights=pack_lights(scene.lights, settings.light_sampling),
             step_bases=torch.as_tensor(H._STEP_BASES_PAIR).to(dev).contiguous())
+        if settings.debug_mode == T.DEBUG_MODE_MOTION:
+            packed["prev_camera"] = _pack_camera(uniforms.previous_camera)
     return Frame(settings, statics, scene, geom, uniforms, pixel_x, pixel_y, offsets, prev_motion,
                  base, width_f, height_f, pixel_angle, tri_base=tri_base, **packed)
 
@@ -234,6 +263,7 @@ class WaveBuffers:
     #                         live lanes and other lanes; zeroed per sample
     frame: Frame
     frame_ptrs: object
+    maps_ptrs: object  # the textured and debug instantiations' (_maps_ptrs)
     shadow_ptrs: object
     state: LaneState | None = None
     state_ptrs: object = None
@@ -276,7 +306,7 @@ def make_wave(fr: Frame, max_steps: int) -> Wave:
                 torch.zeros(P, dtype=torch.bool, device=dev))
     buf = WaveBuffers(sh, torch.empty((2, P), dtype=torch.int32, device=dev),
                       torch.zeros(2 * (max_steps + 1), dtype=torch.int32, device=dev), fr,
-                      _frame_ptrs(fr), _ptrs(list(sh)))
+                      _frame_ptrs(fr), _maps_ptrs(fr), _ptrs(list(sh)))
     return Wave(buf=buf)
 
 
@@ -317,7 +347,7 @@ def clone_wave(wv: Wave) -> Wave:
         sh = None if wv.shadow is None else Shadow(*(c(t) for t in wv.shadow))
         return Wave(sh, c(wv.occluded), c(wv.keep), wv.steps)
     sh = Shadow(*(t.clone() for t in b.shadow))
-    nb = WaveBuffers(sh, b.lists.clone(), b.counters.clone(), b.frame, b.frame_ptrs,
+    nb = WaveBuffers(sh, b.lists.clone(), b.counters.clone(), b.frame, b.frame_ptrs, b.maps_ptrs,
                      _ptrs(list(sh)))
     return Wave(None if wv.shadow is None else sh, c(wv.occluded), None, wv.steps, nb)
 
@@ -410,6 +440,38 @@ def _power_pmf_cdf(lights: T.Lights):
     wgt = torch.where(lights.type == T.LIGHT_TYPE_AREA, lum * torch.clamp(area, min=1e-6), lum)
     pmf = wgt / wgt.sum()
     return pmf, torch.cumsum(pmf, dim=0)
+
+
+def _hit_normal(srow, u_b1, v_b1, w_b1, ray_d):
+    """The hits' interpolated normals from their (P,16) shade rows at
+    barycentrics (u, v, w) (each (P,1)); -ray_d where one degenerates."""
+    nrm_raw = u_b1 * srow[:, 3:6] + v_b1 * srow[:, 6:9] + w_b1 * srow[:, 0:3]
+    degenerate = S.length(nrm_raw) < 1e-10
+    return _where3(degenerate, -ray_d, S.normalize(nrm_raw))
+
+
+def _lod_base(fr: Frame, dist, ray_d, nrm, srow, mrow):
+    """The ray cone's mip LOD base (log2 of its footprint in uv units) at
+    path length ``dist``: the cone's radius grows with the path length; its
+    footprint goes to uv units by the hit triangle's uv-area / world-area
+    ratio (``mrow``: its (P,18) motion rows)."""
+    e1w = mrow[:, 3:6] - mrow[:, 0:3]
+    e2w = mrow[:, 6:9] - mrow[:, 0:3]
+    world_area = 0.5 * S.length(S.cross(e1w, e2w))
+    du1 = srow[:, 11:13] - srow[:, 9:11]
+    du2 = srow[:, 13:15] - srow[:, 9:11]
+    uv_area = 0.5 * (du1[:, 0] * du2[:, 1] - du1[:, 1] * du2[:, 0]).abs()
+    cos_inc = torch.clamp(S.dot3(ray_d, nrm).abs(), min=0.25)
+    footprint_w = dist * fr.pixel_angle / cos_inc
+    footprint_uv = footprint_w * torch.sqrt(uv_area / torch.clamp(world_area, min=1e-12))
+    return torch.log2(torch.clamp(footprint_uv, min=1e-8))
+
+
+def _tex_coord(srow, u_b1, v_b1, w_b1):
+    """The hits' texture coordinates: the barycentric blend of the shade
+    rows' uvs (u uv1 + v uv2 + w uv0), y flipped."""
+    tex_coord = u_b1 * srow[:, 11:13] + v_b1 * srow[:, 13:15] + w_b1 * srow[:, 9:11]
+    return torch.stack([tex_coord[:, 0], 1.0 - tex_coord[:, 1]], dim=1)
 
 
 def _hidx(fr: Frame, sidx: int) -> torch.Tensor:
@@ -511,33 +573,18 @@ def shade_hit_plain(fr: Frame, st: LaneState, hits: T.Hits, sidx: int):
         mrow = _tri_rows(geom.motion_rows, tri, geom)
 
     # --- surface normal ------------------------------------------------------
-    nrm_raw = u_b1 * srow[:, 3:6] + v_b1 * srow[:, 6:9] + w_b1 * srow[:, 0:3]
-    degenerate = S.length(nrm_raw) < 1e-10
-    nrm = _where3(degenerate, -ray_d, S.normalize(nrm_raw))
+    nrm = _hit_normal(srow, u_b1, v_b1, w_b1, ray_d)
 
-    # --- ray-cone mip LOD: the cone's radius grows with the path
-    # length; its footprint goes to UV units by the hit triangle's
-    # uv-area / world-area ratio
+    # --- ray-cone mip LOD
     if settings.use_mipmaps:
-        dist = cone_t + torch.where(hit, hits.t, 0.0)
-        e1w = mrow[:, 3:6] - mrow[:, 0:3]
-        e2w = mrow[:, 6:9] - mrow[:, 0:3]
-        world_area = 0.5 * S.length(S.cross(e1w, e2w))
-        du1 = srow[:, 11:13] - srow[:, 9:11]
-        du2 = srow[:, 13:15] - srow[:, 9:11]
-        uv_area = 0.5 * (du1[:, 0] * du2[:, 1] - du1[:, 1] * du2[:, 0]).abs()
-        cos_inc = torch.clamp(S.dot3(ray_d, nrm).abs(), min=0.25)
-        footprint_w = dist * fr.pixel_angle / cos_inc
-        footprint_uv = footprint_w * torch.sqrt(uv_area / torch.clamp(world_area, min=1e-12))
-        lod_base = torch.log2(torch.clamp(footprint_uv, min=1e-8))
+        lod_base = _lod_base(fr, cone_t + torch.where(hit, hits.t, 0.0), ray_d, nrm, srow, mrow)
         cone_t = cone_t + torch.where(hit, hits.t, 0.0)
 
     # --- material + textures ---------------------------------------------------
     matrow = geom.mat_rows[res.long()]
     albedo = matrow[:, 0:3]
     flags = matrow[:, 12].to(torch.int32)
-    tex_coord = u_b1 * srow[:, 11:13] + v_b1 * srow[:, 13:15] + w_b1 * srow[:, 9:11]
-    tex_coord = torch.stack([tex_coord[:, 0], 1.0 - tex_coord[:, 1]], dim=1)
+    tex_coord = _tex_coord(srow, u_b1, v_b1, w_b1)
     packed = []
 
     def tex_sample(map_type):
@@ -846,6 +893,64 @@ def _frame_ptrs(fr: Frame):
                   scene.env_intensity])
 
 
+def _maps_ptrs(fr: Frame):
+    atlas = fr.scene.atlas
+    return _ptrs([atlas.packed, atlas.packed_rects, atlas.texels, atlas.rects, atlas.mip_rects,
+                  atlas.n_levels, fr.geom.motion_rows, fr.pixel_angle, fr.prev_camera,
+                  fr.prev_motion, fr.had0, fr.motion0])
+
+
+def _check_maps(what: str, fr: Frame, P: int, dev):
+    """What K7's textured and debug instantiations read (``_maps_ptrs``):
+    the atlas where the scene has maps (its packed texels and rects read as
+    float4 and int4, so 16-byte aligned), the motion rows (read as float2,
+    8-byte aligned) where mipmaps, a normal map or the motion view need the
+    hit's vertices, the pixel angle with mipmaps, and the motion view's
+    previous camera and per-lane motion."""
+    s, st = fr.settings, fr.statics
+    aligned = []
+    if any(st.any_map):
+        a = fr.scene.atlas
+        if a.band_lo is not None:
+            raise ValueError(f"{what}: a banded atlas (geometry sharding) is off the kernel route")
+        R = a.packed_rects.shape[0]
+        _check(what, "atlas.packed", a.packed, torch.float32,
+               (a.packed.shape[0], a.packed.shape[1], tex.PACKED_C), dev)
+        _check(what, "atlas.packed_rects", a.packed_rects, torch.int32, (R, 4), dev)
+        _check(what, "atlas.texels", a.texels, torch.float32, (a.height, a.width, 3), dev)
+        _check(what, "atlas.rects", a.rects, torch.int32, (R, tex.N_MAP_TYPES, 4), dev)
+        _check(what, "atlas.mip_rects", a.mip_rects, torch.int32,
+               (R, tex.N_MAP_TYPES, tex.MAX_MIPS, 4), dev)
+        _check(what, "atlas.n_levels", a.n_levels, torch.int32, (R, tex.N_MAP_TYPES), dev)
+        if fr.geom.mat_rows.shape[0] > R:
+            raise ValueError(f"{what}: {fr.geom.mat_rows.shape[0]} materials for an atlas of "
+                             f"{R} resources")
+        aligned += [("atlas.packed", a.packed, 16), ("atlas.packed_rects", a.packed_rects, 16),
+                    ("atlas.rects", a.rects, 16), ("atlas.mip_rects", a.mip_rects, 16)]
+    motion = s.debug_mode == T.DEBUG_MODE_MOTION
+    if s.use_mipmaps or motion or (any(st.any_map) and st.any_map[tex.MAP_NORMAL]):
+        m = fr.geom.motion_rows
+        _check(what, "motion_rows", m, torch.float32, (fr.geom.shade_rows.shape[0], 18), dev)
+        aligned.append(("motion_rows", m, 8))
+    if s.use_mipmaps:
+        if fr.pixel_angle is None:
+            raise ValueError(f"{what}: mipmaps need the frame's pixel_angle")
+        _check(what, "pixel_angle", fr.pixel_angle, torch.float32, (), dev)
+    if motion:
+        if fr.prev_camera is None:
+            raise ValueError(f"{what}: the motion view needs the frame's prev_camera (make_frame)")
+        _check(what, "prev_camera", fr.prev_camera, torch.float32, (12,), dev)
+        _check(what, "prev_motion", fr.prev_motion, torch.float32, (P, 2), dev)
+        if (fr.had0 is None) != (fr.motion0 is None):
+            raise ValueError(f"{what}: the frame has one of had0 and motion0")
+        if fr.had0 is not None:
+            _check(what, "had0", fr.had0, torch.bool, (P,), dev)
+            _check(what, "motion0", fr.motion0, torch.float32, (P, 2), dev)
+    for name, t, align in aligned:
+        if t.data_ptr() % align:
+            raise ValueError(f"{what}: {name} must be {align}-byte aligned")
+
+
 def _check_frame(what: str, fr: Frame, P: int, dev, rows: bool = False):
     for name in ("pixel_x", "pixel_y", "offsets"):
         _check(what, name, getattr(fr, name), torch.int32, (P,), dev)
@@ -869,6 +974,8 @@ def _check_frame(what: str, fr: Frame, P: int, dev, rows: bool = False):
                                  "float4)")
     if fr.tri_base is not None:
         _check(what, "tri_base", fr.tri_base, torch.int32, (fr.tri_base.shape[0],), dev)
+    if rows:
+        _check_maps(what, fr, P, dev)
 
 
 def _stream(dev):
@@ -916,7 +1023,11 @@ def _flags(fr: Frame, sidx: int) -> int:
     s, st = fr.settings, fr.statics
     return ((sidx == 0) | (bool(s.enable_gbuffer) << 1) | (bool(st.has_refraction) << 2)
             | (bool(st.has_environment) << 3) | ((s.shading_mode == T.SHADING_MODE_LEGACY) << 4)
-            | ((s.light_sampling == "power" and st.n_lights > 1) << 5))
+            | ((s.light_sampling == "power" and st.n_lights > 1) << 5) | (bool(T.ENABLE_AO) << 7))
+
+
+def _any_map_bits(statics) -> int:
+    return sum(1 << m for m, on in enumerate(statics.any_map) if on)
 
 
 def _buffers(what: str, fr: Frame, st: LaneState, wv: Wave) -> WaveBuffers:
@@ -933,7 +1044,7 @@ def _buffers(what: str, fr: Frame, st: LaneState, wv: Wave) -> WaveBuffers:
                          f"{b.lists.device}, not {P} on {dev}")
     if fr is not b.frame:
         _check_frame(what, fr, P, dev, rows=True)
-        b.frame, b.frame_ptrs = fr, _frame_ptrs(fr)
+        b.frame, b.frame_ptrs, b.maps_ptrs = fr, _frame_ptrs(fr), _maps_ptrs(fr)
     if st is not b.state:
         _check_state(what, st, P, dev, fr.settings.enable_gbuffer)
         b.state, b.state_ptrs = st, _lane_ptrs(st)
@@ -945,10 +1056,11 @@ def shade_hit(fr: Frame, st: LaneState, hits: traverse2.TraverseOut, sidx: int, 
     pending shadow rays resolved, then the body between the traversals, from
     the closest-hit traversal's raw record ``hits`` of the lanes
     ``st.active`` traced. CPU tensors take the plain version (``hits`` made
-    a ``Hits`` by ``traverse2.hits_of``); CUDA tensors launch K7 over
-    ``wv``'s list, which updates ``st`` and the buffers in place. Returns
-    (state, the next ``Wave``, the live-lane count as a 0-d int32
-    tensor)."""
+    a ``Hits`` by ``traverse2.hits_of``); CUDA tensors launch K7's
+    instantiation for the frame (``k7_variant``) over ``wv``'s list, which
+    updates ``st`` and the buffers in place. Returns (state, the next
+    ``Wave``, whose ``shadow`` is None in a debug view, the live-lane count
+    as a 0-d int32 tensor)."""
     if fr.pixel_x.device.type == "cpu":
         return shade_hit_listed_plain(fr, st, traverse2.hits_of(hits, fr.tri_base), sidx, wv)
     what = "shade_hit"
@@ -966,22 +1078,34 @@ def shade_hit(fr: Frame, st: LaneState, hits: traverse2.TraverseOut, sidx: int, 
             raise ValueError(f"{what}: step {s} needs the previous step's shadow rays traced "
                              "(Wave.occluded)")
         _check(what, "occluded", wv.occluded, torch.bool, (P,), dev)
+    settings = fr.settings
+    debug = settings.debug_mode != T.DEBUG_MODE_NONE
+    if settings.debug_mode == T.DEBUG_MODE_MOTION and sidx > 0 and fr.had0 is None:
+        raise ValueError(f"{what}: the motion view's sample {sidx} needs sample 0's had0 and "
+                         "motion0 in the frame")
+    variant = k7_variant(settings, fr.statics)
     live = b.counters[2 * (s + 1)]
+    out = wv._replace(shadow=None if debug else b.shadow, occluded=None, steps=s + 1)
     if P == 0:
-        return st, wv._replace(shadow=b.shadow, occluded=None, steps=s + 1), live
+        return st, out, live
     from . import build
 
     lib = build.load()
     env = fr.scene.env_map
+    atlas = fr.scene.atlas
     rc = lib.mrt_shade_hit(b.state_ptrs, b.frame_ptrs,
                            _ptrs([hits.t, hits.tri, hits.inst, hits.u, hits.v, fr.tri_base]),
-                           b.shadow_ptrs, _ptr(wv.occluded), _ptr(b.lists), _ptr(b.counters), s, P,
-                           _hbase(fr, sidx), fr.lights.shape[0], env.shape[0], env.shape[1],
-                           _flags(fr, sidx), fr.settings.max_bounces, _stream(dev))
+                           b.shadow_ptrs, b.maps_ptrs, _ptr(wv.occluded), _ptr(b.lists),
+                           _ptr(b.counters), s, P, _hbase(fr, sidx), fr.lights.shape[0],
+                           env.shape[0], env.shape[1], _flags(fr, sidx), settings.max_bounces,
+                           variant, _any_map_bits(fr.statics), int(settings.debug_mode),
+                           atlas.packed.shape[1], atlas.width, float(settings.width),
+                           float(settings.height), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     launches["shade_hit"] += 1
-    return st, wv._replace(shadow=b.shadow, occluded=None, steps=s + 1), live
+    variant_launches[K7_VARIANTS[variant]] += 1
+    return st, out, live
 
 
 def resolve_shadow(st: LaneState, wv: Wave) -> LaneState:

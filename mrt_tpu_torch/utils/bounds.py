@@ -24,7 +24,10 @@ gain there. The presenter's bounds count bytes only: a banded resize needs
 6 taps per axis (Lanczos-3 at 2x), so its operations take a fraction of
 its byte time. K6-K8, the wavefront's stages (``k6``, ``k7``, ``k8``),
 count per lane what the lane's state needs: K7 from one iteration's lanes
-that are live, hit, glass, lit and cast a shadow ray (``k7_work``). K7 runs
+that are live, hit, glass, lit and cast a shadow ray, and the texture
+work of its textured instantiations: the packed atlas's taps, the mip
+chains' taps, the motion rows, the tangent basis and the debug views'
+colours (``k7_work``). K7 runs
 over a lane list and folds K8's add in (``k7_listed``; ``k7`` stays the
 bound of a full-width launch), and K8 runs once per sample over the last
 list (``k8`` of its lanes).
@@ -305,6 +308,31 @@ K7_OPS_HIT = 45
 K7_OPS_GLASS = 60 + 11 * HALTON_DIGIT_OPS
 K7_OPS_LIT = 5 * 11 * HALTON_DIGIT_OPS + 40 + 110 + 60
 K7_OPS_ENV = 35
+# K7's textured and debug instantiations. Bytes, each input read once
+# (``k7_work``'s ``tex_bytes``): the texture bits (the material row's 4th
+# float4) of each resource hit, and the texels the samples tap, each
+# distinct texel once with the channels of the maps read there (4 B each;
+# the packed atlas holds every map of a resource in one 16-f32 texel, the
+# mip chains 3 f32 a texel), with the resource's packed rect (16 B) or per
+# resource and map its level-0 rect, its level count and two level rects
+# (52 B); and each distinct triangle's 72-B motion row where the LOD, the
+# tangent basis or the motion view needs its vertices. A debug view's hit
+# writes only its colour (not the 48 B of ray, throughput and three int32
+# of K7_BYTES_HIT). Operations: a packed sample blends 16 channels (9
+# each) after its addressing (20); a mipmapped map's sample two 3-channel
+# bilinear taps and the lerp; the LOD (45) once per hit with mipmaps; the
+# tangent basis and the bent normal (90) per normal-mapped hit; the motion
+# view's two projections (80) per hit at sample 0
+K7_BYTES_TEX_BITS = 16
+K7_BYTES_PACKED_RECT = 16
+K7_BYTES_MIP_RECTS = 16 + 4 + 2 * 16
+K7_BYTES_MOTION_ROW = 72
+K7_BYTES_DEBUG_SAVED = 48
+K7_OPS_PACKED = 16 * 9 + 20
+K7_OPS_MIP_MAP = 2 * (3 * 9 + 20) + 9
+K7_OPS_LOD = 45
+K7_OPS_NORMAL_MAP = 90
+K7_OPS_MOTION_VIEW = 80
 # K8: every lane reads its shadow mask and occlusion; a lane that adds reads
 # its radiance and contribution and writes its radiance (3 adds)
 K8_BYTES_LANE, K8_BYTES_ADD, K8_OPS_ADD = 2, 36, 3
@@ -319,14 +347,20 @@ def k6(n_lanes: int) -> tuple[float, str]:
 
 
 def _k7_bytes(work: dict[str, int]) -> int:
+    g = work.get
     return (work["lanes"] * K7_BYTES_LANE + work["live"] * K7_BYTES_LIVE
             + work["hit"] * K7_BYTES_HIT + work["shadow"] * K7_BYTES_SHADOW
-            + work["env_miss"] * K7_BYTES_ENV)
+            + work["env_miss"] * K7_BYTES_ENV + g("tex_bytes", 0)
+            + g("motion_rows", 0) * K7_BYTES_MOTION_ROW - g("debug", 0) * K7_BYTES_DEBUG_SAVED)
 
 
 def _k7_ops(work: dict[str, int]) -> int:
+    g = work.get
     return (work["live"] * K7_OPS_LIVE + work["hit"] * K7_OPS_HIT + work["glass"] * K7_OPS_GLASS
-            + work["lit"] * K7_OPS_LIT + work["env_miss"] * K7_OPS_ENV)
+            + work["lit"] * K7_OPS_LIT + work["env_miss"] * K7_OPS_ENV
+            + g("packed", 0) * K7_OPS_PACKED + g("mip_maps", 0) * K7_OPS_MIP_MAP
+            + g("lod", 0) * K7_OPS_LOD + g("normal_mapped", 0) * K7_OPS_NORMAL_MAP
+            + g("motion_view", 0) * K7_OPS_MOTION_VIEW)
 
 
 def k7(work: dict[str, int]) -> tuple[float, str]:
@@ -356,30 +390,127 @@ def k7_listed(work: dict[str, int]) -> tuple[float, str]:
     return least_ms(ops, nbytes)
 
 
+def _texel_bytes(fr, st, hits, hit, res, sampled, mipmapped: bool) -> int:
+    """The bytes of the distinct texels one step's texture samples tap,
+    with their rects: per map (``sampled``: map, its f32 width, the hits
+    that sample it) the packed atlas's texels (the map's channels of each)
+    or, with mipmaps, the texels of the two levels' rects."""
+    import torch
+
+    from ..assets import texture as tex
+    from ..kernels import wavefront as W
+
+    atlas = fr.scene.atlas
+    srow = fr.geom.shade_rows[hits.triangle.clamp_min(0).long()]
+    u_b1, v_b1 = hits.u[:, None], hits.v[:, None]
+    w_b1 = 1.0 - u_b1 - v_b1
+    uv = W._tex_coord(srow, u_b1, v_b1, w_b1)
+    nbytes, taps, any_sampled = 0, [], torch.zeros_like(hit)
+    if mipmapped:
+        nrm = W._hit_normal(srow, u_b1, v_b1, w_b1, st.ray_d)
+        mrow = fr.geom.motion_rows[hits.triangle.clamp_min(0).long()]
+        lod = W._lod_base(fr, st.cone_t + torch.where(hit, hits.t, 0.0), st.ray_d, nrm, srow, mrow)
+    for m, width, mask in sampled:
+        if not bool(mask.any()):
+            continue
+        any_sampled = any_sampled | mask
+        if mipmapped:
+            rect0, rect1, _ = tex.trilinear_rects(atlas, res[mask], m, lod[mask])
+            rects, texel_w = (rect0, rect1), atlas.width
+            nbytes += int(res[mask].unique().numel()) * K7_BYTES_MIP_RECTS
+        else:
+            rects, texel_w = (atlas.packed_rects[res[mask]],), atlas.packed.shape[1]
+        for rect in rects:
+            gx0, gx1, gy0, gy1, _, _ = tex.rect_taps(rect, uv[mask])
+            for gy in (gy0, gy1):
+                for gx in (gx0, gx1):
+                    taps.append((gy * texel_w + gx).long())
+        if not mipmapped:  # this map's channels of each distinct texel
+            nbytes += int(torch.cat(taps[-4:]).unique().numel()) * width * 4
+    if mipmapped and taps:
+        nbytes += int(torch.cat(taps).unique().numel()) * 3 * 4
+    elif taps:
+        nbytes += int(res[any_sampled].unique().numel()) * K7_BYTES_PACKED_RECT
+    return nbytes
+
+
 def k7_work(fr, st, hits, shadow, n_listed: int | None = None, pending=None,
             occluded=None) -> dict[str, int]:
     """K7's lane counts for one iteration, from the plain version's inputs
     (the ``kernels.wavefront.Frame`` ``fr``, the state ``st`` before it and
-    the closest ``hits``) and its shadow rays: lanes, live lanes, hits,
-    glass hits, lit hits, shadow rays and misses that read the
-    environment. For the listed K7, ``n_listed`` is the lanes it ran over,
+    the closest ``hits``) and its shadow rays (None in a debug view): lanes,
+    live lanes, hits, glass hits, lit hits, shadow rays and misses that read
+    the environment; with texture maps, mipmaps or a debug view also the
+    texture bytes the step reads, each once (``tex_bytes``: texture bits,
+    rects and the distinct texels tapped), the packed samples (``packed``),
+    the mipmapped maps sampled (``mip_maps``, per hit and map), the distinct
+    motion rows read, the LODs, the normal-mapped hits and the debug view's
+    hits (``debug``; ``motion_view`` those that project their motion). For
+    the listed K7, ``n_listed`` is the lanes it ran over,
     and with the ``pending`` shadow rays of the step before and their
     ``occluded`` the work also counts the lanes that resolve one, the lanes
     that add (``need & ~occluded``) and those of them live."""
     import torch
 
+    from ..assets import texture as tex
+    from ..core import types as T
+
+    s, statics = fr.settings, fr.statics
+    debug = s.debug_mode != T.DEBUG_MODE_NONE
     live = st.active
     hit = live & (hits.triangle >= 0)
     glass = torch.zeros_like(hit)
-    if fr.statics.has_refraction:
-        res = fr.geom.shade_rows[hits.triangle.clamp_min(0).long(), 15].to(torch.int32).long()
-        mat = fr.geom.mat_rows[res]
+    tri = hits.triangle.clamp_min(0).long()
+    res = fr.geom.shade_rows[tri, 15].to(torch.int32).long()
+    mat = fr.geom.mat_rows[res]
+    if statics.has_refraction and not debug:
         glass = hit & ((torch.clamp(mat[:, 11], 0.0, 1.0) < 0.999)
                        | (torch.clamp(mat[:, 10], min=1.0) > 1.01))
-    env_miss = live & ~hit if fr.statics.has_environment else torch.zeros_like(hit)
+    env_miss = live & ~hit if statics.has_environment else torch.zeros_like(hit)
+    lit = hit & ~glass if not debug else torch.zeros_like(hit)
     work = dict(lanes=int(live.numel()) if n_listed is None else n_listed, live=int(live.sum()),
-                hit=int(hit.sum()), glass=int(glass.sum()), lit=int((hit & ~glass).sum()),
-                shadow=int(shadow.need.sum()), env_miss=int(env_miss.sum()))
+                hit=int(hit.sum()), glass=int(glass.sum()), lit=int(lit.sum()),
+                shadow=0 if shadow is None else int(shadow.need.sum()),
+                env_miss=int(env_miss.sum()))
+    z = torch.zeros_like(hit)
+    sampled, normal = [], z  # (map, its width in f32, the hits that sample it)
+    mipmapped = bool(s.use_mipmaps) and any(statics.any_map)
+    tex_bytes = 0
+    if any(statics.any_map):
+        bits = mat[:, 12].to(torch.int32)
+
+        def has(m, bit):
+            return hit & ((bits & bit) != 0) if statics.any_map[m] else z
+
+        # the maps the output needs: every map the material has, or in a
+        # debug view the one it shows
+        maps = {tex.MAP_BASECOLOR: (T.MATERIAL_TEXTURE_BASECOLOR, T.DEBUG_MODE_BASECOLOR),
+                tex.MAP_NORMAL: (T.MATERIAL_TEXTURE_NORMAL, T.DEBUG_MODE_NORMAL),
+                tex.MAP_ROUGHNESS: (T.MATERIAL_TEXTURE_ROUGHNESS, T.DEBUG_MODE_ROUGHNESS),
+                tex.MAP_METALLIC: (T.MATERIAL_TEXTURE_METALLIC, T.DEBUG_MODE_METALLIC),
+                tex.MAP_OPACITY: (T.MATERIAL_TEXTURE_OPACITY, None),
+                tex.MAP_EMISSION: (T.MATERIAL_TEXTURE_EMISSION, T.DEBUG_MODE_EMISSION)}
+        if T.ENABLE_AO:
+            maps[tex.MAP_AO] = (T.MATERIAL_TEXTURE_AO, T.DEBUG_MODE_AO)
+        normal = has(tex.MAP_NORMAL, T.MATERIAL_TEXTURE_NORMAL)
+        sampled = [(m, tex._PACKED_SLICE[m][1], has(m, bit)) for m, (bit, view) in maps.items()
+                   if not debug or s.debug_mode == view]
+        tex_bytes = int(res[hit].unique().numel()) * K7_BYTES_TEX_BITS
+        tex_bytes += _texel_bytes(fr, st, hits, hit, res, sampled, mipmapped)
+    any_sampled = z
+    for _, _, x in sampled:
+        any_sampled = any_sampled | x
+    mapped = normal if not debug else z
+    # the motion view projects at sample 0 (the frame has no had0 yet)
+    motion_view = hit if s.debug_mode == T.DEBUG_MODE_MOTION and fr.had0 is None else z
+    # the LOD is needed where a map is sampled with mipmaps
+    lod = any_sampled if mipmapped else z
+    rows = lod | mapped | motion_view
+    work.update(tex_bytes=tex_bytes, packed=0 if mipmapped else int(any_sampled.sum()),
+                mip_maps=sum(int(x.sum()) for _, _, x in sampled) if mipmapped else 0,
+                motion_rows=int(tri[rows].unique().numel()), lod=int(lod.sum()),
+                normal_mapped=int(mapped.sum()),
+                debug=work["hit"] if debug else 0, motion_view=int(motion_view.sum()))
     if pending is not None:
         add = pending.need & ~occluded
         work.update(resolved=work["lanes"], added=int(add.sum()),

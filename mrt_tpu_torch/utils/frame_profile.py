@@ -15,7 +15,9 @@ present. Run F is run A's frame with the wavefront's extras on: the floor
 textured with a 2048x2048 base-colour checker and a 1024x1024 normal map
 (NumPy arrays made from a seed), mipmapped sampling, and the two spheres
 masked as light geometry (seen by camera rays, skipped by shadow and bounce
-rays), so K2 runs its masked variant. Run G is run B's frame with the
+rays), so K2 runs its masked variant; run N is run F at the Renderer's
+default ``use_mipmaps=False``, so its maps are sampled from the packed
+atlas. Run G is run B's frame with the
 dragon replaced by two distinct blob(subdivisions=9) meshes (seeds 7 and 8,
 5,242,880 triangles each): its table has more than 2^20 - 1 rows, so K2
 runs its float-sort variant. Run H is run C's frame with the robot read
@@ -74,6 +76,10 @@ RUNS = {
     "F": dict(scene="flagship without train/treefir, floor with a 2048^2 checker and a 1024^2 "
                     "normal map, mipmaps on, the spheres masked as light geometry",
               width=1920, height=1080, dragon_subdivisions=None, floor_maps=True, mipmaps=True,
+              light_masked_spheres=True),
+    "N": dict(scene="run F's scene (2048^2 checker, 1024^2 normal map, light-masked spheres) at "
+                    "the Renderer's default use_mipmaps=False: the packed atlas",
+              width=1920, height=1080, dragon_subdivisions=None, floor_maps=True,
               light_masked_spheres=True),
     "G": dict(scene="dragon_1m's scene with two blob(subdivisions=9) dragons (seeds 7, 8)",
               width=1024, height=576, dragon_subdivisions=9, second_dragon_seed=8),
@@ -317,7 +323,7 @@ def profile_frame(r, table_out=None, walls=None) -> dict:
                 device_events=len(dev_events), traverse2_s=trav,
                 traverse2_launches=traversals() - launches0,
                 gather_s=gather,
-                stage_s={s: named_s(dev_events, f"{s}_kernel") for s in W.STAGES},
+                stage_s={s: named_s(dev_events, s) for s in W.STAGES},
                 stage_launches={s: W.launches[s] - stages0[s] for s in W.STAGES},
                 idle_share=1.0 - busy / median,
                 idle_share_profiled=1.0 - busy / wall, rays=int(r.last_rays_traced))

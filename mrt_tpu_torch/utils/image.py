@@ -1,8 +1,9 @@
 """Image metrics and golden IO — a NumPy copy of ``mrt_tpu/utils/image.py``:
 golden renders are kept as compressed arrays and compared by RMSE; and the
 port's image files, with no imaging library: ``write_png`` (zlib) and
-``write_gif`` (animated, one fixed palette), and ``read_png``/``read_gif``,
-which read back what those two write."""
+``write_gif`` (animated, one fixed palette); ``read_png``/``decode_png``,
+which read any non-interlaced 8-bit PNG (the texture files too), and
+``read_gif``, which reads back what ``write_gif`` writes."""
 
 from __future__ import annotations
 
@@ -52,31 +53,86 @@ def write_png(path: str, image_u8: np.ndarray):
                 + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# channels per pixel of each 8-bit colour type: grey, RGB, palette index,
+# grey + alpha, RGBA
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
 def read_png(path: str) -> np.ndarray:
-    """The (H,W,3) uint8 image of a PNG as ``write_png`` writes it (8-bit
-    RGB, not interlaced, every row unfiltered); raises ``ValueError`` on any
-    other PNG or a bad chunk CRC."""
-    data = open(path, "rb").read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG")
-    pos, head, idat = 8, None, []
-    while pos < len(data):
+    """The (H,W,3) uint8 RGB image of a PNG file (see ``decode_png``)."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, name: str = "PNG") -> np.ndarray:
+    """The (H,W,3) uint8 RGB image of a non-interlaced 8-bit PNG of colour
+    type 0, 2, 3, 4 or 6 (filters 0-4), as PIL's ``convert("RGB")`` gives
+    it: grey replicated, alpha dropped, palette indices looked up. Raises
+    ``ValueError`` on any other PNG, a bad chunk CRC or a palette index past
+    the palette."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{name}: not a PNG")
+    pos, head, palette, idat = 8, None, None, []
+    while pos + 12 <= len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
-        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != zlib.crc32(kind + body):
-            raise ValueError(f"{path}: bad CRC in chunk {kind!r}")
+        if (len(body) != n or struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0]
+                != zlib.crc32(kind + body)):
+            raise ValueError(f"{name}: bad CRC in chunk {kind!r}")
         if kind == b"IHDR":
             head = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"IEND":
+            break
         pos += 12 + n
-    if head is None or head[2:] != (8, 2, 0, 0, 0):
-        raise ValueError(f"{path}: not an 8-bit RGB PNG as write_png writes one: {head}")
-    w, h = head[:2]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
-    if raw[:, 0].any():
-        raise ValueError(f"{path}: filtered rows (write_png writes none)")
-    return raw[:, 1:].reshape(h, w, 3).copy()
+    if head is None:
+        raise ValueError(f"{name}: no IHDR chunk")
+    w, h, depth, ctype, comp, filt, interlace = head
+    if depth != 8 or ctype not in _PNG_CHANNELS or (comp, filt, interlace) != (0, 0, 0):
+        raise ValueError(f"{name}: not a non-interlaced 8-bit PNG of colour type 0, 2, 3, 4 or 6: "
+                         f"{head}")
+    bpp = _PNG_CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size < h * (1 + w * bpp):
+        raise ValueError(f"{name}: {raw.size} bytes of scanlines for {w}x{h}x{bpp}")
+    px = _unfilter(raw[:h * (1 + w * bpp)].reshape(h, 1 + w * bpp), h, w, bpp, name)
+    if ctype == 3:
+        if palette is None or int(px.max(initial=0)) >= palette.shape[0]:
+            raise ValueError(f"{name}: a palette index past the palette")
+        return palette[px[..., 0]]
+    if ctype in (0, 4):
+        return np.repeat(px[..., :1], 3, axis=2)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int, name: str) -> np.ndarray:
+    """(h, w, bpp) uint8 pixels of scanlines ``raw`` (h, 1 + w * bpp), each
+    led by its filter type: None, Sub, Up, Average or Paeth, undone. A pixel
+    depends only on its left, upper and upper-left neighbours, so each
+    anti-diagonal of pixels is undone at once."""
+    ft = raw[:, 0]
+    if int(ft.max(initial=0)) > 4:
+        raise ValueError(f"{name}: filter type {int(ft.max())}")
+    data = raw[:, 1:].reshape(h, w, bpp)
+    if not ft.any():
+        return data.copy()
+    data = data.astype(np.int16)
+    out = np.zeros((h + 1, w + 1, bpp), np.int16)  # a zero row above and column left
+    for d in range(h + w - 1):
+        y = np.arange(max(0, d - w + 1), min(h, d + 1))
+        x = d - y
+        a, b, c = out[y + 1, x], out[y, x + 1], out[y, x]  # left, up, up-left
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        f = ft[y][:, None]
+        pred = np.select([f == 1, f == 2, f == 3, f == 4], [a, b, (a + b) >> 1, paeth], 0)
+        out[y + 1, x + 1] = (data[y, x] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8)
 
 
 # GIF: one global palette of 256 colours, the 6x6x6 cube (levels 0, 51, ...,

@@ -169,17 +169,17 @@ def test_kernel_route_truth_table(small_app):
     FP.configure(r)
     for mode in range(T.DEBUG_MODE_BASECOLOR, T.DEBUG_MODE_MOTION + 1):
         r.debug_texture_mode = mode
-        assert not _route(r), mode
+        assert _route(r), mode
     r.debug_texture_mode = T.DEBUG_MODE_NONE
     FP.configure(r, mipmaps=True)  # run F's mipmaps
-    assert not _route(r)
+    assert _route(r)
     FP.configure(r)
     geom = r.prepare()[1]
     gp = r.settings()
     assert W.kernel_route(gp, r.statics, geom)
     assert not W.kernel_route(dataclasses.replace(gp, geometry_axis="gp"), r.statics, geom)
     maps = dataclasses.replace(r.statics, any_map=(True,) + tuple(r.statics.any_map[1:]))
-    assert not W.kernel_route(gp, maps, geom)
+    assert W.kernel_route(gp, maps, geom)  # texture maps run K7's textured instantiations
 
 
 def _frame(r, device="cpu"):

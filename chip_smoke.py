@@ -106,6 +106,21 @@ never prints its last line):
      against the same on the CPU (linear output, new history and
      DenoiseState within 1e-5 relative RMSE, uint8 within 1 LSB); K1
      uint8-equal to its plain version on each mode's (2160,3840,3) output;
+     in the temporal mode each present launches K11 once, in the denoised
+     mode K9 once, K10 three times and K11 once, in the spatial mode none;
+  3p. the presenter kernels (mrt_tpu_torch/csrc/presenter.cu) against their
+     plain versions on the card, after run E's denoised mode: on run E's
+     last buffers and state, K9 svgf_reproject, K10 atrous_pass at steps 1,
+     2 and 4 (the last remodulating; each fed the plain version's previous
+     outputs) and K11 temporal_resolve on both chains' resized inputs, each
+     output field compared in its bits; then the same on a synthetic
+     1920x1080 frame made from a seed (motion leaving the image, a depth
+     jump, zero albedo, history lengths up to 32, K11 at history weights
+     0.0 and 0.9 at 3840x2160); the whole denoised chain through the
+     kernels against the plain chain, and K1's bytes on both. A float field
+     that is not bit-equal is printed; beyond PRESENTER_REL_TOL relative
+     RMSE it fails the run, as does any K1 byte that differs. Each kernel's
+     CUDA-event ms over 5 calls beside its plain version's and its bound;
   6b. runs F, N and G, each checked and driven as runs A-C are, with each
      K2 instantiation's launch count read on its own: run F, the
      wavefront's extras at run A's width (the floor with a 2048x2048
@@ -193,8 +208,9 @@ never prints its last line):
      time per animated frame beside their bounds (the refit's device events
      per call by name, raising on any but the copy and K4's launch with
      K5, and its CUDA-event time), and run E's present device time
-     and events per mode, its resize products' and denoiser's device time
-     and K1's at (2160,3840,3), beside their bounds; K3's device time over a
+     and events per mode, its resize products' and denoiser's device time,
+     K9's, each K10 pass's and K11's device time per launch and K1's at
+     (2160,3840,3), beside their bounds; K3's device time over a
      steady frame of run J, its refit's and prepare's device time. A
      profiler session that misses the kernels it was asked for is logged as
      a "profiler_dropout" line (what it saw) and taken again, up to three
@@ -236,7 +252,7 @@ never prints its last line):
      debug view 1-7, and the light-masked frame, each on the kernel route
      (K6 and only K7's instantiation for its settings launched).
 The line before the last is {"kernels": [...]}: K1, K2's three
-instantiations, K3's two, K4's two, K5, K6, K7 and K8 (launches counted
+instantiations, K3's two, K4's two, K5, K6, K7, K8, K9, K10 and K11 (launches counted
 over the main-path runs, the builds of runs G and K and of run G flat,
 phase M's entry points and phase L's ranks), then K7 by instantiation
 (untextured, maps, maps_mips, maps_debug, maps_mips_debug, debug: its
@@ -1490,6 +1506,7 @@ def drive_e(torch, r, mode, present, traverse2, presenter, refit, timed=3):
     history lifecycle: in the stateful modes an orbit frame's new state is
     bit-equal to a history-free present's, a still frame's output differs
     from it. Returns (launch counts, the mode's line)."""
+    from mrt_tpu_torch.kernels import presenter as PK
     from mrt_tpu_torch.kernels import wavefront as W
 
     r.upscaler_mode = mode
@@ -1497,6 +1514,7 @@ def drive_e(torch, r, mode, present, traverse2, presenter, refit, timed=3):
     traverse2.reset_launches()
     refit.reset_launches()
     W.reset_launches()
+    PK.reset_launches()
     r.orbit(0.02, 0.0)
     r.draw(1 / 30)
     r.present_device()  # warm-up
@@ -1516,7 +1534,9 @@ def drive_e(torch, r, mode, present, traverse2, presenter, refit, timed=3):
         rays += int(r.last_rays_traced)
         if mode == "spatial":
             continue
+        main_path = dict(PK.launches)  # the lifecycle check's presents are not the main path's
         lin_f, hist_f, d_f = history_free(r, presenter)
+        PK.launches.update(main_path)
         same = bits_equal(torch, r._upscale_history, hist_f)
         if mode == "denoised":
             same = same and all(bits_equal(torch, a, b) for a, b in zip(r._denoise_state, d_f))
@@ -1526,9 +1546,15 @@ def drive_e(torch, r, mode, present, traverse2, presenter, refit, timed=3):
             raise AssertionError(f"run E {mode}, frame {i} ({kind}): the present {how} a "
                                  "history-free one")
     counts = {"present": present.launches, "traverse2": traverse2.launches, **refit_counts(refit),
-              **stage_counts(W)}
+              **stage_counts(W), **PK.launches}
     if min(counts[k] for k in ("present", "traverse2", "refit_blas", "refit_tlas") + W.STAGES) < 1:
         raise AssertionError(f"run E {mode}: a kernel of the path never launched: {counts}")
+    presents = 1 + 2 * timed
+    want = dict(spatial=(0, 0, 0), temporal=(0, 0, presents),
+                denoised=(presents, 3 * presents, presents))[mode]
+    if tuple(PK.launches[k] for k in PK.KERNELS) != want:
+        raise AssertionError(f"run E {mode}: K9-K11 launched {PK.launches} in {presents} "
+                             f"presents, expected {dict(zip(PK.KERNELS, want))}")
     variants = check_variants(f"E {mode}", traverse2, "packed")
     acc = r.accum
     if not bool(torch.isfinite(acc).all()) or float(acc.max()) <= 0.0:
@@ -1593,13 +1619,153 @@ def check_e_mode(torch, r, present, presenter, T):
     return out, x
 
 
+# phase 3p: a float output of K9-K11 that is not bit-equal to its plain
+# version is printed, and fails the run beyond this relative RMSE
+PRESENTER_REL_TOL = 1e-5
+
+
+def presenter_fields(torch, names, k, p) -> dict:
+    """Each output of a presenter kernel against its plain version: elements
+    differing and, where some do, the largest ULP, the largest absolute
+    error and the relative RMSE."""
+    out = {}
+    for name, a, b in zip(names, k, p):
+        b = b.contiguous()
+        bad = a.view(torch.int32) != b.view(torch.int32)
+        d = dict(elements=a.numel(), differing=int(bad.sum()))
+        if d["differing"]:
+            d["max_ulp"] = int((ordered_bits(torch, a[bad]) - ordered_bits(torch, b[bad]))
+                               .abs().max())
+            d["max_abs"] = float((a[bad] - b[bad]).abs().nan_to_num(float("inf")).max())
+            d["rel_rmse"] = rel_rmse(a, b)
+        out[name] = d
+    return out
+
+
+def synthetic_presenter_inputs(torch, dev, h=1080, w=1920, seed=0) -> dict:
+    """A denoised frame at (h, w) made from ``seed`` that reaches the
+    presenter kernels' edges: a tenth of the pixels with zero albedo, a
+    depth jump (a block at 3x the depth, and the state's depth 40 % off on
+    another), a band of motion that leaves the image (up to 2w px) beside
+    motion within 2 px, history lengths 0-32 (a quarter at 32), and an
+    output-size history of (2h, 2w)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    n = torch.randn((h, w, 3), generator=g, device=dev)
+    n[..., 1] += 3.0
+    n = n / n.norm(dim=-1, keepdim=True)
+    depth = 1.0 + 0.01 * rand(h, w)
+    depth[h // 4:h // 2, w // 4:w // 2] = 3.0
+    motion = (rand(h, w, 2) - 0.5) * 4.0
+    motion[h // 2:h // 2 + h // 8] = (rand(h // 8, w, 2) - 0.5) * 4.0 * w
+    gb = dict(diffuse_albedo=rand(h, w, 3) * 0.8 * (rand(h, w, 1) > 0.1),
+              specular_albedo=rand(h, w, 3) * 0.1 * (rand(h, w, 1) > 0.5),
+              normal=n * 0.5 + 0.5)
+    s_depth = depth.clone()
+    s_depth[h // 8:h // 4] *= 1.4
+    lengths = torch.floor(rand(h, w) * 33.0)
+    lengths[: h // 4] = 32.0
+    m1 = rand(h, w)
+    state = (rand(h, w, 3) * 2.0, m1, m1 * m1 + 0.1 * rand(h, w), lengths, s_depth, n.clone())
+    history = torch.cat([rand(2 * h, 2 * w, 3), 1.0 + 0.02 * rand(2 * h, 2 * w, 1)], dim=-1)
+    return dict(color=rand(h, w, 3) * 2.0, gb=gb, depth=depth, motion=motion, state=state,
+                history=history, weights=(0.0, 0.9), out=(2 * h, 2 * w))
+
+
+def check_presenter(torch, tag, inp, present, bounds, timed: bool = False) -> dict:
+    """Phase 3p on ``inp`` (run E's buffers or ``synthetic_presenter_inputs``):
+    K9, K10 at each step and K11 on both chains (the temporal chain's
+    resized colour and the denoised chain's, at each history weight), each
+    against its plain version on the card on the same inputs; the denoised
+    chain through the kernels (``svgf_filter``, ``temporal_upscale``)
+    against the plain stages composed; K1's bytes. With ``timed``, each
+    kernel's and plain version's CUDA-event ms over 5 calls and its
+    bound. Raises beyond PRESENTER_REL_TOL or on a K1 byte."""
+    from mrt_tpu_torch.kernels import presenter as PK
+    from mrt_tpu_torch.upscale import denoise, spatial, temporal
+
+    gb, depth, motion = inp["gb"], inp["depth"], inp["motion"]
+    h, w = depth.shape
+    oh, ow = inp["out"]
+    state = denoise.DenoiseState(*inp["state"])
+    ins = (inp["color"], gb["diffuse_albedo"], gb["specular_albedo"], gb["normal"], depth, motion)
+    names9 = ("demod", "m1", "m2", "history_length", "normal", "var", "lum")
+    out, times = {}, {}
+
+    def timing(key, fk, fp, bound):
+        if timed:
+            times[key] = dict(ms=cuda_ms(fk, 5), plain_ms=cuda_ms(fp, 5), bound_ms=bound[0],
+                              bound_by=bound[1])
+
+    k9 = PK.svgf_reproject(*ins, state)
+    p9 = PK.svgf_reproject_plain(*ins, state)
+    out["svgf_reproject"] = presenter_fields(torch, names9, k9, p9)
+    timing("svgf_reproject", lambda: PK.svgf_reproject(*ins, state),
+           lambda: PK.svgf_reproject_plain(*ins, state), bounds.svgf_reproject(h, w))
+    demod, _, _, _, normal, var, lum = p9
+    filt, fvar, flum = demod, var, lum
+    for step in PK.ATROUS_STEPS:
+        last = step == PK.ATROUS_STEPS[-1]
+        remod = (gb["diffuse_albedo"], gb["specular_albedo"]) if last else ()
+        a = (filt, fvar, flum, normal, depth, step, *remod)
+        k10, p10 = PK.atrous_pass(*a), PK.atrous_pass_plain(*a)
+        key = f"atrous_pass step {step}"
+        out[key] = (presenter_fields(torch, ("colour",), (k10,), (p10,)) if last else
+                    presenter_fields(torch, ("filtered", "var", "lum"), k10, p10))
+        timing(key, lambda: PK.atrous_pass(*a), lambda: PK.atrous_pass_plain(*a),
+               bounds.atrous_pass(h, w, last))
+        if not last:
+            filt, fvar, flum = p10
+    denoised = p10
+    k1_bad = 0
+    for chain, colour in (("temporal", inp["color"]), ("denoised", denoised)):
+        up = spatial.resize(torch.cat([colour, depth[..., None], motion], dim=-1), oh, ow,
+                            "bilinear").contiguous()
+        for hw in inp["weights"]:
+            a = (up, inp["history"], hw, ow / w, oh / h)
+            k11, p11 = PK.temporal_resolve(*a), PK.temporal_resolve_plain(*a)
+            key = f"temporal_resolve {chain} weight {hw}"
+            out[key] = presenter_fields(torch, ("output", "history"), k11, p11)
+            k1_bad += int((present.tonemap_quantize(k11[0])
+                           != present.tonemap_quantize_plain(k11[0])).sum())
+        timing(f"temporal_resolve {chain}", lambda: PK.temporal_resolve(*a),
+               lambda: PK.temporal_resolve_plain(*a), bounds.temporal_resolve(oh, ow))
+    # the denoised chain end to end: the kernels against the plain stages
+    hw = inp["weights"][-1]
+    den_k, st_k = denoise.svgf_filter(inp["color"], gb, depth, motion, state)
+    lin_k, hist_k = temporal.temporal_upscale(den_k, depth, motion, inp["history"], oh, ow, hw)
+    up = spatial.resize(torch.cat([denoised, depth[..., None], motion], dim=-1), oh, ow,
+                        "bilinear").contiguous()
+    lin_p, hist_p = PK.temporal_resolve_plain(up, inp["history"], hw, ow / w, oh / h)
+    out["denoised chain"] = presenter_fields(
+        torch, ("denoised", "linear", "history", *names9[:5]),
+        (den_k, lin_k, hist_k, *st_k[:4], st_k.normal), (denoised, lin_p, hist_p, *p9[:5]))
+    k1_chain = int((present.tonemap_quantize(lin_k.contiguous())
+                    != present.tonemap_quantize_plain(lin_p)).sum())
+    not_bit_equal = {k: {f: d for f, d in v.items() if d["differing"]} for k, v in out.items()}
+    not_bit_equal = {k: v for k, v in not_bit_equal.items() if v}
+    worst = max([d["rel_rmse"] for v in not_bit_equal.values() for d in v.values()] + [0.0])
+    line = dict(phase="3p", run=tag, render=[w, h], output=[ow, oh], fields=out,
+                not_bit_equal=not_bit_equal, max_rel_rmse=worst, k1_mismatches=k1_bad,
+                k1_chain_mismatches=k1_chain, times=times, **CARD)
+    log(json.dumps(line))
+    if worst > PRESENTER_REL_TOL or k1_bad or k1_chain:
+        raise AssertionError(f"phase 3p run {tag}: a presenter kernel disagrees with its plain "
+                             f"version: {not_bit_equal}, K1 {k1_bad}/{k1_chain} bytes")
+    return line
+
+
 def profile_e(torch, FP, r, present, bounds, x4k, walls):
     """Run E under the profiler, after every run's timed frames: per mode,
     one more frame, one frame (draw and present) profiled as runs A-C are
     (its idle share against the median of the mode's still frame walls,
     ``walls``), then the present's device time and events (5 calls) and
     its costliest operators; on the denoised buffers each resize product's
-    and the denoiser's device time beside its bound; K1 at the output
+    and the denoiser's device time beside its bound, and K9's, each K10
+    pass's and K11's per launch beside theirs; K1 at the output
     shape, warm and after a 64 MB write (cold), beside its CUDA-event and
     plain times."""
     from mrt_tpu_torch.upscale import denoise, spatial
@@ -1621,10 +1787,31 @@ def profile_e(torch, FP, r, present, bounds, x4k, walls):
              bounds.resize(h, w, oh, ow, 3)),
             ("resize_bilinear_6ch", lambda: spatial.resize(six, oh, ow, "bilinear"), 5,
              bounds.resize(h, w, oh, ow, 6)),
-            ("denoiser", lambda: denoise.svgf_filter(r.accum, gb, r.depth, r.motion, dstate), 3,
+            ("denoiser", lambda: denoise.svgf_filter(r.accum, gb, r.depth, r.motion, dstate), 5,
              bounds.denoiser(h, w))):
         ms, ev = device_total_ms(torch, fn, reps)
         out[name] = dict(ms=ms, device_events=ev, bound_ms=bound[0], bound_by=bound[1])
+    # K9, each K10 pass and K11 per launch, on the denoised buffers
+    from mrt_tpu_torch.kernels import presenter as PK
+
+    ins = tuple(t.contiguous() for t in (r.accum, gb["diffuse_albedo"], gb["specular_albedo"],
+                                           gb["normal"], r.depth, r.motion))
+    demod, _, _, _, normal, var, lum = PK.svgf_reproject(*ins, dstate)
+    ms = device_ms(torch, lambda: PK.svgf_reproject(*ins, dstate), "svgf_reproject", 5)
+    out["k9_svgf_reproject"] = dict(ms=ms, bound=bounds.svgf_reproject(h, w))
+    filt, fvar, flum = demod, var, lum
+    for step in PK.ATROUS_STEPS:
+        last = step == PK.ATROUS_STEPS[-1]
+        a = (filt, fvar, flum, normal, ins[4], step, *((ins[1], ins[2]) if last else ()))
+        ms = device_ms(torch, lambda: PK.atrous_pass(*a), "atrous_pass", 5)
+        out[f"k10_atrous_pass_step_{step}"] = dict(ms=ms, bound=bounds.atrous_pass(h, w, last))
+        if not last:
+            filt, fvar, flum = PK.atrous_pass(*a)
+    up = spatial.resize(six, oh, ow, "bilinear").contiguous()
+    hist = r._upscale_history
+    ms = device_ms(torch, lambda: PK.temporal_resolve(up, hist, 0.9, ow / w, oh / h),
+                   "temporal_resolve", 5)
+    out["k11_temporal_resolve"] = dict(ms=ms, bound=bounds.temporal_resolve(oh, ow))
     out["present_bounds_ms"] = dict(spatial=bounds.resize(h, w, oh, ow, 3)[0],
                                     temporal=bounds.temporal_chain(h, w, oh, ow)[0],
                                     denoised=bounds.denoised_chain(h, w, oh, ow)[0])
@@ -2346,6 +2533,7 @@ def main() -> int:
     from mrt_tpu_torch.core import halton as H
     from mrt_tpu_torch.core import types as T
     from mrt_tpu_torch.kernels import build, present, refit, traverse2
+    from mrt_tpu_torch.kernels import presenter as PK
     from mrt_tpu_torch.kernels import wavefront as W
     from mrt_tpu_torch.render import wavefront as wf
     from mrt_tpu_torch.upscale import presenter
@@ -2587,13 +2775,24 @@ def main() -> int:
     re_ = make("E")
     e_lines, e_checks = {}, {}
     counts["E"] = {"present": 0, "traverse2": 0, **dict.fromkeys(REFIT_KEYS, 0),
-                   **dict.fromkeys(stage_counts(W), 0)}
+                   **dict.fromkeys(stage_counts(W), 0), **dict.fromkeys(PK.KERNELS, 0)}
     for mode in E_MODES:
         c, e_lines[mode] = drive_e(torch, re_, mode, present, traverse2, presenter, refit)
         counts["E"] = {k: n + c[k] for k, n in counts["E"].items()}
         e_checks[mode], x4k = check_e_mode(torch, re_, present, presenter, T)
         e_lines[mode].update(e_checks[mode], card=card_name, power_limit=power_limit)
         log(json.dumps(e_lines[mode]))
+    # --- 3p. K9-K11, the presenter kernels, against their plain versions on the card ---------
+    t_3p = time.perf_counter()
+    presenter_checks = {"E": check_presenter(torch, "E", dict(
+        color=re_.accum.contiguous(), gb={k: v.contiguous() for k, v in re_.gbuffer.items()},
+        depth=re_.depth.contiguous(), motion=re_.motion.contiguous(),
+        state=tuple(re_._denoise_state), history=re_._upscale_history,
+        weights=(float(re_.accumulation_weight),),
+        out=(re_.output_height, re_.output_width)), present, bounds, timed=True)}
+    presenter_checks["synthetic"] = check_presenter(
+        torch, "synthetic 1920x1080", synthetic_presenter_inputs(torch, dev), present, bounds)
+    log(f"phase 3p: {time.perf_counter() - t_3p:.1f} s")
     # the G-buffer state (denoised mode): K7 writes it at sample 0's first hit
     if not (re_.settings().enable_gbuffer and route_of(W, re_)):
         raise AssertionError("run E denoised: no G-buffer, or off the kernel route")
@@ -2945,6 +3144,37 @@ def main() -> int:
     log(json.dumps(dict(route_frames=route_frames, card=card_name, power_limit=power_limit)))
     if any(k["launches"] < 1 for k in kernels[-3:]):
         raise AssertionError(f"a stage kernel never launched on the main path: {kernels[-3:]}")
+    # K9-K11: ms, plain_ms and bound_ms from phase 3p on run E's last
+    # buffers (K10 at step 1, K11 on the denoised chain), every pass's and
+    # chain's times there, the profiler's device ms per launch (profile_e),
+    # and the phase-3p fields that are not bit-equal, by run
+    def presenter_entry(name, key, timed, replaces, profiled):
+        fields = [d for c in presenter_checks.values() for k, v in c["fields"].items()
+                  if k.startswith(key) for d in v.values()]
+        t = presenter_checks["E"]["times"][timed]
+        return dict(
+            name=name, route="cuda", source="mrt_tpu_torch/csrc/presenter.cu", replaces=replaces,
+            launches=sum(c.get(key, 0) for c in counts.values()),
+            launches_by_run={t_: c[key] for t_, c in counts.items() if c.get(key)},
+            max_abs_err=max([d.get("max_abs", 0.0) for d in fields] + [0.0]), ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=None,
+            times={k: v for k, v in presenter_checks["E"]["times"].items() if k.startswith(key)},
+            profiled={k: e_profile[k] for k in profiled},
+            not_bit_equal={run: {k: v for k, v in c["not_bit_equal"].items() if k.startswith(key)}
+                           for run, c in presenter_checks.items()})
+
+    kernels += [
+        presenter_entry("K9 svgf_reproject", "svgf_reproject", "svgf_reproject",
+                        "mrt_tpu/upscale/denoise.py:90", ["k9_svgf_reproject"]),
+        presenter_entry("K10 atrous_pass", "atrous_pass", "atrous_pass step 1",
+                        "mrt_tpu/upscale/denoise.py:56",
+                        [f"k10_atrous_pass_step_{s}" for s in PK.ATROUS_STEPS]),
+        presenter_entry("K11 temporal_resolve", "temporal_resolve", "temporal_resolve denoised",
+                        "mrt_tpu/upscale/temporal.py:65", ["k11_temporal_resolve"]),
+    ]
+    if any(k["launches"] < 1 for k in kernels[-3:]):
+        raise AssertionError(f"a presenter kernel never launched on the main path: {kernels[-3:]}")
     # K7 by instantiation: its launches on the main path, the phase-3c checks
     # of the frames that took it, its registers and spills (-Xptxas -v), and
     # ms, plain_ms and bound_ms at the first launch of the run that times it

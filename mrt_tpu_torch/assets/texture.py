@@ -14,6 +14,7 @@ each rank keeps one band and ``sample_packed_banded`` weighs the taps it owns.
 from __future__ import annotations
 
 import dataclasses
+import struct
 import zlib
 from typing import NamedTuple
 
@@ -89,22 +90,25 @@ def srgb_to_linear(c: np.ndarray) -> np.ndarray:
 
 def load_image(path: str) -> np.ndarray | None:
     """Load an image file to (H, W, 3) float32 in [0, 1]; None on failure
-    (texture-load fallback posture, SubMesh.swift:104,176-241). A
-    non-interlaced 8-bit PNG is decoded by the port's own decoder
-    (``utils/image.decode_png``, PIL's ``convert("RGB")`` to the byte), PIL
-    or no PIL; any other file goes to PIL where it is installed."""
+    (texture-load fallback posture, SubMesh.swift:104,176-241). PNGs of any
+    depth and interlace (``utils/image.decode_png``) and baseline JPEGs
+    (``utils/jpeg.decode_jpeg``) are decoded by the port's own decoders,
+    byte-equal to PIL's ``convert("RGB")``, PIL or no PIL; any other file
+    (a progressive or CMYK JPEG too) goes to PIL where it is installed."""
     from ..utils.image import PNG_SIGNATURE, decode_png
+    from ..utils.jpeg import JPEG_SIGNATURE, decode_jpeg
 
     try:
         with open(path, "rb") as f:
             data = f.read()
     except OSError:
         return None
-    if data[:8] == PNG_SIGNATURE:
-        try:
-            return decode_png(data, path).astype(np.float32) / 255.0
-        except (ValueError, zlib.error):
-            pass
+    for sig, decode in ((PNG_SIGNATURE, decode_png), (JPEG_SIGNATURE, decode_jpeg)):
+        if data.startswith(sig):
+            try:
+                return decode(data, path).astype(np.float32) / 255.0
+            except (ValueError, IndexError, struct.error, zlib.error):
+                break
     try:
         from PIL import Image
 

@@ -1,0 +1,272 @@
+// The per-pixel bodies of K9 svgf_reproject, K10 atrous_pass and K11
+// temporal_resolve (presenter.cu launches them, one thread a pixel),
+// compiled for the host too (outside nvcc MRT_PX is plain inline and
+// MRT_LDG a plain load), so a host compiler can hold them against the plain
+// PyTorch versions on the CPU.
+//
+// Bits: nvcc -fmad=false (a host compiler: -ffp-contract=off). Every step
+// is written in the plain version's op order: clamp/clamp_min/clamp_max/
+// minimum/maximum keep a NaN as PyTorch's CUDA ops do, `t / python_scalar`
+// is a multiply by the f32 reciprocal, `s / t` is reciprocal(t) * s, a
+// Python double product of tap weights is rounded once to f32 (the B3
+// products are exact), torch.exp is expf, luma and the normal dot products
+// add left to right.
+#pragma once
+
+#include <math.h>
+
+#ifdef __CUDACC__
+#define MRT_PX __device__ __forceinline__
+#define MRT_LDG(p) __ldg(p)
+#else
+#define MRT_PX inline
+#define MRT_LDG(p) (*(p))
+struct float4 {
+    float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
+#endif
+
+namespace mrt_presenter {
+
+MRT_PX int mrt_imin(int a, int b) { return a < b ? a : b; }
+MRT_PX int mrt_imax(int a, int b) { return a > b ? a : b; }
+MRT_PX int mrt_iclamp(int v, int lo, int hi) { return mrt_imin(mrt_imax(v, lo), hi); }
+
+MRT_PX float clamp_min_t(float v, float lo) {
+    return isnan(v) ? v : fmaxf(v, lo);
+}
+MRT_PX float clamp_max_t(float v, float hi) {
+    return isnan(v) ? v : fminf(v, hi);
+}
+MRT_PX float clamp_t(float v, float lo, float hi) {
+    return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
+}
+MRT_PX float minimum_t(float a, float b) {
+    return a != a ? a : (b != b ? b : fminf(a, b));
+}
+MRT_PX float maximum_t(float a, float b) {
+    return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+MRT_PX float luma3(float x0, float x1, float x2) {
+    return x0 * 0.2126f + x1 * 0.7152f + x2 * 0.0722f;
+}
+MRT_PX float dot3(float a0, float a1, float a2, float b0, float b1, float b2) {
+    float p0 = a0 * b0, p1 = a1 * b1, p2 = a2 * b2;
+    return p0 + p1 + p2;
+}
+
+// bilinear_sample's addressing at (rows, cols) over an (h, w) image: the
+// four taps' pixel indices, the blend fractions and the in-bounds test.
+struct Bilinear {
+    long long p00, p01, p10, p11;
+    float fr, fc;
+    bool in_bounds;
+};
+
+MRT_PX Bilinear bilinear_at(float rows, float cols, int h, int w) {
+    Bilinear b;
+    float hm = (float)(h - 1), wm = (float)(w - 1);
+    b.in_bounds = (rows >= 0.0f) & (rows <= hm) & (cols >= 0.0f) & (cols <= wm);
+    float r = clamp_t(rows, 0.0f, hm);
+    float c = clamp_t(cols, 0.0f, wm);
+    float r0 = floorf(r), c0 = floorf(c);
+    b.fr = r - r0;
+    b.fc = c - c0;
+    // a NaN coordinate has no tap: clamp the index (the plain version fails there)
+    int r0i = r0 >= 0.0f ? (int)fminf(r0, hm) : 0;
+    int c0i = c0 >= 0.0f ? (int)fminf(c0, wm) : 0;
+    int r1i = mrt_imin(r0i + 1, h - 1), c1i = mrt_imin(c0i + 1, w - 1);
+    b.p00 = (long long)r0i * w + c0i;
+    b.p01 = (long long)r0i * w + c1i;
+    b.p10 = (long long)r1i * w + c0i;
+    b.p11 = (long long)r1i * w + c1i;
+    return b;
+}
+
+// top = v00 * (1 - fc) + v01 * fc; bot likewise; top * (1 - fr) + bot * fr
+MRT_PX float blend(const Bilinear& b, float v00, float v01, float v10, float v11) {
+    float gc = 1.0f - b.fc, gr = 1.0f - b.fr;
+    float top = v00 * gc + v01 * b.fc;
+    float bot = v10 * gc + v11 * b.fc;
+    return top * gr + bot * b.fr;
+}
+
+MRT_PX float tap1(const float* __restrict__ f, const Bilinear& b) {
+    return blend(b, MRT_LDG(f + b.p00), MRT_LDG(f + b.p01), MRT_LDG(f + b.p10),
+                 MRT_LDG(f + b.p11));
+}
+
+MRT_PX float tap3(const float* __restrict__ f, const Bilinear& b, int k) {
+    return blend(b, MRT_LDG(f + 3 * b.p00 + k), MRT_LDG(f + 3 * b.p01 + k),
+                 MRT_LDG(f + 3 * b.p10 + k), MRT_LDG(f + 3 * b.p11 + k));
+}
+
+// K9 at pixel p: demodulation, the reprojected state, the moments
+MRT_PX void svgf_reproject_px(
+    long long p, int h, int w, const float* __restrict__ color, const float* __restrict__ diffuse,
+    const float* __restrict__ specular, const float* __restrict__ normal_enc,
+    const float* __restrict__ depth, const float* __restrict__ motion,
+    const float* __restrict__ s_demod, const float* __restrict__ s_m1,
+    const float* __restrict__ s_m2, const float* __restrict__ s_len,
+    const float* __restrict__ s_depth, const float* __restrict__ s_normal,
+    float* __restrict__ o_demod, float* __restrict__ o_m1, float* __restrict__ o_m2,
+    float* __restrict__ o_len, float* __restrict__ o_normal, float* __restrict__ o_var,
+    float* __restrict__ o_lum) {
+    int row = (int)(p / w), col = (int)(p - (long long)row * w);
+
+    float n[3], demod[3];
+    for (int k = 0; k < 3; ++k) {
+        float albedo =
+            clamp_min_t(MRT_LDG(diffuse + 3 * p + k) + MRT_LDG(specular + 3 * p + k), 1e-3f);
+        n[k] = MRT_LDG(normal_enc + 3 * p + k) * 2.0f - 1.0f;
+        demod[k] = MRT_LDG(color + 3 * p + k) / albedo;
+    }
+    float lum = luma3(demod[0], demod[1], demod[2]);
+    float z = MRT_LDG(depth + p);
+
+    // display +Y down is -row: the history sits at row + motion.y, col - motion.x
+    Bilinear b = bilinear_at((float)row + MRT_LDG(motion + 2 * p + 1),
+                             (float)col - MRT_LDG(motion + 2 * p), h, w);
+    float pd[3], pn[3];
+    for (int k = 0; k < 3; ++k) {
+        pd[k] = tap3(s_demod, b, k);
+        pn[k] = tap3(s_normal, b, k);
+    }
+    float pm1 = tap1(s_m1, b), pm2 = tap1(s_m2, b), plen = tap1(s_len, b);
+    float pz = tap1(s_depth, b);
+
+    bool depth_ok = fabsf(pz - z) <= 0.1f * clamp_min_t(z, 1e-3f);
+    bool normal_ok = dot3(pn[0], pn[1], pn[2], n[0], n[1], n[2]) > 0.8f;
+    bool valid = b.in_bounds & depth_ok & normal_ok;
+
+    float hist_len = valid ? clamp_max_t(plen + 1.0f, 32.0f) : 1.0f;
+    float inv_len = 1.0f / hist_len;
+    float alpha = clamp_min_t(inv_len * 1.0f, 0.2f);
+    float di[3];
+    for (int k = 0; k < 3; ++k) di[k] = valid ? pd[k] + (demod[k] - pd[k]) * alpha : demod[k];
+    float lum2 = lum * lum;
+    float m1 = valid ? pm1 + (lum - pm1) * alpha : lum;
+    float m2 = valid ? pm2 + (lum2 - pm2) * alpha : lum2;
+    float var = clamp_min_t(m2 - m1 * m1, 0.0f);
+    // young pixels have unreliable moments: inflate the variance
+    var = var * clamp_t(inv_len * 4.0f, 1.0f, 4.0f);
+
+    for (int k = 0; k < 3; ++k) {
+        o_demod[3 * p + k] = di[k];
+        o_normal[3 * p + k] = n[k];
+    }
+    o_m1[p] = m1;
+    o_m2[p] = m2;
+    o_len[p] = hist_len;
+    o_var[p] = var;
+    o_lum[p] = luma3(di[0], di[1], di[2]);
+}
+
+// the B3 spline's taps per axis; their products (wr * wc in double) are
+// exact in f32
+MRT_PX float mrt_b3(int i) {
+    return i == 2 ? 3.0f / 8.0f : (i == 1 || i == 3) ? 1.0f / 4.0f : 1.0f / 16.0f;
+}
+
+// K10 at pixel p: one pass at dilation ``step``; with ``diffuse`` (the
+// last pass) the remodulated colour, else the colour, variance and luma
+MRT_PX void atrous_pass_px(
+    long long p, int h, int w, int step, const float* __restrict__ filtered,
+    const float* __restrict__ var, const float* __restrict__ lum,
+    const float* __restrict__ normal, const float* __restrict__ depth,
+    const float* __restrict__ diffuse, const float* __restrict__ specular,
+    float* __restrict__ out, float* __restrict__ out_var, float* __restrict__ out_lum) {
+    int row = (int)(p / w), col = (int)(p - (long long)row * w);
+
+    float n0 = MRT_LDG(normal + 3 * p), n1 = MRT_LDG(normal + 3 * p + 1);
+    float n2 = MRT_LDG(normal + 3 * p + 2);
+    float z = MRT_LDG(depth + p), l = MRT_LDG(lum + p);
+    float sigma_l = sqrtf(clamp_min_t(MRT_LDG(var + p), 0.0f)) * 4.0f + 1e-4f;
+    float depth_scale = 0.1f * clamp_min_t(z, 1e-3f);
+    float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc_var = 0.0f, wsum = 0.0f;
+    for (int i = 0; i < 5; ++i) {
+        int r = mrt_iclamp(row + (i - 2) * step, 0, h - 1);
+        for (int j = 0; j < 5; ++j) {
+            int c = mrt_iclamp(col + (j - 2) * step, 0, w - 1);
+            long long q = (long long)r * w + c;
+            float nd = dot3(MRT_LDG(normal + 3 * q), MRT_LDG(normal + 3 * q + 1),
+                            MRT_LDG(normal + 3 * q + 2), n0, n1, n2);
+            float w_n = clamp_t(nd, 0.0f, 1.0f);
+            for (int s = 0; s < 5; ++s) w_n = w_n * w_n;
+            float w_z = expf(-fabsf(MRT_LDG(depth + q) - z) / depth_scale);
+            float w_l = expf(-fabsf(MRT_LDG(lum + q) - l) / sigma_l);
+            float wgt = mrt_b3(i) * mrt_b3(j) * w_n * w_z * w_l;
+            acc0 = acc0 + MRT_LDG(filtered + 3 * q) * wgt;
+            acc1 = acc1 + MRT_LDG(filtered + 3 * q + 1) * wgt;
+            acc2 = acc2 + MRT_LDG(filtered + 3 * q + 2) * wgt;
+            acc_var = acc_var + MRT_LDG(var + q) * wgt * wgt;
+            wsum = wsum + wgt;
+        }
+    }
+    float den = clamp_min_t(wsum, 1e-6f);
+    float o0 = acc0 / den, o1 = acc1 / den, o2 = acc2 / den;
+    if (diffuse != nullptr) {  // the last pass: remodulate
+        float o[3] = {o0, o1, o2};
+        for (int k = 0; k < 3; ++k)
+            out[3 * p + k] = o[k] * clamp_min_t(MRT_LDG(diffuse + 3 * p + k) +
+                                                    MRT_LDG(specular + 3 * p + k), 1e-3f);
+        return;
+    }
+    out[3 * p] = o0;
+    out[3 * p + 1] = o1;
+    out[3 * p + 2] = o2;
+    out_var[p] = acc_var / clamp_min_t(wsum * wsum, 1e-6f);
+    out_lum[p] = luma3(o0, o1, o2);
+}
+
+// K11 at output pixel p: the reprojected history, the depth test, the
+// 3x3 clamp and the blend
+MRT_PX void temporal_resolve_px(
+    long long p, int h, int w, const float* __restrict__ up, const float4* __restrict__ history,
+    float* __restrict__ out, float4* __restrict__ new_history, float history_weight, float sx,
+    float sy) {
+    int row = (int)(p / w), col = (int)(p - (long long)row * w);
+
+    const float* u = up + 6 * p;
+    float cur[3] = {MRT_LDG(u), MRT_LDG(u + 1), MRT_LDG(u + 2)};
+    float dep = MRT_LDG(u + 3);
+    float mx = MRT_LDG(u + 4) * sx, my = MRT_LDG(u + 5) * sy;
+
+    Bilinear b = bilinear_at((float)row + my, (float)col - mx, h, w);
+    float4 v00 = MRT_LDG(history + b.p00), v01 = MRT_LDG(history + b.p01);
+    float4 v10 = MRT_LDG(history + b.p10), v11 = MRT_LDG(history + b.p11);
+    float hist[3] = {blend(b, v00.x, v01.x, v10.x, v11.x), blend(b, v00.y, v01.y, v10.y, v11.y),
+                     blend(b, v00.z, v01.z, v10.z, v11.z)};
+    float hist_depth = blend(b, v00.w, v01.w, v10.w, v11.w);
+    bool depth_ok = fabsf(hist_depth - dep) <= 0.1f * clamp_min_t(dep, 1e-3f);
+
+    // 3x3 clamp: the min/max over the rows above, at and below (edges
+    // clamped) in each of the three columns, then over the columns
+    int rows[3] = {mrt_imax(row - 1, 0), row, mrt_imin(row + 1, h - 1)};
+    float nmin[3], nmax[3];
+    for (int j = 0; j < 3; ++j) {
+        int c = mrt_iclamp(col + j - 1, 0, w - 1);
+        for (int k = 0; k < 3; ++k) {
+            float a = MRT_LDG(up + 6 * ((long long)rows[0] * w + c) + k);
+            float m = MRT_LDG(up + 6 * ((long long)rows[1] * w + c) + k);
+            float d = MRT_LDG(up + 6 * ((long long)rows[2] * w + c) + k);
+            float rmin = minimum_t(minimum_t(a, m), d);
+            float rmax = maximum_t(maximum_t(a, m), d);
+            nmin[k] = j == 0 ? rmin : minimum_t(nmin[k], rmin);
+            nmax[k] = j == 0 ? rmax : maximum_t(nmax[k], rmax);
+        }
+    }
+    float mag = sqrtf(mx * mx + my * my);
+    float weight = history_weight * clamp_t(1.0f - mag * 0.0625f, 0.25f, 1.0f);
+    weight = (b.in_bounds & depth_ok) ? weight : 0.0f;
+    float o[3];
+    for (int k = 0; k < 3; ++k) {
+        float hk = minimum_t(maximum_t(hist[k], nmin[k]), nmax[k]);
+        o[k] = cur[k] + (hk - cur[k]) * weight;
+        out[3 * p + k] = o[k];
+    }
+    new_history[p] = make_float4(o[0], o[1], o[2], dep);
+}
+
+}  // namespace mrt_presenter

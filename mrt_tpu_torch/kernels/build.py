@@ -164,5 +164,11 @@ def load():
     lib.mrt_resolve_shadow.restype = i
     lib.mrt_halton.argtypes = [p, p, p, i, i, p]
     lib.mrt_halton.restype = i
+    lib.mrt_svgf_reproject.argtypes = [p] * 19 + [i, i, p]
+    lib.mrt_svgf_reproject.restype = i
+    lib.mrt_atrous_pass.argtypes = [p] * 10 + [i, i, i, p]
+    lib.mrt_atrous_pass.restype = i
+    lib.mrt_temporal_resolve.argtypes = [p, p, p, p, i, i, f, f, f, p]
+    lib.mrt_temporal_resolve.restype = i
     _lib = lib
     return lib

@@ -1,0 +1,348 @@
+"""Kernels K9 ``svgf_reproject``, K10 ``atrous_pass`` and K11
+``temporal_resolve`` — the stateful presenter chains (``csrc/presenter.cu``),
+their wrappers, their plain PyTorch versions and the plain versions'
+building blocks (``luma``, ``pow2k``, ``bilinear_sample``, ``edge_pad``).
+
+K9 and K10 replace the torch ops of ``mrt_tpu/upscale/denoise.py:svgf_filter``
+(the SVGF-lite denoiser: the reprojection and moments, then the three
+à-trous passes); K11 replaces those of ``mrt_tpu/upscale/temporal.py:
+temporal_upscale`` after its bilinear resize (the history reprojection,
+the depth test, the 3x3 clamp and the blend). On the TPU these are XLA
+programs (the JAX package's Pallas à-trous kernel lost to XLA's fusion and
+was deleted); in eager PyTorch each is dozens to thousands of launches.
+
+The plain versions are the port's torch-op code, cut at the kernels'
+boundaries: ``svgf_filter`` = K9, then K10 at steps 1, 2 and 4, the last
+with the remodulation; ``temporal_upscale`` = the resize, then K11. A
+wrapper checks its inputs (float32, shapes, contiguous, and on the card
+16-byte aligned) and raises on what its kernel does not take; it runs its
+plain version for CPU tensors only, and on CUDA tensors launches its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# kernel launches by the wrappers in this process, by kernel
+launches = {"svgf_reproject": 0, "atrous_pass": 0, "temporal_resolve": 0}
+KERNELS = tuple(launches)
+
+_LUMA = (0.2126, 0.7152, 0.0722)
+# the B3 spline's taps per axis (the à-trous pass takes their products)
+_B3 = (1 / 16, 1 / 4, 3 / 8, 1 / 4, 1 / 16)
+ATROUS_STEPS = (1, 2, 4)
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# --- the plain versions' building blocks ------------------------------------------------------
+
+def pow2k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x ** (2 ** k) as k squarings (``lax.integer_pow``'s rounding)."""
+    for _ in range(k):
+        x = x * x
+    return x
+
+
+def luma(x: torch.Tensor) -> torch.Tensor:
+    """(…,3) -> (…) Rec. 709 luminance."""
+    return x[..., 0] * _LUMA[0] + x[..., 1] * _LUMA[1] + x[..., 2] * _LUMA[2]
+
+
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(…,3) · (…,3) -> (…), summed in order: the bits of ``(a * b).sum(-1)``
+    on the CPU, and an order the kernels can repeat on the card."""
+    p = a * b
+    return p[..., 0] + p[..., 1] + p[..., 2]
+
+
+def bilinear_sample(img: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor):
+    """Sample (H,W,C) at fractional (rows, cols) with clamped addressing.
+    Returns (values (..., C), in_bounds mask). Four row gathers, the same
+    taps and blend order as the JAX package's packed-quad gather; each is a
+    ``torch.take`` of single values (a row gather of (H*W, C) rows of 16
+    bytes, by ``flat[idx]`` or ``torch.gather``, takes PyTorch's vectorized
+    row-gather kernel on the card, 5 ms per 4K tap on an H100)."""
+    h, w, c_ch = img.shape
+    in_bounds = (rows >= 0) & (rows <= h - 1) & (cols >= 0) & (cols <= w - 1)
+    r = torch.clamp(rows, 0.0, h - 1.0)
+    c = torch.clamp(cols, 0.0, w - 1.0)
+    r0 = torch.floor(r)
+    c0 = torch.floor(c)
+    fr = (r - r0)[..., None]
+    fc = (c - c0)[..., None]
+    r0i = r0.to(torch.int64)
+    c0i = c0.to(torch.int64)
+    r1i = torch.clamp_max(r0i + 1, h - 1)
+    c1i = torch.clamp_max(c0i + 1, w - 1)
+    flat = img.reshape(-1)
+    chan = torch.arange(c_ch, device=img.device)
+
+    def tap(ri, ci):
+        return torch.take(flat, (ri * w + ci)[..., None] * c_ch + chan)
+
+    v00, v01, v10, v11 = tap(r0i, c0i), tap(r0i, c1i), tap(r1i, c0i), tap(r1i, c1i)
+    top = v00 * (1 - fc) + v01 * fc
+    bot = v10 * (1 - fc) + v11 * fc
+    return top * (1 - fr) + bot * fr, in_bounds
+
+
+def edge_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """(H,W,...) padded by ``pad`` on both spatial axes, repeating the edge
+    (``jnp.pad(mode="edge")``)."""
+    h, w = x.shape[0], x.shape[1]
+    ri = torch.arange(-pad, h + pad, device=x.device).clamp(0, h - 1)
+    ci = torch.arange(-pad, w + pad, device=x.device).clamp(0, w - 1)
+    return x[ri][:, ci]
+
+
+def albedo_of(diffuse: torch.Tensor, specular: torch.Tensor) -> torch.Tensor:
+    """The denoiser's demodulation albedo, kept off zero."""
+    return torch.clamp_min(diffuse + specular, 1e-3)
+
+
+# --- the plain versions --------------------------------------------------------------------
+
+def svgf_reproject_plain(color, diffuse, specular, normal_enc, depth, motion, state):
+    """K9's function: albedo demodulation, the bilinear reprojection of
+    every field of ``state`` (a ``DenoiseState``) at ``row + motion.y``,
+    ``col - motion.x``, the depth and normal tests, the history length and
+    blend weight, the integrated demodulated colour and luminance moments,
+    the variance (inflated for young pixels) and the first pass's luminance.
+    Returns (demod (h,w,3), m1, m2, history_length, decoded normal (h,w,3),
+    var, lum)."""
+    h, w = color.shape[0], color.shape[1]
+    dev = color.device
+    albedo = albedo_of(diffuse, specular)
+    normal = normal_enc * 2.0 - 1.0
+    demod = color / albedo
+    lum = luma(demod)
+
+    # display +Y down is -row (see upscale/temporal.py)
+    out_rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    out_cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    prev_r = out_rows + motion[..., 1]
+    prev_c = out_cols - motion[..., 0]
+    # one bilinear sample of every state field, packed into 10 channels
+    packed = torch.cat([state.demod, state.m1[..., None], state.m2[..., None],
+                        state.history_length[..., None], state.depth[..., None], state.normal],
+                       dim=-1)
+    prev, in_b = bilinear_sample(packed, prev_r, prev_c)
+    prev_demod = prev[..., 0:3]
+    prev_m1 = prev[..., 3]
+    prev_m2 = prev[..., 4]
+    prev_len = prev[..., 5]
+    prev_depth = prev[..., 6]
+    prev_normal = prev[..., 7:10]
+
+    depth_ok = (prev_depth - depth).abs() <= 0.1 * torch.clamp_min(depth, 1e-3)
+    normal_ok = dot3(prev_normal, normal) > 0.8
+    valid = in_b & depth_ok & normal_ok
+
+    hist_len = torch.where(valid, torch.clamp_max(prev_len + 1.0, 32.0), torch.ones_like(prev_len))
+    alpha = torch.clamp_min(1.0 / hist_len, 0.2)
+
+    demod_i = torch.where(valid[..., None], prev_demod + (demod - prev_demod) * alpha[..., None],
+                          demod)
+    m1 = torch.where(valid, prev_m1 + (lum - prev_m1) * alpha, lum)
+    m2 = torch.where(valid, prev_m2 + (lum * lum - prev_m2) * alpha, lum * lum)
+    var = torch.clamp_min(m2 - m1 * m1, 0.0)
+    # young pixels have unreliable moments: inflate the variance so that the
+    # spatial filter works harder until history builds up
+    var = var * torch.clamp(4.0 / hist_len, 1.0, 4.0)
+    return demod_i, m1, m2, hist_len, normal, var, luma(demod_i)
+
+
+def atrous_pass_plain(filtered, var, lum, normal, depth, step: int, diffuse=None, specular=None):
+    """K10's function: one edge-aware à-trous pass (the 5x5 B3 taps at
+    dilation ``step``, edges clamped), weighted by normals (``w_n``), depth
+    (``w_z``) and luminance against the variance (``w_l``). Returns
+    (filtered (h,w,3), var, luma(filtered)); given ``diffuse`` and
+    ``specular`` (the last pass), the remodulated colour (h,w,3) alone."""
+    h, w = filtered.shape[0], filtered.shape[1]
+    sigma_l = torch.sqrt(torch.clamp_min(var, 0.0)) * 4.0 + 1e-4
+    depth_scale = 0.1 * torch.clamp_min(depth, 1e-3)
+    acc = torch.zeros_like(filtered)
+    acc_var = torch.zeros_like(var)
+    wsum = torch.zeros_like(var)
+    pad = 2 * step
+    dp, vp, lp, np_, zp = (edge_pad(t, pad) for t in (filtered, var, lum, normal, depth))
+    for i, wr in enumerate(_B3):
+        for j, wc in enumerate(_B3):
+            r0 = pad + (i - 2) * step
+            c0 = pad + (j - 2) * step
+            win = (slice(r0, r0 + h), slice(c0, c0 + w))
+            nb, nv, nl, nn, nz = dp[win], vp[win], lp[win], np_[win], zp[win]
+            w_n = pow2k(torch.clamp(dot3(nn, normal), 0.0, 1.0), 5)
+            w_z = torch.exp(-(nz - depth).abs() / depth_scale)
+            w_l = torch.exp(-(nl - lum).abs() / sigma_l)
+            wgt = (wr * wc) * w_n * w_z * w_l
+            acc = acc + nb * wgt[..., None]
+            acc_var = acc_var + nv * wgt * wgt
+            wsum = wsum + wgt
+    out = acc / torch.clamp_min(wsum[..., None], 1e-6)
+    if diffuse is not None:
+        return out * albedo_of(diffuse, specular)
+    out_var = acc_var / torch.clamp_min(wsum * wsum, 1e-6)
+    return out, out_var, luma(out)
+
+
+def temporal_resolve_plain(up, history, history_weight, sx: float, sy: float):
+    """K11's function on the resize's (H,W,6) output (colour 3, depth 1,
+    motion 2 in render pixels): motion scaled to output pixels by (sx, sy),
+    the bilinear reprojection of the (H,W,4) history (rgb + depth), the
+    depth test, the clamp to the current colour's 3x3 neighbourhood (edges
+    clamped) and the motion-aware blend. Returns (output (H,W,3), new
+    history (H,W,4))."""
+    out_h, out_w = up.shape[0], up.shape[1]
+    dev = up.device
+    cur, dep = up[..., 0:3], up[..., 3:4]
+    mot = up[..., 4:6] * torch.tensor([sx, sy], dtype=torch.float32, device=dev)
+
+    out_rows = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
+    out_cols = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
+    prev_r = out_rows + mot[..., 1]
+    prev_c = out_cols - mot[..., 0]
+    hist4, valid = bilinear_sample(history, prev_r, prev_c)
+    hist = hist4[..., :3]
+    hist_depth = hist4[..., 3:4]
+
+    # depth disocclusion: history more than 10 % off the current depth is stale
+    depth_ok = (hist_depth - dep).abs() <= 0.1 * torch.clamp_min(dep, 1e-3)
+
+    # 3x3 neighbourhood clamp of the current frame, as a running min/max over
+    # the shifted rows, then over the shifted columns (no 9-deep stack)
+    p = edge_pad(cur, 1)
+    rmin = torch.minimum(torch.minimum(p[:-2], p[1:-1]), p[2:])
+    rmax = torch.maximum(torch.maximum(p[:-2], p[1:-1]), p[2:])
+    nmin = torch.minimum(torch.minimum(rmin[:, :-2], rmin[:, 1:-1]), rmin[:, 2:])
+    nmax = torch.maximum(torch.maximum(rmax[:, :-2], rmax[:, 1:-1]), rmax[:, 2:])
+    hist = torch.minimum(torch.maximum(hist, nmin), nmax)
+
+    # motion-aware blend: fast motion trusts the current frame more
+    mag = torch.sqrt(mot[..., 0:1] * mot[..., 0:1] + mot[..., 1:2] * mot[..., 1:2])
+    weight = history_weight * torch.clamp(1.0 - mag / 16.0, 0.25, 1.0)
+    weight = torch.where(valid[..., None] & depth_ok, weight, torch.zeros_like(weight))
+    out = cur + (hist - cur) * weight
+    return out, torch.cat([out, dep], dim=-1)
+
+
+# --- the wrappers ---------------------------------------------------------------------------
+
+def _check(fn: str, tensors: dict, device) -> None:
+    """Each of ``tensors`` (name -> (tensor, shape)) float32, of its shape,
+    contiguous, on ``device``; on the card 16-byte aligned. Raises."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: unsupported device {device}")
+    for name, (t, shape) in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, not {device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn}: {name} is {t.dtype}, expected float32")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} is not contiguous")
+        if device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} is not 16-byte aligned")
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _launch(name: str, fn, *args) -> None:
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    launches[name] += 1
+
+
+def _lib_stream(device):
+    from . import build
+
+    return build.load(), ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def svgf_reproject(color, diffuse, specular, normal_enc, depth, motion, state):
+    """K9 (see ``svgf_reproject_plain``): every input (h,w[,c]) float32;
+    ``state`` a ``DenoiseState`` of (h,w) fields. Returns (demod, m1, m2,
+    history_length, decoded normal, var, lum)."""
+    h, w = depth.shape
+    dev = depth.device
+    v3, v1 = (h, w, 3), (h, w)
+    _check("svgf_reproject", dict(
+        color=(color, v3), diffuse_albedo=(diffuse, v3), specular_albedo=(specular, v3),
+        normal=(normal_enc, v3), depth=(depth, v1), motion=(motion, (h, w, 2)),
+        state_demod=(state.demod, v3), state_m1=(state.m1, v1), state_m2=(state.m2, v1),
+        state_history_length=(state.history_length, v1), state_depth=(state.depth, v1),
+        state_normal=(state.normal, v3)), dev)
+    if dev.type == "cpu":
+        return svgf_reproject_plain(color, diffuse, specular, normal_enc, depth, motion, state)
+    outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in (v3, v1, v1, v1, v3, v1, v1)]
+    if h * w:
+        lib, stream = _lib_stream(dev)
+        _launch("svgf_reproject", lib.mrt_svgf_reproject,
+                *(_ptr(t) for t in (color, diffuse, specular, normal_enc, depth, motion)),
+                *(_ptr(t) for t in (state.demod, state.m1, state.m2, state.history_length,
+                                    state.depth, state.normal)),
+                *(_ptr(t) for t in outs), h, w, stream)
+    return tuple(outs)
+
+
+def atrous_pass(filtered, var, lum, normal, depth, step: int, diffuse=None, specular=None):
+    """K10 (see ``atrous_pass_plain``) at ``step`` 1, 2 or 4; with
+    ``diffuse`` and ``specular`` (both or neither) the last pass, which
+    returns the remodulated colour."""
+    h, w = depth.shape
+    dev = depth.device
+    if step not in ATROUS_STEPS:
+        raise ValueError(f"atrous_pass: step {step} is not one of {ATROUS_STEPS}")
+    if (diffuse is None) != (specular is None):
+        raise ValueError("atrous_pass: give diffuse and specular together, or neither")
+    v3, v1 = (h, w, 3), (h, w)
+    ins = dict(filtered=(filtered, v3), var=(var, v1), lum=(lum, v1), normal=(normal, v3),
+               depth=(depth, v1))
+    last = diffuse is not None
+    if last:
+        ins.update(diffuse_albedo=(diffuse, v3), specular_albedo=(specular, v3))
+    _check("atrous_pass", ins, dev)
+    if dev.type == "cpu":
+        return atrous_pass_plain(filtered, var, lum, normal, depth, step, diffuse, specular)
+    out = torch.empty(v3, dtype=torch.float32, device=dev)
+    out_var = None if last else torch.empty(v1, dtype=torch.float32, device=dev)
+    out_lum = None if last else torch.empty(v1, dtype=torch.float32, device=dev)
+    if h * w:
+        lib, stream = _lib_stream(dev)
+        null = ctypes.c_void_p(None)
+        _launch("atrous_pass", lib.mrt_atrous_pass,
+                *(_ptr(t) for t in (filtered, var, lum, normal, depth)),
+                *((_ptr(diffuse), _ptr(specular)) if last else (null, null)),
+                _ptr(out), *((null, null) if last else (_ptr(out_var), _ptr(out_lum))),
+                h, w, step, stream)
+    return out if last else (out, out_var, out_lum)
+
+
+def temporal_resolve(up, history, history_weight: float, sx: float, sy: float):
+    """K11 (see ``temporal_resolve_plain``): ``up`` (H,W,6) and ``history``
+    (H,W,4) float32; ``history_weight``, ``sx``, ``sy`` Python numbers.
+    Returns (output (H,W,3), new history (H,W,4))."""
+    out_h, out_w = up.shape[0], up.shape[1]
+    dev = up.device
+    _check("temporal_resolve", dict(up=(up, (out_h, out_w, 6)),
+                                    history=(history, (out_h, out_w, 4))), dev)
+    if dev.type == "cpu":
+        return temporal_resolve_plain(up, history, history_weight, sx, sy)
+    out = torch.empty((out_h, out_w, 3), dtype=torch.float32, device=dev)
+    new_history = torch.empty((out_h, out_w, 4), dtype=torch.float32, device=dev)
+    if out_h * out_w:
+        lib, stream = _lib_stream(dev)
+        _launch("temporal_resolve", lib.mrt_temporal_resolve, _ptr(up), _ptr(history), _ptr(out),
+                _ptr(new_history), out_h, out_w, ctypes.c_float(float(history_weight)),
+                ctypes.c_float(sx), ctypes.c_float(sy), stream)
+    return out, new_history

@@ -18,17 +18,18 @@ K4 and K5, the refit kernels (``flat_refit``, ``blas_refit``,
 ``tlas_refit``, and ``refit`` for a whole two-level refit, one launch of
 both), count what one call's table needs: the triangles that are not pads and the children that
 are not empty. Besides the kernels: the LBS product of an animated frame's
-prepare (``lbs``), and the presenter's torch-op chains (``resize``, ``temporal_chain``,
-``denoiser``, ``denoised_chain``), whose bounds say what a hand kernel could
-gain there. The presenter's bounds count bytes only: a banded resize needs
-6 taps per axis (Lanczos-3 at 2x), so its operations take a fraction of
-its byte time. K6-K8, the wavefront's stages (``k6``, ``k7``, ``k8``),
-count per lane what the lane's state needs: K7 from one iteration's lanes
-that are live, hit, glass, lit and cast a shadow ray, and the texture
-work of its textured instantiations: the packed atlas's taps, the mip
-chains' taps, the motion rows, the tangent basis and the debug views'
-colours (``k7_work``). K7 runs
-over a lane list and folds K8's add in (``k7_listed``; ``k7`` stays the
+prepare (``lbs``), and the presenter's chains (``resize``, ``temporal_chain``,
+``denoiser``, ``denoised_chain``), whose bounds say what the whole chain
+could take. The chain bounds count bytes only: a banded resize needs 6
+taps per axis (Lanczos-3 at 2x), so its operations take a fraction of its
+byte time. K9-K11, the presenter's kernels (``svgf_reproject``,
+``atrous_pass``, ``temporal_resolve``), count both. K6-K8, the
+wavefront's stages (``k6``, ``k7``, ``k8``), count per lane what the
+lane's state needs: K7 from one iteration's lanes that are live, hit,
+glass, lit and cast a shadow ray, and the texture work of its textured
+instantiations: the packed atlas's taps, the mip chains' taps, the motion
+rows, the tangent basis and the debug views' colours (``k7_work``). K7
+runs over a lane list and folds K8's add in (``k7_listed``; ``k7`` stays the
 bound of a full-width launch), and K8 runs once per sample over the last
 list (``k8`` of its lanes).
 """
@@ -274,6 +275,45 @@ def denoised_chain(h: int, w: int, out_h: int, out_w: int) -> tuple[float, str]:
     """Bound of the denoised chain (denoiser, then the temporal upscaler):
     the denoised colour between them need not leave the chip."""
     return _bytes_ms(h * w * (DENOISER_IN + DENOISER_OUT - 3) + out_h * out_w * (4 + 4 + 3))
+
+
+# K9-K11, the presenter kernels (csrc/presenter.cuh), counted per pixel
+# from the source: f32 values in and out, each once; operations as the
+# source writes them (a division, sqrt or expf counts as one, so the count
+# is a floor). K9: in colour, albedos and encoded normal 12, depth 1, motion
+# 2, the state 10; out the state's demod 3, m1, m2, length, normal 3, var,
+# lum; the demodulation, the ten bilinear fields (9 each), the tests and
+# the moments
+SVGF_REPROJECT_IN, SVGF_REPROJECT_OUT, SVGF_REPROJECT_OPS = 25, 11, 172
+# K10: in filtered 3, var, lum, normal 3, depth (the last pass also the two
+# albedos, 6); out filtered 3, var, lum (the last pass the colour, 3); per
+# tap the normal dot (5), its clamp (2) and squarings (5), w_z and w_l (5
+# each), the weight (4) and the sums (10): 36, 25 taps; per pixel 18
+ATROUS_IN, ATROUS_OUT, ATROUS_TAP_OPS, ATROUS_PIXEL_OPS = 9, 5, 36, 18
+# K11, per output pixel: in the resize's 6 and the history's 4; out 3 and
+# the new history's 4; the motion, the bilinear taps (4 blends of 9), the
+# depth test, the 3x3 min/max (48), the weight and the blend
+TEMPORAL_RESOLVE_IN, TEMPORAL_RESOLVE_OUT, TEMPORAL_RESOLVE_OPS = 10, 7, 134
+
+
+def svgf_reproject(h: int, w: int) -> tuple[float, str]:
+    """Bound of one K9 launch at render size (h, w)."""
+    n = h * w
+    return least_ms(n * SVGF_REPROJECT_OPS, n * (SVGF_REPROJECT_IN + SVGF_REPROJECT_OUT) * 4)
+
+
+def atrous_pass(h: int, w: int, last: bool = False) -> tuple[float, str]:
+    """Bound of one K10 launch at (h, w); ``last``: the remodulating pass."""
+    n = h * w
+    f32 = ATROUS_IN + 6 + 3 if last else ATROUS_IN + ATROUS_OUT
+    return least_ms(n * (25 * ATROUS_TAP_OPS + ATROUS_PIXEL_OPS), n * f32 * 4)
+
+
+def temporal_resolve(out_h: int, out_w: int) -> tuple[float, str]:
+    """Bound of one K11 launch at output size (out_h, out_w)."""
+    n = out_h * out_w
+    return least_ms(n * TEMPORAL_RESOLVE_OPS,
+                    n * (TEMPORAL_RESOLVE_IN + TEMPORAL_RESOLVE_OUT) * 4)
 
 
 # K6-K8, the wavefront's stages (csrc/wavefront.cu), counted per lane from

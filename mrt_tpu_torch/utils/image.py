@@ -2,8 +2,9 @@
 golden renders are kept as compressed arrays and compared by RMSE; and the
 port's image files, with no imaging library: ``write_png`` (zlib) and
 ``write_gif`` (animated, one fixed palette); ``read_png``/``decode_png``,
-which read any non-interlaced 8-bit PNG (the texture files too), and
-``read_gif``, which reads back what ``write_gif`` writes."""
+which read any PNG (the texture files too), and ``read_gif``, which reads
+back what ``write_gif`` writes. Baseline JPEG textures are decoded by
+``utils/jpeg.py``."""
 
 from __future__ import annotations
 
@@ -54,9 +55,13 @@ def write_png(path: str, image_u8: np.ndarray):
 
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# channels per pixel of each 8-bit colour type: grey, RGB, palette index,
-# grey + alpha, RGBA
+# samples per pixel of each colour type (grey, RGB, palette index, grey +
+# alpha, RGBA) and the bit depths PNG allows it
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7's seven passes: first row, first column, row step, column step
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+          (1, 0, 2, 1))
 
 
 def read_png(path: str) -> np.ndarray:
@@ -66,11 +71,19 @@ def read_png(path: str) -> np.ndarray:
 
 
 def decode_png(data: bytes, name: str = "PNG") -> np.ndarray:
-    """The (H,W,3) uint8 RGB image of a non-interlaced 8-bit PNG of colour
-    type 0, 2, 3, 4 or 6 (filters 0-4), as PIL's ``convert("RGB")`` gives
-    it: grey replicated, alpha dropped, palette indices looked up. Raises
-    ``ValueError`` on any other PNG, a bad chunk CRC or a palette index past
-    the palette."""
+    """The (H,W,3) uint8 RGB image of a PNG of any colour type and bit depth
+    (filters 0-4, plain or Adam7-interlaced), as PIL's ``convert("RGB")``
+    gives it:
+
+    - grey of 1, 2 or 4 bits is scaled to 8 bits (x 255, 85, 17), grey of
+      16 bits saturates (PIL opens it as mode ``I;16``, whose ``RGB`` is
+      ``min(v, 255)``), then it is replicated;
+    - 16-bit grey + alpha, RGB and RGBA keep each sample's high byte (PIL
+      opens them as the 8-bit modes ``RGBA``, ``RGB`` and ``RGBA``);
+    - alpha is dropped and palette indices (1-8 bits) are looked up.
+
+    Raises ``ValueError`` on a depth the colour type does not allow, a bad
+    chunk CRC, short scanlines or a palette index past the palette."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{name}: not a PNG")
     pos, head, palette, idat = 8, None, None, []
@@ -92,21 +105,54 @@ def decode_png(data: bytes, name: str = "PNG") -> np.ndarray:
     if head is None:
         raise ValueError(f"{name}: no IHDR chunk")
     w, h, depth, ctype, comp, filt, interlace = head
-    if depth != 8 or ctype not in _PNG_CHANNELS or (comp, filt, interlace) != (0, 0, 0):
-        raise ValueError(f"{name}: not a non-interlaced 8-bit PNG of colour type 0, 2, 3, 4 or 6: "
-                         f"{head}")
-    bpp = _PNG_CHANNELS[ctype]
+    if (depth not in _PNG_DEPTHS.get(ctype, ()) or (comp, filt) != (0, 0)
+            or interlace not in (0, 1)):
+        raise ValueError(f"{name}: not a PNG of a colour type and bit depth PNG defines: {head}")
+    ch = _PNG_CHANNELS[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < h * (1 + w * bpp):
-        raise ValueError(f"{name}: {raw.size} bytes of scanlines for {w}x{h}x{bpp}")
-    px = _unfilter(raw[:h * (1 + w * bpp)].reshape(h, 1 + w * bpp), h, w, bpp, name)
+    if not interlace:
+        px = _scanlines(raw, h, w, ch, depth, name)[0]
+    else:
+        px = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        used = 0
+        for y0, x0, dy, dx in _ADAM7:
+            ph, pw = len(range(y0, h, dy)), len(range(x0, w, dx))
+            if ph and pw:  # an empty pass has no scanlines, not even filter bytes
+                px[y0::dy, x0::dx], n = _scanlines(raw[used:], ph, pw, ch, depth, name)
+                used += n
     if ctype == 3:
         if palette is None or int(px.max(initial=0)) >= palette.shape[0]:
             raise ValueError(f"{name}: a palette index past the palette")
         return palette[px[..., 0]]
-    if ctype in (0, 4):
+    if ctype == 0:
+        grey = (np.minimum(px, 255) if depth == 16 else px * (255 // ((1 << depth) - 1)))
+        return np.repeat(grey.astype(np.uint8), 3, axis=2)
+    if depth == 16:
+        px = (px >> 8).astype(np.uint8)
+    if ctype == 4:
         return np.repeat(px[..., :1], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])
+
+
+def _scanlines(raw: np.ndarray, h: int, w: int, ch: int, depth: int, name: str):
+    """The (h, w, ch) samples (uint16 at 16 bits, else uint8) of the ``h``
+    scanlines of ``w`` pixels at the front of ``raw``, and the bytes they
+    took. Filters work on bytes, a pixel's worth (at least one) apart."""
+    row = (w * ch * depth + 7) // 8
+    bpp = max(1, ch * depth // 8)
+    n = h * (1 + row)
+    if raw.size < n:
+        raise ValueError(f"{name}: {raw.size} bytes of scanlines for {w}x{h}, {ch} samples of "
+                         f"{depth} bits")
+    b = _unfilter(raw[:n].reshape(h, 1 + row), h, row // bpp, bpp, name).reshape(h, row)
+    if depth == 16:
+        s = (b[:, 0::2].astype(np.uint16) << 8) | b[:, 1::2]
+    elif depth < 8:
+        bits = np.unpackbits(b, axis=1).reshape(h, row * 8 // depth, depth)
+        s = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(axis=2, dtype=np.uint8)
+    else:
+        s = b
+    return s[:, :w * ch].reshape(h, w, ch), n
 
 
 def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int, name: str) -> np.ndarray:

@@ -1,0 +1,300 @@
+"""Kernels K9 ``svgf_reproject``, K10 ``atrous_pass`` and K11
+``temporal_resolve`` (``mrt_tpu_torch/kernels/presenter.py``,
+``csrc/presenter.cu``, ``csrc/presenter.cuh``) on the CPU:
+
+- the plain versions composed (K9, then K10 at steps 1, 2, 4, the last
+  remodulating) against ``mrt_tpu.upscale.denoise.svgf_filter`` over five
+  fed-back frames, and the bilinear resize then K11's plain version against
+  ``mrt_tpu.upscale.temporal.temporal_upscale``: within 1e-5 relative RMSE
+  (the JAX package's dot products and XLA:CPU's fusions add in another
+  order), at sizes where the edge clamp matters in every pass ((5,7) is
+  smaller than the step-4 halo), with motion that leaves the image and a
+  depth jump (disocclusion);
+- ``svgf_filter`` and ``temporal_upscale`` on CPU tensors bit-equal to the
+  plain stages they run;
+- each wrapper raising on a meta tensor, on float64 and on a non-contiguous
+  input;
+- the kernels' per-pixel bodies (``presenter.cuh``) compiled by the host
+  compiler with ``-ffp-contract=off``: K9 bit-equal to its plain version,
+  K10 and K11 within 1e-6 relative RMSE: the host's ``expf`` and
+  ``sqrtf`` and PyTorch's CPU ``exp`` and ``sqrt`` may differ in the last
+  place (PyTorch's CPU ``sqrt`` is not correctly rounded: 0.7 % of random
+  inputs differ from NumPy's). On the card, where both are CUDA's
+  ``expf`` and ``sqrtf``, ``chip_smoke.py`` holds all three bit for bit.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mrt_tpu.upscale import denoise as jdenoise
+from mrt_tpu.upscale import temporal as jtemporal
+from mrt_tpu_torch.kernels import build
+from mrt_tpu_torch.kernels import presenter as K
+from mrt_tpu_torch.upscale import denoise, spatial, temporal
+from mrt_tpu_torch.utils.image import relative_rmse
+from test_torch_scene_bvh import one_torch_thread  # noqa: F401
+
+TOL = 1e-5
+
+
+def _t(a):
+    return torch.as_tensor(np.ascontiguousarray(a, np.float32))
+
+
+def _frame(rng, h, w, f):
+    """Frame ``f``'s inputs: colour, a G-buffer (zero diffuse albedo on a
+    tenth of the pixels), depth with a jump in frame 3 (disocclusion),
+    motion within 1 px on even frames and up to 3/4 of the image on odd
+    ones (taps that leave it)."""
+    n = rng.normal(size=(h, w, 3))
+    n[..., 1] += 3.0
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    gb = dict(diffuse_albedo=rng.random((h, w, 3)) * 0.8 * (rng.random((h, w, 1)) > 0.1),
+              specular_albedo=rng.random((h, w, 3)) * 0.1, normal=n * 0.5 + 0.5,
+              roughness=rng.random((h, w)))
+    gb = {k: np.asarray(v, np.float32) for k, v in gb.items()}
+    depth = np.ones((h, w), np.float32) + np.float32(0.01) * rng.random((h, w), np.float32)
+    if f == 3:
+        depth[h // 4:h // 2 + 1, w // 4:w // 2 + 1] = 3.0
+    reach = 1.0 if f % 2 == 0 else 0.75 * max(h, w)
+    motion = rng.uniform(-reach, reach, (h, w, 2)).astype(np.float32)
+    color = rng.random((h, w, 3), dtype=np.float32) * 2.0
+    return color, gb, depth, motion
+
+
+def _plain_denoise(color, gb, depth, motion, state):
+    g = {k: _t(v) for k, v in gb.items()}
+    depth = _t(depth)
+    demod, m1, m2, hl, normal, var, lum = K.svgf_reproject_plain(
+        _t(color), g["diffuse_albedo"], g["specular_albedo"], g["normal"], depth, _t(motion),
+        state)
+    filt, fvar = demod, var
+    for step in K.ATROUS_STEPS[:-1]:
+        filt, fvar, lum = K.atrous_pass_plain(filt, fvar, lum, normal, depth, step)
+    out = K.atrous_pass_plain(filt, fvar, lum, normal, depth, K.ATROUS_STEPS[-1],
+                              g["diffuse_albedo"], g["specular_albedo"])
+    return out, denoise.DenoiseState(demod, m1, m2, hl, depth, normal)
+
+
+@pytest.mark.parametrize("size", [(5, 7), (24, 32)])
+def test_plain_stages_match_jax_denoiser(size):
+    h, w = size
+    rng = np.random.default_rng(h * w)
+    st_j, st_p = jdenoise.init_state(h, w), denoise.init_state(h, w, "cpu")
+    for f in range(5):
+        color, gb, depth, motion = _frame(rng, h, w, f)
+        out_j, st_j = jdenoise.svgf_filter(jnp.asarray(color), {k: jnp.asarray(v)
+                                                                for k, v in gb.items()},
+                                           jnp.asarray(depth), jnp.asarray(motion), st_j)
+        out_p, st_p = _plain_denoise(color, gb, depth, motion, st_p)
+        assert relative_rmse(out_p.numpy(), out_j) < TOL, f
+        for field in denoise.DenoiseState._fields:
+            err = relative_rmse(getattr(st_p, field).numpy(), getattr(st_j, field))
+            assert err < TOL, (f, field, err)
+    lengths = st_p.history_length.numpy()
+    assert lengths.max() > 1.0 and lengths.min() == 1.0  # history built, and reset
+
+
+@pytest.mark.parametrize("history_weight", [0.0, 0.9])
+def test_plain_resolve_matches_jax_temporal(history_weight):
+    rng = np.random.default_rng(int(history_weight * 10))
+    h, w, oh, ow = 12, 16, 20, 27
+    hist_j = hist_p = np.zeros((oh, ow, 4), np.float32)
+    hist_p = _t(hist_p)
+    for f in range(4):
+        color, _, depth, motion = _frame(rng, h, w, f)
+        out_j, hist_j = jtemporal.temporal_upscale(jnp.asarray(color), jnp.asarray(depth),
+                                                   jnp.asarray(motion), jnp.asarray(hist_j),
+                                                   oh, ow, history_weight)
+        up = spatial.resize(torch.cat([_t(color), _t(depth)[..., None], _t(motion)], dim=-1),
+                            oh, ow, "bilinear")
+        out_p, hist_p = K.temporal_resolve_plain(up, hist_p, history_weight, ow / w, oh / h)
+        assert relative_rmse(out_p.numpy(), out_j) < TOL, f
+        assert relative_rmse(hist_p.numpy(), hist_j) < TOL, f
+
+
+def test_cpu_entry_points_are_the_plain_stages():
+    """``svgf_filter`` and ``temporal_upscale`` on CPU tensors: bit-equal to
+    the plain stages composed, and no kernel launched."""
+    K.reset_launches()
+    rng = np.random.default_rng(7)
+    h, w = 9, 13
+    st_a = st_b = denoise.init_state(h, w, "cpu")
+    hist_a = hist_b = torch.zeros((18, 26, 4))
+    for f in range(3):
+        color, gb, depth, motion = _frame(rng, h, w, f)
+        out_a, st_a = denoise.svgf_filter(_t(color), {k: _t(v) for k, v in gb.items()},
+                                          _t(depth), _t(motion), st_a)
+        out_b, st_b = _plain_denoise(color, gb, depth, motion, st_b)
+        assert torch.equal(out_a, out_b)
+        assert all(torch.equal(a, b) for a, b in zip(st_a, st_b))
+        lin_a, hist_a = temporal.temporal_upscale(out_a, _t(depth), _t(motion), hist_a, 18, 26,
+                                                  0.9 * (f > 0))
+        up = spatial.resize(torch.cat([out_b, _t(depth)[..., None], _t(motion)], dim=-1),
+                            18, 26, "bilinear")
+        lin_b, hist_b = K.temporal_resolve_plain(up, hist_b, 0.9 * (f > 0), 2.0, 2.0)
+        assert torch.equal(lin_a, lin_b) and torch.equal(hist_a, hist_b)
+    assert K.launches == dict.fromkeys(K.KERNELS, 0)
+
+
+def _wrapper_inputs(device="cpu", dtype=torch.float32):
+    h, w = 4, 6
+    z = dict(device=device, dtype=dtype)
+    v3, v1 = torch.ones((h, w, 3), **z), torch.ones((h, w), **z)
+    state = denoise.DenoiseState(v3, v1, v1, v1, v1, v3)
+    return dict(
+        svgf_reproject=lambda: K.svgf_reproject(v3, v3, v3, v3, v1, torch.zeros((h, w, 2), **z),
+                                                state),
+        atrous_pass=lambda: K.atrous_pass(v3, v1, v1, v3, v1, 2),
+        atrous_pass_last=lambda: K.atrous_pass(v3, v1, v1, v3, v1, 4, v3, v3),
+        temporal_resolve=lambda: K.temporal_resolve(torch.ones((h, w, 6), **z),
+                                                    torch.ones((h, w, 4), **z), 0.9, 2.0, 2.0))
+
+
+@pytest.mark.parametrize("wrapper", ["svgf_reproject", "atrous_pass", "atrous_pass_last",
+                                     "temporal_resolve"])
+def test_wrappers_raise(wrapper):
+    with pytest.raises(ValueError, match="unsupported device"):
+        _wrapper_inputs("meta")[wrapper]()
+    with pytest.raises(TypeError, match="float32"):
+        _wrapper_inputs(dtype=torch.float64)[wrapper]()
+    calls = _wrapper_inputs()
+    calls[wrapper]()  # the plain version on the CPU
+    h, w = 4, 6
+    skew = torch.ones((w, h, 3)).transpose(0, 1)  # (h, w, 3), not contiguous
+    bad = dict(
+        svgf_reproject=lambda: K.svgf_reproject(skew, *(torch.ones((h, w, 3)),) * 3,
+                                                torch.ones((h, w)), torch.ones((h, w, 2)),
+                                                denoise.init_state(h, w, "cpu")),
+        atrous_pass=lambda: K.atrous_pass(skew, torch.ones((h, w)), torch.ones((h, w)),
+                                          torch.ones((h, w, 3)), torch.ones((h, w)), 2),
+        atrous_pass_last=lambda: K.atrous_pass(*(torch.ones((h, w, 3)), torch.ones((h, w)),
+                                                 torch.ones((h, w)), torch.ones((h, w, 3)),
+                                                 torch.ones((h, w))), 4, skew, skew),
+        temporal_resolve=lambda: K.temporal_resolve(torch.ones((w, h, 6)).transpose(0, 1),
+                                                    torch.ones((h, w, 4)), 0.9, 2.0, 2.0))
+    with pytest.raises(ValueError, match="not contiguous"):
+        bad[wrapper]()
+    if wrapper == "atrous_pass":
+        with pytest.raises(ValueError, match="step"):
+            K.atrous_pass(*(torch.ones((h, w, 3)), torch.ones((h, w)), torch.ones((h, w)),
+                            torch.ones((h, w, 3)), torch.ones((h, w))), 3)
+
+
+_HARNESS = r'''
+#include "presenter.cuh"
+using namespace mrt_presenter;
+extern "C" void k9(const float* const* in, float* const* out, int h, int w) {
+    for (long long p = 0; p < (long long)h * w; ++p)
+        svgf_reproject_px(p, h, w, in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8],
+                          in[9], in[10], in[11], out[0], out[1], out[2], out[3], out[4], out[5],
+                          out[6]);
+}
+extern "C" void k10(const float* const* in, float* const* out, int h, int w, int step) {
+    for (long long p = 0; p < (long long)h * w; ++p)
+        atrous_pass_px(p, h, w, step, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0],
+                       out[1], out[2]);
+}
+extern "C" void k11(const float* up, const float* hist, float* out, float* new_hist, int h,
+                    int w, float hw, float sx, float sy) {
+    for (long long p = 0; p < (long long)h * w; ++p)
+        temporal_resolve_px(p, h, w, up, (const float4*)hist, out, (float4*)new_hist, hw, sx, sy);
+}
+'''
+
+
+@pytest.fixture(scope="module")
+def presenter_lib(tmp_path_factory):
+    """csrc/presenter.cuh's per-pixel bodies compiled by the host compiler."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.fail("no host C++ compiler to build csrc/presenter.cuh with")
+    d = tmp_path_factory.mktemp("presenter")
+    (d / "presenter_host.cpp").write_text(_HARNESS)
+    lib = d / "libpresenter_host.so"
+    subprocess.run([cxx, "-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
+                    f"-I{build.CSRC}", str(d / "presenter_host.cpp"), "-o", str(lib)],
+                   check=True, capture_output=True, timeout=120)
+    return ctypes.CDLL(str(lib))
+
+
+def _ptrs(ts):
+    arr = (ctypes.c_void_p * len(ts))(*(None if t is None else t.data_ptr() for t in ts))
+    return ctypes.cast(arr, ctypes.c_void_p)
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("size", [(5, 7), (24, 32)])
+def test_host_compiled_kernels_match_plain(presenter_lib, size):
+    h, w = size
+    lib = presenter_lib
+    rng = np.random.default_rng(11 + h)
+    state = denoise.init_state(h, w, "cpu")
+    hist = torch.zeros((2 * h, 2 * w, 4))
+    k10_err = k11_err = 0.0
+    for f in range(5):
+        color, gb, depth, motion = _frame(rng, h, w, f)
+        ins = [_t(color), _t(gb["diffuse_albedo"]), _t(gb["specular_albedo"]), _t(gb["normal"]),
+               _t(depth), _t(motion), *state]
+        want = K.svgf_reproject_plain(*ins[:6], state)
+        got = [torch.empty_like(t) for t in want]
+        lib.k9(_ptrs(ins), _ptrs(got), h, w)
+        assert all(_bits_equal(a, b) for a, b in zip(got, want)), f
+        demod, m1, m2, hl, normal, var, lum = want
+        filt, fvar = demod, var
+        for step in K.ATROUS_STEPS:
+            last = step == K.ATROUS_STEPS[-1]
+            remod = (ins[1], ins[2]) if last else (None, None)
+            want = K.atrous_pass_plain(filt, fvar, lum, normal, ins[4], step,
+                                       *(remod if last else ()))
+            got = [torch.empty_like(filt), torch.empty_like(fvar), torch.empty_like(lum)]
+            lib.k10(_ptrs([filt, fvar, lum, normal, ins[4], *remod]),
+                    _ptrs(got if not last else [got[0], None, None]), h, w, step)
+            for a, b in zip(got, [want] if last else want):
+                k10_err = max(k10_err, relative_rmse(a.numpy(), b.numpy()))
+            if not last:
+                filt, fvar, lum = want
+        state = denoise.DenoiseState(demod, m1, m2, hl, ins[4], normal)
+        up = spatial.resize(torch.cat([ins[0], ins[4][..., None], ins[5]], dim=-1), 2 * h, 2 * w,
+                            "bilinear").contiguous()
+        for weight in (0.0, 0.9):
+            want = K.temporal_resolve_plain(up, hist, weight, 2.0, 2.0)
+            got = [torch.empty_like(t) for t in want]
+            lib.k11(ctypes.c_void_p(up.data_ptr()), ctypes.c_void_p(hist.data_ptr()),
+                    ctypes.c_void_p(got[0].data_ptr()), ctypes.c_void_p(got[1].data_ptr()),
+                    2 * h, 2 * w, ctypes.c_float(weight), ctypes.c_float(2.0),
+                    ctypes.c_float(2.0))
+            for a, b in zip(got, want):
+                k11_err = max(k11_err, relative_rmse(a.numpy(), b.numpy()))
+        hist = want[1]
+    assert k10_err < 1e-6 and k11_err < 1e-6, (k10_err, k11_err)
+
+
+def test_chip_smoke_phase_3p_on_cpu():
+    """``chip_smoke.py``'s phase 3p at a small size on the CPU (where each
+    wrapper is its plain version): the synthetic inputs reach the edges
+    the phase is for, and every field it compares is found equal."""
+    import chip_smoke
+    from mrt_tpu_torch.kernels import present
+    from mrt_tpu_torch.utils import bounds
+
+    h, w = 36, 64
+    inp = chip_smoke.synthetic_presenter_inputs(torch, torch.device("cpu"), h, w)
+    state = denoise.DenoiseState(*inp["state"])
+    assert float(state.history_length.max()) == 32.0 and inp["weights"][0] == 0.0
+    assert float(inp["motion"].abs().max()) > w  # motion that leaves the image
+    albedo = inp["gb"]["diffuse_albedo"] + inp["gb"]["specular_albedo"]
+    assert bool((albedo == 0).all(dim=-1).any())  # zero albedo
+    line = chip_smoke.check_presenter(torch, "cpu", inp, present, bounds)
+    assert line["not_bit_equal"] == {} and line["k1_mismatches"] == 0
+    assert len(line["fields"]) == 9 and line["times"] == {}

@@ -7,7 +7,8 @@ Phases, each of which raises on failure (the script then exits non-zero and
 never prints its last line):
   1. device: requires CUDA; prints the card's name and power limit and
      turns TF32 off;
-  2. build: compiles the CUDA kernels from mrt_tpu_torch/csrc;
+  2. build: compiles the CUDA kernels from mrt_tpu_torch/csrc and counts
+     the instructions of one K10 tap in the built library's SASS;
   3. kernels against their plain PyTorch versions on the card: Halton
      (bit-equal to the CPU) and K2 two-level traversal on 2^20 random
      mixed rays, on the same rays with every lane dead and with one live
@@ -106,21 +107,32 @@ never prints its last line):
      against the same on the CPU (linear output, new history and
      DenoiseState within 1e-5 relative RMSE, uint8 within 1 LSB); K1
      uint8-equal to its plain version on each mode's (2160,3840,3) output;
-     in the temporal mode each present launches K11 once, in the denoised
-     mode K9 once, K10 three times and K11 once, in the spatial mode none;
+     each present launches K12 once in the spatial mode; K12 and K11 once
+     each in the temporal mode; K9 once, K10 three times, K12 and K11 once
+     each in the denoised mode;
   3p. the presenter kernels (mrt_tpu_torch/csrc/presenter.cu) against their
      plain versions on the card, after run E's denoised mode: on run E's
      last buffers and state, K9 svgf_reproject, K10 atrous_pass at steps 1,
      2 and 4 (the last remodulating; each fed the plain version's previous
-     outputs) and K11 temporal_resolve on both chains' resized inputs, each
-     output field compared in its bits; then the same on a synthetic
+     outputs), K12 resize in both forms on the path (Lanczos-3 of the
+     colour with the clamp; bilinear of colour, depth and motion as three
+     sources, on both chains) and K11 temporal_resolve on both chains'
+     resized inputs, each output field compared in its bits, and K12 also
+     against the dense torch.mm products over the same weights (within
+     RESIZE_DENSE_TOL of the largest value), and K12 at a 64x downscale
+     (a tile's inputs staged in chunks); then the same on a synthetic
      1920x1080 frame made from a seed (motion leaving the image, a depth
      jump, zero albedo, history lengths up to 32, K11 at history weights
-     0.0 and 0.9 at 3840x2160); the whole denoised chain through the
-     kernels against the plain chain, and K1's bytes on both. A float field
-     that is not bit-equal is printed; beyond PRESENTER_REL_TOL relative
-     RMSE it fails the run, as does any K1 byte that differs. Each kernel's
-     CUDA-event ms over 5 calls beside its plain version's and its bound;
+     0.0 and 0.9 at 3840x2160) and on a synthetic 963x541 frame (no
+     multiple of K10's 32x8 and K12's 32x32 tiles: partial tiles, the
+     clamped halo); the whole denoised chain through the kernels against the plain
+     chain, and K1's bytes on all. A float field that is not bit-equal is
+     printed; beyond PRESENTER_REL_TOL relative RMSE it fails the run, as
+     does any K1 byte that differs. Each kernel's CUDA-event ms over 5
+     calls beside its plain version's and its bound (K10 also beside its
+     bound with a tap counted from its SASS, printed after the build; K12
+     also beside the dense products' ms and, for the bilinear,
+     torch.nn.functional.interpolate's);
   6b. runs F, N and G, each checked and driven as runs A-C are, with each
      K2 instantiation's launch count read on its own: run F, the
      wavefront's extras at run A's width (the floor with a 2048x2048
@@ -186,11 +198,12 @@ never prints its last line):
      accumulation and sampling, the robot animating; a GIF and a final
      PNG). Each with every launch count set to 0 just before and read just
      after: K1, K2 (packed only) and K6-K8 must launch, the demo K4 ``blas``
-     with K5 too, every draw on the kernel route (K6 at least once per
-     base sample) and K8 once per sample. The PNG and the GIF are read back
-     by the port's own readers (mrt_tpu_torch/utils/image.py: the PNG equal
-     to the image, each of the GIF's 30 frames within GIF_QUANT_ERROR of its
-     step's image, 1/30 s a frame); the images have non-zero pixels and the
+     with K5 and K12 (its spatial present) too, every draw on the kernel
+     route (K6 at least once per base sample) and K8 once per sample. The
+     PNG and the GIF are read back by the port's own readers
+     (mrt_tpu_torch/utils/image.py: the PNG equal to the image, each of the
+     GIF's 30 frames within GIF_QUANT_ERROR of its step's image, 1/30 s a
+     frame); the images have non-zero pixels and the
      accumulation is finite with rays traced. Printed per entry point:
      first-draw seconds, the steady draws' median wall and Mrays/s,
      stats.report(), the GIF's encoding seconds and, for the demo, one
@@ -208,13 +221,16 @@ never prints its last line):
      time per animated frame beside their bounds (the refit's device events
      per call by name, raising on any but the copy and K4's launch with
      K5, and its CUDA-event time), and run E's present device time
-     and events per mode, its resize products' and denoiser's device time,
-     K9's, each K10 pass's and K11's device time per launch and K1's at
-     (2160,3840,3), beside their bounds; K3's device time over a
+     and events per mode (at most 3, 4 and 8), its denoiser's device time,
+     K9's, each K10 pass's, K12's (both forms) and K11's device time per
+     launch and K1's at (2160,3840,3), beside their bounds; K3's device
+     time over a
      steady frame of run J, its refit's and prepare's device time. A
      profiler session that misses the kernels it was asked for is logged as
-     a "profiler_dropout" line (what it saw) and taken again, up to three
-     times in all;
+     a "profiler_dropout" line (what it saw) and taken again, up to
+     PROFILER_ATTEMPTS times in all, each dropout widening the idle time
+     around every later session's recorded calls; a timing of a call that
+     launches one kernel only then falls back to CUDA events;
   7b. run G flat: run G's renderer switched to the flat BVH (two_level =
      False; a table above 2^20 - 1 rows, K3's float-sort instantiation),
      its rebuild timed (its K4 ``flat`` launch counted), one frame's
@@ -252,7 +268,8 @@ never prints its last line):
      debug view 1-7, and the light-masked frame, each on the kernel route
      (K6 and only K7's instantiation for its settings launched).
 The line before the last is {"kernels": [...]}: K1, K2's three
-instantiations, K3's two, K4's two, K5, K6, K7, K8, K9, K10 and K11 (launches counted
+instantiations, K3's two, K4's two, K5, K6, K7, K8, K9, K10, K11 and K12's
+two forms (launches counted
 over the main-path runs, the builds of runs G and K and of run G flat,
 phase M's entry points and phase L's ranks), then K7 by instantiation
 (untextured, maps, maps_mips, maps_debug, maps_mips_debug, debug: its
@@ -291,6 +308,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# torch.profiler sessions a timing takes before it gives up. On the H100 a
+# process's profiler drops the device events of a short session more and
+# more often as the process ages (after 50 s of work, every session of five
+# 0.17 ms kernels saw none), and keeps them when the recorded cycle idles
+# long enough before its first call and after its last (0.25 s sufficed
+# to 240 s; mrt_tpu_torch/utils/profiler_probe.py). So each dropout widens
+# that idle time, ``profiler_pad_s``, for this session's retry and every
+# later session: 0.05 s, then doubled.
+PROFILER_ATTEMPTS = 5
+profiler_pad_s = 0.0
+
+
+def widen_profiler_pad() -> None:
+    global profiler_pad_s
+    profiler_pad_s = min(max(2 * profiler_pad_s, 0.05), 2.0)
+
+
 def cuda_ms(fn, reps: int) -> float:
     import torch
 
@@ -309,7 +343,8 @@ def profiled(torch, fn, reps: int, host: bool = False):
     """torch.profiler's (events, key averages) of ``reps`` calls of ``fn``
     (device activity, and the host's if ``host``), recorded in a second
     cycle after a traced warm-up cycle of as many calls: a session's first
-    device events can go missing (one saw 5 of 20 kernels)."""
+    device events can go missing (one saw 5 of 20 kernels). The recorded
+    cycle idles ``profiler_pad_s`` before its first call and after its last."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     out = []
@@ -318,10 +353,12 @@ def profiled(torch, fn, reps: int, host: bool = False):
     torch.cuda.synchronize()
     with profile(activities=acts, schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=lambda p: out.append((p.events(), p.key_averages()))) as prof:
-        for _ in range(2):
+        for pad in (0.0, profiler_pad_s):
+            time.sleep(pad)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
             prof.step()
     if not out:
         raise AssertionError("the profiler recorded no cycle")
@@ -332,47 +369,65 @@ def device_events(torch, events):
     return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def device_ms(torch, fn, name: str, reps: int, flush=None) -> float:
+def device_ms(torch, fn, name: str, reps: int, flush=None, one_kernel: bool = False) -> float:
     """Mean device time in ms of the kernels whose name holds ``name`` (one
     per call of ``fn``), from torch.profiler over ``reps`` calls; ``flush``
     (if given) runs before each call, outside the sum. A session that saw
-    fewer than half of them is run again, up to three times."""
+    fewer than half of them is run again, up to PROFILER_ATTEMPTS times.
+    With ``one_kernel`` (``fn`` launches that kernel and nothing else on
+    the card), a profiler that saw too few in every session gives way to
+    CUDA events around each call, and a ``profiler_fallback`` line says so."""
 
     def call():
         if flush is not None:
             flush()
         fn()
 
-    for attempt in range(3):
+    for attempt in range(PROFILER_ATTEMPTS):
         seen = device_events(torch, profiled(torch, call, reps)[0])
         ev = [e for e in seen if name in e.name]
         if len(ev) >= reps // 2:
             return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev)
         log_dropout(f"'{name}' x{reps}", attempt, len(ev), seen)
-    raise AssertionError(f"the profiler saw {len(ev)} '{name}' kernels in {reps} calls")
+    if not one_kernel:
+        raise AssertionError(f"the profiler saw {len(ev)} '{name}' kernels in {reps} calls")
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    for start, end in pairs:
+        if flush is not None:
+            flush()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    ms = sum(start.elapsed_time(end) for start, end in pairs) / reps
+    log(json.dumps(dict(profiler_fallback=f"'{name}' x{reps}", cuda_event_ms=ms)))
+    return ms
 
 
 def log_dropout(what: str, attempt: int, n_found: int, seen) -> None:
     """Log a profiler session that missed the kernels it was asked for
     (``seen``: every device event it recorded), so that a dropout stays
-    visible in the output whether or not a retry recovers."""
+    visible in the output whether or not a retry recovers, and widen the
+    sessions' idle time."""
     names = sorted({e.name[:60] for e in seen})[:8]
     log(json.dumps(dict(profiler_dropout=what, attempt=attempt + 1, found=n_found,
-                        device_events=len(seen), kernels_seen=names)))
+                        device_events=len(seen), kernels_seen=names, pad_s=profiler_pad_s)))
+    widen_profiler_pad()
 
 
-def device_total_ms(torch, fn, reps: int) -> tuple[float, float]:
+def device_total_ms(torch, fn, reps: int, least: int = 1) -> tuple[float, float]:
     """Mean device time in ms of everything ``fn`` runs on the card
     (kernels, copies, fills) and its device events per call, from
-    torch.profiler over ``reps`` calls. A session that saw no device event
-    is run again, up to three times."""
-    for attempt in range(3):
+    torch.profiler over ``reps`` calls. A session that saw fewer than
+    ``least`` device events a call is run again, up to PROFILER_ATTEMPTS times."""
+    for attempt in range(PROFILER_ATTEMPTS):
         ev = device_events(torch, profiled(torch, fn, reps)[0])
-        if ev:
+        if len(ev) >= least * reps:
             break
-        log_dropout(f"every device event x{reps}", attempt, 0, ev)
-    if not ev:
-        raise AssertionError("the profiler saw no device events")
+        log_dropout(f"every device event x{reps}", attempt, len(ev), ev)
+    if len(ev) < least * reps:
+        raise AssertionError(f"the profiler saw {len(ev)} device events in {reps} calls")
     return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps, len(ev) / reps
 
 
@@ -1058,9 +1113,10 @@ def profile_run(torch, FP, tag, r, present, bounds, check, walls, k1: bool = Fal
     check["k1_bound_ms"], check["k1_bound_by"] = bounds.k1((r.render_height, r.render_width, 3))
     if k1:
         scratch = torch.empty(16 << 20, dtype=torch.float32, device=r.device)  # 64 MB > the 50 MB L2
-        check["k1_warm"] = device_ms(torch, lambda: present.tonemap_quantize(x), "present_kernel", 20)
+        check["k1_warm"] = device_ms(torch, lambda: present.tonemap_quantize(x), "present_kernel", 20,
+                                     one_kernel=True)
         check["k1_cold"] = device_ms(torch, lambda: present.tonemap_quantize(x), "present_kernel", 20,
-                                     flush=lambda: scratch.fill_(1.0))
+                                     flush=lambda: scratch.fill_(1.0), one_kernel=True)
         del scratch
         log(f"K1 present run {tag}: device time {check['k1_warm']:.4f} ms warm, "
             f"{check['k1_cold']:.4f} ms cold (profiler); bound {check['k1_bound_ms']:.4f} ms "
@@ -1242,8 +1298,8 @@ def device_names(torch, fn, reps: int, name: str) -> tuple[float, float, dict]:
     """(device ms per call, device events per call, {kernel name: [events,
     ms] per call}) of ``fn`` from torch.profiler over ``reps`` calls, each
     of which launches one kernel whose name holds ``name``: a session that
-    saw fewer of them is logged and taken again, up to three times."""
-    for attempt in range(3):
+    saw fewer of them is logged and taken again, up to PROFILER_ATTEMPTS times."""
+    for attempt in range(PROFILER_ATTEMPTS):
         ev = device_events(torch, profiled(torch, fn, reps)[0])
         found = sum(name in e.name for e in ev)
         if found == reps:
@@ -1459,6 +1515,10 @@ def profile_prepare(torch, r, bounds):
 
 
 E_MODES = ("spatial", "temporal", "denoised")
+# the kernels a run-E present launches: spatial K12 and K1; temporal K12,
+# K11 and K1; denoised K9, K10 three times, K12, K11 and K1 (its profile
+# may show one device event more, no more)
+PRESENT_KERNELS = dict(spatial=2, temporal=3, denoised=7)
 
 
 def bits_equal(torch, a, b) -> bool:
@@ -1550,11 +1610,14 @@ def drive_e(torch, r, mode, present, traverse2, presenter, refit, timed=3):
     if min(counts[k] for k in ("present", "traverse2", "refit_blas", "refit_tlas") + W.STAGES) < 1:
         raise AssertionError(f"run E {mode}: a kernel of the path never launched: {counts}")
     presents = 1 + 2 * timed
-    want = dict(spatial=(0, 0, 0), temporal=(0, 0, presents),
-                denoised=(presents, 3 * presents, presents))[mode]
-    if tuple(PK.launches[k] for k in PK.KERNELS) != want:
-        raise AssertionError(f"run E {mode}: K9-K11 launched {PK.launches} in {presents} "
-                             f"presents, expected {dict(zip(PK.KERNELS, want))}")
+    # per present: spatial K12; temporal K12, K11; denoised K9, K10 x 3, K12, K11
+    want = dict(spatial=dict(resize=presents),
+                temporal=dict(resize=presents, temporal_resolve=presents),
+                denoised=dict(svgf_reproject=presents, atrous_pass=3 * presents, resize=presents,
+                              temporal_resolve=presents))[mode]
+    if PK.launches != {k: want.get(k, 0) for k in PK.KERNELS}:
+        raise AssertionError(f"run E {mode}: K9-K12 launched {PK.launches} in {presents} "
+                             f"presents, expected {want}")
     variants = check_variants(f"E {mode}", traverse2, "packed")
     acc = r.accum
     if not bool(torch.isfinite(acc).all()) or float(acc.max()) <= 0.0:
@@ -1619,9 +1682,13 @@ def check_e_mode(torch, r, present, presenter, T):
     return out, x
 
 
-# phase 3p: a float output of K9-K11 that is not bit-equal to its plain
+# phase 3p: a float output of K9-K12 that is not bit-equal to its plain
 # version is printed, and fails the run beyond this relative RMSE
 PRESENTER_REL_TOL = 1e-5
+# and K12 against the dense torch.mm products over the same weights (the
+# products add in another order): the largest difference over the largest
+# value
+RESIZE_DENSE_TOL = 1e-5
 
 
 def presenter_fields(torch, names, k, p) -> dict:
@@ -1675,25 +1742,41 @@ def synthetic_presenter_inputs(torch, dev, h=1080, w=1920, seed=0) -> dict:
                 history=history, weights=(0.0, 0.9), out=(2 * h, 2 * w))
 
 
-def check_presenter(torch, tag, inp, present, bounds, timed: bool = False) -> dict:
+def check_presenter(torch, tag, inp, present, bounds, timed: bool = False,
+                    sass_tap: dict | None = None) -> dict:
     """Phase 3p on ``inp`` (run E's buffers or ``synthetic_presenter_inputs``):
-    K9, K10 at each step and K11 on both chains (the temporal chain's
-    resized colour and the denoised chain's, at each history weight), each
-    against its plain version on the card on the same inputs; the denoised
-    chain through the kernels (``svgf_filter``, ``temporal_upscale``)
-    against the plain stages composed; K1's bytes. With ``timed``, each
-    kernel's and plain version's CUDA-event ms over 5 calls and its
-    bound. Raises beyond PRESENTER_REL_TOL or on a K1 byte."""
+    K9, K10 at each step, K12 in both of its forms on the path (the spatial
+    chain's Lanczos-3 of the colour with the clamp; the bilinear of colour,
+    depth and motion read where they lie, on the temporal chain's colour
+    and the denoised chain's) and K11 on both chains (on the resize's plain
+    output) at each history weight, each against its plain version on the
+    card on the same inputs, K12 also against the dense ``torch.mm``
+    products over the same weights (``spatial.resize_dense``, the port's
+    resize before K12) within RESIZE_DENSE_TOL of the largest value, and
+    at a 64x downscale (hundreds of taps, staged in chunks) too; the
+    denoised chain through the kernels (``svgf_filter``,
+    ``temporal_upscale``) against the plain stages composed; K1's bytes.
+    With ``timed``, each kernel's and plain version's CUDA-event ms over 5
+    calls and its bound (K10's also the time its instructions would take
+    at the peak rate with a tap counted as ``sass_tap[step]``, the built
+    kernel's SASS count, where given: a diagnostic, not a bound); K12's
+    also the dense products' and, for the bilinear,
+    ``torch.nn.functional.interpolate``'s (the same function on an NCHW
+    copy, ``library_ms``). Raises beyond PRESENTER_REL_TOL or
+    RESIZE_DENSE_TOL, or on a K1 byte."""
+    import torch.nn.functional as F
+
     from mrt_tpu_torch.kernels import presenter as PK
     from mrt_tpu_torch.upscale import denoise, spatial, temporal
 
     gb, depth, motion = inp["gb"], inp["depth"], inp["motion"]
     h, w = depth.shape
+    dev = depth.device
     oh, ow = inp["out"]
     state = denoise.DenoiseState(*inp["state"])
     ins = (inp["color"], gb["diffuse_albedo"], gb["specular_albedo"], gb["normal"], depth, motion)
     names9 = ("demod", "m1", "m2", "history_length", "normal", "var", "lum")
-    out, times = {}, {}
+    out, times, dense = {}, {}, {}
 
     def timing(key, fk, fp, bound):
         if timed:
@@ -1717,13 +1800,49 @@ def check_presenter(torch, tag, inp, present, bounds, timed: bool = False) -> di
                     presenter_fields(torch, ("filtered", "var", "lum"), k10, p10))
         timing(key, lambda: PK.atrous_pass(*a), lambda: PK.atrous_pass_plain(*a),
                bounds.atrous_pass(h, w, last))
+        if timed and sass_tap:
+            times[key]["sass_count_ms"] = bounds.atrous_pass(h, w, last, sass_tap[step])[0]
         if not last:
             filt, fvar, flum = p10
     denoised = p10
+
+    def check_resize(key, sources, method, clamp, size=(oh, ow), timed=timed):
+        tables = (spatial.band_table(h, size[0], method, dev),
+                  spatial.band_table(w, size[1], method, dev))
+        k12, p12 = PK.resize(sources, *tables, clamp), PK.resize_plain(sources, *tables, clamp)
+        out[key] = presenter_fields(torch, ("output",), (k12,), (p12,))
+        x = torch.cat([t.reshape(h, w, -1) for t in sources], dim=-1)
+        ref = spatial.resize_dense(x, *size, method)
+        ref = torch.clamp_min(ref, 0.0) if clamp else ref
+        dense[key] = float((k12 - ref).abs().max() / ref.abs().max())
+        if timed:
+            kr, kc = (t.weights.shape[1] for t in tables)
+            timing(key, lambda: PK.resize(sources, *tables, clamp),
+                   lambda: PK.resize_plain(sources, *tables, clamp),
+                   bounds.resize(h, w, *size, x.shape[-1], kr, kc))
+            times[key].update(taps=[kr, kc], dense_ms=cuda_ms(
+                lambda: spatial.resize_dense(x, *size, method), 5), library_ms=None)
+            if method == "bilinear":
+                nchw = x.permute(2, 0, 1)[None].contiguous()
+
+                def interp():
+                    return F.interpolate(nchw, size=size, mode="bilinear", align_corners=False)
+
+                lib = interp()[0].permute(1, 2, 0)
+                times[key].update(library_ms=cuda_ms(interp, 5), library_call=(
+                    "torch.nn.functional.interpolate(mode='bilinear', align_corners=False)"),
+                    library_max_rel_err=float((lib - k12).abs().max() / k12.abs().max()))
+        return p12
+
+    check_resize("resize lanczos3 3ch clamped", (inp["color"],), "lanczos3", True)
+    # a 64x downscale off the path: hundreds of taps, a tile's inputs staged
+    # in chunks of rows and of columns
+    check_resize("resize lanczos3 6ch downscale", (inp["color"], depth, motion), "lanczos3",
+                 False, (h // 64 + 1, w // 64 + 1), timed=False)
     k1_bad = 0
     for chain, colour in (("temporal", inp["color"]), ("denoised", denoised)):
-        up = spatial.resize(torch.cat([colour, depth[..., None], motion], dim=-1), oh, ow,
-                            "bilinear").contiguous()
+        up = check_resize(f"resize bilinear 6ch {chain}", (colour, depth, motion), "bilinear",
+                          False)
         for hw in inp["weights"]:
             a = (up, inp["history"], hw, ow / w, oh / h)
             k11, p11 = PK.temporal_resolve(*a), PK.temporal_resolve_plain(*a)
@@ -1737,9 +1856,9 @@ def check_presenter(torch, tag, inp, present, bounds, timed: bool = False) -> di
     hw = inp["weights"][-1]
     den_k, st_k = denoise.svgf_filter(inp["color"], gb, depth, motion, state)
     lin_k, hist_k = temporal.temporal_upscale(den_k, depth, motion, inp["history"], oh, ow, hw)
-    up = spatial.resize(torch.cat([denoised, depth[..., None], motion], dim=-1), oh, ow,
-                        "bilinear").contiguous()
-    lin_p, hist_p = PK.temporal_resolve_plain(up, inp["history"], hw, ow / w, oh / h)
+    bl = (spatial.band_table(h, oh, "bilinear", dev), spatial.band_table(w, ow, "bilinear", dev))
+    lin_p, hist_p = PK.temporal_resolve_plain(PK.resize_plain((denoised, depth, motion), *bl),
+                                              inp["history"], hw, ow / w, oh / h)
     out["denoised chain"] = presenter_fields(
         torch, ("denoised", "linear", "history", *names9[:5]),
         (den_k, lin_k, hist_k, *st_k[:4], st_k.normal), (denoised, lin_p, hist_p, *p9[:5]))
@@ -1750,24 +1869,48 @@ def check_presenter(torch, tag, inp, present, bounds, timed: bool = False) -> di
     worst = max([d["rel_rmse"] for v in not_bit_equal.values() for d in v.values()] + [0.0])
     line = dict(phase="3p", run=tag, render=[w, h], output=[ow, oh], fields=out,
                 not_bit_equal=not_bit_equal, max_rel_rmse=worst, k1_mismatches=k1_bad,
-                k1_chain_mismatches=k1_chain, times=times, **CARD)
+                k1_chain_mismatches=k1_chain, resize_vs_dense=dense, times=times, **CARD)
     log(json.dumps(line))
-    if worst > PRESENTER_REL_TOL or k1_bad or k1_chain:
+    if (worst > PRESENTER_REL_TOL or k1_bad or k1_chain
+            or not max(dense.values()) <= RESIZE_DENSE_TOL):
         raise AssertionError(f"phase 3p run {tag}: a presenter kernel disagrees with its plain "
-                             f"version: {not_bit_equal}, K1 {k1_bad}/{k1_chain} bytes")
+                             f"version: {not_bit_equal}, K1 {k1_bad}/{k1_chain} bytes, or K12 "
+                             f"with the dense products: {dense}")
     return line
 
 
-def profile_e(torch, FP, r, present, bounds, x4k, walls):
+def atrous_zero_share(torch, a) -> dict:
+    """Of a K10 pass's taps (``a``: its arguments), the shares whose luma
+    and depth differences from the centre are exactly 0 (edges clamped):
+    the taps that skip a division and an ``expf`` (atrous_falloff)."""
+    from mrt_tpu_torch.kernels import presenter as PK
+
+    _, _, lum, _, depth, step = a[:6]
+    pad = 2 * step
+    h, w = lum.shape
+    out = {}
+    for name, x in (("lum", lum), ("depth", depth)):
+        xp = PK.edge_pad(x, pad)
+        zero = sum(float((xp[pad + (i - 2) * step:][:h, pad + (j - 2) * step:][:, :w] == x)
+                         .float().mean()) for i in range(5) for j in range(5))
+        out[name] = zero / 25
+    return out
+
+
+def profile_e(torch, FP, r, present, bounds, x4k, walls, sass_tap):
     """Run E under the profiler, after every run's timed frames: per mode,
     one more frame, one frame (draw and present) profiled as runs A-C are
     (its idle share against the median of the mode's still frame walls,
     ``walls``), then the present's device time and events (5 calls) and
-    its costliest operators; on the denoised buffers each resize product's
-    and the denoiser's device time beside its bound, and K9's, each K10
-    pass's and K11's per launch beside theirs; K1 at the output
-    shape, warm and after a 64 MB write (cold), beside its CUDA-event and
-    plain times."""
+    its costliest operators (a session that saw fewer device events than
+    PRESENT_KERNELS is taken again; more than one beyond them raises); on the
+    denoised buffers the denoiser's device time beside its bound, and K9's,
+    each K10 pass's (with the share of its taps whose differences are
+    exactly 0, and the time at peak of its SASS count, ``sass_tap``),
+    K12's (both of its forms) and K11's per launch beside theirs; K1 at
+    the output shape, warm and after a 64 MB write (cold), beside its
+    CUDA-event and plain times."""
+    from mrt_tpu_torch.kernels import presenter as PK
     from mrt_tpu_torch.upscale import denoise, spatial
 
     h, w, oh, ow = r.render_height, r.render_width, r.output_height, r.output_width
@@ -1777,48 +1920,59 @@ def profile_e(torch, FP, r, present, bounds, x4k, walls):
         r.draw(1 / 60)
         r.present_device()
         out[f"frame_{mode}"] = FP.profile_frame(r, walls=walls[mode])
-        ms, ev = device_total_ms(torch, r.present_device, 5)
+        ms, ev = device_total_ms(torch, r.present_device, 5, least=PRESENT_KERNELS[mode])
         out[f"present_{mode}"] = dict(ms=ms, device_events=ev,
                                       top_ops_ms=device_ops(torch, r.present_device, 3))
-    six = torch.cat([r.accum, r.depth[..., None], r.motion], dim=-1)
+        if ev > PRESENT_KERNELS[mode] + 1:
+            raise AssertionError(f"run E {mode}: a present took {ev} device events, more than "
+                                 f"{PRESENT_KERNELS[mode] + 1}: {out[f'present_{mode}']}")
     dstate, gb = r._denoise_state, r.gbuffer
-    for name, fn, reps, bound in (
-            ("resize_lanczos3_3ch", lambda: spatial.resize(r.accum, oh, ow, "lanczos3"), 5,
-             bounds.resize(h, w, oh, ow, 3)),
-            ("resize_bilinear_6ch", lambda: spatial.resize(six, oh, ow, "bilinear"), 5,
-             bounds.resize(h, w, oh, ow, 6)),
-            ("denoiser", lambda: denoise.svgf_filter(r.accum, gb, r.depth, r.motion, dstate), 5,
-             bounds.denoiser(h, w))):
-        ms, ev = device_total_ms(torch, fn, reps)
-        out[name] = dict(ms=ms, device_events=ev, bound_ms=bound[0], bound_by=bound[1])
-    # K9, each K10 pass and K11 per launch, on the denoised buffers
-    from mrt_tpu_torch.kernels import presenter as PK
-
+    ms, ev = device_total_ms(
+        torch, lambda: denoise.svgf_filter(r.accum, gb, r.depth, r.motion, dstate), 5)
+    bound = bounds.denoiser(h, w)
+    out["denoiser"] = dict(ms=ms, device_events=ev, bound_ms=bound[0], bound_by=bound[1])
+    # K9, each K10 pass, K12 and K11 per launch, on the denoised buffers
     ins = tuple(t.contiguous() for t in (r.accum, gb["diffuse_albedo"], gb["specular_albedo"],
                                            gb["normal"], r.depth, r.motion))
     demod, _, _, _, normal, var, lum = PK.svgf_reproject(*ins, dstate)
-    ms = device_ms(torch, lambda: PK.svgf_reproject(*ins, dstate), "svgf_reproject", 5)
+    ms = device_ms(torch, lambda: PK.svgf_reproject(*ins, dstate), "svgf_reproject", 5,
+                   one_kernel=True)
     out["k9_svgf_reproject"] = dict(ms=ms, bound=bounds.svgf_reproject(h, w))
     filt, fvar, flum = demod, var, lum
     for step in PK.ATROUS_STEPS:
         last = step == PK.ATROUS_STEPS[-1]
         a = (filt, fvar, flum, normal, ins[4], step, *((ins[1], ins[2]) if last else ()))
-        ms = device_ms(torch, lambda: PK.atrous_pass(*a), "atrous_pass", 5)
-        out[f"k10_atrous_pass_step_{step}"] = dict(ms=ms, bound=bounds.atrous_pass(h, w, last))
+        ms = device_ms(torch, lambda: PK.atrous_pass(*a), "atrous_pass", 5, one_kernel=True)
+        out[f"k10_atrous_pass_step_{step}"] = dict(ms=ms, bound=bounds.atrous_pass(h, w, last),
+                                                   sass_count=bounds.atrous_pass(
+                                                       h, w, last, sass_tap[step]),
+                                                   zero_share=atrous_zero_share(torch, a))
         if not last:
             filt, fvar, flum = PK.atrous_pass(*a)
-    up = spatial.resize(six, oh, ow, "bilinear").contiguous()
+    for key, sources, method, clamp in (("k12_resize_lanczos3_3ch", (ins[0],), "lanczos3", True),
+                                        ("k12_resize_bilinear_6ch", (ins[0], ins[4], ins[5]),
+                                         "bilinear", False)):
+        tables = (spatial.band_table(h, oh, method, r.device),
+                  spatial.band_table(w, ow, method, r.device))
+        ms = device_ms(torch, lambda: PK.resize(sources, *tables, clamp), "resize_kernel", 5,
+                       one_kernel=True)
+        channels = sum(t.shape[2] if t.dim() == 3 else 1 for t in sources)
+        out[key] = dict(ms=ms, bound=bounds.resize(h, w, oh, ow, channels,
+                                                   tables[0].weights.shape[1],
+                                                   tables[1].weights.shape[1]))
+    up = spatial.resize((ins[0], ins[4], ins[5]), oh, ow, "bilinear")
     hist = r._upscale_history
     ms = device_ms(torch, lambda: PK.temporal_resolve(up, hist, 0.9, ow / w, oh / h),
-                   "temporal_resolve", 5)
+                   "temporal_resolve", 5, one_kernel=True)
     out["k11_temporal_resolve"] = dict(ms=ms, bound=bounds.temporal_resolve(oh, ow))
-    out["present_bounds_ms"] = dict(spatial=bounds.resize(h, w, oh, ow, 3)[0],
+    out["present_bounds_ms"] = dict(spatial=out["k12_resize_lanczos3_3ch"]["bound"][0],
                                     temporal=bounds.temporal_chain(h, w, oh, ow)[0],
                                     denoised=bounds.denoised_chain(h, w, oh, ow)[0])
     scratch = torch.empty(16 << 20, dtype=torch.float32, device=r.device)  # 64 MB > the 50 MB L2
-    k1 = dict(ms_warm=device_ms(torch, lambda: present.tonemap_quantize(x4k), "present_kernel", 20),
+    k1 = dict(ms_warm=device_ms(torch, lambda: present.tonemap_quantize(x4k), "present_kernel", 20,
+                                one_kernel=True),
               ms_cold=device_ms(torch, lambda: present.tonemap_quantize(x4k), "present_kernel", 20,
-                                flush=lambda: scratch.fill_(1.0)),
+                                flush=lambda: scratch.fill_(1.0), one_kernel=True),
               ms_events=cuda_ms(lambda: present.tonemap_quantize(x4k), 50),
               plain_ms=cuda_ms(lambda: present.tonemap_quantize_plain(x4k), 20))
     k1["bound_ms"], k1["bound_by"] = bounds.k1(tuple(x4k.shape))
@@ -2389,6 +2543,42 @@ def run_entry(torch, module, argv, W):
                      k6=list(rec["k6"]))
 
 
+def check_spatial_resize(torch, tag, r) -> dict | None:
+    """K12 at the shape renderer ``r``'s spatial present gives it (phase M's
+    demo: a 0.67-scale render, whose first indices, tile spans and row
+    chunks differ from run E's 2x): the Lanczos-3 of its accumulation with
+    the clamp, against the plain version on the same inputs bit for bit
+    and the dense products within RESIZE_DENSE_TOL of the largest value;
+    CUDA-event ms of both beside its bound. None where ``r`` presents
+    through another chain or at render size. Raises on a difference."""
+    from mrt_tpu_torch.engine import renderer as R
+    from mrt_tpu_torch.kernels import presenter as PK
+    from mrt_tpu_torch.upscale import spatial
+    from mrt_tpu_torch.utils import bounds
+
+    h, w, oh, ow = r.render_height, r.render_width, r.output_height, r.output_width
+    if r.upscaler_mode in (R.UPSCALER_TEMPORAL, R.UPSCALER_DENOISED) or (h, w) == (oh, ow):
+        return None
+    x = r.accum.contiguous()
+    tables = (spatial.band_table(h, oh, "lanczos3", x.device),
+              spatial.band_table(w, ow, "lanczos3", x.device))
+    k12, p12 = PK.resize((x,), *tables, True), PK.resize_plain((x,), *tables, True)
+    fields = presenter_fields(torch, ("output",), (k12,), (p12,))
+    ref = torch.clamp_min(spatial.resize_dense(x, oh, ow, "lanczos3"), 0.0)
+    dense = float((k12 - ref).abs().max() / ref.abs().max())
+    kr, kc = (t.weights.shape[1] for t in tables)
+    bound = bounds.resize(h, w, oh, ow, 3, kr, kc)
+    out = dict(render=[w, h], output=[ow, oh], taps=[kr, kc], fields=fields,
+               vs_dense=dense, ms=cuda_ms(lambda: PK.resize((x,), *tables, True), 5),
+               plain_ms=cuda_ms(lambda: PK.resize_plain((x,), *tables, True), 5),
+               bound_ms=bound[0], bound_by=bound[1])
+    log(json.dumps(dict(phase="M", entry=tag, k12_resize_lanczos3=out)))
+    if fields["output"]["differing"] or not dense <= RESIZE_DENSE_TOL:
+        raise AssertionError(f"phase {tag}: K12 at {h}x{w} -> {oh}x{ow} disagrees with its plain "
+                             f"version or the dense products: {out}")
+    return out
+
+
 def phase_m(torch, present, traverse2, refit, W, bounds, tmp, checks, stage_checks) -> tuple:
     """Phase M: the user entry points, each in this process through its
     main(argv) with no device flag (so on the card), at 1024x1024 output:
@@ -2398,14 +2588,15 @@ def phase_m(torch, present, traverse2, refit, W, bounds, tmp, checks, stage_chec
     2 spp and 2 bounces: a 0.67-scale render, spatial upscaler,
     motion-adaptive accumulation and sampling; a GIF and a final PNG).
     With every launch count set to 0 first; after, K1, K2 (packed only) and
-    K6-K8 must have launched (the demo: K4 ``blas`` with K5 too), every
+    K6-K8 must have launched (the demo: K4 ``blas`` with K5 and K12 too), every
     draw on the kernel route (K6 at least once per base sample), K8 once
     per sample. The files are read back by the port's own readers (the
     PNG equal to the image, each GIF frame within GIF_QUANT_ERROR of its
     step's image); images with non-zero pixels, rays traced. Then, on each
     entry point's renderer, K1 and every K2 launch of a frame and every
     K6-K8 launch of another held against their plain versions (as for the
-    runs; into ``checks`` and ``stage_checks``), one profiled draw of the
+    runs; into ``checks`` and ``stage_checks``), K12 at the demo's shape
+    (``check_spatial_resize``; into its line), one profiled draw of the
     demo (device busy and idle share against its median draw wall), and a
     48x48 run of each entry point on the card against the CPU (the last
     accumulation within 1e-2 relative RMSE, rays equal per draw). Returns
@@ -2421,22 +2612,26 @@ def phase_m(torch, present, traverse2, refit, W, bounds, tmp, checks, stage_chec
     entries = {"M smoke": (smoke, ["--size", "1024", "--out", png]),
                "M demo": (demo, ["--size", "1024", "--frames", "30", "--no-asset-models",
                                  "--out", gif])}
+    from mrt_tpu_torch.kernels import presenter as PK
+
     counts, lines, renderers = {}, {}, {}
     for tag, (module, argv) in entries.items():
         present.launches = 0
         traverse2.reset_launches()
         refit.reset_launches()
         W.reset_launches()
+        PK.reset_launches()
         t0 = time.perf_counter()
         (r, out), rec = run_entry(torch, module, argv, W)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         c = {"present": present.launches, "traverse2": traverse2.launches,
-             "traverse_flat": traverse2.flat_launches, **refit_counts(refit), **stage_counts(W)}
+             "traverse_flat": traverse2.flat_launches, **refit_counts(refit), **stage_counts(W),
+             **PK.launches}
         variants = {k: n for k, n in traverse2.variant_launches.items() if n}
         need = ("present", "traverse2") + W.STAGES
-        if tag == "M demo":
-            need += ("refit_blas", "refit_tlas")
+        if tag == "M demo":  # its spatial present: K12 with the clamp
+            need += ("refit_blas", "refit_tlas", "resize")
         walls, rays = rec["walls"], rec["rays"]
         if (r.device.type != "cuda" or min(c[k] for k in need) < 1 or set(variants) != {"packed"}
                 or c["traverse_flat"] or c["resolve_shadow"] != c["sample_start"]
@@ -2494,6 +2689,8 @@ def phase_m(torch, present, traverse2, refit, W, bounds, tmp, checks, stage_chec
         checks[tag].pop("k1_input")
         stage_checks[tag] = check_stages(torch, tag, r, W, traverse2, bounds)
         stage_checks[tag].pop("first")
+        if c_spatial := check_spatial_resize(torch, tag, r):
+            lines[tag]["k12"] = c_spatial
     del renderers
 
     # 48x48: each entry point on the card against the CPU
@@ -2532,7 +2729,7 @@ def main() -> int:
 
     from mrt_tpu_torch.core import halton as H
     from mrt_tpu_torch.core import types as T
-    from mrt_tpu_torch.kernels import build, present, refit, traverse2
+    from mrt_tpu_torch.kernels import build, present, refit, sass_diff, traverse2
     from mrt_tpu_torch.kernels import presenter as PK
     from mrt_tpu_torch.kernels import wavefront as W
     from mrt_tpu_torch.render import wavefront as wf
@@ -2558,6 +2755,13 @@ def main() -> int:
     build.load()
     log(f"build: {sorted(p.name for p in build.CSRC.glob('*.cu'))} -> "
         f"{build.LIB.relative_to(ROOT)} in {secs:.1f} s")
+    # K10's tap as its SASS issues it, per step (a diagnostic beside its bound)
+    k10_sass = sass_diff.tap_instructions(str(build.LIB))
+    if sorted(k10_sass) != sorted(PK.ATROUS_STEPS):
+        raise AssertionError(f"K10's SASS: instantiations {sorted(k10_sass)}, expected steps "
+                             f"{PK.ATROUS_STEPS}")
+    sass_tap = {step: v["per_tap"] for step, v in k10_sass.items()}
+    log(json.dumps(dict(k10_sass=k10_sass)))
 
     # --- 3. kernels against their plain versions ----------------------------------------
     check_halton(torch, H)
@@ -2782,16 +2986,21 @@ def main() -> int:
         e_checks[mode], x4k = check_e_mode(torch, re_, present, presenter, T)
         e_lines[mode].update(e_checks[mode], card=card_name, power_limit=power_limit)
         log(json.dumps(e_lines[mode]))
-    # --- 3p. K9-K11, the presenter kernels, against their plain versions on the card ---------
+    # --- 3p. K9-K12, the presenter kernels, against their plain versions on the card ---------
     t_3p = time.perf_counter()
     presenter_checks = {"E": check_presenter(torch, "E", dict(
         color=re_.accum.contiguous(), gb={k: v.contiguous() for k, v in re_.gbuffer.items()},
         depth=re_.depth.contiguous(), motion=re_.motion.contiguous(),
         state=tuple(re_._denoise_state), history=re_._upscale_history,
         weights=(float(re_.accumulation_weight),),
-        out=(re_.output_height, re_.output_width)), present, bounds, timed=True)}
+        out=(re_.output_height, re_.output_width)), present, bounds, timed=True,
+        sass_tap=sass_tap)}
     presenter_checks["synthetic"] = check_presenter(
         torch, "synthetic 1920x1080", synthetic_presenter_inputs(torch, dev), present, bounds)
+    # no multiple of K10's 32x8 and K12's 32x32 tiles: partial tiles, the clamped halo
+    presenter_checks["synthetic odd"] = check_presenter(
+        torch, "synthetic 963x541", synthetic_presenter_inputs(torch, dev, h=541, w=963), present,
+        bounds)
     log(f"phase 3p: {time.perf_counter() - t_3p:.1f} s")
     # the G-buffer state (denoised mode): K7 writes it at sample 0's first hit
     if not (re_.settings().enable_gbuffer and route_of(W, re_)):
@@ -2979,7 +3188,7 @@ def main() -> int:
                         table_clone_ms=clone_ms["J"], card=card_name, power_limit=power_limit)))
     del jgeom, jtris
     e_profile, e_k1 = profile_e(torch, FP, re_, present, bounds, x4k,
-                                {m: e_lines[m]["frame_walls_still"] for m in E_MODES})
+                                {m: e_lines[m]["frame_walls_still"] for m in E_MODES}, sass_tap)
     log(json.dumps(dict(run="E", profile=e_profile, k1=e_k1, card=card_name,
                         power_limit=power_limit)))
     del ra, rb, rc, rd, re_, rf, rn, rh, rj, x4k
@@ -3167,14 +3376,57 @@ def main() -> int:
     kernels += [
         presenter_entry("K9 svgf_reproject", "svgf_reproject", "svgf_reproject",
                         "mrt_tpu/upscale/denoise.py:90", ["k9_svgf_reproject"]),
-        presenter_entry("K10 atrous_pass", "atrous_pass", "atrous_pass step 1",
-                        "mrt_tpu/upscale/denoise.py:56",
-                        [f"k10_atrous_pass_step_{s}" for s in PK.ATROUS_STEPS]),
+        dict(presenter_entry("K10 atrous_pass", "atrous_pass", "atrous_pass step 1",
+                             "mrt_tpu/upscale/denoise.py:56",
+                             [f"k10_atrous_pass_step_{s}" for s in PK.ATROUS_STEPS]),
+             sass=k10_sass),
         presenter_entry("K11 temporal_resolve", "temporal_resolve", "temporal_resolve denoised",
                         "mrt_tpu/upscale/temporal.py:65", ["k11_temporal_resolve"]),
     ]
-    if any(k["launches"] < 1 for k in kernels[-3:]):
-        raise AssertionError(f"a presenter kernel never launched on the main path: {kernels[-3:]}")
+    # K12 by its two forms on the path: the spatial chain's (run E spatial,
+    # phase M's demo) and the temporal chains' (run E temporal and
+    # denoised); ms, plain_ms, bound_ms and library_ms from phase 3p on run
+    # E's last buffers (the bilinear on the denoised chain), with the dense
+    # products' time (the port's resize before K12) and the largest
+    # difference from them; the spatial form also checked at phase M's demo
+    # shape; each form's registers and spills (-Xptxas -v)
+    mode_counts = {f"E {m}": e_lines[m]["launches"]["resize"] for m in E_MODES}
+    mode_counts["M demo"] = counts["M demo"]["resize"]
+    if "k12" not in m_lines["M demo"]:
+        raise AssertionError("phase M: K12 was not checked at the demo's shape")
+    m_k12 = m_lines["M demo"]["k12"]
+    for form, key, timed, runs, profiled, args in (
+            ("lanczos3, 3 channels, clamped", "resize lanczos3", "resize lanczos3 3ch clamped",
+             ("E spatial", "M demo"), "k12_resize_lanczos3_3ch", "ILi3ELi6ELi6E"),
+            ("bilinear, 6 channels", "resize bilinear", "resize bilinear 6ch denoised",
+             ("E temporal", "E denoised"), "k12_resize_bilinear_6ch", "ILi6ELi2ELi2E")):
+        t = presenter_checks["E"]["times"][timed]
+        fields = [d for c in presenter_checks.values() for k, v in c["fields"].items()
+                  if k.startswith(key) for d in v.values()]
+        at_m = {}
+        if "M demo" in runs:
+            fields += list(m_k12["fields"].values())
+            at_m = dict(at_m_demo={k: v for k, v in m_k12.items() if k != "fields"},
+                        not_bit_equal_m_demo=m_k12["fields"]["output"]["differing"])
+        kernels.append(dict(
+            name=f"K12 resize ({form})", route="cuda", source="mrt_tpu_torch/csrc/presenter.cu",
+            replaces="mrt_tpu/upscale/spatial.py:15" if form.startswith("lanczos3")
+            else "mrt_tpu/upscale/temporal.py:91",
+            launches=sum(mode_counts[r_] for r_ in runs),
+            launches_by_run={r_: mode_counts[r_] for r_ in runs},
+            max_abs_err=max([d.get("max_abs", 0.0) for d in fields] + [0.0]), ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], taps=t["taps"], dense_ms=t["dense_ms"], **at_m,
+            ptxas={k: v for k, v in build.ptxas.items() if f"resize_kernel{args}" in k},
+            library=t.get("library_call"), library_max_rel_err=t.get("library_max_rel_err"),
+            times={k: v for k, v in presenter_checks["E"]["times"].items() if k.startswith(key)},
+            vs_dense={run: {k: v for k, v in c["resize_vs_dense"].items() if k.startswith(key)}
+                      for run, c in presenter_checks.items()},
+            profiled=e_profile[profiled],
+            not_bit_equal={run: {k: v for k, v in c["not_bit_equal"].items() if k.startswith(key)}
+                           for run, c in presenter_checks.items()}))
+    if any(k["launches"] < 1 for k in kernels[-5:]):
+        raise AssertionError(f"a presenter kernel never launched on the main path: {kernels[-5:]}")
     # K7 by instantiation: its launches on the main path, the phase-3c checks
     # of the frames that took it, its registers and spills (-Xptxas -v), and
     # ms, plain_ms and bound_ms at the first launch of the run that times it

@@ -18,7 +18,7 @@ def resolve(device=None) -> torch.device:
 
 def require_full_f32(x: torch.Tensor, what: str):
     """Raise on a CUDA tensor while f32 products may run in TF32: the port's
-    dense products (LBS, the resize) are held to f32 results."""
+    dense products (LBS, the resize's reference) are held to f32 results."""
     if x.is_cuda and (torch.backends.cuda.matmul.allow_tf32
                       or torch.get_float32_matmul_precision() != "highest"):
         raise RuntimeError(f"{what} needs the f32 product in full precision; turn TF32 off "

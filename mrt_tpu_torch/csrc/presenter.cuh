@@ -1,8 +1,9 @@
-// The per-pixel bodies of K9 svgf_reproject, K10 atrous_pass and K11
-// temporal_resolve (presenter.cu launches them, one thread a pixel),
-// compiled for the host too (outside nvcc MRT_PX is plain inline and
-// MRT_LDG a plain load), so a host compiler can hold them against the plain
-// PyTorch versions on the CPU.
+// The per-pixel bodies of K9 svgf_reproject, K10 atrous_pass, K11
+// temporal_resolve and K12 resize (presenter.cu launches them: K9 and K11
+// a thread a pixel, K10 and K12 a block an output tile), compiled for the
+// host too (outside nvcc MRT_PX is plain inline and MRT_LDG a plain load),
+// so a host compiler can hold them against the plain PyTorch versions on
+// the CPU.
 //
 // Bits: nvcc -fmad=false (a host compiler: -ffp-contract=off). Every step
 // is written in the plain version's op order: clamp/clamp_min/clamp_max/
@@ -169,43 +170,114 @@ MRT_PX float mrt_b3(int i) {
     return i == 2 ? 3.0f / 8.0f : (i == 1 || i == 3) ? 1.0f / 4.0f : 1.0f / 16.0f;
 }
 
-// K10 at pixel p: one pass at dilation ``step``; with ``diffuse`` (the
-// last pass) the remodulated colour, else the colour, variance and luma
-MRT_PX void atrous_pass_px(
-    long long p, int h, int w, int step, const float* __restrict__ filtered,
-    const float* __restrict__ var, const float* __restrict__ lum,
-    const float* __restrict__ normal, const float* __restrict__ depth,
-    const float* __restrict__ diffuse, const float* __restrict__ specular,
-    float* __restrict__ out, float* __restrict__ out_var, float* __restrict__ out_lum) {
-    int row = (int)(p / w), col = (int)(p - (long long)row * w);
+// K10's tile: ATROUS_TW x ATROUS_TH output pixels (a block), staged with
+// a 2*STEP halo on every side, the edge clamp applied when staging
+constexpr int ATROUS_TW = 32, ATROUS_TH = 8;
+// the staged fields, one plane each: filtered 3, normal 3, var, lum, depth
+enum { AP_F0, AP_F1, AP_F2, AP_N0, AP_N1, AP_N2, AP_VAR, AP_LUM, AP_Z, AP_PLANES };
 
-    float n0 = MRT_LDG(normal + 3 * p), n1 = MRT_LDG(normal + 3 * p + 1);
-    float n2 = MRT_LDG(normal + 3 * p + 2);
-    float z = MRT_LDG(depth + p), l = MRT_LDG(lum + p);
-    float sigma_l = sqrtf(clamp_min_t(MRT_LDG(var + p), 0.0f)) * 4.0f + 1e-4f;
-    float depth_scale = 0.1f * clamp_min_t(z, 1e-3f);
-    float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc_var = 0.0f, wsum = 0.0f;
+template <int STEP>
+struct AtrousTile {
+    static constexpr int W = ATROUS_TW + 4 * STEP, H = ATROUS_TH + 4 * STEP, N = W * H;
+};
+
+// the centre pixel's terms of K10's weights
+struct AtrousCentre {
+    float n0, n1, n2, z, l, sigma_l, depth_scale;
+};
+
+// K10's running sums over the taps
+struct AtrousSums {
+    float acc0, acc1, acc2, acc_var, wsum;
+};
+
+MRT_PX AtrousCentre atrous_centre(float n0, float n1, float n2, float z, float l, float var) {
+    AtrousCentre c;
+    c.n0 = n0;
+    c.n1 = n1;
+    c.n2 = n2;
+    c.z = z;
+    c.l = l;
+    c.sigma_l = sqrtf(clamp_min_t(var, 0.0f)) * 4.0f + 1e-4f;
+    c.depth_scale = 0.1f * clamp_min_t(z, 1e-3f);
+    return c;
+}
+
+// exp(-d / s) of a distance d >= 0. Where d is 0 and s > 0, -0 / s is -0
+// and the result exactly 1: taken without the division and the exp. Flat
+// image regions have many such taps, and a zero dividend takes the
+// division off its fast path (K10 ran slower on rendered frames than on
+// random data before this)
+MRT_PX float atrous_falloff(float d, float s) {
+    if (d == 0.0f && s > 0.0f) return 1.0f;
+    return expf(-d / s);
+}
+
+// one of K10's 25 taps: ``wij`` the B3 product, then the neighbour's
+// filtered colour, normal, variance, luma and depth
+MRT_PX void atrous_tap(AtrousSums& s, const AtrousCentre& c, float wij, float f0, float f1,
+                       float f2, float m0, float m1, float m2, float qv, float ql, float qz) {
+    float nd = dot3(m0, m1, m2, c.n0, c.n1, c.n2);
+    float w_n = clamp_t(nd, 0.0f, 1.0f);
+    for (int k = 0; k < 5; ++k) w_n = w_n * w_n;
+    float w_z = atrous_falloff(fabsf(qz - c.z), c.depth_scale);
+    float w_l = atrous_falloff(fabsf(ql - c.l), c.sigma_l);
+    float wgt = wij * w_n * w_z * w_l;
+    s.acc0 = s.acc0 + f0 * wgt;
+    s.acc1 = s.acc1 + f1 * wgt;
+    s.acc2 = s.acc2 + f2 * wgt;
+    s.acc_var = s.acc_var + qv * wgt * wgt;
+    s.wsum = s.wsum + wgt;
+}
+
+// stage pixel i (row-major) of the tile whose first output pixel is (x0,
+// y0) into ``planes`` (AP_PLANES planes of AtrousTile<STEP>::N): the image
+// pixel at the clamped (y0 - 2 STEP + i / W, x0 - 2 STEP + i % W)
+template <int STEP>
+MRT_PX void atrous_stage(int i, int x0, int y0, int h, int w, const float* __restrict__ filtered,
+                         const float* __restrict__ var, const float* __restrict__ lum,
+                         const float* __restrict__ normal, const float* __restrict__ depth,
+                         float* __restrict__ planes) {
+    using T = AtrousTile<STEP>;
+    int ty = i / T::W, tx = i - ty * T::W;
+    int r = mrt_iclamp(y0 - 2 * STEP + ty, 0, h - 1);
+    int c = mrt_iclamp(x0 - 2 * STEP + tx, 0, w - 1);
+    long long q = (long long)r * w + c;
+    for (int k = 0; k < 3; ++k) {
+        planes[(AP_F0 + k) * T::N + i] = MRT_LDG(filtered + 3 * q + k);
+        planes[(AP_N0 + k) * T::N + i] = MRT_LDG(normal + 3 * q + k);
+    }
+    planes[AP_VAR * T::N + i] = MRT_LDG(var + q);
+    planes[AP_LUM * T::N + i] = MRT_LDG(lum + q);
+    planes[AP_Z * T::N + i] = MRT_LDG(depth + q);
+}
+
+// K10 at the tile's pixel (tx, ty), inside the image, from the staged
+// planes: one pass at dilation STEP; with ``diffuse`` (the last pass) the
+// remodulated colour, else the colour, variance and luma
+template <int STEP>
+MRT_PX void atrous_tile_px(int tx, int ty, int x0, int y0, int w, const float* planes,
+                           const float* __restrict__ diffuse, const float* __restrict__ specular,
+                           float* __restrict__ out, float* __restrict__ out_var,
+                           float* __restrict__ out_lum) {
+    using T = AtrousTile<STEP>;
+    const float* at = planes + (ty + 2 * STEP) * T::W + tx + 2 * STEP;  // the centre
+    AtrousCentre c = atrous_centre(at[AP_N0 * T::N], at[AP_N1 * T::N], at[AP_N2 * T::N],
+                                   at[AP_Z * T::N], at[AP_LUM * T::N], at[AP_VAR * T::N]);
+    AtrousSums s = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
     for (int i = 0; i < 5; ++i) {
-        int r = mrt_iclamp(row + (i - 2) * step, 0, h - 1);
+#pragma unroll
         for (int j = 0; j < 5; ++j) {
-            int c = mrt_iclamp(col + (j - 2) * step, 0, w - 1);
-            long long q = (long long)r * w + c;
-            float nd = dot3(MRT_LDG(normal + 3 * q), MRT_LDG(normal + 3 * q + 1),
-                            MRT_LDG(normal + 3 * q + 2), n0, n1, n2);
-            float w_n = clamp_t(nd, 0.0f, 1.0f);
-            for (int s = 0; s < 5; ++s) w_n = w_n * w_n;
-            float w_z = expf(-fabsf(MRT_LDG(depth + q) - z) / depth_scale);
-            float w_l = expf(-fabsf(MRT_LDG(lum + q) - l) / sigma_l);
-            float wgt = mrt_b3(i) * mrt_b3(j) * w_n * w_z * w_l;
-            acc0 = acc0 + MRT_LDG(filtered + 3 * q) * wgt;
-            acc1 = acc1 + MRT_LDG(filtered + 3 * q + 1) * wgt;
-            acc2 = acc2 + MRT_LDG(filtered + 3 * q + 2) * wgt;
-            acc_var = acc_var + MRT_LDG(var + q) * wgt * wgt;
-            wsum = wsum + wgt;
+            const float* q = at + (i - 2) * STEP * T::W + (j - 2) * STEP;
+            atrous_tap(s, c, mrt_b3(i) * mrt_b3(j), q[AP_F0 * T::N], q[AP_F1 * T::N],
+                       q[AP_F2 * T::N], q[AP_N0 * T::N], q[AP_N1 * T::N], q[AP_N2 * T::N],
+                       q[AP_VAR * T::N], q[AP_LUM * T::N], q[AP_Z * T::N]);
         }
     }
-    float den = clamp_min_t(wsum, 1e-6f);
-    float o0 = acc0 / den, o1 = acc1 / den, o2 = acc2 / den;
+    long long p = (long long)(y0 + ty) * w + x0 + tx;
+    float den = clamp_min_t(s.wsum, 1e-6f);
+    float o0 = s.acc0 / den, o1 = s.acc1 / den, o2 = s.acc2 / den;
     if (diffuse != nullptr) {  // the last pass: remodulate
         float o[3] = {o0, o1, o2};
         for (int k = 0; k < 3; ++k)
@@ -216,7 +288,7 @@ MRT_PX void atrous_pass_px(
     out[3 * p] = o0;
     out[3 * p + 1] = o1;
     out[3 * p + 2] = o2;
-    out_var[p] = acc_var / clamp_min_t(wsum * wsum, 1e-6f);
+    out_var[p] = s.acc_var / clamp_min_t(s.wsum * s.wsum, 1e-6f);
     out_lum[p] = luma3(o0, o1, o2);
 }
 
@@ -268,5 +340,52 @@ MRT_PX void temporal_resolve_px(
     }
     new_history[p] = make_float4(o[0], o[1], o[2], dep);
 }
+
+// K12: up to three (h, w, c) sources resampled as one image of their
+// channels in order (an absent source has c = 0), at most RESIZE_MAX_C
+constexpr int RESIZE_MAX_C = 8;
+// K12's tile: RESIZE_TW x RESIZE_TH output pixels (a block of RESIZE_WARPS
+// warps, each RESIZE_TH / RESIZE_WARPS of its rows)
+constexpr int RESIZE_TW = 32, RESIZE_TH = 32, RESIZE_WARPS = 8;
+
+struct ResizeSrc {
+    const float* p[3];
+    int c[3];
+};
+
+// K12's staging: input pixel (r, col)'s channels, every source's in turn,
+// to dst[0..C)
+MRT_PX void resize_stage_px(const ResizeSrc& src, int w, int r, int col, float* dst) {
+    long long q = (long long)r * w + col;
+    int c0 = 0;
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+        int cs = src.c[s];
+        for (int c = 0; c < cs; ++c) dst[c0 + c] = MRT_LDG(src.p[s] + q * cs + c);
+        c0 += cs;
+    }
+}
+
+// a tap of either axis: v times its weight wt, added in increasing input
+// index (tap 0 starts the sum)
+MRT_PX float resize_tap(float acc, float v, float wt, int k) {
+    float t = v * wt;
+    return k == 0 ? t : acc + t;
+}
+
+// K12's horizontal pass at one input row and output column, taps k0 to
+// k0 + n - 1: x points at tap k0's staged pixel (C channels a pixel), wt
+// at its weight; channel c's sum is sums[c * stride] (read unless k0 is 0)
+MRT_PX void resize_row_px(const float* x, int C, const float* __restrict__ wt, int k0, int n,
+                          float* sums, int stride) {
+    for (int c = 0; c < C; ++c) {
+        float acc = sums[c * stride];
+        for (int k = 0; k < n; ++k) acc = resize_tap(acc, x[k * C + c], MRT_LDG(wt + k), k0 + k);
+        sums[c * stride] = acc;
+    }
+}
+
+// the spatial chain's clamp_min(out, 0), folded in (NaN kept)
+MRT_PX float resize_out(float v, bool clamp) { return clamp ? clamp_min_t(v, 0.0f) : v; }
 
 }  // namespace mrt_presenter

@@ -1,7 +1,9 @@
-"""Kernels K9 ``svgf_reproject``, K10 ``atrous_pass`` and K11
-``temporal_resolve`` — the stateful presenter chains (``csrc/presenter.cu``),
-their wrappers, their plain PyTorch versions and the plain versions'
-building blocks (``luma``, ``pow2k``, ``bilinear_sample``, ``edge_pad``).
+"""Kernels K9 ``svgf_reproject``, K10 ``atrous_pass``, K11
+``temporal_resolve`` — the stateful presenter chains — and K12 ``resize``
+(``csrc/presenter.cu``), their wrappers, their plain PyTorch versions and the
+plain versions' building blocks (``luma``, ``pow2k``, ``bilinear_sample``,
+``edge_pad``), and K12's banded weight tables (``Band``, ``band_of``,
+``identity_band``).
 
 K9 and K10 replace the torch ops of ``mrt_tpu/upscale/denoise.py:svgf_filter``
 (the SVGF-lite denoiser: the reprojection and moments, then the three
@@ -10,10 +12,16 @@ temporal_upscale`` after its bilinear resize (the history reprojection,
 the depth test, the 3x3 clamp and the blend). On the TPU these are XLA
 programs (the JAX package's Pallas à-trous kernel lost to XLA's fusion and
 was deleted); in eager PyTorch each is dozens to thousands of launches.
+K12 replaces ``jax.image.resize`` (``mrt_tpu/upscale/spatial.py:15``,
+``temporal.py:91-93``; an XLA ``einsum`` of dense weight matrices): it
+resamples up to three sources (the temporal chain's colour, depth and
+motion, read where they lie) into one contiguous buffer through banded
+tables, the width first, then the height, with the spatial chain's clamp
+folded in.
 
 The plain versions are the port's torch-op code, cut at the kernels'
 boundaries: ``svgf_filter`` = K9, then K10 at steps 1, 2 and 4, the last
-with the remodulation; ``temporal_upscale`` = the resize, then K11. A
+with the remodulation; ``temporal_upscale`` = K12, then K11. A
 wrapper checks its inputs (float32, shapes, contiguous, and on the card
 16-byte aligned) and raises on what its kernel does not take; it runs its
 plain version for CPU tensors only, and on CUDA tensors launches its kernel.
@@ -22,17 +30,25 @@ plain version for CPU tensors only, and on CUDA tensors launches its kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 # kernel launches by the wrappers in this process, by kernel
-launches = {"svgf_reproject": 0, "atrous_pass": 0, "temporal_resolve": 0}
+launches = {"svgf_reproject": 0, "atrous_pass": 0, "temporal_resolve": 0, "resize": 0}
 KERNELS = tuple(launches)
 
 _LUMA = (0.2126, 0.7152, 0.0722)
 # the B3 spline's taps per axis (the à-trous pass takes their products)
 _B3 = (1 / 16, 1 / 4, 3 / 8, 1 / 4, 1 / 16)
 ATROUS_STEPS = (1, 2, 4)
+# K12's output tile (csrc/presenter.cuh RESIZE_TW x RESIZE_TH, a block of
+# RESIZE_WARPS warps), its most channels (RESIZE_MAX_C) and the shared
+# memory a block may take (floats): its staged input pixels and horizontal
+# sums, in chunks of input rows and columns, and an output row a warp
+RESIZE_TILE_W, RESIZE_TILE_H, RESIZE_WARPS, RESIZE_MAX_C = 32, 32, 8, 8
+RESIZE_SMEM_FLOATS = 48 * 1024 // 4
 
 
 def reset_launches() -> None:
@@ -104,6 +120,61 @@ def edge_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
 def albedo_of(diffuse: torch.Tensor, specular: torch.Tensor) -> torch.Tensor:
     """The denoiser's demodulation albedo, kept off zero."""
     return torch.clamp_min(diffuse + specular, 1e-3)
+
+
+class Band(NamedTuple):
+    """One axis of K12's resampling as a banded table: output i reads the
+    inputs ``first[i]`` to ``first[i] + K - 1`` with ``weights[i]`` (zero
+    where the dense matrix has no weight), in increasing index."""
+
+    n_in: int
+    first: torch.Tensor  # (n_out,) int32, non-decreasing
+    weights: torch.Tensor  # (n_out, K) float32
+    # the most inputs that a tile's RESIZE_TILE_H (as the height's table) or
+    # RESIZE_TILE_W (as the width's) consecutive outputs read
+    span_h: int
+    span_w: int
+
+    def to(self, device) -> "Band":
+        return self._replace(first=self.first.to(device), weights=self.weights.to(device))
+
+
+def _band(n_in: int, first: np.ndarray, weights: np.ndarray) -> Band:
+    n_out, k = weights.shape
+
+    def span(tile):
+        starts = np.arange(0, n_out, tile)
+        return int((first[np.minimum(starts + tile, n_out) - 1] + k - first[starts]).max())
+
+    return Band(n_in, torch.from_numpy(first.astype(np.int32)),
+                torch.from_numpy(np.ascontiguousarray(weights, dtype=np.float32)),
+                span(RESIZE_TILE_H), span(RESIZE_TILE_W))
+
+
+def band_of(matrix: torch.Tensor) -> Band:
+    """The banded table of a dense (n_in, n_out) f32 resampling matrix (on
+    the CPU): K is the widest span of non-zero weights of any column, each
+    band starts at its column's first non-zero weight (moved down where it
+    would end past the input; a column without weights follows the one
+    before). Raises if a non-zero weight falls outside its band."""
+    m = matrix.detach().cpu().numpy()
+    n_in, n_out = m.shape
+    nz = m != 0
+    has = nz.any(axis=0)
+    lo = np.where(has, nz.argmax(axis=0), 0)
+    hi = np.where(has, n_in - 1 - nz[::-1].argmax(axis=0), 0)
+    k = int((hi - lo).max()) + 1
+    first = np.maximum.accumulate(np.minimum(lo, n_in - k))
+    weights = m[first[:, None] + np.arange(k), np.arange(n_out)[:, None]]
+    if not np.array_equal(np.count_nonzero(weights, axis=1), np.count_nonzero(m, axis=0)):
+        raise ValueError("band_of: a column's non-zero weights fall outside its band")
+    return _band(n_in, first, weights)
+
+
+def identity_band(n: int) -> Band:
+    """The table of an axis that keeps its size: one tap of weight 1 (a
+    product by 1 is exact, as ``jax.image.resize`` skipping the axis)."""
+    return _band(n, np.arange(n), np.ones((n, 1), np.float32))
 
 
 # --- the plain versions --------------------------------------------------------------------
@@ -232,18 +303,41 @@ def temporal_resolve_plain(up, history, history_weight, sx: float, sy: float):
     return out, torch.cat([out, dep], dim=-1)
 
 
+def resize_plain(sources, rows: Band, cols: Band, clamp: bool = False):
+    """K12's function: the sources ((h,w) or (h,w,c) each) as one (h,w,C)
+    image of their channels in order, resampled by the width's table
+    ``cols`` and then the height's ``rows``, each output the first tap's
+    product and then one add per tap in increasing input index, every
+    intermediate an f32 tensor; with ``clamp``, ``clamp_min(out, 0)``.
+    Returns (n_out rows, n_out cols, C)."""
+    x = torch.cat([s.reshape(s.shape[0], s.shape[1], -1) for s in sources], dim=-1)
+    first = cols.first.long()
+    t = None
+    for k in range(cols.weights.shape[1]):
+        p = x[:, first + k] * cols.weights[:, k, None]
+        t = p if t is None else t + p
+    first = rows.first.long()
+    out = None
+    for k in range(rows.weights.shape[1]):
+        p = t[first + k] * rows.weights[:, k, None, None]
+        out = p if out is None else out + p
+    return torch.clamp_min(out, 0.0) if clamp else out
+
+
 # --- the wrappers ---------------------------------------------------------------------------
 
 def _check(fn: str, tensors: dict, device) -> None:
-    """Each of ``tensors`` (name -> (tensor, shape)) float32, of its shape,
-    contiguous, on ``device``; on the card 16-byte aligned. Raises."""
+    """Each of ``tensors`` (name -> (tensor, shape[, dtype])) of its dtype
+    (float32 unless given), of its shape, contiguous, on ``device``; on the
+    card 16-byte aligned. Raises."""
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{fn}: unsupported device {device}")
-    for name, (t, shape) in tensors.items():
+    for name, (t, shape, *dtype) in tensors.items():
+        want = dtype[0] if dtype else torch.float32
         if t.device != device:
             raise ValueError(f"{fn}: {name} is on {t.device}, not {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{fn}: {name} is {t.dtype}, expected float32")
+        if t.dtype != want:
+            raise TypeError(f"{fn}: {name} is {t.dtype}, expected {want}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
@@ -346,3 +440,53 @@ def temporal_resolve(up, history, history_weight: float, sx: float, sy: float):
                 _ptr(new_history), out_h, out_w, ctypes.c_float(float(history_weight)),
                 ctypes.c_float(sx), ctypes.c_float(sy), stream)
     return out, new_history
+
+
+def resize(sources, rows: Band, cols: Band, clamp: bool = False):
+    """K12 (see ``resize_plain``): 1-3 float32 sources of one (h, w), each
+    (h,w) or (h,w,c), at most RESIZE_MAX_C channels in all; ``rows`` and
+    ``cols`` the tables of the height and the width (``n_in`` h and w).
+    Returns the contiguous (rows' n_out, cols' n_out, channels)."""
+    sources = tuple(sources)
+    if not 1 <= len(sources) <= 3:
+        raise ValueError(f"resize: {len(sources)} sources, expected 1-3")
+    if any(s.dim() not in (2, 3) for s in sources):
+        raise ValueError(f"resize: sources of shapes {[tuple(s.shape) for s in sources]}, "
+                         "expected (h,w) or (h,w,c)")
+    h, w = sources[0].shape[0], sources[0].shape[1]
+    dev = sources[0].device
+    chans = [1 if s.dim() == 2 else s.shape[2] for s in sources]
+    if min(chans) < 1 or sum(chans) > RESIZE_MAX_C:
+        raise ValueError(f"resize: channels {chans}, expected 1-{RESIZE_MAX_C} in all")
+    if (rows.n_in, cols.n_in) != (h, w):
+        raise ValueError(f"resize: tables for ({rows.n_in}, {cols.n_in}) inputs, sources "
+                         f"({h}, {w})")
+    oh, ow, kr, kc = rows.first.shape[0], cols.first.shape[0], rows.weights.shape[1], \
+        cols.weights.shape[1]
+    ins = {f"source {i}": (s, (h, w) + tuple(s.shape[2:])) for i, s in enumerate(sources)}
+    ins.update(row_first=(rows.first, (oh,), torch.int32), row_weights=(rows.weights, (oh, kr)),
+               col_first=(cols.first, (ow,), torch.int32), col_weights=(cols.weights, (ow, kc)))
+    _check("resize", ins, dev)
+    if dev.type == "cpu":
+        return resize_plain(sources, rows, cols, clamp)
+    c = sum(chans)
+    out = torch.empty((oh, ow, c), dtype=torch.float32, device=dev)
+    if oh * ow:
+        rows_chunk, cols_chunk = _resize_chunks(rows, cols, c)
+        lib, stream = _lib_stream(dev)
+        null = ctypes.c_void_p(None)
+        _launch("resize", lib.mrt_resize, *(_ptr(s) for s in sources),
+                *(null,) * (3 - len(sources)), *chans, *(0,) * (3 - len(chans)), h, w,
+                _ptr(rows.first), _ptr(rows.weights), kr, _ptr(cols.first), _ptr(cols.weights),
+                kc, oh, ow, rows_chunk, cols_chunk, int(clamp), _ptr(out), stream)
+    return out
+
+
+def _resize_chunks(rows: Band, cols: Band, channels: int) -> tuple[int, int]:
+    """The input rows and columns a K12 block stages at once: all that its
+    tile reads where they fit in RESIZE_SMEM_FLOATS beside their sums and
+    the output rows, else fewer rows, and where one row does not fit,
+    fewer columns too."""
+    room = RESIZE_SMEM_FLOATS // channels - RESIZE_WARPS * RESIZE_TILE_W
+    cols_chunk = min(cols.span_w, room - RESIZE_TILE_W)
+    return min(rows.span_h, room // (cols_chunk + RESIZE_TILE_W)), cols_chunk

@@ -17,6 +17,9 @@ kernel that
 gained template parameters is matched by appending ``false`` for each one
 (K2's ``<MASKED, FLOAT_SORT>`` to ``<MASKED, FLOAT_SORT, false>``). Prints one
 line per kernel of OLD.cu and exits 1 if any differs or is missing.
+
+``tap_instructions`` counts the instructions of one K10 tap in the built
+library (``chip_smoke.py`` prints it beside K10's bound).
 """
 
 from __future__ import annotations
@@ -42,15 +45,13 @@ def _local_labels(lines: list[str]) -> list[str]:
             for line in lines]
 
 
-def sass(src: str, workdir: str) -> dict[str, list[str]]:
-    """{mangled kernel name: its SASS lines} of ``src`` built with K1-K3's
-    flags."""
-    nvcc = _nvcc()
-    cubin = os.path.join(workdir, os.path.basename(src) + ".cubin")
-    flags = [f for f in NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
-    subprocess.run([nvcc, *flags, "-cubin", src, "-o", cubin], check=True)
-    txt = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
-                         check=True, capture_output=True, text=True).stdout
+def dump(binary: str) -> dict[str, list[str]]:
+    """{mangled kernel name: its SASS lines} of a cubin or a shared library,
+    as ``cuobjdump -sass`` prints them (blanks collapsed, labels
+    renumbered per kernel, the anonymous namespace's hash dropped)."""
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    txt = subprocess.run([cuobjdump, "-sass", binary], check=True, capture_output=True,
+                         text=True).stdout
     # an anonymous namespace's mangled name holds a hash of the source's
     # path: the same kernel from two checkouts would not match without this
     txt = _ANON.sub("_GLOBAL__N__", txt)
@@ -64,6 +65,52 @@ def sass(src: str, workdir: str) -> dict[str, list[str]]:
             # cuobjdump pads each instruction to the module's widest one
             funcs[cur].append(" ".join(line.split()))
     return {name: _local_labels(lines) for name, lines in funcs.items()}
+
+
+def sass(src: str, workdir: str) -> dict[str, list[str]]:
+    """{mangled kernel name: its SASS lines} of ``src`` built with K1-K3's
+    flags."""
+    nvcc = _nvcc()
+    cubin = os.path.join(workdir, os.path.basename(src) + ".cubin")
+    flags = [f for f in NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    subprocess.run([nvcc, *flags, "-cubin", src, "-o", cubin], check=True)
+    return dump(cubin)
+
+
+_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/ (?:@!?U?P[T0-9] )?([A-Z][A-Z0-9_.]*)")
+
+
+def instructions(lines: list[str]) -> list[str]:
+    """The opcodes (with their modifiers) of a kernel's SASS lines, in order."""
+    return [m.group(1) for m in map(_OPCODE.search, lines) if m]
+
+
+def tap_instructions(binary: str) -> dict:
+    """Per instantiation of K10 (``atrous_pass_kernel<STEP>``, its 25 taps
+    unrolled; each tap's two ``expf`` a ``MUFU.EX2`` each), by its step:
+    the instructions issued per tap on the fast path, those from tap 0's
+    first ``MUFU.EX2`` to tap 24's first, over 24 (the unrolled body's
+    period), the divisions' and ``expf``'s sequences inline (their slow
+    paths are calls, not counted); and the kernel's whole instruction
+    count."""
+    kernel, taps = "atrous_pass_kernel", 25
+    out = {}
+    for name, lines in dump(binary).items():
+        if kernel not in name:
+            continue
+        step = re.search(kernel + r"ILi(\d+)E", name)
+        if step is None:
+            raise RuntimeError(f"{name}: no step in the mangled name")
+        ops = instructions(lines)
+        ex2 = [i for i, op in enumerate(ops) if op.startswith("MUFU.EX2")]
+        if len(ex2) != 2 * taps:
+            raise RuntimeError(f"{name}: {len(ex2)} MUFU.EX2, expected {2 * taps}")
+        out[int(step.group(1))] = dict(
+            kernel=name, per_tap=(ex2[-2] - ex2[0]) / (taps - 1), ex2=len(ex2),
+            rcp=sum(op.startswith("MUFU.RCP") for op in ops), total=len(ops))
+    if not out:
+        raise RuntimeError(f"no {kernel} in {binary}")
+    return out
 
 
 def twin(name: str, new: dict) -> str | None:

@@ -5,11 +5,15 @@ The resize is separable: each axis whose size changes gets a dense
 (in, out) weight matrix, built as ``jax/_src/image/scale.py:compute_weight_mat``
 builds it (half-pixel centres, the kernel widened by 1/scale when shrinking,
 columns normalised by their sum, columns whose sample falls outside the input
-zeroed), and the image is contracted with each matrix in turn by a full-f32
-2-D product (``torch.mm``) — the JAX package computes the same contraction
-as a plain ``einsum`` outside any Pallas kernel. The width is contracted first, the
-cheaper order when both axes grow by the same factor. An axis of equal size
-is skipped, so an equal-size resize returns its input.
+zeroed) — the JAX package contracts the image with each as a plain
+``einsum`` outside any Pallas kernel. Each output sample has a few non-zero
+weights (6 in Lanczos-3 upscaling, 2 in bilinear), so ``resize`` keeps each
+matrix as a banded table (``band_table``: per output the first input and K
+weights) and resamples through kernel K12 (``kernels/presenter.py:resize``;
+on CPU tensors its plain version), the width first, then the height. An axis
+of equal size is the identity (``jax.image.resize`` skips it).
+``resize_dense``, the two full-f32 ``torch.mm`` products over the dense
+matrices, is kept as a second reference for the tests.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.device import require_full_f32
+from ..kernels import presenter as K
 
 METHODS = ("lanczos3", "bilinear")
 
@@ -60,12 +65,37 @@ def weight_matrix(n_in: int, n_out: int, method: str, device: torch.device) -> t
     return w.to(device)
 
 
-def resize(x: torch.Tensor, out_height: int, out_width: int, method: str) -> torch.Tensor:
-    """``jax.image.resize`` of (H,W,C) f32 to (out_height,out_width,C)."""
+@functools.lru_cache(maxsize=32)
+def band_table(n_in: int, n_out: int, method: str, device: torch.device) -> K.Band:
+    """``weight_matrix(n_in, n_out, method)`` as K12's banded table, on
+    ``device``; the identity where the size is kept. Built on the host and
+    cached per arguments."""
+    if method not in METHODS:
+        raise ValueError(f"unknown resize method {method!r}; expected one of {METHODS}")
+    if n_in == n_out:
+        return K.identity_band(n_in).to(device)
+    return K.band_of(weight_matrix(n_in, n_out, method, torch.device("cpu"))).to(device)
+
+
+def resize(x, out_height: int, out_width: int, method: str, clamp: bool = False) -> torch.Tensor:
+    """``jax.image.resize`` of (H,W,C) f32 to (out_height,out_width,C) by
+    K12. ``x`` may also be a sequence of up to three (H,W) or (H,W,c)
+    sources, resized as their concatenation along the channels into one
+    contiguous buffer; with ``clamp``, ``clamp_min(out, 0)`` is folded in."""
+    sources = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+    h, w = sources[0].shape[0], sources[0].shape[1]
+    dev = sources[0].device
+    return K.resize(sources, band_table(h, out_height, method, dev),
+                    band_table(w, out_width, method, dev), clamp)
+
+
+def resize_dense(x: torch.Tensor, out_height: int, out_width: int, method: str) -> torch.Tensor:
+    """The same resize as two full-f32 products over the dense matrices (a
+    reference for the tests; an axis of equal size skipped)."""
     h, w, c = x.shape
     if (h, w) == (out_height, out_width):
         return x
-    require_full_f32(x, "spatial.resize")
+    require_full_f32(x, "spatial.resize_dense")
     # both contractions as single 2-D products on contiguous operands (a
     # permuted 3-D operand would send torch.matmul to a batched product of
     # h tiny (c, w) x (w, out_width) products)
@@ -83,6 +113,6 @@ def upscale(color: torch.Tensor, out_height: int, out_width: int,
     """color: (H,W,3) linear radiance -> (out_height,out_width,3)."""
     if color.shape[0] == out_height and color.shape[1] == out_width:
         return color
-    out = resize(color, out_height, out_width, method)
     # Lanczos ringing can undershoot below zero; radiance must stay >= 0
-    return torch.clamp_min(out, 0.0)
+    # (the clamp runs inside the resize)
+    return resize(color.contiguous(), out_height, out_width, method, clamp=True)

@@ -4,9 +4,10 @@ through the motion vectors, rejected where its stored depth disagrees with
 the current surface (disocclusion), clamped to the current frame's 3x3
 neighbourhood, and blended with a weight that falls with motion.
 
-The resize is ``spatial.resize``'s two products; the rest is kernel K11
-``temporal_resolve`` (``kernels/presenter.py``, ``csrc/presenter.cu``), on
-CPU tensors its plain version.
+The resize is kernel K12 (``spatial.resize``: colour, depth and motion read
+where they lie, written as one (out_h,out_w,6) buffer); the rest is kernel
+K11 ``temporal_resolve`` (``kernels/presenter.py``, ``csrc/presenter.cu``);
+on CPU tensors their plain versions.
 
 Motion is in render pixels, +X right and +Y down in display space; render
 rows store v bottom-up, so the history row is ``row + motion.y`` and the
@@ -34,6 +35,6 @@ def temporal_upscale(color: torch.Tensor, depth: torch.Tensor, motion: torch.Ten
 
     # colour, depth and motion in one bilinear resample (the same weights
     # on each channel as three separate resizes), then K11
-    up = spatial.resize(torch.cat([color, depth[..., None], motion], dim=-1), out_h, out_w,
-                        "bilinear")
-    return K.temporal_resolve(up.contiguous(), history.contiguous(), history_weight, sx, sy)
+    up = spatial.resize((color.contiguous(), depth.contiguous(), motion.contiguous()), out_h,
+                        out_w, "bilinear")
+    return K.temporal_resolve(up, history.contiguous(), history_weight, sx, sy)

@@ -20,10 +20,10 @@ both), count what one call's table needs: the triangles that are not pads and th
 are not empty. Besides the kernels: the LBS product of an animated frame's
 prepare (``lbs``), and the presenter's chains (``resize``, ``temporal_chain``,
 ``denoiser``, ``denoised_chain``), whose bounds say what the whole chain
-could take. The chain bounds count bytes only: a banded resize needs 6
-taps per axis (Lanczos-3 at 2x), so its operations take a fraction of its
-byte time. K9-K11, the presenter's kernels (``svgf_reproject``,
-``atrous_pass``, ``temporal_resolve``), count both. K6-K8, the
+could take. The chain bounds count bytes only: the resize needs 6 taps
+per axis (Lanczos-3 at 2x), so its operations take a fraction of its byte
+time. K9-K12, the presenter's kernels (``svgf_reproject``,
+``atrous_pass``, ``temporal_resolve``, ``resize``), count both. K6-K8, the
 wavefront's stages (``k6``, ``k7``, ``k8``), count per lane what the
 lane's state needs: K7 from one iteration's lanes that are live, hit,
 glass, lit and cast a shadow ray, and the texture work of its textured
@@ -253,10 +253,17 @@ def _bytes_ms(n_f32: float) -> tuple[float, str]:
     return n_f32 * 4 / PEAK_BYTES * 1e3, "bytes"
 
 
-def resize(h: int, w: int, out_h: int, out_w: int, channels: int) -> tuple[float, str]:
-    """Bound of one ``upscale.spatial.resize`` of (h,w,channels) f32 to
-    (out_h,out_w,channels); with 3 channels also the spatial chain's."""
-    return _bytes_ms((h * w + out_h * out_w) * channels)
+def resize(h: int, w: int, out_h: int, out_w: int, channels: int, kr: int,
+           kc: int) -> tuple[float, str]:
+    """Bound of one K12 launch (``upscale.spatial.resize``) of (h,w,channels)
+    f32 to (out_h,out_w,channels) with kr taps per output row and kc per
+    output column: each value read and written once, the tables read once;
+    the width's kc products and kc - 1 adds per (input row, output column,
+    channel), then the height's kr and kr - 1 per output value. With 3
+    channels also the spatial chain's."""
+    ops = (h * out_w * (2 * kc - 1) + out_h * out_w * (2 * kr - 1)) * channels
+    tables = (out_h * (kr + 1) + out_w * (kc + 1)) * 4
+    return least_ms(ops, (h * w + out_h * out_w) * channels * 4 + tables)
 
 
 def temporal_chain(h: int, w: int, out_h: int, out_w: int) -> tuple[float, str]:
@@ -302,11 +309,17 @@ def svgf_reproject(h: int, w: int) -> tuple[float, str]:
     return least_ms(n * SVGF_REPROJECT_OPS, n * (SVGF_REPROJECT_IN + SVGF_REPROJECT_OUT) * 4)
 
 
-def atrous_pass(h: int, w: int, last: bool = False) -> tuple[float, str]:
-    """Bound of one K10 launch at (h, w); ``last``: the remodulating pass."""
+def atrous_pass(h: int, w: int, last: bool = False,
+                tap_ops: float = ATROUS_TAP_OPS) -> tuple[float, str]:
+    """Bound of one K10 launch at (h, w); ``last``: the remodulating pass;
+    ``tap_ops`` the instructions a tap counts: by default the source's
+    floor; ``chip_smoke.py`` also passes the count of the built kernel's
+    SASS (``kernels/sass_diff.tap_instructions``: its divisions and
+    ``expf`` expanded, so a figure of the build, not of the work), which it
+    reports beside the floor as a diagnostic."""
     n = h * w
     f32 = ATROUS_IN + 6 + 3 if last else ATROUS_IN + ATROUS_OUT
-    return least_ms(n * (25 * ATROUS_TAP_OPS + ATROUS_PIXEL_OPS), n * f32 * 4)
+    return least_ms(n * (25 * tap_ops + ATROUS_PIXEL_OPS), n * f32 * 4)
 
 
 def temporal_resolve(out_h: int, out_w: int) -> tuple[float, str]:

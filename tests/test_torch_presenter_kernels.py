@@ -1,5 +1,5 @@
-"""Kernels K9 ``svgf_reproject``, K10 ``atrous_pass`` and K11
-``temporal_resolve`` (``mrt_tpu_torch/kernels/presenter.py``,
+"""Kernels K9 ``svgf_reproject``, K10 ``atrous_pass``, K11
+``temporal_resolve`` and K12 ``resize`` (``mrt_tpu_torch/kernels/presenter.py``,
 ``csrc/presenter.cu``, ``csrc/presenter.cuh``) on the CPU:
 
 - the plain versions composed (K9, then K10 at steps 1, 2, 4, the last
@@ -16,11 +16,16 @@
   input;
 - the kernels' per-pixel bodies (``presenter.cuh``) compiled by the host
   compiler with ``-ffp-contract=off``: K9 bit-equal to its plain version,
-  K10 and K11 within 1e-6 relative RMSE: the host's ``expf`` and
+  K10 (run tile by tile as its kernel runs it: staged with the clamped
+  halo, partial tiles at the right and bottom) and K11 within 1e-6
+  relative RMSE: the host's ``expf`` and
   ``sqrtf`` and PyTorch's CPU ``exp`` and ``sqrt`` may differ in the last
   place (PyTorch's CPU ``sqrt`` is not correctly rounded: 0.7 % of random
   inputs differ from NumPy's). On the card, where both are CUDA's
   ``expf`` and ``sqrtf``, ``chip_smoke.py`` holds all three bit for bit.
+  K12 (only multiplies and adds) bit-equal to its plain version, in the
+  spatial chain's and the temporal chain's forms, shrinking (K > 6) and
+  with an axis kept.
 """
 
 import ctypes
@@ -188,6 +193,7 @@ def test_wrappers_raise(wrapper):
 
 
 _HARNESS = r'''
+#include <vector>
 #include "presenter.cuh"
 using namespace mrt_presenter;
 extern "C" void k9(const float* const* in, float* const* out, int h, int w) {
@@ -196,15 +202,59 @@ extern "C" void k9(const float* const* in, float* const* out, int h, int w) {
                           in[9], in[10], in[11], out[0], out[1], out[2], out[3], out[4], out[5],
                           out[6]);
 }
+// K10 as its kernel runs it: per tile, every staged pixel, then every
+// output pixel inside the image
+template <int STEP>
+void k10_tiles(const float* const* in, float* const* out, int h, int w) {
+    std::vector<float> planes(AP_PLANES * AtrousTile<STEP>::N);
+    for (int y0 = 0; y0 < h; y0 += ATROUS_TH)
+        for (int x0 = 0; x0 < w; x0 += ATROUS_TW) {
+            for (int i = 0; i < AtrousTile<STEP>::N; ++i)
+                atrous_stage<STEP>(i, x0, y0, h, w, in[0], in[1], in[2], in[3], in[4],
+                                   planes.data());
+            for (int ty = 0; ty < ATROUS_TH; ++ty)
+                for (int tx = 0; tx < ATROUS_TW; ++tx)
+                    if (x0 + tx < w && y0 + ty < h)
+                        atrous_tile_px<STEP>(tx, ty, x0, y0, w, planes.data(), in[5], in[6],
+                                             out[0], out[1], out[2]);
+        }
+}
 extern "C" void k10(const float* const* in, float* const* out, int h, int w, int step) {
-    for (long long p = 0; p < (long long)h * w; ++p)
-        atrous_pass_px(p, h, w, step, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0],
-                       out[1], out[2]);
+    if (step == 1) k10_tiles<1>(in, out, h, w);
+    if (step == 2) k10_tiles<2>(in, out, h, w);
+    if (step == 4) k10_tiles<4>(in, out, h, w);
 }
 extern "C" void k11(const float* up, const float* hist, float* out, float* new_hist, int h,
                     int w, float hw, float sx, float sy) {
     for (long long p = 0; p < (long long)h * w; ++p)
         temporal_resolve_px(p, h, w, up, (const float4*)hist, out, (float4*)new_hist, hw, sx, sy);
+}
+// K12 per output pixel: the sources staged as one (h, w, C) image, each
+// vertical tap's horizontal sums (their taps in two pieces, as the kernel
+// takes them over chunks of staged columns), then the tap
+extern "C" void k12(const float* const* src, const int* cs, int h, int w, const int* row_first,
+                    const float* row_w, int kr, const int* col_first, const float* col_w, int kc,
+                    int oh, int ow, int clamp, float* out) {
+    ResizeSrc s = {{src[0], src[1], src[2]}, {cs[0], cs[1], cs[2]}};
+    int C = cs[0] + cs[1] + cs[2];
+    std::vector<float> img((size_t)h * w * C);
+    for (int r = 0; r < h; ++r)
+        for (int c = 0; c < w; ++c) resize_stage_px(s, w, r, c, &img[((size_t)r * w + c) * C]);
+    float sums[RESIZE_MAX_C] = {}, acc[RESIZE_MAX_C] = {};
+    int half = kc / 2;
+    for (int oy = 0; oy < oh; ++oy)
+        for (int ox = 0; ox < ow; ++ox) {
+            for (int k = 0; k < kr; ++k) {
+                const float* x = &img[((size_t)(row_first[oy] + k) * w + col_first[ox]) * C];
+                const float* wt = col_w + ox * kc;
+                resize_row_px(x, C, wt, 0, half, sums, 1);
+                resize_row_px(x + half * C, C, wt + half, half, kc - half, sums, 1);
+                for (int c = 0; c < C; ++c)
+                    acc[c] = resize_tap(acc[c], sums[c], row_w[oy * kr + k], k);
+            }
+            for (int c = 0; c < C; ++c)
+                out[((long long)oy * ow + ox) * C + c] = resize_out(acc[c], clamp != 0);
+        }
 }
 '''
 
@@ -234,7 +284,7 @@ def _bits_equal(a, b):
                                               b.contiguous().view(torch.int32))
 
 
-@pytest.mark.parametrize("size", [(5, 7), (24, 32)])
+@pytest.mark.parametrize("size", [(5, 7), (24, 32), (19, 41)])
 def test_host_compiled_kernels_match_plain(presenter_lib, size):
     h, w = size
     lib = presenter_lib
@@ -280,6 +330,73 @@ def test_host_compiled_kernels_match_plain(presenter_lib, size):
     assert k10_err < 1e-6 and k11_err < 1e-6, (k10_err, k11_err)
 
 
+@pytest.mark.parametrize("method,src,dst,chans,clamp", [
+    ("lanczos3", (43, 43), (64, 64), (3,), True),
+    ("bilinear", (16, 24), (32, 48), (3, 0, 2), False),
+    ("lanczos3", (20, 20), (13, 13), (6,), False),
+    ("bilinear", (12, 20), (12, 41), (3, 0, 2), False)],
+    ids=["spatial-chain", "temporal-chain", "downscale", "one-axis"])
+def test_host_compiled_resize_bit_equal(presenter_lib, method, src, dst, chans, clamp):
+    """K12's body (``resize_stage_px``, ``resize_row_px`` with each sum's
+    taps in two pieces, ``resize_tap``, ``resize_out``) over every output
+    pixel: bit-equal to ``resize_plain`` on sources with negative values
+    (the clamp's case); a channel count 0 is an (h,w) source."""
+    rng = np.random.default_rng(sum(src) + len(chans))
+    h, w = src
+    sources = [_t(rng.normal(size=src + ((c,) if c else ()))) for c in chans]
+    rows = spatial.band_table(h, dst[0], method, torch.device("cpu"))
+    cols = spatial.band_table(w, dst[1], method, torch.device("cpu"))
+    want = K.resize_plain(sources, rows, cols, clamp)
+    got = torch.empty_like(want)
+    n_ch = [max(c, 1) for c in chans]
+    presenter_lib.k12(_ptrs(sources + [None] * (3 - len(sources))),
+                      (ctypes.c_int * 3)(*(n_ch + [0] * (3 - len(n_ch)))), h, w,
+                      *(ctypes.c_void_p(t.data_ptr()) for t in (rows.first, rows.weights)),
+                      rows.weights.shape[1],
+                      *(ctypes.c_void_p(t.data_ptr()) for t in (cols.first, cols.weights)),
+                      cols.weights.shape[1], *dst, int(clamp), ctypes.c_void_p(got.data_ptr()))
+    assert _bits_equal(got, want)
+    assert (bool((want < 0).any()) != clamp) and want.shape == dst + (sum(n_ch),)
+
+
+def test_sass_tap_count(monkeypatch):
+    """``sass_diff.tap_instructions`` on a made-up dump of an unrolled K10
+    (6 instructions a tap, two ``MUFU.EX2`` each, predicated and not):
+    the body's period per tap; a kernel without 50 raises."""
+    from mrt_tpu_torch.kernels import sass_diff
+
+    tap = ["LDS R2, [R3]", "@!P0 MUFU.EX2 R4, R5", "FADD R6, R6, R4", "FMUL R7, R7, R4",
+           "@P1 MUFU.EX2 R8, R9", "FADD R6, R6, R8"]
+    body = ["MOV R1, c[0x0][0x28]"] + tap * 25 + ["EXIT", "BRA `(.L_0)"]
+    lines = [f"/*{16 * i:04x}*/ {op} ; /* 0x000fe20000000f00 */" for i, op in enumerate(body)]
+    dumps = {"_Z18atrous_pass_kernelILi1EEvv": lines, "_Z13resize_kernelv": lines[:5]}
+    monkeypatch.setattr(sass_diff, "dump", lambda binary: dumps)
+    got = sass_diff.tap_instructions("lib.so")
+    assert got == {1: dict(kernel="_Z18atrous_pass_kernelILi1EEvv", per_tap=6.0, ex2=50, rcp=0,
+                           total=len(body))}
+    assert sass_diff.instructions(lines[:3])[1:] == ["LDS", "MUFU.EX2"]
+    dumps["_Z18atrous_pass_kernelILi1EEvv"] = lines[:-20]
+    with pytest.raises(RuntimeError, match="MUFU.EX2"):
+        sass_diff.tap_instructions("lib.so")
+
+
+def test_presenter_bounds():
+    """K12's and K10's bounds at run E's shapes: K12 by bytes (each value
+    once, the tables once; its operations a fraction), K10 by operations,
+    and with a tap counted as its SASS issues it (94 instructions, the
+    count ``chip_smoke.py`` prints) above the source's floor."""
+    from mrt_tpu_torch.utils import bounds
+
+    ms, by = bounds.resize(1080, 1920, 2160, 3840, 6, 2, 2)
+    assert by == "bytes"
+    assert ms == pytest.approx(((1080 * 1920 + 2160 * 3840) * 6 * 4 + (2160 * 3 + 3840 * 3) * 4)
+                               / bounds.PEAK_BYTES * 1e3)
+    ops = (1080 * 3840 * 11 + 2160 * 3840 * 11) * 3
+    assert bounds.resize(1080, 1920, 2160, 3840, 3, 6, 6)[0] > ops / bounds.PEAK_F32_OPS * 1e3
+    floor, sass = bounds.atrous_pass(1080, 1920), bounds.atrous_pass(1080, 1920, tap_ops=94)
+    assert floor[1] == sass[1] == "operations" and sass[0] > 2 * floor[0]
+
+
 def test_chip_smoke_phase_3p_on_cpu():
     """``chip_smoke.py``'s phase 3p at a small size on the CPU (where each
     wrapper is its plain version): the synthetic inputs reach the edges
@@ -297,4 +414,29 @@ def test_chip_smoke_phase_3p_on_cpu():
     assert bool((albedo == 0).all(dim=-1).any())  # zero albedo
     line = chip_smoke.check_presenter(torch, "cpu", inp, present, bounds)
     assert line["not_bit_equal"] == {} and line["k1_mismatches"] == 0
-    assert len(line["fields"]) == 9 and line["times"] == {}
+    assert len(line["fields"]) == 13 and line["times"] == {}
+
+
+@pytest.mark.parametrize("mode, checked", [("spatial", True), ("temporal", False)])
+def test_chip_smoke_phase_m_resize_check_on_cpu(monkeypatch, mode, checked):
+    """``chip_smoke.py``'s K12 check at phase M's demo shape on the CPU, at
+    the demo's 0.67 scale (48 -> 72; CUDA-event timing stubbed): the
+    spatial present's resize is held against its plain version and the
+    dense products; a renderer that presents through another chain is
+    passed over."""
+    from types import SimpleNamespace
+
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps: 0.0)
+    rng = np.random.default_rng(7)
+    accum = torch.from_numpy(rng.random((48, 40, 3), dtype=np.float32) * 2.0)
+    r = SimpleNamespace(render_height=48, render_width=40, output_height=72, output_width=60,
+                        upscaler_mode=mode, accum=accum)
+    out = chip_smoke.check_spatial_resize(torch, "cpu", r)
+    if not checked:
+        assert out is None
+        return
+    assert out["taps"] == [6, 6] and out["output"] == [60, 72]
+    assert out["fields"]["output"]["differing"] == 0
+    assert out["vs_dense"] <= chip_smoke.RESIZE_DENSE_TOL and out["bound_by"] == "bytes"

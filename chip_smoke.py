@@ -47,7 +47,7 @@ never prints its last line):
      and its bound: K6 and K7 at the frame's first launch, K7 also at its
      first launch with under 5 % of the lanes live, K8 at a sample's end;
      and one whole frame of the kernel route against the plain route
-     (kernel_route answering False) on the card: bit-equal, or the
+     (trace_frame(..., plain=True)) on the card: bit-equal, or the
      accumulation within 1e-3 relative RMSE and the rays within 1e-4. The
      same for a 512x512 scene with all four light types and an environment
      map made from a seed (lights_env_renderer), uniform and power
@@ -257,8 +257,21 @@ never prints its last line):
      a textured scene, 3 frames within 1e-5 of the flat single device and
      a fourth checked as L2's, save_dist after the second, restore_dist in
      a fresh world and one frame, bit-equal to the uninterrupted third.
-     Walls, rays, Mrays/s and the ranks' start-up seconds printed; K1, K2
-     (packed), K3 (flat) and K4 (flat) must launch;
+     L1 and L2 also drive the textured gp scene (run N's floor maps at
+     1024x576, no masks, the banded atlas) at gp=1 and gp=2 within 1e-5
+     of its flat single device, and L1 each other lane-row instantiation
+     of K7 in a gp=1 job of one frame (GP_VARIANT_JOBS: the whole atlas
+     with and without mipmaps, the motion view on run B's scene, the
+     normal view whole, mipmapped and banded). Every gp frame takes the kernel route:
+     K3, K6, K13 gp_rows, K7's lane-row form, K8, and on the banded
+     textured scenes K14 banded_taps, and nothing of K7 but its lane-row
+     form; each gp job then draws a checked frame on every rank (the
+     kernel route bit-equal to the plain route, each K13 and K14 launch
+     and the first K7 step bit-equal to their plain versions, both routes'
+     walls and device events, K13's and K14's CUDA-event ms beside their
+     bounds). Walls, rays, Mrays/s and the ranks' start-up seconds
+     printed; K1, K2 (packed), K3 (flat), K4 (flat), K6-K8 and K13 must
+     launch, K14 in L1-L3;
   8. a 48x48 frame traced and presented in every presenter mode on the card
      against the same frames on the CPU through the plain versions (the
      accumulation and the presented output within 1e-2 relative RMSE, the
@@ -274,7 +287,11 @@ over the main-path runs, the builds of runs G and K and of run G flat,
 phase M's entry points and phase L's ranks), then K7 by instantiation
 (untextured, maps, maps_mips, maps_debug, maps_mips_debug, debug: its
 launches, checks, registers and spills, and its times at the first launch
-of the run that takes it), each with its bound
+of the run that takes it), then K7's lane-row form by instantiation (all
+eight: each must have launched on the main path and been checked), K13
+and K14 (timed at the first launch of L1's checked gp=1 frames; their
+largest difference from the plain version over every checked launch),
+each with its bound
 (mrt_tpu_torch/utils/bounds.py); runs A, B, C, E, G, H and J and phase M's
 smoke and demo must have launched K6-K8 with only the untextured K7, runs
 F and N only their textured one, K8 once per sample (each run's line
@@ -840,7 +857,9 @@ def check_stages(torch, tag, r, W, traverse2, bounds, glass_heavy: bool = False)
         lists["lanes"] += lp.numel()
         return fields
 
-    def c_shade_hit(fr, st, hits, sidx, wv):
+    def c_shade_hit(fr, st, hits, sidx, wv, rows=None):  # a single-device frame's: no rows
+        if rows is not None:
+            raise ValueError("check_stages holds single-device frames")
         st_in, wv_in = W.clone_state(st), W.clone_wave(wv)
         P = st.active.shape[0]
         n_listed = P if wv.steps == 0 else int(W.listed(wv).numel())
@@ -970,24 +989,15 @@ def time_stages(torch, W, traverse2, bounds, first, reps: int = 5) -> dict:
     return out
 
 
-def route_of(W, r) -> bool:
-    """Whether run ``r``'s frames take the kernel route (K6-K8), from its
-    settings and its last frame's geometry (a fresh prepare if it drew
-    none)."""
-    prepared = getattr(r, "_prepared", None)
-    geom = (prepared if prepared is not None else r.prepare())[1]
-    return W.kernel_route(r.settings(), r.statics, geom)
-
-
 def check_route_frame(torch, tag, r, W, wf, strict: bool = False) -> dict:
     """One frame of run ``tag`` on the kernel route against the plain route
     on the card, on the same inputs (``trace_frame`` run twice, the second
-    time with ``kernel_route`` answering False); the frame goes on with the
+    time with ``plain=True``); the frame goes on with the
     kernel route's outputs. The accumulation, rays, samples, depth, motion
     and the G-buffer bit-equal, or (unless ``strict``) the accumulation
     within 1e-3 relative RMSE and the rays within 1e-4 relative. Raises
     otherwise."""
-    orig_tf, orig_route = wf.trace_frame, W.kernel_route
+    orig_tf = wf.trace_frame
     out = {}
 
     def both(*a, **k):
@@ -995,11 +1005,7 @@ def check_route_frame(torch, tag, r, W, wf, strict: bool = False) -> dict:
         ev[0].record()
         ok = orig_tf(*a, **k)
         ev[1].record()
-        W.kernel_route = lambda *_a, **_k: False
-        try:
-            op = orig_tf(*a, **k)
-        finally:
-            W.kernel_route = orig_route
+        op = orig_tf(*a, plain=True, **k)
         ev[2].record()
         torch.cuda.synchronize()
         out["kernel_route_ms"] = ev[0].elapsed_time(ev[1])
@@ -1624,7 +1630,7 @@ def drive_e(torch, r, mode, present, traverse2, presenter, refit, timed=3):
         raise AssertionError(f"run E {mode}: accumulation is not finite or is all black")
     if img.shape != (r.output_height, r.output_width, 3) or img.dtype != torch.uint8:
         raise AssertionError(f"run E {mode}: image {tuple(img.shape)} {img.dtype}")
-    line = dict(run="E", mode=mode, route="kernel" if route_of(W, r) else "plain",
+    line = dict(run="E", mode=mode, route="kernel",
                 output=[r.output_width, r.output_height],
                 resolution=[r.render_width, r.render_height], spp=r.samples_per_pixel,
                 bounces=r.max_bounces, upscaler=r.upscaler_mode,
@@ -2059,7 +2065,7 @@ def small_extras(device) -> dict:
         for _ in range(n):
             r.draw()
         out[name] = (r.accum.cpu(), int(r.last_rays_traced),
-                     dict(stage_counts(W), route=route_of(W, r),
+                     dict(stage_counts(W),
                           k7_variant=W.K7_VARIANTS[W.k7_variant(r.settings(), r.statics)]))
 
     frames("light_masked", 2)
@@ -2089,7 +2095,7 @@ def check_small_extras(dev):
             f"{k['k7 ' + k['k7_variant']]} of {k['shade_hit']}, K6 {k['sample_start']}")
         if not (rel < 1e-2 and rays_g > 0 and abs(rays_g - rays_c) <= 0.01 * rays_c):
             raise AssertionError(f"the card's frame disagrees with the CPU reference ({case})")
-        if (not k["route"] or k["sample_start"] < 1 or k["shade_hit"] < 1
+        if (k["sample_start"] < 1 or k["shade_hit"] < 1
                 or k["k7 " + k["k7_variant"]] != k["shade_hit"]):
             raise AssertionError(f"small frame 48x48, {case}: off the kernel route or another K7 "
                                  f"instantiation launched: {k}")
@@ -2121,7 +2127,7 @@ def drive_debug(torch, tag, r, mode, present, traverse2, variant, frames=1):
     k7_variant = W.K7_VARIANTS[W.k7_variant(r.settings(), r.statics)]
     counts = {"present": present.launches, "traverse2": traverse2.launches, **stage_counts(W)}
     line = dict(run=tag, debug_mode=mode, frames=frames, frame_wall=wall,
-                rays=int(r.last_rays_traced), launches=counts, route=route_of(W, r),
+                rays=int(r.last_rays_traced), launches=counts,
                 k7_variant=k7_variant,
                 k2_variants=check_variants(f"{tag} debug {mode}", traverse2, variant),
                 accum_mean=[float(x) for x in acc.mean(dim=(0, 1))],
@@ -2131,7 +2137,7 @@ def drive_debug(torch, tag, r, mode, present, traverse2, variant, frames=1):
     black_ok = mode in (T.DEBUG_MODE_METALLIC, T.DEBUG_MODE_EMISSION)
     if (not bool(torch.isfinite(acc).all()) or (float(acc.max()) <= 0.0 and not black_ok)
             or min(counts[k] for k in ("present", "traverse2", "sample_start", "shade_hit")) < 1
-            or counts["resolve_shadow"] or not line["route"] or not k7_variant.endswith("debug")
+            or counts["resolve_shadow"] or not k7_variant.endswith("debug")
             or counts[f"k7 {k7_variant}"] != counts["shade_hit"]):
         raise AssertionError(f"run {tag}, debug view {mode}: {line}")
     r.debug_texture_mode = 0
@@ -2274,6 +2280,110 @@ def l3_scene(size: int = 48):
     return s
 
 
+def launch_summary(launches: list) -> dict:
+    """K13's or K14's checked launches of one frame (``drive``'s
+    ``route_check``): their count, the first (sample 0's first step, every
+    lane), the largest difference from the plain version over them, and
+    the sums of the CUDA-event ms, the plain version's and the bound (None
+    where a launch has no time: a CPU run)."""
+    return dict(launches=len(launches), first=launches[0] if launches else None,
+                max_abs=max((x["max_abs"] for x in launches), default=0.0),
+                **{f"frame_{k}": None if any(x[k] is None for x in launches)
+                   else sum(x[k] for x in launches) for k in ("ms", "plain_ms", "bound_ms")})
+
+
+def gp_route_checks(tag, jobs, textured: bool, variant: str | None = None) -> dict:
+    """The checked gp frame of each rank of one job (``jobs``: its
+    ``drive`` results by rank): the kernel route bit-equal to the plain
+    route (every output field, rays equal), the second kernel-route run
+    equal to the first, every K13 launch and the first K7 step (the
+    lane-row form; with ``variant`` that instantiation) bit-equal to their
+    plain versions, K14 launched exactly on a banded textured frame and
+    bit-equal too. One line per rank: both
+    routes' walls and device events and ms (torch.profiler; an empty
+    profile is logged as a dropout, not a failure), the job's kernel-route
+    frame walls, K13's and K14's launches beside their bounds, the K7
+    step. Raises on a disagreement. Returns rank 0's line by field."""
+    lines = []
+    for r, job in enumerate(jobs):
+        c = job["route_check"]
+        line = dict(phase=tag, rank=r, check="gp frame: kernel route against plain route",
+                    bit_equal=c["bit_equal"], fields=c["fields"],
+                    checked_run_differing=c["checked_run_differing"], rays=c["rays"],
+                    frame_walls_kernel_route=job["walls"], kernel_wall_s=c["kernel_wall_s"],
+                    plain_wall_s=c["plain_wall_s"], kernel_profile=c.get("kernel_profile"),
+                    plain_profile=c.get("plain_profile"), k13=launch_summary(c["k13"]),
+                    k14=launch_summary(c["k14"]),
+                    k7={k: v for k, v in c["k7"].items() if k != "work"}, k7_work=c["k7"]["work"],
+                    **CARD)
+        log(json.dumps(line))
+        for route in ("kernel_profile", "plain_profile"):
+            if not (c.get(route) or {}).get("device_events"):
+                log(json.dumps(dict(profiler_dropout=f"phase {tag} rank {r} {route}",
+                                    recorded=c.get(route))))
+        ok = (c["bit_equal"] and c["checked_run_differing"] == 0 and c["rays"][0] == c["rays"][1]
+              and c["k13"] and not any(x["differing"] for x in c["k13"])
+              and bool(c["k14"]) == textured and not any(x["differing"] for x in c["k14"])
+              and c["k7"]["differing"] == 0 and c["k7"]["variant"].startswith("rows")
+              and c["k7"]["variant"] == (variant or c["k7"]["variant"]))
+        if not ok:
+            raise AssertionError(f"phase {tag} rank {r}: the gp frame's kernel route disagrees "
+                                 f"with the plain route or a kernel with its plain version: "
+                                 f"{line}")
+        lines.append(line)
+    return lines[0]
+
+
+def route_walls(job) -> dict:
+    """A gp job's checked frame on rank 0: both routes' walls and device
+    events (``drive(check_route=True)``), for the phase's line."""
+    c = job["route_check"]
+    return dict(route_check_kernel_wall_s=c["kernel_wall_s"],
+                route_check_plain_wall_s=c["plain_wall_s"],
+                kernel_route_profile=c.get("kernel_profile"),
+                plain_route_profile=c.get("plain_profile"))
+
+
+def gp_textured_scene():
+    """Phase L's textured gp scene: run N's (the flagship without
+    train/treefir, its floor with a 2048x2048 checker and a 1024x1024 normal
+    map from seed 0; no mipmaps) at run B's 1024x576, without run N's
+    light-masked spheres (gp has no mask test)."""
+    from mrt_tpu_torch.engine.appscene import make_app_scene
+    from mrt_tpu_torch.utils import frame_profile as FP
+
+    b = FP.RUNS["B"]
+    s = make_app_scene(b["width"], b["height"], include_robot=False, asset_models=False,
+                       dragon_subdivisions=None)
+    FP._extras(s, dict(floor_maps=True), 0)
+    return s
+
+
+# K7's lane-row instantiations that phase L1 drives in a gp=1 job each, beside
+# "rows" (run B's scene) and "rows_maps_taps" (the textured gp scene, banded)
+GP_VARIANT_JOBS = ("rows_maps", "rows_maps_mips", "rows_debug", "rows_maps_debug",
+                   "rows_maps_mips_debug", "rows_maps_taps_debug")
+
+
+def gp_variant_settings(untextured, textured) -> dict:
+    """{K7 lane-row instantiation: (settings, banded)} of the jobs of
+    ``GP_VARIANT_JOBS``, from the untextured (run B's) and the textured gp
+    scene's settings: the whole atlas (banded False) with and without
+    mipmaps, the motion view untextured, the normal view (the normal map's
+    taps and motion rows) on the whole atlas, with mipmaps and banded."""
+    from mrt_tpu_torch.core import types as T
+
+    mips = dataclasses.replace(textured, use_mipmaps=True)
+    normal = dict(debug_mode=T.DEBUG_MODE_NORMAL)
+    out = {"rows_maps": (textured, False), "rows_maps_mips": (mips, False),
+           "rows_debug": (dataclasses.replace(untextured, debug_mode=T.DEBUG_MODE_MOTION), False),
+           "rows_maps_debug": (dataclasses.replace(textured, **normal), False),
+           "rows_maps_mips_debug": (dataclasses.replace(mips, **normal), False),
+           "rows_maps_taps_debug": (dataclasses.replace(textured, **normal), True)}
+    assert tuple(out) == GP_VARIANT_JOBS
+    return out
+
+
 def reference_frames(torch, r, frames: int) -> dict:
     """``frames`` draws of the single-device renderer ``r`` at its render
     size: each accumulation (NumPy), rays and wall (synchronised)."""
@@ -2309,8 +2419,18 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
     ``l3_scene`` (3 frames within 1e-5 of the flat single device, a
     fourth checked as L2's), save_dist after frame 2, restore_dist in a
     fresh world and one frame, bit-equal to the uninterrupted third. The
-    ranks share one card, so no wall here is a multi-GPU scaling figure.
-    Returns each sub-phase's launch counts, summed over its ranks."""
+    gp frames take the kernel route (K6, K3, K13, K7's lane-row form, K8;
+    with the banded atlas and maps K14), and L1 and L2 also drive the
+    textured gp scene (``gp_textured_scene``, banded) at gp=1 and gp=2
+    within 1e-5 of its flat single device; L1 drives each other lane-row
+    instantiation of K7 in a gp=1 job of one frame (``GP_VARIANT_JOBS``,
+    ``gp_variant_settings``). After its frames every gp job
+    draws one checked frame (``drive(check_route=True)``): on each rank the
+    kernel route bit-equal to the plain route, each K13 and K14 launch and
+    the first K7 step bit-equal to their plain versions, both routes' walls
+    and device events (``gp_route_checks``). The ranks share one card, so
+    no wall here is a multi-GPU scaling figure. Returns each sub-phase's
+    launch counts, summed over its ranks, and the gp route checks by job."""
     import numpy as np
 
     from mrt_tpu_torch import Renderer
@@ -2324,16 +2444,38 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
     counts = {}
 
     def launches(tag, results):
-        c = {"present": 0, "traverse2": 0, "traverse_flat": 0, "variants": {}}
-        c.update(dict.fromkeys(REFIT_KEYS + W.STAGES, 0))
+        c = {"present": 0, "traverse2": 0, "traverse_flat": 0, "variants": {}, "k7": {}}
+        c.update(dict.fromkeys(REFIT_KEYS + W.STAGES + W.GP_STAGES, 0))
         for rank in results:
             for job in rank:
-                for k in ("present", "traverse2", "traverse_flat") + REFIT_KEYS + W.STAGES:
+                for k in ("present", "traverse2", "traverse_flat") + REFIT_KEYS + W.STAGES \
+                        + W.GP_STAGES:
                     c[k] += job["launches"][k]
-                for k, n in job["launches"]["variants"].items():
-                    c["variants"][k] = c["variants"].get(k, 0) + n
+                for key in ("variants", "k7"):
+                    for k, n in job["launches"][key].items():
+                        c[key][k] = c[key].get(k, 0) + n
         counts[tag] = c
         return c
+
+    gp_checks = {}
+
+    def gp_job(tag, ranks, job, variant: str, checked: bool = True):
+        """A gp job's main-path launches on each rank (K6, K7's lane-row
+        instantiation ``variant`` and nothing else of K7, K13; K8 but in a
+        debug view; K14 exactly where ``variant`` has the per-lane taps)
+        and its checked frame (``gp_route_checks``)."""
+        textured, debug = "taps" in variant, variant.endswith("debug")
+        for r, rank in enumerate(ranks):
+            c = rank[job]["launches"]
+            if (min(c["sample_start"], c["gp_rows"], c["shade_hit"]) < 1
+                    or c["k7"].get(variant, 0) != c["shade_hit"]
+                    or (c["resolve_shadow"] > 0) == debug or (c["banded_taps"] > 0) != textured):
+                raise AssertionError(f"phase {tag} rank {r}: a gp kernel of the path never "
+                                     f"launched, or another ran: {c}")
+        if checked:
+            gp_checks[tag] = gp_route_checks(tag, [rank[job] for rank in ranks], textured, variant)
+            return gp_checks[tag]
+        return None
 
     def frame_line(job, ref, tol):
         """The rank-0 frames of ``job`` against the reference frames."""
@@ -2386,8 +2528,14 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
     rb.two_level = False
     ref_b = reference_frames(torch, rb, 2)
     del rb
+    # the textured gp scene's flat single device (the packed atlas, whole)
+    rt = Renderer(gp_textured_scene(), FP.RUNS["B"]["width"], FP.RUNS["B"]["height"], device=dev)
+    FP.configure(rt)
+    rt.two_level = False
+    ref_t = reference_frames(torch, rt, 2)
+    del rt
     torch.cuda.empty_cache()
-    scene_a, scene_b = FP.make_scene("A"), FP.make_scene("B")
+    scene_a, scene_b, scene_t = FP.make_scene("A"), FP.make_scene("B"), gp_textured_scene()
     log(f"phase L references and scenes: {time.perf_counter() - t_phase:.1f} s")
 
     # --- L1: one rank over nccl
@@ -2395,10 +2543,18 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
     l1 = L.launch(L.run_jobs, 1, [
         (L.drive, ("dp", scene_a, s_a, {"dp": 1, "sp": 1}, 3), dict(offsets=ref_a["offsets"],
                                                                   present=True)),
-        (L.drive, ("gp", scene_b, ref_b["settings"], {"gp": 1}, 2), dict(offsets=ref_b["offsets"])),
-    ], stats=st1)  # the launcher's defaults: the card, nccl
+        (L.drive, ("gp", scene_b, ref_b["settings"], {"gp": 1}, 2), dict(offsets=ref_b["offsets"],
+                                                                         check_route=True)),
+        (L.drive, ("gp", scene_t, ref_t["settings"], {"gp": 1}, 2),
+         dict(offsets=ref_t["offsets"], banded=True, check_route=True)),
+    ] + [(L.drive, ("gp", scene_b if v == "rows_debug" else scene_t, settings, {"gp": 1}, 1),
+          dict(offsets=(ref_b if v == "rows_debug" else ref_t)["offsets"], banded=banded,
+               check_route=True))
+         for v, (settings, banded) in gp_variant_settings(ref_b["settings"],
+                                                          ref_t["settings"]).items()],
+        stats=st1)  # the launcher's defaults: the card, nccl
     l1_s = time.perf_counter() - t0
-    dp1, gp1 = l1[0]
+    dp1, gp1, gpt1 = l1[0][:3]
     line = dict(phase="L1", world=1, backend="nccl", launch_s=l1_s, rank_times_s=st1["ranks"], note=note,
                 card=card_name, power_limit=power_limit,
                 dp1=dict(frame_line(dp1, ref_a, 0.0), frame_walls_single=ref_a["walls"],
@@ -2406,12 +2562,22 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
                          mrays_per_s_run_a=lines["A"]["mrays_per_s"],
                          k1_max_err=dp1["present_max_err"]),
                 gp1=dict(frame_line(gp1, ref_b, 1e-5), frame_walls_single_flat=ref_b["walls"],
-                         table_bytes=gp1["table_bytes"], table_bytes_single=ref_b["table_bytes"]),
+                         frame_walls_run_b=lines["B"]["frame_walls"],
+                         table_bytes=gp1["table_bytes"], table_bytes_single=ref_b["table_bytes"],
+                         **route_walls(gp1)),
+                gp1_textured=dict(frame_line(gpt1, ref_t, 1e-5),
+                                  frame_walls_single_flat=ref_t["walls"], **route_walls(gpt1)),
                 launches=launches("L1", l1))
     log(json.dumps(line))
     if not (line["dp1"]["bit_equal"] and dp1["rays"] == ref_a["rays"] and dp1["present_max_err"] == 0
-            and max(line["gp1"]["max_abs_err"]) <= 1e-5 and gp1["rays"] == ref_b["rays"]):
+            and max(line["gp1"]["max_abs_err"]) <= 1e-5 and gp1["rays"] == ref_b["rays"]
+            and max(line["gp1_textured"]["max_abs_err"]) <= 1e-5
+            and gpt1["rays"] == ref_t["rays"]):
         raise AssertionError(f"phase L1: a sharded frame disagrees with the single device: {line}")
+    gp_job("L1 gp=1", l1, 1, "rows")
+    gp_job("L1 gp=1 textured", l1, 2, "rows_maps_taps")
+    for k, v in enumerate(GP_VARIANT_JOBS):
+        gp_job(f"L1 gp=1 {v}", l1, 3 + k, v)
 
     # --- L2: two ranks sharing the card over gloo
     t0, st2 = time.perf_counter(), {}
@@ -2420,11 +2586,15 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
                                                                   present=True)),
         (L.drive, ("dp", scene_a, s_a, {"dp": 1, "sp": 2}, 1), dict(offsets=ref_a["offsets"])),
         (L.drive, ("gp", scene_b, ref_b["settings"], {"gp": 2}, 2), dict(offsets=ref_b["offsets"],
-                                                                         check_flat=True)),
+                                                                         check_flat=True,
+                                                                         check_route=True)),
+        (L.drive, ("gp", scene_t, ref_t["settings"], {"gp": 2}, 2),
+         dict(offsets=ref_t["offsets"], banded=True, check_route=True)),
     ], backend="gloo", stats=st2)
     l2_s = time.perf_counter() - t0
-    dp2, sp2, gp2 = l2[0]
+    dp2, sp2, gp2, gpt2 = l2[0]
     gp_rays_local = [rank[2]["rays_local"] for rank in l2]
+    gpt_rays_local = [rank[3]["rays_local"] for rank in l2]
     line = dict(phase="L2", world=2, backend="gloo", launch_s=l2_s, rank_times_s=st2["ranks"], note=note,
                 card=card_name, power_limit=power_limit,
                 dp2=dict(frame_line(dp2, ref_a, 0.0), k1_max_err=dp2["present_max_err"]),
@@ -2432,7 +2602,11 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
                 gp2=dict(frame_line(gp2, ref_b, 1e-5), rays_local_by_rank=gp_rays_local,
                          table_bytes_by_rank=[rank[2]["table_bytes"] for rank in l2],
                          table_bytes_single=ref_b["table_bytes"],
-                         k3_checked_by_rank=flat_checks("L2 gp=2", l2, 2)),
+                         k3_checked_by_rank=flat_checks("L2 gp=2", l2, 2), **route_walls(gp2)),
+                gp2_textured=dict(frame_line(gpt2, ref_t, 1e-5), rays_local_by_rank=gpt_rays_local,
+                                  band_rows=[rank[3]["route_check"]["k14"][0]["band_rows"]
+                                             for rank in l2],
+                                  frame_walls_single_flat=ref_t["walls"], **route_walls(gpt2)),
                 launches=launches("L2", l2))
     log(json.dumps(line))
     line_l2 = line
@@ -2441,16 +2615,23 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
     # rays differ only by what such (differing) pixels can trace
     s_b = ref_b["settings"]
     per_pixel = 2 * s_b.sample_stride * (s_b.max_bounces * (s_b.max_bounces + 2) + 2)
+    gt = line["gp2_textured"]
     rays_ok = all(abs(a - b) <= n * per_pixel
-                  for a, b, n in zip(g["rays"], g["rays_single"], g["pixels_differing"]))
+                  for x in (g, gt)
+                  for a, b, n in zip(x["rays"], x["rays_single"], x["pixels_differing"]))
     if not (line["dp2"]["bit_equal"] and dp2["rays"] == ref_a["rays"][:2]
             and dp2["present_max_err"] == 0 and max(line["sp2"]["max_abs_err"]) <= 1e-6
             and sp2["rays"] == ref_sp["rays"] and rays_ok
-            and all(x == gp_rays_local[0] for x in gp_rays_local)):
+            and all(x == gp_rays_local[0] for x in gp_rays_local)
+            and all(x == gpt_rays_local[0] for x in gpt_rays_local)):
         raise AssertionError(f"phase L2: a sharded frame disagrees with the single device: {line}")
-    if max(g["max_abs_err"]) > 1e-5:
-        log(f"phase L2 gp=2: {g['pixels_outside']} pixels outside 1e-5 of the flat single device")
-        raise AssertionError("phase L2 gp=2: pixels outside 1e-5 of the flat single device")
+    for name, x in (("gp=2", g), ("gp=2 textured", gt)):
+        if max(x["max_abs_err"]) > 1e-5:
+            log(f"phase L2 {name}: {x['pixels_outside']} pixels outside 1e-5 of the flat single "
+                "device")
+            raise AssertionError(f"phase L2 {name}: pixels outside 1e-5 of the flat single device")
+    gp_job("L2 gp=2", l2, 2, "rows")
+    gp_job("L2 gp=2 textured", l2, 3, "rows_maps_taps")
 
     # --- L3: four ranks over gloo, (dp, gp) = (2, 2), banded atlas, save and resume
     r3 = Renderer(l3_scene(), 48, 48, seed=3, device=dev)
@@ -2463,7 +2644,8 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
     t0, st3, st3b = time.perf_counter(), {}, {}
     l3 = L.launch(L.run_jobs, 4, [
         (L.drive, ("gp", l3_scene(), ref_3["settings"], {"dp": 2, "gp": 2}, 3),
-         dict(offsets=ref_3["offsets"], banded=True, save=(2, path), check_flat=True)),
+         dict(offsets=ref_3["offsets"], banded=True, save=(2, path), check_flat=True,
+              check_route=True)),
     ], backend="gloo", stats=st3)
     l3b = L.launch(L.run_jobs, 4, [
         (L.drive, ("gp", l3_scene(), ref_3["settings"], {"dp": 2, "gp": 2}, 1),
@@ -2486,17 +2668,20 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
     if not (max(line["dp_gp"]["max_abs_err"]) <= 1e-5 and line["resumed_bit_equal"]
             and resumed["rays"] == run3["rays"][2:]):
         raise AssertionError(f"phase L3: the sharded frames or the resumed frame disagree: {line}")
+    gp_job("L3 dp*gp=2*2", l3, 0, "rows_maps_taps")
+    gp_job("L3 resumed", l3b, 0, "rows_maps_taps", checked=False)
     counts["L2"]["gp_refit"] = [c["refit"] for c in line_l2["gp2"]["k3_checked_by_rank"]]
-    # L1's and L2's dp frames take the kernel route; gp frames (L1, L2, L3) are off it
-    for tag, kernels in (("L1", ("present", "traverse2", "traverse_flat", "refit_flat") + W.STAGES),
-                         ("L2", ("present", "traverse2", "traverse_flat", "refit_flat") + W.STAGES),
-                         ("L3", ("traverse_flat", "refit_flat"))):
+    # every frame takes the kernel route: the gp frames (L1, L2, L3) K6, K7's
+    # lane-row form, K8 and K13, with the banded atlas and maps K14
+    paths = ("traverse_flat", "refit_flat") + W.STAGES + W.GP_STAGES
+    for tag, kernels in (("L1", ("present", "traverse2") + paths),
+                         ("L2", ("present", "traverse2") + paths), ("L3", paths)):
         if min(counts[tag][k] for k in kernels) < 1:
             raise AssertionError(f"phase {tag}: a kernel of the path never launched: {counts[tag]}")
     if counts["L1"]["variants"].get("flat", 0) < 1 or counts["L2"]["variants"].get("packed", 0) < 1:
         raise AssertionError(f"phase L: K3 flat or K2 packed missing: {counts}")
     log(f"phase L: {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return counts, gp_checks
 
 
 def run_entry(torch, module, argv, W):
@@ -2635,7 +2820,7 @@ def phase_m(torch, present, traverse2, refit, W, bounds, tmp, checks, stage_chec
         walls, rays = rec["walls"], rec["rays"]
         if (r.device.type != "cuda" or min(c[k] for k in need) < 1 or set(variants) != {"packed"}
                 or c["traverse_flat"] or c["resolve_shadow"] != c["sample_start"]
-                or min(rec["k6"]) < r.samples_per_pixel or not route_of(W, r)):
+                or min(rec["k6"]) < r.samples_per_pixel):
             raise AssertionError(f"phase {tag}: a kernel of the path never launched, a draw left "
                                  f"the kernel route or ran off the card: launches {c}, K2 "
                                  f"{variants}, K6 per draw {rec['k6']}, device {r.device}")
@@ -2848,7 +3033,6 @@ def main() -> int:
         refit.reset_launches()
         W.reset_launches()
         r.draw(1 / 60)  # warm-up
-        route = route_of(W, r)
         torch.cuda.synchronize()
         rays, walls, motion, extras = 0, [], [], []
         for _ in range(timed):
@@ -2867,15 +3051,11 @@ def main() -> int:
                   "traverse_flat": traverse2.flat_launches, **refit_counts(refit),
                   **stage_counts(W)}
         path = ("present", "traverse_flat" if variant.startswith("flat") else "traverse2") + refits
-        if route:
-            path += W.STAGES
-            # the listed K7 folds K8's add in: K8 runs once per sample, at its end
-            if counts["resolve_shadow"] != counts["sample_start"]:
-                raise AssertionError(f"{tag}: K8 launched {counts['resolve_shadow']} times for "
-                                     f"{counts['sample_start']} samples")
-        elif any(W.launches.values()):
-            raise AssertionError(f"{tag}: off the kernel route, yet a stage kernel launched: "
-                                 f"{counts}")
+        path += W.STAGES
+        # the listed K7 folds K8's add in: K8 runs once per sample, at its end
+        if counts["resolve_shadow"] != counts["sample_start"]:
+            raise AssertionError(f"{tag}: K8 launched {counts['resolve_shadow']} times for "
+                                 f"{counts['sample_start']} samples")
         h, w = r.render_height, r.render_width
         if img.shape != (h, w, 3) or img.dtype != np.uint8:
             raise AssertionError(f"{tag}: image {img.shape} {img.dtype}")
@@ -2891,7 +3071,7 @@ def main() -> int:
                     bounces=r.max_bounces, upscaler=r.upscaler_mode,
                     motion_adaptive=r.use_motion_adaptive_sampling,
                     triangles=r.statics.n_triangles, table_bytes=r.bvh.table.numel() * 4,
-                    route="kernel" if route else "plain",
+                    route="kernel",
                     frames=timed, total_rays=rays, seconds=seconds, frame_walls=walls,
                     mrays_per_s=rays / seconds / 1e6, launches=counts, k2_variants=variants,
                     k8_launches_per_frame=counts["resolve_shadow"] / (timed + 1),
@@ -2927,8 +3107,7 @@ def main() -> int:
 
     def run(tag, r, timed, variant="packed", scene_name=None, refits=(), strict=False):
         checks[tag] = check_path_kernels(torch, tag, r, present, traverse2, bounds)
-        if route_of(W, r):
-            check_route(tag, r, strict, timed=strict)
+        check_route(tag, r, strict, timed=strict)
         counts[tag], walls[tag], lines[tag] = drive(
             tag, r, timed, scene_name or FP.RUNS[tag]["scene"], variant, refits)
         # refit keeps its input table: it copies the whole table every call
@@ -3003,8 +3182,8 @@ def main() -> int:
         bounds)
     log(f"phase 3p: {time.perf_counter() - t_3p:.1f} s")
     # the G-buffer state (denoised mode): K7 writes it at sample 0's first hit
-    if not (re_.settings().enable_gbuffer and route_of(W, re_)):
-        raise AssertionError("run E denoised: no G-buffer, or off the kernel route")
+    if not re_.settings().enable_gbuffer:
+        raise AssertionError("run E denoised: no G-buffer")
     stage_checks["E denoised"] = check_stages(torch, "E denoised", re_, W, traverse2, bounds)
     stage_checks["E denoised"].pop("first")
     route_frames["E denoised"] = check_route_frame(torch, "E denoised", re_, W, wf)
@@ -3220,9 +3399,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- 7c. phase L: the sharded renderers, each rank a process on this card ---------------------
-    for tag, c in phase_l(torch, FP, dev, lines, card_name, power_limit).items():
+    l_counts, gp_checks = phase_l(torch, FP, dev, lines, card_name, power_limit)
+    for tag, c in l_counts.items():
         counts[tag] = {k: c[k] for k in ("present", "traverse2", "traverse_flat") + REFIT_KEYS
-                       + W.STAGES}
+                       + W.STAGES + W.GP_STAGES}
+        counts[tag].update({f"k7 {k}": n for k, n in c["k7"].items()})
         if "gp_refit" in c:
             refit_checks["L2 gp=2"] = c["gp_refit"]
         variant_counts_l[tag] = c["variants"]
@@ -3439,6 +3620,10 @@ def main() -> int:
             bits = [b == "1" for b in re.findall(r"Lb([01])E", name)[:3]]
             v = sum(1 << k for k, b in enumerate(bits) if b)
             k7_regs[W.K7_VARIANTS[v]] = res_
+        elif "shade_hit_rows_kernel" in name:  # <MAPS, MIPS, DEBUG, TAPS>: bits 0-2, 4
+            bits = [b == "1" for b in re.findall(r"Lb([01])E", name)[:4]]
+            v = 8 | sum(1 << (k if k < 3 else 4) for k, b in enumerate(bits) if b)
+            k7_regs[W.K7_VARIANTS[v]] = res_
     k7_timed = {"untextured": "A", "maps": "N", "maps_mips": "F", "maps_debug": "N debug 1",
                 "maps_mips_debug": "F debug 1", "debug": "C debug 7"}
     k7_replaces = {"untextured": "mrt_tpu/render/wavefront.py:372",
@@ -3455,8 +3640,7 @@ def main() -> int:
         kernels.append(dict(
             name=f"K7 shade_hit ({v})", route="cuda", source="mrt_tpu_torch/csrc/wavefront.cu",
             replaces=k7_replaces[v],
-            launches=sum(c.get(f"k7 {v}", 0) for c in counts.values())
-            + (sum(counts[t_]["shade_hit"] for t_ in variant_counts_l) if v == "untextured" else 0),
+            launches=sum(c.get(f"k7 {v}", 0) for c in counts.values()),
             launches_by_run={t_: c[f"k7 {v}"] for t_, c in counts.items() if c.get(f"k7 {v}")},
             max_abs_err=max(errs + [0.0]), ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None, timed_at=tag,
@@ -3470,6 +3654,51 @@ def main() -> int:
         if kernels[-1]["launches"] < 1 or not mine:
             raise AssertionError(f"K7's {v} instantiation never launched on the main path or was "
                                  f"never checked: {kernels[-1]}")
+    # K7's lane-row form by instantiation (phase L's gp frames), K13 and
+    # K14: launches on the main path, registers and spills, ms, plain_ms
+    # and bound_ms at the first launch of the checked frame of a gp=1 job
+    # (one rank alone on the card; K13 and "rows" at run B's scene, K14 and
+    # "rows_maps_taps" at the textured gp scene, every other instantiation
+    # at its own job), the largest difference from the plain version over
+    # every checked launch, and the checked frames of every gp job (all
+    # bit-equal to the plain versions, or phase L raised)
+    k7_rows_replaces = {"rows": "mrt_tpu/render/wavefront.py:527",
+                        "rows_maps": "mrt_tpu/render/wavefront.py:619",
+                        "rows_maps_mips": "mrt_tpu/render/wavefront.py:572",
+                        "rows_maps_taps": "mrt_tpu/render/wavefront.py:607"}
+    gp_timed = {"rows": "L1 gp=1", "rows_maps_taps": "L1 gp=1 textured",
+                **{v: f"L1 gp=1 {v}" for v in GP_VARIANT_JOBS}}
+    for v in (v for v in W.K7_VARIANTS.values() if v.startswith("rows")):
+        t = gp_checks[gp_timed[v]]["k7"]
+        mine = {t_: g["k7"] for t_, g in gp_checks.items() if g["k7"]["variant"] == v}
+        kernels.append(dict(
+            name=f"K7 shade_hit ({v})", route="cuda", source="mrt_tpu_torch/csrc/wavefront.cu",
+            replaces=k7_rows_replaces.get(v, "mrt_tpu/render/wavefront.py:661"),
+            launches=sum(c.get(f"k7 {v}", 0) for c in counts.values()),
+            launches_by_run={t_: c[f"k7 {v}"] for t_, c in counts.items() if c.get(f"k7 {v}")},
+            max_abs_err=max(c["max_abs"] for c in mine.values()), ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=None, timed_at=gp_timed[v], registers=k7_regs.get(v), checked=mine))
+        if kernels[-1]["launches"] < 1 or t["variant"] != v:
+            raise AssertionError(f"K7's {v} instantiation never launched on the main path or was "
+                                 f"never checked: {kernels[-1]}")
+    for name, stage, tag, replaces in (
+            ("K13 gp_rows", "gp_rows", "L1 gp=1", "mrt_tpu/render/wavefront.py:76"),
+            ("K14 banded_taps", "banded_taps", "L1 gp=1 textured",
+             "mrt_tpu/assets/texture.py:355")):
+        key = "k13" if stage == "gp_rows" else "k14"
+        t = gp_checks[tag][key]["first"]
+        kernels.append(dict(
+            name=name, route="cuda", source="mrt_tpu_torch/csrc/wavefront.cu", replaces=replaces,
+            launches=sum(c.get(stage, 0) for c in counts.values()),
+            launches_by_run={t_: c[stage] for t_, c in counts.items() if c.get(stage)},
+            max_abs_err=max(g[key]["max_abs"] for g in gp_checks.values() if g[key]["launches"]),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None, timed_at=tag,
+            registers=next((r_ for n_, r_ in build.ptxas.items() if f"{stage}_kernel" in n_), None),
+            checked={t_: g[key] for t_, g in gp_checks.items() if g[key]["launches"]}))
+        if kernels[-1]["launches"] < 1:
+            raise AssertionError(f"{name} never launched on the main path: {kernels[-1]}")
     for tag in ("A", "B", "C", "E", "G", "H", "J", "M smoke", "M demo"):
         c = counts[tag]
         if min(c[s] for s in W.STAGES) < 1 or c["k7 untextured"] != c["shade_hit"]:

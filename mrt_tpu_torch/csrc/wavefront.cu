@@ -30,6 +30,15 @@
 //       normal mapping in the triangle's tangent basis, and the debug views,
 //       which write the colour at the first hit and retire the lane.
 //   K8: after a sample's last iteration, the last shadow rays' add.
+//   K13 gp_rows and K14 banded_taps, under geometry sharding (the gp axis,
+//       dist/geometry.py), where a rank holds only its shard's shade and
+//       motion rows and maybe one row band of the packed atlas: K13 writes
+//       each shaded lane's rows where this rank owns the hit triangle (zeros
+//       elsewhere), K14 this rank's share of the lane's packed sample; a psum
+//       over gp after each (outside the kernels: a collective cannot run in
+//       one) completes them, and K7's lane-row form (shade_hit_rows_kernel)
+//       reads them at the lane's index where the single device's K7 reads
+//       the frame's tables at the triangle's.
 // The radiance adds keep the plain loop's order: env(k), emission(k),
 // contrib(k), env(k+1). Matching PyTorch's CUDA ops: a division by a Python
 // scalar is a multiply by the f32 reciprocal (x / PI, x / (2 PI), x / 8);
@@ -393,6 +402,20 @@ __device__ __forceinline__ void sample_packed(const Maps& M, int packed_w, int r
     }
 }
 
+// K7's lane-row form on a banded atlas: lane i's packed sample, which K14
+// and a psum over gp wrote into a (P, PACKED_C) buffer (M.packed then)
+__device__ __forceinline__ void lane_taps(const Maps& M, int i, float out[PACKED_C]) {
+    const float4* p = reinterpret_cast<const float4*>(M.packed) + 4 * (long long)i;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const float4 a = __ldg(p + q);
+        out[4 * q] = a.x;
+        out[4 * q + 1] = a.y;
+        out[4 * q + 2] = a.z;
+        out[4 * q + 3] = a.w;
+    }
+}
+
 __device__ __forceinline__ f3 texel(const Maps& M, int texel_w, int x, int y) {
     const float* p = M.texels + 3 * (long long)(y * texel_w + x);
     return mk(__ldg(p), __ldg(p + 1), __ldg(p + 2));
@@ -490,14 +513,17 @@ struct Surface {
 // selects), each replacing or scaling its part of sf; with DEBUG the
 // view's colour replaces the radiance, the lane retires and the function
 // returns true; else a normal map bends sf.shading_nrm. s2, s3: the shade
-// row's last two float4 (the uvs); mrow: the material row.
-template <bool MAPS, bool MIPS, bool DEBUG>
+// row's last two float4 (the uvs); mrow: the material row; row: the index
+// of the hit's motion row (its triangle, or in the lane-row form the lane).
+// TAPS: the packed sample is lane i's row of M.packed (K14's per-lane taps).
+template <bool MAPS, bool MIPS, bool DEBUG, bool TAPS>
 __device__ __forceinline__ bool textured_hit(const Lane& S, const ShadowOut& Sh, const Frame& Fr,
-                                             const Maps& M, const MapsInfo& I, int i, int tri,
+                                             const Maps& M, const MapsInfo& I, int i, int row,
                                              int res, int flags, int rays, float t, float hu,
                                              float hv, float w, float4 s2, float4 s3, f3 ray_d,
                                              f3 nrm, const float4* mrow, Surface& sf) {
     static_assert(MAPS || !MIPS, "mipmaps come with the MAPS instantiation");
+    static_assert(!TAPS || (MAPS && !MIPS), "per-lane taps replace the packed sample");
     // the hit's world vertices v0 v1 v2 (the motion row's first 9 floats),
     // for the ray cone's footprint and the tangent basis
     float mv[10];
@@ -507,7 +533,7 @@ __device__ __forceinline__ bool textured_hit(const Lane& S, const ShadowOut& Sh,
         // footprint goes to uv units by the triangle's uv area over its world area
         const float cone = S.cone_t[i] + t;
         S.cone_t[i] = cone;
-        motion_row<5>(M, tri, mv);
+        motion_row<5>(M, row, mv);
         const f3 v0 = mk(mv[0], mv[1], mv[2]);
         const float world_area =
             0.5f * length3(cross(mk(mv[3], mv[4], mv[5]) - v0, mk(mv[6], mv[7], mv[8]) - v0));
@@ -541,7 +567,10 @@ __device__ __forceinline__ bool textured_hit(const Lane& S, const ShadowOut& Sh,
                              has(MAP_ROUGHNESS, TEX_ROUGHNESS) || has(MAP_METALLIC, TEX_METALLIC) ||
                              ((flags & FLAG_AO) && has(MAP_AO, TEX_AO)) ||
                              has(MAP_OPACITY, TEX_OPACITY) || has(MAP_EMISSION, TEX_EMISSION);
-            if (any) sample_packed(M, I.packed_w, res, tu, tv, pk);
+            if (any) {
+                if constexpr (TAPS) lane_taps(M, i, pk);
+                else sample_packed(M, I.packed_w, res, tu, tv, pk);
+            }
         }
         if (has(MAP_BASECOLOR, TEX_BASECOLOR)) {
             base_sample = sample3(MAP_BASECOLOR, PK_BASECOLOR);
@@ -579,7 +608,7 @@ __device__ __forceinline__ bool textured_hit(const Lane& S, const ShadowOut& Sh,
             float mpx, mpy;
             if (flags & FLAG_SAMPLE0) {
                 float m[18];
-                motion_row<9>(M, tri, m);
+                motion_row<9>(M, row, m);
                 const f3 obj = mk(m[3], m[4], m[5]) * hu + mk(m[6], m[7], m[8]) * hv +
                                mk(m[0], m[1], m[2]) * w;
                 const f3 prev = mk(m[12], m[13], m[14]) * hu + mk(m[15], m[16], m[17]) * hv +
@@ -615,7 +644,7 @@ __device__ __forceinline__ bool textured_hit(const Lane& S, const ShadowOut& Sh,
     // against the interpolated normal
     if constexpr (MAPS) {
         if (has(MAP_NORMAL, TEX_NORMAL)) {
-            if constexpr (!MIPS) motion_row<5>(M, tri, mv);
+            if constexpr (!MIPS) motion_row<5>(M, row, mv);
             const f3 v0 = mk(mv[0], mv[1], mv[2]);
             const f3 e1 = mk(mv[3], mv[4], mv[5]) - v0, e2 = mk(mv[6], mv[7], mv[8]) - v0;
             const float du1x = s2.w - s2.y, du1y = s3.x - s2.z;
@@ -648,8 +677,12 @@ __device__ __forceinline__ bool textured_hit(const Lane& S, const ShadowOut& Sh,
 // comes with MAPS);
 // a normal map bends the shading normal. DEBUG: a debug view
 // (I.debug_mode): the colour at the first hit replaces the radiance and the
-// lane retires, casting no shadow ray.
-template <bool MAPS, bool MIPS, bool DEBUG>
+// lane retires, casting no shadow ray. LANE: the lane-row form of
+// geometry sharding, which reads the hit's shade and motion rows at the
+// lane's index of K13's per-lane buffers (Fr.shade_rows, M.motion_rows
+// then) instead of at the triangle's; TAPS: also the packed sample at the
+// lane's index of K14's (M.packed then).
+template <bool MAPS, bool MIPS, bool DEBUG, bool LANE, bool TAPS>
 __device__ __forceinline__ void shade_lane(const Lane& S, const Frame& Fr, const Raw& R,
                                            const ShadowOut& Sh, const bool* __restrict__ occluded,
                                            const Maps* M, const MapsInfo* I,
@@ -693,8 +726,11 @@ __device__ __forceinline__ void shade_lane(const Lane& S, const Frame& Fr, const
     }
     int bounce = S.bounce[i], step = S.step[i], tpasses = S.tpasses[i];
     const float t = R.t[i], hu = R.u[i], hv = R.v[i];
-    // shade row [n0(3) n1(3) n2(3) uv0(2) uv1(2) uv2(2) resource]: 4 float4
-    const float4* srow = reinterpret_cast<const float4*>(Fr.shade_rows) + 4 * (long long)tri;
+    // shade row [n0(3) n1(3) n2(3) uv0(2) uv1(2) uv2(2) resource]: 4 float4,
+    // the triangle's, or in the lane-row form the lane's
+    int row = tri;
+    if constexpr (LANE) row = i;
+    const float4* srow = reinterpret_cast<const float4*>(Fr.shade_rows) + 4 * (long long)row;
     const float4 s0 = __ldg(srow), s1 = __ldg(srow + 1), s2 = __ldg(srow + 2), s3 = __ldg(srow + 3);
     const int res = (int)s3.w;
     const f3 wp = ray_o + ray_d * t;
@@ -722,8 +758,8 @@ __device__ __forceinline__ void shade_lane(const Lane& S, const Frame& Fr, const
     float opacity = clampf(m2.w, 0.0f, 1.0f);
     if constexpr (MAPS || MIPS || DEBUG) {
         Surface sf{albedo, emission, roughness, metallic, ao, opacity, shading_nrm};
-        if (textured_hit<MAPS, MIPS, DEBUG>(S, Sh, Fr, *M, *I, i, tri, res, flags, rays, t, hu, hv,
-                                            w, s2, s3, ray_d, nrm, mrow, sf))
+        if (textured_hit<MAPS, MIPS, DEBUG, TAPS>(S, Sh, Fr, *M, *I, i, row, res, flags, rays, t,
+                                                  hu, hv, w, s2, s3, ray_d, nrm, mrow, sf))
             return;  // a debug view: the lane retired
         albedo = sf.albedo;
         emission = sf.emission;
@@ -937,7 +973,7 @@ __device__ __forceinline__ int list_entry(const int* __restrict__ list, int j, i
 // structs come by value and the maps by pointer (null in the untextured
 // K7): so the untextured instantiation keeps, register for register, the
 // instructions it had as a kernel of its own (kernels/sass_diff.py).
-template <bool MAPS, bool MIPS, bool DEBUG>
+template <bool MAPS, bool MIPS, bool DEBUG, bool LANE, bool TAPS>
 __device__ __forceinline__ void shade_rounds(
     Lane S, Frame Fr, Raw R, ShadowOut Sh,
     const bool* __restrict__ occluded, const int* __restrict__ in, int* __restrict__ out,
@@ -953,8 +989,9 @@ __device__ __forceinline__ void shade_rounds(
         int i = 0;
         if (j < n_in) {
             i = in != nullptr ? list_entry(in, j, n_live, n) : j;
-            shade_lane<MAPS, MIPS, DEBUG>(S, Fr, R, Sh, occluded, M, I, i, hbase, n_lights,
-                                          env_h, env_w, flags, max_bounces, alive, keep);
+            shade_lane<MAPS, MIPS, DEBUG, LANE, TAPS>(S, Fr, R, Sh, occluded, M, I, i, hbase,
+                                                      n_lights, env_h, env_w, flags, max_bounces,
+                                                      alive, keep);
         }
         const unsigned front = __ballot_sync(FULL, alive);
         const unsigned back = __ballot_sync(FULL, keep && !alive);
@@ -1004,9 +1041,9 @@ __global__ void __launch_bounds__(SHADE_BLOCK, 4) shade_hit_kernel(
     Lane S, Frame Fr, Raw R, ShadowOut Sh, const bool* __restrict__ occluded,
     const int* __restrict__ in, int* __restrict__ out, const int* __restrict__ cin, int* cout,
     int n, int hbase, int n_lights, int env_h, int env_w, int flags, int max_bounces) {
-    shade_rounds<false, false, false>(S, Fr, R, Sh, occluded, in, out, cin, cout, n, hbase,
-                                      n_lights, env_h, env_w, flags, max_bounces, nullptr,
-                                      nullptr);
+    shade_rounds<false, false, false, false, false>(S, Fr, R, Sh, occluded, in, out, cin, cout, n,
+                                                    hbase, n_lights, env_h, env_w, flags,
+                                                    max_bounces, nullptr, nullptr);
 }
 
 // K7's textured and debug instantiations: 2 blocks of 256 a SM, the
@@ -1017,19 +1054,38 @@ __global__ void __launch_bounds__(SHADE_BLOCK, 2) shade_hit_tex_kernel(
     const int* __restrict__ in, int* __restrict__ out, const int* __restrict__ cin, int* cout,
     int n, int hbase, int n_lights, int env_h, int env_w, int flags, int max_bounces, Maps M,
     MapsInfo I) {
-    shade_rounds<MAPS, MIPS, DEBUG>(S, Fr, R, Sh, occluded, in, out, cin, cout, n, hbase,
-                                    n_lights, env_h, env_w, flags, max_bounces, &M, &I);
+    shade_rounds<MAPS, MIPS, DEBUG, false, false>(S, Fr, R, Sh, occluded, in, out, cin, cout, n,
+                                                  hbase, n_lights, env_h, env_w, flags,
+                                                  max_bounces, &M, &I);
+}
+
+// K7's lane-row form (geometry sharding): the rows, and on a banded atlas
+// the packed sample, at the lane's index of the per-lane buffers that K13
+// and K14 wrote and a psum over gp completed (the buffers stand where the
+// frame's tables stood: Fr.shade_rows, M.motion_rows, M.packed). Their
+// reads are per-lane loads, neighbouring lanes on neighbouring rows. The
+// occupancy of the instantiation it mirrors.
+template <bool MAPS, bool MIPS, bool DEBUG, bool TAPS>
+__global__ void __launch_bounds__(SHADE_BLOCK, (MAPS || DEBUG) ? 2 : 4) shade_hit_rows_kernel(
+    Lane S, Frame Fr, Raw R, ShadowOut Sh, const bool* __restrict__ occluded,
+    const int* __restrict__ in, int* __restrict__ out, const int* __restrict__ cin, int* cout,
+    int n, int hbase, int n_lights, int env_h, int env_w, int flags, int max_bounces, Maps M,
+    MapsInfo I) {
+    shade_rounds<MAPS, MIPS, DEBUG, true, TAPS>(S, Fr, R, Sh, occluded, in, out, cin, cout, n,
+                                                hbase, n_lights, env_h, env_w, flags, max_bounces,
+                                                &M, &I);
 }
 
 typedef void (*ShadeTexKernel)(Lane, Frame, Raw, ShadowOut, const bool*, const int*, int*,
                                const int*, int*, int, int, int, int, int, int, int, Maps,
                                MapsInfo);
 
-// K7's instantiations by variant: bit 0 MAPS, 1 MIPS, 2 DEBUG (0: the
-// untextured shade_hit_kernel). Mipmaps come with MAPS (a scene without
-// maps samples none, and keeps the cone's length), so variants 2 and 6
-// have none.
-constexpr int N_VARIANTS = 8;
+// K7's instantiations by variant: bit 0 MAPS, 1 MIPS, 2 DEBUG, 3 the
+// lane-row form, 4 its per-lane taps (0: the untextured shade_hit_kernel).
+// Mipmaps come with MAPS (a scene without maps samples none, and keeps the
+// cone's length), so variants 2 and 6 have none; the taps replace the
+// packed sample, so they come with MAPS and without MIPS.
+constexpr int N_VARIANTS = 32;
 const ShadeTexKernel TEX_KERNELS[N_VARIANTS] = {
     nullptr,
     shade_hit_tex_kernel<true, false, false>,
@@ -1039,6 +1095,20 @@ const ShadeTexKernel TEX_KERNELS[N_VARIANTS] = {
     shade_hit_tex_kernel<true, false, true>,
     nullptr,
     shade_hit_tex_kernel<true, true, true>,
+    shade_hit_rows_kernel<false, false, false, false>,  // 8
+    shade_hit_rows_kernel<true, false, false, false>,
+    nullptr,
+    shade_hit_rows_kernel<true, true, false, false>,
+    shade_hit_rows_kernel<false, false, true, false>,
+    shade_hit_rows_kernel<true, false, true, false>,
+    nullptr,
+    shade_hit_rows_kernel<true, true, true, false>,
+    nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,  // 16-23
+    nullptr,
+    shade_hit_rows_kernel<true, false, false, true>,  // 25
+    nullptr, nullptr, nullptr,
+    shade_hit_rows_kernel<true, false, true, true>,  // 29
+    nullptr, nullptr,
 };
 
 // The trailing resolve of a sample: accumulated += contrib over the last
@@ -1055,6 +1125,84 @@ __global__ void resolve_shadow_kernel(float* __restrict__ acc, const float* __re
         const int i = list_entry(list, j, n_live, n);
         if (need[i] && !occluded[i]) st3(acc + 3 * i, ld3(acc + 3 * i) + ld3(contrib + 3 * i));
     }
+}
+
+// K13 gp_rows: the local half of the JAX package's _tri_rows
+// (mrt_tpu/render/wavefront.py:76-85, at :527, :547, :701 and :1034) under
+// geometry sharding. Per lane i that is live (every lane when live is null)
+// with a hit (ids[i] >= 0) on a triangle this rank's shard holds (g2l[id] >=
+// 0), the triangle's shade row (16 f32) and/or motion row (18 f32) from the
+// shard's tables; zeros for every other lane. A psum over gp of the output
+// then gives every rank every lane's rows (each element has one nonzero
+// contributor, so the sum is exact). One thread per float2 of the output:
+// the shade rows (8 a lane) and then the motion rows (9), so that a warp's
+// stores are 256 contiguous bytes; the lane's id, flag and g2l entry are
+// read by each of its 8 or 9 threads (through L1). Bound: bytes (ids, flags,
+// g2l entries, the owned rows once each, the rows written).
+__global__ void gp_rows_kernel(const int* __restrict__ ids, const bool* __restrict__ live,
+                               const int* __restrict__ g2l, const float* __restrict__ shade,
+                               const float* __restrict__ motion, float* __restrict__ out_shade,
+                               float* __restrict__ out_motion, int n) {
+    const long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    const long long n_shade = out_shade != nullptr ? 8LL * n : 0;
+    const long long n_all = n_shade + (out_motion != nullptr ? 9LL * n : 0);
+    if (k >= n_all) return;
+    const bool is_shade = k < n_shade;
+    const int e = (int)(is_shade ? k : k - n_shade);  // 9 n < 2^31 (n: a batch's lanes)
+    const int per = is_shade ? 8 : 9;
+    const int i = e / per, q = e % per;
+    const int id = __ldg(ids + i);
+    int loc = -1;
+    if (id >= 0 && (live == nullptr || live[i])) loc = __ldg(g2l + id);
+    float2 v = make_float2(0.0f, 0.0f);
+    if (loc >= 0)
+        v = __ldg(reinterpret_cast<const float2*>(is_shade ? shade : motion) + (long long)loc * per +
+                  q);
+    reinterpret_cast<float2*>(is_shade ? out_shade : out_motion)[e] = v;
+}
+
+// K14 banded_taps: this rank's share of the packed bilinear sample on a
+// gp-banded atlas (mrt_tpu/assets/texture.py:355 sample_packed_banded, at
+// mrt_tpu/render/wavefront.py:607-613). Per lane, from its psum'd shade row
+// (the uvs and the resource) and its barycentrics, the texture coordinate as
+// K7's textured_hit makes it, the resource's packed rect, the four taps with
+// repeat addressing; the taps on rows of this rank's band [band_lo, band_lo
+// + band_h) weigh in, the others add zeros (a band holds whole rows, so each
+// row term of the sum is whole on its owner, and the psum over gp of the
+// shares is the whole sample). Four threads a lane, one float4 of the 16
+// channels each (the addressing repeated), so that loads and stores are 16
+// B a thread on neighbouring addresses. Bound: bytes (the rows' uvs, u, v,
+// the rects, each distinct band texel tapped once, the samples written).
+__global__ void banded_taps_kernel(const float* __restrict__ rows, const float* __restrict__ u,
+                                   const float* __restrict__ v, const int* __restrict__ rects,
+                                   const float* __restrict__ band, int band_lo, int band_h,
+                                   int packed_w, float* __restrict__ out, int n) {
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= 4 * n) return;
+    const int i = k >> 2, q = k & 3;
+    const float4* srow = reinterpret_cast<const float4*>(rows) + 4 * (long long)i;
+    const float4 s2 = __ldg(srow + 2), s3 = __ldg(srow + 3);
+    const int res = (int)s3.w;
+    const float hu = __ldg(u + i), hv = __ldg(v + i);
+    const float w = 1.0f - hu - hv;
+    // the barycentric blend of the uvs (u uv1 + v uv2 + w uv0), y flipped
+    const float tu = hu * s2.w + hv * s3.y + w * s2.y;
+    const float tv = 1.0f - (hu * s3.x + hv * s3.z + w * s2.z);
+    const Taps t = repeat_taps(__ldg(reinterpret_cast<const int4*>(rects) + res), tu, tv);
+    const float4* p = reinterpret_cast<const float4*>(band) + q;
+    const int ly0 = t.y0 - band_lo, ly1 = t.y1 - band_lo;
+    const bool own0 = ly0 >= 0 && ly0 < band_h, own1 = ly1 >= 0 && ly1 < band_h;
+    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4 a = own0 ? __ldg(p + 4 * (long long)(ly0 * packed_w + t.x0)) : z;
+    const float4 b = own0 ? __ldg(p + 4 * (long long)(ly0 * packed_w + t.x1)) : z;
+    const float4 c = own1 ? __ldg(p + 4 * (long long)(ly1 * packed_w + t.x0)) : z;
+    const float4 d = own1 ? __ldg(p + 4 * (long long)(ly1 * packed_w + t.x1)) : z;
+    const float gx = 1.0f - t.fx, gy = 1.0f - t.fy;
+    reinterpret_cast<float4*>(out)[k] =
+        make_float4(blend(a.x, b.x, c.x, d.x, gx, t.fx, gy, t.fy),
+                    blend(a.y, b.y, c.y, d.y, gx, t.fx, gy, t.fy),
+                    blend(a.z, b.z, c.z, d.z, gx, t.fx, gy, t.fy),
+                    blend(a.w, b.w, c.w, d.w, gx, t.fx, gy, t.fy));
 }
 
 __global__ void halton_kernel(const int* __restrict__ idx, const int* __restrict__ base,
@@ -1180,5 +1328,32 @@ extern "C" int mrt_halton(const void* idx, const void* base, void* out, int n, i
     if (n <= 0) return 0;
     halton_kernel<<<blocks(n), BLOCK, 0, (cudaStream_t)stream>>>(
         (const int*)idx, (const int*)base, (float*)out, n, digits);
+    return (int)cudaGetLastError();
+}
+
+// K13 over n lanes: out_shade (n, 16) and/or out_motion (n, 18), either null
+// when not wanted; live null for every lane.
+extern "C" int mrt_gp_rows(const void* ids, const void* live, const void* g2l, const void* shade,
+                           const void* motion, void* out_shade, void* out_motion, int n,
+                           void* stream) {
+    const long long n_all =
+        (out_shade != nullptr ? 8LL * n : 0) + (out_motion != nullptr ? 9LL * n : 0);
+    if (n <= 0 || n_all == 0) return 0;
+    gp_rows_kernel<<<(unsigned)((n_all + BLOCK - 1) / BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
+        (const int*)ids, (const bool*)live, (const int*)g2l, (const float*)shade,
+        (const float*)motion, (float*)out_shade, (float*)out_motion, n);
+    return (int)cudaGetLastError();
+}
+
+// K14 over n lanes: rows (n, 16) psum'd shade rows, u/v (n,), the packed
+// rects (R, 4), this rank's band (band_h, packed_w, 16) from global row
+// band_lo; out (n, 16).
+extern "C" int mrt_banded_taps(const void* rows, const void* u, const void* v, const void* rects,
+                               const void* band, int band_lo, int band_h, int packed_w, void* out,
+                               int n, void* stream) {
+    if (n <= 0) return 0;
+    banded_taps_kernel<<<blocks(4 * n), BLOCK, 0, (cudaStream_t)stream>>>(
+        (const float*)rows, (const float*)u, (const float*)v, (const int*)rects,
+        (const float*)band, band_lo, band_h, packed_w, (float*)out, n);
     return (int)cudaGetLastError();
 }

@@ -110,6 +110,19 @@ def psum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     return _reduce(x, axis, dist.ReduceOp.SUM)
 
 
+def psum_(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``psum`` in place: ``x`` (contiguous) becomes the sum and is returned.
+    For buffers made once whose address a kernel was given (the gp step's
+    per-lane rows, ``kernels/wavefront.lane_rows``): no copy of tens of MB
+    per reduction."""
+    if axis.size == 1:
+        return x
+    if not x.is_contiguous():
+        raise ValueError("psum_: the tensor must be contiguous")
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=axis.group)
+    return x
+
+
 def pmin(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     return _reduce(x, axis, dist.ReduceOp.MIN)
 

@@ -119,7 +119,7 @@ def run_jobs(jobs) -> list:
 
 def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0, offsets=None,
           banded: bool = True, joints=(), save=None, restore=None, present: bool = False,
-          check_flat: bool = False, device=None) -> dict:
+          check_flat: bool = False, check_route: bool = False, device=None) -> dict:
     """Rank side: a ``DistributedRenderer`` (``kind`` "dp") or a
     ``GeometryShardedRenderer`` ("gp") over a ``comm.Mesh`` of ``shape`` on
     this rank's device; ``restore`` a checkpoint path to resume from; then
@@ -130,6 +130,10 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
     draws, one more frame in which every rank holds each launch of kernel
     K3 on its shard table against the plain version, and its refit of the
     shard table (kernel K4 ``flat``) too (``_checked_flat_frame``).
+    ``check_route`` ("gp"): then one more frame whose trace runs on the
+    kernel route and on the plain route, compared bit for bit, with each
+    launch of K13 and K14 held against its plain version
+    (``route_check.checked_route_frame``).
 
     Returns a dict: ``setup_s`` (the mesh's and the renderer's
     construction, and the restore), ``images`` (each frame's full
@@ -141,7 +145,11 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
     (K4's and K5's under ``refit_blas``, ``refit_flat``, ``refit_tlas``,
     K6-K8's under their stage names, ``kernels.wavefront.STAGES``),
     with ``present`` the uint8 image and K1's largest difference from its
-    plain version, and with ``check_flat`` this rank's check (``flat_check``)."""
+    plain version, with ``check_flat`` this rank's check (``flat_check``)
+    and with ``check_route`` its route check (``route_check``). The launch
+    counts also hold K13's and K14's (``gp_rows``, ``banded_taps``) and
+    K7's by instantiation (``k7``); they are read before the checked
+    frames."""
     from ..engine import checkpoint
     from ..kernels import present as k1
     from ..kernels import refit, traverse2
@@ -186,20 +194,25 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
             out["images"].append(img.cpu().numpy())
         if save is not None and k + 1 == save[0]:
             checkpoint.save_dist(r, save[1])
-    if check_flat:
-        out["flat_check"] = _checked_flat_frame(r, traverse2)
     if present and rank0:
         u8 = k1.tonemap_quantize(img.contiguous())
         plain = k1.tonemap_quantize_plain(img)
         out["present"] = u8.cpu().numpy()
         out["present_max_err"] = int((u8.int() - plain.int()).abs().max())
     sync()
+    # the main path's launches: the checked frames below are not counted
     out["launches"] = dict(present=k1.launches, traverse2=traverse2.launches,
                            traverse_flat=traverse2.flat_launches,
                            variants=dict(traverse2.variant_launches),
                            refit_blas=refit.rows_launches["blas"],
                            refit_flat=refit.rows_launches["flat"], refit_tlas=refit.tlas_launches,
-                           **W.launches)
+                           k7=dict(W.variant_launches), **W.launches)
+    if check_flat:
+        out["flat_check"] = _checked_flat_frame(r, traverse2)
+    if check_route:
+        from .route_check import checked_route_frame
+
+        out["route_check"] = checked_route_frame(r)
     return out
 
 

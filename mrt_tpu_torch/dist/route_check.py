@@ -1,0 +1,179 @@
+"""The check of a geometry-sharded (gp) frame on the kernel route against
+the plain route, on one rank: ``launch.drive(check_route=True)`` calls
+``checked_route_frame`` after its frames, and the tests and
+``chip_smoke.py``'s phase L read its result.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+
+def _profiled_frame(fn) -> dict:
+    """torch.profiler's device events of one call of ``fn`` on the card and
+    their summed device ms, recorded in a second cycle after a traced
+    warm-up call (a session's first device events can go missing); an
+    empty record is returned as it is, for the caller to report."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    rec = []
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: rec.append(p.events())) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    ev = [e for e in (rec[0] if rec else []) if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(device_events=len(ev), device_ms=sum(e.time_range.elapsed_us() for e in ev) / 1e3)
+
+
+def differing(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements of two float32 tensors whose bits differ."""
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| over the elements whose bits differ (inf where
+    one of them is not finite); 0.0 for bit-equal tensors."""
+    same = a.view(torch.int32) == b.view(torch.int32)
+    d = torch.where(same, 0.0, (a - b).abs().nan_to_num(float("inf")))
+    return float(d.max()) if d.numel() else 0.0
+
+
+def checked_route_frame(r) -> dict:
+    """Draw one frame of the gp renderer ``r`` with its trace run on both
+    routes on the same inputs: the kernel route (its wall), the kernel
+    route again with each K13 (``gp_rows``) and K14 (``banded_taps``)
+    launch held against its plain version on the same inputs right after
+    it ran (every element's bits and the largest difference, ``max_abs``;
+    the bound, ``utils/bounds.py``; CUDA-event ms of both, at the frame's
+    first launch of each over 5 more launches after it on the same inputs)
+    and the frame's first K7 launch (the lane-row form) run on copies of
+    its state and Wave and held, every state field, against
+    ``shade_hit_listed_plain`` with the same rows (each timed once after a
+    warm-up run, beside ``bounds.k7_listed``), and the plain route
+    (``trace_frame(..., plain=True)``; its wall); on the card each route
+    once more under torch.profiler (device events and device ms of one
+    frame). The frame goes on with the first kernel route's outputs.
+    Returns the elements differing between the routes' outputs per field
+    (``fields``, ``bit_equal``) and between the two kernel-route runs, the
+    rays of each route, the walls and profiles, the K13 and K14 checks by
+    launch and the K7 check (``k7``)."""
+    from ..kernels import traverse2
+    from ..kernels import wavefront as W
+    from ..render import wavefront as wf
+    from ..utils import bounds
+
+    cuda = r.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    res = dict(k13=[], k14=[])
+    orig_tf, orig_rows, orig_taps, orig_k7 = wf.trace_frame, W.gp_rows, W.banded_taps, W.shade_hit
+
+    def timed(fn, *a, reps: int = 1):
+        """fn(*a) and its CUDA-event ms (None off the card); with ``reps``
+        > 1 the mean over that many more calls after it."""
+        if not cuda:
+            return fn(*a), None
+        y = fn(*a)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        if reps == 1:
+            y = fn(*a)
+        else:
+            for _ in range(reps):
+                fn(*a)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return y, ev[0].elapsed_time(ev[1]) / reps
+
+    def checked_rows(geom, ids, live, shade=True, motion=False, out=None):
+        reps = 1 if res["k13"] else 5
+        k, ms = timed(orig_rows, geom, ids, live, shade, motion, out, reps=reps)
+        p, plain_ms = timed(W.gp_rows_plain, geom, ids, live, shade, motion, reps=reps)
+        b_ms, b_by = bounds.gp_rows(geom, ids, live, shade, motion)
+        res["k13"].append(dict(lanes=ids.shape[0], shade=shade, motion=motion,
+                               elements=k.numel(), differing=differing(k, p), max_abs=max_abs(k, p),
+                               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        return k
+
+    def checked_taps(atlas, srow, u, v, out=None):
+        reps = 1 if res["k14"] else 5
+        k, ms = timed(orig_taps, atlas, srow, u, v, out, reps=reps)
+        p, plain_ms = timed(W.banded_taps_plain, atlas, srow, u, v, reps=reps)
+        b_ms, b_by = bounds.banded_taps(atlas, srow, u, v)
+        res["k14"].append(dict(lanes=srow.shape[0], band_rows=atlas.packed.shape[0],
+                               differing=differing(k, p), max_abs=max_abs(k, p), ms=ms,
+                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        return k
+
+    def checked_k7(fr, st, hits, sidx, wv, rows=None):
+        if rows is not None and "k7" not in res:
+            hits_t = traverse2.hits_of(hits, fr.tri_base)
+            n_listed = st.active.shape[0] if wv.steps == 0 else int(W.listed(wv).numel())
+            # K7 updates its state and Wave in place: a copy for each run
+            copies = iter([(W.clone_state(st), W.clone_wave(wv)) for _ in range(2)])
+
+            def kernel_step():
+                st_c, wv_c = next(copies)
+                return orig_k7(fr, st_c, hits, sidx, wv_c, rows)
+
+            (k, _, _), ms = timed(kernel_step)
+            (p, wv_p, _), plain_ms = timed(W.shade_hit_listed_plain, fr, W.clone_state(st),
+                                           hits_t, sidx, wv._replace(buf=None), rows)
+            pairs = [(f, a, b) for f, a, b in zip(W.LaneState._fields, k, p) if a is not None]
+            fields = {f: differing(a, b) if a.dtype == torch.float32 else int((a != b).sum())
+                      for f, a, b in pairs}
+            work = bounds.k7_work(fr, st, hits_t, wv_p.shadow, n_listed, wv.shadow, wv.occluded,
+                                  rows=rows)
+            b_ms, b_by = bounds.k7_listed(work)
+            res["k7"] = dict(variant=W.K7_VARIANTS[W.k7_variant(
+                fr.settings, fr.statics, fr.scene.atlas.band_lo is not None)], lanes=n_listed,
+                fields=fields, differing=sum(fields.values()),
+                max_abs=max([max_abs(a, b) for _, a, b in pairs if a.dtype == torch.float32]
+                            + [0.0]),
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, work=work)
+        return orig_k7(fr, st, hits, sidx, wv, rows)
+
+    def walled(*a, **k):
+        sync()
+        t0 = time.perf_counter()
+        y = orig_tf(*a, **k)
+        sync()
+        return y, time.perf_counter() - t0
+
+    def both(*a, **k):
+        ok, res["kernel_wall_s"] = walled(*a, **k)
+        W.gp_rows, W.banded_taps, W.shade_hit = checked_rows, checked_taps, checked_k7
+        try:
+            oc = orig_tf(*a, **k)
+        finally:
+            W.gp_rows, W.banded_taps, W.shade_hit = orig_rows, orig_taps, orig_k7
+        if cuda:
+            res["kernel_profile"] = _profiled_frame(lambda: orig_tf(*a, **k))
+        op, res["plain_wall_s"] = walled(*a, plain=True, **k)
+        if cuda:
+            res["plain_profile"] = _profiled_frame(lambda: orig_tf(*a, plain=True, **k))
+        fields, checked = {}, 0
+        for f in ok._fields:
+            x, y, z = getattr(ok, f), getattr(op, f), getattr(oc, f)
+            if x is None:
+                continue
+            if x.dtype == torch.float32:
+                x, y, z = x.view(torch.int32), y.view(torch.int32), z.view(torch.int32)
+            fields[f] = int((x != y).sum())
+            checked += int((x != z).sum())
+        res.update(fields=fields, bit_equal=not any(fields.values()),
+                   checked_run_differing=checked,
+                   rays=[int(ok.rays_traced.sum(dtype=torch.int64)),
+                         int(op.rays_traced.sum(dtype=torch.int64))])
+        return ok
+
+    wf.trace_frame = both
+    try:
+        r.draw()
+    finally:
+        wf.trace_frame = orig_tf
+    return res

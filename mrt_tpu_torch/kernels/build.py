@@ -162,6 +162,10 @@ def load():
     lib.mrt_shade_hit.restype = i
     lib.mrt_resolve_shadow.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.mrt_resolve_shadow.restype = i
+    lib.mrt_gp_rows.argtypes = [p, p, p, p, p, p, p, i, p]
+    lib.mrt_gp_rows.restype = i
+    lib.mrt_banded_taps.argtypes = [p, p, p, p, p, i, i, i, p, i, p]
+    lib.mrt_banded_taps.restype = i
     lib.mrt_halton.argtypes = [p, p, p, i, i, p]
     lib.mrt_halton.restype = i
     lib.mrt_svgf_reproject.argtypes = [p] * 19 + [i, i, p]

@@ -47,19 +47,35 @@ The plain version of the new K7 is ``resolve_shadow_plain`` followed by
 ``shade_hit_plain``, both the port's torch-op body as it was, over every
 lane, with the list as the lanes ``active | need``
 (``shade_hit_listed_plain``); of the trailing K8 ``resolve_shadow_plain``
-(``resolve_shadow_listed_plain``). ``kernel_route`` decides by the settings
-alone whether a frame's stages are the kernels: only geometry sharding is
-off the route (its frames run the plain stages on any device, with the
-traversals' ``closest_hit`` records). On the route, the wrappers take the
-plain versions only for CPU tensors; on CUDA tensors they launch the
+(``resolve_shadow_listed_plain``). Every frame takes the kernel route;
+``trace_pixels(..., plain=True)`` runs the plain route instead, the plain
+stages on ``closest_hit``'s records, for the checks. On the route, the wrappers take
+the plain versions only for CPU tensors; on CUDA tensors they launch the
 kernels or raise.
+
+Under geometry sharding (the gp axis, ``dist/geometry.py``) a rank holds
+only its shard's shade and motion rows, and maybe one row band of the
+packed atlas. A collective cannot run inside K7, so each step is split at
+the psums of the JAX package's ``_tri_rows`` and banded taps
+(``lane_rows``): K13 ``gp_rows`` writes each shaded lane's rows where this
+rank owns the hit triangle (zeros elsewhere) into per-lane buffers, one
+psum over gp completes them; on a banded atlas with maps K14
+``banded_taps`` writes this rank's share of each lane's packed sample, and
+a second psum completes it; then K7's lane-row form (``k7_variant`` bit 3,
+with bit 4 the per-lane taps) reads them at the lane's index. Their plain
+versions are the local half of ``_tri_rows`` (``gp_rows_plain``) and
+``assets/texture.sample_packed_banded`` (``banded_taps_plain``); the plain
+route keeps ``_tri_rows`` and ``sample_packed_across`` inside K7's plain
+body.
 
 K7 has one instantiation per ``k7_variant`` (``K7_VARIANTS``): the
 untextured one, and with the scene's texture maps (the packed atlas's
 four taps, or with ``use_mipmaps`` the ray cone's length and LOD and two
 taps of each map's mip chain; a normal map bends the shading normal), and
 in a debug view (the colour at the first hit, the lane retired, no shadow
-ray), alone or with the maps.
+ray), alone or with the maps; under geometry sharding each of these in
+the lane-row form (bit 3), on a banded atlas with the per-lane taps (bit
+4).
 """
 
 from __future__ import annotations
@@ -79,11 +95,14 @@ from . import traverse2
 from .traverse2 import _check
 
 STAGES = ("sample_start", "shade_hit", "resolve_shadow")
-launches = dict.fromkeys(STAGES, 0)  # kernel launches in this process, by stage
+GP_STAGES = ("gp_rows", "banded_taps")  # K13 and K14, geometry sharding's
+launches = dict.fromkeys(STAGES + GP_STAGES, 0)  # kernel launches in this process, by stage
 # K7's instantiations (csrc/wavefront.cu:TEX_KERNELS) by k7_variant, and
 # their launches in this process
 K7_VARIANTS = {0: "untextured", 1: "maps", 3: "maps_mips", 4: "debug", 5: "maps_debug",
-               7: "maps_mips_debug"}
+               7: "maps_mips_debug", 8: "rows", 9: "rows_maps", 11: "rows_maps_mips",
+               12: "rows_debug", 13: "rows_maps_debug", 15: "rows_maps_mips_debug",
+               25: "rows_maps_taps", 29: "rows_maps_taps_debug"}
 variant_launches = dict.fromkeys(K7_VARIANTS.values(), 0)
 
 # K7's per-light table: [type pos(3) color(3) direction(3) forward(3) right(3)
@@ -122,6 +141,18 @@ class LaneState(NamedTuple):
     normal: torch.Tensor | None = None  # (P,3)
     roughness: torch.Tensor | None = None  # (P,)
     wrote_gb: torch.Tensor | None = None  # bool
+
+
+class LaneRows(NamedTuple):
+    """One gp step's per-lane rows (``lane_rows``), each complete on every
+    rank after its psum: lane i's hit triangle's shade row, its motion row
+    where the frame needs one (``needs_motion_rows``) and, on a banded
+    atlas with maps, its packed sample (``needs_lane_taps``); rows of lanes
+    that are not shaded are zeros."""
+
+    shade: torch.Tensor  # (P,16) f32
+    motion: torch.Tensor | None = None  # (P,18) f32
+    taps: torch.Tensor | None = None  # (P,16) f32
 
 
 GBUFFER_FIELDS = ("diffuse_albedo", "specular_albedo", "normal", "roughness", "wrote_gb")
@@ -181,23 +212,33 @@ class Frame(NamedTuple):
     prev_camera: torch.Tensor | None = None  # (12,) f32: the previous frame's camera
 
 
-def kernel_route(settings: T.RenderSettings, statics, geom) -> bool:
-    """Whether a frame's stages are kernels K6-K8 (decided by the settings
-    alone; on the route the wrappers still take the plain versions for CPU
-    tensors). Off the route: geometry sharding (whose rows and taps are
-    psum'd over the gp axis)."""
-    return not settings.geometry_axis and getattr(geom, "g2l", None) is None
-
-
-def k7_variant(settings: T.RenderSettings, statics) -> int:
+def k7_variant(settings: T.RenderSettings, statics, banded: bool = False) -> int:
     """The key in ``K7_VARIANTS`` of the K7 instantiation a frame takes:
     bit 0 the scene has a texture map or mipmapped sampling is on (which
     carries the ray cone's length: the maps' instantiation, sampling no
     map where the scene has none), bit 1 mipmapped sampling, bit 2 a debug
-    view."""
+    view, bit 3 geometry sharding (the lane-row form), bit 4 its per-lane
+    taps (``banded``: the atlas is banded over gp; ``needs_lane_taps``)."""
     mips = bool(settings.use_mipmaps)
-    return ((bool(any(statics.any_map)) or mips) | (mips << 1)
-            | ((settings.debug_mode != T.DEBUG_MODE_NONE) << 2))
+    v = ((bool(any(statics.any_map)) or mips) | (mips << 1)
+         | ((settings.debug_mode != T.DEBUG_MODE_NONE) << 2))
+    if settings.geometry_axis:
+        v |= 8 | (needs_lane_taps(settings, statics, banded) << 4)
+    return v
+
+
+def needs_motion_rows(settings: T.RenderSettings, statics) -> bool:
+    """Whether K7 reads the hits' motion rows: for the mip LOD, the motion
+    view, or the tangent basis of a normal map."""
+    return bool(settings.use_mipmaps or settings.debug_mode == T.DEBUG_MODE_MOTION
+                or statics.any_map[tex.MAP_NORMAL])
+
+
+def needs_lane_taps(settings: T.RenderSettings, statics, banded: bool) -> bool:
+    """Whether a gp step samples the packed atlas through K14 (a banded
+    atlas, a scene with maps, no mipmaps: those sample the whole mip
+    chains, which every rank holds)."""
+    return bool(banded and any(statics.any_map) and not settings.use_mipmaps)
 
 
 def pack_lights(lights: T.Lights, light_sampling: str) -> torch.Tensor:
@@ -221,11 +262,11 @@ def _pack_camera(cam: T.Camera) -> torch.Tensor:
 
 
 def make_frame(settings, statics, scene, geom, uniforms, pixel_x, pixel_y, offsets, prev_motion,
-               base: int, tri_base: torch.Tensor | None = None) -> Frame:
+               base: int, tri_base: torch.Tensor | None = None, plain: bool = False) -> Frame:
     """The ``Frame`` of one ``trace_pixels`` call, with the kernels' packed
-    tables where its stages run as kernels (the kernel route, on CUDA);
-    ``tri_base``: the two-level BVH's ``flat_tri_base`` (None for a flat
-    table)."""
+    tables where its stages run as kernels (on CUDA, unless ``plain``: the
+    plain route); ``tri_base``: the two-level BVH's ``flat_tri_base`` (None
+    for a flat table)."""
     dev = pixel_x.device
     f32 = torch.float32
     # 0-d device tensors: a Python scalar numerator would turn ``c / x`` into
@@ -240,7 +281,7 @@ def make_frame(settings, statics, scene, geom, uniforms, pixel_x, pixel_y, offse
         fwd_len = torch.sqrt((cam.forward ** 2).sum())
         pixel_angle = 2.0 * up_len / (height_f * torch.clamp(fwd_len, min=1e-5))
     packed = {}
-    if dev.type == "cuda" and kernel_route(settings, statics, geom):
+    if dev.type == "cuda" and not plain:
         packed = dict(
             camera=_pack_camera(cam), lights=pack_lights(scene.lights, settings.light_sampling),
             step_bases=torch.as_tensor(H._STEP_BASES_PAIR).to(dev).contiguous())
@@ -267,6 +308,11 @@ class WaveBuffers:
     shadow_ptrs: object
     state: LaneState | None = None
     state_ptrs: object = None
+    # geometry sharding: the per-lane rows K13 writes and one psum completes,
+    # one flat buffer (the shade rows, then the motion rows), and the
+    # per-lane taps of K14; ``lane`` views them (None off gp)
+    lane_flat: torch.Tensor | None = None
+    lane: LaneRows | None = None
 
     @property
     def max_steps(self) -> int:
@@ -304,9 +350,18 @@ def make_wave(fr: Frame, max_steps: int) -> Wave:
                 torch.empty((P, 3), dtype=f32, device=dev),
                 torch.empty(P, dtype=f32, device=dev), torch.empty((P, 3), dtype=f32, device=dev),
                 torch.zeros(P, dtype=torch.bool, device=dev))
+    flat = lane = None
+    if fr.settings.geometry_axis:
+        motion = needs_motion_rows(fr.settings, fr.statics)
+        flat = torch.zeros(P * (16 + 18 * motion), dtype=f32, device=dev)
+        taps = None
+        if needs_lane_taps(fr.settings, fr.statics, fr.scene.atlas.band_lo is not None):
+            taps = torch.zeros((P, tex.PACKED_C), dtype=f32, device=dev)
+        lane = LaneRows(*split_rows(flat, P, True, motion), taps)
     buf = WaveBuffers(sh, torch.empty((2, P), dtype=torch.int32, device=dev),
                       torch.zeros(2 * (max_steps + 1), dtype=torch.int32, device=dev), fr,
-                      _frame_ptrs(fr), _maps_ptrs(fr), _ptrs(list(sh)))
+                      _frame_ptrs(fr, lane), _maps_ptrs(fr, lane), _ptrs(list(sh)),
+                      lane_flat=flat, lane=lane)
     return Wave(buf=buf)
 
 
@@ -347,8 +402,9 @@ def clone_wave(wv: Wave) -> Wave:
         sh = None if wv.shadow is None else Shadow(*(c(t) for t in wv.shadow))
         return Wave(sh, c(wv.occluded), c(wv.keep), wv.steps)
     sh = Shadow(*(t.clone() for t in b.shadow))
+    # the per-lane rows are K7's inputs, not written by it: shared
     nb = WaveBuffers(sh, b.lists.clone(), b.counters.clone(), b.frame, b.frame_ptrs, b.maps_ptrs,
-                     _ptrs(list(sh)))
+                     _ptrs(list(sh)), lane_flat=b.lane_flat, lane=b.lane)
     return Wave(None if wv.shadow is None else sh, c(wv.occluded), None, wv.steps, nb)
 
 
@@ -370,6 +426,14 @@ def _tri_rows(table: torch.Tensor, tri: torch.Tensor, geom) -> torch.Tensor:
     loc = geom.g2l[tri].long()
     rows = torch.where((loc >= 0)[:, None], table[loc.clamp_min(0)], 0.0)
     return comm.psum(rows, geom.axis)
+
+
+def split_rows(flat: torch.Tensor, P: int, shade: bool, motion: bool):
+    """(shade rows (P,16), motion rows (P,18)) viewing K13's flat output of
+    P lanes (the shade rows first), None for a part it does not hold."""
+    n = 16 * P if shade else 0
+    return (flat[:n].view(P, 16) if shade else None,
+            flat[n:].view(P, 18) if motion else None)
 
 
 def sample_packed_across(atlas: tex.TextureAtlas, resource: torch.Tensor, uv: torch.Tensor,
@@ -526,12 +590,15 @@ def _gbuffer(fr: Frame, prev: LaneState | None) -> dict:
             for k, (dtype, cols) in _STATE_LAYOUT.items() if k in GBUFFER_FIELDS}
 
 
-def shade_hit_plain(fr: Frame, st: LaneState, hits: T.Hits, sidx: int):
+def shade_hit_plain(fr: Frame, st: LaneState, hits: T.Hits, sidx: int,
+                    rows: LaneRows | None = None):
     """K7's plain version: one iteration's body between the closest-hit and
     the any-hit traversal of sample ``sidx``, from the closest ``hits`` of
     the lanes ``st.active`` traced. Returns (the next state, the shadow
     rays); in a debug view the lanes retire at their first hit and the
-    shadow rays are None (no any-hit traversal)."""
+    shadow rays are None (no any-hit traversal). ``rows``: a gp step's
+    per-lane rows (``lane_rows``; the lane-row form), else the hits' rows
+    are gathered here (``_tri_rows``, with its psums under gp)."""
     settings, statics, scene, geom = fr.settings, fr.statics, fr.scene, fr.geom
     P = st.active.shape[0]
     dev = st.active.device
@@ -555,7 +622,7 @@ def shade_hit_plain(fr: Frame, st: LaneState, hits: T.Hits, sidx: int):
     active = active & hit
 
     tri = hits.triangle.clamp_min(0).long()
-    srow = _tri_rows(geom.shade_rows, tri, geom)
+    srow = _tri_rows(geom.shade_rows, tri, geom) if rows is None else rows.shade
     res = srow[:, 15].to(torch.int32)
     world_point = ray_o + ray_d * hits.t[:, None]
     u_b1 = hits.u[:, None]
@@ -570,7 +637,7 @@ def shade_hit_plain(fr: Frame, st: LaneState, hits: T.Hits, sidx: int):
         prim_v = torch.where(primary, hits.v, prim_v)
 
     if settings.use_mipmaps or motion_view:
-        mrow = _tri_rows(geom.motion_rows, tri, geom)
+        mrow = _tri_rows(geom.motion_rows, tri, geom) if rows is None else rows.motion
 
     # --- surface normal ------------------------------------------------------
     nrm = _hit_normal(srow, u_b1, v_b1, w_b1, ray_d)
@@ -591,7 +658,9 @@ def shade_hit_plain(fr: Frame, st: LaneState, hits: T.Hits, sidx: int):
         if settings.use_mipmaps:
             return tex.sample_trilinear(scene.atlas, res, map_type, tex_coord, lod_base)
         if not packed:
-            if gax is not None and scene.atlas.band_lo is not None:
+            if rows is not None and rows.taps is not None:
+                packed.append(rows.taps)
+            elif gax is not None and scene.atlas.band_lo is not None:
                 packed.append(sample_packed_across(scene.atlas, res, tex_coord, gax))
             else:
                 packed.append(tex.sample_packed(scene.atlas, res, tex_coord))
@@ -660,7 +729,7 @@ def shade_hit_plain(fr: Frame, st: LaneState, hits: T.Hits, sidx: int):
     shading_nrm = nrm
     if statics.any_map[tex.MAP_NORMAL]:
         if not (settings.use_mipmaps or motion_view):
-            mrow = _tri_rows(geom.motion_rows, tri, geom)
+            mrow = _tri_rows(geom.motion_rows, tri, geom) if rows is None else rows.motion
         valid_tb, tangent, _ = S.tangent_basis_rows(
             mrow[:, 0:3], mrow[:, 3:6], mrow[:, 6:9],
             srow[:, 9:11], srow[:, 11:13], srow[:, 13:15])
@@ -831,15 +900,17 @@ def resolve_shadow_plain(st: LaneState, shadow: Shadow, occluded: torch.Tensor) 
                        + _where3(shadow.need & ~occluded, shadow.contrib, 0.0))
 
 
-def shade_hit_listed_plain(fr: Frame, st: LaneState, hits: T.Hits, sidx: int, wv: Wave):
+def shade_hit_listed_plain(fr: Frame, st: LaneState, hits: T.Hits, sidx: int, wv: Wave,
+                           rows: LaneRows | None = None):
     """K7's plain version: ``wv``'s pending shadow rays resolved
-    (``resolve_shadow_plain``), then ``shade_hit_plain``, over every lane;
-    the next step's lanes are those live or holding a shadow ray (``active
-    | need``). Returns (the next state, the next ``Wave``, the live-lane
-    count as a 0-d int32 tensor)."""
+    (``resolve_shadow_plain``), then ``shade_hit_plain`` (with the gp
+    step's per-lane ``rows`` where given: the lane-row form), over every
+    lane; the next step's lanes are those live or holding a shadow ray
+    (``active | need``). Returns (the next state, the next ``Wave``, the
+    live-lane count as a 0-d int32 tensor)."""
     if wv.shadow is not None:
         st = resolve_shadow_plain(st, wv.shadow, wv.occluded)
-    st, sh = shade_hit_plain(fr, st, hits, sidx)
+    st, sh = shade_hit_plain(fr, st, hits, sidx, rows)
     keep = st.active if sh is None else st.active | sh.need
     return st, Wave(sh, None, keep, wv.steps + 1, wv.buf), st.active.sum(dtype=torch.int32)
 
@@ -848,6 +919,36 @@ def resolve_shadow_listed_plain(st: LaneState, wv: Wave) -> LaneState:
     """K8's plain version at a sample's end: ``wv``'s pending shadow rays
     resolved (``resolve_shadow_plain``), if any."""
     return st if wv.shadow is None else resolve_shadow_plain(st, wv.shadow, wv.occluded)
+
+
+def gp_rows_plain(geom, ids: torch.Tensor, live: torch.Tensor | None, shade: bool = True,
+                  motion: bool = False) -> torch.Tensor:
+    """K13's plain version, the local half of ``_tri_rows``: per lane that
+    is ``live`` (every lane when None) with a hit (``ids`` >= 0, global
+    triangle ids) on a triangle this rank's shard holds (``geom.g2l``),
+    its shade row and/or motion row from the shard's tables, zeros for
+    every other lane. Returns them flat, the (P,16) shade rows first, then
+    the (P,18) motion rows (``split_rows`` views them), for one psum."""
+    own = ids >= 0
+    if live is not None:
+        own = own & live
+    loc = torch.where(own, geom.g2l[ids.clamp_min(0).long()], -1).long()
+    mine = (loc >= 0)[:, None]
+    parts = [torch.where(mine, table[loc.clamp_min(0)], 0.0).reshape(-1)
+             for table, on in ((geom.shade_rows, shade), (geom.motion_rows, motion)) if on]
+    return torch.cat(parts)
+
+
+def banded_taps_plain(atlas: tex.TextureAtlas, srow: torch.Tensor, u: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    """K14's plain version: this rank's share of each lane's packed sample
+    on a gp-banded ``atlas`` (``tex.sample_packed_banded``), at the texture
+    coordinate of its (P,16) shade rows ``srow`` and barycentrics ``u``,
+    ``v``, as ``shade_hit_plain`` makes them. (P,16) f32."""
+    u_b1, v_b1 = u[:, None], v[:, None]
+    w_b1 = 1.0 - u_b1 - v_b1
+    return tex.sample_packed_banded(atlas, srow[:, 15].to(torch.int32),
+                                    _tex_coord(srow, u_b1, v_b1, w_b1))
 
 
 # ---------------------------------------------------------------------------
@@ -867,8 +968,8 @@ def _cuda_route(what: str, fr: Frame) -> torch.device:
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
     if fr.camera is None or fr.lights is None or fr.step_bases is None:
-        raise ValueError(f"{what}: the frame's settings are off the kernel route "
-                         "(kernel_route), or the frame was not made by make_frame")
+        raise ValueError(f"{what}: the frame was made for the plain route, or not by "
+                         "make_frame")
     return dev
 
 
@@ -886,17 +987,27 @@ def _lane_ptrs(st: LaneState):
     return _ptrs([getattr(st, k) for k in LaneState._fields])
 
 
-def _frame_ptrs(fr: Frame):
+def _frame_ptrs(fr: Frame, lane: LaneRows | None = None):
+    """The kernels' ``Frame``; with a gp step's per-lane rows ``lane`` (K7's
+    lane-row form) their shade rows stand where the table's stood."""
     scene, geom = fr.scene, fr.geom
-    return _ptrs([fr.pixel_x, fr.pixel_y, fr.offsets, fr.camera, fr.lights, geom.shade_rows,
+    shade = geom.shade_rows if lane is None else lane.shade
+    return _ptrs([fr.pixel_x, fr.pixel_y, fr.offsets, fr.camera, fr.lights, shade,
                   geom.mat_rows, fr.step_bases, scene.env_map,
                   scene.env_intensity])
 
 
-def _maps_ptrs(fr: Frame):
+def _maps_ptrs(fr: Frame, lane: LaneRows | None = None):
+    """K7's ``Maps``; with ``lane`` its motion rows and taps (where it has
+    them) stand where the motion table and the packed atlas stood."""
     atlas = fr.scene.atlas
-    return _ptrs([atlas.packed, atlas.packed_rects, atlas.texels, atlas.rects, atlas.mip_rects,
-                  atlas.n_levels, fr.geom.motion_rows, fr.pixel_angle, fr.prev_camera,
+    packed, motion = atlas.packed, fr.geom.motion_rows
+    if lane is not None:
+        motion = lane.motion
+        if lane.taps is not None:
+            packed = lane.taps
+    return _ptrs([packed, atlas.packed_rects, atlas.texels, atlas.rects, atlas.mip_rects,
+                  atlas.n_levels, motion, fr.pixel_angle, fr.prev_camera,
                   fr.prev_motion, fr.had0, fr.motion0])
 
 
@@ -911,8 +1022,9 @@ def _check_maps(what: str, fr: Frame, P: int, dev):
     aligned = []
     if any(st.any_map):
         a = fr.scene.atlas
-        if a.band_lo is not None:
-            raise ValueError(f"{what}: a banded atlas (geometry sharding) is off the kernel route")
+        if a.band_lo is not None and not s.geometry_axis:
+            raise ValueError(f"{what}: a banded atlas needs geometry sharding (its taps come from "
+                             "K14 and a psum over gp)")
         R = a.packed_rects.shape[0]
         _check(what, "atlas.packed", a.packed, torch.float32,
                (a.packed.shape[0], a.packed.shape[1], tex.PACKED_C), dev)
@@ -928,7 +1040,7 @@ def _check_maps(what: str, fr: Frame, P: int, dev):
         aligned += [("atlas.packed", a.packed, 16), ("atlas.packed_rects", a.packed_rects, 16),
                     ("atlas.rects", a.rects, 16), ("atlas.mip_rects", a.mip_rects, 16)]
     motion = s.debug_mode == T.DEBUG_MODE_MOTION
-    if s.use_mipmaps or motion or (any(st.any_map) and st.any_map[tex.MAP_NORMAL]):
+    if needs_motion_rows(s, st):
         m = fr.geom.motion_rows
         _check(what, "motion_rows", m, torch.float32, (fr.geom.shade_rows.shape[0], 18), dev)
         aligned.append(("motion_rows", m, 8))
@@ -974,12 +1086,146 @@ def _check_frame(what: str, fr: Frame, P: int, dev, rows: bool = False):
                                  "float4)")
     if fr.tri_base is not None:
         _check(what, "tri_base", fr.tri_base, torch.int32, (fr.tri_base.shape[0],), dev)
+    if fr.settings.geometry_axis:
+        if g.g2l is None or g.axis is None:
+            raise ValueError(f"{what}: geometry_axis needs the shard geometry's g2l and axis")
+        if fr.tri_base is not None:
+            raise ValueError(f"{what}: a gp step traces a shard's flat table (no tri_base)")
+        _check(what, "g2l", g.g2l, torch.int32, (g.g2l.shape[0],), dev)
     if rows:
         _check_maps(what, fr, P, dev)
 
 
 def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def gp_rows(geom, ids: torch.Tensor, live: torch.Tensor | None, shade: bool = True,
+            motion: bool = False, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Each lane's rows from this rank's shard (see ``gp_rows_plain``),
+    flat: the shade rows, then the motion rows. CPU tensors take the plain
+    version; CUDA tensors launch K13, into ``out`` where given (a buffer of
+    the right size, written whole)."""
+    if ids.device.type == "cpu":
+        return gp_rows_plain(geom, ids, live, shade, motion)
+    what = "gp_rows"
+    dev = ids.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    P = ids.shape[0]
+    _check(what, "ids", ids, torch.int32, (P,), dev)
+    if live is not None:
+        _check(what, "live", live, torch.bool, (P,), dev)
+    g2l = geom.g2l
+    if g2l is None:
+        raise ValueError(f"{what}: the geometry is not a shard's (no g2l)")
+    _check(what, "g2l", g2l, torch.int32, (g2l.shape[0],), dev)
+    n_local = geom.shade_rows.shape[0]
+    tables = []
+    if shade:
+        tables.append(("shade_rows", geom.shade_rows, 16))
+    if motion:
+        tables.append(("motion_rows", geom.motion_rows, 18))
+    if not tables:
+        raise ValueError(f"{what}: neither shade nor motion rows asked for")
+    for name, t, cols in tables:  # read as float2
+        _check(what, name, t, torch.float32, (n_local, cols), dev)
+        if t.data_ptr() % 8:
+            raise ValueError(f"{what}: {name} must be 8-byte aligned")
+    n = P * sum(cols for _, _, cols in tables)
+    if out is None:
+        out = torch.empty(n, dtype=torch.float32, device=dev)
+    _check(what, "out", out, torch.float32, (n,), dev)
+    if P == 0:
+        return out
+    from . import build
+
+    lib = build.load()
+    so, mo = split_rows(out, P, shade, motion)
+    rc = lib.mrt_gp_rows(_ptr(ids), _ptr(live), _ptr(g2l), _ptr(geom.shade_rows),
+                         _ptr(geom.motion_rows), _ptr(so), _ptr(mo), P, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    launches["gp_rows"] += 1
+    return out
+
+
+def banded_taps(atlas: tex.TextureAtlas, srow: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """This rank's share of each lane's packed sample on a banded atlas
+    (see ``banded_taps_plain``). CPU tensors take the plain version; CUDA
+    tensors launch K14, into ``out`` where given."""
+    if srow.device.type == "cpu":
+        return banded_taps_plain(atlas, srow, u, v)
+    what = "banded_taps"
+    dev = srow.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if atlas.band_lo is None:
+        raise ValueError(f"{what}: the atlas is not banded")
+    P = srow.shape[0]
+    _check(what, "srow", srow, torch.float32, (P, 16), dev)
+    _check(what, "u", u, torch.float32, (P,), dev)
+    _check(what, "v", v, torch.float32, (P,), dev)
+    band, rects = atlas.packed, atlas.packed_rects
+    _check(what, "atlas.packed", band, torch.float32, (band.shape[0], band.shape[1], tex.PACKED_C),
+           dev)
+    _check(what, "atlas.packed_rects", rects, torch.int32, (rects.shape[0], 4), dev)
+    if out is None:
+        out = torch.empty((P, tex.PACKED_C), dtype=torch.float32, device=dev)
+    _check(what, "out", out, torch.float32, (P, tex.PACKED_C), dev)
+    for name, t in (("srow", srow), ("atlas.packed", band), ("atlas.packed_rects", rects),
+                    ("out", out)):
+        if t.data_ptr() % 16:  # read or written as float4 / int4
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+    if P == 0:
+        return out
+    from . import build
+
+    lib = build.load()
+    rc = lib.mrt_banded_taps(_ptr(srow), _ptr(u), _ptr(v), _ptr(rects), _ptr(band),
+                             int(atlas.band_lo), band.shape[0], band.shape[1], _ptr(out), P,
+                             _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    launches["banded_taps"] += 1
+    return out
+
+
+def lane_rows(fr: Frame, st: LaneState, hits: T.Hits, wv: Wave) -> LaneRows:
+    """One gp step's per-lane rows for K7's lane-row form, from the hits
+    combined over gp (``render/wavefront.combine_hits_across``): K13 on
+    this rank's shard for the lanes ``st.active`` with a hit, one psum over
+    gp of the shade and motion rows together (each element has one nonzero
+    contributor, so it equals the plain route's two psums bit for bit),
+    then on a banded atlas with maps K14 and a second psum. On the card
+    into ``wv``'s buffers (made once by ``make_wave``, the psums in place);
+    on the CPU through the plain versions, with the same psums. Every rank
+    issues the same collectives with the same shapes: the rays, and so the
+    lanes, are replicated over gp."""
+    s, statics, geom = fr.settings, fr.statics, fr.geom
+    P = st.active.shape[0]
+    motion = needs_motion_rows(s, statics)
+    b = wv.buf
+    flat = gp_rows(geom, hits.triangle, st.active, True, motion,
+                   out=None if b is None else b.lane_flat)
+    comm.psum_(flat, geom.axis)
+    shade, mrow = split_rows(flat, P, True, motion)
+    taps = None
+    if needs_lane_taps(s, statics, fr.scene.atlas.band_lo is not None):
+        taps = banded_taps(fr.scene.atlas, shade, hits.u, hits.v,
+                           out=None if b is None else b.lane.taps)
+        comm.psum_(taps, geom.axis)
+    return LaneRows(shade, mrow, taps)
+
+
+def gp_motion_rows(geom, ids: torch.Tensor) -> torch.Tensor:
+    """(P,18) motion rows of the global triangle ``ids`` (-1: none, zeros)
+    under geometry sharding: K13 (its plain version on the CPU) for every
+    lane, and a psum over gp (the depth and motion of sample 0's first
+    hits)."""
+    flat = comm.psum_(gp_rows(geom, ids, None, shade=False, motion=True), geom.axis)
+    return flat.view(ids.shape[0], 18)
 
 
 def _hbase(fr: Frame, sidx: int) -> int:
@@ -1044,27 +1290,38 @@ def _buffers(what: str, fr: Frame, st: LaneState, wv: Wave) -> WaveBuffers:
                          f"{b.lists.device}, not {P} on {dev}")
     if fr is not b.frame:
         _check_frame(what, fr, P, dev, rows=True)
-        b.frame, b.frame_ptrs, b.maps_ptrs = fr, _frame_ptrs(fr), _maps_ptrs(fr)
+        b.frame, b.frame_ptrs, b.maps_ptrs = fr, _frame_ptrs(fr, b.lane), _maps_ptrs(fr, b.lane)
     if st is not b.state:
         _check_state(what, st, P, dev, fr.settings.enable_gbuffer)
         b.state, b.state_ptrs = st, _lane_ptrs(st)
     return b
 
 
-def shade_hit(fr: Frame, st: LaneState, hits: traverse2.TraverseOut, sidx: int, wv: Wave):
+def shade_hit(fr: Frame, st: LaneState, hits: traverse2.TraverseOut, sidx: int, wv: Wave,
+              rows: LaneRows | None = None):
     """One step of a sample (see ``shade_hit_listed_plain``): ``wv``'s
     pending shadow rays resolved, then the body between the traversals, from
     the closest-hit traversal's raw record ``hits`` of the lanes
-    ``st.active`` traced. CPU tensors take the plain version (``hits`` made
-    a ``Hits`` by ``traverse2.hits_of``); CUDA tensors launch K7's
-    instantiation for the frame (``k7_variant``) over ``wv``'s list, which
-    updates ``st`` and the buffers in place. Returns (state, the next
-    ``Wave``, whose ``shadow`` is None in a debug view, the live-lane count
-    as a 0-d int32 tensor)."""
+    ``st.active`` traced; under geometry sharding the record combined over
+    gp and the step's per-lane ``rows`` (``lane_rows``: K7's lane-row
+    form). CPU tensors take the plain version (``hits`` made a ``Hits`` by
+    ``traverse2.hits_of``); CUDA tensors launch K7's instantiation for the
+    frame (``k7_variant``) over ``wv``'s list, which updates ``st`` and the
+    buffers in place. Returns (state, the next ``Wave``, whose ``shadow`` is
+    None in a debug view, the live-lane count as a 0-d int32 tensor)."""
     if fr.pixel_x.device.type == "cpu":
-        return shade_hit_listed_plain(fr, st, traverse2.hits_of(hits, fr.tri_base), sidx, wv)
+        return shade_hit_listed_plain(fr, st, traverse2.hits_of(hits, fr.tri_base), sidx, wv,
+                                      rows)
     what = "shade_hit"
     b = _buffers(what, fr, st, wv)
+    if bool(fr.settings.geometry_axis) != (rows is not None):
+        raise ValueError(f"{what}: a gp step takes its per-lane rows (lane_rows), and only a gp "
+                         "step does")
+    if rows is not None and any((a is None) != (c is None) or (a is not None
+                                                                and a.data_ptr() != c.data_ptr())
+                                for a, c in zip(rows, b.lane)):
+        raise ValueError(f"{what}: the per-lane rows are not the Wave's buffers (lane_rows with "
+                         "this Wave)")
     dev = b.lists.device
     P = b.lists.shape[1]
     s = wv.steps
@@ -1083,7 +1340,7 @@ def shade_hit(fr: Frame, st: LaneState, hits: traverse2.TraverseOut, sidx: int, 
     if settings.debug_mode == T.DEBUG_MODE_MOTION and sidx > 0 and fr.had0 is None:
         raise ValueError(f"{what}: the motion view's sample {sidx} needs sample 0's had0 and "
                          "motion0 in the frame")
-    variant = k7_variant(settings, fr.statics)
+    variant = k7_variant(settings, fr.statics, fr.scene.atlas.band_lo is not None)
     live = b.counters[2 * (s + 1)]
     out = wv._replace(shadow=None if debug else b.shadow, occluded=None, steps=s + 1)
     if P == 0:

@@ -25,8 +25,11 @@ sharding (``settings.geometry_axis``, ``dist/geometry.py``) every rank of
 the gp axis traces the same lanes against its own shard's flat table: the
 closest hits are combined by min-t (``combine_hits_across``), the shadow
 rays' occlusion by a max, and each hit's shade and motion rows, which only
-the shard that owns the triangle holds, by a sum (``kernels/wavefront._tri_rows``), so every
-rank then shades identically.
+the shard that owns the triangle holds, by a sum, so every rank then shades
+identically. On the kernel route the rows (and a banded atlas's taps) are
+per-lane buffers that kernels K13 and K14 write and a psum completes, read
+by K7's lane-row form (``kernels/wavefront.lane_rows``); on the plain route
+K7's plain body gathers and sums them itself (``kernels/wavefront._tri_rows``).
 
 Shadow rays are traced as their own batch right after they are made (the
 JAX package may defer them into the next bounce's closest-hit batch; that
@@ -45,6 +48,7 @@ from ..bvh import kind, twolevel, wide
 from ..core import types as T
 from ..dist import comm
 from ..engine.scene import SceneData, SceneStatics
+from ..kernels import traverse2
 from ..kernels import wavefront as W
 from ..kernels.wavefront import sample_packed_across  # noqa: F401  (the gp tests' name)
 from . import shade as S
@@ -132,7 +136,8 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
                  bvh: twolevel.TwoLevelBVH | wide.WideBVH, geom: Geometry,
                  uniforms: T.FrameUniforms,
                  pixel_x: torch.Tensor, pixel_y: torch.Tensor, offsets: torch.Tensor,
-                 prev_motion: torch.Tensor, sample_base: int | None = None) -> TileOutputs:
+                 prev_motion: torch.Tensor, sample_base: int | None = None,
+                 plain: bool = False) -> TileOutputs:
     """Trace every sample of P pixels (lanes). pixel_x/pixel_y/offsets: (P,)
     int32 on the scene's device; prev_motion (P,2): the previous frame's
     motion at these pixels, for the motion-adaptive extra samples;
@@ -141,9 +146,12 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
     the closest-hit traversal, ``shade_hit`` (which first resolves the
     previous iteration's shadow rays) and the any-hit traversal, and after
     its last iteration ``resolve_shadow`` (``kernels/wavefront.py``):
-    kernels K6-K8 on the kernel route (``W.kernel_route``), K7 reading the
-    closest-hit traversal's raw record; the plain stages off it, on the
-    traversal's ``Hits``."""
+    kernels K6-K8 (the kernel route), K7 reading the closest-hit
+    traversal's raw record; with ``plain`` (the checks' plain route) the
+    plain stages, on the traversal's ``Hits``. Under geometry sharding the
+    closest hits are combined over gp first, and on the kernel route each
+    step's per-lane rows come from K13 and K14 with their psums
+    (``W.lane_rows``)."""
     T.check_supported(settings)
     gax = None
     if settings.geometry_axis:
@@ -155,9 +163,10 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
     dev = pixel_x.device
     f32 = torch.float32
     base = uniforms.frame_index * settings.sample_stride if sample_base is None else sample_base
-    route = W.kernel_route(settings, statics, geom)
+    route = not plain
     fr = W.make_frame(settings, statics, scene, geom, uniforms, pixel_x, pixel_y, offsets,
-                      prev_motion, base, tri_base=None if kind.is_flat(bvh) else bvh.flat_tri_base)
+                      prev_motion, base, tri_base=None if kind.is_flat(bvh) else bvh.flat_tri_base,
+                      plain=plain)
     if route:
         sample_start, shade_hit, resolve_shadow = W.sample_start, W.shade_hit, W.resolve_shadow
     else:
@@ -201,13 +210,19 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
                 closest_kw["ray_mask"] = torch.where(st.bounce == 0, T.RAY_MASK_PRIMARY,
                                                      T.RAY_MASK_SECONDARY).to(torch.int32)
             rays = T.Rays(st.ray_o, st.ray_d, inf_d)
+            rows = None
             if route:
                 hits = trav.closest_raw(bvh, rays, closest_flags, mask=st.active, **closest_kw)
+                if gax is not None:
+                    # K7 reads the combined record raw (a flat table's: no tri_base)
+                    comb = combine_hits_across(traverse2.hits_of(hits), gax)
+                    rows = W.lane_rows(fr, st, comb, wv)
+                    hits = hits._replace(t=comb.t, tri=comb.triangle, u=comb.u, v=comb.v)
             else:
                 hits = trav.closest_hit(bvh, rays, mask=st.active, **closest_kw)
                 if gax is not None:
                     hits = combine_hits_across(hits, gax)
-            st, wv, n_live = shade_hit(fr, st, hits, sidx, wv)
+            st, wv, n_live = shade_hit(fr, st, hits, sidx, wv, rows)
             if wv.shadow is not None:  # None: a debug view retired every lane at its first hit
                 sh = wv.shadow
                 occluded = trav.any_hit(bvh, T.Rays(sh.origin, sh.direction, sh.distance),
@@ -220,7 +235,10 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
 
         if sidx == 0:
             # depth/motion from the recorded bounce-0 hit
-            mrow_p = W._tri_rows(geom.motion_rows, st.prim_tri.clamp_min(0).long(), geom)
+            if route and gax is not None:
+                mrow_p = W.gp_motion_rows(geom, st.prim_tri)
+            else:
+                mrow_p = W._tri_rows(geom.motion_rows, st.prim_tri.clamp_min(0).long(), geom)
             mot, pdepth = W.screen_motion(uniforms, mrow_p, st.prim_u[:, None], st.prim_v[:, None],
                                           fr.width_f, fr.height_f)
             had0 = st.prim_tri >= 0
@@ -251,11 +269,12 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
 
 def trace_frame(settings, statics, scene, bvh, geom, uniforms, offsets: torch.Tensor,
                 prev_motion: torch.Tensor, y0: int = 0,
-                sample_base: int | None = None) -> TileOutputs:
+                sample_base: int | None = None, plain: bool = False) -> TileOutputs:
     """Trace the (h,W) row block of ``offsets`` whose first row is image row
     ``y0`` (the whole frame by default; data-parallel ranks each trace their
     own rows), ``LANE_BATCH`` pixels at a time; ``prev_motion`` (h,W,2) is
-    the previous frame's motion; ``sample_base`` as ``trace_pixels``'s.
+    the previous frame's motion; ``sample_base`` and ``plain`` as
+    ``trace_pixels``'s.
     Returns TileOutputs with (h,W) leading dims."""
     h, w = offsets.shape
     dev = offsets.device
@@ -268,6 +287,6 @@ def trace_frame(settings, statics, scene, bvh, geom, uniforms, offsets: torch.Te
         sl = slice(s, min(s + LANE_BATCH, n))
         parts.append(trace_pixels(settings, statics, scene, bvh, geom, uniforms,
                                   px_all[sl], py_all[sl], offs_all[sl], pmot_all[sl],
-                                  sample_base=sample_base))
+                                  sample_base=sample_base, plain=plain))
     return TileOutputs(*(None if f[0] is None else torch.cat(f).reshape((h, w) + f[0].shape[1:])
                          for f in zip(*parts)))

@@ -31,7 +31,10 @@ instantiations: the packed atlas's taps, the mip chains' taps, the motion
 rows, the tangent basis and the debug views' colours (``k7_work``). K7
 runs over a lane list and folds K8's add in (``k7_listed``; ``k7`` stays the
 bound of a full-width launch), and K8 runs once per sample over the last
-list (``k8`` of its lanes).
+list (``k8`` of its lanes). Under geometry sharding, K13 and K14
+(``gp_rows``, ``banded_taps``) count bytes per lane and each distinct row
+or texel they gather once, and K7's lane-row form reads its rows and taps
+per lane (``k7_work(..., rows=)``).
 """
 
 from __future__ import annotations
@@ -443,25 +446,34 @@ def k7_listed(work: dict[str, int]) -> tuple[float, str]:
     return least_ms(ops, nbytes)
 
 
-def _texel_bytes(fr, st, hits, hit, res, sampled, mipmapped: bool) -> int:
+def _texel_bytes(fr, st, hits, hit, res, sampled, mipmapped: bool, lane=None) -> int:
     """The bytes of the distinct texels one step's texture samples tap,
     with their rects: per map (``sampled``: map, its f32 width, the hits
     that sample it) the packed atlas's texels (the map's channels of each)
-    or, with mipmaps, the texels of the two levels' rects."""
+    or, with mipmaps, the texels of the two levels' rects. ``lane``: a gp
+    step's per-lane rows (``kernels.wavefront.LaneRows``), whose taps, where
+    it has them, are read per lane (64 B each) instead of the atlas."""
     import torch
 
     from ..assets import texture as tex
     from ..kernels import wavefront as W
 
     atlas = fr.scene.atlas
-    srow = fr.geom.shade_rows[hits.triangle.clamp_min(0).long()]
+    if lane is not None and lane.taps is not None:
+        any_sampled = torch.zeros_like(hit)
+        for _, _, mask in sampled:
+            any_sampled = any_sampled | mask
+        return int(any_sampled.sum()) * tex.PACKED_C * 4
+    srow = (fr.geom.shade_rows[hits.triangle.clamp_min(0).long()] if lane is None
+            else lane.shade)
     u_b1, v_b1 = hits.u[:, None], hits.v[:, None]
     w_b1 = 1.0 - u_b1 - v_b1
     uv = W._tex_coord(srow, u_b1, v_b1, w_b1)
     nbytes, taps, any_sampled = 0, [], torch.zeros_like(hit)
     if mipmapped:
         nrm = W._hit_normal(srow, u_b1, v_b1, w_b1, st.ray_d)
-        mrow = fr.geom.motion_rows[hits.triangle.clamp_min(0).long()]
+        mrow = (fr.geom.motion_rows[hits.triangle.clamp_min(0).long()] if lane is None
+                else lane.motion)
         lod = W._lod_base(fr, st.cone_t + torch.where(hit, hits.t, 0.0), st.ray_d, nrm, srow, mrow)
     for m, width, mask in sampled:
         if not bool(mask.any()):
@@ -487,8 +499,64 @@ def _texel_bytes(fr, st, hits, hit, res, sampled, mipmapped: bool) -> int:
     return nbytes
 
 
+# K13 (gp_rows), per lane: its hit id (4 B) and live flag (1 B) in, its rows
+# out; each distinct triangle looked up reads its g2l entry (4 B), each
+# distinct one this rank owns its rows (64 B shade, 72 B motion)
+K13_BYTES_LANE, K13_BYTES_LIVE, K13_BYTES_G2L = 4, 1, 4
+# K14 (banded_taps), per lane: the shade row's uvs and resource (the 32 B of
+# its last two float4), u and v (8 B) in, 64 B out; each distinct resource's
+# packed rect (16 B) and each distinct texel of this rank's band tapped
+# (64 B) once. Operations: the texture coordinate (9), the repeat addressing
+# (20) and the 16 channels' blends (9 each)
+K14_BYTES_LANE = 32 + 8 + 64
+K14_BYTES_RECT, K14_BYTES_TEXEL = 16, 64
+K14_OPS_LANE = 9 + 20 + 16 * 9
+
+
+def gp_rows(geom, ids, live, shade: bool = True, motion: bool = False) -> tuple[float, str]:
+    """K13's bound for one call (the arguments of
+    ``kernels.wavefront.gp_rows``): bytes."""
+    P = ids.shape[0]
+    cols = 16 * shade + 18 * motion
+    own = ids >= 0
+    if live is not None:
+        own = own & live
+    looked = ids[own].long().unique()
+    owned = int((geom.g2l[looked] >= 0).sum())
+    nbytes = (P * (K13_BYTES_LANE + cols * 4) + (P * K13_BYTES_LIVE if live is not None else 0)
+              + looked.numel() * K13_BYTES_G2L + owned * cols * 4)
+    return least_ms(0, nbytes)
+
+
+def banded_taps(atlas, srow, u, v) -> tuple[float, str]:
+    """K14's bound for one call (the arguments of
+    ``kernels.wavefront.banded_taps``): its lanes, the distinct rects and
+    the distinct texels of this rank's band that the taps reach."""
+    import torch
+
+    from ..assets import texture as tex
+    from ..kernels import wavefront as W
+
+    P = srow.shape[0]
+    res = srow[:, 15].to(torch.int32).long()
+    u_b1, v_b1 = u[:, None], v[:, None]
+    uv = W._tex_coord(srow, u_b1, v_b1, 1.0 - u_b1 - v_b1)
+    gx0, gx1, gy0, gy1, _, _ = tex.rect_taps(atlas.packed_rects[res], uv)
+    hb, width = atlas.packed.shape[0], atlas.packed.shape[1]
+    taps = []
+    for gy in (gy0, gy1):
+        ly = gy.long() - atlas.band_lo
+        own = (ly >= 0) & (ly < hb)
+        for gx in (gx0, gx1):
+            taps.append((ly * width + gx.long())[own])
+    texels = int(torch.cat(taps).unique().numel())
+    nbytes = (P * K14_BYTES_LANE + int(res.unique().numel()) * K14_BYTES_RECT
+              + texels * K14_BYTES_TEXEL)
+    return least_ms(P * K14_OPS_LANE, nbytes)
+
+
 def k7_work(fr, st, hits, shadow, n_listed: int | None = None, pending=None,
-            occluded=None) -> dict[str, int]:
+            occluded=None, rows=None) -> dict[str, int]:
     """K7's lane counts for one iteration, from the plain version's inputs
     (the ``kernels.wavefront.Frame`` ``fr``, the state ``st`` before it and
     the closest ``hits``) and its shadow rays (None in a debug view): lanes,
@@ -502,7 +570,10 @@ def k7_work(fr, st, hits, shadow, n_listed: int | None = None, pending=None,
     the listed K7, ``n_listed`` is the lanes it ran over,
     and with the ``pending`` shadow rays of the step before and their
     ``occluded`` the work also counts the lanes that resolve one, the lanes
-    that add (``need & ~occluded``) and those of them live."""
+    that add (``need & ~occluded``) and those of them live. ``rows``: a gp
+    step's per-lane rows (K7's lane-row form), which it reads per lane: the
+    motion rows counted per lane that needs one, the taps per lane that
+    samples."""
     import torch
 
     from ..assets import texture as tex
@@ -514,7 +585,8 @@ def k7_work(fr, st, hits, shadow, n_listed: int | None = None, pending=None,
     hit = live & (hits.triangle >= 0)
     glass = torch.zeros_like(hit)
     tri = hits.triangle.clamp_min(0).long()
-    res = fr.geom.shade_rows[tri, 15].to(torch.int32).long()
+    res = (fr.geom.shade_rows[tri, 15] if rows is None else rows.shade[:, 15]).to(torch.int32)
+    res = res.long()
     mat = fr.geom.mat_rows[res]
     if statics.has_refraction and not debug:
         glass = hit & ((torch.clamp(mat[:, 11], 0.0, 1.0) < 0.999)
@@ -549,7 +621,7 @@ def k7_work(fr, st, hits, shadow, n_listed: int | None = None, pending=None,
         sampled = [(m, tex._PACKED_SLICE[m][1], has(m, bit)) for m, (bit, view) in maps.items()
                    if not debug or s.debug_mode == view]
         tex_bytes = int(res[hit].unique().numel()) * K7_BYTES_TEX_BITS
-        tex_bytes += _texel_bytes(fr, st, hits, hit, res, sampled, mipmapped)
+        tex_bytes += _texel_bytes(fr, st, hits, hit, res, sampled, mipmapped, rows)
     any_sampled = z
     for _, _, x in sampled:
         any_sampled = any_sampled | x
@@ -558,10 +630,11 @@ def k7_work(fr, st, hits, shadow, n_listed: int | None = None, pending=None,
     motion_view = hit if s.debug_mode == T.DEBUG_MODE_MOTION and fr.had0 is None else z
     # the LOD is needed where a map is sampled with mipmaps
     lod = any_sampled if mipmapped else z
-    rows = lod | mapped | motion_view
+    need_rows = lod | mapped | motion_view
     work.update(tex_bytes=tex_bytes, packed=0 if mipmapped else int(any_sampled.sum()),
                 mip_maps=sum(int(x.sum()) for _, _, x in sampled) if mipmapped else 0,
-                motion_rows=int(tri[rows].unique().numel()), lod=int(lod.sum()),
+                motion_rows=(int(tri[need_rows].unique().numel()) if rows is None
+                             else int(need_rows.sum())), lod=int(lod.sum()),
                 normal_mapped=int(mapped.sum()),
                 debug=work["hit"] if debug else 0, motion_view=int(motion_view.sum()))
     if pending is not None:

@@ -49,27 +49,32 @@ CPU = {"device": "cpu"}
 LANES = 96
 
 
-def _models(M, proc=None, Mat=None):
+def _models(M, proc=None, Mat=None, nmap=False):
     if proc is None:
         return [M("sphere", position=[0.0, 0.5, 0.0], scale=0.5),
                 M("plane", position=[0, 0, 0], scale=10)]
     rng = np.random.default_rng(3)
     img_a = rng.random((16, 16, 3)).astype(np.float32)
     img_b = (np.indices((24, 24)).sum(0) % 2).astype(np.float32)  # checker
+    # a tangent-space normal map on the plane (the lane-row form's motion rows)
+    nrm = (rng.random((16, 16, 3)) * 0.5 + 0.25).astype(np.float32)
+    extra = {"map_normal": nrm} if nmap else {}
     return [M("tex_sphere", position=[0.0, 0.5, 0.0], scale=0.5,
               mesh=proc.uv_sphere(material=Mat(name="a", map_base_color=img_a))),
             M("tex_plane", position=[0, 0, 0], scale=10,
-              mesh=proc.plane(material=Mat(name="b", map_base_color=img_b, map_roughness=img_b)))]
+              mesh=proc.plane(material=Mat(name="b", map_base_color=img_b, map_roughness=img_b,
+                                           **extra)))]
 
 
-def _jscene(textured=False):
+def _jscene(textured=False, nmap=False):
     s = JScene(width=SIZE, height=SIZE)
-    s.models = _models(JModel, jproc, JMaterialDef) if textured else _models(JModel)
+    s.models = (_models(JModel, jproc, JMaterialDef, nmap=nmap) if textured or nmap
+                else _models(JModel))
     return s
 
 
-def _scene(textured=False):
-    return convert.scene(_jscene(textured))
+def _scene(textured=False, nmap=False):
+    return convert.scene(_jscene(textured, nmap))
 
 
 def _settings(types):
@@ -81,8 +86,8 @@ def _settings(types):
 OFFSETS = H.make_pixel_offsets(torch.Generator().manual_seed(0), SIZE, SIZE).numpy()
 
 
-def _single(offsets, textured=False, frames=1, two_level=True):
-    r = Renderer(_scene(textured), SIZE, SIZE, device="cpu", offsets=offsets)
+def _single(offsets, textured=False, frames=1, two_level=True, nmap=False):
+    r = Renderer(_scene(textured, nmap), SIZE, SIZE, device="cpu", offsets=offsets)
     r.upscaler_mode = UPSCALER_OFF
     r.samples_per_pixel = 1
     r.max_bounces = 2
@@ -130,13 +135,14 @@ def _band_inputs(atlas, seed=12):
     return res, uv
 
 
-def _jax_gp_step(textured, mesh_shape, banded, offsets):
-    """mrt_tpu's gp step on ``_jscene(textured)`` over a mesh of the first
-    WORLD virtual devices: (accum, rays)."""
-    js = _jscene(textured)
+def _jax_gp_step(textured, mesh_shape, banded, offsets, nmap=False):
+    """mrt_tpu's gp step on ``_jscene(textured, nmap)`` over a mesh of the
+    first virtual devices: (accum, rays)."""
+    js = _jscene(textured, nmap)
     data, statics = js.compile()
     names = tuple(mesh_shape)
-    mesh = JMesh(np.asarray(jax.devices()[:WORLD]).reshape(tuple(mesh_shape.values())), names)
+    n = int(np.prod(list(mesh_shape.values())))
+    mesh = JMesh(np.asarray(jax.devices()[:n]).reshape(tuple(mesh_shape.values())), names)
     with jax_sah():
         bvhs, gids, row_gids, _ = JG.build_sharded_bvhs(*_world_tris(data), mesh_shape["gp"])
     step = JG.build_gp_render_step(_settings(JT), statics, mesh, banded=banded)
@@ -183,6 +189,8 @@ def jax_side():
     out["bands_shape"] = tuple(bands.shape)
     out["gp4"] = _jax_gp_step(False, {"gp": 4}, False, OFFSETS)
     out["gp4_banded"] = _jax_gp_step(True, {"gp": 4}, True, OFFSETS)
+    out["gp4_nmap"] = _jax_gp_step(True, {"gp": 4}, True, OFFSETS, nmap=True)
+    out["gp1_nmap"] = _jax_gp_step(True, {"gp": 1}, False, OFFSETS, nmap=True)  # unsharded
     out["dp_gp"] = _jax_gp_step(False, {"dp": 2, "gp": 2}, True, OFFSETS)
     with jax_sah():
         jgr = JG.GeometryShardedRenderer(_jscene(), _settings(JT), mesh=mesh)
@@ -208,16 +216,19 @@ def world(jax_side):
     jobs = [
         (L.on_mesh, ({"gp": 4}, calls), CPU),
         (L.drive, ("gp", _scene(), _settings(T), {"gp": 4}, 1), dict(offsets=OFFSETS, banded=False,
-                                                                    check_flat=True, **CPU)),
+                                                                    check_flat=True,
+                                                                    check_route=True, **CPU)),
         (L.drive, ("gp", _scene(True), _settings(T), {"gp": 4}, 1), dict(offsets=OFFSETS,
                                                                         banded=True, **CPU)),
         (L.drive, ("gp", _scene(), _settings(T), {"dp": 2, "gp": 2}, 1), dict(offsets=OFFSETS,
                                                                              banded=True, **CPU)),
         (L.drive, ("gp", _scene(), _settings(T), {"gp": 4}, 2),
          dict(offsets=jax_side["gsr_offsets"], **CPU)),
+        (L.drive, ("gp", _scene(nmap=True), _settings(T), {"gp": 4}, 1),
+         dict(offsets=OFFSETS, banded=True, check_route=True, **CPU)),
     ]
     res = L.launch(L.run_jobs, WORLD, jobs, **CPU)
-    names = ("calls", "gp4", "gp4_banded", "dp_gp", "gsr")
+    names = ("calls", "gp4", "gp4_banded", "dp_gp", "gsr", "gp4_nmap")
     return {n: [r[k] for r in res] for k, n in enumerate(names)}
 
 
@@ -349,6 +360,68 @@ def test_gp4_banded_matches_single_device(world, jax_side):
                  jax_side["gp4_banded"][1])
 
 
+@pytest.mark.parametrize("job", ["gp4", "gp4_nmap"])
+def test_gp4_kernel_route_is_the_plain_route(world, job):
+    """gp=4, untextured with the whole atlas ("gp4") and textured with a
+    normal map and the banded atlas ("gp4_nmap"): on every rank the frame
+    after the drawn ones (``drive(check_route=True)``) traced on the kernel
+    route (K13, K14 and K7's lane-row form through their plain versions
+    here, the psums between them) is bit-equal to the plain route (K7's
+    plain body with ``_tri_rows`` and the banded taps' psums inside), rays
+    equal; a second kernel-route run with each K13 and K14 call and the
+    first K7 step held against their plain versions is bit-equal too. The textured frame's K13
+    calls carry the motion rows (the normal map's tangent basis) and K14
+    ran; the untextured one's carry none and K14 never ran."""
+    for check in (x["route_check"] for x in world[job]):
+        assert check["bit_equal"], check["fields"]
+        assert check["checked_run_differing"] == 0
+        assert check["rays"][0] == check["rays"][1] > 0
+        assert check["k13"] and not any(c["differing"] for c in check["k13"])
+        # a step's rows (shade, and motion where needed), and sample 0's motion rows
+        assert {(c["shade"], c["motion"]) for c in check["k13"]} == (
+            {(True, True), (False, True)} if job == "gp4_nmap" else {(True, False), (False, True)})
+        assert bool(check["k14"]) == (job == "gp4_nmap")
+        assert not any(c["differing"] for c in check["k14"])
+        # the frame's first K7 step, the lane-row form against its plain body with the same rows
+        assert check["k7"]["variant"] == ("rows_maps_taps" if job == "gp4_nmap" else "rows")
+        assert check["k7"]["differing"] == 0 and check["k7"]["lanes"] == SIZE * SIZE
+
+
+@pytest.mark.parametrize("job", ["gp4", "gp4_banded", "dp_gp"])
+def test_gp_frames_within_1e5_of_mrt_tpu(world, jax_side, job):
+    """The gp frames on the kernel route (K13, K14 and K7's lane-row form
+    through their plain versions): untextured, textured with the banded
+    atlas, and (dp, gp) = (2, 2), each within 1e-5 of JAX's gp step on the
+    same inputs. (The normal-mapped frame: its own case below.)"""
+    np.testing.assert_allclose(world[job][0]["images"][-1], jax_side[job][0], atol=1e-5)
+
+
+def test_gp4_normal_mapped_banded_matches_single_device(world, jax_side):
+    """gp=4 on the textured scene with a normal map and the banded atlas
+    (the lane-row form's motion rows and per-lane taps): within 1e-5 of the
+    flat single device (the shards' tables are flat; the two-level BVH's
+    object-space hits differ in their last bits, which the normal map's
+    tangent basis carries past 1e-5 at a few pixels), and of JAX's banded
+    step within the parity bar."""
+    single, rays = _single(OFFSETS, nmap=True, two_level=False)
+    _check_frame(world["gp4_nmap"], single[0], jax_side["gp4_nmap"][0], rays,
+                 jax_side["gp4_nmap"][1])
+
+
+def test_gp4_normal_mapped_within_1e4_of_mrt_tpu(world, jax_side):
+    """gp=4 on the normal-mapped scene with the banded atlas against JAX's
+    gp step: within 1e-4, and at most 2 pixels past 1e-5 (read: 1 pixel, at
+    4.78e-5). That gap is the single device's, not the sharding's: the
+    port's flat single-device frame differs from JAX's unsharded step (gp=1,
+    whole atlas) by the same amounts, per element within 1e-6 (read:
+    3.4e-7, the rounding between JAX's banded gp=4 and gp=1 steps)."""
+    gap = world["gp4_nmap"][0]["images"][-1] - jax_side["gp4_nmap"][0]
+    d = np.abs(gap).max(axis=-1)
+    assert d.max() <= 1e-4 and int((d > 1e-5).sum()) <= 2, (d.max(), int((d > 1e-5).sum()))
+    single, _ = _single(OFFSETS, nmap=True, two_level=False)
+    np.testing.assert_allclose(gap, single[0] - jax_side["gp1_nmap"][0], atol=1e-6)
+
+
 def test_dp_gp_matches_single_device(world, jax_side):
     """(dp, gp) = (2, 2), banded: image rows over dp, geometry over gp;
     within 1e-5 of the single device, and of JAX's step on a (2, 2) mesh
@@ -401,3 +474,19 @@ def test_gp_refusals():
     with pytest.raises(ValueError, match="geometry_axis"):
         wf.trace_frame(settings, r.statics, sd, bvh, geom, uniforms, r.offsets,
                        torch.zeros(tuple(r.offsets.shape) + (2,)))
+
+
+def test_chip_smoke_gp_route_checks_on_cpu(world):
+    """``chip_smoke.py``'s phase-L reading of the checked gp frames
+    (``gp_route_checks``) on this world's CPU results: it passes both gp=4
+    jobs with the textured one's K14 required and the untextured one's
+    absent, summarises K13's and K14's launches (``launch_summary``), and
+    raises where K14 is required but did not run."""
+    import chip_smoke
+
+    line = chip_smoke.gp_route_checks("cpu gp=4 textured", world["gp4_nmap"], True)
+    assert line["bit_equal"] and line["k13"]["launches"] > 0 and line["k14"]["launches"] > 0
+    assert line["k13"]["first"]["lanes"] == SIZE * SIZE and line["k7"]["variant"] == "rows_maps_taps"
+    assert chip_smoke.gp_route_checks("cpu gp=4", world["gp4"], False)["k14"]["launches"] == 0
+    with pytest.raises(AssertionError, match="kernel route disagrees"):
+        chip_smoke.gp_route_checks("cpu gp=4", world["gp4"], True)

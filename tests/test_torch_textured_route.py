@@ -7,9 +7,9 @@ checker and a normal map, glass, an emissive sphere, four light types) at
 32x32, 2 spp, 3 bounces; the emissive sphere moves sideways between frames
 (so the motion view shows motion).
 
-- ``kernel_route`` is true with texture maps, with mipmaps and in every
-  debug view, false for geometry sharding; ``k7_variant`` names the
-  instantiation each takes.
+- A frame with texture maps, with mipmaps and in every debug view takes
+  the kernel route (calls K6-K8's wrappers); ``k7_variant`` names the
+  instantiation each takes (under gp K7's lane-row form).
 - Per case (the packed atlas, mipmaps, each debug view 1-7), every frame's
   ``trace_pixels`` on the kernel route (the listed loop, K7's plain version
   on the traversal's raw record) is bit-identical to the full-width loop
@@ -43,7 +43,8 @@ from mrt_tpu_torch.utils import bounds
 from test_torch_extras import _close, _motion_colour
 from test_torch_render import port_like, rel_rmse
 from test_torch_scene_bvh import one_torch_thread  # noqa: F401
-from test_torch_wavefront_list import _fields_differing, _full_width_trace_pixels
+from test_torch_wavefront_list import (_fields_differing, _full_width_trace_pixels, on_route,
+                                       route_spy)
 
 SIZE = 32
 FRAMES = 2
@@ -51,14 +52,15 @@ CASES = ["packed", "mipmaps"] + [f"debug_{m}" for m in range(T.DEBUG_MODE_BASECO
                                                                T.DEBUG_MODE_MOTION + 1)]
 
 
-def _route(r):
-    return W.kernel_route(r.settings(), r.statics, r.prepare()[1])
-
-
-def test_kernel_route_and_instantiation():
+def test_kernel_route_and_instantiation(monkeypatch):
     rj = config3_renderer(size=SIZE, spp=2, bounces=3)
     rj.draw()
     rp = port_like(rj)
+    calls = route_spy(monkeypatch)
+
+    def _route(r):
+        return on_route(calls, r.draw)
+
     assert any(rp.statics.any_map) and rp.statics.any_map[1]  # a normal map
     assert _route(rp) and W.K7_VARIANTS[W.k7_variant(rp.settings(), rp.statics)] == "maps"
     rp.use_mipmaps = True
@@ -78,9 +80,8 @@ def test_kernel_route_and_instantiation():
     assert W.K7_VARIANTS[W.k7_variant(rp.settings(), untextured)] == "maps_mips"
     rp.debug_texture_mode = T.DEBUG_MODE_NORMAL
     assert W.K7_VARIANTS[W.k7_variant(rp.settings(), untextured)] == "maps_mips_debug"
-    geom = rp.prepare()[1]
     gp = dataclasses.replace(rp.settings(), geometry_axis="gp")
-    assert not W.kernel_route(gp, rp.statics, geom)
+    assert W.K7_VARIANTS[W.k7_variant(gp, rp.statics)] == "rows_maps_mips_debug"
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -117,14 +118,17 @@ def test_textured_route_matches_full_width_and_mrt_tpu(case, monkeypatch):
     rj.draw()
     rp = port_like(rj)
     rp.debug_texture_mode = mode
-    assert _route(rp) and any(rp.statics.any_map)
+    assert any(rp.statics.any_map)
+    calls = route_spy(monkeypatch)
     prev = np.zeros((SIZE * SIZE, 2), np.float32)
     for f in range(FRAMES):
         if f:
             for s in (rj.scene, rp.scene):
                 s.move_model(2, right=0.3 * f)
             rj.draw()
-        ap = rp.draw().numpy()
+        img = []
+        assert on_route(calls, lambda: img.append(rp.draw()))  # K6-K8's wrappers
+        ap = img[0].numpy()
         assert np.isfinite(ap).all()
         rays = int(rp.last_rays_traced)
         assert rays == int(rj.last_rays_traced), f"frame {f}"
@@ -153,9 +157,9 @@ def test_k7_bound_counts_texture_work(case, monkeypatch):
     first = []
     orig = W.shade_hit
 
-    def shade(fr, st, hits, sidx, wv):  # the frame's first step, its inputs cloned
+    def shade(fr, st, hits, sidx, wv, rows=None):  # the frame's first step, its inputs cloned
         st_in = W.clone_state(st)
-        out = orig(fr, st, hits, sidx, wv)
+        out = orig(fr, st, hits, sidx, wv, rows)
         if not first:
             first.append((fr, st_in, traverse2.hits_of(hits, fr.tri_base), out[1].shadow))
         return out

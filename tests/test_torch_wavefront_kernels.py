@@ -12,9 +12,11 @@ card) on the CPU.
   by one ray (tests/test_torch_render.py's allowance: XLA:CPU's contracted
   multiply-adds can move a hit, ROADMAP Q3-P1), the G-buffer within 1e-5
   on at least 99.9 % of pixels (tests/test_torch_presenter.py's bar).
-- ``kernel_route``'s truth table: the settings of runs A, B, C, E, G, H and
-  J are on the route; the debug views, mipmaps, texture maps and geometry
-  sharding are off it.
+- The kernel route's truth table: a frame at the settings of runs A, B, C,
+  E, G, H and J calls K6-K8's wrappers (``trace_pixels``'s kernel route),
+  and so does one in each debug view and with mipmaps (texture maps:
+  ``test_torch_textured_route.py``; geometry sharding:
+  ``test_torch_gp_route.py``).
 - The wrappers take the plain versions for CPU tensors and raise
   ``ValueError`` on another device (a ``meta`` tensor): ``sample_start``,
   the listed ``shade_hit`` (from the closest-hit traversal's raw record,
@@ -28,7 +30,6 @@ card) on the CPU.
 """
 
 import ctypes
-import dataclasses
 import shutil
 import subprocess
 
@@ -56,6 +57,7 @@ from mrt_tpu_torch.utils import frame_profile as FP
 from test_torch_halton import _sweep
 from test_torch_render import port_like, rel_rmse
 from test_torch_scene_bvh import one_torch_thread  # noqa: F401
+from test_torch_wavefront_list import on_route, route_spy
 
 W_, H_ = 48, 32
 GB_FIELDS = ("diffuse_albedo", "specular_albedo", "normal", "roughness")
@@ -112,7 +114,7 @@ def test_stages_match_mrt_tpu(setting, monkeypatch):
         rp.upscaler_mode = UPSCALER_DENOISED
         rp.render_scale = 1.0
     settings = rp.settings()
-    assert W.kernel_route(settings, rp.statics, rp.prepare()[1])
+    calls = route_spy(monkeypatch)
     assert rp.statics.has_refraction and rp.statics.n_lights == 2
     assert settings.light_sampling == ("power" if setting == "power" else "uniform")
     assert settings.shading_mode == (T.SHADING_MODE_LEGACY if setting == "legacy"
@@ -122,6 +124,7 @@ def test_stages_match_mrt_tpu(setting, monkeypatch):
         if f:
             rj.draw()
         ap, aj = rp.draw().numpy(), np.asarray(rj.accum)
+        assert min(calls[k] for k in ("sample_start", "shade_hit", "resolve_shadow")) > 0
         assert np.isfinite(ap).all() and ap.max() > 0
         assert rel_rmse(ap, aj) < 1e-2, f"frame {f}: {rel_rmse(ap, aj)}"
         diff = lane_rays["p"][-1] - lane_rays["j"][-1]
@@ -146,12 +149,13 @@ def small_app():
     return r
 
 
-def _route(r):
-    return W.kernel_route(r.settings(), r.statics, r.prepare()[1])
-
-
-def test_kernel_route_truth_table(small_app):
+def test_kernel_route_truth_table(small_app, monkeypatch):
     r = small_app
+    calls = route_spy(monkeypatch)
+
+    def _route(r):
+        return on_route(calls, r.draw)
+
     assert not any(r.statics.any_map)
     on = {}
     for tag in ("A", "B", "C", "E", "G", "H", "J"):
@@ -174,12 +178,7 @@ def test_kernel_route_truth_table(small_app):
     FP.configure(r, mipmaps=True)  # run F's mipmaps
     assert _route(r)
     FP.configure(r)
-    geom = r.prepare()[1]
-    gp = r.settings()
-    assert W.kernel_route(gp, r.statics, geom)
-    assert not W.kernel_route(dataclasses.replace(gp, geometry_axis="gp"), r.statics, geom)
-    maps = dataclasses.replace(r.statics, any_map=(True,) + tuple(r.statics.any_map[1:]))
-    assert W.kernel_route(gp, maps, geom)  # texture maps run K7's textured instantiations
+    assert _route(r) and calls["rows"] == calls["lane_rows"] == 0  # no gp step
 
 
 def _frame(r, device="cpu"):

@@ -64,13 +64,45 @@ def _renderer(setting: str) -> Renderer:
     elif setting == "flat":
         r.two_level = False
     assert r.statics.has_environment and r.statics.has_refraction
-    assert W.kernel_route(r.settings(), r.statics, r.prepare()[1])
     return r
 
 
+ROUTE_STAGES = ("sample_start", "shade_hit", "resolve_shadow", "lane_rows")
+
+
+def route_spy(monkeypatch) -> dict:
+    """Counts, from now on, of ``trace_pixels``'s calls of the kernel
+    route's stages (``W.sample_start``, ``W.shade_hit``,
+    ``W.resolve_shadow``: the wrappers of K6-K8; ``W.lane_rows``: K13 and
+    K14 under gp), and under ``"rows"`` the ``shade_hit`` calls given
+    per-lane rows (K7's lane-row form). The plain route calls none."""
+    calls = dict.fromkeys(ROUTE_STAGES + ("rows",), 0)
+    for name in ROUTE_STAGES:
+
+        def spy(*a, _name=name, _orig=getattr(W, name), **k):
+            calls[_name] += 1
+            if _name == "shade_hit":
+                calls["rows"] += (a[5] if len(a) > 5 else k.get("rows")) is not None
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(W, name, spy)
+    return calls
+
+
+def on_route(calls: dict, draw) -> bool:
+    """Whether ``draw()`` traced on the kernel route (``route_spy``'s
+    ``calls``): K6-K8's wrappers called, each at least once."""
+    for k in calls:
+        calls[k] = 0
+    draw()
+    return min(calls[k] for k in ROUTE_STAGES[:3]) > 0
+
+
 def _full_width_trace_pixels(settings, statics, scene, bvh, geom, uniforms, pixel_x, pixel_y,
-                             offsets, prev_motion, sample_base=None) -> wf.TileOutputs:
-    """The full-width ``trace_pixels`` on the CPU: the plain stages as they are
+                             offsets, prev_motion, sample_base=None,
+                             plain=True) -> wf.TileOutputs:
+    """The full-width ``trace_pixels`` on the CPU (the plain route whatever
+    ``plain`` says): the plain stages as they are
     (``sample_start_plain``, ``shade_hit_plain``, the any-hit, then
     ``resolve_shadow_plain`` after every any-hit), ``closest_hit``'s
     ``Hits`` and one ``active.any()`` per iteration."""
@@ -168,10 +200,10 @@ def _recorded(setting: str):
     steps, resolves = [], []
     orig_shade, orig_resolve = W.shade_hit, W.resolve_shadow
 
-    def shade(fr, st, hits, sidx, wv):
+    def shade(fr, st, hits, sidx, wv, rows=None):
         st_in, wv_in = W.clone_state(st), W.clone_wave(wv)
         listed_in = None if wv.steps == 0 else W.listed(wv).clone()
-        out = orig_shade(fr, st, hits, sidx, wv)
+        out = orig_shade(fr, st, hits, sidx, wv, rows)
         steps.append(dict(fr=fr, st=st_in, hits=hits, sidx=sidx, wv=wv_in, listed=listed_in,
                           out=out))
         return out

@@ -266,12 +266,15 @@ never prints its last line):
      K3, K6, K13 gp_rows, K7's lane-row form, K8, and on the banded
      textured scenes K14 banded_taps, and nothing of K7 but its lane-row
      form; each gp job then draws a checked frame on every rank (the
-     kernel route bit-equal to the plain route, each K13 and K14 launch
-     and the first K7 step bit-equal to their plain versions, both routes'
-     walls and device events, K13's and K14's CUDA-event ms beside their
-     bounds). Walls, rays, Mrays/s and the ranks' start-up seconds
-     printed; K1, K2 (packed), K3 (flat), K4 (flat), K6-K8 and K13 must
-     launch, K14 in L1-L3;
+     kernel route bit-equal to the plain route, each K13 launch's position
+     map, lane list and rows and each K14 launch's taps, over the step's
+     live lanes only, and the first K7 step bit-equal to their plain
+     versions, both routes' walls and device events, K13's and K14's
+     CUDA-event ms and their first launch's profiler device ms beside their
+     bounds, their device ms per launch over the profiled kernel-route
+     frame, and each step's live share). Walls, rays, Mrays/s and the
+     ranks' start-up seconds printed; K1, K2 (packed), K3 (flat), K4
+     (flat), K6-K8 and K13 must launch, K14 in L1-L3;
   8. a 48x48 frame traced and presented in every presenter mode on the card
      against the same frames on the CPU through the plain versions (the
      accumulation and the presented output within 1e-2 relative RMSE, the
@@ -289,8 +292,10 @@ phase M's entry points and phase L's ranks), then K7 by instantiation
 launches, checks, registers and spills, and its times at the first launch
 of the run that takes it), then K7's lane-row form by instantiation (all
 eight: each must have launched on the main path and been checked), K13
-and K14 (timed at the first launch of L1's checked gp=1 frames; their
-largest difference from the plain version over every checked launch),
+and K14 (timed at the first launch of L1's checked gp=1 frames by CUDA
+events and by the profiler, and per launch over its profiled frame, with
+the live share of each step; their largest difference from the plain
+version over every checked launch),
 each with its bound
 (mrt_tpu_torch/utils/bounds.py); runs A, B, C, E, G, H and J and phase M's
 smoke and demo must have launched K6-K8 with only the untextured K7, runs
@@ -2280,14 +2285,30 @@ def l3_scene(size: int = 48):
     return s
 
 
-def launch_summary(launches: list) -> dict:
+# the kernels of K13's and K14's wrapper calls, by the names the profiler
+# gives them; the last of each is launched once a call
+GP_PROFILED = {"k13": ("gp_rows_count_kernel", "gp_rows_kernel"),
+               "k14": ("banded_taps_kernel",)}
+
+
+def launch_summary(launches: list, profile: dict | None = None, names=()) -> dict:
     """K13's or K14's checked launches of one frame (``drive``'s
     ``route_check``): their count, the first (sample 0's first step, every
-    lane), the largest difference from the plain version over them, and
-    the sums of the CUDA-event ms, the plain version's and the bound (None
-    where a launch has no time: a CPU run)."""
+    lane), the largest difference from the plain version over them, the
+    sums of the CUDA-event ms, the plain version's and the bound (None
+    where a launch has no time: a CPU run), each launch's live share (its
+    live lanes over the batch's lanes: the rows it wrote and its psum
+    carried), and from the kernel route's profiled frame (``profile``) the
+    device ms of the kernels ``names`` over their wrapper calls (None where
+    the profiler recorded none)."""
+    per_call = None
+    kern = (profile or {}).get("kernels") or {}
+    if names and all(kern.get(n, {}).get("events") for n in names):
+        per_call = sum(kern[n]["ms"] for n in names) / kern[names[-1]]["events"]
     return dict(launches=len(launches), first=launches[0] if launches else None,
                 max_abs=max((x["max_abs"] for x in launches), default=0.0),
+                live_share=[x["live"] / x["lanes"] for x in launches],
+                frame_profiler_ms_per_launch=per_call,
                 **{f"frame_{k}": None if any(x[k] is None for x in launches)
                    else sum(x[k] for x in launches) for k in ("ms", "plain_ms", "bound_ms")})
 
@@ -2296,13 +2317,15 @@ def gp_route_checks(tag, jobs, textured: bool, variant: str | None = None) -> di
     """The checked gp frame of each rank of one job (``jobs``: its
     ``drive`` results by rank): the kernel route bit-equal to the plain
     route (every output field, rays equal), the second kernel-route run
-    equal to the first, every K13 launch and the first K7 step (the
-    lane-row form; with ``variant`` that instantiation) bit-equal to their
-    plain versions, K14 launched exactly on a banded textured frame and
-    bit-equal too. One line per rank: both
+    equal to the first, every K13 launch (its position map, lane list and
+    rows of the step's live lanes) and the first K7 step (the lane-row
+    form; with ``variant`` that instantiation) bit-equal to their plain
+    versions, K14 launched exactly on a banded textured frame and bit-equal
+    too. One line per rank: both
     routes' walls and device events and ms (torch.profiler; an empty
     profile is logged as a dropout, not a failure), the job's kernel-route
-    frame walls, K13's and K14's launches beside their bounds, the K7
+    frame walls, K13's and K14's launches beside their bounds
+    (``launch_summary``: their live shares and profiler times too), the K7
     step. Raises on a disagreement. Returns rank 0's line by field."""
     lines = []
     for r, job in enumerate(jobs):
@@ -2312,8 +2335,9 @@ def gp_route_checks(tag, jobs, textured: bool, variant: str | None = None) -> di
                     checked_run_differing=c["checked_run_differing"], rays=c["rays"],
                     frame_walls_kernel_route=job["walls"], kernel_wall_s=c["kernel_wall_s"],
                     plain_wall_s=c["plain_wall_s"], kernel_profile=c.get("kernel_profile"),
-                    plain_profile=c.get("plain_profile"), k13=launch_summary(c["k13"]),
-                    k14=launch_summary(c["k14"]),
+                    plain_profile=c.get("plain_profile"),
+                    k13=launch_summary(c["k13"], c.get("kernel_profile"), GP_PROFILED["k13"]),
+                    k14=launch_summary(c["k14"], c.get("kernel_profile"), GP_PROFILED["k14"]),
                     k7={k: v for k, v in c["k7"].items() if k != "work"}, k7_work=c["k7"]["work"],
                     **CARD)
         log(json.dumps(line))
@@ -3659,9 +3683,11 @@ def main() -> int:
     # and bound_ms at the first launch of the checked frame of a gp=1 job
     # (one rank alone on the card; K13 and "rows" at run B's scene, K14 and
     # "rows_maps_taps" at the textured gp scene, every other instantiation
-    # at its own job), the largest difference from the plain version over
-    # every checked launch, and the checked frames of every gp job (all
-    # bit-equal to the plain versions, or phase L raised)
+    # at its own job; K13 and K14 also by the profiler at that launch and
+    # per launch over the profiled frame, and each step's live share), the
+    # largest difference from the plain version over every checked launch,
+    # and the checked frames of every gp job (all bit-equal to the plain
+    # versions, or phase L raised)
     k7_rows_replaces = {"rows": "mrt_tpu/render/wavefront.py:527",
                         "rows_maps": "mrt_tpu/render/wavefront.py:619",
                         "rows_maps_mips": "mrt_tpu/render/wavefront.py:572",
@@ -3687,15 +3713,20 @@ def main() -> int:
             ("K14 banded_taps", "banded_taps", "L1 gp=1 textured",
              "mrt_tpu/assets/texture.py:355")):
         key = "k13" if stage == "gp_rows" else "k14"
-        t = gp_checks[tag][key]["first"]
+        g_t = gp_checks[tag][key]
+        t = g_t["first"]
         kernels.append(dict(
             name=name, route="cuda", source="mrt_tpu_torch/csrc/wavefront.cu", replaces=replaces,
             launches=sum(c.get(stage, 0) for c in counts.values()),
             launches_by_run={t_: c[stage] for t_, c in counts.items() if c.get(stage)},
             max_abs_err=max(g[key]["max_abs"] for g in gp_checks.values() if g[key]["launches"]),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=None, timed_at=tag,
-            registers=next((r_ for n_, r_ in build.ptxas.items() if f"{stage}_kernel" in n_), None),
+            bound_by=t["bound_by"], library_ms=None, timed_at=tag, profiler_ms=t["profiler_ms"],
+            frame_profiler_ms_per_launch=g_t["frame_profiler_ms_per_launch"],
+            frame_ms=g_t["frame_ms"], frame_bound_ms=g_t["frame_bound_ms"],
+            live_share=g_t["live_share"],
+            registers={n_: r_ for n_, r_ in build.ptxas.items()
+                       if any(k_ in n_ for k_ in GP_PROFILED[key])} or None,
             checked={t_: g[key] for t_, g in gp_checks.items() if g[key]["launches"]}))
         if kernels[-1]["launches"] < 1:
             raise AssertionError(f"{name} never launched on the main path: {kernels[-1]}")

@@ -32,13 +32,18 @@
 //   K8: after a sample's last iteration, the last shadow rays' add.
 //   K13 gp_rows and K14 banded_taps, under geometry sharding (the gp axis,
 //       dist/geometry.py), where a rank holds only its shard's shade and
-//       motion rows and maybe one row band of the packed atlas: K13 writes
-//       each shaded lane's rows where this rank owns the hit triangle (zeros
-//       elsewhere), K14 this rank's share of the lane's packed sample; a psum
-//       over gp after each (outside the kernels: a collective cannot run in
-//       one) completes them, and K7's lane-row form (shade_hit_rows_kernel)
-//       reads them at the lane's index where the single device's K7 reads
-//       the frame's tables at the triangle's.
+//       motion rows and maybe one row band of the packed atlas. Their rows
+//       cover only the step's live lanes, compacted in lane order: K13 scans
+//       the live flags into each lane's position (pos, -1 where dead) and its
+//       inverse (lane_of), then writes each live lane's rows at its position
+//       where this rank owns the hit triangle (zeros elsewhere); K14 this
+//       rank's share of each live lane's packed sample, at the same
+//       position. A psum over gp after each (outside the kernels: a
+//       collective cannot run in one) completes them, and K7's lane-row form
+//       (shade_hit_rows_kernel) reads them at pos[i] where the single
+//       device's K7 reads the frame's tables at the triangle's. The flags
+//       are the same on every rank (gp replicates the rays), so is the map,
+//       and each psum adds rows of one lane.
 // The radiance adds keep the plain loop's order: env(k), emission(k),
 // contrib(k), env(k+1). Matching PyTorch's CUDA ops: a division by a Python
 // scalar is a multiply by the f32 reciprocal (x / PI, x / (2 PI), x / 8);
@@ -402,10 +407,11 @@ __device__ __forceinline__ void sample_packed(const Maps& M, int packed_w, int r
     }
 }
 
-// K7's lane-row form on a banded atlas: lane i's packed sample, which K14
-// and a psum over gp wrote into a (P, PACKED_C) buffer (M.packed then)
-__device__ __forceinline__ void lane_taps(const Maps& M, int i, float out[PACKED_C]) {
-    const float4* p = reinterpret_cast<const float4*>(M.packed) + 4 * (long long)i;
+// K7's lane-row form on a banded atlas: the packed sample at row ``row`` (the
+// lane's position) of the (n_live, PACKED_C) buffer that K14 and a psum over
+// gp wrote (M.packed then)
+__device__ __forceinline__ void lane_taps(const Maps& M, int row, float out[PACKED_C]) {
+    const float4* p = reinterpret_cast<const float4*>(M.packed) + 4 * (long long)row;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
         const float4 a = __ldg(p + q);
@@ -514,8 +520,8 @@ struct Surface {
 // view's colour replaces the radiance, the lane retires and the function
 // returns true; else a normal map bends sf.shading_nrm. s2, s3: the shade
 // row's last two float4 (the uvs); mrow: the material row; row: the index
-// of the hit's motion row (its triangle, or in the lane-row form the lane).
-// TAPS: the packed sample is lane i's row of M.packed (K14's per-lane taps).
+// of the hit's motion row (its triangle, or in the lane-row form the lane's
+// position). TAPS: the packed sample is that row of M.packed (K14's taps).
 template <bool MAPS, bool MIPS, bool DEBUG, bool TAPS>
 __device__ __forceinline__ bool textured_hit(const Lane& S, const ShadowOut& Sh, const Frame& Fr,
                                              const Maps& M, const MapsInfo& I, int i, int row,
@@ -568,7 +574,7 @@ __device__ __forceinline__ bool textured_hit(const Lane& S, const ShadowOut& Sh,
                              ((flags & FLAG_AO) && has(MAP_AO, TEX_AO)) ||
                              has(MAP_OPACITY, TEX_OPACITY) || has(MAP_EMISSION, TEX_EMISSION);
             if (any) {
-                if constexpr (TAPS) lane_taps(M, i, pk);
+                if constexpr (TAPS) lane_taps(M, row, pk);
                 else sample_packed(M, I.packed_w, res, tu, tv, pk);
             }
         }
@@ -679,13 +685,14 @@ __device__ __forceinline__ bool textured_hit(const Lane& S, const ShadowOut& Sh,
 // (I.debug_mode): the colour at the first hit replaces the radiance and the
 // lane retires, casting no shadow ray. LANE: the lane-row form of
 // geometry sharding, which reads the hit's shade and motion rows at the
-// lane's index of K13's per-lane buffers (Fr.shade_rows, M.motion_rows
-// then) instead of at the triangle's; TAPS: also the packed sample at the
-// lane's index of K14's (M.packed then).
+// lane's position pos[i] of K13's compacted rows (Fr.shade_rows,
+// M.motion_rows then) instead of at the triangle's; TAPS: also the packed
+// sample at that position of K14's (M.packed then).
 template <bool MAPS, bool MIPS, bool DEBUG, bool LANE, bool TAPS>
 __device__ __forceinline__ void shade_lane(const Lane& S, const Frame& Fr, const Raw& R,
                                            const ShadowOut& Sh, const bool* __restrict__ occluded,
                                            const Maps* M, const MapsInfo* I,
+                                           const int* __restrict__ pos,
                                            int i, int hbase, int n_lights, int env_h, int env_w,
                                            int flags, int max_bounces, bool& alive, bool& keep) {
     // K8 folded in: the resolve of the previous iteration comes first, as the
@@ -727,9 +734,9 @@ __device__ __forceinline__ void shade_lane(const Lane& S, const Frame& Fr, const
     int bounce = S.bounce[i], step = S.step[i], tpasses = S.tpasses[i];
     const float t = R.t[i], hu = R.u[i], hv = R.v[i];
     // shade row [n0(3) n1(3) n2(3) uv0(2) uv1(2) uv2(2) resource]: 4 float4,
-    // the triangle's, or in the lane-row form the lane's
+    // the triangle's, or in the lane-row form the lane's position's
     int row = tri;
-    if constexpr (LANE) row = i;
+    if constexpr (LANE) row = __ldg(pos + i);
     const float4* srow = reinterpret_cast<const float4*>(Fr.shade_rows) + 4 * (long long)row;
     const float4 s0 = __ldg(srow), s1 = __ldg(srow + 1), s2 = __ldg(srow + 2), s3 = __ldg(srow + 3);
     const int res = (int)s3.w;
@@ -978,7 +985,7 @@ __device__ __forceinline__ void shade_rounds(
     Lane S, Frame Fr, Raw R, ShadowOut Sh,
     const bool* __restrict__ occluded, const int* __restrict__ in, int* __restrict__ out,
     const int* __restrict__ cin, int* cout, int n, int hbase, int n_lights, int env_h, int env_w,
-    int flags, int max_bounces, const Maps* M, const MapsInfo* I) {
+    int flags, int max_bounces, const Maps* M, const MapsInfo* I, const int* __restrict__ pos) {
     __shared__ int at[2][SHADE_WARPS];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int n_live = in != nullptr ? cin[C_LIVE] : n;
@@ -989,7 +996,7 @@ __device__ __forceinline__ void shade_rounds(
         int i = 0;
         if (j < n_in) {
             i = in != nullptr ? list_entry(in, j, n_live, n) : j;
-            shade_lane<MAPS, MIPS, DEBUG, LANE, TAPS>(S, Fr, R, Sh, occluded, M, I, i, hbase,
+            shade_lane<MAPS, MIPS, DEBUG, LANE, TAPS>(S, Fr, R, Sh, occluded, M, I, pos, i, hbase,
                                                       n_lights, env_h, env_w, flags, max_bounces,
                                                       alive, keep);
         }
@@ -1043,7 +1050,7 @@ __global__ void __launch_bounds__(SHADE_BLOCK, 4) shade_hit_kernel(
     int n, int hbase, int n_lights, int env_h, int env_w, int flags, int max_bounces) {
     shade_rounds<false, false, false, false, false>(S, Fr, R, Sh, occluded, in, out, cin, cout, n,
                                                     hbase, n_lights, env_h, env_w, flags,
-                                                    max_bounces, nullptr, nullptr);
+                                                    max_bounces, nullptr, nullptr, nullptr);
 }
 
 // K7's textured and debug instantiations: 2 blocks of 256 a SM, the
@@ -1056,37 +1063,45 @@ __global__ void __launch_bounds__(SHADE_BLOCK, 2) shade_hit_tex_kernel(
     MapsInfo I) {
     shade_rounds<MAPS, MIPS, DEBUG, false, false>(S, Fr, R, Sh, occluded, in, out, cin, cout, n,
                                                   hbase, n_lights, env_h, env_w, flags,
-                                                  max_bounces, &M, &I);
+                                                  max_bounces, &M, &I, nullptr);
 }
 
 // K7's lane-row form (geometry sharding): the rows, and on a banded atlas
-// the packed sample, at the lane's index of the per-lane buffers that K13
-// and K14 wrote and a psum over gp completed (the buffers stand where the
-// frame's tables stood: Fr.shade_rows, M.motion_rows, M.packed). Their
-// reads are per-lane loads, neighbouring lanes on neighbouring rows. The
+// the packed sample, at the lane's position pos[i] of the compacted rows
+// that K13 and K14 wrote for the step's n_rows live lanes and a psum over gp
+// completed (the buffers stand where the frame's tables stood:
+// Fr.shade_rows, M.motion_rows, M.packed). The motion rows follow the
+// n_rows shade rows in K13's buffer, so their address is Fr.shade_rows +
+// 16 n_rows: an argument, and no pointer packed anew per step. The
 // occupancy of the instantiation it mirrors.
 template <bool MAPS, bool MIPS, bool DEBUG, bool TAPS>
 __global__ void __launch_bounds__(SHADE_BLOCK, (MAPS || DEBUG) ? 2 : 4) shade_hit_rows_kernel(
     Lane S, Frame Fr, Raw R, ShadowOut Sh, const bool* __restrict__ occluded,
     const int* __restrict__ in, int* __restrict__ out, const int* __restrict__ cin, int* cout,
     int n, int hbase, int n_lights, int env_h, int env_w, int flags, int max_bounces, Maps M,
-    MapsInfo I) {
+    MapsInfo I, const int* __restrict__ pos, int n_rows) {
+    Maps Ml = M;
+    Ml.motion_rows = Fr.shade_rows + 16LL * n_rows;
     shade_rounds<MAPS, MIPS, DEBUG, true, TAPS>(S, Fr, R, Sh, occluded, in, out, cin, cout, n,
                                                 hbase, n_lights, env_h, env_w, flags, max_bounces,
-                                                &M, &I);
+                                                &Ml, &I, pos);
 }
 
 typedef void (*ShadeTexKernel)(Lane, Frame, Raw, ShadowOut, const bool*, const int*, int*,
                                const int*, int*, int, int, int, int, int, int, int, Maps,
                                MapsInfo);
+typedef void (*ShadeRowsKernel)(Lane, Frame, Raw, ShadowOut, const bool*, const int*, int*,
+                                const int*, int*, int, int, int, int, int, int, int, Maps,
+                                MapsInfo, const int*, int);
 
 // K7's instantiations by variant: bit 0 MAPS, 1 MIPS, 2 DEBUG, 3 the
-// lane-row form, 4 its per-lane taps (0: the untextured shade_hit_kernel).
+// lane-row form, 4 its per-lane taps (0: the untextured shade_hit_kernel;
+// 1-7 TEX_KERNELS, 8-31 ROWS_KERNELS[variant - 8]).
 // Mipmaps come with MAPS (a scene without maps samples none, and keeps the
 // cone's length), so variants 2 and 6 have none; the taps replace the
 // packed sample, so they come with MAPS and without MIPS.
-constexpr int N_VARIANTS = 32;
-const ShadeTexKernel TEX_KERNELS[N_VARIANTS] = {
+constexpr int N_VARIANTS = 32, ROWS_FIRST = 8;
+const ShadeTexKernel TEX_KERNELS[ROWS_FIRST] = {
     nullptr,
     shade_hit_tex_kernel<true, false, false>,
     nullptr,
@@ -1095,6 +1110,8 @@ const ShadeTexKernel TEX_KERNELS[N_VARIANTS] = {
     shade_hit_tex_kernel<true, false, true>,
     nullptr,
     shade_hit_tex_kernel<true, true, true>,
+};
+const ShadeRowsKernel ROWS_KERNELS[N_VARIANTS - ROWS_FIRST] = {
     shade_hit_rows_kernel<false, false, false, false>,  // 8
     shade_hit_rows_kernel<true, false, false, false>,
     nullptr,
@@ -1110,6 +1127,14 @@ const ShadeTexKernel TEX_KERNELS[N_VARIANTS] = {
     shade_hit_rows_kernel<true, false, true, true>,  // 29
     nullptr, nullptr,
 };
+
+// The instantiation of K7 for ``variant``, null where there is none
+const void* shade_fn(int variant) {
+    if (variant < 0 || variant >= N_VARIANTS) return nullptr;
+    if (variant == 0) return (const void*)shade_hit_kernel;
+    if (variant < ROWS_FIRST) return (const void*)TEX_KERNELS[variant];
+    return (const void*)ROWS_KERNELS[variant - ROWS_FIRST];
+}
 
 // The trailing resolve of a sample: accumulated += contrib over the last
 // list (its front and back; lengths in its slot), where the shadow ray was
@@ -1129,80 +1154,228 @@ __global__ void resolve_shadow_kernel(float* __restrict__ acc, const float* __re
 
 // K13 gp_rows: the local half of the JAX package's _tri_rows
 // (mrt_tpu/render/wavefront.py:76-85, at :527, :547, :701 and :1034) under
-// geometry sharding. Per lane i that is live (every lane when live is null)
-// with a hit (ids[i] >= 0) on a triangle this rank's shard holds (g2l[id] >=
-// 0), the triangle's shade row (16 f32) and/or motion row (18 f32) from the
-// shard's tables; zeros for every other lane. A psum over gp of the output
-// then gives every rank every lane's rows (each element has one nonzero
-// contributor, so the sum is exact). One thread per float2 of the output:
-// the shade rows (8 a lane) and then the motion rows (9), so that a warp's
-// stores are 256 contiguous bytes; the lane's id, flag and g2l entry are
-// read by each of its 8 or 9 threads (through L1). Bound: bytes (ids, flags,
-// g2l entries, the owned rows once each, the rows written).
-__global__ void gp_rows_kernel(const int* __restrict__ ids, const bool* __restrict__ live,
-                               const int* __restrict__ g2l, const float* __restrict__ shade,
-                               const float* __restrict__ motion, float* __restrict__ out_shade,
-                               float* __restrict__ out_motion, int n) {
-    const long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    const long long n_shade = out_shade != nullptr ? 8LL * n : 0;
-    const long long n_all = n_shade + (out_motion != nullptr ? 9LL * n : 0);
-    if (k >= n_all) return;
-    const bool is_shade = k < n_shade;
-    const int e = (int)(is_shade ? k : k - n_shade);  // 9 n < 2^31 (n: a batch's lanes)
-    const int per = is_shade ? 8 : 9;
-    const int i = e / per, q = e % per;
-    const int id = __ldg(ids + i);
-    int loc = -1;
-    if (id >= 0 && (live == nullptr || live[i])) loc = __ldg(g2l + id);
-    float2 v = make_float2(0.0f, 0.0f);
-    if (loc >= 0)
-        v = __ldg(reinterpret_cast<const float2*>(is_shade ? shade : motion) + (long long)loc * per +
-                  q);
-    reinterpret_cast<float2*>(is_shade ? out_shade : out_motion)[e] = v;
+// geometry sharding, over the step's live lanes only, compacted in lane
+// order. Per lane i that is live (every lane when live is null), its
+// position pos[i] = the live lanes before it (-1 where dead), lane_of[pos]
+// = i, and at row pos[i] the hit triangle's shade row (16 f32) and/or motion
+// row (18 f32) where ids[i] >= 0 and this rank's shard holds the triangle
+// (g2l[id] >= 0), zeros where not. The flags, and so the map, are the same
+// on every rank (gp replicates the rays), so a psum over gp of the n_live
+// rows adds rows of one lane, and each element has one nonzero contributor
+// (the sum is exact).
+//
+// Two launches over tiles of GP_TILE lanes, a block a tile, each thread 4
+// neighbouring lanes (their flags one 4-B load, their pos one 16-B store,
+// where aligned): the first counts each tile's live lanes; the second sums
+// the counts of the tiles before its own (576 tiles at 589,824 lanes; the
+// sum's reads grow with the square of the tiles, 33 MB of L2 at a 4M-lane
+// batch) for the tile's first position, scans its threads' counts (warp
+// shuffles, then the warps' totals), writes pos, lists its live lanes in
+// shared memory (small tiles: 8 KB a block, so several blocks an SM keep
+// loads in flight), reads each
+// one's id and g2l entry once (one thread a lane) and writes lane_of, then
+// copies the rows: a thread a float4 of the shade rows (64-B rows) and a
+// float2 of the motion rows (72-B rows), neighbouring threads on
+// neighbouring addresses, from the owner's row or zeros. Dead lanes cost
+// their flag and their pos entry; the rows and the psum carry n_live rows.
+// Bound: bytes (the P flags, pos written, the live lanes' ids, lane_of
+// written, each distinct g2l entry and owned row once, the rows written).
+constexpr int GP_THREADS = 256, GP_ITEMS = 4, GP_TILE = GP_THREADS * GP_ITEMS;
+
+// The live flags of lanes i0 .. i0 + 3 as bits (lanes past n dead; every
+// lane live when live is null)
+__device__ __forceinline__ unsigned live_bits(const bool* __restrict__ live, int i0, int n) {
+    if (i0 >= n) return 0u;
+    const int m = n - i0 < GP_ITEMS ? n - i0 : GP_ITEMS;
+    if (live == nullptr) return (1u << m) - 1u;
+    unsigned bits = 0u;
+    if (m == GP_ITEMS && (reinterpret_cast<uintptr_t>(live + i0) & 3) == 0) {
+        const unsigned w = __ldg(reinterpret_cast<const unsigned*>(live + i0));
+#pragma unroll
+        for (int b = 0; b < GP_ITEMS; ++b)
+            if ((w >> (8 * b)) & 0xffu) bits |= 1u << b;
+    } else {
+        for (int k = 0; k < m; ++k)
+            if (live[i0 + k]) bits |= 1u << k;
+    }
+    return bits;
+}
+
+// The sum of x over the block (every thread gets it); red: GP_THREADS / 32 ints
+__device__ __forceinline__ int gp_block_sum(int x, int* red) {
+    x = __reduce_add_sync(FULL, x);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+    __syncthreads();
+    int t = 0;
+#pragma unroll
+    for (int w = 0; w < GP_THREADS / 32; ++w) t += red[w];
+    __syncthreads();  // red is written again by the caller's next use
+    return t;
+}
+
+__global__ void __launch_bounds__(GP_THREADS) gp_rows_count_kernel(
+    const bool* __restrict__ live, int* __restrict__ counts, int n) {
+    __shared__ int red[GP_THREADS / 32];
+    const int c = __popc(live_bits(live, blockIdx.x * GP_TILE + GP_ITEMS * threadIdx.x, n));
+    const int t = gp_block_sum(c, red);
+    if (threadIdx.x == 0) counts[blockIdx.x] = t;
+}
+
+__global__ void __launch_bounds__(GP_THREADS) gp_rows_kernel(
+    const bool* __restrict__ live, const int* __restrict__ ids, const int* __restrict__ g2l,
+    const float* __restrict__ shade, const float* __restrict__ motion,
+    const int* __restrict__ counts, int* __restrict__ pos, int* __restrict__ lane_of,
+    float* __restrict__ out_shade, float* __restrict__ out_motion, int n, int n_rows) {
+    __shared__ int s_lane[GP_TILE];  // the tile's live lanes, in order
+    __shared__ int s_loc[GP_TILE];   // their rows in the shard (-1: another rank's, or no hit)
+    __shared__ int red[GP_THREADS / 32];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int base = blockIdx.x * GP_TILE;
+    const int i0 = base + GP_ITEMS * threadIdx.x;
+    const unsigned bits = live_bits(live, i0, n);
+    // the tile's first position: the live lanes of the tiles before it
+    int prefix = base;
+    if (live != nullptr) {
+        int s = 0;
+        for (int k = threadIdx.x; k < (int)blockIdx.x; k += GP_THREADS) s += __ldg(counts + k);
+        prefix = gp_block_sum(s, red);
+    }
+    // the thread's lanes' offsets in the tile: an exclusive scan of the
+    // threads' counts
+    const int c = __popc(bits);
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += y;
+    }
+    if (lane == 31) red[warp] = incl;
+    __syncthreads();
+    int before = 0, n_tile = 0;
+#pragma unroll
+    for (int w = 0; w < GP_THREADS / 32; ++w) {
+        const int t = red[w];
+        before += w < warp ? t : 0;
+        n_tile += t;
+    }
+    int off = before + incl - c;
+    int p[GP_ITEMS];
+#pragma unroll
+    for (int k = 0; k < GP_ITEMS; ++k) {
+        p[k] = -1;
+        if ((bits >> k) & 1u) {
+            s_lane[off] = i0 + k;
+            p[k] = prefix + off++;
+        }
+    }
+    if (i0 + GP_ITEMS <= n && (reinterpret_cast<uintptr_t>(pos + i0) & 15) == 0) {
+        *reinterpret_cast<int4*>(pos + i0) = make_int4(p[0], p[1], p[2], p[3]);
+    } else {
+#pragma unroll
+        for (int k = 0; k < GP_ITEMS; ++k)
+            if (i0 + k < n) pos[i0 + k] = p[k];
+    }
+    __syncthreads();
+    // rows past n_rows (the caller's count; equal to the live lanes) are not written
+    int n_out = n_rows - prefix < n_tile ? n_rows - prefix : n_tile;
+    if (n_out < 0) n_out = 0;
+    // each live lane's id and g2l entry, read once
+    for (int k = threadIdx.x; k < n_out; k += GP_THREADS) {
+        const int i = s_lane[k];
+        const int id = __ldg(ids + i);
+        s_loc[k] = id >= 0 ? __ldg(g2l + id) : -1;
+        lane_of[prefix + k] = i;
+    }
+    __syncthreads();
+    if (out_shade != nullptr) {
+        const float4* src = reinterpret_cast<const float4*>(shade);
+        float4* dst = reinterpret_cast<float4*>(out_shade) + 4 * (long long)prefix;
+#pragma unroll 4
+        for (int e = threadIdx.x; e < 4 * n_out; e += GP_THREADS) {
+            const int loc = s_loc[e >> 2];
+            dst[e] = loc >= 0 ? __ldg(src + 4 * (long long)loc + (e & 3))
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+    }
+    if (out_motion != nullptr) {
+        const float2* src = reinterpret_cast<const float2*>(motion);
+        float2* dst = reinterpret_cast<float2*>(out_motion) + 9 * (long long)prefix;
+#pragma unroll 4
+        for (int e = threadIdx.x; e < 9 * n_out; e += GP_THREADS) {
+            const int k = e / 9;
+            const int loc = s_loc[k];
+            dst[e] = loc >= 0 ? __ldg(src + 9 * (long long)loc + (e - 9 * k))
+                              : make_float2(0.0f, 0.0f);
+        }
+    }
 }
 
 // K14 banded_taps: this rank's share of the packed bilinear sample on a
 // gp-banded atlas (mrt_tpu/assets/texture.py:355 sample_packed_banded, at
-// mrt_tpu/render/wavefront.py:607-613). Per lane, from its psum'd shade row
-// (the uvs and the resource) and its barycentrics, the texture coordinate as
-// K7's textured_hit makes it, the resource's packed rect, the four taps with
-// repeat addressing; the taps on rows of this rank's band [band_lo, band_lo
-// + band_h) weigh in, the others add zeros (a band holds whole rows, so each
-// row term of the sum is whole on its owner, and the psum over gp of the
-// shares is the whole sample). Four threads a lane, one float4 of the 16
-// channels each (the addressing repeated), so that loads and stores are 16
-// B a thread on neighbouring addresses. Bound: bytes (the rows' uvs, u, v,
-// the rects, each distinct band texel tapped once, the samples written).
+// mrt_tpu/render/wavefront.py:607-613), over K13's n compacted rows of the
+// step's live lanes: row j is lane lane_of[j]'s. From its psum'd shade row
+// (the uvs and the resource) and the lane's barycentrics, the texture
+// coordinate as K7's textured_hit makes it, the resource's packed rect, the
+// four taps with repeat addressing; the taps on rows of this rank's band
+// [band_lo, band_lo + band_h) weigh in, the others add zeros (a band holds
+// whole rows, so each row term of the sum is whole on its owner, and the
+// psum over gp of the shares is the whole sample), written at row j. Four
+// threads a row, one float4 of the 16 channels each, so that the texel
+// loads and the stores are 16 B a thread on neighbouring addresses; the
+// first of the four reads the row's uvs, the lane's u, v and the rect and
+// computes the addressing once, and shuffles hand it to the other three (at
+// a warp-uniform point: every thread of a launched warp takes them).
+// Bound: bytes (the rows' uvs, lane_of, u, v, the rects, each distinct band
+// texel tapped once, the samples written).
 __global__ void banded_taps_kernel(const float* __restrict__ rows, const float* __restrict__ u,
-                                   const float* __restrict__ v, const int* __restrict__ rects,
-                                   const float* __restrict__ band, int band_lo, int band_h,
-                                   int packed_w, float* __restrict__ out, int n) {
+                                   const float* __restrict__ v, const int* __restrict__ lane_of,
+                                   const int* __restrict__ rects, const float* __restrict__ band,
+                                   int band_lo, int band_h, int packed_w, float* __restrict__ out,
+                                   int n) {
     const int k = blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= 4 * n) return;
-    const int i = k >> 2, q = k & 3;
-    const float4* srow = reinterpret_cast<const float4*>(rows) + 4 * (long long)i;
-    const float4 s2 = __ldg(srow + 2), s3 = __ldg(srow + 3);
-    const int res = (int)s3.w;
-    const float hu = __ldg(u + i), hv = __ldg(v + i);
-    const float w = 1.0f - hu - hv;
-    // the barycentric blend of the uvs (u uv1 + v uv2 + w uv0), y flipped
-    const float tu = hu * s2.w + hv * s3.y + w * s2.y;
-    const float tv = 1.0f - (hu * s3.x + hv * s3.z + w * s2.z);
-    const Taps t = repeat_taps(__ldg(reinterpret_cast<const int4*>(rects) + res), tu, tv);
+    const int j = k >> 2, q = k & 3;
+    const bool valid = j < n;
+    int x0 = 0, x1 = 0, y0 = 0, y1 = 0;
+    float fx = 0.0f, fy = 0.0f;
+    if (valid && q == 0) {
+        const float4* srow = reinterpret_cast<const float4*>(rows) + 4 * (long long)j;
+        const float4 s2 = __ldg(srow + 2), s3 = __ldg(srow + 3);
+        const int res = (int)s3.w;
+        const int i = __ldg(lane_of + j);
+        const float hu = __ldg(u + i), hv = __ldg(v + i);
+        const float w = 1.0f - hu - hv;
+        // the barycentric blend of the uvs (u uv1 + v uv2 + w uv0), y flipped
+        const float tu = hu * s2.w + hv * s3.y + w * s2.y;
+        const float tv = 1.0f - (hu * s3.x + hv * s3.z + w * s2.z);
+        const Taps t = repeat_taps(__ldg(reinterpret_cast<const int4*>(rects) + res), tu, tv);
+        x0 = t.x0;
+        x1 = t.x1;
+        y0 = t.y0;
+        y1 = t.y1;
+        fx = t.fx;
+        fy = t.fy;
+    }
+    x0 = __shfl_sync(FULL, x0, 0, 4);
+    x1 = __shfl_sync(FULL, x1, 0, 4);
+    y0 = __shfl_sync(FULL, y0, 0, 4);
+    y1 = __shfl_sync(FULL, y1, 0, 4);
+    fx = __shfl_sync(FULL, fx, 0, 4);
+    fy = __shfl_sync(FULL, fy, 0, 4);
+    if (!valid) return;
     const float4* p = reinterpret_cast<const float4*>(band) + q;
-    const int ly0 = t.y0 - band_lo, ly1 = t.y1 - band_lo;
+    const int ly0 = y0 - band_lo, ly1 = y1 - band_lo;
     const bool own0 = ly0 >= 0 && ly0 < band_h, own1 = ly1 >= 0 && ly1 < band_h;
     const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    const float4 a = own0 ? __ldg(p + 4 * (long long)(ly0 * packed_w + t.x0)) : z;
-    const float4 b = own0 ? __ldg(p + 4 * (long long)(ly0 * packed_w + t.x1)) : z;
-    const float4 c = own1 ? __ldg(p + 4 * (long long)(ly1 * packed_w + t.x0)) : z;
-    const float4 d = own1 ? __ldg(p + 4 * (long long)(ly1 * packed_w + t.x1)) : z;
-    const float gx = 1.0f - t.fx, gy = 1.0f - t.fy;
+    const float4 a = own0 ? __ldg(p + 4 * (long long)(ly0 * packed_w + x0)) : z;
+    const float4 b = own0 ? __ldg(p + 4 * (long long)(ly0 * packed_w + x1)) : z;
+    const float4 c = own1 ? __ldg(p + 4 * (long long)(ly1 * packed_w + x0)) : z;
+    const float4 d = own1 ? __ldg(p + 4 * (long long)(ly1 * packed_w + x1)) : z;
+    const float gx = 1.0f - fx, gy = 1.0f - fy;
     reinterpret_cast<float4*>(out)[k] =
-        make_float4(blend(a.x, b.x, c.x, d.x, gx, t.fx, gy, t.fy),
-                    blend(a.y, b.y, c.y, d.y, gx, t.fx, gy, t.fy),
-                    blend(a.z, b.z, c.z, d.z, gx, t.fx, gy, t.fy),
-                    blend(a.w, b.w, c.w, d.w, gx, t.fx, gy, t.fy));
+        make_float4(blend(a.x, b.x, c.x, d.x, gx, fx, gy, fy),
+                    blend(a.y, b.y, c.y, d.y, gx, fx, gy, fy),
+                    blend(a.z, b.z, c.z, d.z, gx, fx, gy, fy),
+                    blend(a.w, b.w, c.w, d.w, gx, fx, gy, fy));
 }
 
 __global__ void halton_kernel(const int* __restrict__ idx, const int* __restrict__ base,
@@ -1239,8 +1412,7 @@ int shade_grid(int variant, int* blocks_out, int* sms_out) {
     int sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
-    const void* fn = variant == 0 ? (const void*)shade_hit_kernel
-                                  : (const void*)TEX_KERNELS[variant];
+    const void* fn = shade_fn(variant);
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, SHADE_BLOCK, 0);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
@@ -1268,17 +1440,19 @@ extern "C" int mrt_sample_start(void* const* lane, void* const* frame, const voi
 // lists of n int32 (step s reads list s % 2 and writes list (s + 1) % 2);
 // counters: 2 int32 per step slot, zeroed at the sample's start; occluded:
 // the previous step's any-hit result (read from step 1 on). variant: bit 0
-// texture maps, 1 mipmaps, 2 a debug view (0: the untextured K7); maps:
-// _maps_ptrs's pointers (read by the textured and debug instantiations);
-// any_map: bit m set where some resource has map m.
+// texture maps, 1 mipmaps, 2 a debug view, 3 the lane-row form, 4 its
+// per-lane taps (0: the untextured K7); maps: _maps_ptrs's pointers (read
+// by the textured and debug instantiations); any_map: bit m set where some
+// resource has map m; pos, n_rows: the lane-row form's map from lanes to
+// K13's rows and their count (ignored by the other instantiations).
 extern "C" int mrt_shade_hit(void* const* lane, void* const* frame, void* const* raw,
                              void* const* shadow, void* const* maps, const void* occluded,
                              void* lists, void* counters, int step, int n, int hbase, int n_lights,
                              int env_h, int env_w, int flags, int max_bounces, int variant,
                              int any_map, int debug_mode, int packed_w, int texel_w, float width,
-                             float height, void* stream) {
+                             float height, const void* pos, int n_rows, void* stream) {
     if (n <= 0) return 0;
-    if (variant < 0 || variant >= N_VARIANTS || (variant != 0 && TEX_KERNELS[variant] == nullptr))
+    if (shade_fn(variant) == nullptr || (variant >= ROWS_FIRST && pos == nullptr))
         return (int)cudaErrorInvalidValue;
     int grid = 0, sms = 0;
     int rc = shade_grid(variant, &grid, &sms);
@@ -1297,12 +1471,18 @@ extern "C" int mrt_shade_hit(void* const* lane, void* const* frame, void* const*
             unpack<Lane>(lane), unpack<Frame>(frame), unpack<Raw>(raw), unpack<ShadowOut>(shadow),
             (const bool*)occluded, in, out, c, c + C_SLOT, n, hbase, n_lights, env_h, env_w, flags,
             max_bounces);
-    } else {
+    } else if (variant < ROWS_FIRST) {
         const MapsInfo info{any_map, debug_mode, packed_w, texel_w, width, height};
         TEX_KERNELS[variant]<<<grid, SHADE_BLOCK, 0, (cudaStream_t)stream>>>(
             unpack<Lane>(lane), unpack<Frame>(frame), unpack<Raw>(raw), unpack<ShadowOut>(shadow),
             (const bool*)occluded, in, out, c, c + C_SLOT, n, hbase, n_lights, env_h, env_w, flags,
             max_bounces, unpack<Maps>(maps), info);
+    } else {
+        const MapsInfo info{any_map, debug_mode, packed_w, texel_w, width, height};
+        ROWS_KERNELS[variant - ROWS_FIRST]<<<grid, SHADE_BLOCK, 0, (cudaStream_t)stream>>>(
+            unpack<Lane>(lane), unpack<Frame>(frame), unpack<Raw>(raw), unpack<ShadowOut>(shadow),
+            (const bool*)occluded, in, out, c, c + C_SLOT, n, hbase, n_lights, env_h, env_w, flags,
+            max_bounces, unpack<Maps>(maps), info, (const int*)pos, n_rows);
     }
     return (int)cudaGetLastError();
 }
@@ -1331,29 +1511,41 @@ extern "C" int mrt_halton(const void* idx, const void* base, void* out, int n, i
     return (int)cudaGetLastError();
 }
 
-// K13 over n lanes: out_shade (n, 16) and/or out_motion (n, 18), either null
-// when not wanted; live null for every lane.
+// K13 over n lanes: the map (pos (n,), lane_of (n_rows,)) of the lanes
+// live (every lane when live is null), and the rows of the first n_rows of
+// them (n_rows: the live lanes, counted by the caller): out_shade
+// (n_rows, 16) and/or out_motion (n_rows, 18), either null when not wanted
+// (both are null where n_rows is 0: the map alone); counts: one int32 a
+// tile of GP_TILE lanes (scratch).
 extern "C" int mrt_gp_rows(const void* ids, const void* live, const void* g2l, const void* shade,
-                           const void* motion, void* out_shade, void* out_motion, int n,
-                           void* stream) {
-    const long long n_all =
-        (out_shade != nullptr ? 8LL * n : 0) + (out_motion != nullptr ? 9LL * n : 0);
-    if (n <= 0 || n_all == 0) return 0;
-    gp_rows_kernel<<<(unsigned)((n_all + BLOCK - 1) / BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
-        (const int*)ids, (const bool*)live, (const int*)g2l, (const float*)shade,
-        (const float*)motion, (float*)out_shade, (float*)out_motion, n);
+                           const void* motion, void* counts, void* pos, void* lane_of,
+                           void* out_shade, void* out_motion, int n, int n_rows, void* stream) {
+    if (n <= 0) return 0;
+    const unsigned tiles = (unsigned)((n + GP_TILE - 1) / GP_TILE);
+    if (live != nullptr) {
+        gp_rows_count_kernel<<<tiles, GP_THREADS, 0, (cudaStream_t)stream>>>(
+            (const bool*)live, (int*)counts, n);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    gp_rows_kernel<<<tiles, GP_THREADS, 0, (cudaStream_t)stream>>>(
+        (const bool*)live, (const int*)ids, (const int*)g2l, (const float*)shade,
+        (const float*)motion, (const int*)counts, (int*)pos, (int*)lane_of, (float*)out_shade,
+        (float*)out_motion, n, n_rows);
     return (int)cudaGetLastError();
 }
 
-// K14 over n lanes: rows (n, 16) psum'd shade rows, u/v (n,), the packed
-// rects (R, 4), this rank's band (band_h, packed_w, 16) from global row
-// band_lo; out (n, 16).
-extern "C" int mrt_banded_taps(const void* rows, const void* u, const void* v, const void* rects,
-                               const void* band, int band_lo, int band_h, int packed_w, void* out,
-                               int n, void* stream) {
+// K14 over n compacted rows: rows (n, 16) psum'd shade rows, lane_of (n,)
+// their lanes, u/v (P,) the lanes' barycentrics, the packed rects (R, 4),
+// this rank's band (band_h, packed_w, 16) from global row band_lo; out
+// (n, 16).
+extern "C" int mrt_banded_taps(const void* rows, const void* u, const void* v,
+                               const void* lane_of, const void* rects, const void* band,
+                               int band_lo, int band_h, int packed_w, void* out, int n,
+                               void* stream) {
     if (n <= 0) return 0;
     banded_taps_kernel<<<blocks(4 * n), BLOCK, 0, (cudaStream_t)stream>>>(
-        (const float*)rows, (const float*)u, (const float*)v, (const int*)rects,
-        (const float*)band, band_lo, band_h, packed_w, (float*)out, n);
+        (const float*)rows, (const float*)u, (const float*)v, (const int*)lane_of,
+        (const int*)rects, (const float*)band, band_lo, band_h, packed_w, (float*)out, n);
     return (int)cudaGetLastError();
 }

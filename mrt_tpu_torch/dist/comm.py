@@ -113,12 +113,22 @@ def psum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
 def psum_(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``psum`` in place: ``x`` (contiguous) becomes the sum and is returned.
     For buffers made once whose address a kernel was given (the gp step's
-    per-lane rows, ``kernels/wavefront.lane_rows``): no copy of tens of MB
-    per reduction."""
+    rows, ``kernels/wavefront.lane_rows``, whose sizes follow the live
+    lanes): no copy of tens of MB per reduction. Every rank must pass as
+    many elements; on the CPU (the tests' worlds) that is checked first, by
+    a reduction of two int64 that every rank can join, and a mismatch raises
+    on every rank where the reduction itself would hang or fail."""
     if axis.size == 1:
         return x
     if not x.is_contiguous():
         raise ValueError("psum_: the tensor must be contiguous")
+    if x.device.type == "cpu":
+        n = x.numel()
+        most = torch.tensor([n, -n], dtype=torch.int64)
+        dist.all_reduce(most, op=dist.ReduceOp.MAX, group=axis.group)
+        if int(most[0]) != n or -int(most[1]) != n:
+            raise ValueError(f"psum_: {n} elements on this rank, between {-int(most[1])} and "
+                             f"{int(most[0])} over the axis {axis.name!r}")
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=axis.group)
     return x
 

@@ -22,8 +22,8 @@ one, and raises if it is given another.
 Rank-side functions to launch, for the tests and ``chip_smoke.py``:
 ``drive`` renders frames with ``DistributedRenderer`` or
 ``GeometryShardedRenderer`` and returns what they check; ``on_mesh`` calls
-functions that take a mesh axis on per-rank inputs; ``run_jobs`` runs
-several such calls in one world.
+functions that take a mesh axis on per-rank inputs (``caught`` returns what
+such a call raised); ``run_jobs`` runs several such calls in one world.
 """
 
 from __future__ import annotations
@@ -119,7 +119,8 @@ def run_jobs(jobs) -> list:
 
 def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0, offsets=None,
           banded: bool = True, joints=(), save=None, restore=None, present: bool = False,
-          check_flat: bool = False, check_route: bool = False, device=None) -> dict:
+          check_flat: bool = False, check_route: bool = False, record_rows: bool = False,
+          device=None) -> dict:
     """Rank side: a ``DistributedRenderer`` (``kind`` "dp") or a
     ``GeometryShardedRenderer`` ("gp") over a ``comm.Mesh`` of ``shape`` on
     this rank's device; ``restore`` a checkpoint path to resume from; then
@@ -133,7 +134,10 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
     ``check_route`` ("gp"): then one more frame whose trace runs on the
     kernel route and on the plain route, compared bit for bit, with each
     launch of K13 and K14 held against its plain version
-    (``route_check.checked_route_frame``).
+    (``route_check.checked_route_frame``). ``record_rows`` ("gp"): each gp
+    step of the drawn frames recorded (``rows_psums``: its lanes, live
+    lanes, the count ``lane_rows`` was given, its row floats, whether it
+    has taps, and the elements of each ``comm.psum_`` it issued).
 
     Returns a dict: ``setup_s`` (the mesh's and the renderer's
     construction, and the restore), ``images`` (each frame's full
@@ -177,6 +181,9 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
     traverse2.reset_launches()
     refit.reset_launches()
     W.reset_launches()
+    unpatch = None
+    if record_rows:
+        out["rows_psums"], unpatch = _record_rows(W)
     img = None
     for k in range(frames):
         if k < len(joints) and joints[k] is not None:
@@ -199,6 +206,8 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
         plain = k1.tonemap_quantize_plain(img)
         out["present"] = u8.cpu().numpy()
         out["present_max_err"] = int((u8.int() - plain.int()).abs().max())
+    if unpatch is not None:
+        unpatch()
     sync()
     # the main path's launches: the checked frames below are not counted
     out["launches"] = dict(present=k1.launches, traverse2=traverse2.launches,
@@ -214,6 +223,36 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
 
         out["route_check"] = checked_route_frame(r)
     return out
+
+
+def _record_rows(W):
+    """Patch ``W.lane_rows`` and ``comm.psum_`` to record each gp step (see
+    ``drive``'s ``record_rows``). Returns the list they fill and a function
+    that puts the originals back."""
+    orig_rows, orig_psum = W.lane_rows, comm.psum_
+    steps, cur = [], []
+
+    def psum_(x, axis):
+        if cur:
+            cur[-1]["psums"].append(x.numel())
+        return orig_psum(x, axis)
+
+    def lane_rows(fr, st, hits, wv, n_live):
+        cols = 16 + 18 * W.needs_motion_rows(fr.settings, fr.statics)
+        taps = W.needs_lane_taps(fr.settings, fr.statics, fr.scene.atlas.band_lo is not None)
+        steps.append(dict(lanes=st.active.shape[0], live=int(st.active.sum()), n_live=n_live,
+                          cols=cols, taps=taps, psums=[]))
+        cur.append(steps[-1])
+        try:
+            return orig_rows(fr, st, hits, wv, n_live)
+        finally:
+            cur.pop()
+
+    def unpatch():
+        W.lane_rows, comm.psum_ = orig_rows, orig_psum
+
+    W.lane_rows, comm.psum_ = lane_rows, psum_
+    return steps, unpatch
 
 
 def _checked_flat_frame(r, traverse2) -> dict:
@@ -300,6 +339,16 @@ def _host(x):
     if isinstance(x, dict):
         return {k: _host(v) for k, v in x.items()}
     return x
+
+
+def caught(fn, *args):
+    """Rank side: ``("returned", fn(*args))``, or ``("raised", "ValueError",
+    its message)`` where it raised a ValueError (a refused argument): a call
+    a test expects to be refused on every rank, without ending the world."""
+    try:
+        return ("returned", fn(*args))
+    except ValueError as e:
+        return ("raised", type(e).__name__, str(e))
 
 
 def on_mesh(shape: dict, calls, device=None) -> dict:

@@ -11,32 +11,73 @@ import time
 import torch
 
 
-def _profiled_frame(fn) -> dict:
-    """torch.profiler's device events of one call of ``fn`` on the card and
-    their summed device ms, recorded in a second cycle after a traced
-    warm-up call (a session's first device events can go missing); an
-    empty record is returned as it is, for the caller to report."""
+# K13's two kernels and K14's, by the names the profiler gives them
+GP_KERNELS = ("gp_rows_count_kernel", "gp_rows_kernel", "banded_taps_kernel")
+# idle seconds around a profiled call: a short session with none can lose
+# its device events
+PROFILER_PAD_S = 0.05
+
+
+def _device_events(fn, reps: int = 1) -> list:
+    """torch.profiler's device events of ``reps`` calls of ``fn`` on the
+    card, recorded in a second cycle after a traced warm-up cycle (a
+    session's first device events can go missing), with idle time around
+    each cycle's calls."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     rec = []
     with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=lambda p: rec.append(p.events())) as prof:
         for _ in range(2):
-            fn()
+            time.sleep(PROFILER_PAD_S)
+            for _ in range(reps):
+                fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILER_PAD_S)
             prof.step()
-    ev = [e for e in (rec[0] if rec else []) if e.device_type == torch.autograd.DeviceType.CUDA]
-    return dict(device_events=len(ev), device_ms=sum(e.time_range.elapsed_us() for e in ev) / 1e3)
+    return [e for e in (rec[0] if rec else []) if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _by_kernel(ev: list) -> dict:
+    """The events of each of ``GP_KERNELS``: their count and summed ms."""
+    out = {}
+    for name in GP_KERNELS:
+        mine = [e for e in ev if name in e.name]
+        out[name] = dict(events=len(mine), ms=sum(e.time_range.elapsed_us() for e in mine) / 1e3)
+    return out
+
+
+def _profiled_frame(fn) -> dict:
+    """torch.profiler's device events of one call of ``fn`` on the card,
+    their summed device ms and K13's and K14's events among them
+    (``kernels``: count and ms by kernel name); an empty record is returned
+    as it is, for the caller to report."""
+    ev = _device_events(fn)
+    return dict(device_events=len(ev), device_ms=sum(e.time_range.elapsed_us() for e in ev) / 1e3,
+                kernels=_by_kernel(ev))
+
+
+def _profiled_ms(fn, reps: int = 5) -> float | None:
+    """The device ms of one call of ``fn`` (one wrapper call: K13's launches
+    or K14's) by torch.profiler, the mean over ``reps`` calls; None where
+    the profiler recorded none of their events."""
+    ev = [e for e in _device_events(fn, reps) if any(n in e.name for n in GP_KERNELS)]
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps if ev else None
 
 
 def differing(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Elements of two float32 tensors whose bits differ."""
+    """Elements of two float32 (or int32) tensors whose bits differ; every
+    element of the longer where their shapes differ."""
+    if a.shape != b.shape:
+        return max(a.numel(), b.numel())
     return int((a.view(torch.int32) != b.view(torch.int32)).sum())
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     """The largest |a - b| over the elements whose bits differ (inf where
     one of them is not finite); 0.0 for bit-equal tensors."""
+    if a.shape != b.shape:
+        return float("inf")
     same = a.view(torch.int32) == b.view(torch.int32)
     d = torch.where(same, 0.0, (a - b).abs().nan_to_num(float("inf")))
     return float(d.max()) if d.numel() else 0.0
@@ -47,16 +88,21 @@ def checked_route_frame(r) -> dict:
     routes on the same inputs: the kernel route (its wall), the kernel
     route again with each K13 (``gp_rows``) and K14 (``banded_taps``)
     launch held against its plain version on the same inputs right after
-    it ran (every element's bits and the largest difference, ``max_abs``;
-    the bound, ``utils/bounds.py``; CUDA-event ms of both, at the frame's
-    first launch of each over 5 more launches after it on the same inputs)
+    it ran (K13's position map, lane list and rows, K14's taps: every
+    element's bits and the largest difference, ``max_abs``; the step's
+    lanes and live lanes, whose ratio is its live share; the bound,
+    ``utils/bounds.py``; CUDA-event ms of both, at the frame's first launch
+    of each over 5 more launches after it on the same inputs, which hold
+    the wrapper's checks, and on the card the first launch's device ms by
+    torch.profiler over 5 calls, ``profiler_ms``)
     and the frame's first K7 launch (the lane-row form) run on copies of
     its state and Wave and held, every state field, against
     ``shade_hit_listed_plain`` with the same rows (each timed once after a
     warm-up run, beside ``bounds.k7_listed``), and the plain route
     (``trace_frame(..., plain=True)``; its wall); on the card each route
     once more under torch.profiler (device events and device ms of one
-    frame). The frame goes on with the first kernel route's outputs.
+    frame; the kernel route's with K13's and K14's device events by
+    kernel). The frame goes on with the first kernel route's outputs.
     Returns the elements differing between the routes' outputs per field
     (``fields``, ``bit_equal``) and between the two kernel-route runs, the
     rays of each route, the walls and profiles, the K13 and K14 checks by
@@ -89,24 +135,35 @@ def checked_route_frame(r) -> dict:
         torch.cuda.synchronize()
         return y, ev[0].elapsed_time(ev[1]) / reps
 
-    def checked_rows(geom, ids, live, shade=True, motion=False, out=None):
-        reps = 1 if res["k13"] else 5
-        k, ms = timed(orig_rows, geom, ids, live, shade, motion, out, reps=reps)
-        p, plain_ms = timed(W.gp_rows_plain, geom, ids, live, shade, motion, reps=reps)
+    def checked_rows(geom, ids, live, shade=True, motion=False, n_live=None, out=None, pos=None,
+                     lane_of=None, counts=None):
+        first = not res["k13"]
+        args = (geom, ids, live, shade, motion, n_live, out, pos, lane_of, counts)
+        (k, kpos, klane), ms = timed(orig_rows, *args, reps=5 if first else 1)
+        (p, ppos, plane), plain_ms = timed(W.gp_rows_plain, geom, ids, live, shade, motion,
+                                           reps=5 if first else 1)
         b_ms, b_by = bounds.gp_rows(geom, ids, live, shade, motion)
-        res["k13"].append(dict(lanes=ids.shape[0], shade=shade, motion=motion,
-                               elements=k.numel(), differing=differing(k, p), max_abs=max_abs(k, p),
-                               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
-        return k
+        map_diff = differing(kpos, ppos) + differing(klane, plane)
+        res["k13"].append(dict(
+            lanes=ids.shape[0], live=plane.shape[0], shade=shade, motion=motion,
+            elements=k.numel(), differing=differing(k, p) + map_diff, map_differing=map_diff,
+            max_abs=max_abs(k, p), ms=ms, plain_ms=plain_ms,
+            profiler_ms=_profiled_ms(lambda: orig_rows(*args)) if first and cuda else None,
+            bound_ms=b_ms, bound_by=b_by))
+        return k, kpos, klane
 
-    def checked_taps(atlas, srow, u, v, out=None):
-        reps = 1 if res["k14"] else 5
-        k, ms = timed(orig_taps, atlas, srow, u, v, out, reps=reps)
-        p, plain_ms = timed(W.banded_taps_plain, atlas, srow, u, v, reps=reps)
-        b_ms, b_by = bounds.banded_taps(atlas, srow, u, v)
-        res["k14"].append(dict(lanes=srow.shape[0], band_rows=atlas.packed.shape[0],
-                               differing=differing(k, p), max_abs=max_abs(k, p), ms=ms,
-                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+    def checked_taps(atlas, srow, u, v, lane_of, out=None):
+        first = not res["k14"]
+        args = (atlas, srow, u, v, lane_of, out)
+        k, ms = timed(orig_taps, *args, reps=5 if first else 1)
+        p, plain_ms = timed(W.banded_taps_plain, atlas, srow, u, v, lane_of,
+                            reps=5 if first else 1)
+        b_ms, b_by = bounds.banded_taps(atlas, srow, u, v, lane_of)
+        res["k14"].append(dict(
+            lanes=u.shape[0], live=srow.shape[0], band_rows=atlas.packed.shape[0],
+            differing=differing(k, p), max_abs=max_abs(k, p), ms=ms, plain_ms=plain_ms,
+            profiler_ms=_profiled_ms(lambda: orig_taps(*args)) if first and cuda else None,
+            bound_ms=b_ms, bound_by=b_by))
         return k
 
     def checked_k7(fr, st, hits, sidx, wv, rows=None):

@@ -158,13 +158,13 @@ def load():
     lib.mrt_sample_start.argtypes = [p, p, p, i, i, i, f, f, p]
     lib.mrt_sample_start.restype = i
     lib.mrt_shade_hit.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i,
-                                  f, f, p]
+                                  f, f, p, i, p]
     lib.mrt_shade_hit.restype = i
     lib.mrt_resolve_shadow.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.mrt_resolve_shadow.restype = i
-    lib.mrt_gp_rows.argtypes = [p, p, p, p, p, p, p, i, p]
+    lib.mrt_gp_rows.argtypes = [p] * 10 + [i, i, p]
     lib.mrt_gp_rows.restype = i
-    lib.mrt_banded_taps.argtypes = [p, p, p, p, p, i, i, i, p, i, p]
+    lib.mrt_banded_taps.argtypes = [p] * 6 + [i, i, i, p, i, p]
     lib.mrt_banded_taps.restype = i
     lib.mrt_halton.argtypes = [p, p, p, i, i, p]
     lib.mrt_halton.restype = i

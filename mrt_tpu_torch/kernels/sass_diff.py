@@ -4,7 +4,7 @@ instructions from the newer one.
 
 Run on a machine with the CUDA toolkit:
 
-    python -m mrt_tpu_torch.kernels.sass_diff OLD.cu [NEW.cu]
+    python -m mrt_tpu_torch.kernels.sass_diff OLD.cu [NEW.cu] [--changed NAME ...]
 
 NEW.cu defaults to this checkout's ``csrc/traverse2.cu`` (for another
 source, name this checkout's, e.g. ``mrt_tpu_torch/csrc/wavefront.cu``).
@@ -16,7 +16,9 @@ blanks made one (cuobjdump pads every instruction to the module's widest). A
 kernel that
 gained template parameters is matched by appending ``false`` for each one
 (K2's ``<MASKED, FLOAT_SORT>`` to ``<MASKED, FLOAT_SORT, false>``). Prints one
-line per kernel of OLD.cu and exits 1 if any differs or is missing.
+line per kernel of OLD.cu and exits 1 if any differs or is missing, but for
+the kernels whose mangled names hold a ``--changed`` NAME (a change meant
+to alter them: their lines say so).
 
 ``tap_instructions`` counts the instructions of one K10 tap in the built
 library (``chip_smoke.py`` prints it beside K10's bound).
@@ -124,7 +126,15 @@ def twin(name: str, new: dict) -> str | None:
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+    argv = list(sys.argv[1:] if argv is None else argv)
+    changed = []
+    while "--changed" in argv:
+        k = argv.index("--changed")
+        if k + 1 >= len(argv):
+            print(__doc__, file=sys.stderr)
+            return 2
+        changed.append(argv.pop(k + 1))
+        argv.pop(k)
     if not argv or len(argv) > 2:
         print(__doc__, file=sys.stderr)
         return 2
@@ -135,8 +145,10 @@ def main(argv=None) -> int:
     for name, body in old.items():
         t = twin(name, new)
         same = t is not None and new[t] == body
-        bad += not same
-        print(f"{name} -> {t}: {len(body)} SASS lines, identical: {same}", flush=True)
+        meant = any(c in name for c in changed)
+        bad += not same and not meant
+        print(f"{name} -> {t}: {len(body)} SASS lines, identical: {same}"
+              + (" (meant to change)" if meant else ""), flush=True)
         if t is not None and not same:
             k = next((k for k, (a, b) in enumerate(zip(body, new[t])) if a != b),
                      min(len(body), len(new[t])))

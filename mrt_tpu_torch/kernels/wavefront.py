@@ -57,16 +57,21 @@ Under geometry sharding (the gp axis, ``dist/geometry.py``) a rank holds
 only its shard's shade and motion rows, and maybe one row band of the
 packed atlas. A collective cannot run inside K7, so each step is split at
 the psums of the JAX package's ``_tri_rows`` and banded taps
-(``lane_rows``): K13 ``gp_rows`` writes each shaded lane's rows where this
-rank owns the hit triangle (zeros elsewhere) into per-lane buffers, one
-psum over gp completes them; on a banded atlas with maps K14
-``banded_taps`` writes this rank's share of each lane's packed sample, and
-a second psum completes it; then K7's lane-row form (``k7_variant`` bit 3,
-with bit 4 the per-lane taps) reads them at the lane's index. Their plain
-versions are the local half of ``_tri_rows`` (``gp_rows_plain``) and
-``assets/texture.sample_packed_banded`` (``banded_taps_plain``); the plain
-route keeps ``_tri_rows`` and ``sample_packed_across`` inside K7's plain
-body.
+(``lane_rows``). The step's rows cover only its live lanes, compacted in
+lane order: K13 ``gp_rows`` scans the live flags into each lane's position
+(``pos``, -1 where dead) and its inverse (``lane_of``), and writes each
+live lane's rows at its position where this rank owns the hit triangle
+(zeros elsewhere); one psum over gp of the ``n_live`` rows completes them.
+On a banded atlas with maps K14 ``banded_taps`` writes this rank's share
+of each live lane's packed sample at the same position, and a second psum
+completes it; then K7's lane-row form (``k7_variant`` bit 3, with bit 4
+the per-lane taps) reads them at ``pos[i]``. The flags are the same on
+every rank (gp replicates the rays), so the map is too, and every rank
+issues psums of the same sizes. Their plain versions are the local half of
+``_tri_rows`` over ``torch.cumsum``/``torch.nonzero``'s map
+(``gp_rows_plain``) and ``assets/texture.sample_packed_banded``
+(``banded_taps_plain``); the plain route keeps ``_tri_rows`` and
+``sample_packed_across`` inside K7's plain body.
 
 K7 has one instantiation per ``k7_variant`` (``K7_VARIANTS``): the
 untextured one, and with the scene's texture maps (the packed atlas's
@@ -96,6 +101,7 @@ from .traverse2 import _check
 
 STAGES = ("sample_start", "shade_hit", "resolve_shadow")
 GP_STAGES = ("gp_rows", "banded_taps")  # K13 and K14, geometry sharding's
+GP_TILE = 1024  # K13's lanes a block (csrc/wavefront.cu:GP_TILE)
 launches = dict.fromkeys(STAGES + GP_STAGES, 0)  # kernel launches in this process, by stage
 # K7's instantiations (csrc/wavefront.cu:TEX_KERNELS) by k7_variant, and
 # their launches in this process
@@ -144,15 +150,48 @@ class LaneState(NamedTuple):
 
 
 class LaneRows(NamedTuple):
-    """One gp step's per-lane rows (``lane_rows``), each complete on every
-    rank after its psum: lane i's hit triangle's shade row, its motion row
+    """One gp step's rows of its n live lanes (``lane_rows``), compacted in
+    lane order and each complete on every rank after its psum: row
+    ``pos[i]`` holds live lane i's hit triangle's shade row, its motion row
     where the frame needs one (``needs_motion_rows``) and, on a banded
-    atlas with maps, its packed sample (``needs_lane_taps``); rows of lanes
-    that are not shaded are zeros."""
+    atlas with maps, its packed sample (``needs_lane_taps``); rows of live
+    lanes without a hit are zeros, dead lanes have none (``at_lanes``
+    reads them per lane)."""
 
-    shade: torch.Tensor  # (P,16) f32
-    motion: torch.Tensor | None = None  # (P,18) f32
-    taps: torch.Tensor | None = None  # (P,16) f32
+    shade: torch.Tensor  # (n,16) f32
+    motion: torch.Tensor | None = None  # (n,18) f32
+    taps: torch.Tensor | None = None  # (n,16) f32
+    pos: torch.Tensor | None = None  # (P,) int32: each lane's row, -1 where dead
+    lane_of: torch.Tensor | None = None  # (n,) int32: each row's lane
+
+
+def at_lanes(rows: LaneRows) -> LaneRows:
+    """``rows`` read at each lane's position: (P, cols) rows, zeros for a
+    lane without one (dead)."""
+    has = (rows.pos >= 0)[:, None]
+    idx = rows.pos.clamp_min(0).long()
+
+    def at(t):
+        if t is None:
+            return None
+        if t.shape[0] == 0:
+            return t.new_zeros((idx.shape[0], t.shape[1]))
+        return torch.where(has, t[idx], 0.0)
+
+    return LaneRows(at(rows.shade), at(rows.motion), at(rows.taps), rows.pos)
+
+
+class LaneBuffers(NamedTuple):
+    """A ``trace_pixels`` call's buffers of the gp steps' rows on the card
+    (``make_wave``), made once for P lanes: each step uses their first
+    n_live rows, so the kernels' pointers stay fixed."""
+
+    flat: torch.Tensor  # (P * (16 + 18 * motion),) f32: K13's n shade rows, then n motion rows
+    motion: bool  # whether the frame needs the motion rows
+    taps: torch.Tensor | None  # (P,16) f32: K14's (banded atlas with maps), else None
+    pos: torch.Tensor  # (P,) int32
+    lane_of: torch.Tensor  # (P,) int32
+    counts: torch.Tensor  # (tiles,) int32: K13's live lanes per tile of GP_TILE lanes
 
 
 GBUFFER_FIELDS = ("diffuse_albedo", "specular_albedo", "normal", "roughness", "wrote_gb")
@@ -308,11 +347,9 @@ class WaveBuffers:
     shadow_ptrs: object
     state: LaneState | None = None
     state_ptrs: object = None
-    # geometry sharding: the per-lane rows K13 writes and one psum completes,
-    # one flat buffer (the shade rows, then the motion rows), and the
-    # per-lane taps of K14; ``lane`` views them (None off gp)
-    lane_flat: torch.Tensor | None = None
-    lane: LaneRows | None = None
+    # geometry sharding: the buffers of K13's and K14's compacted rows
+    # (None off gp)
+    lane: LaneBuffers | None = None
 
     @property
     def max_steps(self) -> int:
@@ -350,18 +387,20 @@ def make_wave(fr: Frame, max_steps: int) -> Wave:
                 torch.empty((P, 3), dtype=f32, device=dev),
                 torch.empty(P, dtype=f32, device=dev), torch.empty((P, 3), dtype=f32, device=dev),
                 torch.zeros(P, dtype=torch.bool, device=dev))
-    flat = lane = None
+    lane = None
     if fr.settings.geometry_axis:
         motion = needs_motion_rows(fr.settings, fr.statics)
-        flat = torch.zeros(P * (16 + 18 * motion), dtype=f32, device=dev)
         taps = None
         if needs_lane_taps(fr.settings, fr.statics, fr.scene.atlas.band_lo is not None):
             taps = torch.zeros((P, tex.PACKED_C), dtype=f32, device=dev)
-        lane = LaneRows(*split_rows(flat, P, True, motion), taps)
+        i32 = torch.int32
+        lane = LaneBuffers(torch.zeros(P * (16 + 18 * motion), dtype=f32, device=dev), motion,
+                           taps, torch.empty(P, dtype=i32, device=dev),
+                           torch.empty(P, dtype=i32, device=dev),
+                           torch.empty(-(-P // GP_TILE), dtype=i32, device=dev))
     buf = WaveBuffers(sh, torch.empty((2, P), dtype=torch.int32, device=dev),
                       torch.zeros(2 * (max_steps + 1), dtype=torch.int32, device=dev), fr,
-                      _frame_ptrs(fr, lane), _maps_ptrs(fr, lane), _ptrs(list(sh)),
-                      lane_flat=flat, lane=lane)
+                      _frame_ptrs(fr, lane), _maps_ptrs(fr, lane), _ptrs(list(sh)), lane=lane)
     return Wave(buf=buf)
 
 
@@ -402,9 +441,9 @@ def clone_wave(wv: Wave) -> Wave:
         sh = None if wv.shadow is None else Shadow(*(c(t) for t in wv.shadow))
         return Wave(sh, c(wv.occluded), c(wv.keep), wv.steps)
     sh = Shadow(*(t.clone() for t in b.shadow))
-    # the per-lane rows are K7's inputs, not written by it: shared
+    # the rows are K7's inputs, not written by it: shared
     nb = WaveBuffers(sh, b.lists.clone(), b.counters.clone(), b.frame, b.frame_ptrs, b.maps_ptrs,
-                     _ptrs(list(sh)), lane_flat=b.lane_flat, lane=b.lane)
+                     _ptrs(list(sh)), lane=b.lane)
     return Wave(None if wv.shadow is None else sh, c(wv.occluded), None, wv.steps, nb)
 
 
@@ -428,12 +467,12 @@ def _tri_rows(table: torch.Tensor, tri: torch.Tensor, geom) -> torch.Tensor:
     return comm.psum(rows, geom.axis)
 
 
-def split_rows(flat: torch.Tensor, P: int, shade: bool, motion: bool):
-    """(shade rows (P,16), motion rows (P,18)) viewing K13's flat output of
-    P lanes (the shade rows first), None for a part it does not hold."""
-    n = 16 * P if shade else 0
-    return (flat[:n].view(P, 16) if shade else None,
-            flat[n:].view(P, 18) if motion else None)
+def split_rows(flat: torch.Tensor, n: int, shade: bool, motion: bool):
+    """(shade rows (n,16), motion rows (n,18)) viewing K13's flat output of
+    n rows (the shade rows first), None for a part it does not hold."""
+    k = 16 * n if shade else 0
+    return (flat[:k].view(n, 16) if shade else None,
+            flat[k:].view(n, 18) if motion else None)
 
 
 def sample_packed_across(atlas: tex.TextureAtlas, resource: torch.Tensor, uv: torch.Tensor,
@@ -597,9 +636,12 @@ def shade_hit_plain(fr: Frame, st: LaneState, hits: T.Hits, sidx: int,
     the lanes ``st.active`` traced. Returns (the next state, the shadow
     rays); in a debug view the lanes retire at their first hit and the
     shadow rays are None (no any-hit traversal). ``rows``: a gp step's
-    per-lane rows (``lane_rows``; the lane-row form), else the hits' rows
-    are gathered here (``_tri_rows``, with its psums under gp)."""
+    rows (``lane_rows``; the lane-row form), read at each lane's position,
+    else the hits' rows are gathered here (``_tri_rows``, with its psums
+    under gp)."""
     settings, statics, scene, geom = fr.settings, fr.statics, fr.scene, fr.geom
+    if rows is not None:
+        rows = at_lanes(rows)
     P = st.active.shape[0]
     dev = st.active.device
     f32 = torch.float32
@@ -922,30 +964,39 @@ def resolve_shadow_listed_plain(st: LaneState, wv: Wave) -> LaneState:
 
 
 def gp_rows_plain(geom, ids: torch.Tensor, live: torch.Tensor | None, shade: bool = True,
-                  motion: bool = False) -> torch.Tensor:
-    """K13's plain version, the local half of ``_tri_rows``: per lane that
-    is ``live`` (every lane when None) with a hit (``ids`` >= 0, global
-    triangle ids) on a triangle this rank's shard holds (``geom.g2l``),
-    its shade row and/or motion row from the shard's tables, zeros for
-    every other lane. Returns them flat, the (P,16) shade rows first, then
-    the (P,18) motion rows (``split_rows`` views them), for one psum."""
-    own = ids >= 0
-    if live is not None:
-        own = own & live
-    loc = torch.where(own, geom.g2l[ids.clamp_min(0).long()], -1).long()
+                  motion: bool = False):
+    """K13's plain version, the local half of ``_tri_rows`` over the lanes
+    that are ``live`` (every lane when None), compacted in lane order: each
+    lane's position ``pos`` (the live lanes before it, from
+    ``torch.cumsum``; -1 where dead) and its inverse ``lane_of``
+    (``torch.nonzero``), and per live lane with a hit (``ids`` >= 0, global
+    triangle ids) on a triangle this rank's shard holds (``geom.g2l``) its
+    shade row and/or motion row from the shard's tables at its position,
+    zeros for the other live lanes. Returns (rows, pos, lane_of): the rows
+    flat, the (n,16) shade rows first, then the (n,18) motion rows
+    (``split_rows`` views them), for one psum; pos (P,) and lane_of (n,)
+    int32."""
+    if live is None:
+        live = torch.ones(ids.shape[0], dtype=torch.bool, device=ids.device)
+    pos = torch.where(live, torch.cumsum(live, 0, dtype=torch.int32) - 1, -1).to(torch.int32)
+    lane_of = torch.nonzero(live).squeeze(1).to(torch.int32)
+    idl = ids[lane_of.long()]
+    loc = torch.where(idl >= 0, geom.g2l[idl.clamp_min(0).long()], -1).long()
     mine = (loc >= 0)[:, None]
     parts = [torch.where(mine, table[loc.clamp_min(0)], 0.0).reshape(-1)
              for table, on in ((geom.shade_rows, shade), (geom.motion_rows, motion)) if on]
-    return torch.cat(parts)
+    return torch.cat(parts), pos, lane_of
 
 
 def banded_taps_plain(atlas: tex.TextureAtlas, srow: torch.Tensor, u: torch.Tensor,
-                      v: torch.Tensor) -> torch.Tensor:
-    """K14's plain version: this rank's share of each lane's packed sample
-    on a gp-banded ``atlas`` (``tex.sample_packed_banded``), at the texture
-    coordinate of its (P,16) shade rows ``srow`` and barycentrics ``u``,
-    ``v``, as ``shade_hit_plain`` makes them. (P,16) f32."""
-    u_b1, v_b1 = u[:, None], v[:, None]
+                      v: torch.Tensor, lane_of: torch.Tensor) -> torch.Tensor:
+    """K14's plain version: this rank's share of the packed sample of each
+    of K13's n rows on a gp-banded ``atlas`` (``tex.sample_packed_banded``),
+    at the texture coordinate of its (n,16) shade row ``srow`` and its
+    lane's (``lane_of``, (n,)) barycentrics ``u``, ``v`` ((P,) each), as
+    ``shade_hit_plain`` makes them. (n,16) f32."""
+    idx = lane_of.long()
+    u_b1, v_b1 = u[idx][:, None], v[idx][:, None]
     w_b1 = 1.0 - u_b1 - v_b1
     return tex.sample_packed_banded(atlas, srow[:, 15].to(torch.int32),
                                     _tex_coord(srow, u_b1, v_b1, w_b1))
@@ -987,23 +1038,25 @@ def _lane_ptrs(st: LaneState):
     return _ptrs([getattr(st, k) for k in LaneState._fields])
 
 
-def _frame_ptrs(fr: Frame, lane: LaneRows | None = None):
-    """The kernels' ``Frame``; with a gp step's per-lane rows ``lane`` (K7's
-    lane-row form) their shade rows stand where the table's stood."""
+def _frame_ptrs(fr: Frame, lane: LaneBuffers | None = None):
+    """The kernels' ``Frame``; with the gp steps' row buffers ``lane`` (K7's
+    lane-row form) K13's shade rows stand where the table's stood."""
     scene, geom = fr.scene, fr.geom
-    shade = geom.shade_rows if lane is None else lane.shade
+    shade = geom.shade_rows if lane is None else lane.flat
     return _ptrs([fr.pixel_x, fr.pixel_y, fr.offsets, fr.camera, fr.lights, shade,
                   geom.mat_rows, fr.step_bases, scene.env_map,
                   scene.env_intensity])
 
 
-def _maps_ptrs(fr: Frame, lane: LaneRows | None = None):
-    """K7's ``Maps``; with ``lane`` its motion rows and taps (where it has
-    them) stand where the motion table and the packed atlas stood."""
+def _maps_ptrs(fr: Frame, lane: LaneBuffers | None = None):
+    """K7's ``Maps``; with ``lane`` K14's taps (where it has them) stand
+    where the packed atlas stood, and the motion rows, which follow a
+    step's shade rows in ``lane.flat``, are addressed by the lane-row form
+    itself (null here)."""
     atlas = fr.scene.atlas
     packed, motion = atlas.packed, fr.geom.motion_rows
     if lane is not None:
-        motion = lane.motion
+        motion = None
         if lane.taps is not None:
             packed = lane.taps
     return _ptrs([packed, atlas.packed_rects, atlas.texels, atlas.rects, atlas.mip_rects,
@@ -1101,90 +1154,121 @@ def _stream(dev):
 
 
 def gp_rows(geom, ids: torch.Tensor, live: torch.Tensor | None, shade: bool = True,
-            motion: bool = False, out: torch.Tensor | None = None) -> torch.Tensor:
-    """Each lane's rows from this rank's shard (see ``gp_rows_plain``),
-    flat: the shade rows, then the motion rows. CPU tensors take the plain
-    version; CUDA tensors launch K13, into ``out`` where given (a buffer of
-    the right size, written whole)."""
+            motion: bool = False, n_live: int | None = None, out: torch.Tensor | None = None,
+            pos: torch.Tensor | None = None, lane_of: torch.Tensor | None = None,
+            counts: torch.Tensor | None = None):
+    """The live lanes' map and rows from this rank's shard (see
+    ``gp_rows_plain``): (rows, pos, lane_of), the rows flat, the shade rows
+    then the motion rows of the ``n_live`` live lanes (the caller's count of
+    ``live``; every lane when ``live`` is None). CPU tensors take the plain
+    version, and raise where ``n_live`` is not its count; CUDA tensors
+    launch K13, into ``out``, ``pos``, ``lane_of`` (at least ``n_live``
+    long; its first ``n_live`` returned) and its scratch ``counts`` (a
+    ``GP_TILE``-lane tile each) where given."""
+    P = ids.shape[0]
+    if live is None:
+        n_live = P if n_live is None else n_live
+    if n_live is None:
+        raise ValueError("gp_rows: the live lanes' count is needed (n_live)")
     if ids.device.type == "cpu":
-        return gp_rows_plain(geom, ids, live, shade, motion)
+        res = gp_rows_plain(geom, ids, live, shade, motion)
+        if res[2].shape[0] != n_live:
+            raise ValueError(f"gp_rows: {res[2].shape[0]} live lanes, the caller counted {n_live}")
+        return res
     what = "gp_rows"
     dev = ids.device
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
-    P = ids.shape[0]
     _check(what, "ids", ids, torch.int32, (P,), dev)
     if live is not None:
         _check(what, "live", live, torch.bool, (P,), dev)
+    if not 0 <= n_live <= P:
+        raise ValueError(f"{what}: {n_live} live lanes of {P}")
     g2l = geom.g2l
     if g2l is None:
         raise ValueError(f"{what}: the geometry is not a shard's (no g2l)")
     _check(what, "g2l", g2l, torch.int32, (g2l.shape[0],), dev)
     n_local = geom.shade_rows.shape[0]
     tables = []
-    if shade:
-        tables.append(("shade_rows", geom.shade_rows, 16))
-    if motion:
-        tables.append(("motion_rows", geom.motion_rows, 18))
+    if shade:  # read as float4
+        tables.append(("shade_rows", geom.shade_rows, 16, 16))
+    if motion:  # read as float2
+        tables.append(("motion_rows", geom.motion_rows, 18, 8))
     if not tables:
         raise ValueError(f"{what}: neither shade nor motion rows asked for")
-    for name, t, cols in tables:  # read as float2
+    for name, t, cols, align in tables:
         _check(what, name, t, torch.float32, (n_local, cols), dev)
-        if t.data_ptr() % 8:
-            raise ValueError(f"{what}: {name} must be 8-byte aligned")
-    n = P * sum(cols for _, _, cols in tables)
-    if out is None:
-        out = torch.empty(n, dtype=torch.float32, device=dev)
+        if t.data_ptr() % align:
+            raise ValueError(f"{what}: {name} must be {align}-byte aligned")
+    n = n_live * sum(cols for _, _, cols, _ in tables)
+    i32 = torch.int32
+    tiles = -(-P // GP_TILE)
+    out = torch.empty(n, dtype=torch.float32, device=dev) if out is None else out
+    pos = torch.empty(P, dtype=i32, device=dev) if pos is None else pos
+    lane_of = torch.empty(P, dtype=i32, device=dev) if lane_of is None else lane_of
+    counts = torch.empty(tiles, dtype=i32, device=dev) if counts is None else counts
     _check(what, "out", out, torch.float32, (n,), dev)
+    _check(what, "pos", pos, i32, (P,), dev)
+    if lane_of.shape[0] < n_live:
+        raise ValueError(f"{what}: lane_of holds {lane_of.shape[0]} lanes, not {n_live}")
+    _check(what, "lane_of", lane_of, i32, (lane_of.shape[0],), dev)
+    _check(what, "counts", counts, i32, (counts.shape[0],), dev)
+    if counts.shape[0] < tiles:
+        raise ValueError(f"{what}: counts holds {counts.shape[0]} tiles, not {tiles}")
+    if out.data_ptr() % 16:  # the shade rows written as float4
+        raise ValueError(f"{what}: out must be 16-byte aligned")
     if P == 0:
-        return out
+        return out, pos, lane_of[:0]
     from . import build
 
     lib = build.load()
-    so, mo = split_rows(out, P, shade, motion)
+    so, mo = split_rows(out, n_live, shade, motion)
     rc = lib.mrt_gp_rows(_ptr(ids), _ptr(live), _ptr(g2l), _ptr(geom.shade_rows),
-                         _ptr(geom.motion_rows), _ptr(so), _ptr(mo), P, _stream(dev))
+                         _ptr(geom.motion_rows), _ptr(counts), _ptr(pos), _ptr(lane_of),
+                         _ptr(so), _ptr(mo), P, n_live, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     launches["gp_rows"] += 1
-    return out
+    return out, pos, lane_of[:n_live]
 
 
 def banded_taps(atlas: tex.TextureAtlas, srow: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                out: torch.Tensor | None = None) -> torch.Tensor:
-    """This rank's share of each lane's packed sample on a banded atlas
-    (see ``banded_taps_plain``). CPU tensors take the plain version; CUDA
-    tensors launch K14, into ``out`` where given."""
+                lane_of: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """This rank's share of the packed sample of each of K13's rows on a
+    banded atlas (see ``banded_taps_plain``). CPU tensors take the plain
+    version; CUDA tensors launch K14, into ``out`` where given."""
     if srow.device.type == "cpu":
-        return banded_taps_plain(atlas, srow, u, v)
+        return banded_taps_plain(atlas, srow, u, v, lane_of)
     what = "banded_taps"
     dev = srow.device
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
     if atlas.band_lo is None:
         raise ValueError(f"{what}: the atlas is not banded")
-    P = srow.shape[0]
-    _check(what, "srow", srow, torch.float32, (P, 16), dev)
+    n = srow.shape[0]
+    P = u.shape[0]
+    _check(what, "srow", srow, torch.float32, (n, 16), dev)
     _check(what, "u", u, torch.float32, (P,), dev)
     _check(what, "v", v, torch.float32, (P,), dev)
+    _check(what, "lane_of", lane_of, torch.int32, (n,), dev)
     band, rects = atlas.packed, atlas.packed_rects
     _check(what, "atlas.packed", band, torch.float32, (band.shape[0], band.shape[1], tex.PACKED_C),
            dev)
     _check(what, "atlas.packed_rects", rects, torch.int32, (rects.shape[0], 4), dev)
     if out is None:
-        out = torch.empty((P, tex.PACKED_C), dtype=torch.float32, device=dev)
-    _check(what, "out", out, torch.float32, (P, tex.PACKED_C), dev)
+        out = torch.empty((n, tex.PACKED_C), dtype=torch.float32, device=dev)
+    _check(what, "out", out, torch.float32, (n, tex.PACKED_C), dev)
     for name, t in (("srow", srow), ("atlas.packed", band), ("atlas.packed_rects", rects),
                     ("out", out)):
         if t.data_ptr() % 16:  # read or written as float4 / int4
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
-    if P == 0:
+    if n == 0:
         return out
     from . import build
 
     lib = build.load()
-    rc = lib.mrt_banded_taps(_ptr(srow), _ptr(u), _ptr(v), _ptr(rects), _ptr(band),
-                             int(atlas.band_lo), band.shape[0], band.shape[1], _ptr(out), P,
+    rc = lib.mrt_banded_taps(_ptr(srow), _ptr(u), _ptr(v), _ptr(lane_of), _ptr(rects), _ptr(band),
+                             int(atlas.band_lo), band.shape[0], band.shape[1], _ptr(out), n,
                              _stream(dev))
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
@@ -1192,40 +1276,45 @@ def banded_taps(atlas: tex.TextureAtlas, srow: torch.Tensor, u: torch.Tensor, v:
     return out
 
 
-def lane_rows(fr: Frame, st: LaneState, hits: T.Hits, wv: Wave) -> LaneRows:
-    """One gp step's per-lane rows for K7's lane-row form, from the hits
-    combined over gp (``render/wavefront.combine_hits_across``): K13 on
-    this rank's shard for the lanes ``st.active`` with a hit, one psum over
-    gp of the shade and motion rows together (each element has one nonzero
+def lane_rows(fr: Frame, st: LaneState, hits: T.Hits, wv: Wave, n_live: int) -> LaneRows:
+    """One gp step's rows for K7's lane-row form, over the ``n_live`` lanes
+    ``st.active`` (the caller's count: the previous step's live-lane count,
+    or at a sample's first step the lanes it traces), from the hits
+    combined over gp (``render/wavefront.combine_hits_across``): K13 on this
+    rank's shard (the map and the rows), one psum over gp of the n_live
+    shade and motion rows together (each element has one nonzero
     contributor, so it equals the plain route's two psums bit for bit),
-    then on a banded atlas with maps K14 and a second psum. On the card
-    into ``wv``'s buffers (made once by ``make_wave``, the psums in place);
-    on the CPU through the plain versions, with the same psums. Every rank
-    issues the same collectives with the same shapes: the rays, and so the
-    lanes, are replicated over gp."""
+    then on a banded atlas with maps K14 over those rows and a second psum.
+    On the card into ``wv``'s buffers (made once by ``make_wave``, the psums
+    in place on their first n_live rows); on the CPU through the plain
+    versions, with the same psums. Every rank issues the same collectives
+    with the same sizes: the rays, and so the live lanes and their map, are
+    replicated over gp."""
     s, statics, geom = fr.settings, fr.statics, fr.geom
-    P = st.active.shape[0]
     motion = needs_motion_rows(s, statics)
-    b = wv.buf
-    flat = gp_rows(geom, hits.triangle, st.active, True, motion,
-                   out=None if b is None else b.lane_flat)
+    lb = None if wv.buf is None else wv.buf.lane
+    kw = {}
+    if lb is not None:
+        kw = dict(out=lb.flat[:n_live * (16 + 18 * motion)], pos=lb.pos, lane_of=lb.lane_of,
+                  counts=lb.counts)
+    flat, pos, lane_of = gp_rows(geom, hits.triangle, st.active, True, motion, n_live, **kw)
     comm.psum_(flat, geom.axis)
-    shade, mrow = split_rows(flat, P, True, motion)
+    shade, mrow = split_rows(flat, n_live, True, motion)
     taps = None
     if needs_lane_taps(s, statics, fr.scene.atlas.band_lo is not None):
-        taps = banded_taps(fr.scene.atlas, shade, hits.u, hits.v,
-                           out=None if b is None else b.lane.taps)
+        taps = banded_taps(fr.scene.atlas, shade, hits.u, hits.v, lane_of,
+                           out=None if lb is None else lb.taps[:n_live])
         comm.psum_(taps, geom.axis)
-    return LaneRows(shade, mrow, taps)
+    return LaneRows(shade, mrow, taps, pos, lane_of)
 
 
 def gp_motion_rows(geom, ids: torch.Tensor) -> torch.Tensor:
     """(P,18) motion rows of the global triangle ``ids`` (-1: none, zeros)
-    under geometry sharding: K13 (its plain version on the CPU) for every
+    under geometry sharding: K13 (its plain version on the CPU) over every
     lane, and a psum over gp (the depth and motion of sample 0's first
     hits)."""
-    flat = comm.psum_(gp_rows(geom, ids, None, shade=False, motion=True), geom.axis)
-    return flat.view(ids.shape[0], 18)
+    flat, _, _ = gp_rows(geom, ids, None, shade=False, motion=True)
+    return comm.psum_(flat, geom.axis).view(ids.shape[0], 18)
 
 
 def _hbase(fr: Frame, sidx: int) -> int:
@@ -1317,11 +1406,18 @@ def shade_hit(fr: Frame, st: LaneState, hits: traverse2.TraverseOut, sidx: int, 
     if bool(fr.settings.geometry_axis) != (rows is not None):
         raise ValueError(f"{what}: a gp step takes its per-lane rows (lane_rows), and only a gp "
                          "step does")
-    if rows is not None and any((a is None) != (c is None) or (a is not None
-                                                                and a.data_ptr() != c.data_ptr())
-                                for a, c in zip(rows, b.lane)):
-        raise ValueError(f"{what}: the per-lane rows are not the Wave's buffers (lane_rows with "
-                         "this Wave)")
+    n_rows = 0
+    if rows is not None:
+        lb, n_rows = b.lane, rows.shade.shape[0]
+        flat = lb.flat.data_ptr()
+        if not (rows.shade.data_ptr() == flat and rows.pos is not None
+                and rows.pos.data_ptr() == lb.pos.data_ptr()
+                and (rows.motion is not None) == lb.motion
+                and (rows.motion is None or rows.motion.data_ptr() == flat + 64 * n_rows)
+                and (rows.taps is None) == (lb.taps is None)
+                and (rows.taps is None or rows.taps.data_ptr() == lb.taps.data_ptr())):
+            raise ValueError(f"{what}: the rows are not the Wave's buffers (lane_rows with this "
+                             "Wave)")
     dev = b.lists.device
     P = b.lists.shape[1]
     s = wv.steps
@@ -1357,7 +1453,8 @@ def shade_hit(fr: Frame, st: LaneState, hits: traverse2.TraverseOut, sidx: int, 
                            env.shape[0], env.shape[1], _flags(fr, sidx), settings.max_bounces,
                            variant, _any_map_bits(fr.statics), int(settings.debug_mode),
                            atlas.packed.shape[1], atlas.width, float(settings.width),
-                           float(settings.height), _stream(dev))
+                           float(settings.height), _ptr(None if rows is None else rows.pos),
+                           n_rows, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     launches["shade_hit"] += 1

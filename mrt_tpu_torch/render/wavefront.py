@@ -26,10 +26,12 @@ the gp axis traces the same lanes against its own shard's flat table: the
 closest hits are combined by min-t (``combine_hits_across``), the shadow
 rays' occlusion by a max, and each hit's shade and motion rows, which only
 the shard that owns the triangle holds, by a sum, so every rank then shades
-identically. On the kernel route the rows (and a banded atlas's taps) are
-per-lane buffers that kernels K13 and K14 write and a psum completes, read
-by K7's lane-row form (``kernels/wavefront.lane_rows``); on the plain route
-K7's plain body gathers and sums them itself (``kernels/wavefront._tri_rows``).
+identically. On the kernel route the rows (and a banded atlas's taps) of a
+step's live lanes, compacted in lane order, are buffers that kernels K13
+and K14 write and a psum of the live lanes' rows completes, read by K7's
+lane-row form (``kernels/wavefront.lane_rows``); the live-lane count that
+sizes them is the one the loop reads to end it. On the plain route K7's
+plain body gathers and sums them itself (``kernels/wavefront._tri_rows``).
 
 Shadow rays are traced as their own batch right after they are made (the
 JAX package may defer them into the next bounce's closest-hit batch; that
@@ -149,9 +151,11 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
     kernels K6-K8 (the kernel route), K7 reading the closest-hit
     traversal's raw record; with ``plain`` (the checks' plain route) the
     plain stages, on the traversal's ``Hits``. Under geometry sharding the
-    closest hits are combined over gp first, and on the kernel route each
-    step's per-lane rows come from K13 and K14 with their psums
-    (``W.lane_rows``)."""
+    closest hits are combined over gp first, and on the kernel route the
+    rows of each step's live lanes come from K13 and K14 with their psums
+    (``W.lane_rows``), sized by the live-lane count the loop reads anyway
+    (the previous step's; at a sample's first step the lanes whose sample
+    count reaches it, read with the extra samples' largest count)."""
     T.check_supported(settings)
     gax = None
     if settings.geometry_axis:
@@ -193,15 +197,17 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
     rays_total = torch.zeros(P, dtype=torch.int32, device=dev)
     total = torch.full((P,), base_samples, dtype=torch.int32, device=dev)
     n_samples = base_samples
+    # the lanes live at each extra sample's first step (extra > k at sample base + k)
+    extra_live = []
     depth0 = motion0 = None
     st = None
     sidx = 0
     while sidx < n_samples:
         st = sample_start(fr, sidx, total, st)
         wv = W.new_sample(wv)
-        # a sample starts with a live lane (total > sidx somewhere); then the
-        # loop reads shade_hit's live-lane count: one host sync per iteration
-        live = P > 0
+        # a sample starts with its lanes with total > sidx (at least one); then
+        # the loop reads shade_hit's live-lane count: one host sync per iteration
+        live = P if sidx < base_samples else extra_live[sidx - base_samples]
         it = 0
         while it < max_iters and live:
             it += 1
@@ -216,7 +222,7 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
                 if gax is not None:
                     # K7 reads the combined record raw (a flat table's: no tri_base)
                     comb = combine_hits_across(traverse2.hits_of(hits), gax)
-                    rows = W.lane_rows(fr, st, comb, wv)
+                    rows = W.lane_rows(fr, st, comb, wv, live)
                     hits = hits._replace(t=comb.t, tri=comb.triangle, u=comb.u, v=comb.v)
             else:
                 hits = trav.closest_hit(bvh, rays, mask=st.active, **closest_kw)
@@ -230,7 +236,7 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
                 if gax is not None:
                     occluded = comm.pmax(occluded.to(torch.int32), gax) > 0
                 wv = wv._replace(occluded=occluded)
-            live = bool(n_live)
+            live = int(n_live)
         st = resolve_shadow(st, wv)
 
         if sidx == 0:
@@ -254,8 +260,12 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
                 t = torch.clamp((motion_mag - low) / (high - low), 0.0, 1.0)
                 extra = torch.round(t * max_extra).to(torch.int32).clamp(0, max_extra)
                 total = base_samples + extra
-                # the loop runs to the batch's largest count: one host sync
-                n_samples = min(settings.sample_stride, base_samples + int(extra.max()))
+                # the loop runs to the batch's largest count, and each extra
+                # sample starts with the lanes it reaches: one host sync
+                levels = torch.arange(max_extra, dtype=torch.int32, device=dev)
+                extra_live = (extra[None, :] > levels[:, None]).sum(1).tolist()
+                n_samples = min(settings.sample_stride,
+                                base_samples + sum(n > 0 for n in extra_live))
         total_color = total_color + st.accumulated
         rays_total = rays_total + st.rays
         sidx += 1

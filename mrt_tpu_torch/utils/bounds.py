@@ -32,9 +32,10 @@ rows, the tangent basis and the debug views' colours (``k7_work``). K7
 runs over a lane list and folds K8's add in (``k7_listed``; ``k7`` stays the
 bound of a full-width launch), and K8 runs once per sample over the last
 list (``k8`` of its lanes). Under geometry sharding, K13 and K14
-(``gp_rows``, ``banded_taps``) count bytes per lane and each distinct row
-or texel they gather once, and K7's lane-row form reads its rows and taps
-per lane (``k7_work(..., rows=)``).
+(``gp_rows``, ``banded_taps``) count bytes per live lane (K13 also the
+scan's flags and positions of every lane) and each distinct row or texel
+they gather once, and K7's lane-row form reads its rows and taps per lane
+(``k7_work(..., rows=)``).
 """
 
 from __future__ import annotations
@@ -499,38 +500,44 @@ def _texel_bytes(fr, st, hits, hit, res, sampled, mipmapped: bool, lane=None) ->
     return nbytes
 
 
-# K13 (gp_rows), per lane: its hit id (4 B) and live flag (1 B) in, its rows
-# out; each distinct triangle looked up reads its g2l entry (4 B), each
+# K13 (gp_rows): per lane its live flag (1 B) in and its position (4 B)
+# out; per live lane its hit id (4 B) in, its lane_of entry (4 B) and its
+# rows out; each distinct triangle looked up reads its g2l entry (4 B), each
 # distinct one this rank owns its rows (64 B shade, 72 B motion)
-K13_BYTES_LANE, K13_BYTES_LIVE, K13_BYTES_G2L = 4, 1, 4
-# K14 (banded_taps), per lane: the shade row's uvs and resource (the 32 B of
-# its last two float4), u and v (8 B) in, 64 B out; each distinct resource's
-# packed rect (16 B) and each distinct texel of this rank's band tapped
-# (64 B) once. Operations: the texture coordinate (9), the repeat addressing
-# (20) and the 16 channels' blends (9 each)
-K14_BYTES_LANE = 32 + 8 + 64
+K13_BYTES_LIVE, K13_BYTES_POS, K13_BYTES_ID, K13_BYTES_LANE_OF, K13_BYTES_G2L = 1, 4, 4, 4, 4
+# K14 (banded_taps), per row: the shade row's uvs and resource (the 32 B of
+# its last two float4), its lane (4 B), the lane's u and v (8 B) in, 64 B
+# out; each distinct resource's packed rect (16 B) and each distinct texel
+# of this rank's band tapped (64 B) once. Operations: the texture
+# coordinate (9), the repeat addressing (20) and the 16 channels' blends (9
+# each)
+K14_BYTES_LANE = 32 + 4 + 8 + 64
 K14_BYTES_RECT, K14_BYTES_TEXEL = 16, 64
 K14_OPS_LANE = 9 + 20 + 16 * 9
 
 
 def gp_rows(geom, ids, live, shade: bool = True, motion: bool = False) -> tuple[float, str]:
     """K13's bound for one call (the arguments of
-    ``kernels.wavefront.gp_rows``): bytes."""
+    ``kernels.wavefront.gp_rows``): bytes. The scan reads every lane's flag
+    (none when ``live`` is None: every lane live) and writes its position;
+    each live lane's id is read and its lane_of entry and rows written; each
+    distinct triangle looked up reads its g2l entry, each owned one its
+    rows, once."""
     P = ids.shape[0]
     cols = 16 * shade + 18 * motion
-    own = ids >= 0
-    if live is not None:
-        own = own & live
-    looked = ids[own].long().unique()
+    lanes = ids if live is None else ids[live]
+    n_live = lanes.shape[0]
+    looked = lanes[lanes >= 0].long().unique()
     owned = int((geom.g2l[looked] >= 0).sum())
-    nbytes = (P * (K13_BYTES_LANE + cols * 4) + (P * K13_BYTES_LIVE if live is not None else 0)
+    nbytes = ((P * K13_BYTES_LIVE if live is not None else 0) + P * K13_BYTES_POS
+              + n_live * (K13_BYTES_ID + K13_BYTES_LANE_OF + cols * 4)
               + looked.numel() * K13_BYTES_G2L + owned * cols * 4)
     return least_ms(0, nbytes)
 
 
-def banded_taps(atlas, srow, u, v) -> tuple[float, str]:
+def banded_taps(atlas, srow, u, v, lane_of) -> tuple[float, str]:
     """K14's bound for one call (the arguments of
-    ``kernels.wavefront.banded_taps``): its lanes, the distinct rects and
+    ``kernels.wavefront.banded_taps``): its rows, the distinct rects and
     the distinct texels of this rank's band that the taps reach."""
     import torch
 
@@ -539,7 +546,8 @@ def banded_taps(atlas, srow, u, v) -> tuple[float, str]:
 
     P = srow.shape[0]
     res = srow[:, 15].to(torch.int32).long()
-    u_b1, v_b1 = u[:, None], v[:, None]
+    idx = lane_of.long()
+    u_b1, v_b1 = u[idx][:, None], v[idx][:, None]
     uv = W._tex_coord(srow, u_b1, v_b1, 1.0 - u_b1 - v_b1)
     gx0, gx1, gy0, gy1, _, _ = tex.rect_taps(atlas.packed_rects[res], uv)
     hb, width = atlas.packed.shape[0], atlas.packed.shape[1]
@@ -578,8 +586,11 @@ def k7_work(fr, st, hits, shadow, n_listed: int | None = None, pending=None,
 
     from ..assets import texture as tex
     from ..core import types as T
+    from ..kernels import wavefront as W
 
     s, statics = fr.settings, fr.statics
+    if rows is not None:  # read per lane, as the plain body reads them
+        rows = W.at_lanes(rows)
     debug = s.debug_mode != T.DEBUG_MODE_NONE
     live = st.active
     hit = live & (hits.triangle >= 0)

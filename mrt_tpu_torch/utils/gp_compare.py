@@ -1,0 +1,181 @@
+"""K13 (``gp_rows``), K14 (``banded_taps``) and the gp=2 frame in this tree
+against another, on one card in one call.
+
+    python -m mrt_tpu_torch.utils.gp_compare build/parent
+
+The other tree is a checkout of the repository, such as the parent commit
+unpacked under ``build/`` with ``git archive HEAD~ | tar -x -C build/parent``.
+This file runs itself (``--measure``) from each tree in a process of its
+own, with that tree's package and ``chip_smoke.py`` first on the path, so
+that each tree builds and runs its own kernels:
+
+- ``kernels`` (the other tree, then this one): K13 and K14 on seeded inputs
+  at run B's 589,824 lanes, a shard of half of run B's 1,318,916 triangles
+  and the textured gp scene's packed atlas (whole, and the first of two
+  bands), at the live shares of ``SHARES`` (a sample's steps at run B),
+  each call's device ms by torch.profiler (the mean of ``REPS`` calls).
+  A tree whose K13 and K14 take every lane (no live-lane count) runs them
+  over every lane whatever the share; this tree's over the live lanes.
+- ``frames`` (the other tree, this, this, the other): a gp=2 world over
+  gloo on this one card (``dist.launch``), 3 frames each of run B's scene
+  and of the textured gp scene (``chip_smoke.gp_textured_scene``, banded):
+  each frame's wall between syncs and rays. The two ranks share the card:
+  not a multi-GPU figure.
+
+One JSON line per measurement and tree (``KERNELS``/``FRAMES``), then the
+card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+P = 589_824  # run B's lanes
+SHARES = (1.0, 0.736, 0.318, 0.03, 0.002)
+REPS = 10
+
+
+def _prof_ms(torch, fn, names) -> float | None:
+    """Device ms of one call of ``fn``: torch.profiler's events whose names
+    hold one of ``names``, over ``REPS`` calls recorded after a warm-up
+    cycle with idle time around each (None where none was recorded)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    rec = []
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: rec.append(p.events())) as prof:
+        for _ in range(2):
+            time.sleep(0.05)
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            prof.step()
+    ev = [e for e in (rec[0] if rec else []) if e.device_type == torch.autograd.DeviceType.CUDA
+          and any(n in e.name for n in names)]
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / REPS if ev else None
+
+
+def measure_kernels(tree: str) -> None:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from mrt_tpu_torch.assets import texture as tex
+    from mrt_tpu_torch.kernels import build
+    from mrt_tpu_torch.kernels import wavefront as W
+    from mrt_tpu_torch.render import wavefront as wf
+
+    build.build()
+    live_only = "n_live" in inspect.signature(W.gp_rows).parameters
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(0)
+    n_global, n_local = 1_318_916, 659_458
+    g2l = np.full(n_global, -1, np.int32)
+    g2l[rng.permutation(n_global)[:n_local]] = np.arange(n_local, dtype=np.int32)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=dev)
+
+    geom = wf.Geometry(None, None, None, None, None, None, rand(n_local, 16), rand(n_local, 18),
+                       None, g2l=torch.as_tensor(g2l, device=dev))
+    ids = torch.as_tensor(rng.integers(-1, n_global, P).astype(np.int32), device=dev)
+    rows = []
+    for share in SHARES:
+        live = torch.as_tensor(rng.random(P) < share, device=dev)
+        n = int(live.sum())
+        for motion in (False, True):
+            args = (geom, ids, live, True, motion) + ((n,) if live_only else ())
+            rows.append(dict(kernel="K13", share=share, live=n, motion=motion,
+                             ms=_prof_ms(torch, lambda a=args: W.gp_rows(*a), ("gp_rows",))))
+    sd, _ = cs.gp_textured_scene().compile(dev)
+    n_res = sd.atlas.packed_rects.shape[0]
+    u = torch.as_tensor(rng.random(P).astype(np.float32) * 0.5, device=dev)
+    v = torch.as_tensor(rng.random(P).astype(np.float32) * 0.5, device=dev)
+    for share in SHARES:
+        lane_of = np.flatnonzero(rng.random(P) < share).astype(np.int32)
+        n = lane_of.size if live_only else P
+        srow = rng.standard_normal((n, 16)).astype(np.float32)
+        srow[:, 9:15] = rng.random((n, 6)) * 3 - 1
+        srow[:, 15] = rng.integers(0, n_res, n)
+        s_t = torch.as_tensor(srow, device=dev)
+        extra = (torch.as_tensor(lane_of, device=dev),) if live_only else ()
+        for bands in (1, 2):
+            args = (tex.atlas_band(sd.atlas, bands, 0), s_t, u, v) + extra
+            rows.append(dict(kernel="K14", share=share, rows=n, bands=bands,
+                             ms=_prof_ms(torch, lambda a=args: W.banded_taps(*a),
+                                         ("banded_taps",))))
+    print("KERNELS", json.dumps(dict(tree=tree, live_only=live_only, rows=rows)), flush=True)
+
+
+def measure_frames(tree: str) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from mrt_tpu_torch import Renderer
+    from mrt_tpu_torch.dist import launch as L
+    from mrt_tpu_torch.utils import frame_profile as FP
+
+    dev = torch.device("cuda:0")
+    b = FP.RUNS["B"]
+    rb = FP.make_renderer("B", dev)
+    rt = Renderer(cs.gp_textured_scene(), b["width"], b["height"], device=dev)
+    FP.configure(rt)
+    jobs = []
+    for r, scene, banded in ((rb, FP.make_scene("B"), False),
+                             (rt, cs.gp_textured_scene(), True)):
+        r.two_level = False
+        r._allocate_state()
+        jobs.append((L.drive, ("gp", scene, r.settings(), {"gp": 2}, 3),
+                     dict(offsets=r.offsets.cpu().numpy(), banded=banded)))
+    del rb, rt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = L.launch(L.run_jobs, 2, jobs, backend="gloo")
+    print("FRAMES", json.dumps(dict(tree=tree, launch_s=time.perf_counter() - t0,
+                                    b=dict(walls=res[0][0]["walls"], rays=res[0][0]["rays"]),
+                                    textured=dict(walls=res[0][1]["walls"],
+                                                  rays=res[0][1]["rays"]))), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", nargs="?", help="the other tree's root")
+    ap.add_argument("--measure", choices=("kernels", "frames"), help=argparse.SUPPRESS)
+    a = ap.parse_args(argv)
+    if a.measure:
+        tree = os.getcwd()
+        here = os.path.dirname(os.path.abspath(__file__))
+        sys.path[:] = [tree] + [p for p in sys.path if os.path.abspath(p or ".") != here]
+        {"kernels": measure_kernels, "frames": measure_frames}[a.measure](tree)
+        return 0
+    if a.other is None:
+        ap.error("name the other tree")
+    other = os.path.abspath(a.other)
+    me = os.path.abspath(__file__)
+    bad = 0
+    for what, order in (("kernels", (other, HERE)), ("frames", (other, HERE, HERE, other))):
+        for cwd in order:
+            r = subprocess.run([sys.executable, me, "--measure", what], cwd=cwd,
+                               capture_output=True, text=True)
+            for line in r.stdout.splitlines():
+                if line.startswith(("KERNELS", "FRAMES")):
+                    print(line, flush=True)
+            if r.returncode:
+                bad += 1
+                print(f"{what} in {cwd}: exit {r.returncode}\n{r.stderr[-3000:]}", flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(json.dumps(dict(card=card)), flush=True)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

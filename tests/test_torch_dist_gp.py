@@ -212,12 +212,16 @@ def world(jax_side):
     tris = _random_tris()
     calls = [("gp", wf.combine_hits_across, hits),
              ("gp", wf.sample_packed_across, band_args),
-             ("gp", G.build_rank_shard, [tris + ("cpu",)] * WORLD)]
+             ("gp", G.build_rank_shard, [tris + ("cpu",)] * WORLD),
+             # psums in place of a size each rank shares, and of sizes that differ
+             ("gp", L.caught, [(comm.psum_, torch.ones(5))] * WORLD),
+             ("gp", L.caught, [(comm.psum_, torch.ones(10 + r)) for r in range(WORLD)])]
     jobs = [
         (L.on_mesh, ({"gp": 4}, calls), CPU),
         (L.drive, ("gp", _scene(), _settings(T), {"gp": 4}, 1), dict(offsets=OFFSETS, banded=False,
                                                                     check_flat=True,
-                                                                    check_route=True, **CPU)),
+                                                                    check_route=True,
+                                                                    record_rows=True, **CPU)),
         (L.drive, ("gp", _scene(True), _settings(T), {"gp": 4}, 1), dict(offsets=OFFSETS,
                                                                         banded=True, **CPU)),
         (L.drive, ("gp", _scene(), _settings(T), {"dp": 2, "gp": 2}, 1), dict(offsets=OFFSETS,
@@ -225,7 +229,7 @@ def world(jax_side):
         (L.drive, ("gp", _scene(), _settings(T), {"gp": 4}, 2),
          dict(offsets=jax_side["gsr_offsets"], **CPU)),
         (L.drive, ("gp", _scene(nmap=True), _settings(T), {"gp": 4}, 1),
-         dict(offsets=OFFSETS, banded=True, check_route=True, **CPU)),
+         dict(offsets=OFFSETS, banded=True, check_route=True, record_rows=True, **CPU)),
     ]
     res = L.launch(L.run_jobs, WORLD, jobs, **CPU)
     names = ("calls", "gp4", "gp4_banded", "dp_gp", "gsr", "gp4_nmap")
@@ -323,6 +327,38 @@ def test_sample_packed_banded_matches_mrt_tpu(world, jax_side):
     for r, out in enumerate(world["calls"]):
         np.testing.assert_allclose(out["results"][1], jax_side["banded"][r], atol=1e-6)
         np.testing.assert_array_equal(out["results"][1], whole)
+
+
+@pytest.mark.parametrize("job", ["gp4", "gp4_nmap"])
+def test_gp_rows_psums_carry_the_live_lanes(world, job):
+    """gp=4, untextured with the whole atlas ("gp4") and with a normal map
+    on the banded atlas ("gp4_nmap"): every gp step of the drawn frame
+    (``drive(record_rows=True)``) was given its live lanes' count, and its
+    psums carried n_live rows (n_live x 16 shade floats, x 34 with the
+    normal map's motion rows, then n_live x 16 taps on the banded atlas),
+    not one a lane; the first step has every lane live, later ones fewer;
+    every rank recorded the same sizes."""
+    recs = [x["rows_psums"] for x in world[job]]
+    assert all(r == recs[0] for r in recs[1:])
+    steps = recs[0]
+    assert len(steps) > 1 and steps[0]["live"] == steps[0]["lanes"] == SIZE * SIZE
+    for st in steps:
+        assert st["n_live"] == st["live"] > 0
+        assert st["cols"] == (34 if job == "gp4_nmap" else 16) and st["taps"] == (job == "gp4_nmap")
+        assert st["psums"] == [st["live"] * st["cols"]] + [st["live"] * 16] * st["taps"]
+    assert min(st["live"] for st in steps) < SIZE * SIZE
+
+
+def test_psum_sizes_must_agree_over_the_axis(world):
+    """``comm.psum_`` in the CPU world: of one size on every rank it sums in
+    place; of sizes that differ between ranks it raises ValueError on every
+    rank, naming the sizes, and the world goes on."""
+    for out in world["calls"]:
+        ok, bad = out["results"][3], out["results"][4]
+        assert ok[0] == "returned"
+        np.testing.assert_array_equal(ok[1], np.full(5, WORLD, np.float32))
+        assert bad[0] == "raised" and bad[1] == "ValueError"
+        assert "between 10 and 13" in bad[2]
 
 
 def _check_frame(results, single, jax_frame, single_rays, jax_rays, n_gp=WORLD):

@@ -124,9 +124,10 @@ never prints its last line):
      1920x1080 frame made from a seed (motion leaving the image, a depth
      jump, zero albedo, history lengths up to 32, K11 at history weights
      0.0 and 0.9 at 3840x2160) and on a synthetic 963x541 frame (no
-     multiple of K10's 32x8 and K12's 32x32 tiles: partial tiles, the
-     clamped halo); the whole denoised chain through the kernels against the plain
-     chain, and K1's bytes on all. A float field that is not bit-equal is
+     multiple of K10's 32x8 and K12's 256x16 tiles: partial tiles, the
+     clamped halo, output rows not 16-byte aligned); the whole denoised
+     chain through the kernels against the plain chain, and K1's bytes on
+     all. A float field that is not bit-equal is
      printed; beyond PRESENTER_REL_TOL relative RMSE it fails the run, as
      does any K1 byte that differs. Each kernel's CUDA-event ms over 5
      calls beside its plain version's and its bound (K10 also beside its
@@ -1763,8 +1764,9 @@ def check_presenter(torch, tag, inp, present, bounds, timed: bool = False,
     output) at each history weight, each against its plain version on the
     card on the same inputs, K12 also against the dense ``torch.mm``
     products over the same weights (``spatial.resize_dense``, the port's
-    resize before K12) within RESIZE_DENSE_TOL of the largest value, and
-    at a 64x downscale (hundreds of taps, staged in chunks) too; the
+    resize before K12) within RESIZE_DENSE_TOL of the largest value (the
+    path's forms asserted to take the strip form), and at a 64x downscale
+    (hundreds of taps, the 32x32 tiles staged in chunks) too; the
     denoised chain through the kernels (``svgf_filter``,
     ``temporal_upscale``) against the plain stages composed; K1's bytes.
     With ``timed``, each kernel's and plain version's CUDA-event ms over 5
@@ -1817,9 +1819,10 @@ def check_presenter(torch, tag, inp, present, bounds, timed: bool = False,
             filt, fvar, flum = p10
     denoised = p10
 
-    def check_resize(key, sources, method, clamp, size=(oh, ow), timed=timed):
+    def check_resize(key, sources, method, clamp, size=(oh, ow), timed=timed, strip=True):
         tables = (spatial.band_table(h, size[0], method, dev),
                   spatial.band_table(w, size[1], method, dev))
+        strip_form(PK, sources, tables, f"{tag}: {key}", strip)
         k12, p12 = PK.resize(sources, *tables, clamp), PK.resize_plain(sources, *tables, clamp)
         out[key] = presenter_fields(torch, ("output",), (k12,), (p12,))
         x = torch.cat([t.reshape(h, w, -1) for t in sources], dim=-1)
@@ -1849,7 +1852,7 @@ def check_presenter(torch, tag, inp, present, bounds, timed: bool = False,
     # a 64x downscale off the path: hundreds of taps, a tile's inputs staged
     # in chunks of rows and of columns
     check_resize("resize lanczos3 6ch downscale", (inp["color"], depth, motion), "lanczos3",
-                 False, (h // 64 + 1, w // 64 + 1), timed=False)
+                 False, (h // 64 + 1, w // 64 + 1), timed=False, strip=False)
     k1_bad = 0
     for chain, colour in (("temporal", inp["color"]), ("denoised", denoised)):
         up = check_resize(f"resize bilinear 6ch {chain}", (colour, depth, motion), "bilinear",
@@ -1965,7 +1968,8 @@ def profile_e(torch, FP, r, present, bounds, x4k, walls, sass_tap):
                                          "bilinear", False)):
         tables = (spatial.band_table(h, oh, method, r.device),
                   spatial.band_table(w, ow, method, r.device))
-        ms = device_ms(torch, lambda: PK.resize(sources, *tables, clamp), "resize_kernel", 5,
+        strip_form(PK, sources, tables, key)
+        ms = device_ms(torch, lambda: PK.resize(sources, *tables, clamp), "resize_strip_kernel", 5,
                        one_kernel=True)
         channels = sum(t.shape[2] if t.dim() == 3 else 1 for t in sources)
         out[key] = dict(ms=ms, bound=bounds.resize(h, w, oh, ow, channels,
@@ -2752,14 +2756,30 @@ def run_entry(torch, module, argv, W):
                      k6=list(rec["k6"]))
 
 
+def strip_form(PK, sources, tables, what: str, strip: bool = True) -> int:
+    """The output rows a tile of K12's strip form takes for ``sources``
+    resampled by ``tables`` (``PK.resize_strip_rows``). Raises unless the
+    shape takes the strip form (the path's two shapes), or with ``strip``
+    False the 32x32 tiles: so a K12 time is read under the kernel that ran."""
+    kr, kc = (t.weights.shape[1] for t in tables)
+    rt = PK.resize_strip_rows(*tables, [1 if s.dim() == 2 else s.shape[2] for s in sources], kr, kc)
+    if bool(rt) != strip:
+        form = {True: "the strip form", False: "the 32x32 tiles"}
+        raise AssertionError(f"{what}: K12 takes {form[bool(rt)]}, expected {form[strip]}")
+    return rt
+
+
 def check_spatial_resize(torch, tag, r) -> dict | None:
     """K12 at the shape renderer ``r``'s spatial present gives it (phase M's
     demo: a 0.67-scale render, whose first indices, tile spans and row
     chunks differ from run E's 2x): the Lanczos-3 of its accumulation with
     the clamp, against the plain version on the same inputs bit for bit
     and the dense products within RESIZE_DENSE_TOL of the largest value;
-    CUDA-event ms of both beside its bound. None where ``r`` presents
-    through another chain or at render size. Raises on a difference."""
+    CUDA-event ms of both and the strip kernel's torch.profiler device ms
+    (the wrapper's host work told apart) beside its bound, and the strip
+    form's output rows a tile. None where ``r`` presents through another
+    chain or at render size. Raises on a difference, and where the shape
+    does not take the strip form."""
     from mrt_tpu_torch.engine import renderer as R
     from mrt_tpu_torch.kernels import presenter as PK
     from mrt_tpu_torch.upscale import spatial
@@ -2771,6 +2791,7 @@ def check_spatial_resize(torch, tag, r) -> dict | None:
     x = r.accum.contiguous()
     tables = (spatial.band_table(h, oh, "lanczos3", x.device),
               spatial.band_table(w, ow, "lanczos3", x.device))
+    rt = strip_form(PK, (x,), tables, f"phase {tag}")
     k12, p12 = PK.resize((x,), *tables, True), PK.resize_plain((x,), *tables, True)
     fields = presenter_fields(torch, ("output",), (k12,), (p12,))
     ref = torch.clamp_min(spatial.resize_dense(x, oh, ow, "lanczos3"), 0.0)
@@ -2779,8 +2800,10 @@ def check_spatial_resize(torch, tag, r) -> dict | None:
     bound = bounds.resize(h, w, oh, ow, 3, kr, kc)
     out = dict(render=[w, h], output=[ow, oh], taps=[kr, kc], fields=fields,
                vs_dense=dense, ms=cuda_ms(lambda: PK.resize((x,), *tables, True), 5),
+               device_ms=device_ms(torch, lambda: PK.resize((x,), *tables, True),
+                                   "resize_strip_kernel", 5, one_kernel=True),
                plain_ms=cuda_ms(lambda: PK.resize_plain((x,), *tables, True), 5),
-               bound_ms=bound[0], bound_by=bound[1])
+               bound_ms=bound[0], bound_by=bound[1], strip_rows=rt)
     log(json.dumps(dict(phase="M", entry=tag, k12_resize_lanczos3=out)))
     if fields["output"]["differing"] or not dense <= RESIZE_DENSE_TOL:
         raise AssertionError(f"phase {tag}: K12 at {h}x{w} -> {oh}x{ow} disagrees with its plain "
@@ -2971,6 +2994,11 @@ def main() -> int:
                              f"{PK.ATROUS_STEPS}")
     sass_tap = {step: v["per_tap"] for step, v in k10_sass.items()}
     log(json.dumps(dict(k10_sass=k10_sass)))
+    # K12's strip form: the instructions of a window slot, per instantiation
+    k12_sass = sass_diff.slot_instructions(str(build.LIB))
+    if sorted(k12_sass) != ["K2C6", "K6C3"]:
+        raise AssertionError(f"K12's SASS: instantiations {sorted(k12_sass)}")
+    log(json.dumps(dict(k12_sass=k12_sass)))
 
     # --- 3. kernels against their plain versions ----------------------------------------
     check_halton(torch, H)
@@ -3200,7 +3228,8 @@ def main() -> int:
         sass_tap=sass_tap)}
     presenter_checks["synthetic"] = check_presenter(
         torch, "synthetic 1920x1080", synthetic_presenter_inputs(torch, dev), present, bounds)
-    # no multiple of K10's 32x8 and K12's 32x32 tiles: partial tiles, the clamped halo
+    # no multiple of K10's 32x8 and K12's 256x16 tiles: partial tiles, the clamped halo,
+    # K12's output rows not 16-byte aligned
     presenter_checks["synthetic odd"] = check_presenter(
         torch, "synthetic 963x541", synthetic_presenter_inputs(torch, dev, h=541, w=963), present,
         bounds)
@@ -3594,17 +3623,19 @@ def main() -> int:
     # E's last buffers (the bilinear on the denoised chain), with the dense
     # products' time (the port's resize before K12) and the largest
     # difference from them; the spatial form also checked at phase M's demo
-    # shape; each form's registers and spills (-Xptxas -v)
+    # shape; each form's registers and spills (-Xptxas -v; both forms are
+    # instantiations of the strip kernel, resize_strip_kernel<K, C0, C1, C2>)
     mode_counts = {f"E {m}": e_lines[m]["launches"]["resize"] for m in E_MODES}
     mode_counts["M demo"] = counts["M demo"]["resize"]
     if "k12" not in m_lines["M demo"]:
         raise AssertionError("phase M: K12 was not checked at the demo's shape")
     m_k12 = m_lines["M demo"]["k12"]
-    for form, key, timed, runs, profiled, args in (
+    for form, key, timed, runs, profiled, args, slot in (
             ("lanczos3, 3 channels, clamped", "resize lanczos3", "resize lanczos3 3ch clamped",
-             ("E spatial", "M demo"), "k12_resize_lanczos3_3ch", "ILi3ELi6ELi6E"),
+             ("E spatial", "M demo"), "k12_resize_lanczos3_3ch", "ILi6ELi3ELi0ELi0E", "K6C3"),
             ("bilinear, 6 channels", "resize bilinear", "resize bilinear 6ch denoised",
-             ("E temporal", "E denoised"), "k12_resize_bilinear_6ch", "ILi6ELi2ELi2E")):
+             ("E temporal", "E denoised"), "k12_resize_bilinear_6ch", "ILi2ELi3ELi1ELi2E",
+             "K2C6")):
         t = presenter_checks["E"]["times"][timed]
         fields = [d for c in presenter_checks.values() for k, v in c["fields"].items()
                   if k.startswith(key) for d in v.values()]
@@ -3613,6 +3644,9 @@ def main() -> int:
             fields += list(m_k12["fields"].values())
             at_m = dict(at_m_demo={k: v for k, v in m_k12.items() if k != "fields"},
                         not_bit_equal_m_demo=m_k12["fields"]["output"]["differing"])
+        regs = {k: v for k, v in build.ptxas.items() if f"resize_strip_kernel{args}" in k}
+        if len(regs) != 1:
+            raise AssertionError(f"K12 ({form}): -Xptxas -v reported {sorted(regs)}")
         kernels.append(dict(
             name=f"K12 resize ({form})", route="cuda", source="mrt_tpu_torch/csrc/presenter.cu",
             replaces="mrt_tpu/upscale/spatial.py:15" if form.startswith("lanczos3")
@@ -3622,7 +3656,7 @@ def main() -> int:
             max_abs_err=max([d.get("max_abs", 0.0) for d in fields] + [0.0]), ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], taps=t["taps"], dense_ms=t["dense_ms"], **at_m,
-            ptxas={k: v for k, v in build.ptxas.items() if f"resize_kernel{args}" in k},
+            ptxas=regs, sass=k12_sass[slot],
             library=t.get("library_call"), library_max_rel_err=t.get("library_max_rel_err"),
             times={k: v for k, v in presenter_checks["E"]["times"].items() if k.startswith(key)},
             vs_dense={run: {k: v for k, v in c["resize_vs_dense"].items() if k.startswith(key)}

@@ -17,19 +17,38 @@
 // ~40 f32 with a few dozen operations; K10 reads 25 taps of 9 f32 and
 // evaluates 50 expf and 50 divisions (skipped where a difference is 0);
 // K11 reads 6 + 4 x 4 f32 and writes 7; K12 reads each source value once
-// and writes each output value once, with at most K taps a value per axis.
+// and writes each output value once, with at most K taps a value per axis
+// (at run E's 2x upscale of 3 channels the 99.5 MB write is 80 % of its
+// bytes, and the taps, unfused under -fmad=false, ~56 f32 instructions an
+// output pixel, ~0.015 ms of the card's instruction rate at 4K).
 // Design: K9 and K11 a thread a pixel, every tap through the read-only
 // cache (__ldg), K11's history taps as one float4 each. K10 a block per
 // 32x8 output tile: the tile and a 2*step halo staged in shared memory as
 // nine planes (the edge clamp applied when staging), the 25 taps read
-// from there (one instantiation per step). K12 a block per 32x32 output
-// tile, a lane an output column, a warp four rows: the input pixels the
-// tile reads staged in shared memory (in chunks of rows and columns where
-// they do not fit), the horizontal sums from there into shared memory,
-// then the vertical taps from there, the tile's rows stored through shared
-// memory, coalesced; compiled for the path's two shapes (3 channels and
-// 6x6 taps, 6 channels and 2x2), the loops unrolled, and for any other at
-// run time.
+// from there (one instantiation per step). K12, for the path's two shapes
+// (the spatial chain's Lanczos-3 of 3 channels, 6 taps an axis; the
+// temporal chains' bilinear of colour, depth and motion, 2 taps), in its
+// strip form: a thread owns one output column of a 256-column tile and
+// every one of the tile's 16 output rows, in order. It sums each
+// staged input row's width taps once into a window of the last K rows held
+// in registers (the loop is unrolled K times so the window's names rotate
+// and nothing moves), and when that row is an output row's last tap it
+// sums the window's K rows into that output: no intermediate goes through
+// shared memory, the column's weights stay in registers for the tile, and
+// the height's tap loads are warp-uniform reads of the tile's row table.
+// Persistent blocks (as many as the SMs hold) walk the tiles with two
+// stage buffers: the next tile's inputs and row table are copied with
+// cp.async while this tile computes. Each output row of a warp leaves
+// through a double-buffered row in shared memory as float4 stores. So
+// the stores (0.031 ms alone at 4K on an H100, near the write's bound)
+// overlap the taps, and no barrier separates a tile's phases, which held a
+// block-per-tile form with both passes' taps read from shared memory to
+// 34 % of its bound. Any other shape (such as a 64x downscale, hundreds of
+// taps) takes that form: a block per 32x32 output tile, a lane an output
+// column, a warp four rows, the tile's input pixels staged in shared
+// memory in chunks of rows and columns where they do not fit, the
+// horizontal sums from there into shared memory, then the vertical taps
+// from there.
 //
 // The per-pixel bodies, and the bit rules they keep, are in presenter.cuh
 // (a host compiler builds them too, for the CPU tests).
@@ -92,18 +111,15 @@ __global__ void __launch_bounds__(256) temporal_resolve_kernel(
 
 unsigned blocks_for(long long n) { return (unsigned)((n + 255) / 256); }
 
-// K12 over one output tile; C_, KR_, KC_ the channels and the taps of a
-// row and of a column where compiled in (the path's two forms), else 0 and
-// given at run time
-template <int C_, int KR_, int KC_>
+// K12 over one output tile, for any shape the strip form is not compiled
+// for: C channels, kr taps a row and kc a column
 __global__ void __launch_bounds__(RESIZE_WARPS * 32) resize_kernel(
-    ResizeSrc src, int c_rt, int w, int oh, int ow, const int* __restrict__ row_first,
-    const float* __restrict__ row_w, int kr_rt, const int* __restrict__ col_first,
-    const float* __restrict__ col_w, int kc_rt, int rows_chunk, int cols_chunk, int clamp,
+    ResizeSrc src, int C, int w, int oh, int ow, const int* __restrict__ row_first,
+    const float* __restrict__ row_w, int kr, const int* __restrict__ col_first,
+    const float* __restrict__ col_w, int kc, int rows_chunk, int cols_chunk, int clamp,
     float* __restrict__ out) {
     constexpr int ROWS = RESIZE_TH / RESIZE_WARPS;  // output rows a warp takes
-    constexpr int NC = C_ ? C_ : RESIZE_MAX_C;  // the channels a thread holds sums for
-    const int C = C_ ? C_ : c_rt, kr = KR_ ? KR_ : kr_rt, kc = KC_ ? KC_ : kc_rt;
+    constexpr int NC = RESIZE_MAX_C;                 // the channels a thread holds sums for
     extern __shared__ float smem[];
     float* stage = smem;                                     // [rows_chunk][cols_chunk][C]
     float* sums = stage + rows_chunk * cols_chunk * C;      // [rows_chunk][C][RESIZE_TW]
@@ -112,11 +128,10 @@ __global__ void __launch_bounds__(RESIZE_WARPS * 32) resize_kernel(
     int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     int ox0 = blockIdx.x * RESIZE_TW, oy0 = blockIdx.y * RESIZE_TH;
     int ox = ox0 + lane;
-    // the input rows and columns the tile reads (first indices rise with the output's)
-    int r_lo = __ldg(row_first + oy0);
-    int r_hi = __ldg(row_first + min(oy0 + RESIZE_TH, oh) - 1) + kr;
-    int c_lo = __ldg(col_first + ox0);
-    int c_hi = __ldg(col_first + min(ox0 + RESIZE_TW, ow) - 1) + kc;
+    // the input rows and columns the tile reads
+    ResizeSpan rows = resize_span(row_first, oy0, min(oy0 + RESIZE_TH, oh), kr);
+    ResizeSpan cols = resize_span(col_first, ox0, min(ox0 + RESIZE_TW, ow), kc);
+    int r_lo = rows.lo, r_hi = rows.hi, c_lo = cols.lo, c_hi = cols.hi;
     int fc = ox < ow ? __ldg(col_first + ox) : c_lo;
     const float* wc = col_w + (long long)ox * kc;
     float acc[ROWS][NC];
@@ -134,15 +149,13 @@ __global__ void __launch_bounds__(RESIZE_WARPS * 32) resize_kernel(
                 for (int cc = lane; cc < nc; cc += 32)
                     resize_stage_px(src, w, r0 + rr, c0 + cc, stage + (rr * nc + cc) * C);
             __syncthreads();
-            int k0 = max(c0 - fc, 0), k1 = min(c0 + nc - fc, kc);
+            ResizeSpan taps = resize_chunk_taps(c0, nc, fc, kc);
+            int k0 = taps.lo, k1 = taps.hi;
             if (ox < ow && k0 < k1) {
                 for (int rr = warp; rr < nr; rr += RESIZE_WARPS) {
                     const float* x = stage + (rr * nc + fc + k0 - c0) * C;
-                    float* to = sums + rr * C * RESIZE_TW + lane;
-                    if (k1 - k0 == kc)  // every tap in this chunk (the path's case)
-                        resize_row_px(x, C, wc, 0, kc, to, RESIZE_TW);
-                    else
-                        resize_row_px(x, C, wc + k0, k0, k1 - k0, to, RESIZE_TW);
+                    resize_row_px(x, C, wc + k0, k0, k1 - k0, sums + rr * C * RESIZE_TW + lane,
+                                  RESIZE_TW);
                 }
             }
             __syncthreads();
@@ -154,26 +167,15 @@ __global__ void __launch_bounds__(RESIZE_WARPS * 32) resize_kernel(
             if (oy >= oh || ox >= ow) continue;
             int fr = __ldg(row_first + oy);
             const float* wr = row_w + (long long)oy * kr;
-            int k0 = max(r0 - fr, 0), k1 = min(r0 + nr - fr, kr);
+            ResizeSpan taps = resize_chunk_taps(r0, nr, fr, kr);
+            int k0 = taps.lo, k1 = taps.hi;
             const float* v = sums + (fr + k0 - r0) * C * RESIZE_TW + lane;
-            if (k1 - k0 == kr) {  // every tap in this chunk (the path's case)
+            for (int k = k0; k < k1; ++k) {
+                float wt = __ldg(wr + k);
 #pragma unroll
-                for (int k = 0; k < kr; ++k) {
-                    float wt = __ldg(wr + k);
-#pragma unroll
-                    for (int c = 0; c < NC; ++c)
-                        if (c < C)
-                            acc[i][c] = resize_tap(acc[i][c], v[(k * C + c) * RESIZE_TW], wt, k);
-                }
-            } else {
-                for (int k = k0; k < k1; ++k) {
-                    float wt = __ldg(wr + k);
-#pragma unroll
-                    for (int c = 0; c < NC; ++c)
-                        if (c < C)
-                            acc[i][c] = resize_tap(acc[i][c], v[((k - k0) * C + c) * RESIZE_TW],
-                                                   wt, k);
-                }
+                for (int c = 0; c < NC; ++c)
+                    if (c < C)
+                        acc[i][c] = resize_tap(acc[i][c], v[((k - k0) * C + c) * RESIZE_TW], wt, k);
             }
         }
         __syncthreads();
@@ -194,6 +196,102 @@ __global__ void __launch_bounds__(RESIZE_WARPS * 32) resize_kernel(
         float* o = out + ((long long)oy * ow + ox0) * C;
         for (int j = lane; j < n; j += 32) o[j] = buf[j];
         __syncwarp();
+    }
+}
+
+
+// a 4-byte asynchronous copy from global to shared memory (cp.async)
+struct AsyncCopy {
+    __device__ __forceinline__ void operator()(float* dst, const float* src) const {
+        unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+    }
+};
+
+__device__ __forceinline__ void async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every asynchronous copy of this thread but the last committed group's done
+__device__ __forceinline__ void async_wait_all_but_last() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// a warp's row of n floats from shared ``buf`` to ``dst``: as float4s
+// where both allow it (16-byte aligned, n a multiple of 4), else floats
+__device__ __forceinline__ void store_row(const float* buf, int n, float* dst, int lane) {
+    if (((unsigned long long)dst & 15) == 0 && (n & 3) == 0) {
+#pragma unroll 1
+        for (int j = lane; j < n / 4; j += 32)
+            reinterpret_cast<float4*>(dst)[j] = reinterpret_cast<const float4*>(buf)[j];
+    } else {
+#pragma unroll 1
+        for (int j = lane; j < n; j += 32) dst[j] = buf[j];
+    }
+}
+
+// K12's strip form, for the path's two shapes (K taps on both axes, the
+// sources' channels C0, C1, C2): persistent blocks walk the tiles
+// (resize_strip_tile) with two stage buffers, the next tile's inputs
+// copied asynchronously while this tile's outputs are computed
+// (resize_strip); each output row of a warp's 32 columns leaves through
+// shared memory as float4 stores. span_r x span_c is the most inputs a tile
+// stages (the buffers' size).
+template <int K, int C0, int C1, int C2>
+__global__ void __launch_bounds__(RESIZE_STRIP_W, 2) resize_strip_kernel(
+    ResizeSrc src, int w, int oh, int ow, const int* __restrict__ row_first,
+    const float* __restrict__ row_w, const int* __restrict__ col_first,
+    const float* __restrict__ col_w, int rt, int span_r, int span_c, int clamp,
+    float* __restrict__ out) {
+    constexpr int C = C0 + C1 + C2;
+    extern __shared__ float4 strip_smem[];
+    float* smem = reinterpret_cast<float*>(strip_smem);
+    int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    // a warp's two output-row buffers, then the two stage buffers
+    float* rowbuf = smem + warp * 2 * 32 * C;
+    float* stage = smem + RESIZE_STRIP_WARPS * 2 * 32 * C;
+    int stage_floats = span_r * span_c * C + rt * (K + 1);
+    int tiles_x = (ow + RESIZE_STRIP_W - 1) / RESIZE_STRIP_W;
+    int tiles = tiles_x * ((oh + rt - 1) / rt);
+    AsyncCopy copy;
+    auto stage_tile = [&](int t, float* planes) {
+        ResizeTile T = resize_strip_tile(t, tiles_x, rt, oh, ow, row_first, col_first, K, K);
+        if (T.r.hi - T.r.lo > span_r || T.c.hi - T.c.lo > span_c) __trap();
+        resize_stage_plane<C0>(src.p[0], w, T, planes + resize_plane_at<C0, C1, C2>(T, 0), warp,
+                               RESIZE_STRIP_WARPS, lane, 32, copy);
+        resize_stage_plane<C1>(src.p[1], w, T, planes + resize_plane_at<C0, C1, C2>(T, 1), warp,
+                               RESIZE_STRIP_WARPS, lane, 32, copy);
+        resize_stage_plane<C2>(src.p[2], w, T, planes + resize_plane_at<C0, C1, C2>(T, 2), warp,
+                               RESIZE_STRIP_WARPS, lane, 32, copy);
+        resize_stage_table<K>(row_first, row_w, T, planes + resize_plane_at<C0, C1, C2>(T, 3),
+                              threadIdx.x, RESIZE_STRIP_W, copy);
+    };
+    int t = blockIdx.x;
+    if (t < tiles) stage_tile(t, stage);
+    async_commit();
+    int parity = 0;
+    for (int it = 0; t < tiles; ++it, t += gridDim.x) {
+        if (t + (int)gridDim.x < tiles)
+            stage_tile(t + gridDim.x, stage + ((it + 1) & 1) * stage_floats);
+        async_commit();
+        async_wait_all_but_last();
+        __syncthreads();
+        ResizeTile T = resize_strip_tile(t, tiles_x, rt, oh, ow, row_first, col_first, K, K);
+        int n = resize_strip_cols(T, warp) * C;
+        float* row0 = out + (long long)(T.ox0 + 32 * warp) * C;
+        resize_strip<K, C0, C1, C2>(
+            stage + (it & 1) * stage_floats, T, resize_strip_col(T, threadIdx.x), col_first,
+            col_w, [&](int oy, const float* o) {
+                float* buf = rowbuf + parity * 32 * C;
+#pragma unroll
+                for (int c = 0; c < C; ++c) buf[lane * C + c] = resize_out(o[c], clamp != 0);
+                __syncwarp();
+                // a buffer is written again two rows on, after every lane's
+                // read of it (each passed the __syncwarp between)
+                if (n > 0) store_row(buf, n, row0 + (long long)oy * ow * C, lane);
+                parity ^= 1;
+            });
+        __syncthreads();
     }
 }
 
@@ -246,33 +344,86 @@ extern "C" int mrt_temporal_resolve(const void* up, const void* history, void* o
     return (int)cudaGetLastError();
 }
 
+// the most dynamic shared memory a block of K12's strip form may take
+constexpr int RESIZE_STRIP_SMEM_MAX = 227 * 1024;
+
+// K12's strip form launched on ``stream``: as many persistent blocks as
+// the device's SMs hold at this shared memory (the SM count asked once per
+// device, the blocks an SM holds again when the shared memory changes), no
+// more than the tiles
+template <int K, int C0, int C1, int C2>
+int launch_resize_strip(const ResizeSrc& src, int w, int oh, int ow, const int* row_first,
+                        const float* row_w, const int* col_first, const float* col_w, int rt,
+                        int span_r, int span_c, int clamp, float* out, cudaStream_t stream) {
+    constexpr int C = C0 + C1 + C2;
+    static int sms[64], ready[64], per_sm[64];
+    static size_t per_sm_smem[64];
+    size_t smem = ((size_t)RESIZE_STRIP_WARPS * 2 * 32 * C +
+                   2 * ((size_t)span_r * span_c * C + (size_t)rt * (K + 1))) * sizeof(float);
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev >= 64 || smem > (size_t)RESIZE_STRIP_SMEM_MAX) return (int)cudaErrorInvalidValue;
+    auto k = resize_strip_kernel<K, C0, C1, C2>;
+    if (!ready[dev]) {
+        e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+        if (e == cudaSuccess)
+            e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     RESIZE_STRIP_SMEM_MAX);
+        if (e != cudaSuccess) return (int)e;
+        ready[dev] = 1;
+    }
+    if (per_sm_smem[dev] != smem) {
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[dev], k, RESIZE_STRIP_W, smem);
+        if (e != cudaSuccess) return (int)e;
+        per_sm_smem[dev] = smem;
+    }
+    long long tiles =
+        (long long)((ow + RESIZE_STRIP_W - 1) / RESIZE_STRIP_W) * ((oh + rt - 1) / rt);
+    long long grid = (long long)(per_sm[dev] > 0 ? per_sm[dev] : 1) * sms[dev];
+    k<<<(unsigned)(tiles < grid ? tiles : grid), RESIZE_STRIP_W, smem, stream>>>(
+        src, w, oh, ow, row_first, row_w, col_first, col_w, rt, span_r, span_c, clamp, out);
+    return (int)cudaGetLastError();
+}
+
 // K12: sources s0..s2 of c0..c2 channels (an absent one: c = 0) at (h, w),
 // resampled to (oh, ow) by the banded tables (per output row: the first
 // input row and kr weights; per output column likewise, kc), written to
-// the contiguous (oh, ow, c0 + c1 + c2) ``out``; a block stages
+// the contiguous (oh, ow, c0 + c1 + c2) ``out``. With rt > 0 the strip
+// form (only for the path's two shapes: 3 channels of one source with 6
+// taps, or 3 + 1 + 2 channels with 2), tiles of rt output rows that stage
+// at most span_r x span_c inputs; else a block a 32x32 tile that stages
 // ``rows_chunk`` x ``cols_chunk`` input pixels at once
 extern "C" int mrt_resize(const void* s0, const void* s1, const void* s2, int c0, int c1, int c2,
                           int h, int w, const void* row_first, const void* row_w, int kr,
                           const void* col_first, const void* col_w, int kc, int oh, int ow,
-                          int rows_chunk, int cols_chunk, int clamp, void* out, void* stream) {
+                          int rows_chunk, int cols_chunk, int rt, int span_r, int span_c,
+                          int clamp, void* out, void* stream) {
     int C = c0 + c1 + c2;
-    size_t smem = ((size_t)rows_chunk * (cols_chunk + RESIZE_TW) + RESIZE_WARPS * RESIZE_TW) *
-                  C * sizeof(float);
     if (C < 1 || C > RESIZE_MAX_C || c0 < 1 || c1 < 0 || c2 < 0 || (c1 == 0 && c2 > 0) ||
-        rows_chunk < 1 || cols_chunk < 1 || kr < 1 || kc < 1 || h < 1 || w < 1 ||
-        smem > 48 * 1024)
+        kr < 1 || kc < 1 || h < 1 || w < 1)
         return (int)cudaErrorInvalidValue;
     if (oh <= 0 || ow <= 0) return 0;
     ResizeSrc src = {{(const float*)s0, (const float*)s1, (const float*)s2}, {c0, c1, c2}};
+    auto rf = (const int*)row_first, cf = (const int*)col_first;
+    auto rw = (const float*)row_w, cw = (const float*)col_w;
+    auto o = (float*)out;
+    auto st = (cudaStream_t)stream;
+    if (rt > 0) {
+        if (span_r < 1 || span_c < 1) return (int)cudaErrorInvalidValue;
+        if (c0 == 3 && c1 == 0 && kr == 6 && kc == 6)
+            return launch_resize_strip<6, 3, 0, 0>(src, w, oh, ow, rf, rw, cf, cw, rt, span_r,
+                                                   span_c, clamp, o, st);
+        if (c0 == 3 && c1 == 1 && c2 == 2 && kr == 2 && kc == 2)
+            return launch_resize_strip<2, 3, 1, 2>(src, w, oh, ow, rf, rw, cf, cw, rt, span_r,
+                                                   span_c, clamp, o, st);
+        return (int)cudaErrorInvalidValue;
+    }
+    size_t smem = ((size_t)rows_chunk * (cols_chunk + RESIZE_TW) + RESIZE_WARPS * RESIZE_TW) *
+                  C * sizeof(float);
+    if (rows_chunk < 1 || cols_chunk < 1 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
     dim3 grid((ow + RESIZE_TW - 1) / RESIZE_TW, (oh + RESIZE_TH - 1) / RESIZE_TH);
-    // the path's two forms compiled for their shapes: the spatial chain's
-    // Lanczos-3 upscale of 3 channels, the temporal chain's bilinear of 6
-    auto k = C == 3 && kr == 6 && kc == 6   ? resize_kernel<3, 6, 6>
-             : C == 6 && kr == 2 && kc == 2 ? resize_kernel<6, 2, 2>
-                                            : resize_kernel<0, 0, 0>;
-    k<<<grid, RESIZE_WARPS * 32, smem, (cudaStream_t)stream>>>(
-        src, C, w, oh, ow, (const int*)row_first, (const float*)row_w, kr,
-        (const int*)col_first, (const float*)col_w, kc, rows_chunk, cols_chunk, clamp,
-        (float*)out);
+    resize_kernel<<<grid, RESIZE_WARPS * 32, smem, st>>>(src, C, w, oh, ow, rf, rw, kr, cf, cw, kc,
+                                                        rows_chunk, cols_chunk, clamp, o);
     return (int)cudaGetLastError();
 }

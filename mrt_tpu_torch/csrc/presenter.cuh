@@ -388,4 +388,171 @@ MRT_PX void resize_row_px(const float* x, int C, const float* __restrict__ wt, i
 // the spatial chain's clamp_min(out, 0), folded in (NaN kept)
 MRT_PX float resize_out(float v, bool clamp) { return clamp ? clamp_min_t(v, 0.0f) : v; }
 
+// The inputs [lo, hi) that outputs [o0, o1) of a banded table read with k
+// taps each (first indices rise with the output)
+struct ResizeSpan {
+    int lo, hi;
+};
+
+MRT_PX ResizeSpan resize_span(const int* __restrict__ first, int o0, int o1, int k) {
+    return ResizeSpan{MRT_LDG(first + o0), MRT_LDG(first + o1 - 1) + k};
+}
+
+// of the k taps from input f, those [k0, k1) that a chunk of n staged
+// inputs from input c0 holds (none where k1 <= k0)
+MRT_PX ResizeSpan resize_chunk_taps(int c0, int n, int f, int k) {
+    return ResizeSpan{mrt_imax(c0 - f, 0), mrt_imin(c0 + n - f, k)};
+}
+
+// K12's strip form (the path's two shapes): a block of RESIZE_STRIP_WARPS
+// warps takes a tile of RESIZE_STRIP_W output columns (a thread a column)
+// by ``rt`` output rows (a thread all of them, in order), and stages the
+// tile's input rows and columns whole, each source as a plane of its own.
+constexpr int RESIZE_STRIP_WARPS = 8, RESIZE_STRIP_W = 32 * RESIZE_STRIP_WARPS;
+
+struct ResizeTile {
+    int ox0, ox1, oy0, oy1;  // its outputs, clipped to the image
+    ResizeSpan r, c;         // the input rows and columns it stages
+};
+
+// tile t, tiles row-major with ``tiles_x`` a row; partial at the right and
+// bottom edges
+MRT_PX ResizeTile resize_strip_tile(int t, int tiles_x, int rt, int oh, int ow,
+                                    const int* __restrict__ row_first,
+                                    const int* __restrict__ col_first, int kr, int kc) {
+    ResizeTile T;
+    int ty = t / tiles_x, tx = t - ty * tiles_x;
+    T.ox0 = tx * RESIZE_STRIP_W;
+    T.ox1 = mrt_imin(T.ox0 + RESIZE_STRIP_W, ow);
+    T.oy0 = ty * rt;
+    T.oy1 = mrt_imin(T.oy0 + rt, oh);
+    T.r = resize_span(row_first, T.oy0, T.oy1, kr);
+    T.c = resize_span(col_first, T.ox0, T.ox1, kc);
+    return T;
+}
+
+// the output column that the block's thread ``thread`` owns in tile T; a
+// thread past the image's right edge takes the last column (computed, not
+// stored), so that every lane of a warp runs every row
+MRT_PX int resize_strip_col(const ResizeTile& T, int thread) {
+    return mrt_imin(T.ox0 + thread, T.ox1 - 1);
+}
+
+// the columns of tile T whose outputs warp ``warp`` stores (0 past the edge)
+MRT_PX int resize_strip_cols(const ResizeTile& T, int warp) {
+    return mrt_imax(mrt_imin(32, T.ox1 - T.ox0 - 32 * warp), 0);
+}
+
+// where tile T's staged data lies in its stage buffer, in floats: source
+// s's plane at resize_plane_at(T, s) for s < 3; then (s = 3) the first
+// input rows of its output rows, as ints, and the rows' K weights each
+template <int C0, int C1, int C2>
+MRT_PX int resize_plane_at(const ResizeTile& T, int s) {
+    int n = (T.r.hi - T.r.lo) * (T.c.hi - T.c.lo);
+    return s == 0 ? 0 : s == 1 ? n * C0 : s == 2 ? n * (C0 + C1) : n * (C0 + C1 + C2);
+}
+
+// stage tile T's rows of the height's table (their first input rows and
+// their K weights each) at ``table`` (resize_plane_at(T, 3)): items from e0
+// by de, each float moved by copy(dst, src)
+template <int K, class Copy>
+MRT_PX void resize_stage_table(const int* __restrict__ row_first, const float* __restrict__ row_w,
+                               const ResizeTile& T, float* table, int e0, int de, Copy copy) {
+    int n = T.oy1 - T.oy0;
+    for (int e = e0; e < n * (K + 1); e += de) {
+        if (e < n)
+            copy(table + e, reinterpret_cast<const float*>(row_first + T.oy0 + e));
+        else
+            copy(table + e, row_w + (long long)T.oy0 * K + e - n);
+    }
+}
+
+// stage tile T's rows of one source of CS channels (an (h, w, CS) image)
+// into its plane: row rr of the tile's inputs at plane + rr * ncols * CS,
+// the pixels' channels as they lie in the source; rows from r0 by dr,
+// floats of a row from e0 by de (a warp's rows, its lanes' floats), each
+// float moved by copy(dst, src)
+template <int CS, class Copy>
+MRT_PX void resize_stage_plane(const float* __restrict__ src, int w, const ResizeTile& T,
+                               float* plane, int r0, int dr, int e0, int de, Copy copy) {
+    if (CS == 0) return;
+    int n = (T.c.hi - T.c.lo) * CS;
+    for (int rr = r0; rr < T.r.hi - T.r.lo; rr += dr) {
+        const float* s = src + ((long long)(T.r.lo + rr) * w + T.c.lo) * CS;
+        float* d = plane + rr * n;
+        for (int e = e0; e < n; e += de) copy(d + e, s + e);
+    }
+}
+
+// the width's K taps at one staged row of one source: x points at the
+// thread's first tap's pixel (CS channels a pixel), wc holds its weights;
+// channel c's sum to out[c], tap 0 first
+template <int K, int CS>
+MRT_PX void resize_row_taps(const float* x, const float* wc, float* out) {
+#pragma unroll
+    for (int c = 0; c < CS; ++c) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) acc = resize_tap(acc, x[k * CS + c], wc[k], k);
+        out[c] = acc;
+    }
+}
+
+// K12's strip form for one thread: output column ``col`` of tile T, every
+// output row of the tile in order, from T's stage buffer ``staged`` (the
+// C0 + C1 + C2 channels of up to three sources, a plane each, and the
+// rows' table; resize_plane_at). The horizontal sums of one staged row at
+// a time go into a window of the last K rows, held in registers (the
+// unrolled loop rotates the window's names, so nothing moves); when the
+// row just summed is an output row's last tap, that output is the sum of
+// the window's K rows, tap 0 first, and emit(oy, o) takes its C values
+// (the next row's table read before). Every output of the tile takes its
+// taps in increasing input index, as resize_plain adds them.
+template <int K, int C0, int C1, int C2, class Emit>
+MRT_PX void resize_strip(const float* staged, const ResizeTile& T, int col,
+                         const int* __restrict__ col_first, const float* __restrict__ col_w,
+                         Emit emit) {
+    constexpr int C = C0 + C1 + C2;
+    int ncols = T.c.hi - T.c.lo, nrows = T.r.hi - T.r.lo, n = T.oy1 - T.oy0;
+    float wc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) wc[k] = MRT_LDG(col_w + (long long)col * K + k);
+    int p = MRT_LDG(col_first + col) - T.c.lo;
+    const float* x0 = staged + resize_plane_at<C0, C1, C2>(T, 0) + p * C0;
+    const float* x1 = staged + resize_plane_at<C0, C1, C2>(T, 1) + p * C1;
+    const float* x2 = staged + resize_plane_at<C0, C1, C2>(T, 2) + p * C2;
+    const int* first = reinterpret_cast<const int*>(staged + resize_plane_at<C0, C1, C2>(T, 3));
+    const float* wts = staged + resize_plane_at<C0, C1, C2>(T, 3) + n;
+    float v[K][C], wr[K];
+    // the next output (i of the tile's rows) and its first tap row,
+    // relative to the tile's first input row, and weights
+    int i = 0, fr = first[0] - T.r.lo;
+#pragma unroll
+    for (int k = 0; k < K; ++k) wr[k] = wts[k];
+    for (int r = 0; r < nrows; r += K) {
+#pragma unroll
+        for (int u = 0; u < K; ++u) {
+            int q = r + u;  // its sums go to window slot u
+            if (q < nrows) {
+                resize_row_taps<K, C0>(x0 + q * ncols * C0, wc, v[u]);
+                resize_row_taps<K, C1>(x1 + q * ncols * C1, wc, v[u] + C0);
+                resize_row_taps<K, C2>(x2 + q * ncols * C2, wc, v[u] + C0 + C1);
+            }
+            while (fr + K - 1 == q) {  // the same for every thread of the tile
+                float o[C] = {};
+#pragma unroll
+                for (int k = 0; k < K; ++k)
+#pragma unroll
+                    for (int c = 0; c < C; ++c)
+                        o[c] = resize_tap(o[c], v[(u + 1 + k) % K][c], wr[k], k);
+                int j = mrt_imin(++i, n - 1);
+                fr = i < n ? first[j] - T.r.lo : -K;
+#pragma unroll
+                for (int k = 0; k < K; ++k) wr[k] = wts[j * K + k];
+                emit(T.oy0 + i - 1, o);
+            }
+        }
+    }
+}
+
 }  // namespace mrt_presenter

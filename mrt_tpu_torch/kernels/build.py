@@ -174,7 +174,8 @@ def load():
     lib.mrt_atrous_pass.restype = i
     lib.mrt_temporal_resolve.argtypes = [p, p, p, p, i, i, f, f, f, p]
     lib.mrt_temporal_resolve.restype = i
-    lib.mrt_resize.argtypes = [p, p, p, i, i, i, i, i, p, p, i, p, p, i, i, i, i, i, p, p]
+    lib.mrt_resize.argtypes = [p, p, p, i, i, i, i, i, p, p, i, p, p, i, i, i, i, i, i, i, i, i,
+                               p, p]
     lib.mrt_resize.restype = i
     _lib = lib
     return lib

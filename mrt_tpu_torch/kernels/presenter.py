@@ -17,7 +17,9 @@ K12 replaces ``jax.image.resize`` (``mrt_tpu/upscale/spatial.py:15``,
 resamples up to three sources (the temporal chain's colour, depth and
 motion, read where they lie) into one contiguous buffer through banded
 tables, the width first, then the height, with the spatial chain's clamp
-folded in.
+folded in: for the path's two shapes in its strip form (a thread an output
+column and a tile's rows, ``resize_strip_rows``), for any other in 32x32
+tiles.
 
 The plain versions are the port's torch-op code, cut at the kernels'
 boundaries: ``svgf_filter`` = K9, then K10 at steps 1, 2 and 4, the last
@@ -49,6 +51,14 @@ ATROUS_STEPS = (1, 2, 4)
 # sums, in chunks of input rows and columns, and an output row a warp
 RESIZE_TILE_W, RESIZE_TILE_H, RESIZE_WARPS, RESIZE_MAX_C = 32, 32, 8, 8
 RESIZE_SMEM_FLOATS = 48 * 1024 // 4
+# K12's strip form (csrc/presenter.cuh RESIZE_STRIP_W output columns, a
+# block of RESIZE_STRIP_WARPS warps, by RESIZE_STRIP_ROWS output rows): the
+# shapes it is compiled for (the sources' channels, the taps of both axes)
+# and the shared memory a block may take (floats: two stage buffers and two
+# output rows a warp; two blocks fit an H100 SM)
+RESIZE_STRIP_W, RESIZE_STRIP_WARPS, RESIZE_STRIP_ROWS = 256, 8, 16
+RESIZE_STRIP_FORMS = {((3,), 6), ((3, 1, 2), 2)}
+RESIZE_STRIP_SMEM_FLOATS = 112 * 1024 // 4
 
 
 def reset_launches() -> None:
@@ -131,9 +141,12 @@ class Band(NamedTuple):
     first: torch.Tensor  # (n_out,) int32, non-decreasing
     weights: torch.Tensor  # (n_out, K) float32
     # the most inputs that a tile's RESIZE_TILE_H (as the height's table) or
-    # RESIZE_TILE_W (as the width's) consecutive outputs read
+    # RESIZE_TILE_W (as the width's) consecutive outputs read; for the strip
+    # form, RESIZE_STRIP_ROWS (as the height's) and RESIZE_STRIP_W
     span_h: int
     span_w: int
+    strip_span_h: int
+    strip_span_w: int
 
     def to(self, device) -> "Band":
         return self._replace(first=self.first.to(device), weights=self.weights.to(device))
@@ -148,7 +161,8 @@ def _band(n_in: int, first: np.ndarray, weights: np.ndarray) -> Band:
 
     return Band(n_in, torch.from_numpy(first.astype(np.int32)),
                 torch.from_numpy(np.ascontiguousarray(weights, dtype=np.float32)),
-                span(RESIZE_TILE_H), span(RESIZE_TILE_W))
+                span(RESIZE_TILE_H), span(RESIZE_TILE_W),
+                span(RESIZE_STRIP_ROWS), span(RESIZE_STRIP_W))
 
 
 def band_of(matrix: torch.Tensor) -> Band:
@@ -472,14 +486,34 @@ def resize(sources, rows: Band, cols: Band, clamp: bool = False):
     c = sum(chans)
     out = torch.empty((oh, ow, c), dtype=torch.float32, device=dev)
     if oh * ow:
-        rows_chunk, cols_chunk = _resize_chunks(rows, cols, c)
+        # the strip form where the shape is one it is compiled for and a tile
+        # fits, else the 32x32 tiles with their chunks
+        rt = resize_strip_rows(rows, cols, chans, kr, kc)
+        if rt:
+            tiles = (0, 0, rt, rows.strip_span_h, cols.strip_span_w)
+        else:
+            tiles = (*_resize_chunks(rows, cols, c), 0, 0, 0)
         lib, stream = _lib_stream(dev)
         null = ctypes.c_void_p(None)
         _launch("resize", lib.mrt_resize, *(_ptr(s) for s in sources),
                 *(null,) * (3 - len(sources)), *chans, *(0,) * (3 - len(chans)), h, w,
                 _ptr(rows.first), _ptr(rows.weights), kr, _ptr(cols.first), _ptr(cols.weights),
-                kc, oh, ow, rows_chunk, cols_chunk, int(clamp), _ptr(out), stream)
+                kc, oh, ow, *tiles, int(clamp), _ptr(out), stream)
     return out
+
+
+def resize_strip_rows(rows: Band, cols: Band, chans, kr: int, kc: int) -> int:
+    """The output rows of a strip-form tile: RESIZE_STRIP_ROWS for a shape
+    the form is compiled for (RESIZE_STRIP_FORMS) whose two stage buffers
+    fit in RESIZE_STRIP_SMEM_FLOATS, else 0 (the 32x32 tiles). (On an H100,
+    16 rows were as fast as 32 at run E's 4K and faster at the demo's
+    1024^2, where 32 leaves SMs without a tile.)"""
+    if kr != kc or (tuple(chans), kr) not in RESIZE_STRIP_FORMS:
+        return 0
+    c, rt = sum(chans), RESIZE_STRIP_ROWS
+    smem = 2 * (rows.strip_span_h * cols.strip_span_w * c + rt * (kr + 1)) + \
+        RESIZE_STRIP_WARPS * 64 * c
+    return rt if smem <= RESIZE_STRIP_SMEM_FLOATS else 0
 
 
 def _resize_chunks(rows: Band, cols: Band, channels: int) -> tuple[int, int]:

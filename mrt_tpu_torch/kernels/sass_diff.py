@@ -20,8 +20,9 @@ line per kernel of OLD.cu and exits 1 if any differs or is missing, but for
 the kernels whose mangled names hold a ``--changed`` NAME (a change meant
 to alter them: their lines say so).
 
-``tap_instructions`` counts the instructions of one K10 tap in the built
-library (``chip_smoke.py`` prints it beside K10's bound).
+``tap_instructions`` counts the instructions of one K10 tap, and
+``slot_instructions`` those of one window slot of K12's strip form, in the
+built library (``chip_smoke.py`` prints both beside the kernels' bounds).
 """
 
 from __future__ import annotations
@@ -110,6 +111,37 @@ def tap_instructions(binary: str) -> dict:
         out[int(step.group(1))] = dict(
             kernel=name, per_tap=(ex2[-2] - ex2[0]) / (taps - 1), ex2=len(ex2),
             rcp=sum(op.startswith("MUFU.RCP") for op in ops), total=len(ops))
+    if not out:
+        raise RuntimeError(f"no {kernel} in {binary}")
+    return out
+
+
+def slot_instructions(binary: str) -> dict:
+    """Per instantiation of K12's strip form (``resize_strip_kernel<K, C0,
+    C1, C2>``, its loop unrolled over the K slots of its window, each slot
+    one staged row's width taps and one output row's height taps, K x C
+    ``FMUL`` each), by "K{K}C{C}": the instructions of a slot's code, those
+    from slot 0's first ``FMUL`` to slot K-1's, over K - 1 (one input row's
+    and one output row's; both of the row store's paths, aligned and not,
+    of which one runs), its ``FMUL``, ``FADD`` and ``LDS``, and the
+    kernel's whole instruction count."""
+    kernel = "resize_strip_kernel"
+    out = {}
+    for name, lines in dump(binary).items():
+        m = re.search(kernel + r"ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", name)
+        if m is None:
+            continue
+        k, c = int(m.group(1)), sum(int(m.group(i)) for i in (2, 3, 4))
+        ops = instructions(lines)
+        fmul = [i for i, op in enumerate(ops) if op.startswith("FMUL")]
+        if len(fmul) != 2 * k * c * k:
+            raise RuntimeError(f"{name}: {len(fmul)} FMUL, expected {2 * k * c * k}")
+        first, last = fmul[0], fmul[2 * k * c * (k - 1)]
+        body = ops[first:last]
+        out[f"K{k}C{c}"] = dict(
+            kernel=name, per_slot=(last - first) / (k - 1),
+            **{op.lower(): sum(o.startswith(op) for o in body) / (k - 1)
+               for op in ("FMUL", "FADD", "LDS")}, total=len(ops))
     if not out:
         raise RuntimeError(f"no {kernel} in {binary}")
     return out

@@ -256,6 +256,110 @@ extern "C" void k12(const float* const* src, const int* cs, int h, int w, const 
                 out[((long long)oy * ow + ox) * C + c] = resize_out(acc[c], clamp != 0);
         }
 }
+// K12's 32x32 tiles as their kernel runs them: per tile the inputs it
+// reads (resize_span), staged rows_chunk x cols_chunk pixels at a time;
+// per chunk of columns each lane's taps in it (resize_chunk_taps) into the
+// horizontal sums, per chunk of rows each output row's taps in it
+extern "C" void k12_tiles(const float* const* src, const int* cs, int h, int w,
+                          const int* row_first, const float* row_w, int kr, const int* col_first,
+                          const float* col_w, int kc, int oh, int ow, int rows_chunk,
+                          int cols_chunk, int clamp, float* out) {
+    ResizeSrc s = {{src[0], src[1], src[2]}, {cs[0], cs[1], cs[2]}};
+    int C = cs[0] + cs[1] + cs[2];
+    std::vector<float> stage((size_t)rows_chunk * cols_chunk * C), sums;
+    sums.resize((size_t)rows_chunk * C * RESIZE_TW);
+    for (int oy0 = 0; oy0 < oh; oy0 += RESIZE_TH)
+        for (int ox0 = 0; ox0 < ow; ox0 += RESIZE_TW) {
+            ResizeSpan rows = resize_span(row_first, oy0, mrt_imin(oy0 + RESIZE_TH, oh), kr);
+            ResizeSpan cols = resize_span(col_first, ox0, mrt_imin(ox0 + RESIZE_TW, ow), kc);
+            std::vector<float> acc((size_t)RESIZE_TH * RESIZE_TW * C, 0.0f);
+            for (int r0 = rows.lo; r0 < rows.hi; r0 += rows_chunk) {
+                int nr = mrt_imin(rows_chunk, rows.hi - r0);
+                for (int c0 = cols.lo; c0 < cols.hi; c0 += cols_chunk) {
+                    int nc = mrt_imin(cols_chunk, cols.hi - c0);
+                    for (int rr = 0; rr < nr; ++rr)
+                        for (int cc = 0; cc < nc; ++cc)
+                            resize_stage_px(s, w, r0 + rr, c0 + cc, &stage[(rr * nc + cc) * C]);
+                    for (int lane = 0; lane < RESIZE_TW && ox0 + lane < ow; ++lane) {
+                        int ox = ox0 + lane, fc = col_first[ox];
+                        ResizeSpan taps = resize_chunk_taps(c0, nc, fc, kc);
+                        if (taps.lo >= taps.hi) continue;
+                        for (int rr = 0; rr < nr; ++rr)
+                            resize_row_px(&stage[(rr * nc + fc + taps.lo - c0) * C], C,
+                                          col_w + (long long)ox * kc + taps.lo, taps.lo,
+                                          taps.hi - taps.lo, &sums[rr * C * RESIZE_TW + lane],
+                                          RESIZE_TW);
+                    }
+                }
+                for (int i = 0; i < RESIZE_TH && oy0 + i < oh; ++i)
+                    for (int lane = 0; lane < RESIZE_TW && ox0 + lane < ow; ++lane) {
+                        int oy = oy0 + i, fr = row_first[oy];
+                        ResizeSpan taps = resize_chunk_taps(r0, nr, fr, kr);
+                        for (int k = taps.lo; k < taps.hi; ++k)
+                            for (int c = 0; c < C; ++c) {
+                                float& a = acc[(i * RESIZE_TW + lane) * C + c];
+                                a = resize_tap(a, sums[((fr + k - r0) * C + c) * RESIZE_TW + lane],
+                                               row_w[(long long)oy * kr + k], k);
+                            }
+                    }
+            }
+            for (int i = 0; i < RESIZE_TH && oy0 + i < oh; ++i)
+                for (int lane = 0; lane < RESIZE_TW && ox0 + lane < ow; ++lane)
+                    for (int c = 0; c < C; ++c)
+                        out[((long long)(oy0 + i) * ow + ox0 + lane) * C + c] =
+                            resize_out(acc[(i * RESIZE_TW + lane) * C + c], clamp != 0);
+        }
+}
+// K12's strip form as its kernel runs it: per tile (resize_strip_tile) its
+// planes and rows' table staged (resize_stage_plane, resize_stage_table;
+// NaN where nothing is staged), then
+// every thread of the block on its column (resize_strip_col) over the
+// tile's rows, a warp storing the columns inside the image
+// (resize_strip_cols)
+template <int K, int C0, int C1, int C2>
+void k12_strip_tiles(const float* const* src, int w, int oh, int ow, const int* row_first,
+                     const float* row_w, const int* col_first, const float* col_w, int rt,
+                     int clamp, float* out) {
+    constexpr int C = C0 + C1 + C2;
+    int tiles_x = (ow + RESIZE_STRIP_W - 1) / RESIZE_STRIP_W;
+    int tiles = tiles_x * ((oh + rt - 1) / rt);
+    auto copy = [](float* d, const float* s) { *d = *s; };
+    std::vector<float> planes;
+    for (int t = 0; t < tiles; ++t) {
+        ResizeTile T = resize_strip_tile(t, tiles_x, rt, oh, ow, row_first, col_first, K, K);
+        planes.assign((size_t)(T.r.hi - T.r.lo) * (T.c.hi - T.c.lo) * C + rt * (K + 1), NAN);
+        float* pl = planes.data();
+        resize_stage_plane<C0>(src[0], w, T, pl + resize_plane_at<C0, C1, C2>(T, 0), 0, 1, 0, 1,
+                               copy);
+        resize_stage_plane<C1>(src[1], w, T, pl + resize_plane_at<C0, C1, C2>(T, 1), 0, 1, 0, 1,
+                               copy);
+        resize_stage_plane<C2>(src[2], w, T, pl + resize_plane_at<C0, C1, C2>(T, 2), 0, 1, 0, 1,
+                               copy);
+        resize_stage_table<K>(row_first, row_w, T, pl + resize_plane_at<C0, C1, C2>(T, 3), 0, 1,
+                              copy);
+        for (int thread = 0; thread < RESIZE_STRIP_W; ++thread) {
+            int n = resize_strip_cols(T, thread / 32), lane = thread % 32;
+            resize_strip<K, C0, C1, C2>(
+                pl, T, resize_strip_col(T, thread), col_first, col_w,
+                [&](int oy, const float* o) {
+                    if (lane >= n) return;
+                    for (int c = 0; c < C; ++c)
+                        out[((long long)oy * ow + T.ox0 + thread) * C + c] =
+                            resize_out(o[c], clamp != 0);
+                });
+        }
+    }
+}
+extern "C" void k12_strip(const float* const* src, const int* cs, int w, int oh, int ow,
+                          const int* row_first, const float* row_w, const int* col_first,
+                          const float* col_w, int k, int rt, int clamp, float* out) {
+    if (cs[0] == 3 && cs[1] == 0 && k == 6)
+        k12_strip_tiles<6, 3, 0, 0>(src, w, oh, ow, row_first, row_w, col_first, col_w, rt,
+                                    clamp, out);
+    if (cs[0] == 3 && cs[1] == 1 && cs[2] == 2 && k == 2)
+        k12_strip_tiles<2, 3, 1, 2>(src, w, oh, ow, row_first, row_w, col_first, col_w, rt,
+                                    clamp, out);
+}
 '''
 
 
@@ -359,6 +463,80 @@ def test_host_compiled_resize_bit_equal(presenter_lib, method, src, dst, chans, 
     assert (bool((want < 0).any()) != clamp) and want.shape == dst + (sum(n_ch),)
 
 
+def _c_ptrs(*ts):
+    return (ctypes.c_void_p(t.data_ptr()) for t in ts)
+
+
+@pytest.mark.parametrize("method,src,dst,chans,clamp,form", [
+    ("lanczos3", (45, 139), (90, 278), (3,), True, "strip"),
+    ("lanczos3", (7, 301), (13, 450), (3,), True, "strip"),
+    ("lanczos3", (67, 343), (100, 512), (3,), True, "strip"),
+    ("bilinear", (21, 135), (42, 270), (3, 1, 2), False, "strip"),
+    ("lanczos3", (128, 640), (4, 10), (3, 1, 2), False, "tiles"),
+    ("lanczos3", (40, 90), (23, 51), (3, 0, 2), False, "small-chunks")],
+    ids=["2x-odd", "one-short-tile-row", "demo-ratio", "bilinear-6ch", "downscale-64x",
+         "downscale-small-chunks"])
+def test_host_compiled_resize_tiles_bit_equal(presenter_lib, method, src, dst, chans, clamp, form):
+    """K12 over every tile and thread as its kernel runs it, the tile logic
+    (``resize_strip_tile``, ``resize_strip_col``, ``resize_strip_cols``,
+    ``resize_stage_plane``; ``resize_span``, ``resize_chunk_taps``)
+    host-compiled from ``presenter.cuh``: the strip form at the rows a tile
+    that the wrapper picks (partial tiles at the right and bottom edges, a
+    single row of tiles shorter than a tile, and the demo's 686 -> 1024
+    ratio), and the 32x32 tiles staged in the chunks the wrapper picks for
+    a 64x downscale, or in chunks of 7 x 9 pixels. Bit-equal to
+    ``resize_plain``, every output written (the output starts as NaN, the
+    plain one has none)."""
+    rng = np.random.default_rng(sum(src) + sum(dst))
+    h, w = src
+    sources = [_t(rng.normal(size=src + ((c,) if c > 1 else ()))) for c in chans if c]
+    n_ch = [c for c in chans if c] + [0] * (3 - len([c for c in chans if c]))
+    rows = spatial.band_table(h, dst[0], method, torch.device("cpu"))
+    cols = spatial.band_table(w, dst[1], method, torch.device("cpu"))
+    kr, kc = rows.weights.shape[1], cols.weights.shape[1]
+    want = K.resize_plain(sources, rows, cols, clamp)
+    assert not bool(want.isnan().any())
+    got = torch.full_like(want, float("nan"))
+    srcs = _ptrs(sources + [None] * (3 - len(sources)))
+    cs = (ctypes.c_int * 3)(*n_ch)
+    rt = K.resize_strip_rows(rows, cols, [c for c in chans if c], kr, kc)
+    assert (rt == K.RESIZE_STRIP_ROWS) == (form == "strip")
+    if form == "strip":
+        presenter_lib.k12_strip(srcs, cs, w, *dst, *_c_ptrs(rows.first, rows.weights, cols.first,
+                                                           cols.weights), kr, rt, int(clamp),
+                                ctypes.c_void_p(got.data_ptr()))
+    else:
+        chunks = K._resize_chunks(rows, cols, sum(n_ch)) if form == "tiles" else (7, 9)
+        assert chunks[0] < rows.span_h or chunks[1] < cols.span_w  # staged in chunks
+        presenter_lib.k12_tiles(srcs, cs, h, w, *_c_ptrs(rows.first, rows.weights), kr,
+                                *_c_ptrs(cols.first, cols.weights), kc, *dst, *chunks, int(clamp),
+                                ctypes.c_void_p(got.data_ptr()))
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("method,src,dst,chans,want", [
+    ("lanczos3", (1080, 1920), (2160, 3840), (3,), 16),
+    ("bilinear", (1080, 1920), (2160, 3840), (3, 1, 2), 16),
+    ("lanczos3", (686, 686), (1024, 1024), (3,), 16),
+    ("lanczos3", (541, 963), (1082, 1926), (3,), 16),
+    ("lanczos3", (1000, 1000), (1010, 1010), (3,), 0),
+    ("bilinear", (1080, 1920), (2160, 3840), (6,), 0),
+    ("lanczos3", (1080, 1920), (2160, 3840), (3, 1, 2), 0),
+    ("lanczos3", (200, 200), (100, 100), (3,), 0)],
+    ids=["E-4K-lanczos3", "E-4K-bilinear", "M-demo", "odd-2x", "near-1x-too-wide",
+         "one-6ch-source", "lanczos3-6ch", "downscale"])
+def test_resize_strip_rows(method, src, dst, chans, want):
+    """The strip form's tile rows: 16 at run E's 4K (both forms), the
+    demo's 1024^2 and the synthetic 963x541 frame's 2x; 0 (the 32x32
+    tiles) where a tile's two stage buffers exceed the shared memory (a
+    Lanczos-3 upscale near 1x, 21 input rows by 261 columns) and for shapes
+    it is not compiled for."""
+    cpu = torch.device("cpu")
+    rows, cols = (spatial.band_table(n, m, method, cpu) for n, m in zip(src, dst))
+    assert K.resize_strip_rows(rows, cols, chans, rows.weights.shape[1],
+                               cols.weights.shape[1]) == want
+
+
 def test_sass_tap_count(monkeypatch):
     """``sass_diff.tap_instructions`` on a made-up dump of an unrolled K10
     (6 instructions a tap, two ``MUFU.EX2`` each, predicated and not):
@@ -378,6 +556,29 @@ def test_sass_tap_count(monkeypatch):
     dumps["_Z18atrous_pass_kernelILi1EEvv"] = lines[:-20]
     with pytest.raises(RuntimeError, match="MUFU.EX2"):
         sass_diff.tap_instructions("lib.so")
+
+
+def test_sass_slot_count(monkeypatch):
+    """``sass_diff.slot_instructions`` on a made-up dump of K12's strip form
+    with K = 2 taps and C = 1 channel (a slot: 2 FMUL for an input row's
+    width taps, 2 for an output row's height taps, 9 instructions): the
+    instructions of a slot; a kernel whose FMUL count is not 2 K C K
+    raises."""
+    from mrt_tpu_torch.kernels import sass_diff
+
+    slot = ["LDS R2, [R3]", "FMUL R4, R2, R5", "LDS R6, [R3+0x4]", "FMUL R7, R6, R8",
+            "FADD R4, R4, R7", "FMUL R9, R4, R10", "FMUL R11, R12, R13", "FADD R9, R9, R11",
+            "STG.E.128 [R14], R16"]
+    body = ["S2R R0, SR_TID.X"] + slot * 2 + ["EXIT"]
+    lines = [f"/*{16 * i:04x}*/ {op} ; /* 0x000fe20000000f00 */" for i, op in enumerate(body)]
+    name = "_Z19resize_strip_kernelILi2ELi1ELi0ELi0EEvv"
+    dumps = {name: lines, "_Z18atrous_pass_kernelILi1EEvv": lines[:3]}
+    monkeypatch.setattr(sass_diff, "dump", lambda binary: dumps)
+    assert sass_diff.slot_instructions("lib.so") == {"K2C1": dict(
+        kernel=name, per_slot=9.0, fmul=4.0, fadd=2.0, lds=2.0, total=len(body))}
+    dumps[name] = lines[:-5]
+    with pytest.raises(RuntimeError, match="FMUL"):
+        sass_diff.slot_instructions("lib.so")
 
 
 def test_presenter_bounds():
@@ -420,15 +621,16 @@ def test_chip_smoke_phase_3p_on_cpu():
 @pytest.mark.parametrize("mode, checked", [("spatial", True), ("temporal", False)])
 def test_chip_smoke_phase_m_resize_check_on_cpu(monkeypatch, mode, checked):
     """``chip_smoke.py``'s K12 check at phase M's demo shape on the CPU, at
-    the demo's 0.67 scale (48 -> 72; CUDA-event timing stubbed): the
-    spatial present's resize is held against its plain version and the
-    dense products; a renderer that presents through another chain is
-    passed over."""
+    the demo's 0.67 scale (48 -> 72; CUDA-event and profiler timing
+    stubbed): the spatial present's resize is held against its plain
+    version and the dense products; a renderer that presents through
+    another chain is passed over."""
     from types import SimpleNamespace
 
     import chip_smoke
 
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps: 0.0)
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda *a, **k: 0.0)
     rng = np.random.default_rng(7)
     accum = torch.from_numpy(rng.random((48, 40, 3), dtype=np.float32) * 2.0)
     r = SimpleNamespace(render_height=48, render_width=40, output_height=72, output_width=60,

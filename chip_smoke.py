@@ -264,18 +264,23 @@ never prints its last line):
      of K7 in a gp=1 job of one frame (GP_VARIANT_JOBS: the whole atlas
      with and without mipmaps, the motion view on run B's scene, the
      normal view whole, mipmapped and banded). Every gp frame takes the kernel route:
-     K3, K6, K13 gp_rows, K7's lane-row form, K8, and on the banded
-     textured scenes K14 banded_taps, and nothing of K7 but its lane-row
-     form; each gp job then draws a checked frame on every rank (the
-     kernel route bit-equal to the plain route, each K13 launch's position
-     map, lane list and rows and each K14 launch's taps, over the step's
-     live lanes only, and the first K7 step bit-equal to their plain
-     versions, both routes' walls and device events, K13's and K14's
-     CUDA-event ms and their first launch's profiler device ms beside their
-     bounds, their device ms per launch over the profiled kernel-route
-     frame, and each step's live share). Walls, rays, Mrays/s and the
+     K3, K6, K13 gp_rows (a step's scan, then its gather), K15
+     gp_hit_keys and K16 gp_lane_unpack (the hit combine over the step's
+     live lanes; over gp=2 also the occlusion's), K7's lane-row form, K8,
+     and on the banded textured scenes K14 banded_taps, and nothing of K7
+     but its lane-row form; each gp job then draws a checked frame on every
+     rank (the kernel route bit-equal to the plain route, each K13 call's
+     position map, lane list, rows and payload, each K14 call's taps and
+     each K15 and K16 call's keys, occlusion rows or record, over the
+     step's live lanes only, and the first K7 step bit-equal to their
+     plain versions, both routes' walls and device events, K13-K16's
+     CUDA-event ms and their first call's profiler device ms beside their
+     bounds, their device ms per call over the profiled kernel-route
+     frame, and each step's live share); the gp=2 jobs and L3 record each
+     drawn step's collectives (count, elements, bytes; none may reduce a
+     whole tensor copy). Walls, rays, Mrays/s and the
      ranks' start-up seconds printed; K1, K2 (packed), K3 (flat), K4
-     (flat), K6-K8 and K13 must launch, K14 in L1-L3;
+     (flat), K6-K8, K13, K15 and K16 must launch, K14 in L1-L3;
   8. a 48x48 frame traced and presented in every presenter mode on the card
      against the same frames on the CPU through the plain versions (the
      accumulation and the presented output within 1e-2 relative RMSE, the
@@ -292,8 +297,8 @@ phase M's entry points and phase L's ranks), then K7 by instantiation
 (untextured, maps, maps_mips, maps_debug, maps_mips_debug, debug: its
 launches, checks, registers and spills, and its times at the first launch
 of the run that takes it), then K7's lane-row form by instantiation (all
-eight: each must have launched on the main path and been checked), K13
-and K14 (timed at the first launch of L1's checked gp=1 frames by CUDA
+eight: each must have launched on the main path and been checked), K13,
+K14, K15 and K16 (timed at the first call of L1's checked gp=1 frames by CUDA
 events and by the profiler, and per launch over its profiled frame, with
 the live share of each step; their largest difference from the plain
 version over every checked launch),
@@ -2289,14 +2294,17 @@ def l3_scene(size: int = 48):
     return s
 
 
-# the kernels of K13's and K14's wrapper calls, by the names the profiler
-# gives them; the last of each is launched once a call
-GP_PROFILED = {"k13": ("gp_rows_count_kernel", "gp_rows_kernel"),
-               "k14": ("banded_taps_kernel",)}
+# the kernels of K13's to K16's wrapper calls (a K13 entry: a step's scan
+# and gather, or the motion rows), by the names the profiler gives them (a
+# name matches the kernels that hold it: K15's and K16's two forms); the
+# last of each is launched once a call
+GP_PROFILED = {"k13": ("gp_rows_count_kernel", "gp_gather_kernel", "gp_rows_kernel"),
+               "k14": ("banded_taps_kernel",), "k15": ("gp_hit_keys",),
+               "k16": ("gp_lane_unpack",)}
 
 
 def launch_summary(launches: list, profile: dict | None = None, names=()) -> dict:
-    """K13's or K14's checked launches of one frame (``drive``'s
+    """K13's, K14's, K15's or K16's checked calls of one frame (``drive``'s
     ``route_check``): their count, the first (sample 0's first step, every
     lane), the largest difference from the plain version over them, the
     sums of the CUDA-event ms, the plain version's and the bound (None
@@ -2321,16 +2329,20 @@ def gp_route_checks(tag, jobs, textured: bool, variant: str | None = None) -> di
     """The checked gp frame of each rank of one job (``jobs``: its
     ``drive`` results by rank): the kernel route bit-equal to the plain
     route (every output field, rays equal), the second kernel-route run
-    equal to the first, every K13 launch (its position map, lane list and
-    rows of the step's live lanes) and the first K7 step (the lane-row
-    form; with ``variant`` that instantiation) bit-equal to their plain
-    versions, K14 launched exactly on a banded textured frame and bit-equal
-    too. One line per rank: both
-    routes' walls and device events and ms (torch.profiler; an empty
-    profile is logged as a dropout, not a failure), the job's kernel-route
-    frame walls, K13's and K14's launches beside their bounds
-    (``launch_summary``: their live shares and profiler times too), the K7
-    step. Raises on a disagreement. Returns rank 0's line by field."""
+    equal to the first, every K13 call (its position map, lane list, rows
+    and payload of the step's live lanes), every K15 and K16 call (the hit
+    combine's keys and unpack; over more than one gp rank outside a debug
+    view also the occlusion's two forms) and the first K7 step (the
+    lane-row form; with ``variant`` that instantiation) bit-equal to their
+    plain versions, K14 launched exactly on a banded textured frame and
+    bit-equal too. One line per rank: both routes' walls and device events
+    and ms (torch.profiler; an empty profile is logged as a dropout, not a
+    failure), the job's kernel-route frame walls, K13's to K16's calls
+    beside their bounds (``launch_summary``: their live shares and profiler
+    times too), the K7 step, and with ``drive(record_rows=True)`` the drawn
+    frames' collectives per gp step (``collectives_summary``; none may
+    copy a whole tensor). Raises on a disagreement. Returns rank 0's line
+    by field."""
     lines = []
     for r, job in enumerate(jobs):
         c = job["route_check"]
@@ -2342,18 +2354,29 @@ def gp_route_checks(tag, jobs, textured: bool, variant: str | None = None) -> di
                     plain_profile=c.get("plain_profile"),
                     k13=launch_summary(c["k13"], c.get("kernel_profile"), GP_PROFILED["k13"]),
                     k14=launch_summary(c["k14"], c.get("kernel_profile"), GP_PROFILED["k14"]),
+                    k15=launch_summary(c["k15"], c.get("kernel_profile"), GP_PROFILED["k15"]),
+                    k16=launch_summary(c["k16"], c.get("kernel_profile"), GP_PROFILED["k16"]),
                     k7={k: v for k, v in c["k7"].items() if k != "work"}, k7_work=c["k7"]["work"],
                     **CARD)
+        if "rows_psums" in job:
+            from mrt_tpu_torch.dist.launch import collectives_summary
+
+            line["collectives"] = collectives_summary(job["rows_psums"])
         log(json.dumps(line))
         for route in ("kernel_profile", "plain_profile"):
             if not (c.get(route) or {}).get("device_events"):
                 log(json.dumps(dict(profiler_dropout=f"phase {tag} rank {r} {route}",
                                     recorded=c.get(route))))
+        occluded = c["gp_ranks"] > 1 and not c["k7"]["variant"].endswith("debug")
         ok = (c["bit_equal"] and c["checked_run_differing"] == 0 and c["rays"][0] == c["rays"][1]
               and c["k13"] and not any(x["differing"] for x in c["k13"])
               and bool(c["k14"]) == textured and not any(x["differing"] for x in c["k14"])
+              and all({x["form"] for x in c[k]} == ({form, "occluded"} if occluded else {form})
+                      and not any(x["differing"] for x in c[k])
+                      for k, form in (("k15", "keys"), ("k16", "hits")))
               and c["k7"]["differing"] == 0 and c["k7"]["variant"].startswith("rows")
-              and c["k7"]["variant"] == (variant or c["k7"]["variant"]))
+              and c["k7"]["variant"] == (variant or c["k7"]["variant"])
+              and line.get("collectives", {}).get("copying", 0) == 0)
         if not ok:
             raise AssertionError(f"phase {tag} rank {r}: the gp frame's kernel route disagrees "
                                  f"with the plain route or a kernel with its plain version: "
@@ -2489,13 +2512,14 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
 
     def gp_job(tag, ranks, job, variant: str, checked: bool = True):
         """A gp job's main-path launches on each rank (K6, K7's lane-row
-        instantiation ``variant`` and nothing else of K7, K13; K8 but in a
-        debug view; K14 exactly where ``variant`` has the per-lane taps)
-        and its checked frame (``gp_route_checks``)."""
+        instantiation ``variant`` and nothing else of K7, K13, K15, K16;
+        K8 but in a debug view; K14 exactly where ``variant`` has the
+        per-lane taps) and its checked frame (``gp_route_checks``)."""
         textured, debug = "taps" in variant, variant.endswith("debug")
         for r, rank in enumerate(ranks):
             c = rank[job]["launches"]
-            if (min(c["sample_start"], c["gp_rows"], c["shade_hit"]) < 1
+            if (min(c["sample_start"], c["gp_rows"], c["gp_hit_keys"], c["gp_lane_unpack"],
+                    c["shade_hit"]) < 1
                     or c["k7"].get(variant, 0) != c["shade_hit"]
                     or (c["resolve_shadow"] > 0) == debug or (c["banded_taps"] > 0) != textured):
                 raise AssertionError(f"phase {tag} rank {r}: a gp kernel of the path never "
@@ -2615,9 +2639,10 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
         (L.drive, ("dp", scene_a, s_a, {"dp": 1, "sp": 2}, 1), dict(offsets=ref_a["offsets"])),
         (L.drive, ("gp", scene_b, ref_b["settings"], {"gp": 2}, 2), dict(offsets=ref_b["offsets"],
                                                                          check_flat=True,
-                                                                         check_route=True)),
+                                                                         check_route=True,
+                                                                         record_rows=True)),
         (L.drive, ("gp", scene_t, ref_t["settings"], {"gp": 2}, 2),
-         dict(offsets=ref_t["offsets"], banded=True, check_route=True)),
+         dict(offsets=ref_t["offsets"], banded=True, check_route=True, record_rows=True)),
     ], backend="gloo", stats=st2)
     l2_s = time.perf_counter() - t0
     dp2, sp2, gp2, gpt2 = l2[0]
@@ -2673,7 +2698,7 @@ def phase_l(torch, FP, dev, lines, card_name, power_limit) -> dict:
     l3 = L.launch(L.run_jobs, 4, [
         (L.drive, ("gp", l3_scene(), ref_3["settings"], {"dp": 2, "gp": 2}, 3),
          dict(offsets=ref_3["offsets"], banded=True, save=(2, path), check_flat=True,
-              check_route=True)),
+              check_route=True, record_rows=True)),
     ], backend="gloo", stats=st3)
     l3b = L.launch(L.run_jobs, 4, [
         (L.drive, ("gp", l3_scene(), ref_3["settings"], {"dp": 2, "gp": 2}, 1),
@@ -3712,12 +3737,14 @@ def main() -> int:
         if kernels[-1]["launches"] < 1 or not mine:
             raise AssertionError(f"K7's {v} instantiation never launched on the main path or was "
                                  f"never checked: {kernels[-1]}")
-    # K7's lane-row form by instantiation (phase L's gp frames), K13 and
-    # K14: launches on the main path, registers and spills, ms, plain_ms
+    # K7's lane-row form by instantiation (phase L's gp frames), K13-K16:
+    # launches on the main path, registers and spills, ms, plain_ms
     # and bound_ms at the first launch of the checked frame of a gp=1 job
-    # (one rank alone on the card; K13 and "rows" at run B's scene, K14 and
+    # (one rank alone on the card; K13, K15, K16 and "rows" at run B's
+    # scene (K15's and K16's hit forms; their occlusion forms run at gp=2
+    # and are checked there), K14 and
     # "rows_maps_taps" at the textured gp scene, every other instantiation
-    # at its own job; K13 and K14 also by the profiler at that launch and
+    # at its own job; K13-K16 also by the profiler at that launch and
     # per launch over the profiled frame, and each step's live share), the
     # largest difference from the plain version over every checked launch,
     # and the checked frames of every gp job (all bit-equal to the plain
@@ -3742,11 +3769,14 @@ def main() -> int:
         if kernels[-1]["launches"] < 1 or t["variant"] != v:
             raise AssertionError(f"K7's {v} instantiation never launched on the main path or was "
                                  f"never checked: {kernels[-1]}")
-    for name, stage, tag, replaces in (
-            ("K13 gp_rows", "gp_rows", "L1 gp=1", "mrt_tpu/render/wavefront.py:76"),
+    for name, stage, tag, replaces, key in (
+            ("K13 gp_rows", "gp_rows", "L1 gp=1", "mrt_tpu/render/wavefront.py:76", "k13"),
             ("K14 banded_taps", "banded_taps", "L1 gp=1 textured",
-             "mrt_tpu/assets/texture.py:355")):
-        key = "k13" if stage == "gp_rows" else "k14"
+             "mrt_tpu/assets/texture.py:355", "k14"),
+            ("K15 gp_hit_keys", "gp_hit_keys", "L1 gp=1", "mrt_tpu/render/wavefront.py:180",
+             "k15"),
+            ("K16 gp_lane_unpack", "gp_lane_unpack", "L1 gp=1",
+             "mrt_tpu/render/wavefront.py:180", "k16")):
         g_t = gp_checks[tag][key]
         t = g_t["first"]
         kernels.append(dict(

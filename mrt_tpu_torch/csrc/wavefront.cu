@@ -1180,6 +1180,10 @@ __global__ void resolve_shadow_kernel(float* __restrict__ acc, const float* __re
 // their flag and their pos entry; the rows and the psum carry n_live rows.
 // Bound: bytes (the P flags, pos written, the live lanes' ids, lane_of
 // written, each distinct g2l entry and owned row once, the rows written).
+// In a gp step the two launches make the map alone (ids null), before the
+// hit combine, and the rows come after it from K13's third kernel,
+// gp_gather_kernel (below), which the combine's winner writes; the rows
+// written here are sample 0's motion rows (every lane, g2l's owner).
 constexpr int GP_THREADS = 256, GP_ITEMS = 4, GP_TILE = GP_THREADS * GP_ITEMS;
 
 // The live flags of lanes i0 .. i0 + 3 as bits (lanes past n dead; every
@@ -1279,11 +1283,13 @@ __global__ void __launch_bounds__(GP_THREADS) gp_rows_kernel(
     // rows past n_rows (the caller's count; equal to the live lanes) are not written
     int n_out = n_rows - prefix < n_tile ? n_rows - prefix : n_tile;
     if (n_out < 0) n_out = 0;
-    // each live lane's id and g2l entry, read once
+    // each live lane's id and g2l entry, read once (ids null: the map alone)
     for (int k = threadIdx.x; k < n_out; k += GP_THREADS) {
         const int i = s_lane[k];
-        const int id = __ldg(ids + i);
-        s_loc[k] = id >= 0 ? __ldg(g2l + id) : -1;
+        if (ids != nullptr) {
+            const int id = __ldg(ids + i);
+            s_loc[k] = id >= 0 ? __ldg(g2l + id) : -1;
+        }
         lane_of[prefix + k] = i;
     }
     __syncthreads();
@@ -1308,6 +1314,145 @@ __global__ void __launch_bounds__(GP_THREADS) gp_rows_kernel(
                               : make_float2(0.0f, 0.0f);
         }
     }
+}
+
+// A gp step's hit combine (the JAX package's combine_hits_across,
+// mrt_tpu/render/wavefront.py:180-198) over its live lanes, in K13's order
+// (row j is lane lane_of[j]'s), split at its collectives:
+//   K15 gp_hit_keys: each row's key (hit_key) from its lane's t and tri;
+//   one in-place pmin over gp of the n keys: the reference's t_min and
+//   winner rank at once;
+//   K13's gather (gp_gather_kernel): the rank whose own key equals the
+//   minimum and whose triangle is >= 0 (the winner) writes the payload
+//   (tri + 1, u, v as int32 bits) and the triangle's shade and/or motion
+//   rows from its shard, every other rank zeros; one in-place int32 psum
+//   over gp of payload and rows (one nonzero contributor an element: exact);
+//   K16 gp_lane_unpack: t (the key's high word), tri (payload - 1), u and
+//   v into the closest-hit record at lane lane_of[j], where K7 reads them.
+// The step's shadow rays come from its live lanes only, so their occlusion
+// takes the same map: K15's second form gathers it (uint8) to rows, an
+// in-place pmax over gp reduces it, K16's second form scatters it back.
+//
+// The key: (bits(t) << 32) | r', r' the rank where tri >= 0, else 2^30. A
+// hit's t is >= 0 (the triangle test takes t >= t_min = 0, which no NaN
+// passes) or +inf (a miss: the ray's max distance), and for such t the
+// order of the int64 keys is the order of (t, r'). The reference compares
+// t as floats, so -0.0 ties +0.0: over more than one rank (canon) the key
+// holds -0.0 as +0.0, and the winner's u, v and rows have -0.0 written as
+// +0.0 (what the reference's float psum with zeros gives); an axis of one
+// rank reduces nothing and keeps them as they are, as the reference does.
+// Bounds: bytes (utils/bounds.py:gp_hit_keys, :gp_gather, :gp_lane_unpack).
+constexpr unsigned NO_WINNER = 1u << 30;
+constexpr unsigned NEG_ZERO = 0x80000000u;
+
+__device__ __forceinline__ unsigned plus_zero_bits(unsigned b, bool canon) {
+    return canon && b == NEG_ZERO ? 0u : b;
+}
+
+__device__ __forceinline__ float plus_zero(float x, bool canon) {
+    return __uint_as_float(plus_zero_bits(__float_as_uint(x), canon));
+}
+
+__device__ __forceinline__ long long hit_key(float t, int tri, int rank, bool canon) {
+    const unsigned hi = plus_zero_bits(__float_as_uint(t), canon);
+    const unsigned lo = tri >= 0 ? (unsigned)rank : NO_WINNER;
+    return (long long)(((unsigned long long)hi << 32) | lo);
+}
+
+__global__ void gp_hit_keys_kernel(const float* __restrict__ t, const int* __restrict__ tri,
+                                   const int* __restrict__ lane_of, long long* __restrict__ keys,
+                                   int n, int rank, bool canon) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n) return;
+    const int i = __ldg(lane_of + j);
+    keys[j] = hit_key(__ldg(t + i), __ldg(tri + i), rank, canon);
+}
+
+__global__ void gp_hit_keys_occluded_kernel(const bool* __restrict__ occluded,
+                                            const int* __restrict__ lane_of,
+                                            unsigned char* __restrict__ occ, int n) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j < n) occ[j] = occluded[__ldg(lane_of + j)] ? 1 : 0;
+}
+
+// K13's gather: a block a tile of GP_TILE rows; a thread a row finds the
+// winner (its own key recomputed from the record, the reduced key read) and
+// writes the payload, then the rows are copied as gp_rows_kernel copies
+// them (a thread a float4 of the shade rows, a float2 of the motion rows).
+__global__ void __launch_bounds__(GP_THREADS) gp_gather_kernel(
+    const float* __restrict__ t, const int* __restrict__ tri, const float* __restrict__ u,
+    const float* __restrict__ v, const long long* __restrict__ keys,
+    const int* __restrict__ lane_of, const int* __restrict__ g2l,
+    const float* __restrict__ shade, const float* __restrict__ motion,
+    float* __restrict__ out_shade, float* __restrict__ out_motion, int* __restrict__ payload,
+    int n, int rank, bool canon) {
+    __shared__ int s_loc[GP_TILE];  // the winner's row in this shard, else -1
+    const int base = blockIdx.x * GP_TILE;
+    const int n_out = n - base < GP_TILE ? n - base : GP_TILE;
+    for (int k = threadIdx.x; k < n_out; k += GP_THREADS) {
+        const int j = base + k;
+        const int i = __ldg(lane_of + j);
+        const int tr = __ldg(tri + i);
+        const bool win = tr >= 0 && hit_key(__ldg(t + i), tr, rank, canon) == __ldg(keys + j);
+        s_loc[k] = win ? __ldg(g2l + tr) : -1;
+        int* p = payload + 3 * (long long)j;
+        p[0] = win ? tr + 1 : 0;
+        p[1] = win ? (int)plus_zero_bits(__float_as_uint(__ldg(u + i)), canon) : 0;
+        p[2] = win ? (int)plus_zero_bits(__float_as_uint(__ldg(v + i)), canon) : 0;
+    }
+    __syncthreads();
+    if (out_shade != nullptr) {
+        const float4* src = reinterpret_cast<const float4*>(shade);
+        float4* dst = reinterpret_cast<float4*>(out_shade) + 4 * (long long)base;
+#pragma unroll 4
+        for (int e = threadIdx.x; e < 4 * n_out; e += GP_THREADS) {
+            const int loc = s_loc[e >> 2];
+            float4 r = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (loc >= 0) {
+                r = __ldg(src + 4 * (long long)loc + (e & 3));
+                r = make_float4(plus_zero(r.x, canon), plus_zero(r.y, canon),
+                                plus_zero(r.z, canon), plus_zero(r.w, canon));
+            }
+            dst[e] = r;
+        }
+    }
+    if (out_motion != nullptr) {
+        const float2* src = reinterpret_cast<const float2*>(motion);
+        float2* dst = reinterpret_cast<float2*>(out_motion) + 9 * (long long)base;
+#pragma unroll 4
+        for (int e = threadIdx.x; e < 9 * n_out; e += GP_THREADS) {
+            const int k = e / 9;
+            const int loc = s_loc[k];
+            float2 r = make_float2(0.0f, 0.0f);
+            if (loc >= 0) {
+                r = __ldg(src + 9 * (long long)loc + (e - 9 * k));
+                r = make_float2(plus_zero(r.x, canon), plus_zero(r.y, canon));
+            }
+            dst[e] = r;
+        }
+    }
+}
+
+__global__ void gp_lane_unpack_kernel(const long long* __restrict__ keys,
+                                      const int* __restrict__ payload,
+                                      const int* __restrict__ lane_of, float* __restrict__ t,
+                                      int* __restrict__ tri, float* __restrict__ u,
+                                      float* __restrict__ v, int n) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n) return;
+    const int i = __ldg(lane_of + j);
+    const int* p = payload + 3 * (long long)j;
+    t[i] = __uint_as_float((unsigned)((unsigned long long)__ldg(keys + j) >> 32));
+    tri[i] = __ldg(p) - 1;
+    u[i] = __int_as_float(__ldg(p + 1));
+    v[i] = __int_as_float(__ldg(p + 2));
+}
+
+__global__ void gp_lane_unpack_occluded_kernel(const unsigned char* __restrict__ occ,
+                                               const int* __restrict__ lane_of,
+                                               bool* __restrict__ occluded, int n) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j < n) occluded[__ldg(lane_of + j)] = occ[j] != 0;
 }
 
 // K14 banded_taps: this rank's share of the packed bilinear sample on a
@@ -1514,9 +1659,9 @@ extern "C" int mrt_halton(const void* idx, const void* base, void* out, int n, i
 // K13 over n lanes: the map (pos (n,), lane_of (n_rows,)) of the lanes
 // live (every lane when live is null), and the rows of the first n_rows of
 // them (n_rows: the live lanes, counted by the caller): out_shade
-// (n_rows, 16) and/or out_motion (n_rows, 18), either null when not wanted
-// (both are null where n_rows is 0: the map alone); counts: one int32 a
-// tile of GP_TILE lanes (scratch).
+// (n_rows, 16) and/or out_motion (n_rows, 18), either null when not wanted;
+// with ids null (and both outputs null) the map alone, a gp step's scan;
+// counts: one int32 a tile of GP_TILE lanes (scratch).
 extern "C" int mrt_gp_rows(const void* ids, const void* live, const void* g2l, const void* shade,
                            const void* motion, void* counts, void* pos, void* lane_of,
                            void* out_shade, void* out_motion, int n, int n_rows, void* stream) {
@@ -1532,6 +1677,63 @@ extern "C" int mrt_gp_rows(const void* ids, const void* live, const void* g2l, c
         (const bool*)live, (const int*)ids, (const int*)g2l, (const float*)shade,
         (const float*)motion, (const int*)counts, (int*)pos, (int*)lane_of, (float*)out_shade,
         (float*)out_motion, n, n_rows);
+    return (int)cudaGetLastError();
+}
+
+// K15 over the n rows of a gp step's map: with t and tri (the closest-hit
+// record, (P,) each) each row's key into keys (n,) int64; with occluded
+// ((P,) bool; t and tri null) each row's lane's occlusion into occ (n,)
+// uint8. rank: this rank's index on the gp axis; canon: the axis has more
+// than one rank.
+extern "C" int mrt_gp_hit_keys(const void* t, const void* tri, const void* occluded,
+                               const void* lane_of, void* keys, void* occ, int n, int rank,
+                               int canon, void* stream) {
+    if (n <= 0) return 0;
+    if (occluded != nullptr)
+        gp_hit_keys_occluded_kernel<<<blocks(n), BLOCK, 0, (cudaStream_t)stream>>>(
+            (const bool*)occluded, (const int*)lane_of, (unsigned char*)occ, n);
+    else
+        gp_hit_keys_kernel<<<blocks(n), BLOCK, 0, (cudaStream_t)stream>>>(
+            (const float*)t, (const int*)tri, (const int*)lane_of, (long long*)keys, n, rank,
+            canon != 0);
+    return (int)cudaGetLastError();
+}
+
+// K13's gather over the n rows of a gp step's map: t, tri, u, v the
+// closest-hit record ((P,) each), keys (n,) the keys reduced by min over
+// gp, lane_of (n,); the winner's rows from this shard's tables (g2l, shade,
+// motion) into out_shade (n, 16) and/or out_motion (n, 18), either null when
+// not wanted, and the payload (n, 3) int32.
+extern "C" int mrt_gp_gather(const void* t, const void* tri, const void* u, const void* v,
+                             const void* keys, const void* lane_of, const void* g2l,
+                             const void* shade, const void* motion, void* out_shade,
+                             void* out_motion, void* payload, int n, int rank, int canon,
+                             void* stream) {
+    if (n <= 0) return 0;
+    const unsigned tiles = (unsigned)((n + GP_TILE - 1) / GP_TILE);
+    gp_gather_kernel<<<tiles, GP_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)t, (const int*)tri, (const float*)u, (const float*)v,
+        (const long long*)keys, (const int*)lane_of, (const int*)g2l, (const float*)shade,
+        (const float*)motion, (float*)out_shade, (float*)out_motion, (int*)payload, n, rank,
+        canon != 0);
+    return (int)cudaGetLastError();
+}
+
+// K16 over the n rows of a gp step's map: with keys and payload (the
+// reduced keys (n,) and the summed payload (n, 3)) the combined hit into the
+// record's t, tri, u, v ((P,) each) at lane lane_of[j]; with occ ((n,)
+// uint8; keys and payload null) the occlusion into occluded ((P,) bool).
+extern "C" int mrt_gp_lane_unpack(const void* keys, const void* payload, const void* occ,
+                                  const void* lane_of, void* t, void* tri, void* u, void* v,
+                                  void* occluded, int n, void* stream) {
+    if (n <= 0) return 0;
+    if (occ != nullptr)
+        gp_lane_unpack_occluded_kernel<<<blocks(n), BLOCK, 0, (cudaStream_t)stream>>>(
+            (const unsigned char*)occ, (const int*)lane_of, (bool*)occluded, n);
+    else
+        gp_lane_unpack_kernel<<<blocks(n), BLOCK, 0, (cudaStream_t)stream>>>(
+            (const long long*)keys, (const int*)payload, (const int*)lane_of, (float*)t,
+            (int*)tri, (float*)u, (float*)v, n);
     return (int)cudaGetLastError();
 }
 

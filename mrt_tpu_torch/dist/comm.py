@@ -5,7 +5,8 @@ with ``jax.lax.psum``/``pmin``/``pmax``/``pmean`` over named axes inside
 ``shard_map``. The port runs one process per rank: a :class:`Mesh` holds a
 ``torch.distributed`` process group per named axis (``dp``, ``sp``, ``gp``),
 and ``axis_index``, ``psum``, ``pmin``, ``pmax`` and ``pmean`` take an
-:class:`Axis` where JAX takes an axis name. Ranks are
+:class:`Axis` where JAX takes an axis name (``psum_``, ``pmin_`` and
+``pmax_`` reduce in place). Ranks are
 laid out as the JAX package lays out devices, row-major over the axes
 (``make_mesh``'s ``(n // sp, sp)``, the combined geometry mesh
 ``(dp, n_gp)``), so rank r of a (dp, sp) mesh has ``dp = r // sp`` and
@@ -110,27 +111,44 @@ def psum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     return _reduce(x, axis, dist.ReduceOp.SUM)
 
 
-def psum_(x: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """``psum`` in place: ``x`` (contiguous) becomes the sum and is returned.
-    For buffers made once whose address a kernel was given (the gp step's
-    rows, ``kernels/wavefront.lane_rows``, whose sizes follow the live
-    lanes): no copy of tens of MB per reduction. Every rank must pass as
-    many elements; on the CPU (the tests' worlds) that is checked first, by
-    a reduction of two int64 that every rank can join, and a mismatch raises
-    on every rank where the reduction itself would hang or fail."""
+def _reduce_(x: torch.Tensor, axis: Axis, op, name: str) -> torch.Tensor:
+    """``x`` (contiguous) reduced by ``op`` over ``axis`` in place, and
+    returned. Every rank must pass as many elements; on the CPU (the tests'
+    worlds) that is checked first, by a reduction of two int64 that every
+    rank can join, and a mismatch raises on every rank where the reduction
+    itself would hang or fail."""
     if axis.size == 1:
         return x
     if not x.is_contiguous():
-        raise ValueError("psum_: the tensor must be contiguous")
+        raise ValueError(f"{name}: the tensor must be contiguous")
     if x.device.type == "cpu":
         n = x.numel()
         most = torch.tensor([n, -n], dtype=torch.int64)
         dist.all_reduce(most, op=dist.ReduceOp.MAX, group=axis.group)
         if int(most[0]) != n or -int(most[1]) != n:
-            raise ValueError(f"psum_: {n} elements on this rank, between {-int(most[1])} and "
+            raise ValueError(f"{name}: {n} elements on this rank, between {-int(most[1])} and "
                              f"{int(most[0])} over the axis {axis.name!r}")
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=axis.group)
+    dist.all_reduce(x, op=op, group=axis.group)
     return x
+
+
+def psum_(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``psum`` in place (``_reduce_``): for buffers made once whose address
+    a kernel was given (the gp step's payload and rows,
+    ``kernels/wavefront.gp_combine``, whose sizes follow the live lanes): no
+    copy of tens of MB per reduction."""
+    return _reduce_(x, axis, dist.ReduceOp.SUM, "psum_")
+
+
+def pmin_(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``pmin`` in place (``_reduce_``; the gp step's hit keys)."""
+    return _reduce_(x, axis, dist.ReduceOp.MIN, "pmin_")
+
+
+def pmax_(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``pmax`` in place (``_reduce_``; the gp step's occlusion of its live
+    lanes, as uint8)."""
+    return _reduce_(x, axis, dist.ReduceOp.MAX, "pmax_")
 
 
 def pmin(x: torch.Tensor, axis: Axis) -> torch.Tensor:

@@ -137,7 +137,10 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
     (``route_check.checked_route_frame``). ``record_rows`` ("gp"): each gp
     step of the drawn frames recorded (``rows_psums``: its lanes, live
     lanes, the count ``lane_rows`` was given, its row floats, whether it
-    has taps, and the elements of each ``comm.psum_`` it issued).
+    has taps, the elements of each ``comm.psum_`` ``lane_rows`` issued,
+    and each collective of the step, ``collectives``: its op, elements,
+    bytes and the axis's ranks; ``collectives_summary`` sums them), and the
+    frames' collectives outside the steps (``frame_collectives``).
 
     Returns a dict: ``setup_s`` (the mesh's and the renderer's
     construction, and the restore), ``images`` (each frame's full
@@ -183,7 +186,7 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
     W.reset_launches()
     unpatch = None
     if record_rows:
-        out["rows_psums"], unpatch = _record_rows(W)
+        out["rows_psums"], out["frame_collectives"], unpatch = _record_rows(W)
     img = None
     for k in range(frames):
         if k < len(joints) and joints[k] is not None:
@@ -225,34 +228,79 @@ def drive(kind: str, scene, settings, shape: dict, frames: int, *, seed: int = 0
     return out
 
 
-def _record_rows(W):
-    """Patch ``W.lane_rows`` and ``comm.psum_`` to record each gp step (see
-    ``drive``'s ``record_rows``). Returns the list they fill and a function
-    that puts the originals back."""
-    orig_rows, orig_psum = W.lane_rows, comm.psum_
-    steps, cur = [], []
+# the collectives of dist/comm.py a gp frame can issue: in place (the gp
+# step's) and copying (over a whole tensor)
+COLLECTIVES = ("psum_", "pmin_", "pmax_", "psum", "pmin", "pmax")
 
-    def psum_(x, axis):
-        if cur:
-            cur[-1]["psums"].append(x.numel())
-        return orig_psum(x, axis)
+
+def _record_rows(W):
+    """Patch ``W.lane_rows``, ``W.gp_motion_rows``, ``W.resolve_shadow``
+    and the collectives of ``comm`` (``COLLECTIVES``) to record each gp
+    step (see ``drive``'s ``record_rows``): a step runs from its
+    ``lane_rows`` call to the next, or to its sample's end; a collective
+    outside a step (sample 0's motion rows) goes to a list of its own.
+    Returns the two lists they fill and a function that puts the originals
+    back."""
+    orig = {n: getattr(comm, n) for n in COLLECTIVES}
+    orig_w = {n: getattr(W, n) for n in ("lane_rows", "gp_motion_rows", "resolve_shadow")}
+    steps, outside, cur, inside = [], [], [], []
+
+    def recorder(name):
+        def collective(x, axis):
+            rec = dict(op=name, elements=x.numel(), bytes=x.numel() * x.element_size(),
+                       ranks=axis.size)
+            (cur[-1]["collectives"] if cur else outside).append(rec)
+            if inside and name == "psum_":
+                cur[-1]["psums"].append(x.numel())
+            return orig[name](x, axis)
+        return collective
 
     def lane_rows(fr, st, hits, wv, n_live):
         cols = 16 + 18 * W.needs_motion_rows(fr.settings, fr.statics)
         taps = W.needs_lane_taps(fr.settings, fr.statics, fr.scene.atlas.band_lo is not None)
         steps.append(dict(lanes=st.active.shape[0], live=int(st.active.sum()), n_live=n_live,
-                          cols=cols, taps=taps, psums=[]))
-        cur.append(steps[-1])
+                          cols=cols, taps=taps, psums=[], collectives=[]))
+        cur[:] = [steps[-1]]
+        inside.append(True)
         try:
-            return orig_rows(fr, st, hits, wv, n_live)
+            return orig_w["lane_rows"](fr, st, hits, wv, n_live)
         finally:
-            cur.pop()
+            inside.pop()
+
+    def ends_step(name):
+        def fn(*a, **k):
+            cur.clear()
+            return orig_w[name](*a, **k)
+        return fn
 
     def unpatch():
-        W.lane_rows, comm.psum_ = orig_rows, orig_psum
+        for n, f in orig.items():
+            setattr(comm, n, f)
+        for n, f in orig_w.items():
+            setattr(W, n, f)
 
-    W.lane_rows, comm.psum_ = lane_rows, psum_
-    return steps, unpatch
+    for n in COLLECTIVES:
+        setattr(comm, n, recorder(n))
+    W.lane_rows = lane_rows
+    W.gp_motion_rows, W.resolve_shadow = ends_step("gp_motion_rows"), ends_step("resolve_shadow")
+    return steps, outside, unpatch
+
+
+def collectives_summary(steps: list) -> dict:
+    """The collectives of recorded gp steps (``drive(record_rows=True)``'s
+    ``rows_psums``) that reduce over more than one rank: per step their
+    count, elements and bytes (lists, step by step), the bytes of all of
+    them, each step's live share, and ``copying``: the collectives that
+    reduce a whole tensor copy (``psum``, ``pmin``, ``pmax``; the
+    full-width combine) rather than a step's live-lane buffer in place."""
+    real = [[c for c in st["collectives"] if c["ranks"] > 1] for st in steps]
+    return dict(steps=len(steps), count=[len(r) for r in real],
+                elements=[sum(c["elements"] for c in r) for r in real],
+                bytes=[sum(c["bytes"] for c in r) for r in real],
+                total_bytes=sum(c["bytes"] for r in real for c in r),
+                live_share=[st["live"] / st["lanes"] for st in steps],
+                ops=sorted({c["op"] for r in real for c in r}),
+                copying=sum(c["op"] in ("psum", "pmin", "pmax") for r in real for c in r))
 
 
 def _checked_flat_frame(r, traverse2) -> dict:

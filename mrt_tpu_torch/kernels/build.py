@@ -166,6 +166,12 @@ def load():
     lib.mrt_gp_rows.restype = i
     lib.mrt_banded_taps.argtypes = [p] * 6 + [i, i, i, p, i, p]
     lib.mrt_banded_taps.restype = i
+    lib.mrt_gp_hit_keys.argtypes = [p] * 6 + [i, i, i, p]
+    lib.mrt_gp_hit_keys.restype = i
+    lib.mrt_gp_gather.argtypes = [p] * 12 + [i, i, i, p]
+    lib.mrt_gp_gather.restype = i
+    lib.mrt_gp_lane_unpack.argtypes = [p] * 9 + [i, p]
+    lib.mrt_gp_lane_unpack.restype = i
     lib.mrt_halton.argtypes = [p, p, p, i, i, p]
     lib.mrt_halton.restype = i
     lib.mrt_svgf_reproject.argtypes = [p] * 19 + [i, i, p]

@@ -56,21 +56,33 @@ kernels or raise.
 Under geometry sharding (the gp axis, ``dist/geometry.py``) a rank holds
 only its shard's shade and motion rows, and maybe one row band of the
 packed atlas. A collective cannot run inside K7, so each step is split at
-the psums of the JAX package's ``_tri_rows`` and banded taps
-(``lane_rows``). The step's rows cover only its live lanes, compacted in
-lane order: K13 ``gp_rows`` scans the live flags into each lane's position
-(``pos``, -1 where dead) and its inverse (``lane_of``), and writes each
-live lane's rows at its position where this rank owns the hit triangle
-(zeros elsewhere); one psum over gp of the ``n_live`` rows completes them.
-On a banded atlas with maps K14 ``banded_taps`` writes this rank's share
-of each live lane's packed sample at the same position, and a second psum
-completes it; then K7's lane-row form (``k7_variant`` bit 3, with bit 4
-the per-lane taps) reads them at ``pos[i]``. The flags are the same on
-every rank (gp replicates the rays), so the map is too, and every rank
-issues psums of the same sizes. Their plain versions are the local half of
-``_tri_rows`` over ``torch.cumsum``/``torch.nonzero``'s map
-(``gp_rows_plain``) and ``assets/texture.sample_packed_banded``
-(``banded_taps_plain``); the plain route keeps ``_tri_rows`` and
+its collectives, all over its live lanes only, compacted in lane order
+(``lane_rows``, ``gp_combine``): K13's scan (``gp_scan``) maps each live
+lane to its position (``pos``, -1 where dead) and back (``lane_of``);
+K15 ``gp_hit_keys`` writes each row's int64 key, ``(bits(t) << 32) |
+rank`` (``NO_WINNER`` without a hit), and one in-place min over gp of the
+keys gives the JAX package's ``combine_hits_across`` min-t and winning
+rank at once; K13's gather (``gp_gather``) has the winner write the
+payload (triangle + 1, u, v) and its shard's rows of the triangle, the
+others zeros, and one int32 psum completes hit and rows (each element has
+one nonzero contributor: exact); K16 ``gp_lane_unpack`` writes the
+combined hit into the closest-hit record where K7 reads it. On a banded
+atlas with maps K14 ``banded_taps`` writes this rank's share of each live
+lane's packed sample at the same position, and a second psum completes
+it; then K7's lane-row form (``k7_variant`` bit 3, with bit 4 the
+per-lane taps) reads them at ``pos[i]``. The step's shadow rays come from
+its live lanes, so their occlusion takes the same map (``lane_occluded``:
+K15's and K16's second forms around an in-place max of uint8). The flags
+are the same on every rank (gp replicates the rays), so the map is too,
+and every rank issues collectives of the same sizes. Their plain versions
+are ``torch.cumsum``/``torch.nonzero``'s map (``gp_scan_plain``), the
+keys, gather and unpack in torch ops (``gp_hit_keys_plain``,
+``gp_gather_plain``, ``gp_lane_unpack_plain`` and the occlusion's
+``gp_occluded_rows_plain``, ``gp_occluded_lanes_plain``) and
+``assets/texture.sample_packed_banded`` (``banded_taps_plain``); sample
+0's motion rows go through K13's own rows (``gp_rows``, the local half of
+``_tri_rows``; ``gp_rows_plain``). The plain route keeps the full-width
+``render/wavefront.combine_hits_across`` and ``_tri_rows`` and
 ``sample_packed_across`` inside K7's plain body.
 
 K7 has one instantiation per ``k7_variant`` (``K7_VARIANTS``): the
@@ -100,8 +112,15 @@ from . import traverse2
 from .traverse2 import _check
 
 STAGES = ("sample_start", "shade_hit", "resolve_shadow")
-GP_STAGES = ("gp_rows", "banded_taps")  # K13 and K14, geometry sharding's
+# K13, K14, K15 and K16: geometry sharding's (each of K15's and K16's two
+# forms counts as its kernel's launch)
+GP_STAGES = ("gp_rows", "banded_taps", "gp_hit_keys", "gp_lane_unpack")
 GP_TILE = 1024  # K13's lanes a block (csrc/wavefront.cu:GP_TILE)
+# a gp step's hit keys: the low word where a rank has no hit
+# (csrc/wavefront.cu:NO_WINNER); the payload's int32 columns a row (the
+# triangle + 1, the bits of u and v)
+NO_WINNER = 1 << 30
+PAYLOAD_COLS = 3
 launches = dict.fromkeys(STAGES + GP_STAGES, 0)  # kernel launches in this process, by stage
 # K7's instantiations (csrc/wavefront.cu:TEX_KERNELS) by k7_variant, and
 # their launches in this process
@@ -186,12 +205,16 @@ class LaneBuffers(NamedTuple):
     (``make_wave``), made once for P lanes: each step uses their first
     n_live rows, so the kernels' pointers stay fixed."""
 
-    flat: torch.Tensor  # (P * (16 + 18 * motion),) f32: K13's n shade rows, then n motion rows
+    # (P * (16 + 18 * motion + PAYLOAD_COLS),) f32: K13's gather writes n shade
+    # rows, then n motion rows, then the n rows' payload (int32 bits)
+    flat: torch.Tensor
     motion: bool  # whether the frame needs the motion rows
     taps: torch.Tensor | None  # (P,16) f32: K14's (banded atlas with maps), else None
     pos: torch.Tensor  # (P,) int32
     lane_of: torch.Tensor  # (P,) int32
     counts: torch.Tensor  # (tiles,) int32: K13's live lanes per tile of GP_TILE lanes
+    keys: torch.Tensor  # (P,) int64: K15's hit keys
+    occ: torch.Tensor  # (P,) uint8: K15's occlusion rows
 
 
 GBUFFER_FIELDS = ("diffuse_albedo", "specular_albedo", "normal", "roughness", "wrote_gb")
@@ -394,10 +417,13 @@ def make_wave(fr: Frame, max_steps: int) -> Wave:
         if needs_lane_taps(fr.settings, fr.statics, fr.scene.atlas.band_lo is not None):
             taps = torch.zeros((P, tex.PACKED_C), dtype=f32, device=dev)
         i32 = torch.int32
-        lane = LaneBuffers(torch.zeros(P * (16 + 18 * motion), dtype=f32, device=dev), motion,
-                           taps, torch.empty(P, dtype=i32, device=dev),
+        lane = LaneBuffers(torch.zeros(P * (16 + 18 * motion + PAYLOAD_COLS), dtype=f32,
+                                       device=dev), motion, taps,
                            torch.empty(P, dtype=i32, device=dev),
-                           torch.empty(-(-P // GP_TILE), dtype=i32, device=dev))
+                           torch.empty(P, dtype=i32, device=dev),
+                           torch.empty(-(-P // GP_TILE), dtype=i32, device=dev),
+                           torch.empty(P, dtype=torch.int64, device=dev),
+                           torch.empty(P, dtype=torch.uint8, device=dev))
     buf = WaveBuffers(sh, torch.empty((2, P), dtype=torch.int32, device=dev),
                       torch.zeros(2 * (max_steps + 1), dtype=torch.int32, device=dev), fr,
                       _frame_ptrs(fr, lane), _maps_ptrs(fr, lane), _ptrs(list(sh)), lane=lane)
@@ -978,14 +1004,102 @@ def gp_rows_plain(geom, ids: torch.Tensor, live: torch.Tensor | None, shade: boo
     int32."""
     if live is None:
         live = torch.ones(ids.shape[0], dtype=torch.bool, device=ids.device)
-    pos = torch.where(live, torch.cumsum(live, 0, dtype=torch.int32) - 1, -1).to(torch.int32)
-    lane_of = torch.nonzero(live).squeeze(1).to(torch.int32)
+    pos, lane_of = gp_scan_plain(live)
     idl = ids[lane_of.long()]
     loc = torch.where(idl >= 0, geom.g2l[idl.clamp_min(0).long()], -1).long()
     mine = (loc >= 0)[:, None]
     parts = [torch.where(mine, table[loc.clamp_min(0)], 0.0).reshape(-1)
              for table, on in ((geom.shade_rows, shade), (geom.motion_rows, motion)) if on]
     return torch.cat(parts), pos, lane_of
+
+
+def gp_scan_plain(live: torch.Tensor):
+    """K13's map alone (a gp step's scan, before its hit combine): each
+    ``live`` lane's position ``pos`` (the live lanes before it, from
+    ``torch.cumsum``; -1 where dead) and its inverse ``lane_of``
+    (``torch.nonzero``); (P,) and (n,) int32."""
+    pos = torch.where(live, torch.cumsum(live, 0, dtype=torch.int32) - 1, -1).to(torch.int32)
+    return pos, torch.nonzero(live).squeeze(1).to(torch.int32)
+
+
+def _plus_zero_bits(x: torch.Tensor, canon: bool) -> torch.Tensor:
+    """The int32 bits of float32 ``x``, -0.0 as +0.0 where ``canon``."""
+    b = x.view(torch.int32)
+    return torch.where(b == -(1 << 31), 0, b) if canon else b
+
+
+def hit_keys_of(t: torch.Tensor, tri: torch.Tensor, rank: int, canon: bool) -> torch.Tensor:
+    """The int64 key of each hit (``csrc/wavefront.cu:hit_key``):
+    ``(bits(t) << 32) | r'``, r' = ``rank`` where ``tri`` >= 0, else
+    ``NO_WINNER``; -0.0 as +0.0 where ``canon`` (the axis has more than one
+    rank). A hit's t is >= 0 or +inf, so the keys' order is (t, r')'s and
+    their minimum over gp holds ``combine_hits_across``'s ``t_min`` and
+    winning rank."""
+    hi = _plus_zero_bits(t.contiguous(), canon).to(torch.int64)
+    return (hi << 32) | torch.where(tri >= 0, rank, NO_WINNER).to(torch.int64)
+
+
+def gp_hit_keys_plain(t: torch.Tensor, tri: torch.Tensor, lane_of: torch.Tensor,
+                      axis) -> torch.Tensor:
+    """K15's plain version: the key (``hit_keys_of``) of each of a gp
+    step's n rows, from its lane's (``lane_of``) t and triangle in the
+    closest-hit record ((P,) each), this rank's index on the gp ``axis``
+    (``dist.comm.Axis``). (n,) int64."""
+    idx = lane_of.long()
+    return hit_keys_of(t[idx], tri[idx], axis.index, axis.size > 1)
+
+
+def gp_occluded_rows_plain(occluded: torch.Tensor, lane_of: torch.Tensor) -> torch.Tensor:
+    """K15's second form, plain: each row's lane's occlusion ((P,) bool) as
+    (n,) uint8, for the pmax over gp."""
+    return occluded[lane_of.long()].to(torch.uint8)
+
+
+def gp_gather_plain(geom, t: torch.Tensor, tri: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                    keys: torch.Tensor, lane_of: torch.Tensor, shade: bool = True,
+                    motion: bool = False) -> torch.Tensor:
+    """K13's gather, plain: per row j of a gp step's map (``lane_of``, (n,)),
+    whether this rank won the hit combine (its own key, ``hit_keys_of`` on
+    the record ``t``, ``tri`` at the lane, equals ``keys[j]``, the keys'
+    minimum over gp, and its triangle is >= 0); the winner writes the
+    payload (triangle + 1, the bits of u and v) and its shard's shade and/or
+    motion rows of the triangle (``geom.g2l``), the other ranks zeros. Over
+    more than one rank -0.0 is written +0.0, as a float psum with zeros
+    makes it. Returns the rows flat, the (n,16) shade rows, then the (n,18)
+    motion rows, then the (n, ``PAYLOAD_COLS``) payload, all as float32 (the
+    payload's int32 bits), for one int32 psum over gp."""
+    axis = geom.axis
+    canon = axis.size > 1
+    idx = lane_of.long()
+    ti = tri[idx]
+    win = (ti >= 0) & (hit_keys_of(t[idx], ti, axis.index, canon) == keys)
+    loc = torch.where(win, geom.g2l[ti.clamp_min(0).long()], -1).long()
+    mine = (loc >= 0)[:, None]
+    parts = [_plus_zero_bits(torch.where(mine, table[loc.clamp_min(0)], 0.0), canon).reshape(-1)
+             for table, on in ((geom.shade_rows, shade), (geom.motion_rows, motion)) if on]
+    payload = torch.stack([torch.where(win, ti + 1, 0),
+                           torch.where(win, _plus_zero_bits(u[idx], canon), 0),
+                           torch.where(win, _plus_zero_bits(v[idx], canon), 0)], 1)
+    return torch.cat(parts + [payload.reshape(-1)]).view(torch.float32)
+
+
+def gp_lane_unpack_plain(keys: torch.Tensor, payload: torch.Tensor, lane_of: torch.Tensor,
+                         t: torch.Tensor, tri: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """K16's plain version: the combined hit of each of a gp step's rows
+    into the closest-hit record at its lane (``lane_of``), in place: t from
+    the reduced key's high word, the triangle from the summed payload
+    ((n, ``PAYLOAD_COLS``) int32) less one, u and v from its bits."""
+    idx = lane_of.long()
+    t[idx] = (keys >> 32).to(torch.int32).view(torch.float32)
+    tri[idx] = payload[:, 0] - 1
+    u[idx] = payload[:, 1].view(torch.float32)
+    v[idx] = payload[:, 2].view(torch.float32)
+
+
+def gp_occluded_lanes_plain(occ: torch.Tensor, lane_of: torch.Tensor, occluded: torch.Tensor):
+    """K16's second form, plain: each row's occlusion reduced over gp
+    ((n,) uint8) into its lane of ``occluded`` ((P,) bool), in place."""
+    occluded[lane_of.long()] = occ != 0
 
 
 def banded_taps_plain(atlas: tex.TextureAtlas, srow: torch.Tensor, u: torch.Tensor,
@@ -1232,6 +1346,197 @@ def gp_rows(geom, ids: torch.Tensor, live: torch.Tensor | None, shade: bool = Tr
     return out, pos, lane_of[:n_live]
 
 
+def _gp_device(what: str, t: torch.Tensor):
+    """The card of a gp wrapper's CUDA tensor ``t`` (raises for another
+    device type), and the kernel library."""
+    dev = t.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    from . import build
+
+    return dev, build.load()
+
+
+def _launched(what: str, stage: str, rc: int):
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    launches[stage] += 1
+
+
+def gp_scan(live: torch.Tensor, n_live: int, pos: torch.Tensor | None = None,
+            lane_of: torch.Tensor | None = None, counts: torch.Tensor | None = None):
+    """A gp step's map alone (see ``gp_scan_plain``): (pos, lane_of).
+    CPU tensors take the plain version, and raise where ``n_live`` (the
+    caller's count of ``live``) is not its count; CUDA tensors launch K13's
+    count and scan (``gp_rows_count_kernel``, ``gp_rows_kernel`` without
+    ids), into ``pos``, ``lane_of`` (at least ``n_live`` long; its first
+    ``n_live`` returned) and ``counts`` where given."""
+    P = live.shape[0]
+    if live.device.type == "cpu":
+        res = gp_scan_plain(live)
+        if res[1].shape[0] != n_live:
+            raise ValueError(f"gp_scan: {res[1].shape[0]} live lanes, the caller counted {n_live}")
+        return res
+    what = "gp_scan"
+    dev, lib = _gp_device(what, live)
+    _check(what, "live", live, torch.bool, (P,), dev)
+    if not 0 <= n_live <= P:
+        raise ValueError(f"{what}: {n_live} live lanes of {P}")
+    i32 = torch.int32
+    tiles = -(-P // GP_TILE)
+    pos = torch.empty(P, dtype=i32, device=dev) if pos is None else pos
+    lane_of = torch.empty(P, dtype=i32, device=dev) if lane_of is None else lane_of
+    counts = torch.empty(tiles, dtype=i32, device=dev) if counts is None else counts
+    _check(what, "pos", pos, i32, (P,), dev)
+    if lane_of.shape[0] < n_live or counts.shape[0] < tiles:
+        raise ValueError(f"{what}: lane_of holds {lane_of.shape[0]} lanes ({n_live} live), "
+                         f"counts {counts.shape[0]} tiles ({tiles})")
+    _check(what, "lane_of", lane_of, i32, (lane_of.shape[0],), dev)
+    _check(what, "counts", counts, i32, (counts.shape[0],), dev)
+    if P == 0:
+        return pos, lane_of[:0]
+    rc = lib.mrt_gp_rows(None, _ptr(live), None, None, None, _ptr(counts), _ptr(pos),
+                         _ptr(lane_of), None, None, P, n_live, _stream(dev))
+    _launched(what, "gp_rows", rc)
+    return pos, lane_of[:n_live]
+
+
+def _check_record(what: str, dev, P: int, **fields):
+    for name, (t, dtype) in fields.items():
+        _check(what, name, t, dtype, (P,), dev)
+
+
+def gp_hit_keys(t: torch.Tensor, tri: torch.Tensor, lane_of: torch.Tensor, axis,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """Each gp step row's hit key (see ``gp_hit_keys_plain``). CPU tensors
+    take the plain version; CUDA tensors launch K15, into ``out`` where
+    given."""
+    if t.device.type == "cpu":
+        return gp_hit_keys_plain(t, tri, lane_of, axis)
+    what = "gp_hit_keys"
+    dev, lib = _gp_device(what, t)
+    P, n = t.shape[0], lane_of.shape[0]
+    _check_record(what, dev, P, t=(t, torch.float32), tri=(tri, torch.int32))
+    _check(what, "lane_of", lane_of, torch.int32, (n,), dev)
+    out = torch.empty(n, dtype=torch.int64, device=dev) if out is None else out
+    _check(what, "out", out, torch.int64, (n,), dev)
+    if n == 0:
+        return out
+    rc = lib.mrt_gp_hit_keys(_ptr(t), _ptr(tri), None, _ptr(lane_of), _ptr(out), None, n,
+                             axis.index, int(axis.size > 1), _stream(dev))
+    _launched(what, "gp_hit_keys", rc)
+    return out
+
+
+def gp_occluded_rows(occluded: torch.Tensor, lane_of: torch.Tensor,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """Each gp step row's occlusion as uint8 (see
+    ``gp_occluded_rows_plain``). CPU tensors take the plain version; CUDA
+    tensors launch K15's second form, into ``out`` where given."""
+    if occluded.device.type == "cpu":
+        return gp_occluded_rows_plain(occluded, lane_of)
+    what = "gp_occluded_rows"
+    dev, lib = _gp_device(what, occluded)
+    n = lane_of.shape[0]
+    _check(what, "occluded", occluded, torch.bool, (occluded.shape[0],), dev)
+    _check(what, "lane_of", lane_of, torch.int32, (n,), dev)
+    out = torch.empty(n, dtype=torch.uint8, device=dev) if out is None else out
+    _check(what, "out", out, torch.uint8, (n,), dev)
+    if n == 0:
+        return out
+    rc = lib.mrt_gp_hit_keys(None, None, _ptr(occluded), _ptr(lane_of), None, _ptr(out), n, 0, 0,
+                             _stream(dev))
+    _launched(what, "gp_hit_keys", rc)
+    return out
+
+
+def gp_gather(geom, t: torch.Tensor, tri: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+              keys: torch.Tensor, lane_of: torch.Tensor, shade: bool = True, motion: bool = False,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """The winner's payload and rows of each gp step row (see
+    ``gp_gather_plain``). CPU tensors take the plain version; CUDA tensors
+    launch K13's gather, into ``out`` (16-byte aligned) where given."""
+    if t.device.type == "cpu":
+        return gp_gather_plain(geom, t, tri, u, v, keys, lane_of, shade, motion)
+    what = "gp_gather"
+    dev, lib = _gp_device(what, t)
+    P, n = t.shape[0], lane_of.shape[0]
+    _check_record(what, dev, P, t=(t, torch.float32), tri=(tri, torch.int32),
+                  u=(u, torch.float32), v=(v, torch.float32))
+    _check(what, "keys", keys, torch.int64, (n,), dev)
+    _check(what, "lane_of", lane_of, torch.int32, (n,), dev)
+    g2l, n_local = geom.g2l, geom.shade_rows.shape[0]
+    if g2l is None:
+        raise ValueError(f"{what}: the geometry is not a shard's (no g2l)")
+    _check(what, "g2l", g2l, torch.int32, (g2l.shape[0],), dev)
+    tables = [("shade_rows", geom.shade_rows, 16, 16, shade),
+              ("motion_rows", geom.motion_rows, 18, 8, motion)]  # read as float4, float2
+    cols = 0
+    for name, table, c, align, on in tables:
+        if on:
+            _check(what, name, table, torch.float32, (n_local, c), dev)
+            if table.data_ptr() % align:
+                raise ValueError(f"{what}: {name} must be {align}-byte aligned")
+            cols += c
+    size = n * (cols + PAYLOAD_COLS)
+    out = torch.empty(size, dtype=torch.float32, device=dev) if out is None else out
+    _check(what, "out", out, torch.float32, (size,), dev)
+    if out.data_ptr() % 16:  # the shade rows written as float4
+        raise ValueError(f"{what}: out must be 16-byte aligned")
+    if n == 0:
+        return out
+    so, mo = split_rows(out[:n * cols], n, shade, motion)
+    rc = lib.mrt_gp_gather(_ptr(t), _ptr(tri), _ptr(u), _ptr(v), _ptr(keys), _ptr(lane_of),
+                           _ptr(g2l), _ptr(geom.shade_rows), _ptr(geom.motion_rows), _ptr(so),
+                           _ptr(mo), _ptr(out[n * cols:]), n, geom.axis.index,
+                           int(geom.axis.size > 1), _stream(dev))
+    _launched(what, "gp_rows", rc)
+    return out
+
+
+def gp_lane_unpack(keys: torch.Tensor, payload: torch.Tensor, lane_of: torch.Tensor,
+                   t: torch.Tensor, tri: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """The combined hit of each gp step row into the closest-hit record at
+    its lane, in place (see ``gp_lane_unpack_plain``). CPU tensors take the
+    plain version; CUDA tensors launch K16."""
+    if t.device.type == "cpu":
+        return gp_lane_unpack_plain(keys, payload, lane_of, t, tri, u, v)
+    what = "gp_lane_unpack"
+    dev, lib = _gp_device(what, t)
+    P, n = t.shape[0], lane_of.shape[0]
+    _check_record(what, dev, P, t=(t, torch.float32), tri=(tri, torch.int32),
+                  u=(u, torch.float32), v=(v, torch.float32))
+    _check(what, "keys", keys, torch.int64, (n,), dev)
+    _check(what, "payload", payload, torch.int32, (n, PAYLOAD_COLS), dev)
+    _check(what, "lane_of", lane_of, torch.int32, (n,), dev)
+    if n == 0:
+        return None
+    rc = lib.mrt_gp_lane_unpack(_ptr(keys), _ptr(payload), None, _ptr(lane_of), _ptr(t),
+                                _ptr(tri), _ptr(u), _ptr(v), None, n, _stream(dev))
+    _launched(what, "gp_lane_unpack", rc)
+    return None
+
+
+def gp_occluded_lanes(occ: torch.Tensor, lane_of: torch.Tensor, occluded: torch.Tensor):
+    """Each gp step row's occlusion reduced over gp into its lane of
+    ``occluded``, in place (see ``gp_occluded_lanes_plain``). CPU tensors
+    take the plain version; CUDA tensors launch K16's second form."""
+    if occluded.device.type == "cpu":
+        return gp_occluded_lanes_plain(occ, lane_of, occluded)
+    what = "gp_occluded_lanes"
+    dev, lib = _gp_device(what, occluded)
+    n = lane_of.shape[0]
+    _check(what, "occluded", occluded, torch.bool, (occluded.shape[0],), dev)
+    _check(what, "occ", occ, torch.uint8, (n,), dev)
+    _check(what, "lane_of", lane_of, torch.int32, (n,), dev)
+    if n == 0:
+        return None
+    rc = lib.mrt_gp_lane_unpack(None, None, _ptr(occ), _ptr(lane_of), None, None, None, None,
+                                _ptr(occluded), n, _stream(dev))
+    _launched(what, "gp_lane_unpack", rc)
+    return None
+
+
 def banded_taps(atlas: tex.TextureAtlas, srow: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                 lane_of: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """This rank's share of the packed sample of each of K13's rows on a
@@ -1276,36 +1581,79 @@ def banded_taps(atlas: tex.TextureAtlas, srow: torch.Tensor, u: torch.Tensor, v:
     return out
 
 
-def lane_rows(fr: Frame, st: LaneState, hits: T.Hits, wv: Wave, n_live: int) -> LaneRows:
-    """One gp step's rows for K7's lane-row form, over the ``n_live`` lanes
-    ``st.active`` (the caller's count: the previous step's live-lane count,
-    or at a sample's first step the lanes it traces), from the hits
-    combined over gp (``render/wavefront.combine_hits_across``): K13 on this
-    rank's shard (the map and the rows), one psum over gp of the n_live
-    shade and motion rows together (each element has one nonzero
-    contributor, so it equals the plain route's two psums bit for bit),
-    then on a banded atlas with maps K14 over those rows and a second psum.
-    On the card into ``wv``'s buffers (made once by ``make_wave``, the psums
-    in place on their first n_live rows); on the CPU through the plain
-    versions, with the same psums. Every rank issues the same collectives
-    with the same sizes: the rays, and so the live lanes and their map, are
-    replicated over gp."""
+def gp_combine(geom, hits: traverse2.TraverseOut, live: torch.Tensor, n_live: int,
+               motion: bool = False, lb: LaneBuffers | None = None):
+    """A gp step's hit combine over its ``n_live`` lanes ``live`` (the
+    caller's count), with its shade (and ``motion``) rows: K13's scan (the
+    map), K15 (each row's key), an in-place ``pmin_`` over gp of the n_live
+    keys, K13's gather (the winner's payload and rows, zeros elsewhere), one
+    in-place int32 ``psum_`` of payload and rows together (each element has
+    one nonzero contributor: exact), then K16, which writes the combined t,
+    triangle, u and v into the closest-hit record ``hits`` at the live
+    lanes, in place. Equal to ``render/wavefront.combine_hits_across`` and
+    ``_tri_rows`` there, bit for bit (a -0.0 t aside, which it makes +0.0
+    over more than one rank: the reference's float min leaves its sign to
+    the backend). On the card into the buffers ``lb`` where given; on the
+    CPU through the plain versions, with the same collectives. Every rank
+    issues them with the same sizes: the rays, and so the live lanes and
+    their map, are replicated over gp. Returns (rows, pos, lane_of): the
+    rows flat as ``gp_gather_plain`` lays them out."""
+    axis = geom.axis
+    cols = 16 + 18 * motion
+    kw = {} if lb is None else dict(pos=lb.pos, lane_of=lb.lane_of, counts=lb.counts)
+    pos, lane_of = gp_scan(live, n_live, **kw)
+    keys = gp_hit_keys(hits.t, hits.tri, lane_of, axis,
+                       out=None if lb is None else lb.keys[:n_live])
+    comm.pmin_(keys, axis)
+    flat = gp_gather(geom, hits.t, hits.tri, hits.u, hits.v, keys, lane_of, True, motion,
+                     out=None if lb is None else lb.flat[:n_live * (cols + PAYLOAD_COLS)])
+    comm.psum_(flat.view(torch.int32), axis)
+    payload = flat[n_live * cols:].view(torch.int32).view(n_live, PAYLOAD_COLS)
+    gp_lane_unpack(keys, payload, lane_of, hits.t, hits.tri, hits.u, hits.v)
+    return flat, pos, lane_of
+
+
+def lane_rows(fr: Frame, st: LaneState, hits: traverse2.TraverseOut, wv: Wave,
+              n_live: int) -> LaneRows:
+    """One gp step's hit combine and rows for K7's lane-row form, over the
+    ``n_live`` lanes ``st.active`` (the caller's count: the previous step's
+    live-lane count, or at a sample's first step the lanes it traces):
+    ``gp_combine`` on this rank's closest-hit record ``hits`` (combined in
+    place at the live lanes), then on a banded atlas with maps K14 over the
+    rows (u, v read at ``lane_of[j]`` in the combined record) and a second
+    ``psum_``. On the card into ``wv``'s buffers (made once by
+    ``make_wave``); on the CPU through the plain versions, with the same
+    collectives."""
     s, statics, geom = fr.settings, fr.statics, fr.geom
     motion = needs_motion_rows(s, statics)
     lb = None if wv.buf is None else wv.buf.lane
-    kw = {}
-    if lb is not None:
-        kw = dict(out=lb.flat[:n_live * (16 + 18 * motion)], pos=lb.pos, lane_of=lb.lane_of,
-                  counts=lb.counts)
-    flat, pos, lane_of = gp_rows(geom, hits.triangle, st.active, True, motion, n_live, **kw)
-    comm.psum_(flat, geom.axis)
-    shade, mrow = split_rows(flat, n_live, True, motion)
+    flat, pos, lane_of = gp_combine(geom, hits, st.active, n_live, motion, lb)
+    shade, mrow = split_rows(flat[:n_live * (16 + 18 * motion)], n_live, True, motion)
     taps = None
     if needs_lane_taps(s, statics, fr.scene.atlas.band_lo is not None):
         taps = banded_taps(fr.scene.atlas, shade, hits.u, hits.v, lane_of,
                            out=None if lb is None else lb.taps[:n_live])
         comm.psum_(taps, geom.axis)
     return LaneRows(shade, mrow, taps, pos, lane_of)
+
+
+def lane_occluded(occluded: torch.Tensor, lane_of: torch.Tensor, axis,
+                  wv: Wave | None = None) -> torch.Tensor:
+    """The occlusion of a gp step's shadow rays over the gp ``axis``: they
+    come from the lanes it shaded, its live lanes (``lane_of``, the map of
+    ``lane_rows``), so K15's second form gathers theirs, an in-place
+    ``pmax_`` of n_live uint8 reduces it, and K16's second form writes it
+    back into ``occluded`` ((P,) bool, in place; the other lanes keep this
+    rank's, which nothing reads). On the card into ``wv``'s buffer; an axis
+    of one rank reduces nothing. Returns ``occluded``."""
+    if axis.size == 1:
+        return occluded
+    lb = None if wv is None or wv.buf is None else wv.buf.lane
+    occ = gp_occluded_rows(occluded, lane_of,
+                           out=None if lb is None else lb.occ[:lane_of.shape[0]])
+    comm.pmax_(occ, axis)
+    gp_occluded_lanes(occ, lane_of, occluded)
+    return occluded
 
 
 def gp_motion_rows(geom, ids: torch.Tensor) -> torch.Tensor:

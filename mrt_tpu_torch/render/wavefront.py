@@ -26,12 +26,16 @@ the gp axis traces the same lanes against its own shard's flat table: the
 closest hits are combined by min-t (``combine_hits_across``), the shadow
 rays' occlusion by a max, and each hit's shade and motion rows, which only
 the shard that owns the triangle holds, by a sum, so every rank then shades
-identically. On the kernel route the rows (and a banded atlas's taps) of a
-step's live lanes, compacted in lane order, are buffers that kernels K13
-and K14 write and a psum of the live lanes' rows completes, read by K7's
-lane-row form (``kernels/wavefront.lane_rows``); the live-lane count that
-sizes them is the one the loop reads to end it. On the plain route K7's
-plain body gathers and sums them itself (``kernels/wavefront._tri_rows``).
+identically. On the kernel route all of it covers a step's live lanes
+only, compacted in lane order (``kernels/wavefront.lane_rows``): K13's scan
+maps them, K15's keys hold each hit's t and rank for one min over gp, the
+winner's K13 gather writes the hit and its rows for one psum, K16 writes
+the combined hit into the closest-hit record, K14 and a psum give a banded
+atlas's taps, and the occlusion goes down to the live lanes for its max
+(``lane_occluded``); the live-lane count that sizes them is the one the
+loop reads to end it. On the plain route the combine runs over every lane
+and K7's plain body gathers and sums the rows itself
+(``kernels/wavefront._tri_rows``).
 
 Shadow rays are traced as their own batch right after they are made (the
 JAX package may defer them into the next bounce's closest-hit batch; that
@@ -50,7 +54,6 @@ from ..bvh import kind, twolevel, wide
 from ..core import types as T
 from ..dist import comm
 from ..engine.scene import SceneData, SceneStatics
-from ..kernels import traverse2
 from ..kernels import wavefront as W
 from ..kernels.wavefront import sample_packed_across  # noqa: F401  (the gp tests' name)
 from . import shade as S
@@ -151,11 +154,12 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
     kernels K6-K8 (the kernel route), K7 reading the closest-hit
     traversal's raw record; with ``plain`` (the checks' plain route) the
     plain stages, on the traversal's ``Hits``. Under geometry sharding the
-    closest hits are combined over gp first, and on the kernel route the
-    rows of each step's live lanes come from K13 and K14 with their psums
-    (``W.lane_rows``), sized by the live-lane count the loop reads anyway
-    (the previous step's; at a sample's first step the lanes whose sample
-    count reaches it, read with the extra samples' largest count)."""
+    closest hits are combined over gp first, on the kernel route over each
+    step's live lanes with their rows (``W.lane_rows``: K13-K16 and their
+    collectives), as is the occlusion (``W.lane_occluded``), sized by the
+    live-lane count the loop reads anyway (the previous step's; at a
+    sample's first step the lanes whose sample count reaches it, read with
+    the extra samples' largest count)."""
     T.check_supported(settings)
     gax = None
     if settings.geometry_axis:
@@ -220,10 +224,9 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
             if route:
                 hits = trav.closest_raw(bvh, rays, closest_flags, mask=st.active, **closest_kw)
                 if gax is not None:
-                    # K7 reads the combined record raw (a flat table's: no tri_base)
-                    comb = combine_hits_across(traverse2.hits_of(hits), gax)
-                    rows = W.lane_rows(fr, st, comb, wv, live)
-                    hits = hits._replace(t=comb.t, tri=comb.triangle, u=comb.u, v=comb.v)
+                    # the hits combined over gp in the raw record at the live
+                    # lanes, where K7 reads them (a flat table's: no tri_base)
+                    rows = W.lane_rows(fr, st, hits, wv, live)
             else:
                 hits = trav.closest_hit(bvh, rays, mask=st.active, **closest_kw)
                 if gax is not None:
@@ -233,7 +236,9 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
                 sh = wv.shadow
                 occluded = trav.any_hit(bvh, T.Rays(sh.origin, sh.direction, sh.distance),
                                         mask=sh.need, **shadow_kw)
-                if gax is not None:
+                if gax is not None and route:
+                    occluded = W.lane_occluded(occluded, rows.lane_of, gax, wv)
+                elif gax is not None:
                     occluded = comm.pmax(occluded.to(torch.int32), gax) > 0
                 wv = wv._replace(occluded=occluded)
             live = int(n_live)

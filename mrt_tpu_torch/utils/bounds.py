@@ -35,7 +35,11 @@ list (``k8`` of its lanes). Under geometry sharding, K13 and K14
 (``gp_rows``, ``banded_taps``) count bytes per live lane (K13 also the
 scan's flags and positions of every lane) and each distinct row or texel
 they gather once, and K7's lane-row form reads its rows and taps per lane
-(``k7_work(..., rows=)``).
+(``k7_work(..., rows=)``). A gp step's K13 is its scan (``gp_scan``) and
+its gather after the hit combine (``gp_gather``, the rows this rank wins);
+K15 and K16, the combine's keys and unpack and the occlusion's two forms
+(``gp_hit_keys``, ``gp_lane_unpack``, ``gp_occluded_rows``,
+``gp_occluded_lanes``), count bytes per row of the step's map.
 """
 
 from __future__ import annotations
@@ -505,6 +509,19 @@ def _texel_bytes(fr, st, hits, hit, res, sampled, mipmapped: bool, lane=None) ->
 # rows out; each distinct triangle looked up reads its g2l entry (4 B), each
 # distinct one this rank owns its rows (64 B shade, 72 B motion)
 K13_BYTES_LIVE, K13_BYTES_POS, K13_BYTES_ID, K13_BYTES_LANE_OF, K13_BYTES_G2L = 1, 4, 4, 4, 4
+# K13's gather (a gp step's rows after the hit combine), per row: its lane
+# (4 B), the lane's t and triangle (8 B) and the reduced key (8 B) in, the
+# payload (12 B) and its rows out; per row this rank won, the lane's u and
+# v (8 B); each distinct triangle won reads its g2l entry and its rows once
+K13_GATHER_BYTES_ROW, K13_GATHER_BYTES_WON = 4 + 8 + 8 + 12, 8
+# K15 (gp_hit_keys), per row: its lane (4 B), the lane's t and triangle
+# (8 B) in, the key (8 B) out; its second form the lane's occlusion (1 B)
+# in, 1 B out
+K15_BYTES_ROW, K15_BYTES_OCC_ROW = 4 + 8 + 8, 4 + 1 + 1
+# K16 (gp_lane_unpack), per row: the key (8 B), the payload (12 B), its
+# lane (4 B) in, the lane's t, triangle, u, v (16 B) out; its second form
+# the row's occlusion (1 B) and lane (4 B) in, the lane's (1 B) out
+K16_BYTES_ROW, K16_BYTES_OCC_ROW = 8 + 12 + 4 + 16, 1 + 4 + 1
 # K14 (banded_taps), per row: the shade row's uvs and resource (the 32 B of
 # its last two float4), its lane (4 B), the lane's u and v (8 B) in, 64 B
 # out; each distinct resource's packed rect (16 B) and each distinct texel
@@ -533,6 +550,54 @@ def gp_rows(geom, ids, live, shade: bool = True, motion: bool = False) -> tuple[
               + n_live * (K13_BYTES_ID + K13_BYTES_LANE_OF + cols * 4)
               + looked.numel() * K13_BYTES_G2L + owned * cols * 4)
     return least_ms(0, nbytes)
+
+
+def gp_scan(live) -> tuple[float, str]:
+    """K13's bound for a gp step's scan (``kernels.wavefront.gp_scan``):
+    bytes, each lane's flag read and its position written, each live lane's
+    ``lane_of`` entry written."""
+    P = live.shape[0]
+    n_live = int(live.sum())
+    return least_ms(0, P * (K13_BYTES_LIVE + K13_BYTES_POS) + n_live * K13_BYTES_LANE_OF)
+
+
+def gp_gather(geom, t, tri, keys, lane_of, shade: bool = True,
+              motion: bool = False) -> tuple[float, str]:
+    """K13's bound for a gp step's gather (the arguments of
+    ``kernels.wavefront.gp_gather``): bytes, from the rows this rank wins
+    (as ``gp_gather_plain`` finds them)."""
+    from ..kernels import wavefront as W
+
+    axis = geom.axis
+    cols = 16 * shade + 18 * motion
+    n = lane_of.shape[0]
+    ti = tri[lane_of.long()]
+    won = (ti >= 0) & (W.hit_keys_of(t[lane_of.long()], ti, axis.index, axis.size > 1) == keys)
+    tris = ti[won].long().unique()
+    owned = int((geom.g2l[tris] >= 0).sum())
+    nbytes = (n * (K13_GATHER_BYTES_ROW + cols * 4) + int(won.sum()) * K13_GATHER_BYTES_WON
+              + tris.numel() * K13_BYTES_G2L + owned * cols * 4)
+    return least_ms(0, nbytes)
+
+
+def gp_hit_keys(n: int) -> tuple[float, str]:
+    """K15's bound for n rows: bytes."""
+    return least_ms(0, n * K15_BYTES_ROW)
+
+
+def gp_occluded_rows(n: int) -> tuple[float, str]:
+    """K15's second form's bound for n rows: bytes."""
+    return least_ms(0, n * K15_BYTES_OCC_ROW)
+
+
+def gp_lane_unpack(n: int) -> tuple[float, str]:
+    """K16's bound for n rows: bytes."""
+    return least_ms(0, n * K16_BYTES_ROW)
+
+
+def gp_occluded_lanes(n: int) -> tuple[float, str]:
+    """K16's second form's bound for n rows: bytes."""
+    return least_ms(0, n * K16_BYTES_OCC_ROW)
 
 
 def banded_taps(atlas, srow, u, v, lane_of) -> tuple[float, str]:

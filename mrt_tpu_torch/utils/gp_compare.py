@@ -1,5 +1,5 @@
-"""K13 (``gp_rows``), K14 (``banded_taps``) and the gp=2 frame in this tree
-against another, on one card in one call.
+"""K13 (``gp_rows``), K14 (``banded_taps``), K15 and K16 and the gp=2 frame
+in this tree against another, on one card in one call.
 
     python -m mrt_tpu_torch.utils.gp_compare build/parent
 
@@ -15,12 +15,20 @@ that each tree builds and runs its own kernels:
   bands), at the live shares of ``SHARES`` (a sample's steps at run B),
   each call's device ms by torch.profiler (the mean of ``REPS`` calls).
   A tree whose K13 and K14 take every lane (no live-lane count) runs them
-  over every lane whatever the share; this tree's over the live lanes.
+  over every lane whatever the share; this tree's over the live lanes. A
+  tree with the live-lane hit combine (``kernels.wavefront.gp_combine``)
+  also times K13's step form (its scan and its gather), K15 and K16 (each
+  in both forms) over the same shares; a tree without it (the full-width
+  ``combine_hits_across``) has none of them.
 - ``frames`` (the other tree, this, this, the other): a gp=2 world over
   gloo on this one card (``dist.launch``), 3 frames each of run B's scene
   and of the textured gp scene (``chip_smoke.gp_textured_scene``, banded):
-  each frame's wall between syncs and rays. The two ranks share the card:
-  not a multi-GPU figure.
+  each frame's wall between syncs, their median after the first, rays, and
+  the collectives the frames' traces issued (every ``dist.all_reduce``
+  inside ``render.wavefront.trace_pixels``: calls, elements, bytes; per
+  step over K7's launches, sample 0's motion-row psum included), whichever
+  combine the tree runs. The two ranks share the card: not a multi-GPU
+  figure.
 
 One JSON line per measurement and tree (``KERNELS``/``FRAMES``), then the
 card's name and power limit.
@@ -32,6 +40,7 @@ import argparse
 import inspect
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -112,7 +121,94 @@ def measure_kernels(tree: str) -> None:
             rows.append(dict(kernel="K14", share=share, rows=n, bands=bands,
                              ms=_prof_ms(torch, lambda a=args: W.banded_taps(*a),
                                          ("banded_taps",))))
+    if hasattr(W, "gp_combine"):
+        rows += _combine_kernels(torch, np, rng, W, geom, n_global, dev)
     print("KERNELS", json.dumps(dict(tree=tree, live_only=live_only, rows=rows)), flush=True)
+
+
+def _combine_kernels(torch, np, rng, W, geom, n_global: int, dev) -> list:
+    """K13's step form (scan, gather), K15 and K16 in both forms at each
+    share of ``SHARES``, rank 0 of gp=2 (seeded hits: t from a small set,
+    a third of the lanes missed), device ms a call by the profiler."""
+    from mrt_tpu_torch.dist import comm
+
+    axis = comm.Axis("gp", 2, 0, None)
+    geom = geom._replace(axis=axis)
+    t = torch.as_tensor(rng.choice(np.float32([1.0, 2.0, np.inf]), P), device=dev)
+    tri = torch.where(torch.isinf(t), -1, torch.as_tensor(
+        rng.integers(0, n_global, P).astype(np.int32), device=dev)).to(torch.int32)
+    u = torch.as_tensor(rng.random(P).astype(np.float32), device=dev)
+    v = torch.as_tensor(rng.random(P).astype(np.float32), device=dev)
+    occluded = torch.as_tensor(rng.random(P) < 0.5, device=dev)
+    rows = []
+    for share in SHARES:
+        live = torch.as_tensor(rng.random(P) < share, device=dev)
+        n = int(live.sum())
+        pos, lane_of = W.gp_scan(live, n)
+        keys = W.gp_hit_keys(t, tri, lane_of, axis)
+        out = W.gp_gather(geom, t, tri, u, v, keys, lane_of, True, False)
+        payload = out[16 * n:].view(torch.int32).view(n, W.PAYLOAD_COLS)
+        occ = W.gp_occluded_rows(occluded, lane_of)
+        rec = [x.clone() for x in (t, tri, u, v)]
+        calls = {
+            "K13 scan": (lambda: W.gp_scan(live, n, pos=pos, lane_of=lane_of), ("gp_rows",)),
+            "K13 gather": (lambda: W.gp_gather(geom, t, tri, u, v, keys, lane_of, True, False,
+                                               out=out), ("gp_gather",)),
+            "K15 keys": (lambda: W.gp_hit_keys(t, tri, lane_of, axis, out=keys),
+                         ("gp_hit_keys",)),
+            "K15 occluded": (lambda: W.gp_occluded_rows(occluded, lane_of, out=occ),
+                             ("gp_hit_keys",)),
+            "K16 hits": (lambda: W.gp_lane_unpack(keys, payload, lane_of, *rec),
+                         ("gp_lane_unpack",)),
+            "K16 occluded": (lambda: W.gp_occluded_lanes(occ, lane_of, occluded.clone()),
+                             ("gp_lane_unpack",))}
+        for name, (fn, names) in calls.items():
+            rows.append(dict(kernel=name, share=share, live=n, ms=_prof_ms(torch, fn, names)))
+    return rows
+
+
+def counted_drive(*args, **kwargs) -> dict:
+    """Rank side: ``dist.launch.drive`` with every ``dist.all_reduce`` that
+    ``render.wavefront.trace_pixels`` issues counted (``collectives``:
+    calls, elements, bytes over the drawn frames), in any tree."""
+    import torch.distributed as dist
+
+    from mrt_tpu_torch.dist import launch as L
+    from mrt_tpu_torch.render import wavefront as wf
+
+    rec = dict(calls=0, elements=0, bytes=0)
+    inside = []
+    orig_reduce, orig_trace = dist.all_reduce, wf.trace_pixels
+
+    def all_reduce(x, *a, **k):
+        if inside:
+            rec["calls"] += 1
+            rec["elements"] += x.numel()
+            rec["bytes"] += x.numel() * x.element_size()
+        return orig_reduce(x, *a, **k)
+
+    def trace_pixels(*a, **k):
+        inside.append(True)
+        try:
+            return orig_trace(*a, **k)
+        finally:
+            inside.pop()
+
+    dist.all_reduce, wf.trace_pixels = all_reduce, trace_pixels
+    try:
+        out = L.drive(*args, **kwargs)
+    finally:
+        dist.all_reduce, wf.trace_pixels = orig_reduce, orig_trace
+    out["collectives"] = rec
+    return out
+
+
+def _frames_line(job: dict) -> dict:
+    steps = job["launches"]["shade_hit"]
+    c = job["collectives"]
+    return dict(walls=job["walls"], median_after_first=statistics.median(job["walls"][1:]),
+                rays=job["rays"], steps=steps, collectives=c,
+                per_step=dict(calls=c["calls"] / steps, bytes=c["bytes"] / steps) if steps else None)
 
 
 def measure_frames(tree: str) -> None:
@@ -133,16 +229,15 @@ def measure_frames(tree: str) -> None:
                              (rt, cs.gp_textured_scene(), True)):
         r.two_level = False
         r._allocate_state()
-        jobs.append((L.drive, ("gp", scene, r.settings(), {"gp": 2}, 3),
+        jobs.append((counted_drive, ("gp", scene, r.settings(), {"gp": 2}, 3),
                      dict(offsets=r.offsets.cpu().numpy(), banded=banded)))
     del rb, rt
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     res = L.launch(L.run_jobs, 2, jobs, backend="gloo")
     print("FRAMES", json.dumps(dict(tree=tree, launch_s=time.perf_counter() - t0,
-                                    b=dict(walls=res[0][0]["walls"], rays=res[0][0]["rays"]),
-                                    textured=dict(walls=res[0][1]["walls"],
-                                                  rays=res[0][1]["rays"]))), flush=True)
+                                    b=_frames_line(res[0][0]),
+                                    textured=_frames_line(res[0][1]))), flush=True)
 
 
 def main(argv=None) -> int:

@@ -335,9 +335,10 @@ def test_gp_rows_psums_carry_the_live_lanes(world, job):
     on the banded atlas ("gp4_nmap"): every gp step of the drawn frame
     (``drive(record_rows=True)``) was given its live lanes' count, and its
     psums carried n_live rows (n_live x 16 shade floats, x 34 with the
-    normal map's motion rows, then n_live x 16 taps on the banded atlas),
-    not one a lane; the first step has every lane live, later ones fewer;
-    every rank recorded the same sizes."""
+    normal map's motion rows, with the hit combine's 3 payload words a row
+    in the same psum, then n_live x 16 taps on the banded atlas), not one a
+    lane; the first step has every lane live, later ones fewer; every rank
+    recorded the same sizes."""
     recs = [x["rows_psums"] for x in world[job]]
     assert all(r == recs[0] for r in recs[1:])
     steps = recs[0]
@@ -345,7 +346,7 @@ def test_gp_rows_psums_carry_the_live_lanes(world, job):
     for st in steps:
         assert st["n_live"] == st["live"] > 0
         assert st["cols"] == (34 if job == "gp4_nmap" else 16) and st["taps"] == (job == "gp4_nmap")
-        assert st["psums"] == [st["live"] * st["cols"]] + [st["live"] * 16] * st["taps"]
+        assert st["psums"] == [st["live"] * (st["cols"] + 3)] + [st["live"] * 16] * st["taps"]
     assert min(st["live"] for st in steps) < SIZE * SIZE
 
 

@@ -22,7 +22,10 @@ never prints its last line):
      is built (6b). Then K3, the flat traversal, on the same rays: its flat
      instantiation over run A's flat table (made by the user's switch,
      two_level = False) and its float-sort one over that table padded past
-     2^20 - 1 rows;
+     2^20 - 1 rows; then both on the tie scene (utils/tie_scene.py: 2^16
+     rays aimed at shared vertices and edges of duplicated and
+     edge-sharing triangles, so that slots and children tie on t), its
+     flat table and that table padded past 2^20 - 1 rows;
   3c. the wavefront's stages K6-K8 (mrt_tpu_torch/csrc/wavefront.cu)
      against their plain versions on the card: their Halton device function
      (csrc/halton.cuh, through the test entry mrt_halton) bit-equal to the
@@ -290,14 +293,17 @@ never prints its last line):
      debug view 1-7, and the light-masked frame, each on the kernel route
      (K6 and only K7's instantiation for its settings launched).
 The line before the last is {"kernels": [...]}: K1, K2's three
-instantiations, K3's two, K4's two, K5, K6, K7, K8, K9, K10, K11 and K12's
+instantiations, K3's two (with their registers, shared memory and the
+blocks an SM holds), K4's two, K5, K6, K7, K8, K9, K10, K11 and K12's
 two forms (launches counted
 over the main-path runs, the builds of runs G and K and of run G flat,
 phase M's entry points and phase L's ranks), then K7 by instantiation
 (untextured, maps, maps_mips, maps_debug, maps_mips_debug, debug: its
 launches, checks, registers and spills, and its times at the first launch
 of the run that takes it), then K7's lane-row form by instantiation (all
-eight: each must have launched on the main path and been checked), K13,
+eight: each must have launched on the main path and been checked; the
+first launch of its checked frame also by the profiler, beside its bound,
+and per launch over the profiled frame), K13,
 K14, K15 and K16 (timed at the first call of L1's checked gp=1 frames by CUDA
 events and by the profiler, and per launch over its profiled frame, with
 the live share of each step; their largest difference from the plain
@@ -549,28 +555,25 @@ def work_bound(bounds, head, visits, n_lanes, n_live, masked: bool, flat: bool):
     return (work,) + bounds.k2(work, n_lanes, n_live, masked=masked, flat=flat)
 
 
-def check_random_rays(torch, tag, bvh, traverse2, bounds, masked: bool = False):
+def check_random_rays(torch, tag, bvh, traverse2, bounds, masked: bool = False, rays=None):
     """K2 (a two-level BVH) or K3 (a flat one) on 2^20 random mixed rays
     (half of them shadow rays with a finite tmax, 95 % live) over run
-    ``tag``'s table, each with a random ray mask (1, 2 or 3) if ``masked``;
+    ``tag``'s table, each with a random ray mask (1, 2 or 3) if ``masked``,
+    or on ``rays`` (origin, direction, tmax, shadow, active) where given;
     then on the same rays with every lane dead, with one live lane, the
-    wavefront's last, and at 2^20 - 1 lanes (the compaction's last block
+    wavefront's last, and at one lane fewer (the compaction's last block
     partial) the last lane alone and the random mask. Hit-equal, t/u/v
     bit-equal and pop-equal to the plain version, or it raises. Returns the
-    random batch's numbers."""
+    batch's numbers."""
     dev = bvh.table.device
     g = torch.Generator(device=dev).manual_seed(1)
-    n = 1 << 20
     table = bvh.table
-    lo = table[0, 0:24].reshape(3, 8).amin(dim=1)
-    hi = table[0, 24:48].reshape(3, 8).amax(dim=1)
-    org = lo + (hi - lo) * torch.rand((n, 3), generator=g, device=dev)
-    dirs = torch.randn((n, 3), generator=g, device=dev)
-    dirs = dirs / dirs.norm(dim=1, keepdim=True)
-    shadow = torch.rand(n, generator=g, device=dev) < 0.5
-    tmax = torch.where(shadow, 0.1 + 8.0 * torch.rand(n, generator=g, device=dev),
-                       torch.full((n,), float("inf"), device=dev))
-    active = torch.rand(n, generator=g, device=dev) < 0.95
+    if rays is None:
+        from mrt_tpu_torch.utils.k3_profile import random_rays
+
+        rays = random_rays(torch, table, generator=g)
+    org, dirs, tmax, shadow, active = rays
+    n = org.shape[0]
     rmask = (torch.randint(1, 4, (n,), generator=g, device=dev, dtype=torch.int32)
              if masked else None)
     head, kname, plain, name, flat = traversal(traverse2, bvh, masked)
@@ -581,7 +584,7 @@ def check_random_rays(torch, tag, bvh, traverse2, bounds, masked: bool = False):
     bad, err = k2_mismatches(torch, k2, p2)
     ms = cuda_ms(lambda: kern(*args, **kw), 10)
     _, b_ms, b_by = work_bound(bounds, head, p2.visits, n, int(active.sum()), masked, flat)
-    log(f"{'K3' if flat else 'K2'} {kname} ({name}), {n} random mixed rays over the run {tag} "
+    log(f"{'K3' if flat else 'K2'} {kname} ({name}), {n} mixed rays over the run {tag} "
         f"table ({table.shape[0]} rows){' with random ray masks' if masked else ''}: "
         f"{int((p2.tri >= 0).sum())} hits, {int((p2.found & shadow).sum())} occluded, "
         f"{int(p2.pops.sum())} pops; mismatches {bad}; kernel {ms:.3f} ms, "
@@ -2303,6 +2306,13 @@ GP_PROFILED = {"k13": ("gp_rows_count_kernel", "gp_gather_kernel", "gp_rows_kern
                "k16": ("gp_lane_unpack",)}
 
 
+def per_launch(profile: dict | None, name: str) -> float | None:
+    """The device ms per event of kernel ``name`` in a profiled frame
+    (``route_check``'s ``kernel_profile``); None where it recorded none."""
+    k = ((profile or {}).get("kernels") or {}).get(name) or {}
+    return k["ms"] / k["events"] if k.get("events") else None
+
+
 def launch_summary(launches: list, profile: dict | None = None, names=()) -> dict:
     """K13's, K14's, K15's or K16's checked calls of one frame (``drive``'s
     ``route_check``): their count, the first (sample 0's first step, every
@@ -2356,7 +2366,10 @@ def gp_route_checks(tag, jobs, textured: bool, variant: str | None = None) -> di
                     k14=launch_summary(c["k14"], c.get("kernel_profile"), GP_PROFILED["k14"]),
                     k15=launch_summary(c["k15"], c.get("kernel_profile"), GP_PROFILED["k15"]),
                     k16=launch_summary(c["k16"], c.get("kernel_profile"), GP_PROFILED["k16"]),
-                    k7={k: v for k, v in c["k7"].items() if k != "work"}, k7_work=c["k7"]["work"],
+                    k7=dict({k: v for k, v in c["k7"].items() if k != "work"},
+                            frame_profiler_ms_per_launch=per_launch(c.get("kernel_profile"),
+                                                                    "shade_hit_rows_kernel")),
+                    k7_work=c["k7"]["work"],
                     **CARD)
         if "rows_psums" in job:
             from mrt_tpu_torch.dist.launch import collectives_summary
@@ -2984,6 +2997,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
+    from mrt_tpu_torch.bvh import wide
     from mrt_tpu_torch.core import halton as H
     from mrt_tpu_torch.core import types as T
     from mrt_tpu_torch.kernels import build, present, refit, sass_diff, traverse2
@@ -2993,6 +3007,7 @@ def main() -> int:
     from mrt_tpu_torch.upscale import presenter
     from mrt_tpu_torch.utils import bounds
     from mrt_tpu_torch.utils import frame_profile as FP
+    from mrt_tpu_torch.utils import tie_scene
 
     t_start = time.perf_counter()
     card = card_line()
@@ -3059,7 +3074,21 @@ def main() -> int:
     rand["A flat padded"] = check_random_rays(torch, "A (flat, padded past 2^20 rows)",
                                               dataclasses.replace(flat_a, table=padded), traverse2,
                                               bounds)
-    del padded, flat_a
+    # K3 on the tie scene (utils/tie_scene.py: equal t between a leaf's
+    # slots and between children, hits at t = tmax and at t = 0), its flat
+    # table and that table padded past 2^20 - 1 rows
+    v0, v1, v2, tie_rays = tie_scene.tie_scene(seed=0, count=1 << 16)
+    ties = wide.build(v0, v1, v2, method="sah", device=dev)
+    tie_rays = tuple(torch.as_tensor(x).to(dev) for x in tie_rays)
+    log(f"tie scene: {v0.shape[0]} triangles, flat table {tuple(ties.table.shape)}, "
+        f"stack {ties.stack_size}")
+    rand["ties"] = check_random_rays(torch, "tie scene", ties, traverse2, bounds, rays=tie_rays)
+    padded[: ties.table.shape[0]] = ties.table
+    padded[ties.table.shape[0]:] = 0.0
+    rand["ties padded"] = check_random_rays(torch, "tie scene (padded past 2^20 rows)",
+                                            dataclasses.replace(ties, table=padded), traverse2,
+                                            bounds, rays=tie_rays)
+    del padded, flat_a, ties, tie_rays
 
     # --- 3c. K6-K8, the wavefront's stages, against their plain versions on the card ----------
     check_halton_kernel(torch, H, W)
@@ -3373,8 +3402,6 @@ def main() -> int:
     h_tmp.cleanup()
 
     # --- 6d. run J: the animated app frame on the flat BVH (K3); phase K: SBVH ----------------
-    from mrt_tpu_torch.bvh import wide
-
     rj = make("J")
     if not isinstance(rj.bvh, wide.WideBVH) or traverse2.flat_variant(rj.bvh.n_rows) != "flat":
         raise AssertionError("run J: the renderer holds no flat table of at most 2^20 - 1 rows")
@@ -3504,6 +3531,13 @@ def main() -> int:
     variant_counts.update({t: {k: n for k, n in v.items() if n} for t, v in variant_counts_l.items()})
     a = checks["A"]
 
+    # K3's registers, shared memory, stack and spills (-Xptxas -v) with the
+    # blocks and warps an SM holds, by instantiation (None for K2's)
+    from mrt_tpu_torch.utils.k2_compare import k3_resources
+
+    k3_regs = k3_resources(build.ptxas)
+    log(json.dumps(dict(k3_resources=k3_regs)))
+
     def traversal_entry(name, key, run_tag, kernel, replaces):
         runs = {t: c[key] for t, c in checks.items()
                 if key in c and name in lines[t]["k2_variants"]}
@@ -3516,6 +3550,7 @@ def main() -> int:
                             + [c["max_abs_err"] for c in runs.values()]),
             ms=cam["ms"], plain_ms=cam["plain_ms"], bound_ms=cam["bound_ms"],
             bound_by=cam["bound_by_cam"], library_ms=None, camera_rays_of_run=run_tag,
+            registers=k3_regs.get(name),
             by_run={t: dict(frame_ms_profiler_warm=(profiles[t]["traverse2_s"] * 1e3
                                                     if t in profiles else None),
                             frame_launches_profiler=(profiles[t]["traverse2_launches"]
@@ -3740,6 +3775,8 @@ def main() -> int:
     # K7's lane-row form by instantiation (phase L's gp frames), K13-K16:
     # launches on the main path, registers and spills, ms, plain_ms
     # and bound_ms at the first launch of the checked frame of a gp=1 job
+    # (K7's ms holds its wrapper's host work: its profiler_ms, and the
+    # bound's share of it, are the card's)
     # (one rank alone on the card; K13, K15, K16 and "rows" at run B's
     # scene (K15's and K16's hit forms; their occlusion forms run at gp=2
     # and are checked there), K14 and
@@ -3765,7 +3802,10 @@ def main() -> int:
             launches_by_run={t_: c[f"k7 {v}"] for t_, c in counts.items() if c.get(f"k7 {v}")},
             max_abs_err=max(c["max_abs"] for c in mine.values()), ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=None, timed_at=gp_timed[v], registers=k7_regs.get(v), checked=mine))
+            library_ms=None, timed_at=gp_timed[v], profiler_ms=t["profiler_ms"],
+            bound_share_profiler=(t["bound_ms"] / t["profiler_ms"] if t["profiler_ms"] else None),
+            frame_profiler_ms_per_launch=t["frame_profiler_ms_per_launch"],
+            registers=k7_regs.get(v), checked=mine))
         if kernels[-1]["launches"] < 1 or t["variant"] != v:
             raise AssertionError(f"K7's {v} instantiation never launched on the main path or was "
                                  f"never checked: {kernels[-1]}")

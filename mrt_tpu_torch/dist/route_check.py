@@ -11,10 +11,11 @@ import time
 import torch
 
 
-# K13's three kernels, K14's, and K15's and K16's (two forms each, one
-# name), by the names the profiler gives them
+# K13's three kernels, K14's, K15's and K16's (two forms each, one name)
+# and K7's lane-row form (every instantiation), by the names the profiler
+# gives them
 GP_KERNELS = ("gp_rows_count_kernel", "gp_rows_kernel", "gp_gather_kernel", "banded_taps_kernel",
-              "gp_hit_keys", "gp_lane_unpack")
+              "gp_hit_keys", "gp_lane_unpack", "shade_hit_rows_kernel")
 # idle seconds around a profiled call: a short session with none can lose
 # its device events
 PROFILER_PAD_S = 0.05
@@ -52,18 +53,18 @@ def _by_kernel(ev: list) -> dict:
 
 def _profiled_frame(fn) -> dict:
     """torch.profiler's device events of one call of ``fn`` on the card,
-    their summed device ms and K13's and K14's events among them
-    (``kernels``: count and ms by kernel name); an empty record is returned
-    as it is, for the caller to report."""
+    their summed device ms and those of GP_KERNELS among them (``kernels``:
+    count and ms by kernel name); an empty record is returned as it is, for
+    the caller to report."""
     ev = _device_events(fn)
     return dict(device_events=len(ev), device_ms=sum(e.time_range.elapsed_us() for e in ev) / 1e3,
                 kernels=_by_kernel(ev))
 
 
 def _profiled_ms(fn, reps: int = 5) -> float | None:
-    """The device ms of one call of ``fn`` (one wrapper call of K13-K16)
-    by torch.profiler, the mean over ``reps`` calls; None where the
-    profiler recorded none of their events."""
+    """The device ms of one call of ``fn`` (one wrapper call of K13-K16, or
+    of K7's lane-row form) by torch.profiler, the mean over ``reps`` calls
+    of the GP_KERNELS' events; None where the profiler recorded none."""
     ev = [e for e in _device_events(fn, reps) if any(n in e.name for n in GP_KERNELS)]
     return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps if ev else None
 
@@ -112,10 +113,12 @@ def checked_route_frame(r) -> dict:
     and the frame's first K7 launch (the lane-row form) run on copies of
     its state and Wave and held, every state field, against
     ``shade_hit_listed_plain`` with the same rows (each timed once after a
-    warm-up run, beside ``bounds.k7_listed``), and the plain route
+    warm-up run, beside ``bounds.k7_listed``; on the card also its device
+    ms by torch.profiler over 5 calls on fresh copies, ``profiler_ms``),
+    and the plain route
     (``trace_frame(..., plain=True)``; its wall); on the card each route
     once more under torch.profiler (device events and device ms of one
-    frame; the kernel route's with K13's and K14's device events by
+    frame; the kernel route's with the GP_KERNELS' device events by
     kernel). The frame goes on with the first kernel route's outputs.
     Returns the elements differing between the routes' outputs per field
     (``fields``, ``bit_equal``) and between the two kernel-route runs, the
@@ -279,6 +282,8 @@ def checked_route_frame(r) -> dict:
                 return orig_k7(fr, st_c, hits, sidx, wv_c, rows)
 
             (k, _, _), ms = timed(kernel_step)
+            prof_ms = _profiled_ms(lambda: orig_k7(fr, W.clone_state(st), hits, sidx,
+                                                   W.clone_wave(wv), rows)) if cuda else None
             (p, wv_p, _), plain_ms = timed(W.shade_hit_listed_plain, fr, W.clone_state(st),
                                            hits_t, sidx, wv._replace(buf=None), rows)
             pairs = [(f, a, b) for f, a, b in zip(W.LaneState._fields, k, p) if a is not None]
@@ -292,7 +297,8 @@ def checked_route_frame(r) -> dict:
                 fields=fields, differing=sum(fields.values()),
                 max_abs=max([max_abs(a, b) for _, a, b in pairs if a.dtype == torch.float32]
                             + [0.0]),
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, work=work)
+                ms=ms, plain_ms=plain_ms, profiler_ms=prof_ms, bound_ms=b_ms, bound_by=b_by,
+                work=work)
         return orig_k7(fr, st, hits, sidx, wv, rows)
 
     def walled(*a, **k):

@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lib = None
 build_seconds = None  # wall time of the last build in this process (None: cached)
 # each kernel's resources as `-Xptxas -v` printed them in this process's
-# last build, by mangled name: registers, stack, spill stores and loads (B)
+# last build, by mangled name: registers, stack, spill stores and loads,
+# static shared memory (B)
 ptxas = {}
 
 
@@ -115,8 +116,8 @@ def _build(verbose: bool = False) -> float:
 
 
 def parse_ptxas(text: str) -> dict:
-    """{mangled kernel name: {registers, stack, spill_stores, spill_loads}}
-    from `-Xptxas -v` output."""
+    """{mangled kernel name: {registers, smem, stack, spill_stores,
+    spill_loads}} from `-Xptxas -v` output."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
@@ -134,6 +135,8 @@ def parse_ptxas(text: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(m.group(1)) if m else 0
     return {k: v for k, v in out.items() if "registers" in v}
 
 

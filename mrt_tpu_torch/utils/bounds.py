@@ -40,14 +40,29 @@ its gather after the hit combine (``gp_gather``, the rows this rank wins);
 K15 and K16, the combine's keys and unpack and the occlusion's two forms
 (``gp_hit_keys``, ``gp_lane_unpack``, ``gp_occluded_rows``,
 ``gp_occluded_lanes``), count bytes per row of the step's map.
+
+Besides the bounds, two readings of what holds K3 back, from its own
+outputs and its build: ``simt_share``, the share of lane-steps that do work
+when the list's entries are traced ``group`` at a time by lanes that wait
+for the group's longest ray (``lane_steps`` per launch, for sums over a
+frame), and ``blocks_per_sm``, the H100's occupancy of a kernel from its
+registers and shared memory.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..bvh.wide import _META_MASK, ARITY, IDS_OFF, LEAF_K, META_OFF, ROW, decode_ids
 
 PEAK_BYTES = 3.35e12
 PEAK_F32_OPS = 67e12 / 2
+# an H100 SM (sm_90): 32-bit registers, allocated per warp in units of 256;
+# shared memory for blocks, each of which reserves 1 KB more; resident
+# warps and blocks at most
+SM_REGISTERS, REGISTER_UNIT = 65536, 256
+SM_SHARED_BYTES, BLOCK_RESERVED_SHARED = 233472, 1024
+SM_WARPS, SM_BLOCKS = 64, 32
 
 # K1 (csrc/present.cu), per value: 4 B in, 1 B out; Reinhard's add and div,
 # the clip's max and min, then the mul and add of the rounding
@@ -149,6 +164,43 @@ def k3_work(table, n_internal: int, visits) -> dict[str, int]:
     w["lanes"] = int(visits[0, 0])
     w["ops"] += (w["lanes"] - w["pops_internal"]) * K2_OPS_INTERNAL
     return w
+
+
+def lane_steps(pops, live, group: int) -> tuple[int, int]:
+    """(the live lanes' pops, the lane-steps they take): one launch's
+    per-lane ``pops`` (R,) and ``live`` (R,) bool, its list taken ``group``
+    entries at a time in lane order (the compaction's order within each
+    block of 1,024 lanes) by ``group`` lanes that each trace one ray, all of
+    them until the group's longest ray ends: ``group`` x the largest pops of
+    each run of ``group`` consecutive entries (the last run padded)."""
+    p = pops[live].to(torch.int64)
+    pad = (-p.numel()) % group
+    runs = torch.cat([p, p.new_zeros(pad)]).view(-1, group)
+    return int(p.sum()), group * int(runs.amax(dim=1).sum()) if runs.numel() else 0
+
+
+def simt_share(pops, live, group: int) -> float:
+    """The share of lane-steps that do work (``lane_steps``' ratio) when the
+    live list is traced ``group`` rays at a time, one a lane, each group
+    held until its longest ray ends: 1.0 when every ray of a run pops as
+    many rows, 1/group when one ray does all the work. K3, a ray a thread,
+    is group 32 (a warp of rays); no live lane gives 1.0."""
+    work, steps = lane_steps(pops, live, group)
+    return work / steps if steps else 1.0
+
+
+def blocks_per_sm(registers: int, threads: int, shared_bytes: int = 0) -> int:
+    """Resident blocks of ``threads`` threads on one H100 SM for a kernel of
+    ``registers`` registers a thread and ``shared_bytes`` of shared memory a
+    block: the least of what its registers (per warp, in units of 256), its
+    shared memory and the SM's warp and block limits allow (the CUDA
+    occupancy calculator's arithmetic for sm_90)."""
+    warps = -(-threads // 32)
+    per_warp = -(-registers * 32 // REGISTER_UNIT) * REGISTER_UNIT
+    by_registers = (SM_REGISTERS // per_warp) // warps if per_warp else SM_BLOCKS
+    by_shared = (SM_SHARED_BYTES // (shared_bytes + BLOCK_RESERVED_SHARED)
+                 if shared_bytes else SM_BLOCKS)
+    return min(by_registers, by_shared, SM_WARPS // warps, SM_BLOCKS)
 
 
 def lbs(n_vertices: int, n_joints: int) -> tuple[float, str]:

@@ -964,7 +964,9 @@ def time_stages(torch, W, traverse2, bounds, first, reps: int = 5) -> dict:
     version's and the bound: K6 and K7 at a frame's first launch (the whole
     wavefront live), K7 also at its first late launch (under 5 % of the
     lanes live; ``shade_hit_late``), K8 at its first launch (a sample's
-    end)."""
+    end). K7's first launch also by torch.profiler (``profiler_ms``, the
+    card's time without the wrapper's host work; None where every session
+    dropped it) and its bound's share of that."""
     out = {}
     fr, sidx, total, prev = first["sample_start"]
     out["sample_start"] = dict(ms=cuda_ms(lambda: W.sample_start(fr, sidx, total, prev), reps),
@@ -991,6 +993,15 @@ def time_stages(torch, W, traverse2, bounds, first, reps: int = 5) -> dict:
                             fr, st, traverse2.hits_of(hits, fr.tri_base), sidx,
                             wv._replace(buf=None)), 2))
         out[key]["bound_ms"], out[key]["bound_by"] = bounds.k7_listed(work)
+        if key == "shade_hit":  # the card's own time of the launch, without the wrapper's host work
+            try:
+                p_ms = device_ms(torch, lambda: W.shade_hit(fr, W.clone_state(st), hits, sidx,
+                                                            W.clone_wave(wv)), "shade_hit", reps)
+            except AssertionError as e:  # the profiler dropped the launches in every session
+                log(json.dumps(dict(profiler_dropout="K7's first launch", error=str(e))))
+                p_ms = None
+            out[key]["profiler_ms"] = p_ms
+            out[key]["bound_share_profiler"] = out[key]["bound_ms"] / p_ms if p_ms else None
     if "resolve_shadow" not in first:  # a debug view: K8 never launched
         return out
     st, wv, n_listed, n_add = first["resolve_shadow"]
@@ -3762,6 +3773,7 @@ def main() -> int:
             launches_by_run={t_: c[f"k7 {v}"] for t_, c in counts.items() if c.get(f"k7 {v}")},
             max_abs_err=max(errs + [0.0]), ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None, timed_at=tag,
+            profiler_ms=t["profiler_ms"], bound_share_profiler=t["bound_share_profiler"],
             registers=k7_regs.get(v),
             checked={run_: dict(launches=c["stages"]["shade_hit"]["launches"],
                                 not_bit_equal=c["not_bit_equal"]["shade_hit"],

@@ -73,6 +73,10 @@ class TextureAtlas(NamedTuple):
     # the packed atlas and ``band_lo`` its first global row; None for a
     # whole atlas
     band_lo: int | None = None
+    # ``texels`` with a fourth channel of zeros (H, W, 4) f32, which the
+    # textured K7 reads a texel at a time as one 16-B load (``with_texels4``;
+    # made where the atlas is put on its device)
+    texels4: torch.Tensor | None = None
 
     @property
     def height(self) -> int:
@@ -81,6 +85,12 @@ class TextureAtlas(NamedTuple):
     @property
     def width(self) -> int:
         return self.texels.shape[1]
+
+
+def with_texels4(atlas: TextureAtlas) -> TextureAtlas:
+    """``atlas`` with ``texels4``: its texels, the same floats, padded to
+    four channels with zeros on their own device."""
+    return atlas._replace(texels4=torch.nn.functional.pad(atlas.texels, (0, 1)))
 
 
 def srgb_to_linear(c: np.ndarray) -> np.ndarray:

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .assets.obj import MaterialDef, MeshData, SubmeshData
-from .assets.texture import TextureAtlas
+from .assets.texture import TextureAtlas, with_texels4
 from .bvh import kind
 from .bvh.twolevel import TwoLevelBVH
 from .bvh.wide import WideBVH
@@ -60,7 +60,7 @@ def scene_data(sd, device=None) -> SceneData:
             np.int32 if f == "texture_flags" else np.float32), device)
             for f in T.Materials._fields)),
         lights=_nt(T.Lights, sd.lights, device),
-        atlas=_nt(TextureAtlas, at, device),
+        atlas=with_texels4(_nt(TextureAtlas, at, device)),
         env_map=_t(sd.env_map, device),
         env_intensity=_t(sd.env_intensity, device),
     )

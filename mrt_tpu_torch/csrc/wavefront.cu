@@ -63,11 +63,18 @@
 // each) put it near the ridge. Each listed lane also reads its shadow mask
 // and occlusion, and a lane that adds reads its contribution
 // (utils/bounds.py:k7_listed, :k8). A textured hit also reads its texture
-// bits (16 B), its taps (4 of 64 B in the packed atlas, or 2 x 4 of 12 B per
-// map with mipmaps; the bound counts each distinct texel once, since
-// neighbouring hits share them) and a 72-B motion row where the LOD, the
-// tangent basis or the motion view needs its vertices: scattered loads, a
-// 32-B sector each at least (the taps are not made faster here).
+// bits (16 B), its taps (4 texels of the packed atlas, of each texel's 64 B
+// the float4 groups its maps read, or 2 x 4 texels of 16 B per map with
+// mipmaps; the bound counts each distinct texel once with its maps'
+// channels, since neighbouring hits share them) and a 72-B motion row where
+// the LOD, the tangent basis or the motion view needs its vertices:
+// scattered loads, a 32-B sector each at least, in a chain of dependent
+// loads (the shade row, the material's bits and the rect, with mipmaps the
+// level rects, then the texels). What held the textured instantiations
+// further from the bound than the untextured K7 is that chain's latency at
+// few warps: their registers (117 packed, 96 with mipmaps: the taps' 16
+// float4 in flight beside the body's) left 2 blocks of 256 an SM for the
+// whole body, on every listed lane. Below (TEX_BLOCKS) they hold 3.
 //
 // What held the full-width design (one thread per lane of the whole
 // wavefront, K8 a second full-width launch, the hits remade by torch ops)
@@ -163,7 +170,7 @@ struct ShadowOut {
 struct Maps {
     const float* packed;       // (Hp, Wp, 16): every map of a resource at one rect
     const int* packed_rects;   // (R, 4): x0 y0 w h
-    const float* texels;       // (H, W, 3): every map's mip chain
+    const float* texels;       // (H, W, 4): every map's mip chain (TextureAtlas.texels4)
     const int* rects;          // (R, 7, 4): level 0's rect per map
     const int* mip_rects;      // (R, 7, 12, 4)
     const int* n_levels;       // (R, 7)
@@ -177,7 +184,10 @@ struct Maps {
 static_assert(sizeof(Maps) == 12 * sizeof(void*), "Maps mirrors kernels/wavefront.py:_maps_ptrs");
 
 struct MapsInfo {
-    int any_map;     // bit m: some resource has map m (SceneStatics.any_map)
+    // bits 4m..4m+3: where some resource has map m (SceneStatics.any_map),
+    // the float4 groups of the packed texel that map m reads (bit q:
+    // channels 4q..4q+3), else 0 (kernels/wavefront.py:map_groups)
+    int map_groups;
     int debug_mode;  // 0, or the debug view 1-7
     int packed_w, texel_w;  // the packed atlas's and the texels' widths
     float width, height;    // the render's, for the motion view
@@ -386,10 +396,12 @@ __device__ __forceinline__ float blend(float c00, float c10, float c01, float c1
     return top * gy + bot * fy;
 }
 
-// assets/texture.py:sample_packed: one bilinear sample of every map of
-// resource res at uv (PACKED_C channels; 4 taps of 4 float4 each)
+// assets/texture.py:sample_packed: one bilinear sample of resource res at
+// uv, of the float4 groups of its PACKED_C channels in ``groups`` (bit q:
+// channels 4q..4q+3; 4 taps of a float4 each); the other channels of out
+// are left as they are
 __device__ __forceinline__ void sample_packed(const Maps& M, int packed_w, int res, float tu,
-                                              float tv, float out[PACKED_C]) {
+                                              float tv, int groups, float out[PACKED_C]) {
     const Taps t = repeat_taps(__ldg(reinterpret_cast<const int4*>(M.packed_rects) + res), tu, tv);
     const float4* p = reinterpret_cast<const float4*>(M.packed);
     const float4* p00 = p + 4 * (long long)(t.y0 * packed_w + t.x0);
@@ -399,6 +411,7 @@ __device__ __forceinline__ void sample_packed(const Maps& M, int packed_w, int r
     const float gx = 1.0f - t.fx, gy = 1.0f - t.fy;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
+        if (!((groups >> q) & 1)) continue;
         const float4 a = __ldg(p00 + q), b = __ldg(p10 + q), c = __ldg(p01 + q), d = __ldg(p11 + q);
         out[4 * q] = blend(a.x, b.x, c.x, d.x, gx, t.fx, gy, t.fy);
         out[4 * q + 1] = blend(a.y, b.y, c.y, d.y, gx, t.fx, gy, t.fy);
@@ -409,11 +422,13 @@ __device__ __forceinline__ void sample_packed(const Maps& M, int packed_w, int r
 
 // K7's lane-row form on a banded atlas: the packed sample at row ``row`` (the
 // lane's position) of the (n_live, PACKED_C) buffer that K14 and a psum over
-// gp wrote (M.packed then)
-__device__ __forceinline__ void lane_taps(const Maps& M, int row, float out[PACKED_C]) {
+// gp wrote (M.packed then), its float4 groups in ``groups``
+__device__ __forceinline__ void lane_taps(const Maps& M, int row, int groups,
+                                          float out[PACKED_C]) {
     const float4* p = reinterpret_cast<const float4*>(M.packed) + 4 * (long long)row;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
+        if (!((groups >> q) & 1)) continue;
         const float4 a = __ldg(p + q);
         out[4 * q] = a.x;
         out[4 * q + 1] = a.y;
@@ -422,9 +437,11 @@ __device__ __forceinline__ void lane_taps(const Maps& M, int row, float out[PACK
     }
 }
 
+// texel (x, y) of the mip chains: one 16-B load of the float4 copy
 __device__ __forceinline__ f3 texel(const Maps& M, int texel_w, int x, int y) {
-    const float* p = M.texels + 3 * (long long)(y * texel_w + x);
-    return mk(__ldg(p), __ldg(p + 1), __ldg(p + 2));
+    const float4* p = reinterpret_cast<const float4*>(M.texels);
+    const float4 c = __ldg(p + (long long)(y * texel_w + x));
+    return mk(c.x, c.y, c.z);
 }
 
 // assets/texture.py:_bilinear_rect: a bilinear sample of the texels inside rect
@@ -530,15 +547,14 @@ __device__ __forceinline__ bool textured_hit(const Lane& S, const ShadowOut& Sh,
                                              f3 nrm, const float4* mrow, Surface& sf) {
     static_assert(MAPS || !MIPS, "mipmaps come with the MAPS instantiation");
     static_assert(!TAPS || (MAPS && !MIPS), "per-lane taps replace the packed sample");
-    // the hit's world vertices v0 v1 v2 (the motion row's first 9 floats),
-    // for the ray cone's footprint and the tangent basis
-    float mv[10];
     float lod_base = 0.0f;
     if constexpr (MIPS) {
         // the ray cone's mip LOD: its radius grows with the path length, its
         // footprint goes to uv units by the triangle's uv area over its world area
+        // (the hit's world vertices v0 v1 v2: the motion row's first 9 floats)
         const float cone = S.cone_t[i] + t;
         S.cone_t[i] = cone;
+        float mv[10];
         motion_row<5>(M, row, mv);
         const f3 v0 = mk(mv[0], mv[1], mv[2]);
         const float world_area =
@@ -554,9 +570,10 @@ __device__ __forceinline__ bool textured_hit(const Lane& S, const ShadowOut& Sh,
 
     int mflags = 0;
     float tu = 0.0f, tv = 0.0f;
-    float pk[PACKED_C];
+    float pk[PACKED_C] = {};
     f3 base_sample = mk(1.0f, 0.0f, 1.0f);  // magenta: the base colour view without a map
-    auto has = [&](int m, int bit) { return ((I.any_map >> m) & 1) && (mflags & bit); };
+    auto groups_of = [&](int m) { return (I.map_groups >> (4 * m)) & 15; };
+    auto has = [&](int m, int bit) { return groups_of(m) != 0 && (mflags & bit) != 0; };
     auto sample3 = [&](int m, int c0) -> f3 {  // map m: with mipmaps its chain, else the packed
         if constexpr (MIPS) return sample_trilinear(M, I.texel_w, res, m, tu, tv, lod_base);
         else if constexpr (MAPS) return mk(pk[c0], pk[c0 + 1], pk[c0 + 2]);
@@ -569,13 +586,16 @@ __device__ __forceinline__ bool textured_hit(const Lane& S, const ShadowOut& Sh,
         tu = hu * s2.w + hv * s3.y + w * s2.y;
         tv = 1.0f - (hu * s3.x + hv * s3.z + w * s2.z);
         if constexpr (!MIPS) {
-            const bool any = has(MAP_BASECOLOR, TEX_BASECOLOR) || has(MAP_NORMAL, TEX_NORMAL) ||
-                             has(MAP_ROUGHNESS, TEX_ROUGHNESS) || has(MAP_METALLIC, TEX_METALLIC) ||
-                             ((flags & FLAG_AO) && has(MAP_AO, TEX_AO)) ||
-                             has(MAP_OPACITY, TEX_OPACITY) || has(MAP_EMISSION, TEX_EMISSION);
-            if (any) {
-                if constexpr (TAPS) lane_taps(M, row, pk);
-                else sample_packed(M, I.packed_w, res, tu, tv, pk);
+            // only the packed texel's float4 groups that the hit's maps read
+            auto read = [&](int m, int bit) { return has(m, bit) ? groups_of(m) : 0; };
+            const int groups = read(MAP_BASECOLOR, TEX_BASECOLOR) | read(MAP_NORMAL, TEX_NORMAL) |
+                               read(MAP_ROUGHNESS, TEX_ROUGHNESS) |
+                               read(MAP_METALLIC, TEX_METALLIC) |
+                               ((flags & FLAG_AO) ? read(MAP_AO, TEX_AO) : 0) |
+                               read(MAP_OPACITY, TEX_OPACITY) | read(MAP_EMISSION, TEX_EMISSION);
+            if (groups) {
+                if constexpr (TAPS) lane_taps(M, row, groups, pk);
+                else sample_packed(M, I.packed_w, res, tu, tv, groups, pk);
             }
         }
         if (has(MAP_BASECOLOR, TEX_BASECOLOR)) {
@@ -650,7 +670,8 @@ __device__ __forceinline__ bool textured_hit(const Lane& S, const ShadowOut& Sh,
     // against the interpolated normal
     if constexpr (MAPS) {
         if (has(MAP_NORMAL, TEX_NORMAL)) {
-            if constexpr (!MIPS) motion_row<5>(M, row, mv);
+            float mv[10];
+            motion_row<5>(M, row, mv);
             const f3 v0 = mk(mv[0], mv[1], mv[2]);
             const f3 e1 = mk(mv[3], mv[4], mv[5]) - v0, e2 = mk(mv[6], mv[7], mv[8]) - v0;
             const float du1x = s2.w - s2.y, du1y = s3.x - s2.z;
@@ -677,8 +698,8 @@ __device__ __forceinline__ bool textured_hit(const Lane& S, const ShadowOut& Sh,
 // iteration's body. Sets alive (the lane is live after it) and keep (live,
 // or holding a shadow ray: the lane belongs to the next list).
 // The instantiation <false, false, false> is the untextured K7. MAPS: the
-// scene has texture maps (SceneStatics.any_map; the per-map bits in
-// I.any_map), sampled from the packed atlas, or with MIPS trilinearly at
+// scene has texture maps (SceneStatics.any_map; per map in
+// I.map_groups), sampled from the packed atlas, or with MIPS trilinearly at
 // the ray cone's LOD (use_mipmaps, which also carries the cone's length and
 // comes with MAPS);
 // a normal map bends the shading normal. DEBUG: a debug view
@@ -1053,10 +1074,18 @@ __global__ void __launch_bounds__(SHADE_BLOCK, 4) shade_hit_kernel(
                                                     max_bounces, nullptr, nullptr, nullptr);
 }
 
-// K7's textured and debug instantiations: 2 blocks of 256 a SM, the
-// registers the taps and the tangent basis hold beside the body's.
+// K7's textured and debug instantiations (and their lane-row forms):
+// TEX_BLOCKS blocks of 256 a SM, at most 80 registers. They fit with a few
+// bytes spilled because a hit reads only the packed float4 groups its maps
+// read (MapsInfo.map_groups: 2 of 4, one 32-B sector a tap, where a floor
+// has a base-colour and a normal map), a mip texel as one 16-B load of the
+// float4 copy (texels4: 8 loads a map instead of 24), and the tangent basis
+// its motion row where it needs it. At 2 blocks the fewer loads alone gain
+// nothing, at 4 (64 registers) the spills eat the gain, and the textured
+// part out of line costs its call's frame on every textured hit.
+constexpr int TEX_BLOCKS = 3;
 template <bool MAPS, bool MIPS, bool DEBUG>
-__global__ void __launch_bounds__(SHADE_BLOCK, 2) shade_hit_tex_kernel(
+__global__ void __launch_bounds__(SHADE_BLOCK, TEX_BLOCKS) shade_hit_tex_kernel(
     Lane S, Frame Fr, Raw R, ShadowOut Sh, const bool* __restrict__ occluded,
     const int* __restrict__ in, int* __restrict__ out, const int* __restrict__ cin, int* cout,
     int n, int hbase, int n_lights, int env_h, int env_w, int flags, int max_bounces, Maps M,
@@ -1075,7 +1104,8 @@ __global__ void __launch_bounds__(SHADE_BLOCK, 2) shade_hit_tex_kernel(
 // 16 n_rows: an argument, and no pointer packed anew per step. The
 // occupancy of the instantiation it mirrors.
 template <bool MAPS, bool MIPS, bool DEBUG, bool TAPS>
-__global__ void __launch_bounds__(SHADE_BLOCK, (MAPS || DEBUG) ? 2 : 4) shade_hit_rows_kernel(
+__global__ void __launch_bounds__(SHADE_BLOCK, (MAPS || DEBUG) ? TEX_BLOCKS : 4)
+    shade_hit_rows_kernel(
     Lane S, Frame Fr, Raw R, ShadowOut Sh, const bool* __restrict__ occluded,
     const int* __restrict__ in, int* __restrict__ out, const int* __restrict__ cin, int* cout,
     int n, int hbase, int n_lights, int env_h, int env_w, int flags, int max_bounces, Maps M,
@@ -1587,15 +1617,17 @@ extern "C" int mrt_sample_start(void* const* lane, void* const* frame, const voi
 // the previous step's any-hit result (read from step 1 on). variant: bit 0
 // texture maps, 1 mipmaps, 2 a debug view, 3 the lane-row form, 4 its
 // per-lane taps (0: the untextured K7); maps: _maps_ptrs's pointers (read
-// by the textured and debug instantiations); any_map: bit m set where some
-// resource has map m; pos, n_rows: the lane-row form's map from lanes to
-// K13's rows and their count (ignored by the other instantiations).
+// by the textured and debug instantiations); map_groups: MapsInfo's, the
+// packed texel's float4 groups of each map some resource has; pos, n_rows:
+// the lane-row form's map from lanes to K13's rows and their count (ignored
+// by the other instantiations).
 extern "C" int mrt_shade_hit(void* const* lane, void* const* frame, void* const* raw,
                              void* const* shadow, void* const* maps, const void* occluded,
                              void* lists, void* counters, int step, int n, int hbase, int n_lights,
                              int env_h, int env_w, int flags, int max_bounces, int variant,
-                             int any_map, int debug_mode, int packed_w, int texel_w, float width,
-                             float height, const void* pos, int n_rows, void* stream) {
+                             int map_groups, int debug_mode, int packed_w, int texel_w,
+                             float width, float height, const void* pos, int n_rows,
+                             void* stream) {
     if (n <= 0) return 0;
     if (shade_fn(variant) == nullptr || (variant >= ROWS_FIRST && pos == nullptr))
         return (int)cudaErrorInvalidValue;
@@ -1617,13 +1649,13 @@ extern "C" int mrt_shade_hit(void* const* lane, void* const* frame, void* const*
             (const bool*)occluded, in, out, c, c + C_SLOT, n, hbase, n_lights, env_h, env_w, flags,
             max_bounces);
     } else if (variant < ROWS_FIRST) {
-        const MapsInfo info{any_map, debug_mode, packed_w, texel_w, width, height};
+        const MapsInfo info{map_groups, debug_mode, packed_w, texel_w, width, height};
         TEX_KERNELS[variant]<<<grid, SHADE_BLOCK, 0, (cudaStream_t)stream>>>(
             unpack<Lane>(lane), unpack<Frame>(frame), unpack<Raw>(raw), unpack<ShadowOut>(shadow),
             (const bool*)occluded, in, out, c, c + C_SLOT, n, hbase, n_lights, env_h, env_w, flags,
             max_bounces, unpack<Maps>(maps), info);
     } else {
-        const MapsInfo info{any_map, debug_mode, packed_w, texel_w, width, height};
+        const MapsInfo info{map_groups, debug_mode, packed_w, texel_w, width, height};
         ROWS_KERNELS[variant - ROWS_FIRST]<<<grid, SHADE_BLOCK, 0, (cudaStream_t)stream>>>(
             unpack<Lane>(lane), unpack<Frame>(frame), unpack<Raw>(raw), unpack<ShadowOut>(shadow),
             (const bool*)occluded, in, out, c, c + C_SLOT, n, hbase, n_lights, env_h, env_w, flags,

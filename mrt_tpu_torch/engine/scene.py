@@ -389,7 +389,7 @@ class Scene:
             prev_instance_transform=tfm,
             materials=T.to_device(materials, device),
             lights=T.to_device(self.lights, device),
-            atlas=T.to_device(atlas, device),
+            atlas=tex.with_texels4(T.to_device(atlas, device)),
             env_map=dev(self.env_map),
             env_intensity=torch.tensor(self.env_intensity, dtype=torch.float32, device=device),
         )

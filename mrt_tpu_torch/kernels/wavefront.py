@@ -87,8 +87,10 @@ keys, gather and unpack in torch ops (``gp_hit_keys_plain``,
 
 K7 has one instantiation per ``k7_variant`` (``K7_VARIANTS``): the
 untextured one, and with the scene's texture maps (the packed atlas's
-four taps, or with ``use_mipmaps`` the ray cone's length and LOD and two
-taps of each map's mip chain; a normal map bends the shading normal), and
+four taps, of the float4 groups that the hit's maps read, ``map_groups``,
+``hit_groups``; or with ``use_mipmaps`` the ray cone's length and LOD and
+two taps of each map's mip chain, a texel one 16-B load of the atlas's
+``texels4``; a normal map bends the shading normal), and
 in a debug view (the colour at the first hit, the lane retired, no shadow
 ray), alone or with the maps; under geometry sharding each of these in
 the lane-row form (bit 3), on a banded atlas with the per-lane taps (bit
@@ -1173,15 +1175,16 @@ def _maps_ptrs(fr: Frame, lane: LaneBuffers | None = None):
         motion = None
         if lane.taps is not None:
             packed = lane.taps
-    return _ptrs([packed, atlas.packed_rects, atlas.texels, atlas.rects, atlas.mip_rects,
+    return _ptrs([packed, atlas.packed_rects, atlas.texels4, atlas.rects, atlas.mip_rects,
                   atlas.n_levels, motion, fr.pixel_angle, fr.prev_camera,
                   fr.prev_motion, fr.had0, fr.motion0])
 
 
 def _check_maps(what: str, fr: Frame, P: int, dev):
     """What K7's textured and debug instantiations read (``_maps_ptrs``):
-    the atlas where the scene has maps (its packed texels and rects read as
-    float4 and int4, so 16-byte aligned), the motion rows (read as float2,
+    the atlas where the scene has maps (its packed texels, the float4 copy
+    of its mip texels, ``texels4``, and its rects read as float4 and int4,
+    so 16-byte aligned), the motion rows (read as float2,
     8-byte aligned) where mipmaps, a normal map or the motion view need the
     hit's vertices, the pixel angle with mipmaps, and the motion view's
     previous camera and per-lane motion."""
@@ -1196,7 +1199,9 @@ def _check_maps(what: str, fr: Frame, P: int, dev):
         _check(what, "atlas.packed", a.packed, torch.float32,
                (a.packed.shape[0], a.packed.shape[1], tex.PACKED_C), dev)
         _check(what, "atlas.packed_rects", a.packed_rects, torch.int32, (R, 4), dev)
-        _check(what, "atlas.texels", a.texels, torch.float32, (a.height, a.width, 3), dev)
+        if a.texels4 is None:
+            raise ValueError(f"{what}: the atlas has no texels4 (texture.with_texels4)")
+        _check(what, "atlas.texels4", a.texels4, torch.float32, (a.height, a.width, 4), dev)
         _check(what, "atlas.rects", a.rects, torch.int32, (R, tex.N_MAP_TYPES, 4), dev)
         _check(what, "atlas.mip_rects", a.mip_rects, torch.int32,
                (R, tex.N_MAP_TYPES, tex.MAX_MIPS, 4), dev)
@@ -1205,6 +1210,7 @@ def _check_maps(what: str, fr: Frame, P: int, dev):
             raise ValueError(f"{what}: {fr.geom.mat_rows.shape[0]} materials for an atlas of "
                              f"{R} resources")
         aligned += [("atlas.packed", a.packed, 16), ("atlas.packed_rects", a.packed_rects, 16),
+                    ("atlas.texels4", a.texels4, 16),
                     ("atlas.rects", a.rects, 16), ("atlas.mip_rects", a.mip_rects, 16)]
     motion = s.debug_mode == T.DEBUG_MODE_MOTION
     if needs_motion_rows(s, st):
@@ -1709,8 +1715,39 @@ def _flags(fr: Frame, sidx: int) -> int:
             | ((s.light_sampling == "power" and st.n_lights > 1) << 5) | (bool(T.ENABLE_AO) << 7))
 
 
-def _any_map_bits(statics) -> int:
-    return sum(1 << m for m, on in enumerate(statics.any_map) if on)
+def packed_groups(map_type: int) -> int:
+    """The float4 groups of the packed texel that map ``map_type`` reads
+    (bit q: channels 4q..4q+3; ``texture._PACKED_SLICE``)."""
+    c0, cw = tex._PACKED_SLICE[map_type]
+    return sum(1 << q for q in range(tex.PACKED_C // 4) if c0 < 4 * q + 4 and 4 * q < c0 + cw)
+
+
+def map_groups(any_map) -> int:
+    """K7's ``MapsInfo.map_groups``: in bits 4m..4m+3 the packed groups of
+    map m (``packed_groups``) where some resource has it (``any_map[m]``,
+    ``SceneStatics.any_map``), else 0."""
+    return sum(packed_groups(m) << (4 * m) for m, on in enumerate(any_map) if on)
+
+
+# each map's material texture bit (core/types.py:MATERIAL_TEXTURE_*)
+_MAP_BITS = {tex.MAP_BASECOLOR: T.MATERIAL_TEXTURE_BASECOLOR,
+             tex.MAP_NORMAL: T.MATERIAL_TEXTURE_NORMAL,
+             tex.MAP_ROUGHNESS: T.MATERIAL_TEXTURE_ROUGHNESS,
+             tex.MAP_METALLIC: T.MATERIAL_TEXTURE_METALLIC, tex.MAP_AO: T.MATERIAL_TEXTURE_AO,
+             tex.MAP_OPACITY: T.MATERIAL_TEXTURE_OPACITY,
+             tex.MAP_EMISSION: T.MATERIAL_TEXTURE_EMISSION}
+
+
+def hit_groups(groups_word: int, texture_bits: int, ao: bool = T.ENABLE_AO) -> int:
+    """The packed groups K7's textured_hit reads at a hit whose material has
+    ``texture_bits``, from ``map_groups``' word: those of each map the
+    scene and the material have (the AO map's only with ``ao``)."""
+    out = 0
+    for m, bit in _MAP_BITS.items():
+        g = (groups_word >> (4 * m)) & 15
+        if g and texture_bits & bit and (m != tex.MAP_AO or ao):
+            out |= g
+    return out
 
 
 def _buffers(what: str, fr: Frame, st: LaneState, wv: Wave) -> WaveBuffers:
@@ -1799,7 +1836,7 @@ def shade_hit(fr: Frame, st: LaneState, hits: traverse2.TraverseOut, sidx: int, 
                            b.shadow_ptrs, b.maps_ptrs, _ptr(wv.occluded), _ptr(b.lists),
                            _ptr(b.counters), s, P, _hbase(fr, sidx), fr.lights.shape[0],
                            env.shape[0], env.shape[1], _flags(fr, sidx), settings.max_bounces,
-                           variant, _any_map_bits(fr.statics), int(settings.debug_mode),
+                           variant, map_groups(fr.statics.any_map), int(settings.debug_mode),
                            atlas.packed.shape[1], atlas.width, float(settings.width),
                            float(settings.height), _ptr(None if rows is None else rows.pos),
                            n_rows, _stream(dev))

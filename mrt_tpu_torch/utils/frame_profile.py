@@ -1,6 +1,6 @@
 """Where a frame's time goes: the main path's runs and a profile of one frame.
 
-    python -m mrt_tpu_torch.utils.frame_profile [--out build/frame_profile.txt]
+    python -m mrt_tpu_torch.utils.frame_profile [--out build/frame_profile.txt] [--runs F,N] [--k7]
 
 Run A is the flagship frame of ``bench.py`` without the train/treefir OBJs
 (1920x1080); run B is the same scene with the 1.31M-triangle dragon at
@@ -43,7 +43,15 @@ frame wall, because the profiler slows the host that issues the ops but not
 the kernels. ``idle_share_profiled`` is the same share against the profiled
 frame's own wall; ``stage_s`` the device seconds of the wavefront's stage
 kernels K6-K8 in the profiled frame (``stage_launches`` their launches). One JSON line per run goes to stdout; the profiler's
-tables go to ``--out``.
+tables go to ``--out``. ``--runs`` profiles only the runs it names.
+With ``--k7`` a first line gives K7's ``-Xptxas -v`` figures and blocks an
+SM (``k7_resources``), and each run's line K7 over one more frame
+(``k7_frame``: the first launch's profiler ms and bound, the frame's
+bound).
+
+The imports are absolute, so the file runs as a script from any checkout
+of the repository with that checkout's package first on the path
+(``utils/k2_compare.py`` times other trees so).
 """
 
 from __future__ import annotations
@@ -123,10 +131,10 @@ def floor_maps(seed: int = 0, base: int = 2048, normal: int = 1024):
 
 def _extras(scene, run: dict, seed: int):
     """Run F's floor maps and light-masked spheres, run G's second dragon."""
-    from ..assets import procedural
-    from ..assets.obj import MaterialDef
-    from ..core import types as T
-    from ..engine.scene import Model, ModelMaterialOverride
+    from mrt_tpu_torch.assets import procedural
+    from mrt_tpu_torch.assets.obj import MaterialDef
+    from mrt_tpu_torch.core import types as T
+    from mrt_tpu_torch.engine.scene import Model, ModelMaterialOverride
 
     models = scene.models
     if run.get("floor_maps"):
@@ -155,9 +163,9 @@ def character(segments: int = 256, n_joints: int = 64):
     triangles at 256) and ``n_joints`` joints with the swing rig (a game
     character's size; the app's robot stand-in has 425 vertices and 4
     joints). Returns (mesh, SkinData)."""
-    from ..assets import procedural
-    from ..engine.appscene import _attach_swing_rig
-    from ..engine.scene import Model, SkinData
+    from mrt_tpu_torch.assets import procedural
+    from mrt_tpu_torch.engine.appscene import _attach_swing_rig
+    from mrt_tpu_torch.engine.scene import Model, SkinData
 
     mesh, ji, jw, rest = procedural.skinned_cylinder(segments_h=segments, segments_r=segments,
                                                      n_joints=n_joints)
@@ -171,7 +179,7 @@ def write_character(directory, mesh=None, skin=None) -> dict:
     """Write the character (``character()`` unless given) in centimetres to
     ``directory``: ``robot.usdz`` (a crate layer), ``robot_text.usdz`` (a
     USDA layer) and ``robot.glb``. Returns the paths by format."""
-    from ..assets import rigexport
+    from mrt_tpu_torch.assets import rigexport
 
     if mesh is None:
         mesh, skin = character()
@@ -183,7 +191,7 @@ def robot_asset(directory):
     """Inside this block the model "robot" resolves from ``directory``
     (first on MRT_ASSET_PATH), loaded afresh: the name cache is cleared on
     entry and on exit."""
-    from ..engine import scene as scene_mod
+    from mrt_tpu_torch.engine import scene as scene_mod
 
     old = os.environ.get("MRT_ASSET_PATH")
     os.environ["MRT_ASSET_PATH"] = os.pathsep.join([str(directory)] + ([old] if old else []))
@@ -200,7 +208,7 @@ def robot_asset(directory):
 
 def make_scene(tag: str, seed: int = 0, asset_dir=None):
     """Run ``tag``'s scene (sized as its render; see ``make_renderer``)."""
-    from ..engine.appscene import make_app_scene
+    from mrt_tpu_torch.engine.appscene import make_app_scene
 
     run = RUNS[tag]
     scale = run.get("render_scale", 1.0)
@@ -222,7 +230,7 @@ def make_renderer(tag: str, device, seed: int = 0, asset_dir=None):
     (the scene sized as the render). Run H's robot loads from
     ``asset_dir`` (``write_character``'s files), else from the files
     written into a temporary directory here."""
-    from ..engine.renderer import Renderer
+    from mrt_tpu_torch.engine.renderer import Renderer
 
     run = RUNS[tag]
     r = Renderer(make_scene(tag, seed, asset_dir), run["width"], run["height"], seed=seed,
@@ -237,7 +245,7 @@ def make_renderer(tag: str, device, seed: int = 0, asset_dir=None):
 
 def frame(r, delta_time=None):
     """One frame: a draw, and a present where the renderer upscales."""
-    from ..engine.renderer import UPSCALER_OFF
+    from mrt_tpu_torch.engine.renderer import UPSCALER_OFF
 
     r.draw(delta_time)
     if r.upscaler_mode != UPSCALER_OFF:
@@ -268,8 +276,8 @@ def profile_frame(r, table_out=None, walls=None) -> dict:
     ``walls`` are its unprofiled frame walls, timed here when None."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ..kernels import refit, traverse2
-    from ..kernels import wavefront as W
+    from mrt_tpu_torch.kernels import refit, traverse2
+    from mrt_tpu_torch.kernels import wavefront as W
 
     dev = r.device
     if walls is None:
@@ -335,10 +343,78 @@ def profile_frame(r, table_out=None, walls=None) -> dict:
     return line
 
 
+def k7_frame(r, reps: int = 5) -> dict:
+    """K7 over one more frame of renderer ``r`` on the card: its
+    instantiation, its launches, the frame's bound (``bounds.k7_listed`` of
+    each launch's ``bounds.k7_work``, from the plain step run on copies of
+    the launch's inputs, summed) and the first launch (every lane listed):
+    its device ms by torch.profiler (the mean of ``reps`` launches, each on
+    fresh copies of the state and the Wave), its bound and its lanes."""
+    from mrt_tpu_torch.dist.route_check import _device_events
+    from mrt_tpu_torch.kernels import traverse2
+    from mrt_tpu_torch.kernels import wavefront as W
+    from mrt_tpu_torch.utils import bounds
+
+    orig = W.shade_hit
+    out = dict(variant=W.K7_VARIANTS[W.k7_variant(r.settings(), r.statics)], launches=0,
+               bound_ms=0.0)
+
+    def shade_hit(fr, st, hits, sidx, wv, rows=None):
+        st_in, wv_in = W.clone_state(st), W.clone_wave(wv)
+        n_listed = st.active.shape[0] if wv.steps == 0 else int(W.listed(wv).numel())
+        if "first" not in out:
+            ev = [e for e in _device_events(lambda: orig(fr, W.clone_state(st_in), hits, sidx,
+                                                         W.clone_wave(wv_in), rows), reps)
+                  if "shade_hit" in e.name] if st.active.is_cuda else []
+            out["first"] = dict(profiler_ms=sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps
+                                if ev else None, events=len(ev), lanes=n_listed)
+        res = orig(fr, st, hits, sidx, wv, rows)
+        hits_t = traverse2.hits_of(hits, fr.tri_base)
+        _, wv_p, _ = W.shade_hit_listed_plain(fr, W.clone_state(st_in), hits_t, sidx,
+                                              wv_in._replace(buf=None), rows)
+        work = bounds.k7_work(fr, st_in, hits_t, wv_p.shadow, n_listed=n_listed,
+                              pending=wv_in.shadow, occluded=wv_in.occluded, rows=rows)
+        b_ms, b_by = bounds.k7_listed(work)
+        if out["launches"] == 0:
+            out["first"].update(bound_ms=b_ms, bound_by=b_by)
+        out["launches"] += 1
+        out["bound_ms"] += b_ms
+        return res
+
+    W.shade_hit = shade_hit
+    try:
+        frame(r)
+        _sync(r.device)
+    finally:
+        W.shade_hit = orig
+    return out
+
+
+def k7_resources() -> dict:
+    """K7's ``-Xptxas -v`` figures by mangled name (registers, stack, spills,
+    static shared memory) with the blocks of 256 threads an SM holds
+    (``bounds.blocks_per_sm``), from a build in this process."""
+    from mrt_tpu_torch.kernels import build
+    from mrt_tpu_torch.utils import bounds
+
+    build.build()
+    return {name: dict(r, blocks_per_sm=bounds.blocks_per_sm(r["registers"], 256, r.get("smem", 0)))
+            for name, r in build.ptxas.items() if "shade_hit" in name}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join("build", "frame_profile.txt"))
+    ap.add_argument("--runs", default=",".join(RUNS),
+                    help="the runs to profile, comma-separated (default: every run of RUNS)")
+    ap.add_argument("--k7", action="store_true",
+                    help="also K7's resources and, per run, k7_frame (the first launch's "
+                         "profiler ms and the frame's bound)")
     args = ap.parse_args(argv)
+    tags = [t for t in args.runs.split(",") if t]
+    unknown = sorted(set(tags) - set(RUNS))
+    if unknown:
+        ap.error(f"unknown runs {unknown}: the runs are {list(RUNS)}")
     if not torch.cuda.is_available():
         print("frame_profile: needs a CUDA device", file=sys.stderr)
         return 2
@@ -348,12 +424,16 @@ def main(argv=None) -> int:
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     # every run's unprofiled frames first: frames after a profiler session
     # ran slower on the host (PERF.md, Findings)
-    renderers = {tag: make_renderer(tag, torch.device("cuda:0")) for tag in RUNS}
+    if args.k7:
+        print(json.dumps(dict(k7_resources=k7_resources(), card=card)), flush=True)
+    renderers = {tag: make_renderer(tag, torch.device("cuda:0")) for tag in tags}
     walls = {tag: frame_walls(r) for tag, r in renderers.items()}
     with open(args.out, "w") as out:
         for tag, r in renderers.items():
             out.write(f"=== run {tag}: {RUNS[tag]['scene']} {r.render_width}x{r.render_height}\n")
             line = dict(run=tag, **profile_frame(r, out, walls[tag]), card=card)
+            if args.k7:
+                line["k7"] = k7_frame(r)
             out.write(json.dumps(line) + "\n")
             print(json.dumps(line), flush=True)
     return 0

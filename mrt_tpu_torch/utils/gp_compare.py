@@ -1,7 +1,8 @@
-"""K13 (``gp_rows``), K14 (``banded_taps``), K15 and K16 and the gp=2 frame
-in this tree against another, on one card in one call.
+"""K13 (``gp_rows``), K14 (``banded_taps``), K15 and K16, the gp=2 frame and
+K7's textured lane-row forms in this tree against another, on one card in
+one call.
 
-    python -m mrt_tpu_torch.utils.gp_compare build/parent
+    python -m mrt_tpu_torch.utils.gp_compare build/parent [--only k7rows]
 
 The other tree is a checkout of the repository, such as the parent commit
 unpacked under ``build/`` with ``git archive HEAD~ | tar -x -C build/parent``.
@@ -30,8 +31,16 @@ that each tree builds and runs its own kernels:
   combine the tree runs. The two ranks share the card: not a multi-GPU
   figure.
 
-One JSON line per measurement and tree (``KERNELS``/``FRAMES``), then the
-card's name and power limit.
+- ``k7rows`` (the other tree, this, this, the other): K7's textured
+  lane-row instantiations ``rows_maps``, ``rows_maps_mips`` and
+  ``rows_maps_taps`` at gp=1 in one process on the textured gp scene (the
+  whole atlas, with and without mipmaps, and banded): per instantiation
+  its launches' device ms over a warm frame and its first launch's (every
+  lane listed) by torch.profiler, and the tree's registers for them.
+
+One JSON line per measurement and tree (``KERNELS``/``FRAMES``/``K7ROWS``),
+then the card's name and power limit. ``--only NAME`` (repeatable) runs
+only the measurements it names.
 """
 
 from __future__ import annotations
@@ -215,23 +224,16 @@ def measure_frames(tree: str) -> None:
     import torch
 
     import chip_smoke as cs
-    from mrt_tpu_torch import Renderer
     from mrt_tpu_torch.dist import launch as L
     from mrt_tpu_torch.utils import frame_profile as FP
 
     dev = torch.device("cuda:0")
     b = FP.RUNS["B"]
-    rb = FP.make_renderer("B", dev)
-    rt = Renderer(cs.gp_textured_scene(), b["width"], b["height"], device=dev)
-    FP.configure(rt)
     jobs = []
-    for r, scene, banded in ((rb, FP.make_scene("B"), False),
-                             (rt, cs.gp_textured_scene(), True)):
-        r.two_level = False
-        r._allocate_state()
-        jobs.append((counted_drive, ("gp", scene, r.settings(), {"gp": 2}, 3),
-                     dict(offsets=r.offsets.cpu().numpy(), banded=banded)))
-    del rb, rt
+    for make, banded in ((lambda: FP.make_scene("B"), False), (cs.gp_textured_scene, True)):
+        settings, offsets = gp_job_settings(make(), b["width"], b["height"], dev)
+        jobs.append((counted_drive, ("gp", make(), settings, {"gp": 2}, 3),
+                     dict(offsets=offsets, banded=banded)))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     res = L.launch(L.run_jobs, 2, jobs, backend="gloo")
@@ -240,28 +242,139 @@ def measure_frames(tree: str) -> None:
                                     textured=_frames_line(res[0][1]))), flush=True)
 
 
+def k7_rows_frame(r, reps: int = 5) -> dict:
+    """K7's lane-row form in two frames of the gp renderer ``r``: over the
+    first, each launch's device ms by torch.profiler (the kernel's events in
+    the frame, summed and counted); over the second, the first launch (every
+    lane of the step listed) on fresh copies of its inputs, the mean of
+    ``reps`` launches; the instantiation. On the CPU (no profiler) only the
+    launches and the instantiation."""
+    import torch
+
+    from mrt_tpu_torch.dist.route_check import _device_events
+    from mrt_tpu_torch.kernels import wavefront as W
+
+    cuda = r.device.type == "cuda"
+    name = "shade_hit_rows_kernel"
+    out = dict(frame_ms=None, launches=None, first_ms=None, variant=None)
+    if cuda:
+        ev = [e for e in _device_events(r.draw) if name in e.name]
+        out.update(frame_ms=sum(e.time_range.elapsed_us() for e in ev) / 1e3 if ev else None,
+                   launches=len(ev))
+    orig = W.shade_hit
+
+    def shade_hit(fr, st, hits, sidx, wv, rows=None):
+        if out["variant"] is None:
+            out["variant"] = W.K7_VARIANTS[W.k7_variant(fr.settings, fr.statics,
+                                                        fr.scene.atlas.band_lo is not None)]
+            if cuda:
+                st0, wv0 = W.clone_state(st), W.clone_wave(wv)
+                ev = [e for e in _device_events(lambda: orig(fr, W.clone_state(st0), hits, sidx,
+                                                             W.clone_wave(wv0), rows), reps)
+                      if name in e.name]
+                out["first_ms"] = (sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps
+                                   if ev else None)
+        if not cuda:
+            out["launches"] = (out["launches"] or 0) + 1
+        return orig(fr, st, hits, sidx, wv, rows)
+
+    W.shade_hit = shade_hit
+    try:
+        r.draw()
+    finally:
+        W.shade_hit = orig
+    if cuda:
+        torch.cuda.synchronize()
+    return out
+
+
+def gp_job_settings(scene, width: int, height: int, device):
+    """A gp job's settings for ``scene`` (the main path's, the flat BVH) and
+    its offsets, from a single-device renderer of it."""
+    from mrt_tpu_torch import Renderer
+    from mrt_tpu_torch.utils import frame_profile as FP
+
+    rt = Renderer(scene, width, height, device=device)
+    FP.configure(rt)
+    rt.two_level = False
+    rt._allocate_state()
+    return rt.settings(), rt.offsets.cpu().numpy()
+
+
+def k7_rows_jobs(textured) -> dict:
+    """{K7's textured lane-row instantiation: (settings, banded)} from the
+    textured settings: the whole atlas without and with mipmaps, and the
+    banded atlas (K14's taps)."""
+    import dataclasses
+
+    return {"rows_maps": (textured, False),
+            "rows_maps_mips": (dataclasses.replace(textured, use_mipmaps=True), False),
+            "rows_maps_taps": (textured, True)}
+
+
+def measure_k7rows(tree: str) -> None:
+    """K7's textured lane-row instantiations (``k7_rows_jobs``) at gp=1 in
+    this process (a world of one rank), each on the textured gp scene
+    (``k7_rows_frame`` after two warm-up frames), and their registers."""
+    import torch
+
+    import chip_smoke as cs
+    from mrt_tpu_torch.dist.geometry import GeometryShardedRenderer
+    from mrt_tpu_torch.kernels import build
+    from mrt_tpu_torch.utils import frame_profile as FP
+
+    dev = torch.device("cuda:0")
+    build.build()
+    b = FP.RUNS["B"]
+    textured, offsets = gp_job_settings(cs.gp_textured_scene(), b["width"], b["height"], dev)
+    rows = []
+    for v, (settings, banded) in k7_rows_jobs(textured).items():
+        r = GeometryShardedRenderer(cs.gp_textured_scene(), settings, banded=banded,
+                                    offsets=offsets, device=dev)
+        for _ in range(2):
+            r.draw()
+        torch.cuda.synchronize()
+        line = dict(job=v, **k7_rows_frame(r))
+        if line["variant"] != v:
+            raise AssertionError(f"the {v} job ran K7's {line['variant']}")
+        rows.append(line)
+        del r
+        torch.cuda.empty_cache()
+    regs = {n: x for n, x in build.ptxas.items() if "shade_hit_rows_kernel" in n}
+    print("K7ROWS", json.dumps(dict(tree=tree, rows=rows, ptxas=regs)), flush=True)
+
+
+MEASURES = ("kernels", "frames", "k7rows")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", nargs="?", help="the other tree's root")
-    ap.add_argument("--measure", choices=("kernels", "frames"), help=argparse.SUPPRESS)
+    ap.add_argument("--measure", choices=MEASURES, help=argparse.SUPPRESS)
+    ap.add_argument("--only", choices=MEASURES, action="append",
+                    help="run only these measurements (default: all)")
     a = ap.parse_args(argv)
     if a.measure:
         tree = os.getcwd()
         here = os.path.dirname(os.path.abspath(__file__))
         sys.path[:] = [tree] + [p for p in sys.path if os.path.abspath(p or ".") != here]
-        {"kernels": measure_kernels, "frames": measure_frames}[a.measure](tree)
+        {"kernels": measure_kernels, "frames": measure_frames,
+         "k7rows": measure_k7rows}[a.measure](tree)
         return 0
     if a.other is None:
         ap.error("name the other tree")
     other = os.path.abspath(a.other)
     me = os.path.abspath(__file__)
     bad = 0
-    for what, order in (("kernels", (other, HERE)), ("frames", (other, HERE, HERE, other))):
+    for what, order in (("kernels", (other, HERE)), ("frames", (other, HERE, HERE, other)),
+                        ("k7rows", (other, HERE, HERE, other))):
+        if a.only and what not in a.only:
+            continue
         for cwd in order:
             r = subprocess.run([sys.executable, me, "--measure", what], cwd=cwd,
                                capture_output=True, text=True)
             for line in r.stdout.splitlines():
-                if line.startswith(("KERNELS", "FRAMES")):
+                if line.startswith(("KERNELS", "FRAMES", "K7ROWS")):
                     print(line, flush=True)
             if r.returncode:
                 bad += 1

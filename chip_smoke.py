@@ -110,9 +110,14 @@ never prints its last line):
      against the same on the CPU (linear output, new history and
      DenoiseState within 1e-5 relative RMSE, uint8 within 1 LSB); K1
      uint8-equal to its plain version on each mode's (2160,3840,3) output;
-     each present launches K12 once in the spatial mode; K12 and K11 once
-     each in the temporal mode; K9 once, K10 three times, K12 and K11 once
-     each in the denoised mode;
+     the main path's present_device on the same buffers and state
+     byte-equal to K1 on the card's linear output, within 1 LSB of the
+     CPU's, and the state it hands over bit-equal to the linear chain's;
+     each present launches K12's uint8 form once in the spatial mode; K12
+     and K11's uint8 form once each in the temporal mode; K9 once, K10
+     three times, K12 and K11's uint8 form once each in the denoised mode;
+     and no standalone K1 in any mode (the kernel that ends the chain
+     tonemaps);
   3p. the presenter kernels (mrt_tpu_torch/csrc/presenter.cu) against their
      plain versions on the card, after run E's denoised mode: on run E's
      last buffers and state, K9 svgf_reproject, K10 atrous_pass at steps 1,
@@ -130,7 +135,12 @@ never prints its last line):
      multiple of K10's 32x8 and K12's 256x16 tiles: partial tiles, the
      clamped halo, output rows not 16-byte aligned); the whole denoised
      chain through the kernels against the plain chain, and K1's bytes on
-     all. A float field that is not bit-equal is
+     all; the uint8 forms (K12's Lanczos-3 of the colour with the clamp, in
+     its strip form and, at a 64x downscale, its tiles; K11's on both
+     chains at each weight) byte-equal to K1 on the same f32 kernel's
+     output and to tonemap_quantize_plain of the plain version, K11's new
+     history bit-equal to its f32 form's. A float field that is not
+     bit-equal is
      printed; beyond PRESENTER_REL_TOL relative RMSE it fails the run, as
      does any K1 byte that differs. Each kernel's CUDA-event ms over 5
      calls beside its plain version's and its bound (K10 also beside its
@@ -201,8 +211,9 @@ never prints its last line):
      bounces: a 686x686 render, spatial upscaler, motion-adaptive
      accumulation and sampling, the robot animating; a GIF and a final
      PNG). Each with every launch count set to 0 just before and read just
-     after: K1, K2 (packed only) and K6-K8 must launch, the demo K4 ``blas``
-     with K5 and K12 (its spatial present) too, every draw on the kernel
+     after: K2 (packed only) and K6-K8 must launch, the smoke K1, the demo
+     K4 ``blas`` with K5 and K12's uint8 form (its spatial present) and no
+     standalone K1, every draw on the kernel
      route (K6 at least once per base sample) and K8 once per sample. The
      PNG and the GIF are read back by the port's own readers
      (mrt_tpu_torch/utils/image.py: the PNG equal to the image, each of the
@@ -225,9 +236,11 @@ never prints its last line):
      time per animated frame beside their bounds (the refit's device events
      per call by name, raising on any but the copy and K4's launch with
      K5, and its CUDA-event time), and run E's present device time
-     and events per mode (at most 3, 4 and 8), its denoiser's device time,
-     K9's, each K10 pass's, K12's (both forms) and K11's device time per
-     launch and K1's at (2160,3840,3), beside their bounds; K3's device
+     and events per mode (at most 2, 3 and 7) beside the present's bound
+     and the f32 chain's with K1, its denoiser's device time, K9's, each
+     K10 pass's, K12's (the spatial chain's uint8 form and the bilinear)
+     and K11's (its uint8 form) device time per launch and K1's at
+     (2160,3840,3), beside their bounds; K3's device
      time over a
      steady frame of run J, its refit's and prepare's device time. A
      profiler session that misses the kernels it was asked for is logged as
@@ -294,8 +307,10 @@ never prints its last line):
      (K6 and only K7's instantiation for its settings launched).
 The line before the last is {"kernels": [...]}: K1, K2's three
 instantiations, K3's two (with their registers, shared memory and the
-blocks an SM holds), K4's two, K5, K6, K7, K8, K9, K10, K11 and K12's
-two forms (launches counted
+blocks an SM holds), K4's two, K5, K6, K7, K8, K9, K10, K11 (its uint8
+form, which ends the temporal and denoised presents; the f32 form's times
+beside it), K12's bilinear form and its Lanczos-3 uint8 form (the spatial
+present; the f32 form's times beside it) (launches counted
 over the main-path runs, the builds of runs G and K and of run G flat,
 phase M's entry points and phase L's ranks), then K7 by instantiation
 (untextured, maps, maps_mips, maps_debug, maps_mips_debug, debug: its
@@ -1546,10 +1561,11 @@ def profile_prepare(torch, r, bounds):
 
 
 E_MODES = ("spatial", "temporal", "denoised")
-# the kernels a run-E present launches: spatial K12 and K1; temporal K12,
-# K11 and K1; denoised K9, K10 three times, K12, K11 and K1 (its profile
-# may show one device event more, no more)
-PRESENT_KERNELS = dict(spatial=2, temporal=3, denoised=7)
+# the kernels a run-E present launches: spatial K12's uint8 form; temporal
+# K12 and K11's uint8 form; denoised K9, K10 three times, K12 and K11's
+# uint8 form; no standalone K1 (its profile may show one device event
+# more, no more)
+PRESENT_KERNELS = dict(spatial=1, temporal=2, denoised=6)
 
 
 def bits_equal(torch, a, b) -> bool:
@@ -1638,17 +1654,20 @@ def drive_e(torch, r, mode, present, traverse2, presenter, refit, timed=3):
                                  "history-free one")
     counts = {"present": present.launches, "traverse2": traverse2.launches, **refit_counts(refit),
               **stage_counts(W), **PK.launches}
-    if min(counts[k] for k in ("present", "traverse2", "refit_blas", "refit_tlas") + W.STAGES) < 1:
+    if min(counts[k] for k in ("traverse2", "refit_blas", "refit_tlas") + W.STAGES) < 1:
         raise AssertionError(f"run E {mode}: a kernel of the path never launched: {counts}")
     presents = 1 + 2 * timed
-    # per present: spatial K12; temporal K12, K11; denoised K9, K10 x 3, K12, K11
-    want = dict(spatial=dict(resize=presents),
-                temporal=dict(resize=presents, temporal_resolve=presents),
+    # per present: spatial K12's uint8 form; temporal K12, K11's uint8 form;
+    # denoised K9, K10 x 3, K12, K11's uint8 form; the kernel that ends the
+    # chain tonemaps, so no present launches K1 itself
+    want = dict(spatial=dict(resize_u8=presents),
+                temporal=dict(resize=presents, temporal_resolve_u8=presents),
                 denoised=dict(svgf_reproject=presents, atrous_pass=3 * presents, resize=presents,
-                              temporal_resolve=presents))[mode]
-    if PK.launches != {k: want.get(k, 0) for k in PK.KERNELS}:
-        raise AssertionError(f"run E {mode}: K9-K12 launched {PK.launches} in {presents} "
-                             f"presents, expected {want}")
+                              temporal_resolve_u8=presents))[mode]
+    if PK.launches != {k: want.get(k, 0) for k in PK.KERNELS} or counts["present"]:
+        raise AssertionError(f"run E {mode}: K9-K12 launched {PK.launches} and K1 "
+                             f"{counts['present']} times in {presents} presents, expected {want} "
+                             "and no K1")
     variants = check_variants(f"E {mode}", traverse2, "packed")
     acc = r.accum
     if not bool(torch.isfinite(acc).all()) or float(acc.max()) <= 0.0:
@@ -1679,8 +1698,12 @@ def check_e_mode(torch, r, present, presenter, T):
     """The renderer's present (its current buffers and state) on the card
     against the same on the CPU: linear output, new history and
     DenoiseState within 1e-5 relative RMSE, uint8 within 1 LSB; and K1
-    uint8-equal to its plain version on the card's linear output. Returns
-    (numbers, the card's linear output)."""
+    uint8-equal to its plain version on the card's linear output. Then the
+    main path's own present, ``r.present_device()`` (the chain's uint8
+    form): byte-equal to K1 on the card's linear output, within 1 LSB of the
+    CPU's, and the state it hands the renderer bit-equal to the linear
+    chain's (the renderer's state is put back after). Returns (numbers, the
+    card's linear output)."""
     from types import SimpleNamespace
 
     lin_g, hist_g, d_g = presenter.present_linear(r)
@@ -1697,16 +1720,30 @@ def check_e_mode(torch, r, present, presenter, T):
     x = lin_g.contiguous()
     k1 = present.tonemap_quantize(x)
     k1_bad = int((k1 != present.tonemap_quantize_plain(x)).sum())
-    lsb = int((k1.cpu().int() - present.tonemap_quantize_plain(lin_c).int()).abs().max())
+    want_c = present.tonemap_quantize_plain(lin_c).int()
+    lsb = int((k1.cpu().int() - want_c).abs().max())
+    saved = (r._upscale_history, r._denoise_state)
+    try:
+        img = r.present_device()
+        hist_ok = hist_g is None or bits_equal(torch, r._upscale_history, hist_g)
+        d_ok = d_g is None or all(bits_equal(torch, a, b) for a, b in zip(r._denoise_state, d_g))
+        fused = dict(vs_k1=int((img != k1).sum()), lsb=int((img.cpu().int() - want_c).abs().max()),
+                     state_bit_equal=hist_ok and d_ok)
+    finally:
+        object.__setattr__(r, "_upscale_history", saved[0])
+        object.__setattr__(r, "_denoise_state", saved[1])
     errs = dict(linear=rel_rmse(lin_g, lin_c))
     if hist_g is not None:
         errs["history"] = rel_rmse(hist_g, hist_c)
     if d_g is not None:
         errs.update({f"denoise_{f}": rel_rmse(a, b) for f, a, b in zip(d_g._fields, d_g, d_c)})
     out = dict(card_vs_cpu_rel_rmse=errs, card_vs_cpu_lsb=lsb, cpu_present_s=cpu_s,
-               k1_shape=list(x.shape), k1_mismatches=k1_bad)
+               k1_shape=list(x.shape), k1_mismatches=k1_bad, present_device=fused)
     if k1_bad:
         raise AssertionError(f"run E {r.upscaler_mode}: K1 disagrees with its plain version")
+    if fused["vs_k1"] or fused["lsb"] > 1 or not fused["state_bit_equal"]:
+        raise AssertionError(f"run E {r.upscaler_mode}: present_device disagrees with K1 on the "
+                             f"linear chain or with the CPU, or hands over another state: {fused}")
     if lsb > 1 or max(errs.values()) > 1e-5:
         raise AssertionError(f"run E {r.upscaler_mode}: the card's present disagrees with the "
                              f"CPU's: {out}")
@@ -1787,15 +1824,21 @@ def check_presenter(torch, tag, inp, present, bounds, timed: bool = False,
     path's forms asserted to take the strip form), and at a 64x downscale
     (hundreds of taps, the 32x32 tiles staged in chunks) too; the
     denoised chain through the kernels (``svgf_filter``,
-    ``temporal_upscale``) against the plain stages composed; K1's bytes.
+    ``temporal_upscale``) against the plain stages composed; K1's bytes;
+    the uint8 forms of K12 (the spatial chain's, in its strip form, and
+    the 64x downscale of the colour in the 32x32 tiles) and K11 (both
+    chains, each weight) byte for byte against K1 on the same f32 kernel's
+    output and against ``tonemap_quantize_plain`` of the plain version,
+    K11's new history bit for bit against its f32 form's (under "u8").
     With ``timed``, each kernel's and plain version's CUDA-event ms over 5
     calls and its bound (K10's also the time its instructions would take
     at the peak rate with a tap counted as ``sass_tap[step]``, the built
     kernel's SASS count, where given: a diagnostic, not a bound); K12's
     also the dense products' and, for the bilinear,
     ``torch.nn.functional.interpolate``'s (the same function on an NCHW
-    copy, ``library_ms``). Raises beyond PRESENTER_REL_TOL or
-    RESIZE_DENSE_TOL, or on a K1 byte."""
+    copy, ``library_ms``); the uint8 forms' too. Raises beyond
+    PRESENTER_REL_TOL or RESIZE_DENSE_TOL, or on a K1 byte or a uint8
+    form's byte or history bit."""
     import torch.nn.functional as F
 
     from mrt_tpu_torch.kernels import presenter as PK
@@ -1897,18 +1940,58 @@ def check_presenter(torch, tag, inp, present, bounds, timed: bool = False,
         (den_k, lin_k, hist_k, *st_k[:4], st_k.normal), (denoised, lin_p, hist_p, *p9[:5]))
     k1_chain = int((present.tonemap_quantize(lin_k.contiguous())
                     != present.tonemap_quantize_plain(lin_p)).sum())
+
+    # the uint8 forms, which end the upscaled presents
+    u8 = {}
+
+    def check_u8(key, k8, kf, pf):
+        """K12's or K11's uint8 output ``k8`` against K1 on the f32 form's
+        output ``kf`` and K1's plain version of the plain version's ``pf``."""
+        u8[key] = d = dict(values=k8.numel())
+        for ref, q in (("k1", present.tonemap_quantize(kf.contiguous())),
+                       ("plain", present.tonemap_quantize_plain(pf))):
+            d[f"vs_{ref}"] = int((k8 != q).sum())
+            d[f"vs_{ref}_max_abs"] = int((k8.int() - q.int()).abs().max())
+
+    for key, size, strip in (("resize_u8 lanczos3 3ch clamped", (oh, ow), True),
+                             ("resize_u8 lanczos3 3ch downscale", (h // 64 + 1, w // 64 + 1),
+                              False)):
+        src = (inp["color"],)
+        tables = (spatial.band_table(h, size[0], "lanczos3", dev),
+                  spatial.band_table(w, size[1], "lanczos3", dev))
+        strip_form(PK, src, tables, f"{tag}: {key}", strip)
+        check_u8(key, PK.resize(src, *tables, True, True), PK.resize(src, *tables, True),
+                 PK.resize_plain(src, *tables, True))
+        if strip:
+            timing(key, lambda: PK.resize(src, *tables, True, True),
+                   lambda: present.tonemap_quantize_plain(PK.resize_plain(src, *tables, True)),
+                   bounds.resize(h, w, *size, 3, *(t.weights.shape[1] for t in tables), True))
+    for chain, colour in (("temporal", inp["color"]), ("denoised", denoised)):
+        up = PK.resize_plain((colour, depth, motion), *bl)
+        for hw in inp["weights"]:
+            a = (up, inp["history"], hw, ow / w, oh / h)
+            key = f"temporal_resolve_u8 {chain} weight {hw}"
+            (k8, hist8), (kf, histf) = PK.temporal_resolve(*a, quantize=True), PK.temporal_resolve(*a)
+            check_u8(key, k8, kf, PK.temporal_resolve_plain(*a)[0])
+            u8[key]["history_differing"] = int((hist8.view(torch.int32)
+                                                != histf.view(torch.int32)).sum())
+        timing(f"temporal_resolve_u8 {chain}", lambda: PK.temporal_resolve(*a, quantize=True),
+               lambda: present.tonemap_quantize_plain(PK.temporal_resolve_plain(*a)[0]),
+               bounds.temporal_resolve(oh, ow, True))
+    u8_bad = {k: d for k, d in u8.items()
+              if d["vs_k1"] or d["vs_plain"] or d.get("history_differing")}
     not_bit_equal = {k: {f: d for f, d in v.items() if d["differing"]} for k, v in out.items()}
     not_bit_equal = {k: v for k, v in not_bit_equal.items() if v}
     worst = max([d["rel_rmse"] for v in not_bit_equal.values() for d in v.values()] + [0.0])
     line = dict(phase="3p", run=tag, render=[w, h], output=[ow, oh], fields=out,
                 not_bit_equal=not_bit_equal, max_rel_rmse=worst, k1_mismatches=k1_bad,
-                k1_chain_mismatches=k1_chain, resize_vs_dense=dense, times=times, **CARD)
+                k1_chain_mismatches=k1_chain, resize_vs_dense=dense, u8=u8, times=times, **CARD)
     log(json.dumps(line))
-    if (worst > PRESENTER_REL_TOL or k1_bad or k1_chain
+    if (worst > PRESENTER_REL_TOL or k1_bad or k1_chain or u8_bad
             or not max(dense.values()) <= RESIZE_DENSE_TOL):
         raise AssertionError(f"phase 3p run {tag}: a presenter kernel disagrees with its plain "
-                             f"version: {not_bit_equal}, K1 {k1_bad}/{k1_chain} bytes, or K12 "
-                             f"with the dense products: {dense}")
+                             f"version: {not_bit_equal}, K1 {k1_bad}/{k1_chain} bytes, a uint8 "
+                             f"form {u8_bad}, or K12 with the dense products: {dense}")
     return line
 
 
@@ -1940,8 +2023,10 @@ def profile_e(torch, FP, r, present, bounds, x4k, walls, sass_tap):
     denoised buffers the denoiser's device time beside its bound, and K9's,
     each K10 pass's (with the share of its taps whose differences are
     exactly 0, and the time at peak of its SASS count, ``sass_tap``),
-    K12's (both of its forms) and K11's per launch beside theirs; K1 at
-    the output shape, warm and after a 64 MB write (cold), beside its
+    K12's (the spatial chain's uint8 form and the bilinear) and K11's (its
+    uint8 form) per launch beside theirs, as the presents launch them; each present's bound
+    (``bounds.present``) beside the f32 chain's with K1 that it replaced;
+    K1 at the output shape, warm and after a 64 MB write (cold), beside its
     CUDA-event and plain times."""
     from mrt_tpu_torch.kernels import presenter as PK
     from mrt_tpu_torch.upscale import denoise, spatial
@@ -1982,26 +2067,30 @@ def profile_e(torch, FP, r, present, bounds, x4k, walls, sass_tap):
                                                    zero_share=atrous_zero_share(torch, a))
         if not last:
             filt, fvar, flum = PK.atrous_pass(*a)
-    for key, sources, method, clamp in (("k12_resize_lanczos3_3ch", (ins[0],), "lanczos3", True),
-                                        ("k12_resize_bilinear_6ch", (ins[0], ins[4], ins[5]),
-                                         "bilinear", False)):
+    # each launch as the presents make it: the spatial chain's Lanczos-3 and
+    # K11 in their uint8 forms
+    for key, sources, method, clamp, q in (
+            ("k12_resize_lanczos3_3ch_u8", (ins[0],), "lanczos3", True, True),
+            ("k12_resize_bilinear_6ch", (ins[0], ins[4], ins[5]), "bilinear", False, False)):
         tables = (spatial.band_table(h, oh, method, r.device),
                   spatial.band_table(w, ow, method, r.device))
         strip_form(PK, sources, tables, key)
-        ms = device_ms(torch, lambda: PK.resize(sources, *tables, clamp), "resize_strip_kernel", 5,
+        ms = device_ms(torch, lambda: PK.resize(sources, *tables, clamp, q),
+                       "resize_strip_u8_kernel" if q else "resize_strip_kernel", 5,
                        one_kernel=True)
         channels = sum(t.shape[2] if t.dim() == 3 else 1 for t in sources)
         out[key] = dict(ms=ms, bound=bounds.resize(h, w, oh, ow, channels,
                                                    tables[0].weights.shape[1],
-                                                   tables[1].weights.shape[1]))
+                                                   tables[1].weights.shape[1], q))
     up = spatial.resize((ins[0], ins[4], ins[5]), oh, ow, "bilinear")
     hist = r._upscale_history
-    ms = device_ms(torch, lambda: PK.temporal_resolve(up, hist, 0.9, ow / w, oh / h),
-                   "temporal_resolve", 5, one_kernel=True)
-    out["k11_temporal_resolve"] = dict(ms=ms, bound=bounds.temporal_resolve(oh, ow))
-    out["present_bounds_ms"] = dict(spatial=out["k12_resize_lanczos3_3ch"]["bound"][0],
-                                    temporal=bounds.temporal_chain(h, w, oh, ow)[0],
-                                    denoised=bounds.denoised_chain(h, w, oh, ow)[0])
+    ms = device_ms(torch, lambda: PK.temporal_resolve(up, hist, 0.9, ow / w, oh / h, True),
+                   "temporal_resolve_u8", 5, one_kernel=True)
+    out["k11_temporal_resolve_u8"] = dict(ms=ms, bound=bounds.temporal_resolve(oh, ow, True))
+    out["present_bounds_ms"] = {mode: dict(present=bounds.present(mode, h, w, oh, ow)[0],
+                                           f32_chain_and_k1=bounds.present(mode, h, w, oh, ow,
+                                                                           fused=False)[0])
+                                for mode in E_MODES}
     scratch = torch.empty(16 << 20, dtype=torch.float32, device=r.device)  # 64 MB > the 50 MB L2
     k1 = dict(ms_warm=device_ms(torch, lambda: present.tonemap_quantize(x4k), "present_kernel", 20,
                                 one_kernel=True),
@@ -2824,9 +2913,12 @@ def check_spatial_resize(torch, tag, r) -> dict | None:
     chunks differ from run E's 2x): the Lanczos-3 of its accumulation with
     the clamp, against the plain version on the same inputs bit for bit
     and the dense products within RESIZE_DENSE_TOL of the largest value;
-    CUDA-event ms of both and the strip kernel's torch.profiler device ms
-    (the wrapper's host work told apart) beside its bound, and the strip
-    form's output rows a tile. None where ``r`` presents through another
+    CUDA-event ms of both beside its bound, and the strip form's output
+    rows a tile; then its uint8 form, the demo's present (``u8``):
+    byte-equal to K1 on the f32 form's output and to
+    ``tonemap_quantize_plain`` of the plain version's, its CUDA-event ms
+    and the strip kernel's torch.profiler device ms (the wrapper's host
+    work told apart) beside its bound. None where ``r`` presents through another
     chain or at render size. Raises on a difference, and where the shape
     does not take the strip form."""
     from mrt_tpu_torch.engine import renderer as R
@@ -2849,14 +2941,24 @@ def check_spatial_resize(torch, tag, r) -> dict | None:
     bound = bounds.resize(h, w, oh, ow, 3, kr, kc)
     out = dict(render=[w, h], output=[ow, oh], taps=[kr, kc], fields=fields,
                vs_dense=dense, ms=cuda_ms(lambda: PK.resize((x,), *tables, True), 5),
-               device_ms=device_ms(torch, lambda: PK.resize((x,), *tables, True),
-                                   "resize_strip_kernel", 5, one_kernel=True),
                plain_ms=cuda_ms(lambda: PK.resize_plain((x,), *tables, True), 5),
                bound_ms=bound[0], bound_by=bound[1], strip_rows=rt)
+    from mrt_tpu_torch.kernels import present
+
+    k8 = PK.resize((x,), *tables, True, True)
+    bound8 = bounds.resize(h, w, oh, ow, 3, kr, kc, True)
+    out["u8"] = dict(
+        vs_k1=int((k8 != present.tonemap_quantize(k12)).sum()),
+        vs_plain=int((k8 != present.tonemap_quantize_plain(p12)).sum()),
+        ms=cuda_ms(lambda: PK.resize((x,), *tables, True, True), 5),
+        device_ms=device_ms(torch, lambda: PK.resize((x,), *tables, True, True),
+                            "resize_strip_u8_kernel", 5, one_kernel=True),
+        bound_ms=bound8[0], bound_by=bound8[1])
     log(json.dumps(dict(phase="M", entry=tag, k12_resize_lanczos3=out)))
-    if fields["output"]["differing"] or not dense <= RESIZE_DENSE_TOL:
+    if (fields["output"]["differing"] or not dense <= RESIZE_DENSE_TOL or out["u8"]["vs_k1"]
+            or out["u8"]["vs_plain"]):
         raise AssertionError(f"phase {tag}: K12 at {h}x{w} -> {oh}x{ow} disagrees with its plain "
-                             f"version or the dense products: {out}")
+                             f"version or the dense products, or its uint8 form with K1: {out}")
     return out
 
 
@@ -2910,13 +3012,16 @@ def phase_m(torch, present, traverse2, refit, W, bounds, tmp, checks, stage_chec
              "traverse_flat": traverse2.flat_launches, **refit_counts(refit), **stage_counts(W),
              **PK.launches}
         variants = {k: n for k, n in traverse2.variant_launches.items() if n}
-        need = ("present", "traverse2") + W.STAGES
-        if tag == "M demo":  # its spatial present: K12 with the clamp
-            need += ("refit_blas", "refit_tlas", "resize")
+        need = ("traverse2",) + W.STAGES
+        if tag == "M demo":  # its spatial present: K12's uint8 form with the clamp, no K1
+            need += ("refit_blas", "refit_tlas", "resize_u8")
+        else:  # the smoke presents at render size: K1
+            need += ("present",)
         walls, rays = rec["walls"], rec["rays"]
         if (r.device.type != "cuda" or min(c[k] for k in need) < 1 or set(variants) != {"packed"}
                 or c["traverse_flat"] or c["resolve_shadow"] != c["sample_start"]
-                or min(rec["k6"]) < r.samples_per_pixel):
+                or min(rec["k6"]) < r.samples_per_pixel
+                or (tag == "M demo" and (c["present"] or c["resize"]))):
             raise AssertionError(f"phase {tag}: a kernel of the path never launched, a draw left "
                                  f"the kernel route or ran off the card: launches {c}, K2 "
                                  f"{variants}, K6 per draw {rec['k6']}, device {r.device}")
@@ -3661,23 +3766,37 @@ def main() -> int:
     # K9-K11: ms, plain_ms and bound_ms from phase 3p on run E's last
     # buffers (K10 at step 1, K11 on the denoised chain), every pass's and
     # chain's times there, the profiler's device ms per launch (profile_e),
-    # and the phase-3p fields that are not bit-equal, by run
+    # and the phase-3p fields that are not bit-equal, by run. K11 in its
+    # uint8 form (the end of the temporal and denoised presents): its bytes
+    # against K1 and the plain version, its history against the f32
+    # form's, and the f32 form (off the main path: present_linear) beside it
     def presenter_entry(name, key, timed, replaces, profiled):
+        """``key``: the launch count, the first word of the phase-3p fields,
+        uint8 checks and times the entry reads."""
+        def mine(k):
+            return k.split()[0] == key
+
         fields = [d for c in presenter_checks.values() for k, v in c["fields"].items()
-                  if k.startswith(key) for d in v.values()]
+                  if mine(k) for d in v.values()]
+        u8s = [d for c in presenter_checks.values() for k, d in c["u8"].items() if mine(k)]
         t = presenter_checks["E"]["times"][timed]
         return dict(
             name=name, route="cuda", source="mrt_tpu_torch/csrc/presenter.cu", replaces=replaces,
             launches=sum(c.get(key, 0) for c in counts.values()),
             launches_by_run={t_: c[key] for t_, c in counts.items() if c.get(key)},
-            max_abs_err=max([d.get("max_abs", 0.0) for d in fields] + [0.0]), ms=t["ms"],
-            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            max_abs_err=max([d.get("max_abs", 0.0) for d in fields]
+                            + [d["vs_plain_max_abs"] for d in u8s] + [0.0]),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=None,
-            times={k: v for k, v in presenter_checks["E"]["times"].items() if k.startswith(key)},
+            times={k: v for k, v in presenter_checks["E"]["times"].items() if mine(k)},
             profiled={k: e_profile[k] for k in profiled},
-            not_bit_equal={run: {k: v for k, v in c["not_bit_equal"].items() if k.startswith(key)}
-                           for run, c in presenter_checks.items()})
+            not_bit_equal={run: {k: v for k, v in c["not_bit_equal"].items() if mine(k)}
+                           for run, c in presenter_checks.items()},
+            **({"u8_checks": {run: {k: d for k, d in c["u8"].items() if mine(k)}
+                              for run, c in presenter_checks.items()}} if u8s else {}))
 
+    k11_f32 = presenter_entry("K11 temporal_resolve (f32)", "temporal_resolve",
+                              "temporal_resolve denoised", "mrt_tpu/upscale/temporal.py:65", [])
     kernels += [
         presenter_entry("K9 svgf_reproject", "svgf_reproject", "svgf_reproject",
                         "mrt_tpu/upscale/denoise.py:90", ["k9_svgf_reproject"]),
@@ -3685,56 +3804,78 @@ def main() -> int:
                              "mrt_tpu/upscale/denoise.py:56",
                              [f"k10_atrous_pass_step_{s}" for s in PK.ATROUS_STEPS]),
              sass=k10_sass),
-        presenter_entry("K11 temporal_resolve", "temporal_resolve", "temporal_resolve denoised",
-                        "mrt_tpu/upscale/temporal.py:65", ["k11_temporal_resolve"]),
+        dict(presenter_entry("K11 temporal_resolve (uint8 out: K1's tonemap and quantize in its "
+                             "epilogue)", "temporal_resolve_u8", "temporal_resolve_u8 denoised",
+                             "mrt_tpu/upscale/temporal.py:65", ["k11_temporal_resolve_u8"]),
+             f32_form={k: v for k, v in k11_f32.items()
+                       if k not in ("name", "route", "source", "replaces")}),
     ]
-    # K12 by its two forms on the path: the spatial chain's (run E spatial,
-    # phase M's demo) and the temporal chains' (run E temporal and
-    # denoised); ms, plain_ms, bound_ms and library_ms from phase 3p on run
-    # E's last buffers (the bilinear on the denoised chain), with the dense
-    # products' time (the port's resize before K12) and the largest
-    # difference from them; the spatial form also checked at phase M's demo
-    # shape; each form's registers and spills (-Xptxas -v; both forms are
-    # instantiations of the strip kernel, resize_strip_kernel<K, C0, C1, C2>)
-    mode_counts = {f"E {m}": e_lines[m]["launches"]["resize"] for m in E_MODES}
-    mode_counts["M demo"] = counts["M demo"]["resize"]
+    # K12 by its two forms on the path: the spatial chain's Lanczos-3 in its
+    # uint8 form (run E spatial, phase M's demo) and the temporal chains'
+    # bilinear (run E temporal and denoised); ms, plain_ms, bound_ms and
+    # library_ms from phase 3p on run E's last buffers (the bilinear on the
+    # denoised chain), with the dense products' time (the port's resize
+    # before K12) and the largest difference from them; the spatial form
+    # also checked at phase M's demo shape, its f32 form (off the main path:
+    # present_linear) beside it; each form's registers and spills (-Xptxas
+    # -v; instantiations of the strip kernel, resize_strip_kernel<K, C0, C1,
+    # C2> and resize_strip_u8_kernel<6, 3, 0, 0>)
     if "k12" not in m_lines["M demo"]:
         raise AssertionError("phase M: K12 was not checked at the demo's shape")
     m_k12 = m_lines["M demo"]["k12"]
-    for form, key, timed, runs, profiled, args, slot in (
+    k12_entries = {}
+    for form, key, timed, runs, count, profiled, kernel, slot in (
             ("lanczos3, 3 channels, clamped", "resize lanczos3", "resize lanczos3 3ch clamped",
-             ("E spatial", "M demo"), "k12_resize_lanczos3_3ch", "ILi6ELi3ELi0ELi0E", "K6C3"),
+             ("E spatial", "M demo"), "resize", None,
+             "resize_strip_kernelILi6ELi3ELi0ELi0E", "K6C3"),
             ("bilinear, 6 channels", "resize bilinear", "resize bilinear 6ch denoised",
-             ("E temporal", "E denoised"), "k12_resize_bilinear_6ch", "ILi2ELi3ELi1ELi2E",
-             "K2C6")):
+             ("E temporal", "E denoised"), "resize", "k12_resize_bilinear_6ch",
+             "resize_strip_kernelILi2ELi3ELi1ELi2E", "K2C6"),
+            ("lanczos3, 3 channels, clamped; uint8 out: K1's tonemap and quantize in its "
+             "epilogue", "resize_u8 lanczos3", "resize_u8 lanczos3 3ch clamped",
+             ("E spatial", "M demo"), "resize_u8", "k12_resize_lanczos3_3ch_u8",
+             "resize_strip_u8_kernelILi6ELi3ELi0ELi0E", None)):
+        u8 = count == "resize_u8"
+        mode_counts = {f"E {m}": e_lines[m]["launches"][count] for m in E_MODES}
+        mode_counts["M demo"] = counts["M demo"][count]
         t = presenter_checks["E"]["times"][timed]
         fields = [d for c in presenter_checks.values() for k, v in c["fields"].items()
                   if k.startswith(key) for d in v.values()]
+        u8s = [d for c in presenter_checks.values() for k, d in c["u8"].items()
+               if k.startswith(key)]
         at_m = {}
-        if "M demo" in runs:
+        if "M demo" in runs and not u8:
             fields += list(m_k12["fields"].values())
-            at_m = dict(at_m_demo={k: v for k, v in m_k12.items() if k != "fields"},
+            at_m = dict(at_m_demo={k: v for k, v in m_k12.items() if k not in ("fields", "u8")},
                         not_bit_equal_m_demo=m_k12["fields"]["output"]["differing"])
-        regs = {k: v for k, v in build.ptxas.items() if f"resize_strip_kernel{args}" in k}
+        elif u8:
+            at_m = dict(at_m_demo=m_k12["u8"])
+        regs = {k: v for k, v in build.ptxas.items() if kernel in k}
         if len(regs) != 1:
             raise AssertionError(f"K12 ({form}): -Xptxas -v reported {sorted(regs)}")
-        kernels.append(dict(
+        k12_entries[form] = dict(
             name=f"K12 resize ({form})", route="cuda", source="mrt_tpu_torch/csrc/presenter.cu",
             replaces="mrt_tpu/upscale/spatial.py:15" if form.startswith("lanczos3")
             else "mrt_tpu/upscale/temporal.py:91",
             launches=sum(mode_counts[r_] for r_ in runs),
             launches_by_run={r_: mode_counts[r_] for r_ in runs},
-            max_abs_err=max([d.get("max_abs", 0.0) for d in fields] + [0.0]), ms=t["ms"],
-            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=t["library_ms"], taps=t["taps"], dense_ms=t["dense_ms"], **at_m,
-            ptxas=regs, sass=k12_sass[slot],
+            max_abs_err=max([d.get("max_abs", 0.0) for d in fields]
+                            + [d["vs_plain_max_abs"] for d in u8s] + [0.0]),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t.get("library_ms"), taps=t.get("taps"), dense_ms=t.get("dense_ms"),
+            **at_m, ptxas=regs, sass=k12_sass[slot] if slot else None,
             library=t.get("library_call"), library_max_rel_err=t.get("library_max_rel_err"),
             times={k: v for k, v in presenter_checks["E"]["times"].items() if k.startswith(key)},
             vs_dense={run: {k: v for k, v in c["resize_vs_dense"].items() if k.startswith(key)}
                       for run, c in presenter_checks.items()},
-            profiled=e_profile[profiled],
+            profiled=e_profile[profiled] if profiled else None,
             not_bit_equal={run: {k: v for k, v in c["not_bit_equal"].items() if k.startswith(key)}
-                           for run, c in presenter_checks.items()}))
+                           for run, c in presenter_checks.items()},
+            u8_checks={run: {k: d for k, d in c["u8"].items() if k.startswith(key)}
+                       for run, c in presenter_checks.items()} if u8 else None)
+    f32, bil, u8e = k12_entries.values()
+    kernels += [dict(u8e, f32_form={k: v for k, v in f32.items()
+                                    if k not in ("name", "route", "source", "replaces")}), bil]
     if any(k["launches"] < 1 for k in kernels[-5:]):
         raise AssertionError(f"a presenter kernel never launched on the main path: {kernels[-5:]}")
     # K7 by instantiation: its launches on the main path, the phase-3c checks

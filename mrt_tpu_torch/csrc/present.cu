@@ -3,23 +3,28 @@
 // Replaces mrt_tpu/kernels/present.py:tonemap_quantize (the Pallas _kernel).
 // out = trunc(clamp(c / (1 + c), 0, 1) * 255 + 0.5) per channel, written as
 // uint8 directly (the TPU kernel emitted int32 on 128-lane rows and narrowed
-// outside; here there is no padding and no int32 detour).
+// outside; here there is no padding and no int32 detour). The per-value
+// body is present.cuh's quantize, which the presenter kernels that end an
+// upscaled chain also run in their epilogue (K12's and K11's uint8 forms):
+// this launch stays only where the image is the accumulation itself (a
+// present at render size, dp's gathered image).
 //
 // Bound: bytes. Each pixel reads 12 B and writes 3 B, with a handful of
 // flops. The design keeps to one read and one write per element: each
 // thread handles four consecutive floats (one 16-byte load, one 4-byte
-// store) over a grid-stride loop; a scalar tail covers n % 4.
-// Built with -fmad=false so `tone * 255 + 0.5` rounds twice, like the plain
-// PyTorch version and the JAX fallback.
+// store) over a grid-stride loop; a scalar tail covers n % 4. At the
+// render sizes it runs at, a launch is a few microseconds; issuing 2 or 4
+// float4 loads a thread before its stores, on a grid of one wave of
+// resident blocks, was no faster on an H100 at run B's, run A's or the 4K
+// shape (PERF.md), so this form stays.
+// Built with -fmad=false (present.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__device__ __forceinline__ unsigned char quantize(float c) {
-    float tone = c / (1.0f + c);
-    tone = fminf(fmaxf(tone, 0.0f), 1.0f);
-    return (unsigned char)(tone * 255.0f + 0.5f);
-}
+#include "present.cuh"
+
+using mrt_tonemap::quantize;
 
 __global__ void present_kernel(const float* __restrict__ in, unsigned char* __restrict__ out,
                                long long n) {

@@ -50,6 +50,17 @@
 // horizontal sums from there into shared memory, then the vertical taps
 // from there.
 //
+// K11 and K12 have uint8 forms for the kernel that ends an upscaled chain
+// (temporal_resolve_u8_kernel: the temporal and denoised chains;
+// resize_strip_u8_kernel: the spatial chain; resize_u8_kernel: any other
+// shape): the epilogue writes K1's byte of each value (present.cuh's
+// quantize), so the chain's f32 output never reaches device memory for K1
+// to read back (at run E's 4K, 99.5 MB written and read again, 80 % of
+// K12's f32 bytes). K12's rows leave as 16-byte stores where a row's
+// offset allows it (every row at a width divisible by 16), else 4-byte or
+// byte stores. Each f32 form keeps its name and is the same body (a
+// template on the output type), so its instructions do not change.
+//
 // The per-pixel bodies, and the bit rules they keep, are in presenter.cuh
 // (a host compiler builds them too, for the CPU tests).
 
@@ -109,21 +120,35 @@ __global__ void __launch_bounds__(256) temporal_resolve_kernel(
         temporal_resolve_px(p, h, w, up, history, out, new_history, history_weight, sx, sy);
 }
 
+// K11's uint8 form, the end of the temporal and denoised chains: K1's
+// bytes of the output (3 B a pixel, not 12), the new history as above
+__global__ void __launch_bounds__(256) temporal_resolve_u8_kernel(
+    const float* __restrict__ up, const float4* __restrict__ history,
+    unsigned char* __restrict__ out, float4* __restrict__ new_history, int h, int w,
+    float history_weight, float sx, float sy) {
+    long long p = pixel();
+    if (p < (long long)h * w)
+        temporal_resolve_px(p, h, w, up, history, out, new_history, history_weight, sx, sy);
+}
+
 unsigned blocks_for(long long n) { return (unsigned)((n + 255) / 256); }
 
 // K12 over one output tile, for any shape the strip form is not compiled
-// for: C channels, kr taps a row and kc a column
-__global__ void __launch_bounds__(RESIZE_WARPS * 32) resize_kernel(
+// for: C channels, kr taps a row and kc a column; Out float, or unsigned
+// char for K1's bytes of each value (resize_u8_kernel)
+template <class Out>
+__device__ __forceinline__ void resize_tile(
     ResizeSrc src, int C, int w, int oh, int ow, const int* __restrict__ row_first,
     const float* __restrict__ row_w, int kr, const int* __restrict__ col_first,
     const float* __restrict__ col_w, int kc, int rows_chunk, int cols_chunk, int clamp,
-    float* __restrict__ out) {
+    Out* __restrict__ out) {
     constexpr int ROWS = RESIZE_TH / RESIZE_WARPS;  // output rows a warp takes
     constexpr int NC = RESIZE_MAX_C;                 // the channels a thread holds sums for
     extern __shared__ float smem[];
     float* stage = smem;                                     // [rows_chunk][cols_chunk][C]
     float* sums = stage + rows_chunk * cols_chunk * C;      // [rows_chunk][C][RESIZE_TW]
-    float* row = sums + rows_chunk * C * RESIZE_TW;         // [RESIZE_WARPS][RESIZE_TW * C]
+    // [RESIZE_WARPS][RESIZE_TW * C] of Out
+    Out* row = reinterpret_cast<Out*>(sums + rows_chunk * C * RESIZE_TW);
     // a lane is an output column; warp w takes output rows w, w + RESIZE_WARPS, ...
     int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     int ox0 = blockIdx.x * RESIZE_TW, oy0 = blockIdx.y * RESIZE_TH;
@@ -181,7 +206,7 @@ __global__ void __launch_bounds__(RESIZE_WARPS * 32) resize_kernel(
         __syncthreads();
     }
     // each of the warp's output rows through shared memory, stored coalesced
-    float* buf = row + warp * RESIZE_TW * C;
+    Out* buf = row + warp * RESIZE_TW * C;
     int n = min(RESIZE_TW, ow - ox0) * C;
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
@@ -190,13 +215,31 @@ __global__ void __launch_bounds__(RESIZE_WARPS * 32) resize_kernel(
         if (ox < ow) {
 #pragma unroll
             for (int c = 0; c < NC; ++c)
-                if (c < C) buf[lane * C + c] = resize_out(acc[i][c], clamp != 0);
+                if (c < C) put(buf + lane * C + c, resize_out(acc[i][c], clamp != 0));
         }
         __syncwarp();
-        float* o = out + ((long long)oy * ow + ox0) * C;
+        Out* o = out + ((long long)oy * ow + ox0) * C;
         for (int j = lane; j < n; j += 32) o[j] = buf[j];
         __syncwarp();
     }
+}
+
+__global__ void __launch_bounds__(RESIZE_WARPS * 32) resize_kernel(
+    ResizeSrc src, int C, int w, int oh, int ow, const int* __restrict__ row_first,
+    const float* __restrict__ row_w, int kr, const int* __restrict__ col_first,
+    const float* __restrict__ col_w, int kc, int rows_chunk, int cols_chunk, int clamp,
+    float* __restrict__ out) {
+    resize_tile(src, C, w, oh, ow, row_first, row_w, kr, col_first, col_w, kc, rows_chunk,
+                cols_chunk, clamp, out);
+}
+
+__global__ void __launch_bounds__(RESIZE_WARPS * 32) resize_u8_kernel(
+    ResizeSrc src, int C, int w, int oh, int ow, const int* __restrict__ row_first,
+    const float* __restrict__ row_w, int kr, const int* __restrict__ col_first,
+    const float* __restrict__ col_w, int kc, int rows_chunk, int cols_chunk, int clamp,
+    unsigned char* __restrict__ out) {
+    resize_tile(src, C, w, oh, ow, row_first, row_w, kr, col_first, col_w, kc, rows_chunk,
+                cols_chunk, clamp, out);
 }
 
 
@@ -217,38 +260,28 @@ __device__ __forceinline__ void async_wait_all_but_last() {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// a warp's row of n floats from shared ``buf`` to ``dst``: as float4s
-// where both allow it (16-byte aligned, n a multiple of 4), else floats
-__device__ __forceinline__ void store_row(const float* buf, int n, float* dst, int lane) {
-    if (((unsigned long long)dst & 15) == 0 && (n & 3) == 0) {
-#pragma unroll 1
-        for (int j = lane; j < n / 4; j += 32)
-            reinterpret_cast<float4*>(dst)[j] = reinterpret_cast<const float4*>(buf)[j];
-    } else {
-#pragma unroll 1
-        for (int j = lane; j < n; j += 32) dst[j] = buf[j];
-    }
-}
-
 // K12's strip form, for the path's two shapes (K taps on both axes, the
 // sources' channels C0, C1, C2): persistent blocks walk the tiles
 // (resize_strip_tile) with two stage buffers, the next tile's inputs
 // copied asynchronously while this tile's outputs are computed
 // (resize_strip); each output row of a warp's 32 columns leaves through
-// shared memory as float4 stores. span_r x span_c is the most inputs a tile
+// shared memory as float4 stores, or with Out unsigned char (the uint8
+// form, resize_strip_u8_kernel) as K1's bytes in 16-byte stores where the
+// row allows (store_row). span_r x span_c is the most inputs a tile
 // stages (the buffers' size).
-template <int K, int C0, int C1, int C2>
-__global__ void __launch_bounds__(RESIZE_STRIP_W, 2) resize_strip_kernel(
+template <int K, int C0, int C1, int C2, class Out>
+__device__ __forceinline__ void resize_strip_blocks(
     ResizeSrc src, int w, int oh, int ow, const int* __restrict__ row_first,
     const float* __restrict__ row_w, const int* __restrict__ col_first,
     const float* __restrict__ col_w, int rt, int span_r, int span_c, int clamp,
-    float* __restrict__ out) {
+    Out* __restrict__ out) {
     constexpr int C = C0 + C1 + C2;
     extern __shared__ float4 strip_smem[];
     float* smem = reinterpret_cast<float*>(strip_smem);
     int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-    // a warp's two output-row buffers, then the two stage buffers
-    float* rowbuf = smem + warp * 2 * 32 * C;
+    // a warp's two output-row buffers (as many floats as values, whatever
+    // Out), then the two stage buffers
+    Out* rowbuf = reinterpret_cast<Out*>(smem + warp * 2 * 32 * C);
     float* stage = smem + RESIZE_STRIP_WARPS * 2 * 32 * C;
     int stage_floats = span_r * span_c * C + rt * (K + 1);
     int tiles_x = (ow + RESIZE_STRIP_W - 1) / RESIZE_STRIP_W;
@@ -278,13 +311,14 @@ __global__ void __launch_bounds__(RESIZE_STRIP_W, 2) resize_strip_kernel(
         __syncthreads();
         ResizeTile T = resize_strip_tile(t, tiles_x, rt, oh, ow, row_first, col_first, K, K);
         int n = resize_strip_cols(T, warp) * C;
-        float* row0 = out + (long long)(T.ox0 + 32 * warp) * C;
+        Out* row0 = out + (long long)(T.ox0 + 32 * warp) * C;
         resize_strip<K, C0, C1, C2>(
             stage + (it & 1) * stage_floats, T, resize_strip_col(T, threadIdx.x), col_first,
             col_w, [&](int oy, const float* o) {
-                float* buf = rowbuf + parity * 32 * C;
+                Out* buf = rowbuf + parity * 32 * C;
 #pragma unroll
-                for (int c = 0; c < C; ++c) buf[lane * C + c] = resize_out(o[c], clamp != 0);
+                for (int c = 0; c < C; ++c)
+                    put(buf + lane * C + c, resize_out(o[c], clamp != 0));
                 __syncwarp();
                 // a buffer is written again two rows on, after every lane's
                 // read of it (each passed the __syncwarp between)
@@ -293,6 +327,26 @@ __global__ void __launch_bounds__(RESIZE_STRIP_W, 2) resize_strip_kernel(
             });
         __syncthreads();
     }
+}
+
+template <int K, int C0, int C1, int C2>
+__global__ void __launch_bounds__(RESIZE_STRIP_W, 2) resize_strip_kernel(
+    ResizeSrc src, int w, int oh, int ow, const int* __restrict__ row_first,
+    const float* __restrict__ row_w, const int* __restrict__ col_first,
+    const float* __restrict__ col_w, int rt, int span_r, int span_c, int clamp,
+    float* __restrict__ out) {
+    resize_strip_blocks<K, C0, C1, C2>(src, w, oh, ow, row_first, row_w, col_first, col_w, rt,
+                                       span_r, span_c, clamp, out);
+}
+
+template <int K, int C0, int C1, int C2>
+__global__ void __launch_bounds__(RESIZE_STRIP_W, 2) resize_strip_u8_kernel(
+    ResizeSrc src, int w, int oh, int ow, const int* __restrict__ row_first,
+    const float* __restrict__ row_w, const int* __restrict__ col_first,
+    const float* __restrict__ col_w, int rt, int span_r, int span_c, int clamp,
+    unsigned char* __restrict__ out) {
+    resize_strip_blocks<K, C0, C1, C2>(src, w, oh, ow, row_first, row_w, col_first, col_w, rt,
+                                       span_r, span_c, clamp, out);
 }
 
 }  // namespace
@@ -333,28 +387,46 @@ extern "C" int mrt_atrous_pass(const void* filtered, const void* var, const void
     return (int)cudaGetLastError();
 }
 
+// K11; with ``quantize`` its uint8 form (``out`` (h, w, 3) bytes)
 extern "C" int mrt_temporal_resolve(const void* up, const void* history, void* out,
                                     void* new_history, int h, int w, float history_weight,
-                                    float sx, float sy, void* stream) {
+                                    float sx, float sy, int quantize, void* stream) {
     long long n = (long long)h * w;
     if (n <= 0) return 0;
-    temporal_resolve_kernel<<<blocks_for(n), 256, 0, (cudaStream_t)stream>>>(
-        (const float*)up, (const float4*)history, (float*)out, (float4*)new_history, h, w,
-        history_weight, sx, sy);
+    auto st = (cudaStream_t)stream;
+    if (quantize)
+        temporal_resolve_u8_kernel<<<blocks_for(n), 256, 0, st>>>(
+            (const float*)up, (const float4*)history, (unsigned char*)out,
+            (float4*)new_history, h, w, history_weight, sx, sy);
+    else
+        temporal_resolve_kernel<<<blocks_for(n), 256, 0, st>>>(
+            (const float*)up, (const float4*)history, (float*)out, (float4*)new_history, h, w,
+            history_weight, sx, sy);
     return (int)cudaGetLastError();
 }
 
 // the most dynamic shared memory a block of K12's strip form may take
 constexpr int RESIZE_STRIP_SMEM_MAX = 227 * 1024;
 
+// K12's strip form for Out: resize_strip_kernel (float) or
+// resize_strip_u8_kernel (unsigned char)
+template <int K, int C0, int C1, int C2>
+auto strip_kernel(float*) {
+    return resize_strip_kernel<K, C0, C1, C2>;
+}
+template <int K, int C0, int C1, int C2>
+auto strip_kernel(unsigned char*) {
+    return resize_strip_u8_kernel<K, C0, C1, C2>;
+}
+
 // K12's strip form launched on ``stream``: as many persistent blocks as
 // the device's SMs hold at this shared memory (the SM count asked once per
 // device, the blocks an SM holds again when the shared memory changes), no
 // more than the tiles
-template <int K, int C0, int C1, int C2>
+template <int K, int C0, int C1, int C2, class Out>
 int launch_resize_strip(const ResizeSrc& src, int w, int oh, int ow, const int* row_first,
                         const float* row_w, const int* col_first, const float* col_w, int rt,
-                        int span_r, int span_c, int clamp, float* out, cudaStream_t stream) {
+                        int span_r, int span_c, int clamp, Out* out, cudaStream_t stream) {
     constexpr int C = C0 + C1 + C2;
     static int sms[64], ready[64], per_sm[64];
     static size_t per_sm_smem[64];
@@ -364,7 +436,7 @@ int launch_resize_strip(const ResizeSrc& src, int w, int oh, int ow, const int* 
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
     if (dev >= 64 || smem > (size_t)RESIZE_STRIP_SMEM_MAX) return (int)cudaErrorInvalidValue;
-    auto k = resize_strip_kernel<K, C0, C1, C2>;
+    auto k = strip_kernel<K, C0, C1, C2>(out);
     if (!ready[dev]) {
         e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
         if (e == cudaSuccess)
@@ -389,31 +461,35 @@ int launch_resize_strip(const ResizeSrc& src, int w, int oh, int ow, const int* 
 // K12: sources s0..s2 of c0..c2 channels (an absent one: c = 0) at (h, w),
 // resampled to (oh, ow) by the banded tables (per output row: the first
 // input row and kr weights; per output column likewise, kc), written to
-// the contiguous (oh, ow, c0 + c1 + c2) ``out``. With rt > 0 the strip
-// form (only for the path's two shapes: 3 channels of one source with 6
-// taps, or 3 + 1 + 2 channels with 2), tiles of rt output rows that stage
-// at most span_r x span_c inputs; else a block a 32x32 tile that stages
-// ``rows_chunk`` x ``cols_chunk`` input pixels at once
+// the contiguous (oh, ow, c0 + c1 + c2) ``out``: f32, or with ``quantize``
+// K1's bytes of each value (the uint8 form, 3 channels in all). With
+// rt > 0 the strip form (only for the path's two shapes: 3 channels of one
+// source with 6 taps, or 3 + 1 + 2 channels with 2), tiles of rt output
+// rows that stage at most span_r x span_c inputs; else a block a 32x32
+// tile that stages ``rows_chunk`` x ``cols_chunk`` input pixels at once
 extern "C" int mrt_resize(const void* s0, const void* s1, const void* s2, int c0, int c1, int c2,
                           int h, int w, const void* row_first, const void* row_w, int kr,
                           const void* col_first, const void* col_w, int kc, int oh, int ow,
                           int rows_chunk, int cols_chunk, int rt, int span_r, int span_c,
-                          int clamp, void* out, void* stream) {
+                          int clamp, int quantize, void* out, void* stream) {
     int C = c0 + c1 + c2;
     if (C < 1 || C > RESIZE_MAX_C || c0 < 1 || c1 < 0 || c2 < 0 || (c1 == 0 && c2 > 0) ||
-        kr < 1 || kc < 1 || h < 1 || w < 1)
+        kr < 1 || kc < 1 || h < 1 || w < 1 || (quantize && C != 3))
         return (int)cudaErrorInvalidValue;
     if (oh <= 0 || ow <= 0) return 0;
     ResizeSrc src = {{(const float*)s0, (const float*)s1, (const float*)s2}, {c0, c1, c2}};
     auto rf = (const int*)row_first, cf = (const int*)col_first;
     auto rw = (const float*)row_w, cw = (const float*)col_w;
     auto o = (float*)out;
+    auto o8 = (unsigned char*)out;
     auto st = (cudaStream_t)stream;
     if (rt > 0) {
         if (span_r < 1 || span_c < 1) return (int)cudaErrorInvalidValue;
         if (c0 == 3 && c1 == 0 && kr == 6 && kc == 6)
-            return launch_resize_strip<6, 3, 0, 0>(src, w, oh, ow, rf, rw, cf, cw, rt, span_r,
-                                                   span_c, clamp, o, st);
+            return quantize ? launch_resize_strip<6, 3, 0, 0>(src, w, oh, ow, rf, rw, cf, cw, rt,
+                                                              span_r, span_c, clamp, o8, st)
+                            : launch_resize_strip<6, 3, 0, 0>(src, w, oh, ow, rf, rw, cf, cw, rt,
+                                                              span_r, span_c, clamp, o, st);
         if (c0 == 3 && c1 == 1 && c2 == 2 && kr == 2 && kc == 2)
             return launch_resize_strip<2, 3, 1, 2>(src, w, oh, ow, rf, rw, cf, cw, rt, span_r,
                                                    span_c, clamp, o, st);
@@ -423,7 +499,11 @@ extern "C" int mrt_resize(const void* s0, const void* s1, const void* s2, int c0
                   C * sizeof(float);
     if (rows_chunk < 1 || cols_chunk < 1 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
     dim3 grid((ow + RESIZE_TW - 1) / RESIZE_TW, (oh + RESIZE_TH - 1) / RESIZE_TH);
-    resize_kernel<<<grid, RESIZE_WARPS * 32, smem, st>>>(src, C, w, oh, ow, rf, rw, kr, cf, cw, kc,
-                                                        rows_chunk, cols_chunk, clamp, o);
+    if (quantize)
+        resize_u8_kernel<<<grid, RESIZE_WARPS * 32, smem, st>>>(
+            src, C, w, oh, ow, rf, rw, kr, cf, cw, kc, rows_chunk, cols_chunk, clamp, o8);
+    else
+        resize_kernel<<<grid, RESIZE_WARPS * 32, smem, st>>>(
+            src, C, w, oh, ow, rf, rw, kr, cf, cw, kc, rows_chunk, cols_chunk, clamp, o);
     return (int)cudaGetLastError();
 }

@@ -3,7 +3,9 @@
 // a thread a pixel, K10 and K12 a block an output tile), compiled for the
 // host too (outside nvcc MRT_PX is plain inline and MRT_LDG a plain load),
 // so a host compiler can hold them against the plain PyTorch versions on
-// the CPU.
+// the CPU. K11 and K12 write f32, or in their uint8 forms (the kernel that
+// ends an upscaled chain) K1's tonemapped byte of each value (put,
+// present.cuh's quantize).
 //
 // Bits: nvcc -fmad=false (a host compiler: -ffp-contract=off). Every step
 // is written in the plain version's op order: clamp/clamp_min/clamp_max/
@@ -16,14 +18,17 @@
 
 #include <math.h>
 
+#include "present.cuh"
+
 #ifdef __CUDACC__
-#define MRT_PX __device__ __forceinline__
 #define MRT_LDG(p) __ldg(p)
 #else
-#define MRT_PX inline
 #define MRT_LDG(p) (*(p))
 struct float4 {
     float x, y, z, w;
+};
+struct uint4 {
+    unsigned int x, y, z, w;
 };
 inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
 #endif
@@ -56,6 +61,11 @@ MRT_PX float dot3(float a0, float a1, float a2, float b0, float b1, float b2) {
     float p0 = a0 * b0, p1 = a1 * b1, p2 = a2 * b2;
     return p0 + p1 + p2;
 }
+
+// an output value of K11 or K12: the f32 itself, or in the uint8 forms K1's
+// byte of it
+MRT_PX void put(float* o, float v) { *o = v; }
+MRT_PX void put(unsigned char* o, float v) { *o = mrt_tonemap::quantize(v); }
 
 // bilinear_sample's addressing at (rows, cols) over an (h, w) image: the
 // four taps' pixel indices, the blend fractions and the in-bounds test.
@@ -293,10 +303,12 @@ MRT_PX void atrous_tile_px(int tx, int ty, int x0, int y0, int w, const float* p
 }
 
 // K11 at output pixel p: the reprojected history, the depth test, the
-// 3x3 clamp and the blend
+// 3x3 clamp and the blend; the output as f32 or (Out unsigned char) K1's
+// bytes, the new history f32 either way
+template <class Out>
 MRT_PX void temporal_resolve_px(
     long long p, int h, int w, const float* __restrict__ up, const float4* __restrict__ history,
-    float* __restrict__ out, float4* __restrict__ new_history, float history_weight, float sx,
+    Out* __restrict__ out, float4* __restrict__ new_history, float history_weight, float sx,
     float sy) {
     int row = (int)(p / w), col = (int)(p - (long long)row * w);
 
@@ -336,7 +348,7 @@ MRT_PX void temporal_resolve_px(
     for (int k = 0; k < 3; ++k) {
         float hk = minimum_t(maximum_t(hist[k], nmin[k]), nmax[k]);
         o[k] = cur[k] + (hk - cur[k]) * weight;
-        out[3 * p + k] = o[k];
+        put(out + 3 * p + k, o[k]);
     }
     new_history[p] = make_float4(o[0], o[1], o[2], dep);
 }
@@ -387,6 +399,40 @@ MRT_PX void resize_row_px(const float* x, int C, const float* __restrict__ wt, i
 
 // the spatial chain's clamp_min(out, 0), folded in (NaN kept)
 MRT_PX float resize_out(float v, bool clamp) { return clamp ? clamp_min_t(v, 0.0f) : v; }
+
+// a warp's row of n floats from shared ``buf`` to ``dst``: as float4s
+// where both allow it (16-byte aligned, n a multiple of 4), else floats
+MRT_PX void store_row(const float* buf, int n, float* dst, int lane) {
+    if (((unsigned long long)dst & 15) == 0 && (n & 3) == 0) {
+#pragma unroll 1
+        for (int j = lane; j < n / 4; j += 32)
+            reinterpret_cast<float4*>(dst)[j] = reinterpret_cast<const float4*>(buf)[j];
+    } else {
+#pragma unroll 1
+        for (int j = lane; j < n; j += 32) dst[j] = buf[j];
+    }
+}
+
+// a warp's row of n bytes (the uint8 forms) from shared ``buf`` (16-byte
+// aligned) to ``dst``: 16-byte stores where dst is 16-byte aligned and n a
+// multiple of 16 (a warp's 96 bytes; every row's offset is a multiple of
+// 16 at an output width divisible by 16), else 4-byte stores where both
+// allow it, else bytes
+MRT_PX void store_row(const unsigned char* buf, int n, unsigned char* dst, int lane) {
+    unsigned long long a = (unsigned long long)dst;
+    if ((a & 15) == 0 && (n & 15) == 0) {
+#pragma unroll 1
+        for (int j = lane; j < n / 16; j += 32)
+            reinterpret_cast<uint4*>(dst)[j] = reinterpret_cast<const uint4*>(buf)[j];
+    } else if ((a & 3) == 0 && (n & 3) == 0) {
+#pragma unroll 1
+        for (int j = lane; j < n / 4; j += 32)
+            reinterpret_cast<unsigned int*>(dst)[j] = reinterpret_cast<const unsigned int*>(buf)[j];
+    } else {
+#pragma unroll 1
+        for (int j = lane; j < n; j += 32) dst[j] = buf[j];
+    }
+}
 
 // The inputs [lo, hi) that outputs [o0, o1) of a banded table read with k
 // taps each (first indices rise with the output)

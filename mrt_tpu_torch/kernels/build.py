@@ -181,10 +181,10 @@ def load():
     lib.mrt_svgf_reproject.restype = i
     lib.mrt_atrous_pass.argtypes = [p] * 10 + [i, i, i, p]
     lib.mrt_atrous_pass.restype = i
-    lib.mrt_temporal_resolve.argtypes = [p, p, p, p, i, i, f, f, f, p]
+    lib.mrt_temporal_resolve.argtypes = [p, p, p, p, i, i, f, f, f, i, p]
     lib.mrt_temporal_resolve.restype = i
     lib.mrt_resize.argtypes = [p, p, p, i, i, i, i, i, p, p, i, p, p, i, i, i, i, i, i, i, i, i,
-                               p, p]
+                               i, p, p]
     lib.mrt_resize.restype = i
     _lib = lib
     return lib

@@ -1,9 +1,13 @@
 """Kernel K1 — present: Reinhard tonemap + clamp + uint8 quantize
-(``csrc/present.cu``), its wrapper and its plain PyTorch version.
+(``csrc/present.cu``, its per-value body ``csrc/present.cuh``), its wrapper
+and its plain PyTorch version.
 
 Replaces ``mrt_tpu/kernels/present.py:tonemap_quantize`` (the repository's
 only Pallas kernel). The wrapper launches the CUDA kernel for CUDA tensors
-and takes the plain version only for CPU tensors.
+and takes the plain version only for CPU tensors. An upscaled present does
+not launch it: the kernel that ends the chain (K12's or K11's uint8 form,
+``kernels/presenter.py``) writes the same bytes; ``launches`` counts this
+launch alone.
 """
 
 from __future__ import annotations

@@ -27,6 +27,12 @@ with the remodulation; ``temporal_upscale`` = K12, then K11. A
 wrapper checks its inputs (float32, shapes, contiguous, and on the card
 16-byte aligned) and raises on what its kernel does not take; it runs its
 plain version for CPU tensors only, and on CUDA tensors launches its kernel.
+
+K11 and K12 have uint8 forms (``quantize=True``), for the kernel that ends
+an upscaled present: the output is K1's tonemapped bytes of the f32 output
+(``kernels/present.py``), written in the kernel's epilogue; their plain
+version is ``tonemap_quantize_plain`` of the f32 plain version. Their
+launches count under ``resize_u8`` and ``temporal_resolve_u8``.
 """
 
 from __future__ import annotations
@@ -37,8 +43,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-# kernel launches by the wrappers in this process, by kernel
-launches = {"svgf_reproject": 0, "atrous_pass": 0, "temporal_resolve": 0, "resize": 0}
+from .present import tonemap_quantize_plain
+
+# kernel launches by the wrappers in this process, by kernel (the uint8
+# forms of K11 and K12 apart)
+launches = {"svgf_reproject": 0, "atrous_pass": 0, "temporal_resolve": 0, "resize": 0,
+            "temporal_resolve_u8": 0, "resize_u8": 0}
 KERNELS = tuple(launches)
 
 _LUMA = (0.2126, 0.7152, 0.0722)
@@ -57,6 +67,7 @@ RESIZE_SMEM_FLOATS = 48 * 1024 // 4
 # and the shared memory a block may take (floats: two stage buffers and two
 # output rows a warp; two blocks fit an H100 SM)
 RESIZE_STRIP_W, RESIZE_STRIP_WARPS, RESIZE_STRIP_ROWS = 256, 8, 16
+# (the uint8 form takes 3 channels, so its strip form is the first's)
 RESIZE_STRIP_FORMS = {((3,), 6), ((3, 1, 2), 2)}
 RESIZE_STRIP_SMEM_FLOATS = 112 * 1024 // 4
 
@@ -436,31 +447,37 @@ def atrous_pass(filtered, var, lum, normal, depth, step: int, diffuse=None, spec
     return out if last else (out, out_var, out_lum)
 
 
-def temporal_resolve(up, history, history_weight: float, sx: float, sy: float):
+def temporal_resolve(up, history, history_weight: float, sx: float, sy: float,
+                     quantize: bool = False):
     """K11 (see ``temporal_resolve_plain``): ``up`` (H,W,6) and ``history``
     (H,W,4) float32; ``history_weight``, ``sx``, ``sy`` Python numbers.
-    Returns (output (H,W,3), new history (H,W,4))."""
+    Returns (output (H,W,3), new history (H,W,4)); with ``quantize`` (its
+    uint8 form) the output is K1's bytes of it."""
     out_h, out_w = up.shape[0], up.shape[1]
     dev = up.device
     _check("temporal_resolve", dict(up=(up, (out_h, out_w, 6)),
                                     history=(history, (out_h, out_w, 4))), dev)
     if dev.type == "cpu":
-        return temporal_resolve_plain(up, history, history_weight, sx, sy)
-    out = torch.empty((out_h, out_w, 3), dtype=torch.float32, device=dev)
+        out, new_history = temporal_resolve_plain(up, history, history_weight, sx, sy)
+        return (tonemap_quantize_plain(out) if quantize else out), new_history
+    out = torch.empty((out_h, out_w, 3), dtype=torch.uint8 if quantize else torch.float32,
+                      device=dev)
     new_history = torch.empty((out_h, out_w, 4), dtype=torch.float32, device=dev)
     if out_h * out_w:
         lib, stream = _lib_stream(dev)
-        _launch("temporal_resolve", lib.mrt_temporal_resolve, _ptr(up), _ptr(history), _ptr(out),
+        _launch("temporal_resolve_u8" if quantize else "temporal_resolve",
+                lib.mrt_temporal_resolve, _ptr(up), _ptr(history), _ptr(out),
                 _ptr(new_history), out_h, out_w, ctypes.c_float(float(history_weight)),
-                ctypes.c_float(sx), ctypes.c_float(sy), stream)
+                ctypes.c_float(sx), ctypes.c_float(sy), int(quantize), stream)
     return out, new_history
 
 
-def resize(sources, rows: Band, cols: Band, clamp: bool = False):
+def resize(sources, rows: Band, cols: Band, clamp: bool = False, quantize: bool = False):
     """K12 (see ``resize_plain``): 1-3 float32 sources of one (h, w), each
     (h,w) or (h,w,c), at most RESIZE_MAX_C channels in all; ``rows`` and
     ``cols`` the tables of the height and the width (``n_in`` h and w).
-    Returns the contiguous (rows' n_out, cols' n_out, channels)."""
+    Returns the contiguous (rows' n_out, cols' n_out, channels); with
+    ``quantize`` (its uint8 form, 3 channels in all) K1's bytes of it."""
     sources = tuple(sources)
     if not 1 <= len(sources) <= 3:
         raise ValueError(f"resize: {len(sources)} sources, expected 1-3")
@@ -480,11 +497,14 @@ def resize(sources, rows: Band, cols: Band, clamp: bool = False):
     ins = {f"source {i}": (s, (h, w) + tuple(s.shape[2:])) for i, s in enumerate(sources)}
     ins.update(row_first=(rows.first, (oh,), torch.int32), row_weights=(rows.weights, (oh, kr)),
                col_first=(cols.first, (ow,), torch.int32), col_weights=(cols.weights, (ow, kc)))
+    if quantize and sum(chans) != 3:
+        raise ValueError(f"resize: quantize takes 3 channels in all, not {chans}")
     _check("resize", ins, dev)
     if dev.type == "cpu":
-        return resize_plain(sources, rows, cols, clamp)
+        out = resize_plain(sources, rows, cols, clamp)
+        return tonemap_quantize_plain(out) if quantize else out
     c = sum(chans)
-    out = torch.empty((oh, ow, c), dtype=torch.float32, device=dev)
+    out = torch.empty((oh, ow, c), dtype=torch.uint8 if quantize else torch.float32, device=dev)
     if oh * ow:
         # the strip form where the shape is one it is compiled for and a tile
         # fits, else the 32x32 tiles with their chunks
@@ -495,10 +515,11 @@ def resize(sources, rows: Band, cols: Band, clamp: bool = False):
             tiles = (*_resize_chunks(rows, cols, c), 0, 0, 0)
         lib, stream = _lib_stream(dev)
         null = ctypes.c_void_p(None)
-        _launch("resize", lib.mrt_resize, *(_ptr(s) for s in sources),
-                *(null,) * (3 - len(sources)), *chans, *(0,) * (3 - len(chans)), h, w,
-                _ptr(rows.first), _ptr(rows.weights), kr, _ptr(cols.first), _ptr(cols.weights),
-                kc, oh, ow, *tiles, int(clamp), _ptr(out), stream)
+        _launch("resize_u8" if quantize else "resize", lib.mrt_resize,
+                *(_ptr(s) for s in sources), *(null,) * (3 - len(sources)), *chans,
+                *(0,) * (3 - len(chans)), h, w, _ptr(rows.first), _ptr(rows.weights), kr,
+                _ptr(cols.first), _ptr(cols.weights), kc, oh, ow, *tiles, int(clamp),
+                int(quantize), _ptr(out), stream)
     return out
 
 

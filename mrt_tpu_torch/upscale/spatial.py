@@ -13,7 +13,9 @@ weights) and resamples through kernel K12 (``kernels/presenter.py:resize``;
 on CPU tensors its plain version), the width first, then the height. An axis
 of equal size is the identity (``jax.image.resize`` skips it).
 ``resize_dense``, the two full-f32 ``torch.mm`` products over the dense
-matrices, is kept as a second reference for the tests.
+matrices, is kept as a second reference for the tests. ``upscale(...,
+quantize=True)`` ends the spatial present: K12's uint8 form, or K1 where
+the size is kept.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from ..core.device import require_full_f32
 from ..kernels import presenter as K
+from ..kernels.present import tonemap_quantize
 
 METHODS = ("lanczos3", "bilinear")
 
@@ -108,11 +111,15 @@ def resize_dense(x: torch.Tensor, out_height: int, out_width: int, method: str) 
     return t.reshape(out_height, c, out_width).permute(0, 2, 1).contiguous()
 
 
-def upscale(color: torch.Tensor, out_height: int, out_width: int,
-            method: str = "lanczos3") -> torch.Tensor:
-    """color: (H,W,3) linear radiance -> (out_height,out_width,3)."""
+def upscale(color: torch.Tensor, out_height: int, out_width: int, method: str = "lanczos3",
+            quantize: bool = False) -> torch.Tensor:
+    """color: (H,W,3) linear radiance -> (out_height,out_width,3); with
+    ``quantize`` tonemapped to uint8 in the resize's epilogue, or by K1
+    where the size is kept (``color`` itself is the image)."""
     if color.shape[0] == out_height and color.shape[1] == out_width:
-        return color
+        return tonemap_quantize(color.contiguous()) if quantize else color
     # Lanczos ringing can undershoot below zero; radiance must stay >= 0
     # (the clamp runs inside the resize)
-    return resize(color.contiguous(), out_height, out_width, method, clamp=True)
+    dev = color.device
+    return K.resize((color.contiguous(),), band_table(color.shape[0], out_height, method, dev),
+                    band_table(color.shape[1], out_width, method, dev), True, quantize)

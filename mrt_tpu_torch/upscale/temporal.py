@@ -24,11 +24,13 @@ from . import spatial
 
 
 def temporal_upscale(color: torch.Tensor, depth: torch.Tensor, motion: torch.Tensor,
-                     history: torch.Tensor, out_h: int, out_w: int, history_weight=0.9):
+                     history: torch.Tensor, out_h: int, out_w: int, history_weight=0.9,
+                     quantize: bool = False):
     """color (h,w,3), depth (h,w), motion (h,w,2) at render size; history
     (out_h,out_w,4) of rgb + depth. ``history_weight``: 0.0 on the first
     frame after a reset. Returns (output (out_h,out_w,3), new history
-    (out_h,out_w,4))."""
+    (out_h,out_w,4)); with ``quantize`` the output is tonemapped to uint8
+    in K11's epilogue (its uint8 form)."""
     h, w = color.shape[0], color.shape[1]
     sy = out_h / h
     sx = out_w / w
@@ -37,4 +39,4 @@ def temporal_upscale(color: torch.Tensor, depth: torch.Tensor, motion: torch.Ten
     # on each channel as three separate resizes), then K11
     up = spatial.resize((color.contiguous(), depth.contiguous(), motion.contiguous()), out_h,
                         out_w, "bilinear")
-    return K.temporal_resolve(up, history.contiguous(), history_weight, sx, sy)
+    return K.temporal_resolve(up, history.contiguous(), history_weight, sx, sy, quantize)

@@ -20,7 +20,8 @@ both), count what one call's table needs: the triangles that are not pads and th
 are not empty. Besides the kernels: the LBS product of an animated frame's
 prepare (``lbs``), and the presenter's chains (``resize``, ``temporal_chain``,
 ``denoiser``, ``denoised_chain``), whose bounds say what the whole chain
-could take. The chain bounds count bytes only: the resize needs 6 taps
+could take, and a whole present per mode (``present``: the chain that
+ends in a uint8 form of K11 or K12, or the f32 chain and K1 it replaced). The chain bounds count bytes only: the resize needs 6 taps
 per axis (Lanczos-3 at 2x), so its operations take a fraction of its byte
 time. K9-K12, the presenter's kernels (``svgf_reproject``,
 ``atrous_pass``, ``temporal_resolve``, ``resize``), count both. K6-K8, the
@@ -314,23 +315,26 @@ def _bytes_ms(n_f32: float) -> tuple[float, str]:
 
 
 def resize(h: int, w: int, out_h: int, out_w: int, channels: int, kr: int,
-           kc: int) -> tuple[float, str]:
+           kc: int, quantize: bool = False) -> tuple[float, str]:
     """Bound of one K12 launch (``upscale.spatial.resize``) of (h,w,channels)
     f32 to (out_h,out_w,channels) with kr taps per output row and kc per
     output column: each value read and written once, the tables read once;
     the width's kc products and kc - 1 adds per (input row, output column,
     channel), then the height's kr and kr - 1 per output value. With 3
-    channels also the spatial chain's."""
-    ops = (h * out_w * (2 * kc - 1) + out_h * out_w * (2 * kr - 1)) * channels
+    channels also the spatial chain's. ``quantize``: its uint8 form, each
+    output value written as 1 B with K1's operations on it."""
+    out_bytes, out_ops = (1, K1_OPS) if quantize else (4, 0)
+    ops = (h * out_w * (2 * kc - 1) + out_h * out_w * (2 * kr - 1 + out_ops)) * channels
     tables = (out_h * (kr + 1) + out_w * (kc + 1)) * 4
-    return least_ms(ops, (h * w + out_h * out_w) * channels * 4 + tables)
+    return least_ms(ops, (h * w * 4 + out_h * out_w * out_bytes) * channels + tables)
 
 
-def temporal_chain(h: int, w: int, out_h: int, out_w: int) -> tuple[float, str]:
+def temporal_chain(h: int, w: int, out_h: int, out_w: int,
+                   quantize: bool = False) -> tuple[float, str]:
     """Bound of ``temporal.temporal_upscale``: colour, depth and motion
     read at render size; the (out_h,out_w,4) history read and written and
-    the (out_h,out_w,3) output written."""
-    return _bytes_ms(h * w * 6 + out_h * out_w * (4 + 4 + 3))
+    the (out_h,out_w,3) output written (``quantize``: as uint8)."""
+    return _bytes_ms(h * w * 6 + out_h * out_w * (4 + 4 + (0.75 if quantize else 3)))
 
 
 def denoiser(h: int, w: int) -> tuple[float, str]:
@@ -338,10 +342,34 @@ def denoiser(h: int, w: int) -> tuple[float, str]:
     return _bytes_ms(h * w * (DENOISER_IN + DENOISER_OUT))
 
 
-def denoised_chain(h: int, w: int, out_h: int, out_w: int) -> tuple[float, str]:
+def denoised_chain(h: int, w: int, out_h: int, out_w: int,
+                   quantize: bool = False) -> tuple[float, str]:
     """Bound of the denoised chain (denoiser, then the temporal upscaler):
-    the denoised colour between them need not leave the chip."""
-    return _bytes_ms(h * w * (DENOISER_IN + DENOISER_OUT - 3) + out_h * out_w * (4 + 4 + 3))
+    the denoised colour between them need not leave the chip
+    (``quantize``: the output written as uint8)."""
+    return _bytes_ms(h * w * (DENOISER_IN + DENOISER_OUT - 3)
+                     + out_h * out_w * (4 + 4 + (0.75 if quantize else 3)))
+
+
+def present(mode: str, h: int, w: int, out_h: int, out_w: int,
+            fused: bool = True) -> tuple[float, str]:
+    """Bound of one present in ``mode`` ("spatial", "temporal" or
+    "denoised") of an (h,w) render upscaled to (out_h,out_w). ``fused``:
+    what ``presenter.present_device`` runs, the chain whose last kernel
+    writes the uint8 image (K12's uint8 form, or the temporal or denoised
+    chain with a uint8 output; K1 alone where the spatial chain keeps the
+    size); else the f32 chain and then K1 over its output, the route it
+    replaces. The spatial chain upscales by Lanczos-3, 6 taps an axis. A
+    sum of kernels' bounds names what binds the larger."""
+    if mode == "spatial" and (h, w) == (out_h, out_w):
+        return k1((h, w, 3))
+    chain = {"spatial": lambda q: resize(h, w, out_h, out_w, 3, 6, 6, q),
+             "temporal": lambda q: temporal_chain(h, w, out_h, out_w, q),
+             "denoised": lambda q: denoised_chain(h, w, out_h, out_w, q)}[mode]
+    if fused:
+        return chain(True)
+    (c_ms, c_by), (q_ms, q_by) = chain(False), k1((out_h, out_w, 3))
+    return c_ms + q_ms, c_by if c_ms >= q_ms else q_by
 
 
 # K9-K11, the presenter kernels (csrc/presenter.cuh), counted per pixel
@@ -382,9 +410,14 @@ def atrous_pass(h: int, w: int, last: bool = False,
     return least_ms(n * (25 * tap_ops + ATROUS_PIXEL_OPS), n * f32 * 4)
 
 
-def temporal_resolve(out_h: int, out_w: int) -> tuple[float, str]:
-    """Bound of one K11 launch at output size (out_h, out_w)."""
+def temporal_resolve(out_h: int, out_w: int, quantize: bool = False) -> tuple[float, str]:
+    """Bound of one K11 launch at output size (out_h, out_w); ``quantize``:
+    its uint8 form, the output's 3 values as 1 B each with K1's operations
+    on them (the new history stays f32)."""
     n = out_h * out_w
+    if quantize:
+        return least_ms(n * (TEMPORAL_RESOLVE_OPS + 3 * K1_OPS),
+                        n * ((TEMPORAL_RESOLVE_IN + TEMPORAL_RESOLVE_OUT - 3) * 4 + 3))
     return least_ms(n * TEMPORAL_RESOLVE_OPS,
                     n * (TEMPORAL_RESOLVE_IN + TEMPORAL_RESOLVE_OUT) * 4)
 

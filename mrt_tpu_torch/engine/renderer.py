@@ -29,6 +29,7 @@ from ..render import accumulate as acc
 from ..render import wavefront as wf
 from ..skinning import animation as anim
 from ..skinning import lbs
+from ..utils import telemetry as tm
 from . import scene as scene_mod
 
 # Properties whose change invalidates accumulated history.
@@ -161,13 +162,24 @@ class FrameStats:
         self.frames += 1
 
     def report(self) -> dict:
+        """This renderer's frames, EMA frame time and rays; then the
+        process's ``telemetry`` counters: each count's average over the
+        process's draws (``<counter>_per_frame``) and the set-up seconds
+        (``scene_compile_s``, ``bvh_build_s``, ``kernel_load_s``)."""
         if self._pending:
             self.total_rays += int(torch.stack(self._pending).sum().item())
             self._pending.clear()
         fps = 1000.0 / self.frame_ms if self.frame_ms else 0.0
         mrays = (self.total_rays / max(self.frames - 1, 1)) * fps / 1e6 if fps else 0.0
-        return dict(frames=self.frames, frame_ms=round(self.frame_ms, 3) if self.frame_ms else None,
-                    fps=round(fps, 2), total_rays=self.total_rays, mrays_per_s=round(mrays, 3))
+        out = dict(frames=self.frames, frame_ms=round(self.frame_ms, 3) if self.frame_ms else None,
+                   fps=round(fps, 2), total_rays=self.total_rays, mrays_per_s=round(mrays, 3))
+        draws = tm.counters.get("frames", 0)
+        for name, value in tm.counters.items():
+            if name.startswith("setup."):
+                out[name[len("setup."):]] = round(value, 3)
+            elif name != "frames" and draws:
+                out[f"{name}_per_frame"] = round(value / draws, 3)
+        return out
 
 
 class Renderer:
@@ -246,7 +258,8 @@ class Renderer:
         self._joint_matrices: tuple = ()
 
         if _compiled is None:
-            self.scene_data, self.statics = scene.compile(self.device)
+            with tm.timed("setup.scene_compile_s"):
+                self.scene_data, self.statics = scene.compile(self.device)
             self._build_bvh()
         else:
             self.scene_data, self.statics, self.bvh = _compiled
@@ -356,9 +369,13 @@ class Renderer:
 
     def _build_bvh(self):
         """Build the BVH the settings ask for from the current scene
-        (``build_bvh``)."""
-        self.bvh = build_bvh(self.scene, self.scene_data, self.two_level, self.device,
-                             self.traversal_backend)
+        (``build_bvh``), timed to the device's end of it
+        (``setup.bvh_build_s``)."""
+        with tm.timed("setup.bvh_build_s"):
+            self.bvh = build_bvh(self.scene, self.scene_data, self.two_level, self.device,
+                                 self.traversal_backend)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def rebuild_bvh(self):
         """Rebuild the BVH topology from the current scene (the flat table
@@ -472,54 +489,62 @@ class Renderer:
         """Render one frame; returns the accumulation buffer (render size).
         ``delta_time``: seconds since the last draw, for the animation
         clock (default 1/60)."""
-        settings = self.settings()
-        T.check_supported(settings)
-        if self._state_size != (self.render_height, self.render_width):
-            self._allocate_state()
-        self._sync_scene()
-        self._update_animation(delta_time)
-        camera = self.current_camera()
-        uniforms = T.make_frame_uniforms(
-            camera=camera,
-            previous_camera=self._previous_camera or camera,
-            frame_index=self.frame_index,
-            accumulation_weight=self.accumulation_weight,
-            motion_accum_min_weight=self.motion_accumulation_min_weight,
-            motion_accum_low_px=self.motion_accumulation_low_threshold_pixels,
-            motion_accum_high_px=self.motion_accumulation_high_threshold_pixels,
-            motion_sampling_low_px=self.motion_sampling_low_threshold_pixels,
-            motion_sampling_high_px=self.motion_sampling_high_threshold_pixels,
-        )
+        with tm.span("mrt.draw"):
+            tm.count("frames")
+            with tm.span("mrt.draw.setup"):
+                settings = self.settings()
+                T.check_supported(settings)
+                if self._state_size != (self.render_height, self.render_width):
+                    self._allocate_state()
+                self._sync_scene()
+                self._update_animation(delta_time)
+                camera = self.current_camera()
+                uniforms = T.make_frame_uniforms(
+                    camera=camera,
+                    previous_camera=self._previous_camera or camera,
+                    frame_index=self.frame_index,
+                    accumulation_weight=self.accumulation_weight,
+                    motion_accum_min_weight=self.motion_accumulation_min_weight,
+                    motion_accum_low_px=self.motion_accumulation_low_threshold_pixels,
+                    motion_accum_high_px=self.motion_accumulation_high_threshold_pixels,
+                    motion_sampling_low_px=self.motion_sampling_low_threshold_pixels,
+                    motion_sampling_high_px=self.motion_sampling_high_threshold_pixels,
+                )
 
-        # prepare only when its inputs changed (keyed by tensor identity; the
-        # key holds references, so an identity cannot be recycled). A skinned
-        # scene's pose is handed forward every frame, so it misses every
-        # frame, throttled ones included (re-skinned with the same matrices)
-        sd = self.scene_data
-        key = (sd.instance_transform, sd.prev_instance_transform, sd.positions_obj, self.bvh)
-        if self._prepare_key is None or any(a is not b for a, b in zip(self._prepare_key, key)):
-            self._prepared = self.prepare()
-            self._prepare_key = key
-        sd_frame, geom, bvh_frame = self._prepared
+                # prepare only when its inputs changed (keyed by tensor identity;
+                # the key holds references, so an identity cannot be recycled). A
+                # skinned scene's pose is handed forward every frame, so it misses
+                # every frame, throttled ones included (re-skinned with the same
+                # matrices)
+                sd = self.scene_data
+                key = (sd.instance_transform, sd.prev_instance_transform, sd.positions_obj,
+                       self.bvh)
+                if self._prepare_key is None or any(a is not b
+                                                    for a, b in zip(self._prepare_key, key)):
+                    self._prepared = self.prepare()
+                    self._prepare_key = key
+                sd_frame, geom, bvh_frame = self._prepared
 
-        out = wf.trace_frame(settings, self.statics, sd_frame, bvh_frame, geom, uniforms,
-                             self.offsets, self.motion)
-        self.accum = acc.accumulate(settings, uniforms, out.color, out.motion, self.motion, self.accum)
-        self.depth, self.motion = out.depth, out.motion
-        self.gbuffer = None if out.normal is None else dict(
-            diffuse_albedo=out.diffuse_albedo, specular_albedo=out.specular_albedo,
-            normal=out.normal, roughness=out.roughness)
-        self.last_samples = out.samples
-        self.last_rays_traced = out.rays_traced.sum(dtype=torch.int64)
-        self.stats.record(self.last_rays_traced)
-        if self.statics.skin_slices:
-            # this frame's skinned pose becomes the next frame's pose and
-            # previous pose (normals are re-skinned from rest every frame)
-            self.scene_data = sd._replace(positions_obj=sd_frame.positions_obj,
-                                          prev_positions_obj=sd_frame.positions_obj)
-        object.__setattr__(self, "frame_index", self.frame_index + 1)
-        self._previous_camera = camera
-        return self.accum
+            out = wf.trace_frame(settings, self.statics, sd_frame, bvh_frame, geom, uniforms,
+                                 self.offsets, self.motion)
+            with tm.span("mrt.accumulate"):
+                self.accum = acc.accumulate(settings, uniforms, out.color, out.motion, self.motion,
+                                            self.accum)
+                self.depth, self.motion = out.depth, out.motion
+                self.gbuffer = None if out.normal is None else dict(
+                    diffuse_albedo=out.diffuse_albedo, specular_albedo=out.specular_albedo,
+                    normal=out.normal, roughness=out.roughness)
+                self.last_samples = out.samples
+                self.last_rays_traced = out.rays_traced.sum(dtype=torch.int64)
+                self.stats.record(self.last_rays_traced)
+                if self.statics.skin_slices:
+                    # this frame's skinned pose becomes the next frame's pose and
+                    # previous pose (normals are re-skinned from rest every frame)
+                    self.scene_data = sd._replace(positions_obj=sd_frame.positions_obj,
+                                                  prev_positions_obj=sd_frame.positions_obj)
+                object.__setattr__(self, "frame_index", self.frame_index + 1)
+                self._previous_camera = camera
+            return self.accum
 
     # -- present -----------------------------------------------------------------------------
     def present_device(self) -> torch.Tensor:

@@ -23,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..utils import telemetry
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -31,7 +33,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _lib = None
-build_seconds = None  # wall time of the last build in this process (None: cached)
 # each kernel's resources as `-Xptxas -v` printed them in this process's
 # last build, by mangled name: registers, stack, spill stores and loads,
 # static shared memory (B)
@@ -82,7 +83,6 @@ def ensure_built() -> None:
 
 
 def _build(verbose: bool = False) -> float:
-    global build_seconds
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = []
@@ -111,8 +111,7 @@ def _build(verbose: bool = False) -> float:
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
     os.replace(tmp, LIB)
-    build_seconds = time.perf_counter() - t0
-    return build_seconds
+    return time.perf_counter() - t0
 
 
 def parse_ptxas(text: str) -> dict:
@@ -141,10 +140,17 @@ def parse_ptxas(text: str) -> dict:
 
 
 def load():
-    """The loaded kernel library (built first if missing or stale)."""
-    global _lib
+    """The loaded kernel library (built first if missing or stale); the
+    first load's host seconds, build or cache, go to the counter
+    ``setup.kernel_load_s``."""
     if _lib is not None:
         return _lib
+    with telemetry.timed("setup.kernel_load_s"):
+        return _load()
+
+
+def _load():
+    global _lib
     ensure_built()
     lib = ctypes.CDLL(str(LIB))
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float

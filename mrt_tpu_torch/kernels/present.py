@@ -16,6 +16,8 @@ import ctypes
 
 import torch
 
+from ..utils import telemetry as tm
+
 launches = 0  # kernel launches by ``tonemap_quantize`` in this process
 
 
@@ -53,28 +55,30 @@ def edge_case_inputs(height: int, width: int, seed: int = 0) -> torch.Tensor:
 def tonemap_quantize(color: torch.Tensor) -> torch.Tensor:
     """(H,W,3) linear f32 -> (H,W,3) uint8 (Reinhard + quantize)."""
     global launches
-    if color.device.type == "cpu":
-        return tonemap_quantize_plain(color)
-    if color.device.type != "cuda":
-        raise ValueError(f"tonemap_quantize: unsupported device {color.device}")
-    if color.dtype != torch.float32:
-        raise TypeError(f"tonemap_quantize: expected float32, got {color.dtype}")
-    if color.ndim != 3 or color.shape[2] != 3:
-        raise ValueError(f"tonemap_quantize: expected (H, W, 3), got {tuple(color.shape)}")
-    if not color.is_contiguous():
-        raise ValueError("tonemap_quantize: input is not contiguous")
-    if color.data_ptr() % 16:
-        raise ValueError("tonemap_quantize: input is not 16-byte aligned (the kernel loads float4)")
-    out = torch.empty(color.shape, dtype=torch.uint8, device=color.device)
-    if color.numel() == 0:
-        return out
-    from . import build
+    with tm.span("mrt.tonemap_quantize"):
+        if color.device.type == "cpu":
+            return tonemap_quantize_plain(color)
+        if color.device.type != "cuda":
+            raise ValueError(f"tonemap_quantize: unsupported device {color.device}")
+        if color.dtype != torch.float32:
+            raise TypeError(f"tonemap_quantize: expected float32, got {color.dtype}")
+        if color.ndim != 3 or color.shape[2] != 3:
+            raise ValueError(f"tonemap_quantize: expected (H, W, 3), got {tuple(color.shape)}")
+        if not color.is_contiguous():
+            raise ValueError("tonemap_quantize: input is not contiguous")
+        if color.data_ptr() % 16:
+            raise ValueError("tonemap_quantize: input is not 16-byte aligned (the kernel loads "
+                             "float4)")
+        out = torch.empty(color.shape, dtype=torch.uint8, device=color.device)
+        if color.numel() == 0:
+            return out
+        from . import build
 
-    lib = build.load()
-    stream = torch.cuda.current_stream(color.device).cuda_stream
-    rc = lib.mrt_present(ctypes.c_void_p(color.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-                         color.numel(), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"present kernel launch failed: CUDA error {rc}")
-    launches += 1
-    return out
+        lib = build.load()
+        stream = torch.cuda.current_stream(color.device).cuda_stream
+        rc = lib.mrt_present(ctypes.c_void_p(color.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                             color.numel(), ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"present kernel launch failed: CUDA error {rc}")
+        launches += 1
+        return out

@@ -43,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import telemetry as tm
 from .present import tonemap_quantize_plain
 
 # kernel launches by the wrappers in this process, by kernel (the uint8
@@ -392,59 +393,62 @@ def svgf_reproject(color, diffuse, specular, normal_enc, depth, motion, state):
     """K9 (see ``svgf_reproject_plain``): every input (h,w[,c]) float32;
     ``state`` a ``DenoiseState`` of (h,w) fields. Returns (demod, m1, m2,
     history_length, decoded normal, var, lum)."""
-    h, w = depth.shape
-    dev = depth.device
-    v3, v1 = (h, w, 3), (h, w)
-    _check("svgf_reproject", dict(
-        color=(color, v3), diffuse_albedo=(diffuse, v3), specular_albedo=(specular, v3),
-        normal=(normal_enc, v3), depth=(depth, v1), motion=(motion, (h, w, 2)),
-        state_demod=(state.demod, v3), state_m1=(state.m1, v1), state_m2=(state.m2, v1),
-        state_history_length=(state.history_length, v1), state_depth=(state.depth, v1),
-        state_normal=(state.normal, v3)), dev)
-    if dev.type == "cpu":
-        return svgf_reproject_plain(color, diffuse, specular, normal_enc, depth, motion, state)
-    outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in (v3, v1, v1, v1, v3, v1, v1)]
-    if h * w:
-        lib, stream = _lib_stream(dev)
-        _launch("svgf_reproject", lib.mrt_svgf_reproject,
-                *(_ptr(t) for t in (color, diffuse, specular, normal_enc, depth, motion)),
-                *(_ptr(t) for t in (state.demod, state.m1, state.m2, state.history_length,
-                                    state.depth, state.normal)),
-                *(_ptr(t) for t in outs), h, w, stream)
-    return tuple(outs)
+    with tm.span("mrt.svgf_reproject"):
+        h, w = depth.shape
+        dev = depth.device
+        v3, v1 = (h, w, 3), (h, w)
+        _check("svgf_reproject", dict(
+            color=(color, v3), diffuse_albedo=(diffuse, v3), specular_albedo=(specular, v3),
+            normal=(normal_enc, v3), depth=(depth, v1), motion=(motion, (h, w, 2)),
+            state_demod=(state.demod, v3), state_m1=(state.m1, v1), state_m2=(state.m2, v1),
+            state_history_length=(state.history_length, v1), state_depth=(state.depth, v1),
+            state_normal=(state.normal, v3)), dev)
+        if dev.type == "cpu":
+            return svgf_reproject_plain(color, diffuse, specular, normal_enc, depth, motion, state)
+        outs = [torch.empty(s, dtype=torch.float32, device=dev)
+                for s in (v3, v1, v1, v1, v3, v1, v1)]
+        if h * w:
+            lib, stream = _lib_stream(dev)
+            _launch("svgf_reproject", lib.mrt_svgf_reproject,
+                    *(_ptr(t) for t in (color, diffuse, specular, normal_enc, depth, motion)),
+                    *(_ptr(t) for t in (state.demod, state.m1, state.m2, state.history_length,
+                                        state.depth, state.normal)),
+                    *(_ptr(t) for t in outs), h, w, stream)
+        return tuple(outs)
 
 
 def atrous_pass(filtered, var, lum, normal, depth, step: int, diffuse=None, specular=None):
     """K10 (see ``atrous_pass_plain``) at ``step`` 1, 2 or 4; with
     ``diffuse`` and ``specular`` (both or neither) the last pass, which
     returns the remodulated colour."""
-    h, w = depth.shape
-    dev = depth.device
-    if step not in ATROUS_STEPS:
-        raise ValueError(f"atrous_pass: step {step} is not one of {ATROUS_STEPS}")
-    if (diffuse is None) != (specular is None):
-        raise ValueError("atrous_pass: give diffuse and specular together, or neither")
-    v3, v1 = (h, w, 3), (h, w)
-    ins = dict(filtered=(filtered, v3), var=(var, v1), lum=(lum, v1), normal=(normal, v3),
-               depth=(depth, v1))
-    last = diffuse is not None
-    if last:
-        ins.update(diffuse_albedo=(diffuse, v3), specular_albedo=(specular, v3))
-    _check("atrous_pass", ins, dev)
-    if dev.type == "cpu":
-        return atrous_pass_plain(filtered, var, lum, normal, depth, step, diffuse, specular)
-    out = torch.empty(v3, dtype=torch.float32, device=dev)
-    out_var = None if last else torch.empty(v1, dtype=torch.float32, device=dev)
-    out_lum = None if last else torch.empty(v1, dtype=torch.float32, device=dev)
-    if h * w:
-        lib, stream = _lib_stream(dev)
-        null = ctypes.c_void_p(None)
-        _launch("atrous_pass", lib.mrt_atrous_pass,
-                *(_ptr(t) for t in (filtered, var, lum, normal, depth)),
-                *((_ptr(diffuse), _ptr(specular)) if last else (null, null)),
-                _ptr(out), *((null, null) if last else (_ptr(out_var), _ptr(out_lum))),
-                h, w, step, stream)
-    return out if last else (out, out_var, out_lum)
+    with tm.span("mrt.atrous_pass"):
+        h, w = depth.shape
+        dev = depth.device
+        if step not in ATROUS_STEPS:
+            raise ValueError(f"atrous_pass: step {step} is not one of {ATROUS_STEPS}")
+        if (diffuse is None) != (specular is None):
+            raise ValueError("atrous_pass: give diffuse and specular together, or neither")
+        v3, v1 = (h, w, 3), (h, w)
+        ins = dict(filtered=(filtered, v3), var=(var, v1), lum=(lum, v1), normal=(normal, v3),
+                   depth=(depth, v1))
+        last = diffuse is not None
+        if last:
+            ins.update(diffuse_albedo=(diffuse, v3), specular_albedo=(specular, v3))
+        _check("atrous_pass", ins, dev)
+        if dev.type == "cpu":
+            return atrous_pass_plain(filtered, var, lum, normal, depth, step, diffuse, specular)
+        out = torch.empty(v3, dtype=torch.float32, device=dev)
+        out_var = None if last else torch.empty(v1, dtype=torch.float32, device=dev)
+        out_lum = None if last else torch.empty(v1, dtype=torch.float32, device=dev)
+        if h * w:
+            lib, stream = _lib_stream(dev)
+            null = ctypes.c_void_p(None)
+            _launch("atrous_pass", lib.mrt_atrous_pass,
+                    *(_ptr(t) for t in (filtered, var, lum, normal, depth)),
+                    *((_ptr(diffuse), _ptr(specular)) if last else (null, null)),
+                    _ptr(out), *((null, null) if last else (_ptr(out_var), _ptr(out_lum))),
+                    h, w, step, stream)
+        return out if last else (out, out_var, out_lum)
 
 
 def temporal_resolve(up, history, history_weight: float, sx: float, sy: float,
@@ -453,23 +457,24 @@ def temporal_resolve(up, history, history_weight: float, sx: float, sy: float,
     (H,W,4) float32; ``history_weight``, ``sx``, ``sy`` Python numbers.
     Returns (output (H,W,3), new history (H,W,4)); with ``quantize`` (its
     uint8 form) the output is K1's bytes of it."""
-    out_h, out_w = up.shape[0], up.shape[1]
-    dev = up.device
-    _check("temporal_resolve", dict(up=(up, (out_h, out_w, 6)),
-                                    history=(history, (out_h, out_w, 4))), dev)
-    if dev.type == "cpu":
-        out, new_history = temporal_resolve_plain(up, history, history_weight, sx, sy)
-        return (tonemap_quantize_plain(out) if quantize else out), new_history
-    out = torch.empty((out_h, out_w, 3), dtype=torch.uint8 if quantize else torch.float32,
-                      device=dev)
-    new_history = torch.empty((out_h, out_w, 4), dtype=torch.float32, device=dev)
-    if out_h * out_w:
-        lib, stream = _lib_stream(dev)
-        _launch("temporal_resolve_u8" if quantize else "temporal_resolve",
-                lib.mrt_temporal_resolve, _ptr(up), _ptr(history), _ptr(out),
-                _ptr(new_history), out_h, out_w, ctypes.c_float(float(history_weight)),
-                ctypes.c_float(sx), ctypes.c_float(sy), int(quantize), stream)
-    return out, new_history
+    with tm.span("mrt.temporal_resolve"):
+        out_h, out_w = up.shape[0], up.shape[1]
+        dev = up.device
+        _check("temporal_resolve", dict(up=(up, (out_h, out_w, 6)),
+                                        history=(history, (out_h, out_w, 4))), dev)
+        if dev.type == "cpu":
+            out, new_history = temporal_resolve_plain(up, history, history_weight, sx, sy)
+            return (tonemap_quantize_plain(out) if quantize else out), new_history
+        out = torch.empty((out_h, out_w, 3), dtype=torch.uint8 if quantize else torch.float32,
+                          device=dev)
+        new_history = torch.empty((out_h, out_w, 4), dtype=torch.float32, device=dev)
+        if out_h * out_w:
+            lib, stream = _lib_stream(dev)
+            _launch("temporal_resolve_u8" if quantize else "temporal_resolve",
+                    lib.mrt_temporal_resolve, _ptr(up), _ptr(history), _ptr(out),
+                    _ptr(new_history), out_h, out_w, ctypes.c_float(float(history_weight)),
+                    ctypes.c_float(sx), ctypes.c_float(sy), int(quantize), stream)
+        return out, new_history
 
 
 def resize(sources, rows: Band, cols: Band, clamp: bool = False, quantize: bool = False):
@@ -478,49 +483,50 @@ def resize(sources, rows: Band, cols: Band, clamp: bool = False, quantize: bool 
     ``cols`` the tables of the height and the width (``n_in`` h and w).
     Returns the contiguous (rows' n_out, cols' n_out, channels); with
     ``quantize`` (its uint8 form, 3 channels in all) K1's bytes of it."""
-    sources = tuple(sources)
-    if not 1 <= len(sources) <= 3:
-        raise ValueError(f"resize: {len(sources)} sources, expected 1-3")
-    if any(s.dim() not in (2, 3) for s in sources):
-        raise ValueError(f"resize: sources of shapes {[tuple(s.shape) for s in sources]}, "
-                         "expected (h,w) or (h,w,c)")
-    h, w = sources[0].shape[0], sources[0].shape[1]
-    dev = sources[0].device
-    chans = [1 if s.dim() == 2 else s.shape[2] for s in sources]
-    if min(chans) < 1 or sum(chans) > RESIZE_MAX_C:
-        raise ValueError(f"resize: channels {chans}, expected 1-{RESIZE_MAX_C} in all")
-    if (rows.n_in, cols.n_in) != (h, w):
-        raise ValueError(f"resize: tables for ({rows.n_in}, {cols.n_in}) inputs, sources "
-                         f"({h}, {w})")
-    oh, ow, kr, kc = rows.first.shape[0], cols.first.shape[0], rows.weights.shape[1], \
-        cols.weights.shape[1]
-    ins = {f"source {i}": (s, (h, w) + tuple(s.shape[2:])) for i, s in enumerate(sources)}
-    ins.update(row_first=(rows.first, (oh,), torch.int32), row_weights=(rows.weights, (oh, kr)),
-               col_first=(cols.first, (ow,), torch.int32), col_weights=(cols.weights, (ow, kc)))
-    if quantize and sum(chans) != 3:
-        raise ValueError(f"resize: quantize takes 3 channels in all, not {chans}")
-    _check("resize", ins, dev)
-    if dev.type == "cpu":
-        out = resize_plain(sources, rows, cols, clamp)
-        return tonemap_quantize_plain(out) if quantize else out
-    c = sum(chans)
-    out = torch.empty((oh, ow, c), dtype=torch.uint8 if quantize else torch.float32, device=dev)
-    if oh * ow:
-        # the strip form where the shape is one it is compiled for and a tile
-        # fits, else the 32x32 tiles with their chunks
-        rt = resize_strip_rows(rows, cols, chans, kr, kc)
-        if rt:
-            tiles = (0, 0, rt, rows.strip_span_h, cols.strip_span_w)
-        else:
-            tiles = (*_resize_chunks(rows, cols, c), 0, 0, 0)
-        lib, stream = _lib_stream(dev)
-        null = ctypes.c_void_p(None)
-        _launch("resize_u8" if quantize else "resize", lib.mrt_resize,
-                *(_ptr(s) for s in sources), *(null,) * (3 - len(sources)), *chans,
-                *(0,) * (3 - len(chans)), h, w, _ptr(rows.first), _ptr(rows.weights), kr,
-                _ptr(cols.first), _ptr(cols.weights), kc, oh, ow, *tiles, int(clamp),
-                int(quantize), _ptr(out), stream)
-    return out
+    with tm.span("mrt.resize"):
+        sources = tuple(sources)
+        if not 1 <= len(sources) <= 3:
+            raise ValueError(f"resize: {len(sources)} sources, expected 1-3")
+        if any(s.dim() not in (2, 3) for s in sources):
+            raise ValueError(f"resize: sources of shapes {[tuple(s.shape) for s in sources]}, "
+                             "expected (h,w) or (h,w,c)")
+        h, w = sources[0].shape[0], sources[0].shape[1]
+        dev = sources[0].device
+        chans = [1 if s.dim() == 2 else s.shape[2] for s in sources]
+        if min(chans) < 1 or sum(chans) > RESIZE_MAX_C:
+            raise ValueError(f"resize: channels {chans}, expected 1-{RESIZE_MAX_C} in all")
+        if (rows.n_in, cols.n_in) != (h, w):
+            raise ValueError(f"resize: tables for ({rows.n_in}, {cols.n_in}) inputs, sources "
+                             f"({h}, {w})")
+        oh, ow, kr, kc = rows.first.shape[0], cols.first.shape[0], rows.weights.shape[1], \
+            cols.weights.shape[1]
+        ins = {f"source {i}": (s, (h, w) + tuple(s.shape[2:])) for i, s in enumerate(sources)}
+        ins.update(row_first=(rows.first, (oh,), torch.int32), row_weights=(rows.weights, (oh, kr)),
+                   col_first=(cols.first, (ow,), torch.int32), col_weights=(cols.weights, (ow, kc)))
+        if quantize and sum(chans) != 3:
+            raise ValueError(f"resize: quantize takes 3 channels in all, not {chans}")
+        _check("resize", ins, dev)
+        if dev.type == "cpu":
+            out = resize_plain(sources, rows, cols, clamp)
+            return tonemap_quantize_plain(out) if quantize else out
+        c = sum(chans)
+        out = torch.empty((oh, ow, c), dtype=torch.uint8 if quantize else torch.float32, device=dev)
+        if oh * ow:
+            # the strip form where the shape is one it is compiled for and a tile
+            # fits, else the 32x32 tiles with their chunks
+            rt = resize_strip_rows(rows, cols, chans, kr, kc)
+            if rt:
+                tiles = (0, 0, rt, rows.strip_span_h, cols.strip_span_w)
+            else:
+                tiles = (*_resize_chunks(rows, cols, c), 0, 0, 0)
+            lib, stream = _lib_stream(dev)
+            null = ctypes.c_void_p(None)
+            _launch("resize_u8" if quantize else "resize", lib.mrt_resize,
+                    *(_ptr(s) for s in sources), *(null,) * (3 - len(sources)), *chans,
+                    *(0,) * (3 - len(chans)), h, w, _ptr(rows.first), _ptr(rows.weights), kr,
+                    _ptr(cols.first), _ptr(cols.weights), kc, oh, ow, *tiles, int(clamp),
+                    int(quantize), _ptr(out), stream)
+        return out
 
 
 def resize_strip_rows(rows: Band, cols: Band, chans, kr: int, kc: int) -> int:

@@ -56,6 +56,7 @@ from ..dist import comm
 from ..engine.scene import SceneData, SceneStatics
 from ..kernels import wavefront as W
 from ..kernels.wavefront import sample_packed_across  # noqa: F401  (the gp tests' name)
+from ..utils import telemetry as tm
 from . import shade as S
 
 # pixels traced per batch by trace_frame; a bound on the frame's lane-state memory
@@ -167,119 +168,148 @@ def trace_pixels(settings: T.RenderSettings, statics: SceneStatics, scene: Scene
         if gax is None or not kind.is_flat(bvh):
             raise ValueError("geometry_axis needs a shard's flat table and its shard geometry "
                              "(dist.geometry)")
-    P = pixel_x.shape[0]
-    dev = pixel_x.device
-    f32 = torch.float32
-    base = uniforms.frame_index * settings.sample_stride if sample_base is None else sample_base
-    route = not plain
-    fr = W.make_frame(settings, statics, scene, geom, uniforms, pixel_x, pixel_y, offsets,
-                      prev_motion, base, tri_base=None if kind.is_flat(bvh) else bvh.flat_tri_base,
-                      plain=plain)
-    if route:
-        sample_start, shade_hit, resolve_shadow = W.sample_start, W.shade_hit, W.resolve_shadow
-    else:
-        sample_start, shade_hit, resolve_shadow = (W.sample_start_plain, W.shade_hit_listed_plain,
-                                                   W.resolve_shadow_listed_plain)
-    base_samples = settings.base_samples
-    max_extra = settings.max_extra_samples
-    # each iteration consumes a bounce or a transparency pass (passes cap at
-    # max_bounces), so this bound never cuts a live lane
-    max_iters = settings.max_bounces * (settings.max_bounces + 2) + 2
-    inf_d = torch.full((P,), float("inf"), dtype=f32, device=dev)
-    trav = kind.traversal(bvh)
-    # Raytracing.metal:317,733-735: closest-hit rays see the LIGHT bit only
-    # from the camera; shadow rays never do
-    # the masks reach the traversal only for a masked (two-level) scene
-    shadow_kw = ({"ray_mask": torch.full((P,), T.RAY_MASK_SHADOW, dtype=torch.int32, device=dev)}
-                 if bvh.has_masks else {})
-    if route:  # the traversals' shadow flags, made once
-        closest_flags = torch.zeros(P, dtype=torch.bool, device=dev)
-        shadow_kw["flags"] = torch.ones(P, dtype=torch.bool, device=dev)
-    wv = W.make_wave(fr, max_iters)
+    with tm.span("mrt.trace.setup"):
+        P = pixel_x.shape[0]
+        dev = pixel_x.device
+        f32 = torch.float32
+        base = uniforms.frame_index * settings.sample_stride if sample_base is None else sample_base
+        route = not plain
+        fr = W.make_frame(settings, statics, scene, geom, uniforms, pixel_x, pixel_y, offsets,
+                          prev_motion, base,
+                          tri_base=None if kind.is_flat(bvh) else bvh.flat_tri_base, plain=plain)
+        if route:
+            sample_start, shade_hit, resolve_shadow = W.sample_start, W.shade_hit, W.resolve_shadow
+        else:
+            sample_start, shade_hit, resolve_shadow = (W.sample_start_plain,
+                                                       W.shade_hit_listed_plain,
+                                                       W.resolve_shadow_listed_plain)
+        base_samples = settings.base_samples
+        max_extra = settings.max_extra_samples
+        # each iteration consumes a bounce or a transparency pass (passes cap at
+        # max_bounces), so this bound never cuts a live lane
+        max_iters = settings.max_bounces * (settings.max_bounces + 2) + 2
+        inf_d = torch.full((P,), float("inf"), dtype=f32, device=dev)
+        trav = kind.traversal(bvh)
+        # Raytracing.metal:317,733-735: closest-hit rays see the LIGHT bit only
+        # from the camera; shadow rays never do
+        # the masks reach the traversal only for a masked (two-level) scene
+        shadow_kw = ({"ray_mask": torch.full((P,), T.RAY_MASK_SHADOW, dtype=torch.int32,
+                                             device=dev)}
+                     if bvh.has_masks else {})
+        if route:  # the traversals' shadow flags, made once
+            closest_flags = torch.zeros(P, dtype=torch.bool, device=dev)
+            shadow_kw["flags"] = torch.ones(P, dtype=torch.bool, device=dev)
+        wv = W.make_wave(fr, max_iters)
 
-    total_color = torch.zeros((P, 3), dtype=f32, device=dev)
-    rays_total = torch.zeros(P, dtype=torch.int32, device=dev)
-    total = torch.full((P,), base_samples, dtype=torch.int32, device=dev)
+        total_color = torch.zeros((P, 3), dtype=f32, device=dev)
+        rays_total = torch.zeros(P, dtype=torch.int32, device=dev)
+        total = torch.full((P,), base_samples, dtype=torch.int32, device=dev)
     n_samples = base_samples
     # the lanes live at each extra sample's first step (extra > k at sample base + k)
     extra_live = []
     depth0 = motion0 = None
     st = None
     sidx = 0
-    while sidx < n_samples:
-        st = sample_start(fr, sidx, total, st)
-        wv = W.new_sample(wv)
-        # a sample starts with its lanes with total > sidx (at least one); then
-        # the loop reads shade_hit's live-lane count: one host sync per iteration
-        live = P if sidx < base_samples else extra_live[sidx - base_samples]
-        it = 0
-        while it < max_iters and live:
-            it += 1
-            closest_kw = {}
-            if bvh.has_masks:
-                closest_kw["ray_mask"] = torch.where(st.bounce == 0, T.RAY_MASK_PRIMARY,
-                                                     T.RAY_MASK_SECONDARY).to(torch.int32)
-            rays = T.Rays(st.ray_o, st.ray_d, inf_d)
-            rows = None
-            if route:
-                hits = trav.closest_raw(bvh, rays, closest_flags, mask=st.active, **closest_kw)
-                if gax is not None:
-                    # the hits combined over gp in the raw record at the live
-                    # lanes, where K7 reads them (a flat table's: no tri_base)
-                    rows = W.lane_rows(fr, st, hits, wv, live)
-            else:
-                hits = trav.closest_hit(bvh, rays, mask=st.active, **closest_kw)
-                if gax is not None:
-                    hits = combine_hits_across(hits, gax)
-            st, wv, n_live = shade_hit(fr, st, hits, sidx, wv, rows)
-            if wv.shadow is not None:  # None: a debug view retired every lane at its first hit
-                sh = wv.shadow
-                occluded = trav.any_hit(bvh, T.Rays(sh.origin, sh.direction, sh.distance),
-                                        mask=sh.need, **shadow_kw)
-                if gax is not None and route:
-                    occluded = W.lane_occluded(occluded, rows.lane_of, gax, wv)
-                elif gax is not None:
-                    occluded = comm.pmax(occluded.to(torch.int32), gax) > 0
-                wv = wv._replace(occluded=occluded)
-            live = int(n_live)
-        st = resolve_shadow(st, wv)
+    # the loop's counters, summed here and added once after it
+    steps = live_lanes = syncs = 0
+    with tm.span("mrt.trace.loop"):
+        while sidx < n_samples:
+            with tm.span("mrt.sample_start"):
+                st = sample_start(fr, sidx, total, st)
+                wv = W.new_sample(wv)
+            # a sample starts with its lanes with total > sidx (at least one); then
+            # the loop reads shade_hit's live-lane count: one host sync per iteration
+            live = P if sidx < base_samples else extra_live[sidx - base_samples]
+            it = 0
+            while it < max_iters and live:
+                it += 1
+                steps += 1
+                live_lanes += live
+                with tm.span("mrt.closest"):
+                    closest_kw = {}
+                    if bvh.has_masks:
+                        closest_kw["ray_mask"] = torch.where(st.bounce == 0, T.RAY_MASK_PRIMARY,
+                                                             T.RAY_MASK_SECONDARY).to(torch.int32)
+                    rays = T.Rays(st.ray_o, st.ray_d, inf_d)
+                    rows = None
+                    if route:
+                        hits = trav.closest_raw(bvh, rays, closest_flags, mask=st.active,
+                                                **closest_kw)
+                        if gax is not None:
+                            # the hits combined over gp in the raw record at the live
+                            # lanes, where K7 reads them (a flat table's: no tri_base)
+                            with tm.span("mrt.lane_rows"):
+                                rows = W.lane_rows(fr, st, hits, wv, live)
+                    else:
+                        hits = trav.closest_hit(bvh, rays, mask=st.active, **closest_kw)
+                        if gax is not None:
+                            hits = combine_hits_across(hits, gax)
+                with tm.span("mrt.shade"):
+                    st, wv, n_live = shade_hit(fr, st, hits, sidx, wv, rows)
+                if wv.shadow is not None:  # None: a debug view retired every lane at its first hit
+                    with tm.span("mrt.any_hit"):
+                        sh = wv.shadow
+                        occluded = trav.any_hit(bvh, T.Rays(sh.origin, sh.direction, sh.distance),
+                                                mask=sh.need, **shadow_kw)
+                        if gax is not None and route:
+                            with tm.span("mrt.lane_occluded"):
+                                occluded = W.lane_occluded(occluded, rows.lane_of, gax, wv)
+                        elif gax is not None:
+                            occluded = comm.pmax(occluded.to(torch.int32), gax) > 0
+                        wv = wv._replace(occluded=occluded)
+                with tm.span("mrt.sync.live"):
+                    live = int(n_live)
+                syncs += 1
+            with tm.span("mrt.resolve"):
+                st = resolve_shadow(st, wv)
 
-        if sidx == 0:
-            # depth/motion from the recorded bounce-0 hit
-            if route and gax is not None:
-                mrow_p = W.gp_motion_rows(geom, st.prim_tri)
-            else:
-                mrow_p = W._tri_rows(geom.motion_rows, st.prim_tri.clamp_min(0).long(), geom)
-            mot, pdepth = W.screen_motion(uniforms, mrow_p, st.prim_u[:, None], st.prim_v[:, None],
-                                          fr.width_f, fr.height_f)
-            had0 = st.prim_tri >= 0
-            depth0 = torch.where(had0, torch.clamp(pdepth, min=1.0e-3),
-                                 torch.full((P,), 1.0e8, dtype=f32, device=dev))
-            motion0 = torch.where(had0[:, None], mot, torch.zeros((P, 2), dtype=f32, device=dev))
-            fr = fr._replace(had0=had0, motion0=motion0)
-            if max_extra > 0:
-                # decided once, after sample 0 (Raytracing.metal:779-789)
-                motion_mag = torch.maximum(S.length2(motion0), S.length2(prev_motion))
-                low = torch.clamp(uniforms.motion_sampling_low_px, min=0.0)
-                high = torch.maximum(uniforms.motion_sampling_high_px, low + 1e-3)
-                t = torch.clamp((motion_mag - low) / (high - low), 0.0, 1.0)
-                extra = torch.round(t * max_extra).to(torch.int32).clamp(0, max_extra)
-                total = base_samples + extra
-                # the loop runs to the batch's largest count, and each extra
-                # sample starts with the lanes it reaches: one host sync
-                levels = torch.arange(max_extra, dtype=torch.int32, device=dev)
-                extra_live = (extra[None, :] > levels[:, None]).sum(1).tolist()
-                n_samples = min(settings.sample_stride,
-                                base_samples + sum(n > 0 for n in extra_live))
-        total_color = total_color + st.accumulated
-        rays_total = rays_total + st.rays
-        sidx += 1
+            if sidx == 0:
+                with tm.span("mrt.sample0"):
+                    # depth/motion from the recorded bounce-0 hit
+                    if route and gax is not None:
+                        mrow_p = W.gp_motion_rows(geom, st.prim_tri)
+                    else:
+                        mrow_p = W._tri_rows(geom.motion_rows, st.prim_tri.clamp_min(0).long(),
+                                             geom)
+                    mot, pdepth = W.screen_motion(uniforms, mrow_p, st.prim_u[:, None],
+                                                  st.prim_v[:, None], fr.width_f, fr.height_f)
+                    had0 = st.prim_tri >= 0
+                    depth0 = torch.where(had0, torch.clamp(pdepth, min=1.0e-3),
+                                         torch.full((P,), 1.0e8, dtype=f32, device=dev))
+                    motion0 = torch.where(had0[:, None], mot,
+                                          torch.zeros((P, 2), dtype=f32, device=dev))
+                    fr = fr._replace(had0=had0, motion0=motion0)
+                    if max_extra > 0:
+                        # decided once, after sample 0 (Raytracing.metal:779-789)
+                        motion_mag = torch.maximum(S.length2(motion0), S.length2(prev_motion))
+                        low = torch.clamp(uniforms.motion_sampling_low_px, min=0.0)
+                        high = torch.maximum(uniforms.motion_sampling_high_px, low + 1e-3)
+                        t = torch.clamp((motion_mag - low) / (high - low), 0.0, 1.0)
+                        extra = torch.round(t * max_extra).to(torch.int32).clamp(0, max_extra)
+                        total = base_samples + extra
+                        # the loop runs to the batch's largest count, and each extra
+                        # sample starts with the lanes it reaches: one host sync
+                        levels = torch.arange(max_extra, dtype=torch.int32, device=dev)
+                        with tm.span("mrt.sync.extra"):
+                            extra_live = (extra[None, :] > levels[:, None]).sum(1).tolist()
+                        syncs += 1
+                        tm.count("extra_samples", sum(extra_live))
+                        n_samples = min(settings.sample_stride,
+                                        base_samples + sum(n > 0 for n in extra_live))
+            total_color = total_color + st.accumulated
+            rays_total = rays_total + st.rays
+            sidx += 1
+    tm.count("loop_steps", steps)
+    tm.count("live_lanes", live_lanes)
+    tm.count("lane_slots", steps * P)
+    tm.count("host_syncs", syncs)
 
-    gb = {}
-    if settings.enable_gbuffer:
-        gb = {k: getattr(st, k) for k in W.GBUFFER_FIELDS if k != "wrote_gb"}
-    return TileOutputs(color=total_color / total.to(f32)[:, None], depth=depth0, motion=motion0,
-                       rays_traced=rays_total, samples=total, **gb)
+    with tm.span("mrt.trace.setup"):
+        gb = {}
+        if settings.enable_gbuffer:
+            gb = {k: getattr(st, k) for k in W.GBUFFER_FIELDS if k != "wrote_gb"}
+        return TileOutputs(color=total_color / total.to(f32)[:, None], depth=depth0,
+                           motion=motion0, rays_traced=rays_total, samples=total, **gb)
 
 
 def trace_frame(settings, statics, scene, bvh, geom, uniforms, offsets: torch.Tensor,
@@ -294,14 +324,17 @@ def trace_frame(settings, statics, scene, bvh, geom, uniforms, offsets: torch.Te
     h, w = offsets.shape
     dev = offsets.device
     n = h * w
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    px_all, py_all, offs_all = idx % w, idx // w + y0, offsets.reshape(-1)
-    pmot_all = prev_motion.reshape(n, 2)
+    with tm.span("mrt.trace.setup"):
+        idx = torch.arange(n, dtype=torch.int32, device=dev)
+        px_all, py_all, offs_all = idx % w, idx // w + y0, offsets.reshape(-1)
+        pmot_all = prev_motion.reshape(n, 2)
     parts = []
     for s in range(0, n, LANE_BATCH):
         sl = slice(s, min(s + LANE_BATCH, n))
         parts.append(trace_pixels(settings, statics, scene, bvh, geom, uniforms,
                                   px_all[sl], py_all[sl], offs_all[sl], pmot_all[sl],
                                   sample_base=sample_base, plain=plain))
-    return TileOutputs(*(None if f[0] is None else torch.cat(f).reshape((h, w) + f[0].shape[1:])
-                         for f in zip(*parts)))
+    with tm.span("mrt.trace.setup"):
+        return TileOutputs(*(None if f[0] is None else
+                             torch.cat(f).reshape((h, w) + f[0].shape[1:])
+                             for f in zip(*parts)))

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import telemetry as tm
 from ..utils.image import write_png  # noqa: F401  (presenter.write_png, as in the JAX package)
 from . import denoise, spatial, temporal
 
@@ -89,12 +90,13 @@ def present_device(renderer) -> torch.Tensor:
     order (not yet flipped), tonemapped by the kernel that ends the chain
     (K1 alone where the accumulation is the image); keeps the chain's new
     state on the renderer (written past the reset idiom, which must not
-    fire)."""
-    img, new_history, new_dstate = present_linear(renderer, quantize=True)
-    if new_history is not None:
-        object.__setattr__(renderer, "_upscale_history", new_history)
-    if new_dstate is not None:
-        object.__setattr__(renderer, "_denoise_state", new_dstate)
+    fire). Its host work is the span ``mrt.present``."""
+    with tm.span("mrt.present"):
+        img, new_history, new_dstate = present_linear(renderer, quantize=True)
+        if new_history is not None:
+            object.__setattr__(renderer, "_upscale_history", new_history)
+        if new_dstate is not None:
+            object.__setattr__(renderer, "_denoise_state", new_dstate)
     return img
 
 
